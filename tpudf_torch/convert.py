@@ -1,0 +1,62 @@
+"""Bridge from a numpy copy of a `tpudf` params pytree to this package.
+
+`params_from_numpy(tree, device)` turns nested dicts/lists of numpy arrays
+(the backbone, float or static-int8 with its `act_scales`, the head, the
+frequency MLP, the fusion) into tensors on `device`, keeping JAX's layout:
+(in, out) weights, {q, scale} int8 leaves, block leaves stacked on L. The
+one kernel-private layout, the (out, in) int8 weight `qT` the GEMM kernel
+reads, is derived here once (`add_kernel_layout`); `params_to_numpy` drops
+it again.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpudf_torch.core.precision import tree_map
+
+KERNEL_ONLY = ("qT",)
+
+
+def _to_tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":            # ml_dtypes bf16 from JAX
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def add_kernel_layout(tree):
+    """Add `qT` = q transposed to (out, in), contiguous, to every int8
+    {q, scale} leaf of the tree."""
+    if isinstance(tree, dict):
+        out = {k: add_kernel_layout(v) for k, v in tree.items()}
+        q = out.get("q")
+        if torch.is_tensor(q) and q.dtype == torch.int8 and "scale" in out:
+            out["qT"] = q.transpose(-1, -2).contiguous()
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(add_kernel_layout(v) for v in tree)
+    return tree
+
+
+def params_from_numpy(tree, device):
+    """numpy pytree (dicts/lists of arrays) → tensors on device, plus the
+    kernel layout."""
+    return add_kernel_layout(tree_map(lambda a: _to_tensor(a, device), tree))
+
+
+def params_to_numpy(tree):
+    """Inverse of params_from_numpy (bf16 leaves come back as float32)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()
+                if k not in KERNEL_ONLY}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    if torch.is_tensor(tree):
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+    return tree

@@ -1,0 +1,123 @@
+"""The detect-core main path (tpudf's `__graft_entry__.entry()`).
+
+Pixels in [0,1] (B, 256, 256, 3) → SigLIP-normalised → static-W8A8
+base-256 tower with ToMe at the deployed schedule (r=96, floor S/8: tokens
+256→160→80→40→32) → MAP head → v5 binary head (z_sig); in parallel grey
+pixels → 24-d FFT/SRM/Haar vector → frequency MLP (z_freq); then the
+Linear(2→1) fusion of the two probabilities and CORAL.
+
+`build(device, seed)` initialises seeded random weights, calibrates the
+activation scales on 32 seeded images, quantises, and returns a
+`DetectCore` whose `forward(pixels)` is that path.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from tpudf_torch.calib.coral import CoralCutpoints, coral_blend
+from tpudf_torch.convert import add_kernel_layout
+from tpudf_torch.core.precision import DEFAULT_POLICY, Policy, tree_map
+from tpudf_torch.models.freq_mlp import apply_freq_mlp, init_freq_mlp
+from tpudf_torch.models.fusion import apply_fusion_linear, init_fusion_linear
+from tpudf_torch.models.heads import apply_binary_head, init_binary_head
+from tpudf_torch.models.siglip import (CONFIGS, SigLIPConfig, init_siglip,
+                                       siglip_forward)
+from tpudf_torch.ops.fft_features import extract_freq_vector
+from tpudf_torch.ops.quant import (calibrate_siglip_act_scales,
+                                   quantize_siglip_static)
+from tpudf_torch.ops.routes import KERNELS, KernelSet
+from tpudf_torch.ops.tome import DEPLOYED_TOME_R, deployed_floor
+
+ENTRY_KEYS = ("p_blend", "risk_probs", "z_sig", "z_freq")
+GRAY = (0.299, 0.587, 0.114)
+
+
+@torch.no_grad()
+def detect_core(params, pixels, cfg: SigLIPConfig, cuts: CoralCutpoints,
+                policy: Policy = DEFAULT_POLICY, *,
+                kernels: KernelSet = KERNELS):
+    """params: {"backbone", "head", "freq", "fusion"}; pixels (B, H, W, 3)
+    in [0,1]. Returns the entry keys plus "pooled". `kernels=TWINS` runs
+    the same composition through the plain twins (a reference run)."""
+    cdt = policy.compute_dtype
+    px = pixels.to(cdt)
+    norm = (px - 0.5) / 0.5
+    feats = siglip_forward(params["backbone"], norm, cfg, policy,
+                           tome_r=DEPLOYED_TOME_R,
+                           tome_floor=deployed_floor(cfg.num_patches),
+                           kernels=kernels)["pooled"]
+    z_sig = apply_binary_head(params["head"], feats)
+    coeff = torch.tensor(GRAY, dtype=cdt, device=pixels.device)
+    gray = torch.matmul(px.float(), coeff.float())
+    fv = extract_freq_vector(gray, kernels)
+    z_freq = apply_freq_mlp(params["freq"], fv)
+    p_sig = torch.sigmoid(z_sig)
+    p_freq = torch.sigmoid(z_freq)
+    z_fused = apply_fusion_linear(params["fusion"], p_sig, p_freq)
+    out = coral_blend(z_fused, cuts)
+    return {"p_blend": out["p_blend"], "risk_probs": out["risk_probs"],
+            "z_sig": z_sig, "z_freq": z_freq, "pooled": feats}
+
+
+def _flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+class DetectCore(nn.Module):
+    """Holds the parameter tree as buffers; forward(pixels) is the main
+    path. `.to(device)` moves every tensor."""
+
+    def __init__(self, params, cfg: SigLIPConfig, cuts: CoralCutpoints):
+        super().__init__()
+        self.cfg, self.cuts = cfg, cuts
+        self._paths = []
+        for path, leaf in _flatten(params):
+            name = path.replace("/", "__")
+            self.register_buffer(name, leaf)
+            self._paths.append((path, name))
+
+    def param_tree(self):
+        tree: dict = {}
+        for path, name in self._paths:
+            *parents, leaf = path.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = getattr(self, name)
+        return tree
+
+    def forward(self, pixels):
+        out = detect_core(self.param_tree(), pixels, self.cfg, self.cuts)
+        return {k: out[k] for k in ENTRY_KEYS}
+
+
+def init_params(generator: torch.Generator, cfg: SigLIPConfig):
+    """Seeded float parameters of the four models."""
+    return {"backbone": init_siglip(generator, cfg),
+            "head": init_binary_head(generator, cfg.width),
+            "freq": init_freq_mlp(generator),
+            "fusion": init_fusion_linear(generator)}
+
+
+def build(device, seed: int = 0, cfg_name: str = "base-256",
+          calib_images: int = 32):
+    """Initialise, calibrate on `calib_images` seeded images, quantise:
+    the deployed detect core on `device`."""
+    cfg = CONFIGS[cfg_name]
+    gen = torch.Generator().manual_seed(seed)
+    params = init_params(gen, cfg)
+    calib = (torch.rand((calib_images, cfg.image_size, cfg.image_size, 3),
+                        generator=gen) - 0.5) / 0.5
+    params = tree_map(lambda t: t.to(device), params)
+    scales = calibrate_siglip_act_scales(params["backbone"], cfg,
+                                         calib.to(device), DEFAULT_POLICY)
+    params["backbone"] = quantize_siglip_static(params["backbone"], scales,
+                                                cfg)
+    return DetectCore(add_kernel_layout(params), cfg,
+                      CoralCutpoints.default()).to(device)

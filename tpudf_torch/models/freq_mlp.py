@@ -1,0 +1,28 @@
+"""The deployed frequency-expert MLP over the 24-d feature vector
+(tpudf/models/freq_mlp.py): LN(24) → Linear 24→64 → GELU → Linear 64→1."""
+
+from __future__ import annotations
+
+import torch
+
+from tpudf_torch.models.heads import gelu_exact
+from tpudf_torch.models.siglip import layer_norm
+from tpudf_torch.utils.nn import mm
+
+
+def init_freq_mlp(generator: torch.Generator, in_dim=24, hid=64):
+    g = generator
+    return {
+        "ln": {"scale": torch.ones(in_dim), "bias": torch.zeros(in_dim)},
+        "fc1": {"w": torch.randn((in_dim, hid), generator=g) * in_dim ** -0.5,
+                "b": torch.zeros(hid)},
+        "fc2": {"w": torch.randn((hid, 1), generator=g) * hid ** -0.5,
+                "b": torch.zeros(1)},
+    }
+
+
+def apply_freq_mlp(params, x):
+    """x: (..., 24) features → (...,) logit (no eval-time noise)."""
+    x = layer_norm(x, params["ln"], 1e-5)
+    x = gelu_exact(mm(x, params["fc1"]["w"]) + params["fc1"]["b"])
+    return (mm(x, params["fc2"]["w"]) + params["fc2"]["b"])[..., 0]

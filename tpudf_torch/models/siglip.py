@@ -1,0 +1,314 @@
+"""SigLIP vision tower (tpudf/models/siglip.py) on PyTorch tensors.
+
+Same parameter layout as the JAX package (all matmul weights (in, out);
+block leaves stacked on a leading L axis; int8 leaves {q, scale}):
+  params = {
+    "embed": {"kernel": (p*p*3, W) flattened (kh,kw,c), "bias": (W,),
+              "pos": (N, W)},
+    "blocks": {"ln1", "attn": {"qkv_w","qkv_b","out_w","out_b"}, "ln2",
+               "mlp": {"fc1_w","fc1_b","fc2_w","fc2_b"}[, "act_scales"]},
+    "post_ln": {"scale","bias"},
+    "head": {"probe","in_w","in_b","out_w","out_b","ln","fc1_w","fc1_b",
+             "fc2_w","fc2_b"},
+  }
+Pixels are NHWC. On the card the tower runs the static-W8A8 blocks through
+kernels K1 and K2 and its bf16 layer norms through K4; float blocks run in
+plain torch on the CPU only, because their Hopper kernels (`linear_fused`,
+`mlp_block_fused`, `attention_qkv`) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from tpudf_torch.core.precision import (DEFAULT_POLICY, Policy, round_tree,
+                                        tree_map)
+from tpudf_torch.ops.attention import attention_qkv_reference
+from tpudf_torch.ops.mlp import gelu_tanh
+from tpudf_torch.ops.quant import is_quantized, is_static_quantized
+from tpudf_torch.ops.routes import KERNELS, KernelSet
+from tpudf_torch.ops.tome import merge_schedule, merge_step
+
+
+@dataclasses.dataclass(frozen=True)
+class SigLIPConfig:
+    width: int = 768
+    layers: int = 12
+    heads: int = 12
+    mlp_dim: int = 3072
+    image_size: int = 256
+    patch_size: int = 16
+    ln_eps: float = 1e-6
+    with_head: bool = True          # MAP attention-pooling head
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid * self.grid
+
+    @property
+    def head_dim(self) -> int:
+        return self.width // self.heads
+
+
+CONFIGS = {
+    "base-256": SigLIPConfig(768, 12, 12, 3072, 256, 16),
+    "base-384": SigLIPConfig(768, 12, 12, 3072, 384, 16),
+    "large-384": SigLIPConfig(1024, 24, 16, 4096, 384, 16),
+    "so400m-512": SigLIPConfig(1152, 27, 16, 4304, 512, 16),
+    "test-32": SigLIPConfig(64, 2, 2, 128, 32, 16),
+    "test-64": SigLIPConfig(64, 2, 2, 128, 64, 8),
+}
+
+
+# ---------------------------------------------------------------- init
+
+def _dense_init(gen, fan_in, shape):
+    return torch.randn(shape, generator=gen) * (fan_in ** -0.5)
+
+
+def _ln_init(width):
+    return {"scale": torch.ones(width), "bias": torch.zeros(width)}
+
+
+def init_siglip(generator: torch.Generator, cfg: SigLIPConfig):
+    """Random-init parameter tree on the generator's device, with the JAX
+    package's distributions (its numbers differ: another generator)."""
+    w, pd = cfg.width, cfg.patch_size * cfg.patch_size * 3
+    g = generator
+    params: dict[str, Any] = {
+        "embed": {
+            "kernel": _dense_init(g, pd, (pd, w)),
+            "bias": torch.zeros(w),
+            "pos": torch.randn((cfg.num_patches, w), generator=g) * 0.02,
+        },
+    }
+
+    def block():
+        return {
+            "ln1": _ln_init(w),
+            "attn": {
+                "qkv_w": _dense_init(g, w, (w, 3 * w)),
+                "qkv_b": torch.zeros(3 * w),
+                "out_w": _dense_init(g, w, (w, w)),
+                "out_b": torch.zeros(w),
+            },
+            "ln2": _ln_init(w),
+            "mlp": {
+                "fc1_w": _dense_init(g, w, (w, cfg.mlp_dim)),
+                "fc1_b": torch.zeros(cfg.mlp_dim),
+                "fc2_w": _dense_init(g, cfg.mlp_dim, (cfg.mlp_dim, w)),
+                "fc2_b": torch.zeros(w),
+            },
+        }
+
+    blocks = [block() for _ in range(cfg.layers)]
+    params["blocks"] = _stack(blocks)
+    params["post_ln"] = _ln_init(w)
+    if cfg.with_head:
+        params["head"] = {
+            "probe": torch.randn((1, w), generator=g) * 0.02,
+            "in_w": _dense_init(g, w, (w, 3 * w)),
+            "in_b": torch.zeros(3 * w),
+            "out_w": _dense_init(g, w, (w, w)),
+            "out_b": torch.zeros(w),
+            "ln": _ln_init(w),
+            "fc1_w": _dense_init(g, w, (w, cfg.mlp_dim)),
+            "fc1_b": torch.zeros(cfg.mlp_dim),
+            "fc2_w": _dense_init(g, cfg.mlp_dim, (cfg.mlp_dim, w)),
+            "fc2_b": torch.zeros(w),
+        }
+    return params
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def layer_slice(blocks, i):
+    """Layer i of the stacked block tree (views, no copies)."""
+    return tree_map(lambda a: a[i], blocks)
+
+
+# ---------------------------------------------------------------- forward
+
+def layer_norm(x, p, eps, kernels: KernelSet = KERNELS):
+    """f32-statistics layer norm. bf16 rows of a 128-multiple width go to
+    kernel K4 (its wrapper takes the twin for a CPU tensor), as the JAX
+    tower sends them to the Pallas LN on a TPU; everything else is plain."""
+    if x.dtype == torch.bfloat16 and x.shape[-1] % 128 == 0:
+        return kernels.layer_norm(x, p["scale"], p["bias"], eps)
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, -1, keepdim=True)
+    m2 = torch.mean(x32 * x32, -1, keepdim=True)
+    var = torch.clamp(m2 - mu * mu, min=0.0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(dt)
+
+
+def patch_embed(pixels, kernel, bias, patch):
+    """(B, H, W, 3) → (B, N, W) as one strided conv (JAX's is XLA).
+    kernel: (patch*patch*3, W) in (kh, kw, c) order."""
+    b, h, w, _ = pixels.shape
+    k = kernel.reshape(patch, patch, 3, -1).permute(3, 2, 0, 1)   # OIHW
+    y = F.conv2d(pixels.permute(0, 3, 1, 2), k.to(pixels.dtype),
+                 stride=patch)                                  # (B, W, gh, gw)
+    y = y.flatten(2).transpose(1, 2)
+    return y + bias.to(pixels.dtype)
+
+
+def embed(ep, pixels, cfg: SigLIPConfig):
+    """Patch embedding + position embedding at the config's grid."""
+    _, h, w, _ = pixels.shape
+    if (h // cfg.patch_size, w // cfg.patch_size) != (cfg.grid, cfg.grid):
+        raise NotImplementedError(
+            "position-embedding interpolation (other image sizes) is not "
+            "ported yet")
+    x = patch_embed(pixels, ep["kernel"], ep["bias"], cfg.patch_size)
+    return x + ep["pos"].to(pixels.dtype)
+
+
+def _mha_single_query(x_q, x_kv, heads, in_w, in_b, out_w, out_b,
+                      logit_bias=None):
+    """The single-query (MAP probe) attention of JAX `_mha` (sq == 1)."""
+    b, sq, w = x_q.shape
+    if sq != 1:
+        raise NotImplementedError("multi-query _mha needs the attention "
+                                  "kernel, not ported yet")
+    skv = x_kv.shape[1]
+    d = w // heads
+    q = (x_q[:, 0] @ in_w[:, :w] + in_b[:w]).reshape(b, heads, d)
+    kv = x_kv.reshape(b * skv, w) @ in_w[:, w:] + in_b[w:]
+    kv = kv.reshape(b, skv, 2, heads, d)
+    k, v = kv[:, :, 0], kv[:, :, 1]                         # (B, S, H, d)
+    logits = torch.sum(k.float() * q.float()[:, None], dim=-1) * (d ** -0.5)
+    if logit_bias is not None:
+        logits = logits + logit_bias[:, :, None].float()
+    probs = torch.softmax(logits, dim=1)                    # over S
+    o = torch.sum(v.float() * probs[..., None], dim=1)
+    o = o.reshape(b, 1, w).to(x_q.dtype)
+    return o @ out_w + out_b
+
+
+def map_head(tokens, hp, cfg: SigLIPConfig, logit_bias=None,
+             kernels: KernelSet = KERNELS):
+    """MAP (attention-pooling) head: the probe attends over the tokens, then
+    LN + MLP residual. logit_bias weights merged tokens by size."""
+    b = tokens.shape[0]
+    dt = tokens.dtype
+    probe = hp["probe"][None].to(dt).expand(b, 1, cfg.width)
+    h = _mha_single_query(probe, tokens, cfg.heads, hp["in_w"].to(dt),
+                          hp["in_b"].to(dt), hp["out_w"].to(dt),
+                          hp["out_b"].to(dt), logit_bias=logit_bias)
+    res = h
+    h = layer_norm(h, hp["ln"], cfg.ln_eps, kernels)
+    h = gelu_tanh(h @ hp["fc1_w"].to(dt) + hp["fc1_b"].to(dt))
+    h = res + (h @ hp["fc2_w"].to(dt) + hp["fc2_b"].to(dt))
+    return h[:, 0]
+
+
+def _float_block(x, bp, cfg: SigLIPConfig, logit_bias, kernels):
+    """Unquantized block in plain torch (CPU only; see module doc)."""
+    if x.is_cuda:
+        raise NotImplementedError(
+            "float SigLIP blocks need the linear_fused, mlp_block_fused and "
+            "attention_qkv kernels, which are not ported to CUDA yet; "
+            "quantize the tower (ops.quant.quantize_siglip_static)")
+    dt = x.dtype
+    h = layer_norm(x, bp["ln1"], cfg.ln_eps, kernels)
+    qkv = h @ bp["attn"]["qkv_w"].to(dt) + bp["attn"]["qkv_b"].to(dt)
+    o = attention_qkv_reference(qkv, cfg.heads, cfg.head_dim,
+                                logit_bias=logit_bias)
+    x = x + (o @ bp["attn"]["out_w"].to(dt) + bp["attn"]["out_b"].to(dt))
+    h = layer_norm(x, bp["ln2"], cfg.ln_eps, kernels)
+    h = gelu_tanh(h @ bp["mlp"]["fc1_w"].to(dt) + bp["mlp"]["fc1_b"].to(dt))
+    return x + (h @ bp["mlp"]["fc2_w"].to(dt) + bp["mlp"]["fc2_b"].to(dt))
+
+
+def _block_apply(x, bp, cfg: SigLIPConfig, logit_bias=None, emit_sumsq=False,
+                 kernels: KernelSet = KERNELS):
+    """One tower block. emit_sumsq=True → (out, (B, S) Σ out²) for the ToMe
+    merge that follows."""
+    if not is_quantized(bp):
+        out = _float_block(x, bp, cfg, logit_bias, kernels)
+        if emit_sumsq:
+            o32 = out.float()
+            return out, torch.sum(o32 * o32, dim=-1)
+        return out
+    if not is_static_quantized(bp):
+        raise NotImplementedError("dynamic-int8 blocks (quantize_siglip "
+                                  "without act_scales) are not ported")
+    sc = bp["act_scales"]
+    heads = cfg.heads
+    d = cfg.head_dim
+    attn_scale = None
+    if not (d % 128 == 0 or 128 % d == 0):
+        # prepad_siglip_static padded each head's slot to a 128 multiple
+        attn_scale = d ** -0.5
+        d = ((d + 127) // 128) * 128
+        if bp["attn"]["qkv_w"]["q"].shape[1] != 3 * heads * d:
+            raise ValueError("lane-misaligned heads need "
+                             "quant.prepad_siglip_static first")
+    x = kernels.attn_sublayer_int8(
+        x, bp["ln1"], bp["attn"]["qkv_w"], bp["attn"]["qkv_b"],
+        bp["attn"]["out_w"], bp["attn"]["out_b"], sc["qkv"], sc["out"],
+        heads, d, cfg.ln_eps, attn_scale, logit_bias=logit_bias)
+    return kernels.mlp_block_fused_int8(
+        x, bp["ln2"], bp["mlp"], {"fc1": sc["fc1"], "fc2": sc["fc2"]},
+        cfg.ln_eps, emit_sumsq=emit_sumsq)
+
+
+@torch.no_grad()
+def siglip_forward(params, pixels, cfg: SigLIPConfig,
+                   policy: Policy = DEFAULT_POLICY, *, tome_r: int = 0,
+                   tome_floor: int = 0, kernels: KernelSet = KERNELS):
+    """Run the vision tower on (B, H, W, 3) SigLIP-normalised NHWC pixels.
+
+    Returns {"tokens": (B, N', W), "pooled": (B, W)} and, with ToMe,
+    "sizes": (B, N'). tome_r merges that many token pairs between blocks
+    (ops/tome.py); tome_floor is the smallest token count the schedule may
+    reach (0 → S/4; the deployed engine passes deployed_floor = S/8)."""
+    cdt = policy.compute_dtype
+    x = embed(params["embed"], pixels.to(cdt), cfg)
+    # the JAX tower casts every floating block leaf to the compute dtype;
+    # the kernels read them back as f32, so round them through it once
+    blocks = round_tree(params["blocks"], cdt)
+
+    sizes = None
+    if tome_r:
+        floor = int(tome_floor) if tome_floor else max(8, x.shape[1] // 4)
+        sched = merge_schedule(x.shape[1], cfg.layers, int(tome_r),
+                               min_tokens=floor)
+        sizes = torch.ones(x.shape[:2], dtype=torch.float32,
+                           device=x.device)
+    for i in range(cfg.layers):
+        bp = layer_slice(blocks, i)
+        lb = None if (sizes is None or i == 0) else torch.log(sizes)
+        merging = sizes is not None and i < cfg.layers - 1 and sched[i] > 0
+        out = _block_apply(x, bp, cfg, lb, emit_sumsq=merging,
+                           kernels=kernels)
+        if merging:
+            x, sumsq = out
+            x, sizes = merge_step(x, sizes, sched[i], sumsq=sumsq)
+        else:
+            x = out
+    tokens = layer_norm(x, params["post_ln"], cfg.ln_eps, kernels)
+    out = {"tokens": tokens}
+    if sizes is not None:
+        out["sizes"] = sizes
+    if cfg.with_head and "head" in params:
+        out["pooled"] = map_head(
+            tokens, params["head"], cfg,
+            logit_bias=None if sizes is None else torch.log(sizes),
+            kernels=kernels)
+    return out

@@ -1,0 +1,102 @@
+"""The static-W8A8 MLP sublayer — kernel K2.
+
+x → LN → static int8 quant → int8 fc1 → dequant + bias → GELU-tanh → int8
+quant → int8 fc2 → dequant + bias → + residual, and optionally Σ out² per
+row of the bf16 output (the row norms the following ToMe merge reads).
+
+Replaces tpudf/ops/mlp.py `_kernel_int8` and `_kernel_int8_ss` (wrapper
+`mlp_block_fused_int8`). The CUDA kernels are the LN + quant pass and the
+int8 GEMM of `csrc/int8_gemm.cu`, three launches: LN + quant, fc1 with a
+GELU + quant epilogue that writes the int8 hidden, fc2 with a residual
+(+ Σ out², f32 atomics across the column tiles of a row) epilogue. The TPU
+kernel kept the (rows, 4W) hidden in VMEM; here it passes through device
+memory as int8 (M·4W bytes each way), and keeping it on-chip is later work.
+On the card both GEMMs are bound by tensor-core operations (mma.sync s8).
+
+The plain twin is `_reference_int8`, the JAX package's reference form.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from tpudf_torch.core.backend import LAUNCHES
+from tpudf_torch.ops.int8_block import (GEMM_GELU_I8, GEMM_RESIDUAL,
+                                        i8_gemm_cuda, ln_quant_cuda,
+                                        ln_rows_f32, transposed)
+from tpudf_torch.ops.quant import int8_mm, quant_rows
+
+KERNEL = "mlp_block_fused_int8"
+KERNEL_SUMSQ = "mlp_block_fused_int8_ss"
+
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def gelu_tanh(x):
+    """jax.nn.gelu(approximate=True), term for term."""
+    cdf = 0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI
+                                  * (x + 0.044715 * (x * x * x))))
+    return x * cdf
+
+
+def _reference_int8(x2d, ln_scale, ln_bias, w1q, w1s, b1, w2q, w2s, b2,
+                    a1, a2, eps):
+    a1, a2 = a1.float(), a2.float()
+    x32 = x2d.float()
+    q1 = quant_rows(ln_rows_f32(x2d, ln_scale, ln_bias, eps), a1)
+    h = int8_mm(q1, w1q).float() * ((a1 / 127.0) * w1s.float()) + b1.float()
+    q2 = quant_rows(gelu_tanh(h), a2)
+    o = int8_mm(q2, w2q).float() * ((a2 / 127.0) * w2s.float()) + b2.float()
+    return (x32 + o).to(x2d.dtype)
+
+
+def mlp_block_int8_reference(x, ln_params, mlp_q, act_scales, eps=1e-6, *,
+                             emit_sumsq=False):
+    """Plain PyTorch twin of K2 on any device."""
+    w = x.shape[-1]
+    out = _reference_int8(
+        x.reshape(-1, w), ln_params["scale"], ln_params["bias"],
+        mlp_q["fc1_w"]["q"], mlp_q["fc1_w"]["scale"], mlp_q["fc1_b"],
+        mlp_q["fc2_w"]["q"], mlp_q["fc2_w"]["scale"], mlp_q["fc2_b"],
+        act_scales["fc1"], act_scales["fc2"], eps).reshape(x.shape)
+    if emit_sumsq:
+        o32 = out.float()
+        return out, torch.sum(o32 * o32, dim=-1)
+    return out
+
+
+def _mlp_cuda(x, ln_params, mlp_q, act_scales, eps, emit_sumsq):
+    w = x.shape[-1]
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"K2 takes bf16 x, got {x.dtype}")
+    x2d = x.reshape(-1, w).contiguous()
+    a1, a2 = act_scales["fc1"], act_scales["fc2"]
+    h8 = ln_quant_cuda(x2d, ln_params, a1, eps)
+    hid = i8_gemm_cuda(h8, transposed(mlp_q["fc1_w"]),
+                       mlp_q["fc1_w"]["scale"], mlp_q["fc1_b"], a1,
+                       GEMM_GELU_I8, act_out=a2)
+    ss = (torch.zeros(x2d.shape[0], dtype=torch.float32, device=x.device)
+          if emit_sumsq else None)
+    out = i8_gemm_cuda(hid, transposed(mlp_q["fc2_w"]),
+                       mlp_q["fc2_w"]["scale"], mlp_q["fc2_b"], a2,
+                       GEMM_RESIDUAL, residual=x2d, sumsq=ss)
+    LAUNCHES.hit(KERNEL)
+    if emit_sumsq:
+        LAUNCHES.hit(KERNEL_SUMSQ)
+        return out.reshape(x.shape), ss.reshape(x.shape[:-1])
+    return out.reshape(x.shape)
+
+
+def mlp_block_fused_int8(x, ln_params, mlp_q, act_scales, eps=1e-6, *,
+                         emit_sumsq=False):
+    """W8A8 MLP sublayer: (B, S, W) → (B, S, W) [, (B, S) Σ out²].
+
+    mlp_q: per-layer {fc1_w: {q, scale[, qT]}, fc1_b, fc2_w, fc2_b};
+    act_scales: {"fc1": 0-d, "fc2": 0-d} f32. CPU tensors take the plain
+    twin; CUDA tensors launch K2 or raise."""
+    if not x.is_cuda:
+        return mlp_block_int8_reference(x, ln_params, mlp_q, act_scales, eps,
+                                        emit_sumsq=emit_sumsq)
+    return _mlp_cuda(x, ln_params, mlp_q, act_scales, eps, emit_sumsq)

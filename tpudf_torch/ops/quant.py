@@ -1,0 +1,177 @@
+"""Static W8A8 quantization of the SigLIP tower (tpudf/ops/quant.py).
+
+Weights: symmetric per-output-column int8, `{q: (in, out) int8, scale:
+(out,) f32}`. Activations: one calibrated per-tensor scale per projection
+and layer, stored under `blocks["act_scales"]`. Calibration is set-up: it
+runs the float tower once in plain torch products, as the JAX package does;
+its layer norms go through kernel K4 on the card, as the JAX tower sends
+them to the Pallas LN on a TPU.
+
+`quant_rows` and `int8_mm` are the plain int8 arithmetic that the kernels'
+twins share. `int8_mm` is exact: it multiplies in f32 over K-chunks of at
+most 1024, where every partial sum is an integer below 2^24, and adds the
+chunks in int32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from tpudf_torch.core.precision import DEFAULT_POLICY, cast_tree
+from tpudf_torch.ops.attention import attention_qkv_reference
+
+_EXACT_K = 1024          # 1024 * 127 * 127 < 2**24
+
+
+def quant_rows(y, a):
+    """Static symmetric int8 codes of f32 y with activation scale a
+    (round half to even, as jnp.round)."""
+    return torch.clamp(torch.round(y * (127.0 / a)), -127, 127).to(torch.int8)
+
+
+def int8_mm(a8, w8):
+    """(M, K) int8 @ (K, N) int8 → (M, N) int32, exactly."""
+    acc = None
+    for k0 in range(0, a8.shape[-1], _EXACT_K):
+        part = torch.matmul(a8[..., k0:k0 + _EXACT_K].float(),
+                            w8[k0:k0 + _EXACT_K].float()).to(torch.int32)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def quantize_weight(w):
+    """(in, out) f32 → {int8 (in,out), scale (out,)} symmetric per-column."""
+    amax = torch.amax(torch.abs(w), dim=0)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return {"q": q, "scale": scale.float()}
+
+
+def _q_stacked(w):
+    # w: (L, in, out) — per-layer, per-column scales
+    amax = torch.amax(torch.abs(w), dim=1)                       # (L, out)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(w / scale[:, None, :]), -127, 127)
+    return {"q": q.to(torch.int8), "scale": scale.float()}
+
+
+def quantize_siglip(params):
+    """int8 inference tree: the stacked block projection weights become
+    {q, scale}; everything else stays float."""
+    blocks = params["blocks"]
+    out = dict(params)
+    out["blocks"] = {
+        "ln1": blocks["ln1"],
+        "ln2": blocks["ln2"],
+        "attn": {
+            "qkv_w": _q_stacked(blocks["attn"]["qkv_w"]),
+            "qkv_b": blocks["attn"]["qkv_b"],
+            "out_w": _q_stacked(blocks["attn"]["out_w"]),
+            "out_b": blocks["attn"]["out_b"],
+        },
+        "mlp": {
+            "fc1_w": _q_stacked(blocks["mlp"]["fc1_w"]),
+            "fc1_b": blocks["mlp"]["fc1_b"],
+            "fc2_w": _q_stacked(blocks["mlp"]["fc2_w"]),
+            "fc2_b": blocks["mlp"]["fc2_b"],
+        },
+    }
+    return out
+
+
+def is_quantized(block_params) -> bool:
+    w = block_params["attn"]["qkv_w"]
+    return isinstance(w, dict) and "q" in w
+
+
+def is_static_quantized(block_params) -> bool:
+    return is_quantized(block_params) and "act_scales" in block_params
+
+
+@torch.no_grad()
+def calibrate_siglip_act_scales(params, cfg, pixels, policy=None):
+    """Run the float tower over a calibration batch and record the abs-max
+    of each projection's input per layer.
+
+    Returns {"qkv": (L,), "out": (L,), "fc1": (L,), "fc2": (L,)} f32."""
+    from tpudf_torch.models import siglip as S   # siglip imports this module
+
+    policy = policy or DEFAULT_POLICY
+    cdt = policy.compute_dtype
+    x = S.embed(params["embed"], pixels.to(cdt), cfg)
+
+    scales = {"qkv": [], "out": [], "fc1": [], "fc2": []}
+
+    def amax(t):
+        return torch.clamp(torch.amax(torch.abs(t.float())), min=1e-3)
+
+    for i in range(cfg.layers):
+        bp = cast_tree(S.layer_slice(params["blocks"], i), cdt)
+        h1 = S.layer_norm(x, bp["ln1"], cfg.ln_eps)
+        scales["qkv"].append(amax(h1))
+        qkv = h1 @ bp["attn"]["qkv_w"] + bp["attn"]["qkv_b"]
+        o = attention_qkv_reference(qkv, cfg.heads, cfg.head_dim)
+        scales["out"].append(amax(o))
+        x = x + (o @ bp["attn"]["out_w"] + bp["attn"]["out_b"])
+        h2 = S.layer_norm(x, bp["ln2"], cfg.ln_eps)
+        scales["fc1"].append(amax(h2))
+        g = S.gelu_tanh(h2 @ bp["mlp"]["fc1_w"] + bp["mlp"]["fc1_b"])
+        scales["fc2"].append(amax(g))
+        x = x + (g @ bp["mlp"]["fc2_w"] + bp["mlp"]["fc2_b"])
+    return {k: torch.stack(v).float() for k, v in scales.items()}
+
+
+def quantize_siglip_static(params, act_scales, cfg=None):
+    """quantize_siglip layout plus per-layer activation scales under
+    blocks["act_scales"]; with cfg, also pre-pad for the kernels."""
+    out = quantize_siglip(params)
+    out["blocks"]["act_scales"] = {k: v.float()
+                                   for k, v in act_scales.items()}
+    if cfg is not None:
+        out = prepad_siglip_static(out, cfg)
+    return out
+
+
+def prepad_siglip_static(params, cfg):
+    """Zero-pad each head's slot to a 128 multiple (so400m head_dim 72 →
+    128) and the MLP hidden dim to a 128 multiple (4304 → 4352). Exact
+    algebra; scales pad with 1. No-op for aligned geometries."""
+    d, heads = cfg.head_dim, cfg.heads
+    blocks = dict(params["blocks"])
+    if not (d % 128 == 0 or 128 % d == 0):
+        dp = ((d + 127) // 128) * 128
+        attn = dict(blocks["attn"])
+        qkv = attn["qkv_w"]
+        nl, w_, n3 = qkv["q"].shape
+        if n3 != 3 * heads * dp:
+            attn["qkv_w"] = {
+                "q": F.pad(qkv["q"].reshape(nl, w_, 3, heads, d),
+                           (0, dp - d)).reshape(nl, w_, 3 * heads * dp),
+                "scale": F.pad(qkv["scale"].reshape(nl, 3, heads, d),
+                               (0, dp - d), value=1.0
+                               ).reshape(nl, 3 * heads * dp),
+            }
+            attn["qkv_b"] = F.pad(attn["qkv_b"].reshape(nl, 3, heads, d),
+                                  (0, dp - d)).reshape(nl, 3 * heads * dp)
+            ow = attn["out_w"]
+            attn["out_w"] = {
+                "q": F.pad(ow["q"].reshape(nl, heads, d, w_),
+                           (0, 0, 0, dp - d)).reshape(nl, heads * dp, w_),
+                "scale": ow["scale"],
+            }
+            blocks["attn"] = attn
+    inter = blocks["mlp"]["fc1_w"]["q"].shape[-1]
+    if inter % 128:
+        ip = ((inter + 127) // 128) * 128
+        m = dict(blocks["mlp"])
+        m["fc1_w"] = {"q": F.pad(m["fc1_w"]["q"], (0, ip - inter)),
+                      "scale": F.pad(m["fc1_w"]["scale"], (0, ip - inter),
+                                     value=1.0)}
+        m["fc1_b"] = F.pad(m["fc1_b"], (0, ip - inter))
+        m["fc2_w"] = {"q": F.pad(m["fc2_w"]["q"], (0, 0, 0, ip - inter)),
+                      "scale": m["fc2_w"]["scale"]}
+        blocks["mlp"] = m
+    out = dict(params)
+    out["blocks"] = blocks
+    return out

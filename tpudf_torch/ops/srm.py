@@ -1,0 +1,107 @@
+"""SRM (steganalysis rich model) residual statistics — kernel K3.
+
+`srm_raw_moments` gives E[r], E[r²], E[r³], E[r⁴] of the two distinct SRM
+residuals (K1 and K2 normalise to the same 3x3 stencil): r2 from the
+[-1 2 -1; 2 -4 2; -1 2 -1]/16 stencil and r3 from the 4-neighbour
+Laplacian /8, both 'same' size with zero padding.
+
+Replaces tpudf/ops/srm.py `_srm_moments_kernel` (wrapper
+`srm_raw_moments`). The CUDA kernel (`csrc/srm.cu`) runs one block per
+image: each thread forms both residuals at its pixels from the 3x3
+neighbourhood (exact zero border), accumulates the four powers in f64, and
+the block reduces them, so there are no cross-block sums. It is bound by
+device-memory bytes (one f32 read per pixel).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tpudf_torch.core.backend import LAUNCHES
+from tpudf_torch.ops import _build
+
+KERNEL = "srm_raw_moments"
+
+# The reference's K1 (5x5) is K2 inside a zero ring, so only K2 and K3 are
+# distinct after normalisation.
+_K2 = np.array([[-1, 2, -1],
+                [2, -4, 2],
+                [-1, 2, -1]], np.float32)
+_K3 = np.array([[0, -1, 0],
+                [-1, 4, -1],
+                [0, -1, 0]], np.float32)
+_EPS = 1e-6
+
+
+def _norm(k):
+    return k / (np.abs(k).sum() + _EPS)
+
+
+def _stencil3(gray, k3):
+    """'same' zero-padded 3x3 correlation, summed tap by tap in row-major
+    order with f32 products (the order csrc/srm.cu uses)."""
+    b, h, w = gray.shape
+    p = F.pad(gray, (1, 1, 1, 1))
+    acc = None
+    for di in range(3):
+        for dj in range(3):
+            c = float(k3[di, dj])
+            if c == 0.0:
+                continue
+            t = p[:, di:di + h, dj:dj + w] * c
+            acc = t if acc is None else acc + t
+    return acc
+
+
+def srm_raw_moments_reference(gray):
+    """Plain PyTorch twin of K3: (B, H, W) f32 → (B, 8)."""
+    b = gray.shape[0]
+    gray = gray.float()
+    moms = []
+    for y in (_stencil3(gray, _norm(_K2)), _stencil3(gray, _norm(_K3))):
+        flat = y.reshape(b, -1)
+        x2 = flat * flat
+        moms += [torch.mean(flat, 1), torch.mean(x2, 1),
+                 torch.mean(x2 * flat, 1), torch.mean(x2 * x2, 1)]
+    return torch.stack(moms, dim=-1)
+
+
+def _srm_cuda(gray):
+    b, h, w = gray.shape
+    if gray.dtype != torch.float32:
+        raise ValueError(f"K3 takes f32 gray, got {gray.dtype}")
+    gray = gray.contiguous()
+    coeffs = torch.from_numpy(np.concatenate(
+        [_norm(_K2).ravel(), _norm(_K3).ravel()])).to(gray.device)
+    out = torch.empty((b, 8), dtype=torch.float32, device=gray.device)
+    _build.call("tpudf_srm_moments", gray, coeffs, out, b, h, w)
+    LAUNCHES.hit(KERNEL)
+    return out
+
+
+def srm_raw_moments(gray):
+    """(B, H, W) → (B, 8) raw moments of the K2 then the K3 residual. CPU
+    tensors take the plain twin; CUDA tensors launch K3 or raise."""
+    if not gray.is_cuda:
+        return srm_raw_moments_reference(gray)
+    return _srm_cuda(gray)
+
+
+def srm_features(gray, raw_moments=srm_raw_moments):
+    """(B, H, W) → (B, 9): per-kernel residual mean, var and kurtosis
+    (kurtosis = E[(x-m)^4] / (var+eps)^2, biased), from the raw moments."""
+    moms = raw_moments(gray)
+    feats = {}
+    for i, base in ((0, 0), (2, 4)):
+        m1, m2, m3, m4 = (moms[:, base + j] for j in range(4))
+        v = torch.clamp(m2 - m1 * m1, min=0.0)
+        mu4 = m4 - 4.0 * m3 * m1 + 6.0 * m2 * m1 * m1 - 3.0 * m1 ** 4
+        k = mu4 / ((v + _EPS) ** 2)
+        feats[i] = (m1, v, k)
+    feats[1] = feats[0]                # K1 == K2 after normalization
+    out = []
+    for i in range(3):
+        out += list(feats[i])
+    return torch.stack(out, dim=-1)
