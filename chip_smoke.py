@@ -13,7 +13,10 @@ back to the CPU or to a twin):
      shapes, K1 and K2 also at every token count of engine B's two ToMe
      schedules (checked, not timed), K9, K13 (LN + QKV, out-proj +
      residual, and the GELU epilogue) and K14 at the float engine's full
-     analysis of 8 images (424 views, 108,544 rows);
+     analysis of 8 images (424 views, 108,544 rows); K10 (the backward of
+     K9) at the MTL step's (16, 256, 2304) and at S=32, and the gradient
+     through the attention autograd Function (K9 + K10) against the same
+     Function through the twins;
   3. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      (a) the detect core (build("cuda", seed=0), base-256, W8A8 + ToMe),
@@ -35,12 +38,30 @@ back to the CPU or to a twin):
          (full) patch_probs, max_patch, patch_mean, |Δ| <= 5e-2 on the
          logits z_sig and z_freq (engine B: visual_prob and z_sig at twice
          these, for int8 rounding ties);
+     (d) the MTL trainer, build_mtl_trainer("cuda") (base-256, decoder
+         embed_dim 256 on taps (2, 6, 10, -1), freeze_below=9, batch 16,
+         bf16 compute on f32 masters, lr 5e-5 after a warmup of 1 step,
+         so that 4 of the 5 updates move the weights): (a) the float
+         prefix and (b) the int8 prefix (--int8_frozen, calibrated on the
+         first batch's 16 images), 5 steps each on the same seeded batches
+         through the kernels and through the twins: finite losses, exact
+         launches per step, |Δloss| per step, the step-1 gradient cosine
+         per group (top blocks, heads, decoder) >= 0.99, and per slice of
+         the trainable parameters (a block layer's leaf, a third of a
+         fused q|k|v leaf) the step-1 gradient's relative error and the
+         mean |Δp| after 5 steps in units of lr, frozen parameters
+         bit-identical after 5 steps, eval outputs finite with seg
+         probabilities in [0, 1]; then (a) with K10's dQ, dK or dV zeroed
+         must fail those slice checks;
   4. CUDA-event timings: each kernel vs its twin and, where one PyTorch
      call computes the same function or a part of it, that call (timed
-     here only; the port never calls it); the detect-core forwards and the
-     engine requests, kernels vs twins; torch.profiler traces of the
-     detect core at B=256 and of engine A's full analysis: the largest
-     kernels and the device's idle share.
+     here only; the port never calls it; the SDPA backward by its kernels'
+     device time from torch.profiler); the detect-core forwards and the
+     engine requests, kernels vs twins; the train steps of (a) and (b),
+     kernels vs twins; torch.profiler traces of the detect core at B=256,
+     of engine A's full analysis and of a train step of (a) and of (b): the
+     largest kernels and the device's idle share; the trainer's peak
+     memory.
 Prints a JSON line of the kernels (with each one's bound: the larger of
 its operations over the card's peak for their type and its bytes, each
 input read once and each output written once, over 3.35 TB/s), the card
@@ -62,6 +83,7 @@ REPLACES = {
     "K3": "tpudf/ops/srm.py:97",
     "K4": "tpudf/ops/layernorm.py:18",
     "K9": "tpudf/ops/attention.py:167",
+    "K10": "tpudf/ops/attention.py:308",
     "K13": "tpudf/ops/linear.py:20",
     "K14": "tpudf/ops/mlp.py:21",
 }
@@ -71,6 +93,7 @@ SOURCES = {
     "K3": "tpudf_torch/csrc/srm.cu",
     "K4": "tpudf_torch/csrc/layernorm.cu",
     "K9": "tpudf_torch/csrc/attention.cu",
+    "K10": "tpudf_torch/csrc/attention.cu",
     "K13": "tpudf_torch/csrc/bf16_gemm.cu",
     "K14": "tpudf_torch/csrc/bf16_gemm.cu",
 }
@@ -84,6 +107,16 @@ K3_OPS_PER_PIXEL = 30
 K4_OPS_PER_ELEMENT = 8
 # the engines' full analysis: 53 views per image
 VIEWS = 53
+# the MTL trainer of the smoke run: batch, steps, freeze boundary, and the
+# kernel-vs-twin limits of its losses (int8 ties move (b)'s further: up to
+# 3.1e-3 over the 5 steps on an H100, against 1.4e-3 for (a))
+MTL_BATCH, MTL_STEPS, MTL_FREEZE, MTL_LR = 16, 5, 9, 5e-5
+MTL_DLOSS = {"a": 1e-2, "b": 2e-2}
+# per slice of the trainable parameters (a block layer's leaf, or a third
+# of a fused q|k|v leaf): the step-1 gradient's relative error, and the
+# mean |Δp| after the 5 steps in units of lr (warmup of 1 step: 4 updates
+# at about lr each)
+MTL_GRAD_ERR, MTL_PARAM_LR = 5e-2, 0.25
 
 
 def card_line() -> str:
@@ -147,10 +180,11 @@ def check_close(name, got, ref, atol, rtol):
             f"rtol={rtol} (max |Δ| {float(err.max()):.3e})")
 
 
-def profile(fn, label, card, iters=3, top=12):
-    """Kernel-level device time of fn (torch.profiler): the largest
-    kernels, their share, and the device's idle share of the traced wall
-    time."""
+def kernel_events(fn, iters):
+    """torch.profiler over `iters` calls of fn after one warm-up call:
+    ({kernel name: device ms per call}, {name: launches per call}, busy
+    device ms per call (the union of the kernel intervals), traced wall ms
+    per call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -180,14 +214,28 @@ def profile(fn, label, card, iters=3, top=12):
         elif e > end:
             busy += e - end
             end = e
-    busy /= 1e3 * iters
+    return (per_name, {k: n // iters for k, n in count.items()},
+            busy / (1e3 * iters), wall)
+
+
+def device_ms(fn, iters=10):
+    """The device time of one call of fn: its kernels' summed durations
+    (profiler), free of the host's launch time."""
+    return sum(kernel_events(fn, iters)[0].values())
+
+
+def profile(fn, label, card, iters=3, top=12):
+    """Kernel-level device time of fn (torch.profiler): the largest
+    kernels, their share, and the device's idle share of the traced wall
+    time."""
+    per_name, count, busy, wall = kernel_events(fn, iters)
     total = sum(per_name.values())
     print(f"profile {label}: traced wall {wall:.3f} ms, kernels "
           f"{total:.3f} ms, device idle share {1 - busy / wall:.3f} "
           f"[{card}]")
     for name, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {ms:8.3f} ms {100 * ms / total:5.1f}% "
-              f"{count[name] // iters:4d}x  {name[:90]}")
+              f"{count[name]:4d}x  {name[:90]}")
 
 
 class Records:
@@ -201,11 +249,13 @@ class Records:
             library=None, iters=20, twin_iters=None):
         """work: (ops by type, bytes); library: {label: fn} of PyTorch
         calls, one entry if one call computes the whole function, else
-        one per part (labelled part times)."""
+        one per part (labelled part times); a float entry is a time the
+        caller measured itself."""
         import torch
         ms, plain = paired_ms(kernel_fn, twin_fn, iters, twin_iters)
         b_ms, b_by = bound(*work)
-        lib = {k: cuda_ms(f, iters) for k, f in (library or {}).items()}
+        lib = {k: f if isinstance(f, float) else cuda_ms(f, iters)
+               for k, f in (library or {}).items()}
         torch.cuda.synchronize()
         row = self.rows.setdefault(key, {
             "name": name, "route": "cuda", "source": SOURCES[key],
@@ -256,11 +306,12 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tpudf_torch.convert import add_kernel_layout
     from tpudf_torch.core.backend import LAUNCHES, has_triton
-    from tpudf_torch.entry import build, build_engine, detect_core
+    from tpudf_torch.entry import (build, build_engine, build_mtl_trainer,
+                                   detect_core)
     from tpudf_torch.ops import (_build, attention, int8_block, layernorm,
                                  linear, mlp, srm)
     from tpudf_torch.ops.quant import quantize_weight
-    from tpudf_torch.ops.routes import TWINS
+    from tpudf_torch.ops.routes import KERNELS, TWINS
     from tpudf_torch.ops.tome import (DEPLOYED_PATCH_TOME_R, DEPLOYED_TOME_R,
                                       deployed_floor, deployed_patch_floor,
                                       merge_schedule)
@@ -538,6 +589,60 @@ def main() -> int:
     del x, fw, got, ref, hid
     torch.cuda.empty_cache()
 
+    # K10: the backward of K9 at the MTL step's (16, 256, 2304) and at
+    # S=32; P and dS are rounded to bf16 in both, the sums run in another
+    # order: as K9, within atol 1e-2 + one bf16 step
+    for b, s_ in ((MTL_BATCH, 256), (MTL_BATCH, 32)):
+        qkv = randn(b, s_, 3 * w).to(bf)
+        gout = randn(b, s_, w).to(bf)
+        got = attention.attention_qkv_bwd(qkv, gout, heads, hd)
+        ref = attention.attention_qkv_bwd_reference(qkv, gout, heads, hd)
+        torch.cuda.synchronize()
+        check_close(f"K10 {(b, s_, 3 * w)}", got, ref, atol=1e-2,
+                    rtol=2 ** -7)
+        qv, kv_, vv = (qkv[..., i * w:(i + 1) * w].reshape(b, s_, heads, hd)
+                       .transpose(1, 2).detach().requires_grad_(True)
+                       for i in range(3))
+        go = gout.reshape(b, s_, heads, hd).transpose(1, 2)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qv, kv_, vv)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), (qv, kv_, vv), go)
+
+        # the library's backward alone, on the card's clock: the device
+        # time of forward + backward minus that of the forward (CUDA events
+        # around these calls time the host's autograd call at this size)
+        sdpa_bwd = device_ms(sdpa_fwd_bwd) - device_ms(sdpa_fwd)
+        rec.add("K10", "attention_qkv_bwd", (b, s_, 3 * w),
+                max_abs(got, ref),
+                lambda: attention.attention_qkv_bwd(qkv, gout, heads, hd),
+                lambda: attention.attention_qkv_bwd_reference(qkv, gout,
+                                                              heads, hd),
+                ({"bf16": 5 * 2 * s_ * s_ * hd * heads * b},
+                 nbytes(qkv, gout) + nbytes(got)),
+                library={"SDPA backward": sdpa_bwd})
+    # the tower's differentiable attention: K9 forward + K10 backward in
+    # one autograd Function, against the same Function through the twins
+    qkv = randn(4, 256, 3 * w).to(bf)
+    cot = randn(4, 256, w)
+    grads = []
+    for ks in (None, TWINS):
+        x = qkv.clone().requires_grad_(True)
+        kw = {} if ks is None else dict(fwd=ks.attention_qkv,
+                                        bwd=ks.attention_qkv_bwd)
+        o = attention.attention_qkv_vjp(x, heads, hd, **kw)
+        (o.float() * cot).sum().backward()
+        grads.append(x.grad)
+    torch.cuda.synchronize()
+    check_close("K9+K10 autograd Function vs twins (4, 256, 2304)", grads[0],
+                grads[1], atol=1e-2, rtol=2 ** -7)
+    print(f"  K9+K10 autograd Function gradient vs twins: max|Δ| "
+          f"{max_abs(grads[0], grads[1]):.3e} [{card}]", flush=True)
+    del qkv, gout, got, ref, qv, kv_, vv, go, grads, x, o, cot
+    torch.cuda.empty_cache()
+
     # ---- 3a. the detect core
     print("phase 3: paths", flush=True)
     t0 = time.perf_counter()
@@ -676,6 +781,209 @@ def main() -> int:
             raise AssertionError(f"engine {e} {mode}: kernels vs twins "
                                  f"disagree on {bad}")
 
+    # ---- 3d. the MTL trainer: (a) float prefix, (b) int8 prefix
+    bg = torch.Generator(device=dev).manual_seed(4)
+    mtl_batches = []
+    for _ in range(MTL_STEPS):
+        masks = torch.zeros((MTL_BATCH, 256, 256), device=dev)
+        for i in range(MTL_BATCH):
+            y0, x0 = torch.randint(0, 192, (2,), generator=bg, device=dev)
+            masks[i, y0:y0 + 64, x0:x0 + 64] = 1.0
+        mtl_batches.append({
+            "pixels": torch.rand((MTL_BATCH, 256, 256, 3), generator=bg,
+                                 device=dev) * 2 - 1,
+            "cls": torch.randint(0, 3, (MTL_BATCH,), generator=bg,
+                                 device=dev),
+            "mask": masks,
+            "has_mask": (torch.rand((MTL_BATCH,), generator=bg, device=dev)
+                         < 0.5).float()})
+    float_step = {linear.KERNEL: 24, attention.KERNEL: 12,
+                  mlp.KERNEL_BF16: 12, layernorm.KERNEL: 2,
+                  attention.KERNEL_BWD: 3}
+    mtl_expect = {
+        "a": float_step,
+        # the 9 frozen layers on K1/K2, the 3 trainable ones on K13/K9/K14
+        "b": {int8_block.KERNEL: MTL_FREEZE, mlp.KERNEL: MTL_FREEZE,
+              linear.KERNEL: 6, attention.KERNEL: 3, mlp.KERNEL_BF16: 3,
+              layernorm.KERNEL: 2, attention.KERNEL_BWD: 3}}
+
+    def trainer(cfg_key, kernels=KERNELS):
+        return build_mtl_trainer(dev, seed=0, freeze_below=MTL_FREEZE,
+                                 int8_frozen=cfg_key == "b", lr=MTL_LR,
+                                 warmup_steps=1,
+                                 calib_pixels=mtl_batches[0]["pixels"],
+                                 kernels=kernels)
+
+    def trainable_slices(params, attr):
+        """{name: f32 copy} of the trainable parameters (attr "data") or
+        their gradients ("grad"): each trainable block layer on its own,
+        the fused [q | k | v] leaves cut in thirds. The key biases are left
+        out: a key bias adds the same q·b to every score of a row, so its
+        gradient is zero in exact arithmetic and holds rounding noise."""
+        out = {}
+
+        def walk(tree, path):
+            items = (tree.items() if isinstance(tree, dict)
+                     else enumerate(tree))
+            for k, v in items:
+                p = path + (str(k),)
+                if isinstance(v, (dict, list)):
+                    walk(v, p)
+                    continue
+                if p[:2] == ("backbone", "embed"):
+                    continue
+                t = getattr(v, attr).detach()
+                blocks = p[:2] == ("backbone", "blocks")
+                for layer in (range(MTL_FREEZE, t.shape[0]) if blocks
+                              else (None,)):
+                    x = t if layer is None else t[layer]
+                    name = ("/".join(p) if layer is None
+                            else f"blocks.{layer}/" + "/".join(p[2:]))
+                    if k not in ("qkv_w", "qkv_b", "in_w", "in_b"):
+                        out[name] = x.float().clone()
+                        continue
+                    n = x.shape[-1] // 3
+                    for j, part in enumerate("qkv"):
+                        if not (k.endswith("_b") and part == "k"):
+                            out[f"{name}[{part}]"] = (
+                                x[..., j * n:(j + 1) * n].float().clone())
+
+        walk(params, ())
+        return out
+
+    def group_of(name):
+        if name.startswith("blocks."):
+            return "top blocks"
+        return "decoder" if name.startswith("decoder") else "heads"
+
+    def frozen_values(params):
+        bb = params["backbone"]
+        vals = [t.detach().clone() for t in bb["embed"].values()]
+
+        def rows(tree):
+            for v in tree.values():
+                if isinstance(v, dict):
+                    yield from rows(v)
+                else:
+                    yield v.detach()[:MTL_FREEZE].clone()
+        return vals + list(rows(bb["blocks"]))
+
+    def train_run(cfg_key, ks, label):
+        """5 steps on the seeded batches: (losses, step-1 gradients and
+        final parameters by slice, launches per step)."""
+        t0 = time.perf_counter()
+        state, step, eval_step = trainer(cfg_key, ks)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        frozen0 = frozen_values(state.params)
+        losses, grads0, per_step = [], None, []
+        for i, batch in enumerate(mtl_batches):
+            LAUNCHES.reset()
+            state, m = step(state, batch,
+                            torch.Generator(device=dev).manual_seed(i),
+                            1.0, 0.5)
+            torch.cuda.synchronize()
+            per_step.append(LAUNCHES.snapshot())
+            losses.append(float(m["loss"]))
+            if i == 0:
+                grads0 = trainable_slices(state.params, "grad")
+        frozen_ok = all(torch.equal(a, b) for a, b in zip(
+            frozen0, frozen_values(state.params)))
+        cls_logits, seg_probs = eval_step(state.params,
+                                          mtl_batches[0]["pixels"])
+        torch.cuda.synchronize()
+        if not (np.isfinite(losses).all() and frozen_ok
+                and cls_logits.shape == (MTL_BATCH, 3)
+                and seg_probs.shape == (MTL_BATCH, 256, 256)
+                and torch.isfinite(cls_logits).all()
+                and ((seg_probs >= 0) & (seg_probs <= 1)).all()):
+            raise AssertionError(
+                f"trainer {label}: losses {losses}, frozen bit-identical "
+                f"{frozen_ok}, eval {tuple(cls_logits.shape)} "
+                f"{tuple(seg_probs.shape)}")
+        print(f"trainer {label}: build {build_s:.2f} s; losses "
+              f"{['%.6f' % v for v in losses]}; frozen bit-identical after "
+              f"{MTL_STEPS} steps; eval finite, seg probs in [0, 1] [{card}]",
+              flush=True)
+        final = trainable_slices(state.params, "data")
+        del state, step, eval_step, frozen0
+        torch.cuda.empty_cache()
+        return losses, grads0, final, per_step
+
+    def versus(run, ref):
+        """A run against the twins' run: |Δloss| per step, the step-1
+        gradient cosine per group, the worst slice's step-1 gradient error
+        ‖g − g_twin‖ / ‖g_twin‖, and the worst slice's mean |p − p_twin|
+        after the 5 steps in units of lr (a slice, not a leaf's tail:
+        Adam steps each parameter by about lr, so a mean near 0 means few
+        of them moved otherwise)."""
+        (lk, gk, pk, _), (lt, gt, pt, _) = run, ref
+        dloss = [abs(a - b) for a, b in zip(lk, lt)]
+        cos = {}
+        for grp in ("top blocks", "heads", "decoder"):
+            names = [n for n in gt if group_of(n) == grp]
+            cos[grp] = float(F.cosine_similarity(
+                torch.cat([gk[n].flatten() for n in names]),
+                torch.cat([gt[n].flatten() for n in names]), dim=0))
+        rel = {n: float(torch.linalg.vector_norm(gk[n] - gt[n])
+                        / torch.linalg.vector_norm(gt[n])) for n in gt}
+        dp = {n: float((pk[n] - pt[n]).abs().mean()) / MTL_LR for n in pt}
+        g_worst = max(rel, key=rel.get)
+        p_worst = max(dp, key=dp.get)
+        return dloss, cos, (g_worst, rel[g_worst]), (p_worst, dp[p_worst])
+
+    def report(label, dloss, cos, g_worst, p_worst):
+        return (f"trainer {label}: |Δloss| vs twins per step "
+                f"{['%.3e' % d for d in dloss]}; step-1 gradient cosine "
+                + ", ".join(f"{k} {v:.6f}" for k, v in cos.items())
+                + f"; worst slice step-1 gradient error {g_worst[1]:.3e} "
+                f"({g_worst[0]}); worst slice mean |Δp| after {MTL_STEPS} "
+                f"steps {p_worst[1]:.4f} lr ({p_worst[0]}) [{card}]")
+
+    def fault_checks(twin):
+        """The checks below against a planted fault: K10 with its dQ, dK or
+        dV third zeroed must fail them, against the same twins' run of
+        (a)."""
+        for j, part in enumerate("QKV"):
+            def faulty_bwd(qkv, g, heads_, head_dim, scale=None, j=j):
+                d = attention.attention_qkv_bwd(qkv, g, heads_, head_dim,
+                                                scale)
+                d[..., j * w:(j + 1) * w] = 0
+                return d
+
+            label = f"(a) K10 with d{part} zeroed"
+            bad = train_run("a", dataclasses.replace(
+                KERNELS, attention_qkv_bwd=faulty_bwd), label)
+            dloss, cos, g_worst, p_worst = versus(bad, twin)
+            print(report(label, dloss, cos, g_worst, p_worst), flush=True)
+            if g_worst[1] <= MTL_GRAD_ERR or p_worst[1] <= MTL_PARAM_LR:
+                raise AssertionError(f"trainer: the kernels-vs-twins check "
+                                     f"misses K10 with d{part} zeroed")
+
+    mtl_launches = {}
+    for cfg_key in ("a", "b"):
+        kern = train_run(cfg_key, KERNELS, f"({cfg_key}) kernels")
+        for i, launches in enumerate(kern[3]):
+            check_launches(f"trainer ({cfg_key}) step {i}", launches,
+                           mtl_expect[cfg_key])
+        mtl_launches[cfg_key] = kern[3][0]
+        twin = train_run(cfg_key, TWINS, f"({cfg_key}) twins")
+        if any(twin[3]):
+            raise AssertionError(f"twins launched {twin[3]}")
+        dloss, cos, g_worst, p_worst = versus(kern, twin)
+        print(f"trainer ({cfg_key}): launches per step "
+              f"{mtl_launches[cfg_key]}", flush=True)
+        print(report(f"({cfg_key})", dloss, cos, g_worst, p_worst),
+              flush=True)
+        if (max(dloss) > MTL_DLOSS[cfg_key] or min(cos.values()) < 0.99
+                or g_worst[1] > MTL_GRAD_ERR or p_worst[1] > MTL_PARAM_LR):
+            raise AssertionError(f"trainer ({cfg_key}): kernels vs twins "
+                                 f"disagree")
+        del kern
+        if cfg_key == "a":
+            fault_checks(twin)
+        del twin
+
     # ---- 4. timings of the paths
     print("phase 4: path timings", flush=True)
     for b, iters in ((8, 20), (256, 5)):
@@ -704,14 +1012,51 @@ def main() -> int:
     px = requests[("A", "full")]
     profile(lambda: eng_a.fetch_batch(eng_a.dispatch_batch(px)),
             "engine A full analysis B=8", card, top=16)
-    print(f"peak device memory of this script "
+
+    print(f"peak device memory of this script so far "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+
+    # the train steps, kernels vs twins (each step updates its state)
+    def run(box):
+        box["state"], _ = box["step"](box["state"], mtl_batches[0], None,
+                                      1.0, 0.5)
+
+    for cfg_key in ("a", "b"):
+        state, step, _ = trainer(cfg_key)
+        boxes = {"kernels": {"state": state, "step": step}}
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run(boxes["kernels"])
+        torch.cuda.synchronize()
+        print(f"train step ({cfg_key}): peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, of "
+              f"which {resident / 2**30:.2f} GiB resident before the step "
+              f"(parameters, AdamW moments, the first batch) [{card}]",
+              flush=True)
+        state, step, _ = trainer(cfg_key, TWINS)
+        boxes["twins"] = {"state": state, "step": step}
+        del state, step
+        k_ms, t_ms = paired_ms(lambda: run(boxes["kernels"]),
+                               lambda: run(boxes["twins"]), iters=5,
+                               twin_iters=3)
+        print(f"train step ({cfg_key}) B={MTL_BATCH}: kernels {k_ms:.3f} ms = "
+              f"{MTL_BATCH * 1e3 / k_ms:.1f} img/s; twins {t_ms:.3f} ms = "
+              f"{MTL_BATCH * 1e3 / t_ms:.1f} img/s [{card}]", flush=True)
+        profile(lambda: run(boxes["kernels"]),
+                f"train step ({cfg_key}) B={MTL_BATCH}", card, top=16)
+        del boxes
+        torch.cuda.empty_cache()
 
     names = {"K1": int8_block.KERNEL, "K2": mlp.KERNEL, "K3": srm.KERNEL,
              "K4": layernorm.KERNEL, "K9": attention.KERNEL,
-             "K13": linear.KERNEL, "K14": mlp.KERNEL_BF16}
+             "K10": attention.KERNEL_BWD, "K13": linear.KERNEL,
+             "K14": mlp.KERNEL_BF16}
     engine_a = engine_launches[("A", "full")]
+    # per run of the path each kernel serves: a detect-core forward, engine
+    # A's full analysis, a train step of (a)
     launches = {k: (core_launches if k in ("K1", "K2", "K3", "K4")
+                    else mtl_launches["a"] if k == "K10"
                     else engine_a)[n] for k, n in names.items()}
     print(rec.line(launches))
     print(card)

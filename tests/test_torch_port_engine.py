@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_port_float import numpy_params
+from tests.test_torch_port_float import numpy_params, one_torch_thread  # noqa: F401
 from tpudf.calib.coral import CoralCutpoints as JCuts
 from tpudf.core.precision import F32_POLICY as J_F32
 from tpudf.data.pipeline import normalize_siglip as j_normalize

@@ -51,6 +51,18 @@ W, HEADS, HD, INTER = 128, 2, 64, 256
 BF16_STEP = dict(atol=1e-2, rtol=2 ** -7)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's side of these tests: at their
+    sizes torch's thread pool costs more than it saves (on one thread the
+    port's test files take about a third less process CPU). Imported by
+    the other port test files."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     if torch.is_tensor(x):
         return x.detach().float().numpy()

@@ -1,7 +1,7 @@
 """Card-only tests: each CUDA kernel of tpudf_torch against its plain twin
-on the card, at small shapes, and both serving engines against the same
-parameters through the twins (the main path's shapes are checked by
-chip_smoke.py). Marked `gpu`; each test skips inside its body when no card
+on the card, at small shapes, both serving engines and one MTL train step
+against the same parameters through the twins (the main path's shapes are
+checked by chip_smoke.py). Marked `gpu`; each test skips inside its body when no card
 is visible, so every worker collects the same tests. This file imports no
 JAX, so it also runs where JAX is not installed:
 
@@ -43,6 +43,12 @@ def _card_case(name, dev):
         return (int8_block.attn_sublayer_int8(*args, logit_bias=lb),
                 int8_block.attn_sublayer_reference(*args, logit_bias=lb),
                 5e-2, 2e-2)
+    if name == "K10":
+        qkv = r(3, 200, 3 * W).to(torch.bfloat16)
+        g_out = r(3, 200, W).to(torch.bfloat16)
+        return (attention.attention_qkv_bwd(qkv, g_out, HEADS, HD),
+                attention.attention_qkv_bwd_reference(qkv, g_out, HEADS, HD),
+                1e-2, 2 ** -7)
     if name == "K9":
         qkv = r(3, 200, 3 * W).to(torch.bfloat16)
         lb = torch.log(torch.randint(1, 5, (3, 200), generator=g,
@@ -78,8 +84,8 @@ def _card_case(name, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K9", "K13-ln",
-                                  "K13-gelu", "K13-res", "K14"])
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K9", "K10",
+                                  "K13-ln", "K13-gelu", "K13-res", "K14"])
 def test_kernel_matches_twin_on_card(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -136,3 +142,65 @@ def test_engine_matches_twins_on_card(int8):
             cos = torch.nn.functional.cosine_similarity(
                 feats[k].float(), feats_twin[k].float(), dim=-1)
             assert float(cos.min()) >= 0.99, k
+
+
+@pytest.mark.gpu
+def test_mtl_train_step_matches_twins_on_card():
+    """One MTL train step of a 3-layer base-256-width tower with layers 0-1
+    frozen (K13, K9, K14 forward, K10 backward on the top layer), B=2,
+    against the same parameters through the twins: the loss within 1e-2
+    and the step's gradient cosine >= 0.99 for the top block, the heads and
+    the decoder, and each q / k / v third of the top block's qkv_w gradient
+    within a relative error of 5e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.core.precision import DEFAULT_POLICY, tree_map
+    from tpudf_torch.models.segformer import MTLConfig, init_mtl
+    from tpudf_torch.models.siglip import CONFIGS
+    from tpudf_torch.ops.routes import KERNELS, TWINS
+    from tpudf_torch.train.mtl import make_mtl_train_step
+    from tpudf_torch.train.steps import make_optimizer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = MTLConfig(dataclasses.replace(CONFIGS["base-256"], layers=3),
+                    seg_layers=(0, -1), embed_dim=64)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"pixels": torch.rand((2, 256, 256, 3), generator=g,
+                                  device="cuda") * 2 - 1,
+             "cls": torch.tensor([0, 2], device="cuda"),
+             "mask": (torch.rand((2, 256, 256), generator=g, device="cuda")
+                      > 0.7).float(),
+             "has_mask": torch.tensor([0.0, 1.0], device="cuda")}
+    losses, grads = [], []
+    for ks in (KERNELS, TWINS):
+        params = tree_map(lambda t: t.cuda(), init_mtl(
+            torch.Generator().manual_seed(0), cfg))
+        init_fn, step = make_mtl_train_step(
+            cfg, make_optimizer(1e-4), DEFAULT_POLICY, freeze_below=2,
+            kernels=ks)
+        LAUNCHES.reset()
+        state, m = step(init_fn(params), batch, None, 1.0, 0.5)
+        torch.cuda.synchronize()
+        if ks is KERNELS:
+            assert LAUNCHES.snapshot()["attention_qkv_bwd"] == 1
+        losses.append(float(m["loss"]))
+        p = state.params
+        grads.append({
+            "top block": p["backbone"]["blocks"]["attn"]["qkv_w"].grad[2:],
+            "heads": p["cls_head"]["w"].grad,
+            "decoder": p["decoder"]["fuse"]["w"].grad})
+    assert np.isfinite(losses).all()
+    assert abs(losses[0] - losses[1]) <= 1e-2
+    for k in grads[0]:
+        cos = torch.nn.functional.cosine_similarity(
+            grads[0][k].flatten(), grads[1][k].flatten(), dim=0)
+        assert float(cos) >= 0.99, k
+    # K10's dQ, dK and dV each reach one third of the top block's qkv_w
+    w = cfg.backbone.width
+    for j, part in enumerate("qkv"):
+        got, want = (g["top block"][..., j * w:(j + 1) * w] for g in grads)
+        err = torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(
+            want)
+        assert float(err) <= 5e-2, part

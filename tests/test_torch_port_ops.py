@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_port_float import one_torch_thread  # noqa: F401
 from tpudf.ops import int8_block as J_int8
 from tpudf.ops import layernorm as J_ln
 from tpudf.ops import mlp as J_mlp

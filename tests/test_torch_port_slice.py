@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_port_float import one_torch_thread  # noqa: F401
 from tpudf.calib.coral import CoralCutpoints as JCuts
 from tpudf.calib.coral import coral_blend as j_coral_blend
 from tpudf.core.precision import F32_POLICY as J_F32

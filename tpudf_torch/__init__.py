@@ -7,13 +7,18 @@ Layering:
   core/      device probes, launch counters, precision policy
   ops/       hand-written Hopper kernels (csrc/*.cu, built by ops/_build.py)
              with their plain PyTorch twins, plus plain-torch ops
-  models/    SigLIP tower (W8A8 and bf16 blocks), heads, frequency MLP, fusion
+  models/    SigLIP tower (W8A8 and bf16 blocks), heads, frequency MLP, fusion,
+             the SegFormer decoder and the MTL model
   calib/     CORAL ordinal calibration and the MoE fallback blend
   data/      device-side preprocessing: crops, patch grid, JAX-rule resize
   serve/     the batched detection engine (53-view and fast paths)
+  train/     losses, AdamW, the multi-task (MTL) step, loops, checkpoints
+  eval/      metrics (numpy)
+  cli/       the MTL trainer CLI (`python -m tpudf_torch.cli.train_mtl`)
   convert.py numpy copy of a tpudf params pytree -> tensors of this package
-  entry.py   the detect-core main path (`build`, `DetectCore`) and the
+  entry.py   the detect-core main path (`build`, `DetectCore`), the
              serving engine as the inference CLI builds it (`build_engine`)
+             and the MTL trainer (`build_mtl_trainer`)
 """
 
 __version__ = "0.1.0"

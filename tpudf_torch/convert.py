@@ -8,6 +8,12 @@ tensors on `device`, keeping JAX's layout:
 one kernel-private layout, the (out, in) int8 weight `qT` the GEMM kernel
 reads, is derived here once (`add_kernel_layout`); `params_to_numpy` drops
 it again.
+
+Multi-task (MTL) trees — {"backbone", "cls_head", "decoder"} — cross the
+same way and unchanged: the SegFormer decoder's convolution weights stay in
+JAX's HWIO layout (a depthwise weight (3, 3, 1, e)), and
+`models/segformer.py` hands F.conv2d an OIHW view of them ((e, 1, 3, 3)),
+so nothing is transposed here and a tree round-trips exactly.
 """
 
 from __future__ import annotations

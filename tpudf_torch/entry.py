@@ -12,7 +12,9 @@ activation scales on 32 seeded images, quantises, and returns a
 `DetectCore` whose `forward(pixels)` is that path. `build_engine(device,
 ...)` returns the `serve.engine.DetectEngine` of `tpudf/cli/infer.py`
 (`_build_engine`) with seeded random weights: by default the bf16 tower,
-no ToMe, linear fusion.
+no ToMe, linear fusion. `build_mtl_trainer(device, ...)` returns the
+multi-task trainer of `tpudf/cli/train_mtl.py` (SegFormer decoder over the
+tower's hidden states, frozen prefix, AdamW) with seeded random weights.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from tpudf_torch.core.precision import DEFAULT_POLICY, Policy, tree_map
 from tpudf_torch.models.freq_mlp import apply_freq_mlp, init_freq_mlp
 from tpudf_torch.models.fusion import apply_fusion_linear, init_fusion_linear
 from tpudf_torch.models.heads import apply_binary_head, init_binary_head
+from tpudf_torch.models.segformer import MTLConfig, init_mtl
 from tpudf_torch.models.siglip import (CONFIGS, SigLIPConfig, init_siglip,
                                        siglip_forward)
 from tpudf_torch.ops.fft_features import extract_freq_vector
@@ -35,6 +38,9 @@ from tpudf_torch.ops.routes import KERNELS, KernelSet
 from tpudf_torch.ops.tome import (DEPLOYED_PATCH_TOME_R, DEPLOYED_TOME_R,
                                   deployed_floor, deployed_patch_floor)
 from tpudf_torch.serve.engine import DetectEngine
+from tpudf_torch.train.mtl import (make_mtl_eval_step, make_mtl_train_step,
+                                   quantize_frozen_prefix)
+from tpudf_torch.train.steps import make_optimizer
 
 ENTRY_KEYS = ("p_blend", "risk_probs", "z_sig", "z_freq")
 GRAY = (0.299, 0.587, 0.114)
@@ -153,3 +159,47 @@ def build_engine(device, seed: int = 0, cfg_name: str = "base-256",
     if int8:
         eng.quantize()
     return eng
+
+
+def build_mtl_trainer(device="cuda", seed: int = 0,
+                      cfg_name: str = "base-256", freeze_below: int = 9,
+                      int8_frozen: bool = False, embed_dim: int = 256,
+                      seg_layers=(2, 6, 10, -1), lr: float = 5e-5,
+                      warmup_steps: int = 100, total_steps: int = 10_000,
+                      accum_steps: int = 1, seg_loss: str = "combined",
+                      kernels: KernelSet = KERNELS, calib_pixels=None):
+    """The MTL trainer on `device` with seeded random weights, the default
+    policy (bf16 compute, f32 master weights) and make_optimizer(lr,
+    warmup_steps=warmup_steps, total_steps=total_steps).
+    Returns (state, step, eval_step): step(state, batch,
+    generator, cls_w, seg_w) → (state, metrics) updates the state in place;
+    eval_step(params, pixels) → (cls_logits, seg_probs).
+
+    freeze_below: the embeddings and layers below it are frozen (None
+    trains everything). int8_frozen: those layers run on the static-W8A8
+    kernels, calibrated on `calib_pixels` (SigLIP-normalised, (N, S, S, 3);
+    default 16 seeded images), as the CLI calibrates on the first 16
+    training images. kernels=TWINS runs the same trainer through the plain
+    twins."""
+    cfg = MTLConfig(backbone=CONFIGS[cfg_name], seg_layers=tuple(seg_layers),
+                    embed_dim=embed_dim)
+    gen = torch.Generator().manual_seed(seed)
+    params = tree_map(lambda t: t.to(device), init_mtl(gen, cfg))
+    frozen_q = None
+    if int8_frozen:
+        if freeze_below is None:
+            raise ValueError("int8_frozen needs freeze_below")
+        if calib_pixels is None:
+            s = cfg.backbone.image_size
+            calib_pixels = (torch.rand((16, s, s, 3), generator=gen)
+                            - 0.5) / 0.5
+        frozen_q = quantize_frozen_prefix(params, cfg,
+                                          calib_pixels.to(device),
+                                          DEFAULT_POLICY, freeze_below)
+    init_fn, step = make_mtl_train_step(
+        cfg, make_optimizer(lr, warmup_steps=warmup_steps,
+                            total_steps=total_steps), DEFAULT_POLICY,
+        freeze_below=freeze_below, seg_loss=seg_loss,
+        accum_steps=accum_steps, frozen_q=frozen_q, kernels=kernels)
+    return (init_fn(params), step,
+            make_mtl_eval_step(cfg, DEFAULT_POLICY, kernels))

@@ -17,6 +17,13 @@ kernels K1 and K2, the float (bf16) blocks through K13 (LN1 + QKV), K9
 its bf16 layer norms through K4. `tower_params` derives once what the
 forward reads: float blocks in the compute dtype, int8 blocks with the
 kernel layout.
+
+Training form (the MTL trainer): the float blocks, the layer norms and the
+head are differentiable, K9's backward is K10 and K13/K14/K4 backpropagate
+through their twins' VJPs; gradients reach f32 master weights through the
+casts to the compute dtype. `stop_grad_below=k` runs the embeddings and
+layers < k without autograd (JAX's stop_gradient at the freeze boundary),
+optionally on a static-W8A8 copy of those k layers (`frozen_blocks_q`).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch.nn.functional as F
 from tpudf_torch.convert import add_kernel_layout
 from tpudf_torch.core.precision import (DEFAULT_POLICY, Policy, cast_tree,
                                         round_tree, tree_map)
+from tpudf_torch.ops.attention import attention_qkv_vjp
 from tpudf_torch.ops.quant import is_quantized, is_static_quantized
 from tpudf_torch.ops.routes import KERNELS, KernelSet
 from tpudf_torch.ops.tome import merge_schedule, merge_step
@@ -243,8 +251,10 @@ def _float_block(x, bp, cfg: SigLIPConfig, logit_bias, kernels):
     qkv = kernels.linear_fused(x, qkv_w, qkv_b,
                                ln=(bp["ln1"]["scale"], bp["ln1"]["bias"]),
                                eps=cfg.ln_eps)
-    o = kernels.attention_qkv(qkv, cfg.heads, d_run, scale,
-                              logit_bias=logit_bias)
+    o = attention_qkv_vjp(qkv, cfg.heads, d_run, scale,
+                          fwd=kernels.attention_qkv,
+                          bwd=kernels.attention_qkv_bwd,
+                          logit_bias=logit_bias)
     x = kernels.linear_fused(o, out_w, bp["attn"]["out_b"], residual=x)
     return kernels.mlp_block_fused(x, bp["ln2"], bp["mlp"], cfg.ln_eps)
 
@@ -304,18 +314,46 @@ def tower_params(params, cdt):
     return {**params, "blocks": blocks}
 
 
-@torch.no_grad()
 def siglip_forward(params, pixels, cfg: SigLIPConfig,
-                   policy: Policy = DEFAULT_POLICY, *, tome_r: int = 0,
-                   tome_floor: int = 0, kernels: KernelSet = KERNELS):
+                   policy: Policy = DEFAULT_POLICY, *,
+                   output_hidden_states: bool = False,
+                   stop_grad_below: int = 0, frozen_blocks_q=None,
+                   tome_r: int = 0, tome_floor: int = 0,
+                   kernels: KernelSet = KERNELS):
     """Run the vision tower on (B, H, W, 3) SigLIP-normalised NHWC pixels.
 
-    Returns {"tokens": (B, N', W), "pooled": (B, W)} and, with ToMe,
-    "sizes": (B, N'). tome_r merges that many token pairs between blocks
-    (ops/tome.py); tome_floor is the smallest token count the schedule may
-    reach (0 → S/4; the deployed engine passes deployed_floor = S/8)."""
+    Returns {"tokens": (B, N', W), "pooled": (B, W)}; with ToMe also
+    "sizes": (B, N'); with output_hidden_states also "hidden_states", the
+    embedding output and then each block's output (HF order). tome_r
+    merges that many token pairs between blocks (ops/tome.py; serving
+    only); tome_floor is the smallest token count the schedule may reach
+    (0 → S/4; the deployed engine passes deployed_floor = S/8).
+
+    stop_grad_below=k: the embeddings and layers < k run without autograd,
+    so their outputs and taps carry no gradient (JAX's stop_gradient at the
+    freeze boundary). frozen_blocks_q: a static-W8A8 block tree of exactly
+    those k layers (train/mtl.quantize_frozen_prefix), run on K1/K2 in
+    their place. The serving callers run under torch.no_grad()."""
     cdt = policy.compute_dtype
-    x = embed(params["embed"], pixels.to(cdt), cfg)
+    k = max(0, min(int(stop_grad_below), cfg.layers))
+    if tome_r and (output_hidden_states or k):
+        raise ValueError("tome_r is an inference-only speed mode: "
+                         "incompatible with hidden_states/training")
+    lo = None
+    if k and frozen_blocks_q is not None:
+        # the quantized prefix must cover exactly the k frozen layers, or
+        # layers would run twice or not at all with no error
+        n_frozen = frozen_blocks_q["ln1"]["scale"].shape[0]
+        if n_frozen != k:
+            raise ValueError(
+                f"frozen_blocks_q holds {n_frozen} layers but "
+                f"stop_grad_below={k}; quantize_frozen_prefix and the train "
+                "step must use the same freeze boundary")
+        lo = _compute_blocks(frozen_blocks_q, cdt)
+    grad = torch.is_grad_enabled()
+    with torch.set_grad_enabled(grad and not k):
+        x = embed(params["embed"], pixels.to(cdt), cfg)
+    hidden = [x] if output_hidden_states else None
     blocks = _compute_blocks(params["blocks"], cdt)
 
     sizes = None
@@ -326,20 +364,25 @@ def siglip_forward(params, pixels, cfg: SigLIPConfig,
         sizes = torch.ones(x.shape[:2], dtype=torch.float32,
                            device=x.device)
     for i in range(cfg.layers):
-        bp = layer_slice(blocks, i)
+        bp = layer_slice(blocks if lo is None or i >= k else lo, i)
         lb = None if (sizes is None or i == 0) else torch.log(sizes)
         merging = sizes is not None and i < cfg.layers - 1 and sched[i] > 0
-        out = _block_apply(x, bp, cfg, lb, emit_sumsq=merging,
-                           kernels=kernels)
+        with torch.set_grad_enabled(grad and i >= k):
+            out = _block_apply(x, bp, cfg, lb, emit_sumsq=merging,
+                               kernels=kernels)
         if merging:
             x, sumsq = out
             x, sizes = merge_step(x, sizes, sched[i], sumsq=sumsq)
         else:
             x = out
+        if hidden is not None:
+            hidden.append(x)
     tokens = layer_norm(x, params["post_ln"], cfg.ln_eps, kernels)
     out = {"tokens": tokens}
     if sizes is not None:
         out["sizes"] = sizes
+    if hidden is not None:
+        out["hidden_states"] = tuple(hidden)
     if cfg.with_head and "head" in params:
         out["pooled"] = map_head(
             tokens, params["head"], cfg,

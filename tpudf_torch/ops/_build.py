@@ -41,6 +41,7 @@ SIGNATURES = {
     "tpudf_i8_gemm": "pppppppppiiiip",
     "tpudf_attention_i8": "ppppiiiifp",
     "tpudf_attention_bf16": "pppiiiifp",
+    "tpudf_attention_bwd_bf16": "ppppiiiifp",
     "tpudf_bf16_gemm": "pppppiiiip",
     "tpudf_srm_moments": "pppiiip",
 }

@@ -4,7 +4,8 @@ Replaces tpudf/ops/layernorm.py `_ln_kernel` (via `_ln_pallas` /
 `layer_norm_fused`). The CUDA kernel is `csrc/layernorm.cu`: one warp per
 row, the row held in registers, one bf16 read and one bf16 write. It is
 bound by device-memory bytes (4 bytes moved per element, a handful of flops);
-its design reads each row exactly once.
+its design reads each row exactly once. The backward recomputes the twin
+and applies its VJP (`twin_vjp`), as the JAX VJP does.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from tpudf_torch.core.backend import LAUNCHES
 from tpudf_torch.ops import _build
+from tpudf_torch.ops.twin_vjp import with_twin_vjp
 
 KERNEL = "layer_norm_fused"
 MAX_WIDTH = 1024
@@ -49,9 +51,15 @@ def _layer_norm_cuda(x, scale, bias, eps):
     return out.reshape(x.shape)
 
 
-def layer_norm_fused(x, scale, bias, eps=1e-6):
-    """(..., W) fused LN. CPU tensors take the plain twin; CUDA tensors
-    launch the kernel (bf16 only) or raise."""
+def _layer_norm(x, scale, bias, *, eps):
     if not x.is_cuda:
         return layer_norm_reference(x, scale, bias, eps)
     return _layer_norm_cuda(x, scale, bias, eps)
+
+
+def layer_norm_fused(x, scale, bias, eps=1e-6):
+    """(..., W) fused LN. CPU tensors take the plain twin; CUDA tensors
+    launch the kernel (bf16 only) or raise. Differentiable through the
+    twin's VJP."""
+    return with_twin_vjp(_layer_norm, layer_norm_reference, x, scale, bias,
+                         eps=eps)

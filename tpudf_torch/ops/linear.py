@@ -18,7 +18,9 @@ engine cast it to once. At the float tower's shapes the QKV product is
 bound by tensor-core operations, the out-proj nearly by bytes.
 
 The plain twin `linear_fused_reference` repeats this arithmetic on any
-device; it is the JAX package's `_reference`.
+device; it is the JAX package's `_reference`. The backward recomputes the
+twin and applies its VJP (`twin_vjp`), as the JAX VJP applies `jax.vjp`
+to `_reference`.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from tpudf_torch.core.backend import LAUNCHES
 from tpudf_torch.ops import _build
 from tpudf_torch.ops.layernorm import layer_norm_reference, ln_bf16_cuda
+from tpudf_torch.ops.twin_vjp import with_twin_vjp
 from tpudf_torch.utils.nn import gelu_tanh
 
 KERNEL = "linear_fused"
@@ -84,12 +87,27 @@ def _linear_cuda(x, w, bias, ln, residual, activation, eps):
     return out.reshape(*x.shape[:-1], dout)
 
 
+def _linear_twin(x, w, bias, ln_scale, ln_bias, residual, *, activation,
+                 eps):
+    ln = None if ln_scale is None else (ln_scale, ln_bias)
+    return linear_fused_reference(x, w, bias, ln=ln, residual=residual,
+                                  activation=activation, eps=eps)
+
+
+def _linear(x, w, bias, ln_scale, ln_bias, residual, *, activation, eps):
+    if not x.is_cuda:
+        return _linear_twin(x, w, bias, ln_scale, ln_bias, residual,
+                            activation=activation, eps=eps)
+    ln = None if ln_scale is None else (ln_scale, ln_bias)
+    return _linear_cuda(x, w, bias, ln, residual, activation, eps)
+
+
 def linear_fused(x, w, bias, *, ln=None, residual=None, activation=None,
                  eps=1e-6):
     """(..., din) → (..., dout). ln: optional (scale, bias) of a pre-LN;
     residual: optional (..., dout); activation: None or "gelu". CPU
-    tensors take the plain twin; CUDA tensors launch K13 or raise."""
-    if not x.is_cuda:
-        return linear_fused_reference(x, w, bias, ln=ln, residual=residual,
-                                      activation=activation, eps=eps)
-    return _linear_cuda(x, w, bias, ln, residual, activation, eps)
+    tensors take the plain twin; CUDA tensors launch K13 or raise.
+    Differentiable through the twin's VJP."""
+    ln_scale, ln_bias = ln if ln is not None else (None, None)
+    return with_twin_vjp(_linear, _linear_twin, x, w, bias, ln_scale, ln_bias,
+                         residual, activation=activation, eps=eps)

@@ -30,7 +30,9 @@ and keeping them on-chip is later work. Both GEMMs are bound by
 tensor-core operations at the float tower's shapes. The plain twin
 `mlp_block_reference` repeats the kernel's arithmetic (at f32 it is the
 JAX package's `_reference`; in bf16 that reference rounds each product to
-bf16, the Pallas kernel and this one do not).
+bf16, the Pallas kernel and this one do not). K14's backward recomputes the
+twin and applies its VJP (`twin_vjp`), as the JAX VJP does with
+`_reference`.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from tpudf_torch.ops.layernorm import layer_norm_reference, ln_bf16_cuda
 from tpudf_torch.ops.linear import (GEMM_GELU, bf16_gemm_cuda,
                                     GEMM_RESIDUAL as BF16_RESIDUAL)
 from tpudf_torch.ops.quant import int8_mm, quant_rows
+from tpudf_torch.ops.twin_vjp import with_twin_vjp
 from tpudf_torch.utils.nn import gelu_tanh
 
 KERNEL = "mlp_block_fused_int8"
@@ -137,12 +140,28 @@ def _mlp_bf16_cuda(x, ln_params, mlp_params, eps):
     return out.reshape(x.shape)
 
 
+def _unflat(ln_scale, ln_bias, w1, b1, w2, b2):
+    return ({"scale": ln_scale, "bias": ln_bias},
+            {"fc1_w": w1, "fc1_b": b1, "fc2_w": w2, "fc2_b": b2})
+
+
+def _mlp_twin(x, *leaves, eps):
+    return mlp_block_reference(x, *_unflat(*leaves), eps)
+
+
+def _mlp_bf16(x, *leaves, eps):
+    if not x.is_cuda:
+        return _mlp_twin(x, *leaves, eps=eps)
+    return _mlp_bf16_cuda(x, *_unflat(*leaves), eps)
+
+
 def mlp_block_fused(x, ln_params, mlp_params, eps=1e-6):
     """bf16 MLP sublayer with fused LN: (B, S, W) → (B, S, W).
 
     mlp_params: per-layer {fc1_w (W, 4W), fc1_b, fc2_w (4W, W), fc2_b}, the
     weights in the compute dtype. CPU tensors take the plain twin; CUDA
-    tensors launch K14 or raise."""
-    if not x.is_cuda:
-        return mlp_block_reference(x, ln_params, mlp_params, eps)
-    return _mlp_bf16_cuda(x, ln_params, mlp_params, eps)
+    tensors launch K14 or raise. Differentiable through the twin's VJP."""
+    return with_twin_vjp(_mlp_bf16, _mlp_twin, x, ln_params["scale"],
+                         ln_params["bias"], mlp_params["fc1_w"],
+                         mlp_params["fc1_b"], mlp_params["fc2_w"],
+                         mlp_params["fc2_b"], eps=eps)

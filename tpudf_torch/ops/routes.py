@@ -1,4 +1,5 @@
-"""The kernels of the detect-core and engine paths, and their plain twins.
+"""The kernels of the detect-core, engine and MTL-training paths, and their
+plain twins.
 
 The main path always runs `KERNELS`: each wrapper takes its plain twin for
 a CPU tensor and launches its CUDA kernel for a CUDA tensor. `TWINS` holds
@@ -23,6 +24,7 @@ class KernelSet:
     mlp_block_fused_int8: Callable  # K2
     srm_raw_moments: Callable       # K3
     attention_qkv: Callable         # K9
+    attention_qkv_bwd: Callable     # K10
     linear_fused: Callable          # K13
     mlp_block_fused: Callable       # K14
 
@@ -33,6 +35,7 @@ KERNELS = KernelSet(
     mlp_block_fused_int8=mlp.mlp_block_fused_int8,
     srm_raw_moments=srm.srm_raw_moments,
     attention_qkv=attention.attention_qkv,
+    attention_qkv_bwd=attention.attention_qkv_bwd,
     linear_fused=linear.linear_fused,
     mlp_block_fused=mlp.mlp_block_fused,
 )
@@ -43,6 +46,7 @@ TWINS = KernelSet(
     mlp_block_fused_int8=mlp.mlp_block_int8_reference,
     srm_raw_moments=srm.srm_raw_moments_reference,
     attention_qkv=attention.attention_qkv_reference,
+    attention_qkv_bwd=attention.attention_qkv_bwd_reference,
     linear_fused=linear.linear_fused_reference,
     mlp_block_fused=mlp.mlp_block_reference,
 )
