@@ -16,7 +16,19 @@ back to the CPU or to a twin):
      analysis of 8 images (424 views, 108,544 rows); K10 (the backward of
      K9) at the MTL step's (16, 256, 2304) and at S=32, and the gradient
      through the attention autograd Function (K9 + K10) against the same
-     Function through the twins;
+     Function through the twins; the W8A8 block's other routes: K5 (LN +
+     quant + QKV, one launch) at (2048, 768 -> 2304) and at the detect
+     core's ToMe row counts, K6 (attention + quant + out-proj + residual,
+     one launch) at (8, 256, 2304) and its biased route (K9 + the out-proj
+     GEMM) at a ToMe count, both within atol 5e-2 + rtol 2e-2 (the twin
+     rounds the attention output to bf16 before its quant, the kernels
+     quantise the f32 one); K7 (the whole layer, one cooperative launch)
+     at (8, 256, 768) and (256, 32, 768), within the same and with at most
+     K7_SHARE of its outputs not bit-equal to the twin's (the same math:
+     only int8 ties differ), and the same checks shown to fail against the
+     twin with a planted fault (the mid-layer residual rounded to bf16);
+     K8 (LN + quant codes) at (2048, 768): codes equal to the twin's but
+     for at most K8_SHARE of them, each within one code (f32 LN ties);
   3. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      (a) the detect core (build("cuda", seed=0), base-256, W8A8 + ToMe),
@@ -25,6 +37,12 @@ back to the CPU or to a twin):
          (K1 12, K2 12 of which 4 emit Σout², K3 1, K4 2), and the same
          parameters through the twins: pooled cosine >= 0.99,
          |Δp_blend| <= 1e-2;
+     and the same forwards under TPUDF_INT8_KERNELS=PPP, XXX and LLL
+     (K5/K6, K8 and the int8 products, K7 where there is no ToMe bias):
+     exact launches per forward and route, the same checks against the
+     twins; and the tower without ToMe at B=8 under LLL and PPP, so that
+     all 12 layers run K7, or K5 and K6, against the twins (pooled cosine
+     >= 0.99);
      (b) engine A, build_engine("cuda") (bf16 tower, no ToMe, linear
          fusion): a full analysis of 8 uint8 images and a fast request of
          32; (c) engine B, build_engine("cuda", int8=True, tome=True,
@@ -56,7 +74,8 @@ back to the CPU or to a twin):
   4. CUDA-event timings: each kernel vs its twin and, where one PyTorch
      call computes the same function or a part of it, that call (timed
      here only; the port never calls it; the SDPA backward by its kernels'
-     device time from torch.profiler); the detect-core forwards and the
+     device time from torch.profiler); the detect-core forwards (also under
+     each TPUDF_INT8_KERNELS route) and the
      engine requests, kernels vs twins; the train steps of (a) and (b),
      kernels vs twins; torch.profiler traces of the detect core at B=256,
      of engine A's full analysis and of a train step of (a) and of (b): the
@@ -82,6 +101,10 @@ REPLACES = {
     "K2": "tpudf/ops/mlp.py:116",
     "K3": "tpudf/ops/srm.py:97",
     "K4": "tpudf/ops/layernorm.py:18",
+    "K5": "tpudf/ops/int8_block.py:44",
+    "K6": "tpudf/ops/int8_block.py:390",
+    "K7": "tpudf/ops/int8_block.py:272",
+    "K8": "tpudf/ops/layernorm.py:72",
     "K9": "tpudf/ops/attention.py:167",
     "K10": "tpudf/ops/attention.py:308",
     "K13": "tpudf/ops/linear.py:20",
@@ -92,6 +115,10 @@ SOURCES = {
     "K2": "tpudf_torch/csrc/int8_gemm.cu",
     "K3": "tpudf_torch/csrc/srm.cu",
     "K4": "tpudf_torch/csrc/layernorm.cu",
+    "K5": "tpudf_torch/csrc/int8_gemm.cu",
+    "K6": "tpudf_torch/csrc/attention.cu",
+    "K7": "tpudf_torch/csrc/layer_int8.cu",
+    "K8": "tpudf_torch/csrc/layernorm.cu",
     "K9": "tpudf_torch/csrc/attention.cu",
     "K10": "tpudf_torch/csrc/attention.cu",
     "K13": "tpudf_torch/csrc/bf16_gemm.cu",
@@ -105,6 +132,15 @@ HBM_BYTES_PER_S = 3.35e12
 # sums, the normalisation and the affine)
 K3_OPS_PER_PIXEL = 30
 K4_OPS_PER_ELEMENT = 8
+K8_OPS_PER_ELEMENT = 11          # K4's and the quant's mul, round, clamp
+# K7's outputs not bit-equal to its twin's (int8 ties only: 2.7e-3 at
+# (8, 256, 768), 1.5e-2 at (256, 32, 768) on an H100; the twin with the
+# mid-layer residual rounded to bf16 differs in 0.75 of them), and K8's
+# codes that differ from the twin's (f32 LN ties)
+K7_SHARE = 5e-2
+K8_SHARE = 1e-4
+# the TPUDF_INT8_KERNELS routes the detect core is driven under
+ROUTES = ("PPP", "XXX", "LLL")
 # the engines' full analysis: 53 views per image
 VIEWS = 53
 # the MTL trainer of the smoke run: batch, steps, freeze boundary, and the
@@ -246,13 +282,16 @@ class Records:
         self.rows = {}
 
     def add(self, key, name, shape, err, kernel_fn, twin_fn, work,
-            library=None, iters=20, twin_iters=None):
+            library=None, iters=20, twin_iters=None, device_time=False):
         """work: (ops by type, bytes); library: {label: fn} of PyTorch
         calls, one entry if one call computes the whole function, else
         one per part (labelled part times); a float entry is a time the
-        caller measured itself."""
+        caller measured itself. device_time: also the kernel's device time
+        by the profiler (CUDA events time the host's launches where those
+        take longer than the kernel)."""
         import torch
         ms, plain = paired_ms(kernel_fn, twin_fn, iters, twin_iters)
+        dev_ms = device_ms(kernel_fn) if device_time else None
         b_ms, b_by = bound(*work)
         lib = {k: f if isinstance(f, float) else cuda_ms(f, iters)
                for k, f in (library or {}).items()}
@@ -263,14 +302,17 @@ class Records:
         row["max_abs_err"] = max(row["max_abs_err"], err)
         case = {"shape": shape, "ms": ms, "plain_ms": plain,
                 "bound_ms": b_ms, "bound_by": b_by}
+        if dev_ms is not None:
+            case["device_ms"] = dev_ms
         if len(lib) == 1 and "part" not in next(iter(lib)):
             case["library_ms"] = next(iter(lib.values()))
         elif lib:
             case["library_part_ms"] = lib
         row["cases"].append(case)
         libs = "  ".join(f"{k} {v:.4f} ms" for k, v in lib.items())
+        dev = "" if dev_ms is None else f" (device {dev_ms:.4f} ms)"
         print(f"  {key} {name} {shape}: max|Δ| {err:.3e}  kernel {ms:.4f} ms"
-              f"  twin {plain:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
+              f"{dev}  twin {plain:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
               f"{'  ' + libs if libs else ''}  [{self.card}]", flush=True)
 
     def line(self, launches):
@@ -308,8 +350,9 @@ def main() -> int:
     from tpudf_torch.core.backend import LAUNCHES, has_triton
     from tpudf_torch.entry import (build, build_engine, build_mtl_trainer,
                                    detect_core)
+    from tpudf_torch.models.siglip import siglip_forward
     from tpudf_torch.ops import (_build, attention, int8_block, layernorm,
-                                 linear, mlp, srm)
+                                 linear, mlp, quant, srm)
     from tpudf_torch.ops.quant import quantize_weight
     from tpudf_torch.ops.routes import KERNELS, TWINS
     from tpudf_torch.ops.tome import (DEPLOYED_PATCH_TOME_R, DEPLOYED_TOME_R,
@@ -643,6 +686,188 @@ def main() -> int:
     del qkv, gout, got, ref, qv, kv_, vv, go, grads, x, o, cot
     torch.cuda.empty_cache()
 
+    # ---- K5-K8, the W8A8 block's other routes, at the detect core's shapes
+    ln2 = {"scale": 1.0 + randn(w, std=0.1), "bias": randn(w, std=0.1)}
+    bp8 = {"ln1": ln1, "ln2": ln2,
+           "attn": {"qkv_w": qkv_wq, "qkv_b": qkv_b, "out_w": out_wq,
+                    "out_b": out_b},
+           "mlp": mlp_q,
+           "act_scales": {"qkv": a_qkv, "out": a_out, "fc1": mlp_sc["fc1"],
+                          "fc2": mlp_sc["fc2"]}}
+    m = 8 * 256
+    a8 = torch.randint(-127, 128, (m, w), generator=g, device=dev,
+                       dtype=torch.int8)
+    # K5 at the detect core's 2048 rows, timed, and at the row counts its
+    # ToMe schedule gives it at B=8 (S = 160, 80, 40, 32) and B=256 (S=32)
+    errs = []
+    for b, s_ in ((8, 256), (8, 160), (8, 80), (8, 40), (8, 32), (256, 32)):
+        x = randn(b, s_, w).to(bf)
+        args = (x, ln1, qkv_wq, qkv_b, a_qkv)
+        got = int8_block.ln_qkv_int8(*args)
+        ref = int8_block.ln_qkv_reference(*args)
+        check_close(f"K5 {(b * s_, w, 3 * w)}", got, ref, atol=5e-2,
+                    rtol=2e-2)
+        errs.append(f"S={s_} B={b} {max_abs(got, ref):.3e}")
+        if (b, s_) != (8, 256):
+            continue
+        y16 = F.layer_norm(x, (w,), ln1["scale"].to(bf), ln1["bias"].to(bf),
+                           1e-6)
+        inv = 127.0 / a_qkv
+        rec.add("K5", "ln_qkv_int8", (m, w, 3 * w), max_abs(got, ref),
+                lambda: int8_block.ln_qkv_int8(*args),
+                lambda: int8_block.ln_qkv_reference(*args),
+                ({"int8": 2 * m * w * 3 * w},
+                 nbytes(x, ln1["scale"], ln1["bias"], qkv_wq["q"],
+                        qkv_wq["scale"], qkv_b, a_qkv) + nbytes(got)),
+                library={
+                    "part F.layer_norm": lambda: F.layer_norm(
+                        x, (w,), ln1["scale"].to(bf), ln1["bias"].to(bf),
+                        1e-6),
+                    "part quant": lambda: torch.clamp(
+                        torch.round(y16.float() * inv), -127, 127).to(
+                            torch.int8),
+                    "part QKV _int_mm": lambda: torch._int_mm(
+                        a8, qkv_wq["qT"].t())}, device_time=True)
+    torch.cuda.synchronize()
+    print(f"  K5 at the ToMe row counts: max|Δ| {'; '.join(errs)} [{card}]",
+          flush=True)
+
+    # K6 at (8, 256, 2304) without a bias (one launch), and its biased route
+    # (K9 + the out-proj GEMM) at the first ToMe count (8, 160)
+    for b, s_, with_bias in ((8, 256, False), (8, 160, True)):
+        qkv = randn(b, s_, 3 * w).to(bf)
+        x = randn(b, s_, w).to(bf)
+        lb = (torch.log(torch.randint(1, 9, (b, s_), generator=g,
+                                      device=dev).float())
+              if with_bias else None)
+        args = (qkv, x, out_wq, out_b, a_out, heads, hd)
+        LAUNCHES.reset()
+        got = int8_block.attn_out_int8(*args, logit_bias=lb)
+        ref = int8_block.attn_out_reference(*args, logit_bias=lb)
+        torch.cuda.synchronize()
+        launched = LAUNCHES.snapshot()
+        want = ({attention.KERNEL: 1, quant.KERNEL_GEMM: 1} if with_bias
+                else {int8_block.KERNEL_ATTN_OUT: 1})
+        check_launches(f"K6 bias={with_bias}", launched, want)
+        check_close(f"K6 {(b, s_, 3 * w)} bias={with_bias}", got, ref,
+                    atol=5e-2, rtol=2e-2)
+        if with_bias:
+            print(f"  K6 biased route (K9 + out-proj GEMM) {(b, s_, 3 * w)}: "
+                  f"max|Δ| {max_abs(got, ref):.3e} [{card}]", flush=True)
+            continue
+        q, k, v = (qkv[..., i * w:(i + 1) * w].reshape(b, s_, heads, hd)
+                   .transpose(1, 2) for i in range(3))
+        rec.add("K6", "attn_out_int8", (b, s_, 3 * w), max_abs(got, ref),
+                lambda: int8_block.attn_out_int8(*args),
+                lambda: int8_block.attn_out_reference(*args),
+                ({"bf16": 4 * b * heads * s_ * s_ * hd,
+                  "int8": 2 * b * s_ * w * w},
+                 nbytes(qkv, x, out_wq["q"], out_wq["scale"], out_b, a_out)
+                 + nbytes(got)),
+                library={
+                    "part attention SDPA":
+                        lambda: F.scaled_dot_product_attention(q, k, v),
+                    "part out-proj _int_mm": lambda: torch._int_mm(
+                        a8, out_wq["qT"].t())}, device_time=True)
+
+    def k7_faulty(x, bp):
+        """K7's twin with a planted fault: the attention sublayer's
+        residual rounded to bf16 before LN2 and the final add (the split
+        kernels' order, not the whole-layer kernel's)."""
+        b, s_, _ = x.shape
+        sc, at = bp["act_scales"], bp["attn"]
+        qkv = int8_block.ln_qkv_reference(x, bp["ln1"], at["qkv_w"],
+                                          at["qkv_b"], sc["qkv"])
+        o = attention.attention_qkv_reference(qkv, heads, hd,
+                                              out_dtype=torch.float32)
+        acc = quant.int8_mm(quant.quant_rows(o, sc["out"]).reshape(-1, w),
+                            at["out_w"]["q"]).float()
+        x1 = (x.float().reshape(-1, w)
+              + acc * ((sc["out"] / 127.0) * at["out_w"]["scale"])
+              + at["out_b"]).to(bf).reshape(b, s_, w)
+        return mlp.mlp_block_int8_reference(
+            x1, bp["ln2"], bp["mlp"], {"fc1": sc["fc1"], "fc2": sc["fc2"]})
+
+    # K7 at (8, 256, 768) and (256, 32, 768): the layer against its twin
+    # (within atol/rtol and at most K7_SHARE of outputs not bit-equal), and
+    # the same checks must fail against the twin with the planted fault
+    for b, s_ in ((8, 256), (256, 32)):
+        x = randn(b, s_, w).to(bf)
+        got = int8_block.siglip_layer_int8(x, bp8, heads, hd)
+        ref = int8_block.siglip_layer_int8_reference(x, bp8, heads, hd)
+        bad = k7_faulty(x, bp8)
+        torch.cuda.synchronize()
+        share = float((got != ref).float().mean())
+        bad_share = float((got != bad).float().mean())
+        check_close(f"K7 {(b, s_, w)}", got, ref, atol=5e-2, rtol=2e-2)
+        print(f"  K7 {(b, s_, w)}: not bit-equal to the twin {share:.3e}, "
+              f"to the twin with the mid-layer residual in bf16 "
+              f"{bad_share:.3e} (max|Δ| {max_abs(got, bad):.3e}) [{card}]",
+              flush=True)
+        if share > K7_SHARE:
+            raise AssertionError(f"K7 {(b, s_, w)}: {share:.3e} of the "
+                                 f"outputs differ from the twin")
+        if bad_share <= K7_SHARE:
+            raise AssertionError("K7's checks miss a mid-layer residual "
+                                 "rounded to bf16")
+        mb = b * s_
+        q, k, v = (randn(b, heads, s_, hd).to(bf) for _ in range(3))
+        a8k = torch.randint(-127, 128, (mb, w), generator=g, device=dev,
+                            dtype=torch.int8)
+        h8 = torch.randint(-127, 128, (mb, inter), generator=g, device=dev,
+                           dtype=torch.int8)
+        rec.add("K7", "siglip_layer_int8", (b, s_, w), max_abs(got, ref),
+                lambda: int8_block.siglip_layer_int8(x, bp8, heads, hd),
+                lambda: int8_block.siglip_layer_int8_reference(x, bp8, heads,
+                                                               hd),
+                ({"int8": 2 * mb * w * (4 * w + 2 * inter),
+                  "bf16": 4 * b * heads * s_ * s_ * hd},
+                 nbytes(x, ln1["scale"], ln1["bias"], ln2["scale"],
+                        ln2["bias"], qkv_wq["q"], qkv_wq["scale"], qkv_b,
+                        out_wq["q"], out_wq["scale"], out_b,
+                        mlp_q["fc1_w"]["q"], mlp_q["fc1_w"]["scale"],
+                        mlp_q["fc1_b"], mlp_q["fc2_w"]["q"],
+                        mlp_q["fc2_w"]["scale"], mlp_q["fc2_b"], a_qkv,
+                        a_out, mlp_sc["fc1"], mlp_sc["fc2"]) + nbytes(got)),
+                library={
+                    "part QKV _int_mm": lambda: torch._int_mm(
+                        a8k, qkv_wq["qT"].t()),
+                    "part attention SDPA":
+                        lambda: F.scaled_dot_product_attention(q, k, v),
+                    "part out-proj _int_mm": lambda: torch._int_mm(
+                        a8k, out_wq["qT"].t()),
+                    "part fc1 _int_mm": lambda: torch._int_mm(
+                        a8k, mlp_q["fc1_w"]["qT"].t()),
+                    "part fc2 _int_mm": lambda: torch._int_mm(
+                        h8, mlp_q["fc2_w"]["qT"].t())},
+                iters=10, twin_iters=3, device_time=True)
+
+    # K8 at (2048, 768): int8 codes equal to the twin's but at f32 LN ties
+    x = (randn(m, w) * 3.0 + 0.5).to(bf)
+    got = layernorm.layer_norm_quant(x, ln1["scale"], ln1["bias"], a_qkv)
+    ref = layernorm.layer_norm_quant_reference(x, ln1["scale"], ln1["bias"],
+                                               a_qkv)
+    torch.cuda.synchronize()
+    dq = (got.int() - ref.int()).abs()
+    share = float((dq > 0).float().mean())
+    print(f"  K8 {(m, w)}: codes differing from the twin's {share:.3e}, "
+          f"max {int(dq.max())} [{card}]", flush=True)
+    if got.dtype != torch.int8 or int(dq.max()) > 1 or share > K8_SHARE:
+        raise AssertionError(f"K8 {(m, w)}: {share:.3e} of the codes differ, "
+                             f"max by {int(dq.max())}")
+    rec.add("K8", "layer_norm_quant", (m, w), float(dq.max()),
+            lambda: layernorm.layer_norm_quant(x, ln1["scale"], ln1["bias"],
+                                               a_qkv),
+            lambda: layernorm.layer_norm_quant_reference(
+                x, ln1["scale"], ln1["bias"], a_qkv),
+            ({"f32": K8_OPS_PER_ELEMENT * x.numel()},
+             nbytes(x, ln1["scale"], ln1["bias"], a_qkv) + nbytes(got)),
+            library={"part F.layer_norm": lambda: F.layer_norm(
+                x, (w,), ln1["scale"].to(bf), ln1["bias"].to(bf), 1e-6)},
+            device_time=True)
+    del x, got, ref, bad, qkv, q, k, v, a8, a8k, h8, y16
+    torch.cuda.empty_cache()
+
     # ---- 3a. the detect core
     print("phase 3: paths", flush=True)
     t0 = time.perf_counter()
@@ -689,6 +914,92 @@ def main() -> int:
               f"p_blend mean {float(pb.float().mean()):.4f}", flush=True)
         if float(cos.min()) < 0.99 or dpb > 1e-2:
             raise AssertionError(f"B={b}: kernels vs twins disagree")
+
+    # ---- 3a'. the detect core under the W8A8 block's other routes: the
+    # 12 layers run K5 (+ K6 at layer 0, where there is no ToMe bias; K9 +
+    # the out-proj GEMM where there is), K8 + the int8 products + K9, or K7
+    # at layer 0 and FPP where the bias is; 4 of the 12 feed a merge
+    route_expect = {
+        "PPP": {int8_block.KERNEL_LN_QKV: 12, int8_block.KERNEL_ATTN_OUT: 1,
+                attention.KERNEL: 11, quant.KERNEL_GEMM: 11, mlp.KERNEL: 12,
+                mlp.KERNEL_SUMSQ: 4, srm.KERNEL: 1, layernorm.KERNEL: 2},
+        "XXX": {layernorm.KERNEL_QUANT: 24, quant.KERNEL_GEMM: 48,
+                attention.KERNEL: 12, srm.KERNEL: 1, layernorm.KERNEL: 2},
+        "LLL": {int8_block.KERNEL_LAYER: 1, int8_block.KERNEL: 11,
+                mlp.KERNEL: 11, mlp.KERNEL_SUMSQ: 3, srm.KERNEL: 1,
+                layernorm.KERNEL: 2}}
+    rg = torch.Generator(device=dev).manual_seed(5)
+    route_launches = {}
+
+    def vs_twins(label, kern_pooled, twin_pooled, kern_pb=None, twin_pb=None):
+        cos = F.cosine_similarity(kern_pooled.float(), twin_pooled.float(),
+                                  dim=-1)
+        dpb = (0.0 if kern_pb is None
+               else float((kern_pb - twin_pb).abs().max()))
+        if not torch.isfinite(kern_pooled.float()).all():
+            raise AssertionError(f"{label}: pooled not finite")
+        if float(cos.min()) < 0.99 or dpb > 1e-2:
+            raise AssertionError(f"{label}: kernels vs twins disagree "
+                                 f"(cosine {float(cos.min()):.6f}, "
+                                 f"|Δp_blend| {dpb:.3e})")
+        return (f"pooled cosine min {float(cos.min()):.6f} mean "
+                f"{float(cos.mean()):.6f}; max|Δp_blend| twin {dpb:.3e}")
+
+    try:
+        for route in ROUTES:
+            os.environ["TPUDF_INT8_KERNELS"] = route
+            for b in (8, 256):
+                px = torch.rand((b, 256, 256, 3), generator=rg,
+                                device=dev).to(torch.bfloat16)
+                LAUNCHES.reset()
+                out = model(px)
+                torch.cuda.synchronize()
+                launched = LAUNCHES.snapshot()
+                check_launches(f"detect core {route} B={b}", launched,
+                               route_expect[route])
+                for k, v in out.items():
+                    if not torch.isfinite(v).all():
+                        raise AssertionError(f"{route} B={b}: {k} not finite")
+                kern = detect_core(params, px, model.cfg, model.cuts)
+                LAUNCHES.reset()
+                twin = detect_core(params, px, model.cfg, model.cuts,
+                                   kernels=TWINS)
+                torch.cuda.synchronize()
+                if LAUNCHES.snapshot():
+                    raise AssertionError(f"twins launched "
+                                         f"{LAUNCHES.snapshot()}")
+                print(f"detect core {route} B={b}: launches {launched}; "
+                      + vs_twins(f"detect core {route} B={b}",
+                                 kern["pooled"], twin["pooled"],
+                                 kern["p_blend"], twin["p_blend"])
+                      + f"; p_blend mean "
+                      f"{float(out['p_blend'].float().mean()):.4f} [{card}]",
+                      flush=True)
+            route_launches[route] = launched
+        # the tower without ToMe at B=8: all 12 layers through K7, or K5
+        # and K6
+        norm = (px[:8] - 0.5) / 0.5
+        for route, expect in (
+                ("LLL", {int8_block.KERNEL_LAYER: 12, layernorm.KERNEL: 2}),
+                ("PPP", {int8_block.KERNEL_LN_QKV: 12,
+                         int8_block.KERNEL_ATTN_OUT: 12, mlp.KERNEL: 12,
+                         layernorm.KERNEL: 2})):
+            os.environ["TPUDF_INT8_KERNELS"] = route
+            with torch.no_grad():
+                LAUNCHES.reset()
+                kern = siglip_forward(params["backbone"], norm, model.cfg)
+                torch.cuda.synchronize()
+                launched = LAUNCHES.snapshot()
+                check_launches(f"tower {route} without ToMe", launched,
+                               expect)
+                twin = siglip_forward(params["backbone"], norm, model.cfg,
+                                      kernels=TWINS)
+            print(f"tower {route} without ToMe B=8: launches {launched}; "
+                  + vs_twins(f"tower {route}", kern["pooled"],
+                             twin["pooled"]) + f" [{card}]", flush=True)
+    finally:
+        os.environ.pop("TPUDF_INT8_KERNELS", None)
+    del kern, twin, out
 
     # ---- 3b/3c. the engines
     import dataclasses
@@ -997,6 +1308,22 @@ def main() -> int:
               f"{b * 1e3 / fwd_ms:.1f} img/s; twins {fwd_plain:.3f} ms = "
               f"{b * 1e3 / fwd_plain:.1f} img/s [{card}]", flush=True)
     profile(lambda: model(px), "detect core B=256", card)
+    try:
+        for route in ROUTES:
+            os.environ["TPUDF_INT8_KERNELS"] = route
+            for b, iters in ((8, 20), (256, 5)):
+                px = torch.rand((b, 256, 256, 3), generator=pg,
+                                device=dev).to(torch.bfloat16)
+                fwd_ms, fwd_plain = paired_ms(
+                    lambda: model(px),
+                    lambda: detect_core(params, px, model.cfg, model.cuts,
+                                        kernels=TWINS), iters=iters)
+                print(f"detect core {route} B={b}: kernels {fwd_ms:.3f} ms = "
+                      f"{b * 1e3 / fwd_ms:.1f} img/s; twins "
+                      f"{fwd_plain:.3f} ms = {b * 1e3 / fwd_plain:.1f} img/s "
+                      f"[{card}]", flush=True)
+    finally:
+        os.environ.pop("TPUDF_INT8_KERNELS", None)
     del model, params
 
     for (e, mode), px in requests.items():
@@ -1049,13 +1376,18 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     names = {"K1": int8_block.KERNEL, "K2": mlp.KERNEL, "K3": srm.KERNEL,
-             "K4": layernorm.KERNEL, "K9": attention.KERNEL,
-             "K10": attention.KERNEL_BWD, "K13": linear.KERNEL,
-             "K14": mlp.KERNEL_BF16}
+             "K4": layernorm.KERNEL, "K5": int8_block.KERNEL_LN_QKV,
+             "K6": int8_block.KERNEL_ATTN_OUT,
+             "K7": int8_block.KERNEL_LAYER, "K8": layernorm.KERNEL_QUANT,
+             "K9": attention.KERNEL, "K10": attention.KERNEL_BWD,
+             "K13": linear.KERNEL, "K14": mlp.KERNEL_BF16}
     engine_a = engine_launches[("A", "full")]
-    # per run of the path each kernel serves: a detect-core forward, engine
-    # A's full analysis, a train step of (a)
+    # per run of the path each kernel serves: a detect-core forward (K5-K8:
+    # under the route that runs them), engine A's full analysis, a train
+    # step of (a)
+    route_of = {"K5": "PPP", "K6": "PPP", "K7": "LLL", "K8": "XXX"}
     launches = {k: (core_launches if k in ("K1", "K2", "K3", "K4")
+                    else route_launches[route_of[k]] if k in route_of
                     else mtl_launches["a"] if k == "K10"
                     else engine_a)[n] for k, n in names.items()}
     print(rec.line(launches))

@@ -1,5 +1,6 @@
 """Card-only tests: each CUDA kernel of tpudf_torch against its plain twin
-on the card, at small shapes, both serving engines and one MTL train step
+on the card, at small shapes (K8's int8 codes within one step: a tie of
+the f32 LN may round the other way), both serving engines and one MTL train step
 against the same parameters through the twins (the main path's shapes are
 checked by chip_smoke.py). Marked `gpu`; each test skips inside its body when no card
 is visible, so every worker collects the same tests. This file imports no
@@ -16,6 +17,21 @@ from tpudf_torch.ops import (attention, int8_block, layernorm, linear, mlp,
                              quant, srm)
 
 W, HEADS, HD, INTER = 128, 2, 64, 256
+
+
+def _int8_layer(r, ln):
+    """A static-W8A8 layer's tree (quantize_siglip_static's slice)."""
+    dev = ln["scale"].device
+    q = lambda a, c: quant.quantize_weight(r(a, c, std=a ** -0.5))
+    return {"ln1": ln, "ln2": {"scale": 1.0 + r(W, std=0.1),
+                               "bias": r(W, std=0.1)},
+            "attn": {"qkv_w": q(W, 3 * W), "qkv_b": r(3 * W, std=0.1),
+                     "out_w": q(W, W), "out_b": r(W, std=0.1)},
+            "mlp": {"fc1_w": q(W, INTER), "fc1_b": r(INTER, std=0.1),
+                    "fc2_w": q(INTER, W), "fc2_b": r(W, std=0.1)},
+            "act_scales": {k: torch.tensor(v, device=dev) for k, v in
+                           (("qkv", 4.0), ("out", 2.0), ("fc1", 4.0),
+                            ("fc2", 3.0))}}
 
 
 def _card_case(name, dev):
@@ -43,6 +59,37 @@ def _card_case(name, dev):
         return (int8_block.attn_sublayer_int8(*args, logit_bias=lb),
                 int8_block.attn_sublayer_reference(*args, logit_bias=lb),
                 5e-2, 2e-2)
+    if name in ("K5", "K6", "K6-bias", "K7"):
+        bp = _int8_layer(r, ln)
+        a = bp["act_scales"]
+        if name == "K5":
+            x = r(3, 50, W).to(torch.bfloat16)
+            args = (x, ln, bp["attn"]["qkv_w"], bp["attn"]["qkv_b"], a["qkv"])
+            return (int8_block.ln_qkv_int8(*args),
+                    int8_block.ln_qkv_reference(*args), 5e-2, 2e-2)
+        if name == "K7":
+            x = r(3, 40, W).to(torch.bfloat16)
+            return (int8_block.siglip_layer_int8(x, bp, HEADS, HD),
+                    int8_block.siglip_layer_int8_reference(x, bp, HEADS, HD),
+                    5e-2, 2e-2)
+        qkv = r(3, 200, 3 * W).to(torch.bfloat16)
+        x = r(3, 200, W).to(torch.bfloat16)
+        lb = (torch.log(torch.randint(1, 5, (3, 200), generator=g,
+                                      device=dev).float())
+              if name == "K6-bias" else None)
+        args = (qkv, x, bp["attn"]["out_w"], bp["attn"]["out_b"], a["out"],
+                HEADS, HD)
+        return (int8_block.attn_out_int8(*args, logit_bias=lb),
+                int8_block.attn_out_reference(*args, logit_bias=lb),
+                5e-2, 2e-2)
+    if name == "K8":
+        # int8 codes: a rounding tie of the f32 LN may take the neighbour
+        x = (r(300, W) * 3).to(torch.bfloat16)
+        a = torch.tensor(3.0, device=dev)
+        return (layernorm.layer_norm_quant(x, ln["scale"], ln["bias"], a),
+                layernorm.layer_norm_quant_reference(x, ln["scale"],
+                                                     ln["bias"], a),
+                1.0, 0.0)
     if name == "K10":
         qkv = r(3, 200, 3 * W).to(torch.bfloat16)
         g_out = r(3, 200, W).to(torch.bfloat16)
@@ -84,7 +131,8 @@ def _card_case(name, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K9", "K10",
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K5", "K6",
+                                  "K6-bias", "K7", "K8", "K9", "K10",
                                   "K13-ln", "K13-gelu", "K13-res", "K14"])
 def test_kernel_matches_twin_on_card(name):
     if not torch.cuda.is_available():
@@ -204,3 +252,79 @@ def test_mtl_train_step_matches_twins_on_card():
         err = torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(
             want)
         assert float(err) <= 5e-2, part
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["PPP", "XXX", "LLL", "PXP", "XPX"])
+def test_int8_routes_match_twins_on_card(route, monkeypatch):
+    """A 2-layer base-256-width W8A8 tower under one TPUDF_INT8_KERNELS
+    route (B=2, without and with the deployed ToMe) against the same route
+    through the twins: pooled cosine >= 0.99, and each route's own kernels
+    launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from tpudf_torch.convert import add_kernel_layout
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.core.precision import tree_map
+    from tpudf_torch.models.siglip import CONFIGS, init_siglip, siglip_forward
+    from tpudf_torch.ops.routes import TWINS
+    from tpudf_torch.ops.tome import DEPLOYED_TOME_R, deployed_floor
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    monkeypatch.setenv("TPUDF_INT8_KERNELS", route)
+    cfg = dataclasses.replace(CONFIGS["base-256"], layers=2)
+    p = tree_map(lambda t: t.cuda(),
+                 init_siglip(torch.Generator().manual_seed(0), cfg))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    px = torch.rand((2, 256, 256, 3), generator=g, device="cuda") * 2 - 1
+    q = add_kernel_layout(quant.quantize_siglip_static(
+        p, quant.calibrate_siglip_act_scales(p, cfg, px), cfg))
+    want = {"PPP": "ln_qkv_int8", "XXX": "layer_norm_quant",
+            "LLL": "siglip_layer_int8", "PXP": "ln_qkv_int8",
+            "XPX": "attn_out_int8"}[route]
+    for tome in (0, DEPLOYED_TOME_R):
+        kw = dict(tome_r=tome, tome_floor=deployed_floor(256))
+        LAUNCHES.reset()
+        got = siglip_forward(q, px, cfg, **kw)["pooled"]
+        torch.cuda.synchronize()
+        assert LAUNCHES.snapshot().get(want, 0) >= 1, LAUNCHES.snapshot()
+        ref = siglip_forward(q, px, cfg, kernels=TWINS, **kw)["pooled"]
+        cos = torch.nn.functional.cosine_similarity(got.float(), ref.float(),
+                                                    dim=-1)
+        assert torch.isfinite(got.float()).all()
+        assert float(cos.min()) >= 0.99, (tome, cos)
+
+
+@pytest.mark.gpu
+def test_dynamic_int8_tower_matches_twins_on_card():
+    """A 2-layer base-256-width dynamic-int8 tower (quantize_siglip, no
+    activation scales: per-row int8 products, K9, K4) at B=2 against the
+    same tree through the twins: pooled cosine >= 0.99, its int8 GEMM and
+    K9 launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+    from tpudf_torch.convert import add_kernel_layout
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.core.precision import tree_map
+    from tpudf_torch.models.siglip import CONFIGS, init_siglip, siglip_forward
+    from tpudf_torch.ops.routes import TWINS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(CONFIGS["base-256"], layers=2)
+    p = tree_map(lambda t: t.cuda(),
+                 init_siglip(torch.Generator().manual_seed(0), cfg))
+    q = add_kernel_layout(quant.quantize_siglip(p))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    px = torch.rand((2, 256, 256, 3), generator=g, device="cuda") * 2 - 1
+    LAUNCHES.reset()
+    got = siglip_forward(q, px, cfg)["pooled"]
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {"int8_gemm": 8, "attention_qkv": 2,
+                                   "layer_norm_fused": 6}
+    ref = siglip_forward(q, px, cfg, kernels=TWINS)["pooled"]
+    cos = torch.nn.functional.cosine_similarity(got.float(), ref.float(),
+                                                dim=-1)
+    assert torch.isfinite(got.float()).all()
+    assert float(cos.min()) >= 0.99, cos

@@ -27,16 +27,28 @@
 // (S = 256) the bound is the bytes of qkv; K and V are re-read from L2 by
 // each of the S/64 query-tile blocks of a head. The score row is sized
 // at compile time; an instance capped at 64 keys serves S <= 64 (the ToMe
-// floors) with a quarter of the registers, so more blocks fit an SM.
-#include "common.cuh"
+// floors) with a quarter of the registers, so more blocks fit an SM. The
+// per-warp core (scores, softmax, p . v) is `attn_rows` in attn_tile.cuh.
+//
+// K6, replacing tpudf/ops/int8_block.py `_attn_out_kernel` (wrapper
+// `attn_out_int8`): qkv (B, S, 3Wa) bf16 and the residual x (B, S, W) ->
+// per-head attention -> int8 quant of the f32 o -> int8 out-projection ->
+// dequant + bias + residual -> bf16, in ONE launch over (128-query tile,
+// image) blocks of 8 warps (attn_out_tile in attn_tile.cuh). The TPU kernel
+// kept the attention output in VMEM; here it stays in a (128 x Wa) int8
+// tile in shared memory. Per block the heads run one after another, K and
+// V re-read from L2; the out-projection's weight streams from L2 for each
+// block. 128 query rows (not the TPU kernel's 256, nor the K1 attention's
+// 64) give the out-projection the GEMM's own 128 x 128 tile and keep the
+// block within shared memory (K, V, Q 92 KB and the o tile 100 KB at S =
+// 256, Wa = 768). At the detect core's S = 256 the bound is the
+// tensor-core operations.
+#include "attn_tile.cuh"
 
 namespace tpudf {
 
-constexpr int kHd = 64;                  // head_dim the kernel is built for
-constexpr int kMaxSeq = 256;
 constexpr int kQTile = 64;               // query rows per block
 constexpr int kAttnWarps = 4;            // 16 query rows each
-constexpr int kRowLd = kHd + 8;          // padded smem row: 144 bytes
 
 // kSeqCap: the most keys a score row holds (64 or kMaxSeq)
 template <bool kI8Out, int kSeqCap>
@@ -59,132 +71,21 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
   const size_t row3 = static_cast<size_t>(3) * wa;         // qkv row stride
   const __nv_bfloat16* base =
       qkv + static_cast<size_t>(b) * seq * row3 + h * kHd;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < seq_pad * 8; i += blockDim.x) {
-    const int s = i >> 3, c = (i & 7) * 8;
-    uint4 kv = zero, vv = zero;
-    if (s < seq) {
-      kv = *reinterpret_cast<const uint4*>(base + s * row3 + wa + c);
-      vv = *reinterpret_cast<const uint4*>(base + s * row3 + 2 * wa + c);
-    }
-    *reinterpret_cast<uint4*>(ks + s * kRowLd + c) = kv;
-    *reinterpret_cast<uint4*>(vs + s * kRowLd + c) = vv;
-  }
-  for (int i = threadIdx.x; i < kQTile * 8; i += blockDim.x) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 qv = zero;
-    if (q0 + r < seq)
-      qv = *reinterpret_cast<const uint4*>(base + (q0 + r) * row3 + c);
-    *reinterpret_cast<uint4*>(qs + r * kRowLd + c) = qv;
-  }
+  load_rows(ks, base + wa, row3, 0, seq_pad, seq);
+  load_rows(vs, base + 2 * wa, row3, 0, seq_pad, seq);
+  load_rows(qs, base, row3, q0, kQTile, seq);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * 16;                 // this warp's first tile row
   if (q0 + r0 >= seq) return;               // no more barriers below
   const int g = lane >> 2, t = lane & 3;
-  const int ntiles = seq_pad / 8;           // even
-  constexpr int kKeyTiles = kSeqCap / 8;    // n8 tiles of keys in a row
-
-  // ---- scores: the warp's 16 rows x seq_pad keys, in registers
-  unsigned qf[kHd / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < kHd / 16; ++kc)
-    ldsm_x4(qf[kc], qs + (r0 + (lane & 15)) * kRowLd + kc * 16 +
-                        (lane >> 4) * 8);
-  float sc[kKeyTiles][4];
-#pragma unroll
-  for (int j = 0; j < kKeyTiles; j += 2) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sc[j][e] = sc[j + 1][e] = 0.0f;
-    if (j < ntiles) {
-      // K rows are the n index: matrices (keys j8..+7 | +8..+15) x
-      // (dims kc16..+7 | +8..+15) give b0, b1 of key tiles j and j+1
-      const __nv_bfloat16* kr =
-          ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * kRowLd +
-          ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int kc = 0; kc < kHd / 16; ++kc) {
-        unsigned r[4];
-        ldsm_x4(r, kr + kc * 16);
-        mma_bf16(sc[j], qf[kc], r[0], r[1]);
-        mma_bf16(sc[j + 1], qf[kc], r[2], r[3]);
-      }
-    }
-  }
-
-  // ---- softmax over each row: thread holds rows g (e = 0, 1) and g + 8
-  // (e = 2, 3) at keys 8j + 2t + (e & 1); a row lives in 4 lanes
-  const float neg_inf = __int_as_float(0xff800000);
-  float mx[2] = {neg_inf, neg_inf};
-#pragma unroll
-  for (int j = 0; j < kKeyTiles; ++j) {
-    if (j < ntiles) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j * 8 + 2 * t + (e & 1);
-        float s = neg_inf;
-        if (key < seq) {
-          s = __fmul_rn(sc[j][e], scale);
-          if (key_bias != nullptr)
-            s = __fadd_rn(s, key_bias[static_cast<size_t>(b) * seq + key]);
-        }
-        sc[j][e] = s;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s);
-      }
-    }
-  }
-  float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-  }
-#pragma unroll
-  for (int j = 0; j < kKeyTiles; ++j) {
-    if (j < ntiles) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float ex = expf(sc[j][e] - mx[e >> 1]);   // masked: exp(-inf)
-        sc[j][e] = ex;
-        sum[e >> 1] += ex;
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-  }
-
-  // ---- o = p . v: p = e / sum rounded to bf16 is the A fragment; V rows
-  // are the k index, ldmatrix.trans gives b0, b1 of two 8-dim tiles
   float o[kHd / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kHd / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] = 0.0f;
-#pragma unroll
-  for (int kc = 0; kc < kKeyTiles / 2; ++kc) {
-    if (2 * kc < ntiles) {
-      unsigned a[4];
-      a[0] = pack_bf16x2(sc[2 * kc][0] / sum[0], sc[2 * kc][1] / sum[0]);
-      a[1] = pack_bf16x2(sc[2 * kc][2] / sum[1], sc[2 * kc][3] / sum[1]);
-      a[2] = pack_bf16x2(sc[2 * kc + 1][0] / sum[0],
-                         sc[2 * kc + 1][1] / sum[0]);
-      a[3] = pack_bf16x2(sc[2 * kc + 1][2] / sum[1],
-                         sc[2 * kc + 1][3] / sum[1]);
-      const __nv_bfloat16* vr =
-          vs + (kc * 16 + (lane & 15)) * kRowLd + (lane >> 4) * 8;
-#pragma unroll
-      for (int dn = 0; dn < kHd / 16; ++dn) {
-        unsigned r[4];
-        ldsm_x4_trans(r, vr + dn * 16);
-        mma_bf16(o[2 * dn], a, r[0], r[1]);
-        mma_bf16(o[2 * dn + 1], a, r[2], r[3]);
-      }
-    }
-  }
+  attn_rows<kSeqCap>(o, qs + r0 * kRowLd, ks, vs, seq,
+                     key_bias == nullptr
+                         ? nullptr
+                         : key_bias + static_cast<size_t>(b) * seq,
+                     scale, lane);
 
   // ---- epilogue: rows q0 + r0 + g (e = 0, 1) and + 8 (e = 2, 3)
   const float inv_out = kI8Out ? 127.0f / act_scale[0] : 0.0f;
@@ -274,22 +175,6 @@ int launch_attention(const void* qkv, const void* key_bias,
 // The scores and products never touch device memory; each pass reads qkv
 // and g of its head once per tile from L2. The card's bound at the MTL
 // step's shape (16, 256, 2304) is the bytes of qkv, g and dqkv.
-
-// rows [r0, r0 + n) of a row-major (seq, ld) bf16 matrix (64 columns from
-// src) into shared rows of kRowLd, zero past seq
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          size_t ld, int r0, int n,
-                                          int seq) {
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < n * 8; i += blockDim.x) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 v = zero;
-    if (r0 + r < seq)
-      v = *reinterpret_cast<const uint4*>(src + (r0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * kRowLd + c) = v;
-  }
-}
 
 // A fragments (16 rows x 64 dims) of shared rows r0.. (ldmatrix)
 __device__ __forceinline__ void load_a_rows(unsigned (&f)[kHd / 16][4],
@@ -607,6 +492,27 @@ int launch_attention_bwd(const void* qkv, const void* gout, void* dqkv,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kSeqCap>
+__global__ void __launch_bounds__(kGemmThreads)
+    attn_out_i8_kernel(AttnOutArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  attn_out_tile<kSeqCap, kEpiResidual>(p, blockIdx.y, blockIdx.x * kOutQTile,
+                                       smem);
+}
+
+template <int kSeqCap>
+int launch_attn_out_capped(const AttnOutArgs& p, int batch, void* stream) {
+  const size_t smem = attn_out_smem(p.seq, p.proj.K);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_out_i8_kernel<kSeqCap>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.seq + kOutQTile - 1) / kOutQTile, batch);
+  attn_out_i8_kernel<kSeqCap><<<grid, kGemmThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace tpudf
 
 TPUDF_API int tpudf_attention_i8(const void* qkv, const void* key_bias,
@@ -630,4 +536,27 @@ TPUDF_API int tpudf_attention_bwd_bf16(const void* qkv, const void* gout,
                                        float scale, void* stream) {
   return tpudf::launch_attention_bwd(qkv, gout, dqkv, stats, batch, seq,
                                      heads, head_dim, scale, stream);
+}
+
+// K6: out (B*S, W) bf16 = bf16(x + (quant(attention(qkv)) . wt^T dequantised
+// + bias)); qkv (B, S, 3 * heads * 64), wt (W, heads * 64)
+TPUDF_API int tpudf_attn_out_i8(const void* qkv, const void* x,
+                                const void* wt, const void* col_scale,
+                                const void* bias, const void* act, void* out,
+                                int batch, int seq, int heads, int width,
+                                float scale, void* stream) {
+  using namespace tpudf;
+  if (batch <= 0 || seq <= 0) return 0;
+  const int wa = heads * kHd;
+  if (seq > kMaxSeq || width % kBN != 0 || wa > 1024)
+    return cudaErrorInvalidValue;
+  AttnOutArgs p{static_cast<const __nv_bfloat16*>(qkv),
+                GemmArgs{nullptr, static_cast<const int8_t*>(wt),
+                         static_cast<const float*>(col_scale),
+                         static_cast<const float*>(bias),
+                         static_cast<const float*>(act), x, out, nullptr,
+                         nullptr, batch * seq, width, wa},
+                seq, heads, scale};
+  if (seq <= 64) return launch_attn_out_capped<64>(p, batch, stream);
+  return launch_attn_out_capped<kMaxSeq>(p, batch, stream);
 }

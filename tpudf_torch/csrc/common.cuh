@@ -38,30 +38,44 @@ __device__ __forceinline__ int8_t quant_i8(float y, float inv) {
   return static_cast<int8_t>(q);
 }
 
-// One warp holds one row of up to 1024 bf16 values (4 chunks of 8 per
-// lane) and computes its f32 mean and 1/sqrt(E[x^2] - E[x]^2 + eps).
+// eight consecutive row values as f32 (one 16-byte load of bf16, two of f32)
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
+  uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(e[j]);
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 lo = reinterpret_cast<const float4*>(p)[0];
+  const float4 hi = reinterpret_cast<const float4*>(p)[1];
+  f[0] = lo.x; f[1] = lo.y; f[2] = lo.z; f[3] = lo.w;
+  f[4] = hi.x; f[5] = hi.y; f[6] = hi.z; f[7] = hi.w;
+}
+
+// One warp holds one row of up to 1024 values (bf16 or f32; 4 chunks of 8
+// per lane) and computes its f32 mean and 1/sqrt(E[x^2] - E[x]^2 + eps).
 struct RowLN {
   float v[32];
   float mu, rstd;
 };
 
-__device__ __forceinline__ void load_row_ln(const __nv_bfloat16* row,
-                                            int width, float eps, int lane,
-                                            RowLN& r) {
+template <typename T>
+__device__ __forceinline__ void load_row_ln(const T* row, int width,
+                                            float eps, int lane, RowLN& r) {
   const int nchunks = width / 8;
   float s = 0.0f, ss = 0.0f;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const int chunk = lane + c * 32;
     if (chunk < nchunks) {
-      uint4 raw = *reinterpret_cast<const uint4*>(row + chunk * 8);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      float f[8];
+      load8(row + chunk * 8, f);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float f = __bfloat162float(e[j]);
-        r.v[c * 8 + j] = f;
-        s += f;
-        ss += f * f;
+        r.v[c * 8 + j] = f[j];
+        s += f[j];
+        ss += f[j] * f[j];
       }
     } else {
 #pragma unroll

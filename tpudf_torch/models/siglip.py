@@ -12,9 +12,12 @@ block leaves stacked on a leading L axis; int8 leaves {q, scale}):
              "fc2_w","fc2_b"},
   }
 Pixels are NHWC. On the card the tower runs the static-W8A8 blocks through
-kernels K1 and K2, the float (bf16) blocks through K13 (LN1 + QKV), K9
-(attention), K13 (out-proj + residual) and K14 (LN2 + MLP + residual), and
-its bf16 layer norms through K4. `tower_params` derives once what the
+kernels K1 and K2 by default, or through the route `TPUDF_INT8_KERNELS`
+names (K5, K6, K7, K8 and the int8 products; `_static_int8_block`), the
+dynamic-int8 blocks through the int8 products, K9 and K4, the float
+(bf16) blocks through K13 (LN1 + QKV), K9 (attention), K13 (out-proj +
+residual) and K14 (LN2 + MLP + residual), and its bf16 layer norms
+through K4. `tower_params` derives once what the
 forward reads: float blocks in the compute dtype, int8 blocks with the
 kernel layout.
 
@@ -29,6 +32,7 @@ optionally on a static-W8A8 copy of those k layers (`frozen_blocks_q`).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import torch
@@ -38,7 +42,10 @@ from tpudf_torch.convert import add_kernel_layout
 from tpudf_torch.core.precision import (DEFAULT_POLICY, Policy, cast_tree,
                                         round_tree, tree_map)
 from tpudf_torch.ops.attention import attention_qkv_vjp
-from tpudf_torch.ops.quant import is_quantized, is_static_quantized
+from tpudf_torch.ops.int8_block import layer_int8_eligible
+from tpudf_torch.ops.quant import (int8_matmul, int8_matmul_pre,
+                                   int8_matmul_static, is_quantized,
+                                   is_static_quantized)
 from tpudf_torch.ops.routes import KERNELS, KernelSet
 from tpudf_torch.ops.tome import merge_schedule, merge_step
 from tpudf_torch.utils.nn import gelu_tanh
@@ -259,19 +266,42 @@ def _float_block(x, bp, cfg: SigLIPConfig, logit_bias, kernels):
     return kernels.mlp_block_fused(x, bp["ln2"], bp["mlp"], cfg.ln_eps)
 
 
-def _block_apply(x, bp, cfg: SigLIPConfig, logit_bias=None, emit_sumsq=False,
-                 kernels: KernelSet = KERNELS):
-    """One tower block. emit_sumsq=True → (out, (B, S) Σ out²) for the ToMe
-    merge that follows."""
-    if not is_quantized(bp):
-        out = _float_block(x, bp, cfg, logit_bias, kernels)
-        if emit_sumsq:
-            o32 = out.float()
-            return out, torch.sum(o32 * o32, dim=-1)
-        return out
-    if not is_static_quantized(bp):
-        raise NotImplementedError("dynamic-int8 blocks (quantize_siglip "
-                                  "without act_scales) are not ported")
+def _with_sumsq(out):
+    o32 = out.float()
+    return out, torch.sum(o32 * o32, dim=-1)
+
+
+def _dynamic_int8_block(x, bp, cfg: SigLIPConfig, logit_bias, kernels):
+    """quantize_siglip without act_scales: per-row dynamic activation
+    scales on the four projections (quant.int8_matmul, XLA in JAX), the
+    attention through K9 and the layer norms through K4."""
+    cdt = x.dtype
+    attn, mlp_p = bp["attn"], bp["mlp"]
+
+    def mm(a, wq):
+        return int8_matmul(a, wq, a.dtype, acc=kernels.int8_acc)
+
+    h = layer_norm(x, bp["ln1"], cfg.ln_eps, kernels)
+    qkv = mm(h, attn["qkv_w"]) + attn["qkv_b"].to(cdt)
+    o = kernels.attention_qkv(qkv, cfg.heads, cfg.head_dim,
+                              logit_bias=logit_bias)
+    x = x + (mm(o, attn["out_w"]) + attn["out_b"].to(cdt))
+    h = layer_norm(x, bp["ln2"], cfg.ln_eps, kernels)
+    h = gelu_tanh(mm(h, mlp_p["fc1_w"]) + mlp_p["fc1_b"].to(cdt))
+    return x + (mm(h, mlp_p["fc2_w"]) + mlp_p["fc2_b"].to(cdt))
+
+
+def _static_int8_block(x, bp, cfg: SigLIPConfig, logit_bias, emit_sumsq,
+                       kernels):
+    """JAX `_block_apply_impl`'s static-W8A8 branch. TPUDF_INT8_KERNELS
+    (default FPP, read per block as JAX reads it) picks each sublayer's
+    route: first letter F = K1, P = K5, X = K8 + int8_matmul_pre; second
+    (after P or X) P = K6, X = K9 + int8_matmul_static; third P = K2, X =
+    K8 + int8_matmul_pre + GELU + int8_matmul_static. LLL runs K7, the
+    whole layer, where `layer_int8_eligible` holds and there is no logit
+    bias; otherwise FPP. The X routes keep JAX's dtypes: the vectors are
+    cast to the compute dtype before their adds, and int8_matmul_pre
+    rounds to bf16 before the bias."""
     sc = bp["act_scales"]
     heads = cfg.heads
     d = cfg.head_dim
@@ -283,13 +313,69 @@ def _block_apply(x, bp, cfg: SigLIPConfig, logit_bias=None, emit_sumsq=False,
         if bp["attn"]["qkv_w"]["q"].shape[1] != 3 * heads * d:
             raise ValueError("lane-misaligned heads need "
                              "quant.prepad_siglip_static first")
-    x = kernels.attn_sublayer_int8(
-        x, bp["ln1"], bp["attn"]["qkv_w"], bp["attn"]["qkv_b"],
-        bp["attn"]["out_w"], bp["attn"]["out_b"], sc["qkv"], sc["out"],
-        heads, d, cfg.ln_eps, attn_scale, logit_bias=logit_bias)
-    return kernels.mlp_block_fused_int8(
-        x, bp["ln2"], bp["mlp"], {"fc1": sc["fc1"], "fc2": sc["fc2"]},
-        cfg.ln_eps, emit_sumsq=emit_sumsq)
+    attn, mlp_p = bp["attn"], bp["mlp"]
+    cdt = x.dtype
+    variant = os.environ.get("TPUDF_INT8_KERNELS", "FPP")
+    if variant == "LLL":
+        if layer_int8_eligible(x, bp, heads, d, logit_bias):
+            out = kernels.siglip_layer_int8(x, bp, heads, d, cfg.ln_eps,
+                                            attn_scale)
+            return _with_sumsq(out) if emit_sumsq else out
+        variant = "FPP"
+    if variant[0] == "F":
+        x = kernels.attn_sublayer_int8(
+            x, bp["ln1"], attn["qkv_w"], attn["qkv_b"], attn["out_w"],
+            attn["out_b"], sc["qkv"], sc["out"], heads, d, cfg.ln_eps,
+            attn_scale, logit_bias=logit_bias)
+    else:
+        if variant[0] == "P":
+            qkv = kernels.ln_qkv_int8(x, bp["ln1"], attn["qkv_w"],
+                                      attn["qkv_b"], sc["qkv"], cfg.ln_eps)
+        else:
+            hq = kernels.layer_norm_quant(x, bp["ln1"]["scale"],
+                                          bp["ln1"]["bias"], sc["qkv"],
+                                          cfg.ln_eps)
+            qkv = (int8_matmul_pre(hq, attn["qkv_w"], sc["qkv"],
+                                   acc=kernels.int8_acc)
+                   + attn["qkv_b"].to(cdt)).to(cdt)
+        if variant[1] == "P":
+            x = kernels.attn_out_int8(qkv, x, attn["out_w"], attn["out_b"],
+                                      sc["out"], heads, d, attn_scale,
+                                      logit_bias=logit_bias)
+        else:
+            o = kernels.attention_qkv(qkv, heads, d, attn_scale,
+                                      logit_bias=logit_bias)
+            x = x + (int8_matmul_static(o, attn["out_w"], sc["out"],
+                                        acc=kernels.int8_acc)
+                     + attn["out_b"].to(cdt))
+    if variant[2] == "P":
+        return kernels.mlp_block_fused_int8(
+            x, bp["ln2"], mlp_p, {"fc1": sc["fc1"], "fc2": sc["fc2"]},
+            cfg.ln_eps, emit_sumsq=emit_sumsq)
+    hq = kernels.layer_norm_quant(x, bp["ln2"]["scale"], bp["ln2"]["bias"],
+                                  sc["fc1"], cfg.ln_eps)
+    h = gelu_tanh(int8_matmul_pre(hq, mlp_p["fc1_w"], sc["fc1"],
+                                  acc=kernels.int8_acc)
+                  + mlp_p["fc1_b"].to(cdt))
+    out = x + (int8_matmul_static(h, mlp_p["fc2_w"], sc["fc2"],
+                                  acc=kernels.int8_acc)
+               + mlp_p["fc2_b"].to(cdt))
+    return _with_sumsq(out) if emit_sumsq else out
+
+
+def _block_apply(x, bp, cfg: SigLIPConfig, logit_bias=None, emit_sumsq=False,
+                 kernels: KernelSet = KERNELS):
+    """One tower block. emit_sumsq=True → (out, (B, S) Σ out²) for the ToMe
+    merge that follows: from K2's epilogue on the P-MLP routes, else from
+    the bf16 output, as JAX's `_block_apply` does."""
+    if is_static_quantized(bp):
+        return _static_int8_block(x, bp, cfg, logit_bias, emit_sumsq,
+                                  kernels)
+    if is_quantized(bp):
+        out = _dynamic_int8_block(x, bp, cfg, logit_bias, kernels)
+    else:
+        out = _float_block(x, bp, cfg, logit_bias, kernels)
+    return _with_sumsq(out) if emit_sumsq else out
 
 
 def _compute_blocks(blocks, cdt):

@@ -57,12 +57,13 @@ MAX_SEQ = 256
 
 
 def attention_qkv_reference(qkv, heads, head_dim, scale=None,
-                            logit_bias=None):
+                            logit_bias=None, out_dtype=None):
     """(B, S, 3W) fused [q | k | v] → (B, S, W), full softmax with an
     optional (B, S) per-key additive logit bias (ToMe proportional
     attention). Scores and softmax in f32 from the operands' values; the
     probabilities are cast to v's dtype before the value product, whose
-    f32 sum is returned in v's dtype (JAX's einsum semantics)."""
+    f32 sum is returned in v's dtype (JAX's einsum semantics), or in
+    out_dtype (the whole-layer kernel K7 quantises the f32 sum)."""
     scale = scale if scale is not None else head_dim ** -0.5
     b, s, w3 = qkv.shape
     w = w3 // 3
@@ -74,7 +75,7 @@ def attention_qkv_reference(qkv, heads, head_dim, scale=None,
         logits = logits + logit_bias[:, None, None, :].float()
     probs = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
-    return o.to(v.dtype).reshape(b, s, w)
+    return o.to(out_dtype or v.dtype).reshape(b, s, w)
 
 
 def _attention_qkv_cuda(qkv, heads, head_dim, scale, logit_bias):

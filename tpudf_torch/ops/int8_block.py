@@ -1,22 +1,40 @@
-"""The static-W8A8 attention sublayer — kernel K1.
+"""The static-W8A8 block's kernels: the attention sublayer K1, its split
+halves K5 and K6, and the whole layer K7.
 
-x → LN (f32 E[x²]−E[x]²) → static int8 quant → int8 QKV GEMM (int32
-accumulate) → dequant + bias → bf16 qkv → per-image, per-head full softmax
-with an optional per-key bias log(size) → p cast to bf16 for AV → int8 quant
-→ int8 out-proj → dequant + bias + residual.
+K1 (`attn_sublayer_int8`): x → LN (f32 E[x²]−E[x]²) → static int8 quant →
+int8 QKV GEMM (int32 accumulate) → dequant + bias → bf16 qkv → per-image,
+per-head full softmax with an optional per-key bias log(size) → p cast to
+bf16 for AV → int8 quant → int8 out-proj → dequant + bias + residual.
+Replaces tpudf/ops/int8_block.py `_attn_sublayer_kernel`. The CUDA kernels
+live in `csrc/int8_gemm.cu` and `csrc/attention.cu` and run as four
+launches: LN + quant (one bf16 read, one int8 write), the QKV GEMM, the
+attention, the out-proj GEMM. The TPU kernel kept the int8 LN output, the
+bf16 qkv and the attention output in VMEM; here they pass through device
+memory (int8, bf16, int8), and keeping them on-chip is later work. On the
+card the GEMMs are bound by tensor-core operations (mma.sync s8, int32
+accumulate); the attention runs both of its products on the tensor cores
+(mma.sync bf16) over shared-memory K/V. Its twin is `ln_qkv_reference`
+then `attn_out_reference`, the JAX package's reference forms.
 
-Replaces tpudf/ops/int8_block.py `_attn_sublayer_kernel` (wrapper
-`attn_sublayer_int8`). The CUDA kernels live in `csrc/int8_gemm.cu` and
-`csrc/attention.cu` and run as four launches: LN + quant (one bf16 read,
-one int8 write), the QKV GEMM, the attention, the out-proj GEMM. The TPU
-kernel kept the int8 LN output, the bf16 qkv and the attention output in
-VMEM; here they pass through device memory (int8, bf16, int8), and keeping
-them on-chip is later work. On the card the GEMMs are bound by tensor-core
-operations (mma.sync s8, int32 accumulate); the attention runs both of its
-products on the tensor cores (mma.sync bf16) over shared-memory K/V.
+K5 (`ln_qkv_int8`, replacing `_ln_qkv_kernel`): x → LN → quant → int8 QKV
+→ dequant + bias, ONE launch (`csrc/int8_gemm.cu`): each block quantises
+its rows' LN into shared memory in the GEMM's prologue, so the int8 LN
+output never reaches device memory. Twin: `ln_qkv_reference`.
 
-The plain twin is `_ln_qkv_reference` then `_attn_out_reference`, the JAX
-package's reference forms.
+K6 (`attn_out_int8`, replacing `_attn_out_kernel`): qkv + residual x →
+attention → int8 quant of the f32 output → int8 out-proj → dequant + bias
++ residual, ONE launch (`csrc/attention.cu`). With a logit bias the JAX
+function takes its reference route, and so does this one: K9 with the
+bias, then the int8 out-proj GEMM with the residual epilogue. Twin:
+`attn_out_reference` (it quantises the bf16-rounded attention output, the
+JAX reference form; the kernel quantises the f32 one, the TPU kernel's).
+
+K7 (`siglip_layer_int8`, replacing `_layer_kernel`): the whole layer in
+ONE cooperative launch (`csrc/layer_int8.cu`): K5's, K6's and K2's tiles
+in four grid-synchronised phases; the attention sublayer's residual stays
+f32 into LN2 and the final add. JAX has no reference form of it (off a TPU
+it returns None); the twin `siglip_layer_int8_reference` is written from
+`_layer_kernel`'s math.
 """
 
 from __future__ import annotations
@@ -25,71 +43,56 @@ import torch
 
 from tpudf_torch.core.backend import LAUNCHES
 from tpudf_torch.ops import _build
-from tpudf_torch.ops.attention import attention_qkv_reference
-from tpudf_torch.ops.quant import int8_mm, quant_rows
+from tpudf_torch.ops.attention import (HEAD_DIM, MAX_SEQ, attention_qkv,
+                                       attention_qkv_reference)
+from tpudf_torch.ops.layernorm import MAX_WIDTH, ln_quant_cuda, ln_rows_f32
+from tpudf_torch.ops.quant import (KERNEL_GEMM, f32_scalar, int8_mm,
+                                   quant_rows, transposed)
+from tpudf_torch.utils.nn import gelu_tanh
 
 KERNEL = "attn_sublayer_int8"
+KERNEL_LN_QKV = "ln_qkv_int8"
+KERNEL_ATTN_OUT = "attn_out_int8"
+KERNEL_LAYER = "siglip_layer_int8"
 
 
-def ln_rows_f32(x2d, g, b, eps):
-    """f32 LN of rows, without the cast back (what the int8 quant reads)."""
-    x32 = x2d.float()
-    mu = torch.mean(x32, -1, keepdim=True)
-    var = torch.clamp(torch.mean(x32 * x32, -1, keepdim=True) - mu * mu,
-                      min=0.0)
-    return (x32 - mu) * torch.rsqrt(var + eps) * g.float() + b.float()
+def ln_qkv_reference(x, ln_params, wq, bias, act_scale, eps=1e-6):
+    """Plain PyTorch twin of K5 on any device, the JAX package's reference
+    form: (..., W) → (..., N) in x's dtype."""
+    a = f32_scalar(act_scale, x.device)
+    w = x.shape[-1]
+    q = quant_rows(ln_rows_f32(x.reshape(-1, w), ln_params["scale"],
+                               ln_params["bias"], eps), a)
+    acc = int8_mm(q, wq["q"])
+    out = acc.float() * ((a / 127.0) * wq["scale"].float()) + bias.float()
+    return out.to(x.dtype).reshape(*x.shape[:-1], -1)
 
 
-def _ln_qkv_reference(x2d, g, b, wq, ws, bias, a, eps):
-    a = a.float()
-    q = quant_rows(ln_rows_f32(x2d, g, b, eps), a)
-    acc = int8_mm(q, wq)
-    return (acc.float() * ((a / 127.0) * ws.float()) + bias.float()
-            ).to(x2d.dtype)
-
-
-def _attn_out_reference(qkv, x, wq, ws, bias, a, heads, head_dim, scale,
-                        logit_bias=None):
+def attn_out_reference(qkv, x, wq, bias, act_scale, heads, head_dim,
+                       scale=None, *, logit_bias=None):
+    """Plain PyTorch twin of K6 on any device, the JAX package's reference
+    form: it quantises the attention output rounded to qkv's dtype."""
+    scale = scale if scale is not None else head_dim ** -0.5
     o = attention_qkv_reference(qkv, heads, head_dim, scale, logit_bias)
-    a = a.float()
+    a = f32_scalar(act_scale, qkv.device)
     b, s, wa = o.shape
     q8 = quant_rows(o.float(), a)
-    acc = int8_mm(q8.reshape(b * s, wa), wq).reshape(b, s, -1)
-    proj = acc.float() * ((a / 127.0) * ws.float()) + bias.float()
+    acc = int8_mm(q8.reshape(b * s, wa), wq["q"]).reshape(b, s, -1)
+    proj = acc.float() * ((a / 127.0) * wq["scale"].float()) + bias.float()
     return (x.float() + proj).to(x.dtype)
 
 
 def attn_sublayer_reference(x, ln_params, qkv_wq, qkv_b, out_wq, out_b,
                             a_qkv, a_out, heads, head_dim, eps=1e-6,
                             scale=None, *, logit_bias=None):
-    """Plain PyTorch twin of K1 on any device."""
-    b, s, w = x.shape
-    scale = scale if scale is not None else head_dim ** -0.5
-    qkv = _ln_qkv_reference(x.reshape(-1, w), ln_params["scale"],
-                            ln_params["bias"], qkv_wq["q"], qkv_wq["scale"],
-                            qkv_b, a_qkv, eps).reshape(b, s, -1)
-    return _attn_out_reference(qkv, x, out_wq["q"], out_wq["scale"], out_b,
-                               a_out, heads, head_dim, scale, logit_bias)
-
-
-def transposed(wq):
-    """(N, K) int8 layout the GEMM kernel reads; derived once by
-    tpudf_torch.convert.add_kernel_layout, else here."""
-    qt = wq.get("qT")
-    return qt if qt is not None else wq["q"].t().contiguous()
+    """Plain PyTorch twin of K1 on any device: K5's twin, then K6's."""
+    qkv = ln_qkv_reference(x, ln_params, qkv_wq, qkv_b, a_qkv, eps)
+    return attn_out_reference(qkv, x, out_wq, out_b, a_out, heads, head_dim,
+                              scale, logit_bias=logit_bias)
 
 
 def _f32(t):
     return t.float().contiguous()
-
-
-def ln_quant_cuda(x2d, ln_params, a, eps):
-    """LN + static int8 quant of bf16 rows → int8 rows (one launch)."""
-    m, w = x2d.shape
-    out = torch.empty((m, w), dtype=torch.int8, device=x2d.device)
-    _build.call("tpudf_ln_quant_i8", x2d, _f32(ln_params["scale"]),
-                _f32(ln_params["bias"]), _f32(a), out, m, w, float(eps))
-    return out
 
 
 GEMM_BF16, GEMM_GELU_I8, GEMM_RESIDUAL = 0, 1, 2
@@ -153,3 +156,181 @@ def attn_sublayer_int8(x, ln_params, qkv_wq, qkv_b, out_wq, out_b,
     return _attn_sublayer_cuda(x, ln_params, qkv_wq, qkv_b, out_wq, out_b,
                                a_qkv, a_out, heads, head_dim, eps, scale,
                                logit_bias)
+
+
+# ------------------------------------------------------------------ K5
+
+def ln_qkv_int8(x, ln_params, wq, bias, act_scale, eps=1e-6):
+    """(..., W) → (..., N): fused LN + static quant + int8 QKV projection.
+    wq: {q: (W, N) int8, scale: (N,), optional qT}. CPU tensors take the
+    plain twin; CUDA tensors launch K5 (bf16, W % 64 == 0, W <= 1024,
+    N % 128 == 0) or raise."""
+    if not x.is_cuda:
+        return ln_qkv_reference(x, ln_params, wq, bias, act_scale, eps)
+    lead, w = x.shape[:-1], x.shape[-1]
+    wt = transposed(wq)
+    n = wt.shape[0]
+    if (x.dtype != torch.bfloat16 or w % 64 or w > MAX_WIDTH or n % 128
+            or wt.shape[1] != w):
+        raise ValueError(f"K5 takes bf16 x of width 64k <= {MAX_WIDTH} and "
+                         f"N % 128 == 0, got {x.dtype} W={w} weight "
+                         f"{tuple(wt.shape)}")
+    x2d = x.reshape(-1, w).contiguous()
+    m = x2d.shape[0]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    _build.call("tpudf_ln_qkv_i8", x2d, _f32(ln_params["scale"]),
+                _f32(ln_params["bias"]), wt, _f32(wq["scale"]), _f32(bias),
+                f32_scalar(act_scale, x.device), out, m, n,
+                w, float(eps))
+    LAUNCHES.hit(KERNEL_LN_QKV)
+    return out.reshape(*lead, n)
+
+
+# ------------------------------------------------------------------ K6
+
+def _attn_out_biased_cuda(qkv, x, wq, bias, a, heads, head_dim, scale,
+                          logit_bias):
+    """JAX's reference route of a biased call, on the card: K9 with the
+    bias, then the int8 out-projection GEMM with the residual epilogue."""
+    b, s, w = x.shape
+    o = attention_qkv(qkv, heads, head_dim, scale, logit_bias=logit_bias)
+    o8 = quant_rows(o.float(), a).reshape(b * s, -1)
+    out = i8_gemm_cuda(o8, transposed(wq), wq["scale"], bias, a,
+                       GEMM_RESIDUAL,
+                       residual=x.reshape(b * s, w).contiguous())
+    LAUNCHES.hit(KERNEL_GEMM)
+    return out.reshape(b, s, w)
+
+
+def attn_out_int8(qkv, x, wq, bias, act_scale, heads, head_dim, scale=None,
+                  *, logit_bias=None):
+    """qkv (B, S, 3Wa) + residual x (B, S, W) → (B, S, W): attention, int8
+    quant, int8 out-projection, dequant + bias + residual. CPU tensors take
+    the plain twin; CUDA tensors launch K6 (bf16, head_dim 64, S <= 256,
+    Wa <= 1024, W % 128 == 0) or raise; with a logit bias, K9 and the
+    out-projection GEMM."""
+    scale = scale if scale is not None else head_dim ** -0.5
+    if not qkv.is_cuda:
+        return attn_out_reference(qkv, x, wq, bias, act_scale, heads,
+                                  head_dim, scale, logit_bias=logit_bias)
+    a = f32_scalar(act_scale, qkv.device)
+    if logit_bias is not None:
+        return _attn_out_biased_cuda(qkv, x, wq, bias, a, heads, head_dim,
+                                     scale, logit_bias)
+    b, s, w3 = qkv.shape
+    w = x.shape[-1]
+    wt = transposed(wq)
+    wa = heads * head_dim
+    if (qkv.dtype != torch.bfloat16 or x.dtype != torch.bfloat16
+            or head_dim != HEAD_DIM or s > MAX_SEQ or w3 != 3 * wa
+            or wa > 1024 or w % 128 or tuple(wt.shape) != (w, wa)
+            or x.shape != (b, s, w)):
+        raise ValueError(f"K6 takes bf16 qkv (B, S <= {MAX_SEQ}, 3 heads "
+                         f"64) and x (B, S, W % 128 == 0), got "
+                         f"{qkv.dtype} {tuple(qkv.shape)}, {x.dtype} "
+                         f"{tuple(x.shape)}, heads {heads} head_dim "
+                         f"{head_dim}")
+    out = torch.empty((b * s, w), dtype=torch.bfloat16, device=x.device)
+    _build.call("tpudf_attn_out_i8", qkv.contiguous(),
+                x.reshape(b * s, w).contiguous(), wt, _f32(wq["scale"]),
+                _f32(bias), a, out, b, s, heads, w, float(scale))
+    LAUNCHES.hit(KERNEL_ATTN_OUT)
+    return out.reshape(b, s, w)
+
+
+# ------------------------------------------------------------------ K7
+
+def layer_int8_eligible(x, bp, heads, head_dim, logit_bias=None):
+    """JAX's structural conditions for the whole-layer kernel (not its
+    13 MB VMEM fit): no logit bias, head slots not padded, head_dim 64,
+    W, the MLP width and S aligned. Otherwise the block routes FPP."""
+    _, s, w = x.shape
+    attn = bp["attn"]
+    inter = bp["mlp"]["fc1_w"]["q"].shape[-1]
+    return (logit_bias is None and head_dim == HEAD_DIM
+            and heads * head_dim == w
+            and tuple(attn["qkv_w"]["q"].shape) == (w, 3 * w)
+            and tuple(attn["out_w"]["q"].shape) == (w, w)
+            and w % 128 == 0 and inter % 128 == 0 and s % 8 == 0)
+
+
+def _scales(bp, device):
+    sc = bp["act_scales"]
+    return [f32_scalar(sc[k], device) for k in ("qkv", "out", "fc1", "fc2")]
+
+
+def siglip_layer_int8_reference(x, bp, heads, head_dim, eps=1e-6,
+                                scale=None):
+    """Plain PyTorch twin of K7, from `_layer_kernel`'s math: qkv rounded
+    to bf16 (at any x dtype), the attention output quantised from f32, the
+    attention sublayer's residual kept f32 into LN2 and the final add
+    ((x + acc·s) + b, the TPU kernel's order), one cast at the end."""
+    b, s, w = x.shape
+    scale = scale if scale is not None else head_dim ** -0.5
+    attn, mlp = bp["attn"], bp["mlp"]
+    aq, ao, a1, a2 = _scales(bp, x.device)
+
+    def deq(acc, a, wq):
+        return acc.float() * ((a / 127.0) * wq["scale"].float())
+
+    x32 = x.float().reshape(b * s, w)
+    q8 = quant_rows(ln_rows_f32(x32, bp["ln1"]["scale"], bp["ln1"]["bias"],
+                                eps), aq)
+    qkv = (deq(int8_mm(q8, attn["qkv_w"]["q"]), aq, attn["qkv_w"])
+           + attn["qkv_b"].float()).to(torch.bfloat16).reshape(b, s, 3 * w)
+    o = attention_qkv_reference(qkv, heads, head_dim, scale,
+                                out_dtype=torch.float32)
+    o8 = quant_rows(o.reshape(b * s, w), ao)
+    x32 = (x32 + deq(int8_mm(o8, attn["out_w"]["q"]), ao, attn["out_w"])
+           + attn["out_b"].float())
+    q1 = quant_rows(ln_rows_f32(x32, bp["ln2"]["scale"], bp["ln2"]["bias"],
+                                eps), a1)
+    h1 = gelu_tanh(deq(int8_mm(q1, mlp["fc1_w"]["q"]), a1, mlp["fc1_w"])
+                   + mlp["fc1_b"].float())
+    q2 = quant_rows(h1, a2)
+    out = (deq(int8_mm(q2, mlp["fc2_w"]["q"]), a2, mlp["fc2_w"])
+           + mlp["fc2_b"].float())
+    return (x32 + out).to(x.dtype).reshape(b, s, w)
+
+
+def _layer_cuda(x, bp, heads, head_dim, eps, scale):
+    b, s, w = x.shape
+    attn, mlp = bp["attn"], bp["mlp"]
+    inter = mlp["fc1_w"]["q"].shape[-1]
+    if (x.dtype != torch.bfloat16 or s > MAX_SEQ or w > MAX_WIDTH
+            or not layer_int8_eligible(x, bp, heads, head_dim)):
+        raise ValueError(f"K7 takes bf16 x with head_dim 64, unpadded "
+                         f"heads, W % 128 == 0, W <= {MAX_WIDTH}, S % 8 == 0 "
+                         f"and S <= {MAX_SEQ}, got {x.dtype} "
+                         f"{tuple(x.shape)} heads {heads} head_dim "
+                         f"{head_dim} MLP {inter}")
+    m, dev = b * s, x.device
+    qkv_ws = torch.empty((m, 3 * w), dtype=torch.bfloat16, device=dev)
+    x1_ws = torch.empty((m, w), dtype=torch.float32, device=dev)
+    hid_ws = torch.empty((m, inter), dtype=torch.int8, device=dev)
+    out = torch.empty((m, w), dtype=torch.bfloat16, device=dev)
+    acts = torch.stack(_scales(bp, dev))
+    _build.call(
+        "tpudf_layer_i8", x.reshape(m, w).contiguous(),
+        _f32(bp["ln1"]["scale"]), _f32(bp["ln1"]["bias"]),
+        transposed(attn["qkv_w"]), _f32(attn["qkv_w"]["scale"]),
+        _f32(attn["qkv_b"]), transposed(attn["out_w"]),
+        _f32(attn["out_w"]["scale"]), _f32(attn["out_b"]),
+        _f32(bp["ln2"]["scale"]), _f32(bp["ln2"]["bias"]),
+        transposed(mlp["fc1_w"]), _f32(mlp["fc1_w"]["scale"]),
+        _f32(mlp["fc1_b"]), transposed(mlp["fc2_w"]),
+        _f32(mlp["fc2_w"]["scale"]), _f32(mlp["fc2_b"]), acts, qkv_ws,
+        x1_ws, hid_ws, out, b, s, heads, w, inter, float(eps), float(scale))
+    LAUNCHES.hit(KERNEL_LAYER)
+    return out.reshape(b, s, w)
+
+
+def siglip_layer_int8(x, bp, heads, head_dim, eps=1e-6, scale=None):
+    """(B, S, W) → (B, S, W): one static-W8A8 layer. bp: the layer's
+    quantize_siglip_static slice with act_scales. CPU tensors take the
+    plain twin; CUDA tensors launch K7 or raise (see
+    `layer_int8_eligible`; the dispatcher routes ineligible layers FPP)."""
+    scale = scale if scale is not None else head_dim ** -0.5
+    if not x.is_cuda:
+        return siglip_layer_int8_reference(x, bp, heads, head_dim, eps, scale)
+    return _layer_cuda(x, bp, heads, head_dim, eps, scale)

@@ -1,11 +1,17 @@
-"""Row layer norm with f32 E[x²]−E[x]² statistics — kernel K4.
+"""Row layer norm with f32 E[x²]−E[x]² statistics — kernels K4 and K8.
 
-Replaces tpudf/ops/layernorm.py `_ln_kernel` (via `_ln_pallas` /
+K4 replaces tpudf/ops/layernorm.py `_ln_kernel` (via `_ln_pallas` /
 `layer_norm_fused`). The CUDA kernel is `csrc/layernorm.cu`: one warp per
 row, the row held in registers, one bf16 read and one bf16 write. It is
 bound by device-memory bytes (4 bytes moved per element, a handful of flops);
 its design reads each row exactly once. The backward recomputes the twin
 and applies its VJP (`twin_vjp`), as the JAX VJP does.
+
+K8 (`layer_norm_quant`) replaces tpudf/ops/layernorm.py `_ln_quant_kernel`:
+the same LN emitting static int8 codes, round(y·127/a) half to even,
+clipped to ±127 (one bf16 read, one int8 write). Its CUDA kernel is the LN
++ quant row pass of `csrc/layernorm.cu` that also opens K1 and K2; bound by
+device-memory bytes. The twin is the JAX function's off-TPU branch.
 """
 
 from __future__ import annotations
@@ -14,10 +20,28 @@ import torch
 
 from tpudf_torch.core.backend import LAUNCHES
 from tpudf_torch.ops import _build
+from tpudf_torch.ops.quant import f32_scalar, quant_rows
 from tpudf_torch.ops.twin_vjp import with_twin_vjp
 
 KERNEL = "layer_norm_fused"
+KERNEL_QUANT = "layer_norm_quant"
 MAX_WIDTH = 1024
+
+
+def ln_rows_f32(x2d, g, b, eps):
+    """f32 LN of rows, without the cast back (what the int8 quant reads)."""
+    x32 = x2d.float()
+    mu = torch.mean(x32, -1, keepdim=True)
+    var = torch.clamp(torch.mean(x32 * x32, -1, keepdim=True) - mu * mu,
+                      min=0.0)
+    return (x32 - mu) * torch.rsqrt(var + eps) * g.float() + b.float()
+
+
+def _check_rows(x2d, name):
+    w = x2d.shape[-1]
+    if x2d.dtype != torch.bfloat16 or w % 8 or w > MAX_WIDTH:
+        raise ValueError(f"{name} takes bf16 rows of width 8k <= "
+                         f"{MAX_WIDTH}, got {x2d.dtype} width {w}")
 
 
 def layer_norm_reference(x, scale, bias, eps=1e-6):
@@ -34,10 +58,8 @@ def layer_norm_reference(x, scale, bias, eps=1e-6):
 def ln_bf16_cuda(x2d, scale, bias, eps):
     """One launch of the kernel on (rows, W) bf16, uncounted: the LN pass
     that opens kernels K13 and K14 counts as part of them."""
+    _check_rows(x2d, "the layer_norm kernel")
     w = x2d.shape[-1]
-    if x2d.dtype != torch.bfloat16 or w % 8 or w > MAX_WIDTH:
-        raise ValueError(f"layer_norm kernel takes bf16 rows of width "
-                         f"8k <= {MAX_WIDTH}, got {x2d.dtype} width {w}")
     out = torch.empty_like(x2d)
     _build.call("tpudf_layer_norm_bf16", x2d, scale.float().contiguous(),
                 bias.float().contiguous(), out, x2d.shape[0], w, float(eps))
@@ -63,3 +85,34 @@ def layer_norm_fused(x, scale, bias, eps=1e-6):
     twin's VJP."""
     return with_twin_vjp(_layer_norm, layer_norm_reference, x, scale, bias,
                          eps=eps)
+
+
+def ln_quant_cuda(x2d, ln_params, a, eps):
+    """LN + static int8 quant of bf16 rows → int8 rows (one launch,
+    uncounted: the row pass that opens K1 and K2, and K8 itself)."""
+    _check_rows(x2d, "the LN + quant row pass")
+    m, w = x2d.shape
+    out = torch.empty((m, w), dtype=torch.int8, device=x2d.device)
+    _build.call("tpudf_ln_quant_i8", x2d, ln_params["scale"].float()
+                .contiguous(), ln_params["bias"].float().contiguous(),
+                f32_scalar(a, x2d.device), out, m, w, float(eps))
+    return out
+
+
+def layer_norm_quant_reference(x, scale, bias, act_scale, eps=1e-6):
+    """Plain twin of K8: (..., W) → (..., W) int8 codes."""
+    return quant_rows(ln_rows_f32(x, scale, bias, eps),
+                      f32_scalar(act_scale, x.device))
+
+
+def layer_norm_quant(x, scale, bias, act_scale, eps=1e-6):
+    """(..., W) → (..., W) int8: LN emitting static int8 codes (feeds
+    `quant.int8_matmul_pre` on the X routes of the W8A8 block). CPU tensors
+    take the plain twin; CUDA tensors launch K8 (bf16 only) or raise."""
+    if not x.is_cuda:
+        return layer_norm_quant_reference(x, scale, bias, act_scale, eps)
+    w = x.shape[-1]
+    out = ln_quant_cuda(x.reshape(-1, w).contiguous(),
+                        {"scale": scale, "bias": bias}, act_scale, eps)
+    LAUNCHES.hit(KERNEL_QUANT)
+    return out.reshape(x.shape)

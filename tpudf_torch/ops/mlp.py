@@ -41,12 +41,12 @@ import torch
 
 from tpudf_torch.core.backend import LAUNCHES
 from tpudf_torch.ops.int8_block import (GEMM_GELU_I8, GEMM_RESIDUAL,
-                                        i8_gemm_cuda, ln_quant_cuda,
-                                        ln_rows_f32, transposed)
-from tpudf_torch.ops.layernorm import layer_norm_reference, ln_bf16_cuda
+                                        i8_gemm_cuda)
+from tpudf_torch.ops.layernorm import (layer_norm_reference, ln_bf16_cuda,
+                                       ln_quant_cuda, ln_rows_f32)
 from tpudf_torch.ops.linear import (GEMM_GELU, bf16_gemm_cuda,
                                     GEMM_RESIDUAL as BF16_RESIDUAL)
-from tpudf_torch.ops.quant import int8_mm, quant_rows
+from tpudf_torch.ops.quant import int8_mm, quant_rows, transposed
 from tpudf_torch.ops.twin_vjp import with_twin_vjp
 from tpudf_torch.utils.nn import gelu_tanh
 

@@ -11,6 +11,15 @@ them to the Pallas LN on a TPU.
 twins share. `int8_mm` is exact: it multiplies in f32 over K-chunks of at
 most 1024, where every partial sum is an integer below 2^24, and adds the
 chunks in int32.
+
+`quantize_activation`, `int8_matmul` (dynamic per-row scales),
+`int8_matmul_static` and `int8_matmul_pre` are the JAX package's XLA
+products (no Pallas kernel): the dynamic-int8 block and the X routes of
+the static block use them. Their quantisation and dequantisation are
+plain torch in the JAX order and dtypes; the exact int32 product `acc` is
+`int8_acc`: `int8_mm` on a CPU tensor, the port's int8 GEMM
+(`csrc/int8_gemm.cu`, int32 output) on a CUDA tensor. `int8_acc_reference`
+is the product without a kernel on any device (`routes.TWINS`).
 """
 
 from __future__ import annotations
@@ -18,10 +27,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from tpudf_torch.core.backend import LAUNCHES
 from tpudf_torch.core.precision import DEFAULT_POLICY, cast_tree
+from tpudf_torch.ops import _build
 from tpudf_torch.ops.attention import attention_qkv_reference
 
 _EXACT_K = 1024          # 1024 * 127 * 127 < 2**24
+KERNEL_GEMM = "int8_gemm"      # launches of the port's int8 GEMM
+                            # outside K1, K2 and K5-K7
+GEMM_I32 = 3             # csrc/gemm_i8.cuh kEpiI32
 
 
 def quant_rows(y, a):
@@ -38,6 +52,80 @@ def int8_mm(a8, w8):
                             w8[k0:k0 + _EXACT_K].float()).to(torch.int32)
         acc = part if acc is None else acc + part
     return acc
+
+
+def transposed(wq):
+    """(N, K) int8 layout the GEMM kernels read; derived once by
+    tpudf_torch.convert.add_kernel_layout, else here."""
+    qt = wq.get("qT")
+    return qt if qt is not None else wq["q"].t().contiguous()
+
+
+def int8_acc_reference(a8, wq):
+    """(..., K) int8 codes . wq["q"] (K, N) → (..., N) int32, exactly."""
+    return int8_mm(a8, wq["q"])
+
+
+def int8_acc(a8, wq):
+    """`int8_acc_reference` on a CPU tensor; on a CUDA tensor one launch of
+    the port's int8 GEMM with an int32 output (N % 128 == 0, K % 64 == 0,
+    or it raises)."""
+    if not a8.is_cuda:
+        return int8_acc_reference(a8, wq)
+    lead, k = a8.shape[:-1], a8.shape[-1]
+    wt = transposed(wq)
+    n = wt.shape[0]
+    if a8.dtype != torch.int8 or wt.shape[1] != k or n % 128 or k % 64:
+        raise ValueError(f"the int8 GEMM takes int8 codes with N % 128 == 0 "
+                         f"and K % 64 == 0, got {a8.dtype} K={k} weight "
+                         f"{tuple(wt.shape)}")
+    a2 = a8.reshape(-1, k).contiguous()
+    m = a2.shape[0]
+    out = torch.empty((m, n), dtype=torch.int32, device=a8.device)
+    _build.call("tpudf_i8_gemm", a2, wt, None, None, None, None, out, None,
+                None, m, n, k, GEMM_I32)
+    LAUNCHES.hit(KERNEL_GEMM)
+    return out.reshape(*lead, n)
+
+
+def f32_scalar(a, device):
+    """An activation scale (0-d tensor or number) as a 0-d f32 tensor."""
+    return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+
+def quantize_activation(x):
+    """(..., in) → (int8 codes, (..., 1) f32 row scales): dynamic
+    symmetric per-row quantisation; the scale amax/127 is computed in x's
+    dtype, as jnp does."""
+    amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0,
+                        torch.ones_like(amax)).float()
+    q = torch.clamp(torch.round(x.float() / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def int8_matmul(x, wq, out_dtype=torch.bfloat16, *, acc=int8_acc):
+    """x (..., in) float, wq {q, scale} → (..., out): dynamic per-row
+    activation scales."""
+    xq, xs = quantize_activation(x)
+    return (acc(xq, wq).float() * xs * wq["scale"].float()).to(out_dtype)
+
+
+def int8_matmul_static(x, wq, act_scale, out_dtype=None, *, acc=int8_acc):
+    """W8A8 with a static per-tensor activation scale; out in x's dtype."""
+    a = f32_scalar(act_scale, x.device)
+    q = quant_rows(x.float(), a)
+    return (acc(q, wq).float() * (a / 127.0) * wq["scale"].float()).to(
+        out_dtype or x.dtype)
+
+
+def int8_matmul_pre(q, wq, act_scale, out_dtype=torch.bfloat16, *,
+                    acc=int8_acc):
+    """Pre-quantised int8 codes (layernorm.layer_norm_quant) x int8
+    weights → dequantised output, bf16 whatever the caller's dtype."""
+    a = f32_scalar(act_scale, q.device)
+    return (acc(q, wq).float() * (a / 127.0) * wq["scale"].float()).to(
+        out_dtype)
 
 
 def quantize_weight(w):

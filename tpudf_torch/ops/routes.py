@@ -1,5 +1,6 @@
 """The kernels of the detect-core, engine and MTL-training paths, and their
-plain twins.
+plain twins (with the port's int8 GEMM for the W8A8 block's XLA products,
+which is no TPU kernel's port: `int8_acc`).
 
 The main path always runs `KERNELS`: each wrapper takes its plain twin for
 a CPU tensor and launches its CUDA kernel for a CUDA tensor. `TWINS` holds
@@ -14,7 +15,7 @@ import dataclasses
 from typing import Callable
 
 from tpudf_torch.ops import (attention, int8_block, layernorm, linear, mlp,
-                             srm)
+                             quant, srm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +28,12 @@ class KernelSet:
     attention_qkv_bwd: Callable     # K10
     linear_fused: Callable          # K13
     mlp_block_fused: Callable       # K14
+    ln_qkv_int8: Callable           # K5
+    attn_out_int8: Callable         # K6
+    siglip_layer_int8: Callable     # K7
+    layer_norm_quant: Callable      # K8
+    int8_acc: Callable              # exact int32 product of quant.py's
+                                    # int8_matmul* (XLA in JAX)
 
 
 KERNELS = KernelSet(
@@ -38,6 +45,11 @@ KERNELS = KernelSet(
     attention_qkv_bwd=attention.attention_qkv_bwd,
     linear_fused=linear.linear_fused,
     mlp_block_fused=mlp.mlp_block_fused,
+    ln_qkv_int8=int8_block.ln_qkv_int8,
+    attn_out_int8=int8_block.attn_out_int8,
+    siglip_layer_int8=int8_block.siglip_layer_int8,
+    layer_norm_quant=layernorm.layer_norm_quant,
+    int8_acc=quant.int8_acc,
 )
 
 TWINS = KernelSet(
@@ -49,4 +61,9 @@ TWINS = KernelSet(
     attention_qkv_bwd=attention.attention_qkv_bwd_reference,
     linear_fused=linear.linear_fused_reference,
     mlp_block_fused=mlp.mlp_block_reference,
+    ln_qkv_int8=int8_block.ln_qkv_reference,
+    attn_out_int8=int8_block.attn_out_reference,
+    siglip_layer_int8=int8_block.siglip_layer_int8_reference,
+    layer_norm_quant=layernorm.layer_norm_quant_reference,
+    int8_acc=quant.int8_acc_reference,
 )
