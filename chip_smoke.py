@@ -29,6 +29,25 @@ back to the CPU or to a twin):
      twin with a planted fault (the mid-layer residual rounded to bf16);
      K8 (LN + quant codes) at (2048, 768): codes equal to the twin's but
      for at most K8_SHARE of them, each within one code (f32 LN ties);
+  2b. the same at the large backbones (`large_kernel_checks`): K4 and K8
+     at so400m-512's width 1152, K5, K1 (with and without the key bias),
+     K2 and K9 at large-384's (8, 576, 1024) and so400m-512's (8, 1024,
+     1152) with heads of 72 padded to 128 and scale 72^-0.5, K6 at (8,
+     576, 3 x 1024), K9 at engine A's (106, 576, 3072), K1 and K2 at every
+     token count of large-384's two ToMe schedules; 9b (K9's dynamic-int8
+     mode) at (8, 576, 3072) and (8, 1024, 6144). The attention inputs are
+     sharp (q, k and v of std 1.5, scores of std ~2.25), so that a wrong
+     attention shows: K9 and 9b with at most ATTN_SHARE of the outputs
+     more than a bf16 step from the twin, K1 and K6 with the error of
+     their output within ATTN_REL of what the attention sublayer adds to
+     its residual; each of these checks is shown to fail on a planted
+     fault: the softmax scale taken from the padded head_dim (128^-0.5 in
+     place of 72^-0.5; at large-384 the same 0.75 ratio), the key bias
+     dropped, and for 9b aq taken over 64-row tiles instead of JAX's
+     256-row query blocks; on inputs of std 0.5, the scale of JAX's own
+     bound, 9b also within atol 1e-2 + rtol 2^-7 of its twin (at std 1.5
+     one flipped probability code moves an output by up to ~3e-2) and
+     within K9B_COS / K9B_REL of K9;
   3. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      (a) the detect core (build("cuda", seed=0), base-256, W8A8 + ToMe),
@@ -71,6 +90,15 @@ back to the CPU or to a twin):
          bit-identical after 5 steps, eval outputs finite with seg
          probabilities in [0, 1]; then (a) with K10's dQ, dK or dV zeroed
          must fail those slice checks;
+     (e, f) the detect core of large-384 and of so400m-512
+         (build(cfg_name=...), every layer at full width) at B=8 under
+         FPP, PPP, XXX and LLL with ToMe, and the tower without ToMe under
+         each, so400m-512's PPP also with TPUDF_INT8_ATTN=1 (9b): exact
+         launches (`w8a8_launches`), pooled cosine >= 0.99 against the
+         twins, |Δp_blend| <= 1e-2; (g) large-384's engines A and B
+         (build_engine(cfg_name="large-384")): a full analysis of 8 and a
+         fast request of 32 with exact launches, held against the twins
+         on 2 images (`engine_request`);
   4. CUDA-event timings: each kernel vs its twin and, where one PyTorch
      call computes the same function or a part of it, that call (timed
      here only; the port never calls it; the SDPA backward by its kernels'
@@ -80,7 +108,9 @@ back to the CPU or to a twin):
      kernels vs twins; torch.profiler traces of the detect core at B=256,
      of engine A's full analysis and of a train step of (a) and of (b): the
      largest kernels and the device's idle share; the trainer's peak
-     memory.
+     memory; the large backbones' detect cores (large-384 at B=8 and 128,
+     so400m-512 at B=8 and 64) with a profile each, so400m-512's PPP
+     tower with and without TPUDF_INT8_ATTN=1, large-384's engines.
 Prints a JSON line of the kernels (with each one's bound: the larger of
 its operations over the card's peak for their type and its bytes, each
 input read once and each output written once, over 3.35 TB/s), the card
@@ -109,6 +139,7 @@ REPLACES = {
     "K10": "tpudf/ops/attention.py:308",
     "K13": "tpudf/ops/linear.py:20",
     "K14": "tpudf/ops/mlp.py:21",
+    "K9b": "tpudf/ops/attention.py:209",
 }
 SOURCES = {
     "K1": "tpudf_torch/csrc/attention.cu",
@@ -123,6 +154,7 @@ SOURCES = {
     "K10": "tpudf_torch/csrc/attention.cu",
     "K13": "tpudf_torch/csrc/bf16_gemm.cu",
     "K14": "tpudf_torch/csrc/bf16_gemm.cu",
+    "K9b": "tpudf_torch/csrc/attention_i8.cu",
 }
 # dense peaks of one H100 SXM (NVIDIA's data sheet) and its memory rate
 PEAK = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
@@ -139,6 +171,26 @@ K8_OPS_PER_ELEMENT = 11          # K4's and the quant's mul, round, clamp
 # codes that differ from the twin's (f32 LN ties)
 K7_SHARE = 5e-2
 K8_SHARE = 1e-4
+# K9 and 9b (K9's dynamic-int8 mode) against their twins at the large
+# backbones: at most ATTN_SHARE of the outputs more than one bf16 step
+# apart (9b: a probability code p*127/ap at a rounding tie may flip, as exp
+# and the row sum round apart; 9.5e-5 and 5.6e-5 on an H100 at std 0.5,
+# against 0.29 and 0.19 for the twin with aq over 64-row tiles; K9 and 9b
+# at std 1.5 at most 1.2e-4, their planted faults at least 0.34). K1 and
+# K6: |out - twin| / |twin - x| at most ATTN_REL (the twin quantises the
+# bf16-rounded attention output, the kernels the f32 one, so some of o's
+# int8 codes differ by one: 9.6e-3 to 1.4e-2 on an H100, the planted
+# faults at least 0.34). 9b against K9's bf16 output: cosine >= 0.99
+# per row and max|Δ| / max|K9| <= 2e-2, the bound tests/test_attention.py
+# puts on the JAX mode (at its inputs' scale, std 0.5)
+ATTN_SHARE = 1e-2
+ATTN_REL = 5e-2
+K9B_COS, K9B_REL = 0.99, 2e-2
+# the large backbones (SigLIPConfig): width, heads, head_dim as the kernels
+# see it (so400m's 72 padded to 128), the softmax scale, MLP width as the
+# kernels see it (4304 padded to 4352), tokens
+LARGE = {"large-384": (1024, 16, 64, None, 4096, 576),
+         "so400m-512": (1152, 16, 128, 72 ** -0.5, 4352, 1024)}
 # the TPUDF_INT8_KERNELS routes the detect core is driven under
 ROUTES = ("PPP", "XXX", "LLL")
 # the engines' full analysis: 53 views per image
@@ -338,6 +390,770 @@ def check_launches(label, got, expect):
         raise AssertionError(f"{label}: launches {got} != {expect}")
 
 
+def bf16_step(v):
+    """The spacing of bf16 values at magnitude v (one step)."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(v.clamp_min(1e-30))) - 7)
+
+
+def share_apart(a, b):
+    """The share of elements of a and b more than one bf16 step apart."""
+    import torch
+    a, b = a.float(), b.float()
+    step = bf16_step(torch.maximum(a.abs(), b.abs()))
+    return float(((a - b).abs() > step).float().mean())
+
+
+def engine_request(label, eng, tw, px, fast, w8a8, expect, width,
+                   twin_images=None):
+    """One request of a DetectEngine with the launch counts set to 0 just
+    before it: exact launches, every output finite and of its shape,
+    p_blend / patch_probs / max_patch in [0, 1], max_patch >= patch_mean,
+    risk_probs rows summing to 1; then the first `twin_images` images (all
+    by default) through the same engine and through its twins: the
+    probabilities within 1e-2, the logits z_sig / z_freq within 5e-2 (1e-2
+    of probability near 0.5), and the pooled features of every view of
+    every tower forward (main and patch views, or the fast pair) cosine >=
+    0.99. W8A8: int8 rounding ties move the visual head's output further
+    (visual_prob 8.3e-3, z_sig 3.3e-2 on an H100), so its visual_prob and
+    z_sig are held at twice those limits. Returns the launches."""
+    import numpy as np
+    import torch.nn.functional as F
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.serve.engine import FAST_SCALARS, FULL_SCALARS
+    b = px.shape[0]
+    LAUNCHES.reset()
+    out = eng.fetch_batch(eng.dispatch_batch(px, fast), fast)
+    launches = LAUNCHES.snapshot()
+    check_launches(f"{label} B={b}", launches, expect)
+    names = FAST_SCALARS if fast else FULL_SCALARS
+    want = {k: (b,) for k in names}
+    want["risk_probs"] = (b, 5)
+    if not fast:
+        want.update(patch_probs=(b, 16), embed_feat=(b, width))
+    shapes = {k: v.shape for k, v in out.items()}
+    if shapes != want:
+        raise AssertionError(f"{label}: shapes {shapes}")
+    for k, v in out.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"{label}: {k} not finite")
+    for k in ("p_blend", "patch_probs", "max_patch"):
+        if k in out and not ((out[k] >= 0) & (out[k] <= 1)).all():
+            raise AssertionError(f"{label}: {k} outside [0,1]")
+    if not fast and not (out["max_patch"] >= out["patch_mean"]).all():
+        raise AssertionError(f"{label}: max_patch < patch_mean")
+    if not np.allclose(out["risk_probs"].sum(-1), 1.0, atol=1e-5):
+        raise AssertionError(f"{label}: risk_probs rows do not sum to 1")
+    sub = px if twin_images is None else px[:twin_images]
+    if twin_images is not None:
+        out = eng.fetch_batch(eng.dispatch_batch(sub, fast), fast)
+    ref = tw.fetch_batch(tw.dispatch_batch(sub, fast), fast)
+    vis = 2.0 if w8a8 else 1.0
+    limits = {"p_blend": 1e-2, "visual_prob": 1e-2 * vis,
+              "freq_prob": 1e-2, "z_sig": 5e-2 * vis, "z_freq": 5e-2}
+    if not fast:
+        limits.update(patch_probs=1e-2, max_patch=1e-2, patch_mean=1e-2)
+    delta = {k: float(np.abs(out[k] - ref[k]).max()) for k in limits}
+    feats_k = eng.pooled_features(sub, fast)
+    feats_t = tw.pooled_features(sub, fast)
+    cos = {k: float(F.cosine_similarity(feats_k[k].float(),
+                                        feats_t[k].float(), dim=-1).min())
+           for k in feats_k}
+    del feats_k, feats_t
+    print(f"{label} B={b}: launches {launches}; vs twins on {sub.shape[0]} "
+          f"images: max|Δ| " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in delta.items())
+          + "; pooled cosine min "
+          + ", ".join(f"{k} {v:.6f}" for k, v in cos.items())
+          + f"; p_blend mean {float(out['p_blend'].mean()):.4f}",
+          flush=True)
+    bad = [k for k, v in delta.items() if v > limits[k]]
+    bad += [f"pooled {k}" for k, v in cos.items() if v < 0.99]
+    if bad:
+        raise AssertionError(f"{label}: kernels vs twins disagree on {bad}")
+    return launches
+
+
+def large_kernel_checks(rec, dev, card):
+    """Phase 2 at the large backbones' shapes: the LN passes at so400m's
+    width, K5, K1, K2, K6 and K9 at large-384's S = 576 and so400m-512's
+    S = 1024 (heads of 72 zero-padded to 128, scale 72^-0.5), K1 and K2 at
+    every token count of large-384's two ToMe schedules (checked, not
+    timed), and 9b. The attention inputs are sharp (std 1.5) so that the
+    checks of K1, K6, K9 and 9b see the attention; each of them must
+    reject planted faults (`held`): the scale taken from the padded
+    head_dim, the key bias dropped, 9b's aq over 64-row tiles. 9b is also
+    held loosely against K9 at std 0.5, the scale of JAX's bound."""
+    import torch
+    import torch.nn.functional as F
+    from tpudf_torch.convert import add_kernel_layout
+    from tpudf_torch.ops import attention, int8_block, layernorm, mlp
+    from tpudf_torch.ops.quant import quantize_weight
+    from tpudf_torch.ops.routes import KERNELS, TWINS
+    from tpudf_torch.ops.tome import (DEPLOYED_PATCH_TOME_R, DEPLOYED_TOME_R,
+                                      deployed_floor, deployed_patch_floor,
+                                      merge_schedule)
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def log_sizes(b, s):
+        return torch.log(torch.randint(1, 9, (b, s), generator=g,
+                                       device=dev).float())
+
+    def layer(name):
+        """Seeded static-W8A8 weights of one layer, head slots padded."""
+        w, heads, hd, scale, inter, _ = LARGE[name]
+        wa = heads * hd
+        live = 72 if hd == 128 else hd
+        # q, k, v of std ~1.5 from the LN output: sharp attention
+        qkv_w = randn(w, 3, heads, hd, std=1.5 * w ** -0.5)
+        qkv_w[..., live:] = 0.0
+        out_w = randn(heads, hd, w, std=wa ** -0.5)
+        out_w[:, live:] = 0.0
+        qkv_b = randn(3, heads, hd, std=0.1)
+        qkv_b[..., live:] = 0.0
+        return {
+            "ln1": {"scale": 1.0 + randn(w, std=0.1),
+                    "bias": randn(w, std=0.1)},
+            "qkv_wq": add_kernel_layout(quantize_weight(
+                qkv_w.reshape(w, 3 * wa))),
+            "qkv_b": qkv_b.reshape(-1),
+            "out_wq": add_kernel_layout(quantize_weight(
+                out_w.reshape(wa, w))),
+            "out_b": randn(w, std=0.1),
+            "mlp": add_kernel_layout({
+                "fc1_w": quantize_weight(randn(w, inter, std=w ** -0.5)),
+                "fc1_b": randn(inter, std=0.1),
+                "fc2_w": quantize_weight(randn(inter, w,
+                                               std=inter ** -0.5)),
+                "fc2_b": randn(w, std=0.1)}),
+            "a_qkv": torch.tensor(4.0, device=dev),
+            "a_out": torch.tensor(6.0, device=dev),
+            "sc": {"fc1": torch.tensor(4.0, device=dev),
+                   "fc2": torch.tensor(3.0, device=dev)},
+            "live": live}
+
+    def qkv_input(b, s, heads, hd, live, std=1.5):
+        """qkv of N(0, std^2) in each head's live dims, zero in the padded
+        ones: std 1.5 gives scores of std ~2.25, sharp attention; 0.5 is
+        the scale of JAX's int8-attention test."""
+        t = randn(b, s, 3, heads, hd, std=std)
+        t[..., live:] = 0.0
+        return t.reshape(b, s, 3 * heads * hd).to(bf)
+
+    def rel_part(x):
+        """|got - twin| / |twin - x|: the error against what the attention
+        sublayer adds to its residual x."""
+        return lambda got, ref: float((got.float() - ref.float()).norm()
+                                      / (ref.float() - x.float()).norm())
+
+    def held(label, measure, limit, got, ref, faults):
+        """measure(got, twin) within limit, and beyond it for every
+        planted fault's output."""
+        sound = measure(got, ref)
+        bad = {k: measure(f, ref) for k, f in faults.items()}
+        print(f"  {label}: {sound:.3e} (limit {limit:g}); planted faults "
+              + ", ".join(f"{k} {v:.3e}" for k, v in bad.items())
+              + f" [{card}]", flush=True)
+        if sound > limit:
+            raise AssertionError(f"{label}: {sound:.3e} > {limit:g}")
+        missed = [k for k, v in bad.items() if v <= limit]
+        if missed:
+            raise AssertionError(f"{label}: the check misses {missed}")
+
+    def wrong_scale(hd, scale):
+        """The softmax scale taken from the head_dim the kernels see:
+        128^-0.5 for so400m's padded heads of 72; at heads of 64, where
+        that is right, the same ratio (0.75) off."""
+        if scale is not None:
+            return hd ** -0.5, "scale 128^-0.5"
+        return 0.75 * hd ** -0.5, "scale x0.75"
+
+    print("phase 2b: kernels vs twins at the large backbones", flush=True)
+    layers = {name: layer(name) for name in LARGE}
+
+    # K4 and K8 at so400m's width: 1152 = 4.5 chunks of 8 a lane
+    w = LARGE["so400m-512"][0]
+    ln = layers["so400m-512"]["ln1"]
+    x = (randn(8192, w) * 3.0 + 0.5).to(bf)
+    got = layernorm.layer_norm_fused(x, ln["scale"], ln["bias"])
+    ref = layernorm.layer_norm_reference(x, ln["scale"], ln["bias"])
+    torch.cuda.synchronize()
+    check_close(f"K4 (8192, {w})", got, ref, atol=1e-6, rtol=2 ** -7)
+    g16, b16 = ln["scale"].to(bf), ln["bias"].to(bf)
+    rec.add("K4", "layer_norm_fused", (8192, w), max_abs(got, ref),
+            lambda: layernorm.layer_norm_fused(x, ln["scale"], ln["bias"]),
+            lambda: layernorm.layer_norm_reference(x, ln["scale"],
+                                                   ln["bias"]),
+            ({"f32": K4_OPS_PER_ELEMENT * x.numel()},
+             nbytes(x, ln["scale"], ln["bias"]) + nbytes(got)),
+            library={"F.layer_norm": lambda: F.layer_norm(x, (w,), g16, b16,
+                                                          1e-6)})
+    a = torch.tensor(4.0, device=dev)
+    got = layernorm.layer_norm_quant(x, ln["scale"], ln["bias"], a)
+    ref = layernorm.layer_norm_quant_reference(x, ln["scale"], ln["bias"], a)
+    torch.cuda.synchronize()
+    dq = (got.int() - ref.int()).abs()
+    share = float((dq > 0).float().mean())
+    print(f"  K8 (8192, {w}): codes differing from the twin's {share:.3e}, "
+          f"max {int(dq.max())} [{card}]", flush=True)
+    if int(dq.max()) > 1 or share > K8_SHARE:
+        raise AssertionError(f"K8 (8192, {w}): {share:.3e} of the codes "
+                             f"differ, max by {int(dq.max())}")
+    rec.add("K8", "layer_norm_quant", (8192, w), float(dq.max()),
+            lambda: layernorm.layer_norm_quant(x, ln["scale"], ln["bias"],
+                                               a),
+            lambda: layernorm.layer_norm_quant_reference(
+                x, ln["scale"], ln["bias"], a),
+            ({"f32": K8_OPS_PER_ELEMENT * x.numel()},
+             nbytes(x, ln["scale"], ln["bias"], a) + nbytes(got)),
+            library={"part F.layer_norm": lambda: F.layer_norm(
+                x, (w,), g16, b16, 1e-6)}, device_time=True)
+
+    for name, (w, heads, hd, scale, inter, s) in LARGE.items():
+        p = layers[name]
+        wa = heads * hd
+        b = 8
+        m = b * s
+        x = randn(b, s, w).to(bf)
+        qkv = qkv_input(b, s, heads, hd, p["live"])
+        sd = scale if scale is not None else hd ** -0.5
+        bad_sd, bad_name = wrong_scale(hd, scale)
+        qv, kv_, vv = (qkv[..., i * wa:(i + 1) * wa].reshape(b, s, heads, hd)
+                       .transpose(1, 2) for i in range(3))
+        sdpa = lambda mask=None: F.scaled_dot_product_attention(
+            qv, kv_, vv, attn_mask=mask, scale=sd)
+        # the library's parts: int8 codes at each product's input width
+        codes = {k: torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                                  dtype=torch.int8) for k in {w, wa, inter}}
+        int_mm = lambda k, wq: (lambda: torch._int_mm(codes[k],
+                                                      wq["qT"].t()))
+        # K5: LN + quant + QKV in one launch, W -> 3 Wa
+        args = (x, p["ln1"], p["qkv_wq"], p["qkv_b"], p["a_qkv"])
+        got = int8_block.ln_qkv_int8(*args)
+        ref = int8_block.ln_qkv_reference(*args)
+        torch.cuda.synchronize()
+        check_close(f"K5 {(m, w, 3 * wa)}", got, ref, atol=5e-2, rtol=2e-2)
+        g16, b16 = p["ln1"]["scale"].to(bf), p["ln1"]["bias"].to(bf)
+        y16 = F.layer_norm(x, (w,), g16, b16, 1e-6)
+        inv = 127.0 / p["a_qkv"]
+        rec.add("K5", "ln_qkv_int8", (m, w, 3 * wa), max_abs(got, ref),
+                lambda: int8_block.ln_qkv_int8(*args),
+                lambda: int8_block.ln_qkv_reference(*args),
+                ({"int8": 2 * m * w * 3 * wa},
+                 nbytes(x, p["ln1"]["scale"], p["ln1"]["bias"],
+                        p["qkv_wq"]["q"], p["qkv_wq"]["scale"], p["qkv_b"],
+                        p["a_qkv"]) + nbytes(got)),
+                library={
+                    "part F.layer_norm": lambda: F.layer_norm(
+                        x, (w,), g16, b16, 1e-6),
+                    "part quant": lambda: torch.clamp(
+                        torch.round(y16.float() * inv), -127, 127).to(
+                            torch.int8),
+                    "part QKV _int_mm": int_mm(w, p["qkv_wq"])},
+                iters=10, twin_iters=3, device_time=True)
+        # K1 (FPP's attention sublayer): without a bias, and at large-384
+        # with the ToMe bias too
+        for with_bias in ((False, True) if hd == 64 else (False,)):
+            lb = log_sizes(b, s) if with_bias else None
+            mask = None if lb is None else lb[:, None, None, :].to(bf)
+            args = (x, p["ln1"], p["qkv_wq"], p["qkv_b"], p["out_wq"],
+                    p["out_b"], p["a_qkv"], p["a_out"], heads, hd, 1e-6,
+                    scale)
+            got = int8_block.attn_sublayer_int8(*args, logit_bias=lb)
+            ref = int8_block.attn_sublayer_reference(*args, logit_bias=lb)
+            faults = {bad_name: int8_block.attn_sublayer_int8(
+                *args[:-1], bad_sd, logit_bias=lb)}
+            if with_bias:
+                faults["bias dropped"] = int8_block.attn_sublayer_int8(*args)
+            torch.cuda.synchronize()
+            check_close(f"K1 {(b, s, w)} bias={with_bias}", got, ref,
+                        atol=5e-2, rtol=2e-2)
+            held(f"K1 {(b, s, w)} bias={with_bias} |Δ|/|attention part|",
+                 rel_part(x), ATTN_REL, got, ref, faults)
+            del faults
+            rec.add("K1", "attn_sublayer_int8",
+                    (b, s, w, "bias" if with_bias else f"d={hd}"),
+                    max_abs(got, ref),
+                    lambda: int8_block.attn_sublayer_int8(*args,
+                                                          logit_bias=lb),
+                    lambda: int8_block.attn_sublayer_reference(
+                        *args, logit_bias=lb),
+                    ({"int8": 2 * m * w * 4 * wa,
+                      "bf16": 4 * b * heads * s * s * hd},
+                     nbytes(x, p["ln1"]["scale"], p["ln1"]["bias"],
+                            p["qkv_wq"]["q"], p["qkv_wq"]["scale"],
+                            p["qkv_b"], p["out_wq"]["q"],
+                            p["out_wq"]["scale"], p["out_b"], p["a_qkv"],
+                            p["a_out"], lb) + nbytes(got)),
+                    library={
+                        "part QKV _int_mm": int_mm(w, p["qkv_wq"]),
+                        "part attention SDPA": lambda: sdpa(mask),
+                        "part out-proj _int_mm": int_mm(wa, p["out_wq"])},
+                    iters=10, twin_iters=2)
+        # K2 at the width and MLP of the backbone
+        got = mlp.mlp_block_fused_int8(x, p["ln1"], p["mlp"], p["sc"])
+        ref = mlp.mlp_block_int8_reference(x, p["ln1"], p["mlp"], p["sc"])
+        torch.cuda.synchronize()
+        check_close(f"K2 {(m, w, inter)}", got, ref, atol=5e-2, rtol=2e-2)
+        mq = p["mlp"]
+        rec.add("K2", "mlp_block_fused_int8", (m, w, inter), max_abs(got, ref),
+                lambda: mlp.mlp_block_fused_int8(x, p["ln1"], mq, p["sc"]),
+                lambda: mlp.mlp_block_int8_reference(x, p["ln1"], mq,
+                                                     p["sc"]),
+                ({"int8": 4 * m * w * inter},
+                 nbytes(x, p["ln1"]["scale"], p["ln1"]["bias"],
+                        mq["fc1_w"]["q"], mq["fc1_w"]["scale"], mq["fc1_b"],
+                        mq["fc2_w"]["q"], mq["fc2_w"]["scale"], mq["fc2_b"])
+                 + nbytes(got)),
+                library={"part fc1 _int_mm": int_mm(w, mq["fc1_w"]),
+                         "part fc2 _int_mm": int_mm(inter, mq["fc2_w"])},
+                iters=10, twin_iters=3)
+
+        if name == "large-384":
+            # K6 at (8, 576, 3 x 1024): attention + quant + out-proj in one
+            # launch, the int8 o tile beside the streamed K/V ring
+            args = (qkv, x, p["out_wq"], p["out_b"], p["a_out"], heads, hd)
+            got = int8_block.attn_out_int8(*args)
+            ref = int8_block.attn_out_reference(*args)
+            bad = int8_block.attn_out_int8(*args, bad_sd)
+            torch.cuda.synchronize()
+            check_close(f"K6 {(b, s, 3 * wa)}", got, ref, atol=5e-2,
+                        rtol=2e-2)
+            held(f"K6 {(b, s, 3 * wa)} |Δ|/|attention part|", rel_part(x),
+                 ATTN_REL, got, ref, {bad_name: bad})
+            del bad
+            rec.add("K6", "attn_out_int8", (b, s, 3 * wa), max_abs(got, ref),
+                    lambda: int8_block.attn_out_int8(*args),
+                    lambda: int8_block.attn_out_reference(*args),
+                    ({"bf16": 4 * b * heads * s * s * hd,
+                      "int8": 2 * m * wa * w},
+                     nbytes(qkv, x, p["out_wq"]["q"], p["out_wq"]["scale"],
+                            p["out_b"], p["a_out"]) + nbytes(got)),
+                    library={
+                        "part attention SDPA": sdpa,
+                        "part out-proj _int_mm": int_mm(wa, p["out_wq"])},
+                    iters=10, twin_iters=2, device_time=True)
+        # K9 at the reference route's (8, 1024, 6144), also with the ToMe
+        # bias, and, for large-384, at engine A's full analysis of 2 images
+        # (106, 576, 3072)
+        if name == "so400m-512":
+            lb = log_sizes(b, s)
+            got = attention.attention_qkv(qkv, heads, hd, scale,
+                                          logit_bias=lb)
+            ref = attention.attention_qkv_reference(qkv, heads, hd, scale,
+                                                    logit_bias=lb)
+            bad = attention.attention_qkv(qkv, heads, hd, scale)
+            torch.cuda.synchronize()
+            check_close(f"K9 {tuple(qkv.shape)} bias", got, ref, atol=1e-2,
+                        rtol=2 ** -7)
+            held(f"K9 {tuple(qkv.shape)} bias, share > 1 bf16 step",
+                 share_apart, ATTN_SHARE, got, ref, {"bias dropped": bad})
+            del lb, bad
+        cases = [(qkv, b)]
+        if name == "large-384":
+            cases = [(qkv_input(2 * VIEWS, s, heads, hd, hd), 2 * VIEWS)]
+        for q_in, bb in cases:
+            got = attention.attention_qkv(q_in, heads, hd, scale)
+            ref = attention.attention_qkv_reference(q_in, heads, hd, scale)
+            bad = attention.attention_qkv(q_in, heads, hd, bad_sd)
+            torch.cuda.synchronize()
+            check_close(f"K9 {tuple(q_in.shape)}", got, ref, atol=1e-2,
+                        rtol=2 ** -7)
+            held(f"K9 {tuple(q_in.shape)}, share > 1 bf16 step",
+                 share_apart, ATTN_SHARE, got, ref, {bad_name: bad})
+            del bad
+            qs = [q_in[..., i * wa:(i + 1) * wa].reshape(bb, s, heads, hd)
+                  .transpose(1, 2) for i in range(3)]
+            rec.add("K9", "attention_qkv", tuple(q_in.shape),
+                    max_abs(got, ref),
+                    lambda: attention.attention_qkv(q_in, heads, hd, scale),
+                    lambda: attention.attention_qkv_reference(q_in, heads,
+                                                              hd, scale),
+                    ({"bf16": 4 * bb * heads * s * s * hd},
+                     nbytes(q_in) + nbytes(got)),
+                    library={"SDPA": lambda: F.scaled_dot_product_attention(
+                        *qs, scale=sd)}, iters=10, twin_iters=2)
+        # 9b at (8, S, 3 Wa): by the share of outputs apart from its twin
+        # on the sharp qkv, which must reject the twin with aq over 64-row
+        # tiles (the CUDA kernel's tile) instead of 256-row blocks, and the
+        # wrong scale; there one flipped probability code (a tie) moves an
+        # output by up to ap * av / 127 * |v8| / 127, ~3e-2, so the
+        # element tolerance holds 9b on qkv of std 0.5, the scale of JAX's
+        # bound, where 9b is also held loosely against K9
+        got = KERNELS.attention_qkv_int8(qkv, heads, hd, scale)
+        ref = TWINS.attention_qkv_int8(qkv, heads, hd, scale)
+        faults = {
+            "aq over 64-row tiles": attention.attention_qkv_int8_reference(
+                qkv, heads, hd, scale, q_block=64),
+            bad_name: KERNELS.attention_qkv_int8(qkv, heads, hd, bad_sd)}
+        torch.cuda.synchronize()
+        held(f"9b {(b, s, 3 * wa)} d={hd}, share > 1 bf16 step",
+             share_apart, ATTN_SHARE, got, ref, faults)
+        del faults
+        q05 = qkv_input(b, s, heads, hd, p["live"], std=0.5)
+        got05 = KERNELS.attention_qkv_int8(q05, heads, hd, scale)
+        ref05 = TWINS.attention_qkv_int8(q05, heads, hd, scale)
+        k9 = attention.attention_qkv(q05, heads, hd, scale)
+        torch.cuda.synchronize()
+        check_close(f"9b {(b, s, 3 * wa)} at std 0.5", got05, ref05,
+                    atol=1e-2, rtol=2 ** -7)
+        share = share_apart(got05, ref05)
+        cos = float(F.cosine_similarity(got05.float().reshape(-1, wa),
+                                        k9.float().reshape(-1, wa),
+                                        dim=-1).min())
+        rel = max_abs(got05, k9) / float(k9.float().abs().max())
+        print(f"  9b {(b, s, 3 * wa)} d={hd} at std 0.5: vs twin more than "
+              f"a bf16 step apart {share:.3e}; vs K9 row cosine min "
+              f"{cos:.6f}, max|Δ|/max|K9| {rel:.3e} [{card}]", flush=True)
+        if share > ATTN_SHARE:
+            raise AssertionError(f"9b {(b, s, 3 * wa)} at std 0.5: "
+                                 f"{share:.3e} of the outputs differ from "
+                                 f"the twin")
+        if cos < K9B_COS or rel > K9B_REL:
+            raise AssertionError(f"9b vs K9: cosine {cos:.6f}, relative "
+                                 f"error {rel:.3e}")
+        del q05, got05, ref05, k9
+        rec.add("K9b", "attention_qkv_int8", (b, s, 3 * wa),
+                max_abs(got, ref),
+                lambda: KERNELS.attention_qkv_int8(qkv, heads, hd, scale),
+                lambda: TWINS.attention_qkv_int8(qkv, heads, hd, scale),
+                ({"int8": 4 * b * heads * s * s * hd},
+                 nbytes(qkv) + nbytes(got)),
+                library={"SDPA bf16 (nearest one call)": sdpa}, iters=10,
+                twin_iters=2, device_time=True)
+        del qkv, qv, kv_, vv, got, ref, codes, y16
+        torch.cuda.empty_cache()
+
+    # K1 and K2 at every token count of large-384's two ToMe schedules in
+    # engine B's full analysis of 8 images: the 168 main views (r=96, floor
+    # 72) and the 256 patch views (r=128, floor 36), with a key bias
+    w, heads, hd, scale, inter, n = LARGE["large-384"]
+    p = layers["large-384"]
+    for views, r, floor in ((8 * 21, DEPLOYED_TOME_R, deployed_floor(n)),
+                            (8 * 32, DEPLOYED_PATCH_TOME_R,
+                             deployed_patch_floor(n))):
+        s, errs = n, []
+        for ri in (0, *merge_schedule(n, 24, r, floor)):
+            s -= ri
+            if ri == 0 and s != n:
+                continue
+            x = randn(views, s, w).to(bf)
+            lb = log_sizes(views, s)
+            args = (x, p["ln1"], p["qkv_wq"], p["qkv_b"], p["out_wq"],
+                    p["out_b"], p["a_qkv"], p["a_out"], heads, hd)
+            got = int8_block.attn_sublayer_int8(*args, logit_bias=lb)
+            ref = int8_block.attn_sublayer_reference(*args, logit_bias=lb)
+            check_close(f"K1 {(views, s, w)} bias", got, ref, atol=5e-2,
+                        rtol=2e-2)
+            part = rel_part(x)(got, ref)
+            if part > ATTN_REL:
+                raise AssertionError(f"K1 {(views, s, w)} bias: |Δ|/|"
+                                     f"attention part| {part:.3e}")
+            errs.append(f"K1 S={s} {max_abs(got, ref):.3e} "
+                        f"(|Δ|/|attention part| {part:.3e})")
+            got, got_ss = mlp.mlp_block_fused_int8(x, p["ln1"], p["mlp"],
+                                                   p["sc"], emit_sumsq=True)
+            ref = mlp.mlp_block_int8_reference(x, p["ln1"], p["mlp"],
+                                               p["sc"])
+            check_close(f"K2 {(views * s, w)} sumsq vs own output", got_ss,
+                        torch.sum(got.float() ** 2, dim=-1), 0.0, 1e-4)
+            check_close(f"K2 {(views * s, w)}", got, ref, atol=5e-2,
+                        rtol=2e-2)
+            errs.append(f"K2 {max_abs(got, ref):.3e}")
+            del x, lb, got, ref, got_ss
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        print(f"  large-384 ToMe shapes, {views} views r={r} floor={floor}: "
+              f"max|Δ| {'; '.join(errs)} [{card}]", flush=True)
+
+
+def w8a8_launches(route, layers, merges, *, tome, k6_fits,
+                  int8_attn=False):
+    """Launches per forward of the static-W8A8 tower at the large
+    backbones, by JAX's routing: the detect core with ToMe (K3 and the
+    `merges` Σout² forms of K2 included) or the tower alone without it.
+    K7 takes S <= 256, so LLL runs FPP; under ToMe every layer but the
+    first carries the logit bias, which sends P's `attn_out_int8` to its
+    reference route (K9 + the out-projection GEMM), as does a geometry
+    where K6's estimate does not fit (so400m-512); without a bias that
+    route runs 9b under TPUDF_INT8_ATTN=1."""
+    from tpudf_torch.ops import (attention, int8_block, layernorm, mlp,
+                                 quant, srm)
+    n = collections.Counter()
+    if route in ("FPP", "LLL"):
+        n[int8_block.KERNEL] += layers
+        n[mlp.KERNEL] += layers
+        n[mlp.KERNEL_SUMSQ] += merges
+    elif route == "PPP":
+        biased = layers - 1 if tome else 0
+        k6 = layers - biased if k6_fits else 0
+        n[int8_block.KERNEL_LN_QKV] += layers
+        n[int8_block.KERNEL_ATTN_OUT] += k6
+        n[attention.KERNEL_INT8 if int8_attn
+          else attention.KERNEL] += layers - biased - k6
+        n[attention.KERNEL] += biased
+        n[quant.KERNEL_GEMM] += layers - k6
+        n[mlp.KERNEL] += layers
+        n[mlp.KERNEL_SUMSQ] += merges
+    else:                                   # XXX
+        n[layernorm.KERNEL_QUANT] += 2 * layers
+        n[quant.KERNEL_GEMM] += 4 * layers
+        n[attention.KERNEL] += layers
+    n[layernorm.KERNEL] += 2
+    if tome:
+        n[srm.KERNEL] += 1
+    return {k: v for k, v in n.items() if v}
+
+
+def pooled_vs(label, kern, twin, pb=None):
+    """Pooled cosine of a forward against another (min >= 0.99) and, for
+    the detect core, |Δp_blend| <= 1e-2."""
+    import torch
+    import torch.nn.functional as F
+    cos = F.cosine_similarity(kern.float(), twin.float(), dim=-1)
+    dpb = 0.0 if pb is None else float((pb[0] - pb[1]).abs().max())
+    if not torch.isfinite(kern.float()).all():
+        raise AssertionError(f"{label}: pooled not finite")
+    if float(cos.min()) < 0.99 or dpb > 1e-2:
+        raise AssertionError(f"{label}: kernels vs twins disagree (cosine "
+                             f"{float(cos.min()):.6f}, |Δp_blend| "
+                             f"{dpb:.3e})")
+    return (f"pooled cosine min {float(cos.min()):.6f} mean "
+            f"{float(cos.mean()):.6f}; max|Δp_blend| {dpb:.3e}")
+
+
+def large_paths(dev, card):
+    """Phase 3 (e)-(g): the detect core of large-384 and of so400m-512
+    (build(cfg_name=...): random weights from seed 0, calibrated on 32
+    seeded images, quantised and pre-padded; every layer at full width)
+    at B=8 under FPP (the default), PPP, XXX and LLL with the deployed
+    ToMe, and the tower without ToMe under each route, so400m-512's PPP
+    also with TPUDF_INT8_ATTN=1 (9b); then large-384's engines A (bf16)
+    and B (W8A8 + ToMe + patch ToMe): a full analysis of 8 images and a
+    fast request of 32, each with exact launches, held against the twins
+    on 2 images. Returns what phase 4 times and the launches seen."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.entry import build, build_engine, detect_core
+    from tpudf_torch.models.siglip import siglip_forward
+    from tpudf_torch.ops import (attention, int8_block, layernorm, linear,
+                                 mlp, srm)
+    from tpudf_torch.ops.routes import TWINS
+    from tpudf_torch.ops.tome import (DEPLOYED_PATCH_TOME_R, DEPLOYED_TOME_R,
+                                      deployed_floor, deployed_patch_floor,
+                                      merge_schedule)
+
+    def merges(n, layers, r, floor):
+        return sum(1 for ri in merge_schedule(n, layers, r, floor) if ri)
+
+    state = {"cores": {}, "launches": {}}
+    pg = torch.Generator(device=dev).manual_seed(6)
+    for name, (w, heads, hd, _, _, n) in LARGE.items():
+        t0 = time.perf_counter()
+        model = build(dev, seed=0, cfg_name=name)
+        torch.cuda.synchronize()
+        print(f"detect core {name}: build (init + calibrate on 32 images + "
+              f"quantise + pre-pad) {time.perf_counter() - t0:.2f} s "
+              f"[{card}]", flush=True)
+        params, cfg = model.param_tree(), model.cfg
+        n_merge = merges(n, cfg.layers, DEPLOYED_TOME_R, deployed_floor(n))
+        k6_fits = int8_block.attn_out_int8_fits(n, heads * hd, w, hd)
+        px = torch.rand((8, cfg.image_size, cfg.image_size, 3), generator=pg,
+                        device=dev).to(torch.bfloat16)
+        norm = (px - 0.5) / 0.5
+        try:
+            for route in ("FPP", "PPP", "XXX", "LLL"):
+                os.environ["TPUDF_INT8_KERNELS"] = route
+                expect = w8a8_launches(route, cfg.layers, n_merge, tome=True,
+                                       k6_fits=k6_fits)
+                LAUNCHES.reset()
+                out = model(px)
+                torch.cuda.synchronize()
+                launched = LAUNCHES.snapshot()
+                check_launches(f"detect core {name} {route} B=8", launched,
+                               expect)
+                for k, v in out.items():
+                    if not torch.isfinite(v).all():
+                        raise AssertionError(f"{name} {route}: {k} not "
+                                             f"finite")
+                pb = out["p_blend"]
+                rs = out["risk_probs"].sum(-1)
+                if (tuple(out["risk_probs"].shape) != (8, 5)
+                        or not ((pb >= 0) & (pb <= 1)).all()
+                        or not torch.allclose(rs, torch.ones_like(rs),
+                                              atol=1e-5)):
+                    raise AssertionError(f"{name} {route}: outputs out of "
+                                         f"range")
+                kern = detect_core(params, px, cfg, model.cuts)
+                LAUNCHES.reset()
+                twin = detect_core(params, px, cfg, model.cuts,
+                                   kernels=TWINS)
+                torch.cuda.synchronize()
+                if LAUNCHES.snapshot():
+                    raise AssertionError(f"twins launched "
+                                         f"{LAUNCHES.snapshot()}")
+                print(f"detect core {name} {route} B=8: launches {launched}; "
+                      + pooled_vs(f"detect core {name} {route}",
+                                  kern["pooled"], twin["pooled"],
+                                  (kern["p_blend"], twin["p_blend"]))
+                      + f"; p_blend mean {float(pb.float().mean()):.4f} "
+                      f"[{card}]", flush=True)
+                state["launches"][(name, route)] = launched
+            variants = [("FPP", False), ("PPP", False), ("XXX", False),
+                        ("LLL", False)]
+            if not k6_fits:
+                variants.append(("PPP", True))
+            pooled = {}
+            for route, int8_attn in variants:
+                os.environ["TPUDF_INT8_KERNELS"] = route
+                if int8_attn:
+                    os.environ["TPUDF_INT8_ATTN"] = "1"
+                label = (f"tower {name} {route}"
+                         + (" TPUDF_INT8_ATTN=1" if int8_attn else "")
+                         + " without ToMe")
+                expect = w8a8_launches(route, cfg.layers, 0, tome=False,
+                                       k6_fits=k6_fits, int8_attn=int8_attn)
+                with torch.no_grad():
+                    LAUNCHES.reset()
+                    kern = siglip_forward(params["backbone"], norm, cfg)
+                    torch.cuda.synchronize()
+                    launched = LAUNCHES.snapshot()
+                    check_launches(label, launched, expect)
+                    twin = siglip_forward(params["backbone"], norm, cfg,
+                                          kernels=TWINS)
+                pooled[route, int8_attn] = kern["pooled"]
+                extra = ""
+                if int8_attn:
+                    extra = "; vs the K9 route " + pooled_vs(
+                        f"{label} vs K9", kern["pooled"],
+                        pooled["PPP", False])
+                print(f"{label} B=8: launches {launched}; "
+                      + pooled_vs(label, kern["pooled"], twin["pooled"])
+                      + extra + f" [{card}]", flush=True)
+                state["launches"][(name, route, int8_attn)] = launched
+                os.environ.pop("TPUDF_INT8_ATTN", None)
+        finally:
+            os.environ.pop("TPUDF_INT8_KERNELS", None)
+            os.environ.pop("TPUDF_INT8_ATTN", None)
+        state["cores"][name] = (model, params)
+        del out, kern, twin, pooled
+        torch.cuda.empty_cache()
+
+    # large-384's engines: 53 views of 576 tokens per image
+    name = "large-384"
+    w, _, _, _, _, n = LARGE[name]
+    t0 = time.perf_counter()
+    eng_a = build_engine(dev, seed=0, cfg_name=name)
+    eng_b = build_engine(dev, seed=0, cfg_name=name, int8=True, tome=True,
+                         patch_tome=True)
+    torch.cuda.synchronize()
+    print(f"engines {name}: build of A (bf16) and B (init + calibrate on 16 "
+          f"images + quantise) {time.perf_counter() - t0:.2f} s [{card}]",
+          flush=True)
+    layers = eng_a.cfg.layers
+    floats = {linear.KERNEL: 2 * layers, attention.KERNEL: layers,
+              mlp.KERNEL_BF16: layers, layernorm.KERNEL: 2, srm.KERNEL: 1}
+    main_m = merges(n, layers, DEPLOYED_TOME_R, deployed_floor(n))
+    patch_m = merges(n, layers, DEPLOYED_PATCH_TOME_R,
+                     deployed_patch_floor(n))
+    expect = {("A", "full"): floats, ("A", "fast"): floats,
+              # two tower forwards: the main views and the patch views
+              ("B", "full"): {int8_block.KERNEL: 2 * layers,
+                              mlp.KERNEL: 2 * layers,
+                              mlp.KERNEL_SUMSQ: main_m + patch_m,
+                              layernorm.KERNEL: 4, srm.KERNEL: 1},
+              ("B", "fast"): {int8_block.KERNEL: layers, mlp.KERNEL: layers,
+                              mlp.KERNEL_SUMSQ: main_m, layernorm.KERNEL: 2,
+                              srm.KERNEL: 1}}
+    rng = np.random.default_rng(8)
+    size = eng_a.cfg.image_size
+    requests = {"full": rng.integers(0, 256, (8, size, size, 3), np.uint8),
+                "fast": rng.integers(0, 256, (32, size, size, 3), np.uint8)}
+    engines = {"A": eng_a, "B": eng_b}
+    for e, eng in engines.items():
+        tw = dataclasses.replace(eng, kernels=TWINS)
+        for mode, px in requests.items():
+            state["launches"][("engine", e, mode)] = engine_request(
+                f"engine {e} {name} {mode}", eng, tw, px, mode == "fast",
+                e == "B", expect[(e, mode)], w, twin_images=2)
+            torch.cuda.empty_cache()
+    state["engines"] = (engines, requests)
+    return state
+
+
+def large_timings(state, card):
+    """Phase 4 at the large backbones: the detect core of large-384 at B=8
+    and 128 and of so400m-512 at B=8 and 64 (kernels, and the twins at
+    B=8), a profile of each at its larger batch; so400m-512's tower under
+    PPP without ToMe, with and without TPUDF_INT8_ATTN=1 (9b or K9), in
+    turns; large-384's engines: the full analysis of 8 and the fast
+    request of 32."""
+    import torch
+    from tpudf_torch.entry import detect_core
+    from tpudf_torch.models.siglip import siglip_forward
+    from tpudf_torch.ops.routes import TWINS
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for name, batches in (("large-384", (8, 128)), ("so400m-512", (8, 64))):
+        model, params = state["cores"][name]
+        size = model.cfg.image_size
+        for b in batches:
+            px = torch.rand((b, size, size, 3), generator=g,
+                            device="cuda").to(torch.bfloat16)
+            if b == 8:
+                k_ms, t_ms = paired_ms(
+                    lambda: model(px),
+                    lambda: detect_core(params, px, model.cfg, model.cuts,
+                                        kernels=TWINS), iters=10,
+                    twin_iters=3)
+                twin = (f"; twins {t_ms:.3f} ms = {b * 1e3 / t_ms:.1f} "
+                        f"img/s")
+            else:
+                k_ms, twin = cuda_ms(lambda: model(px), iters=5), ""
+            print(f"detect core {name} B={b}: kernels {k_ms:.3f} ms = "
+                  f"{b * 1e3 / k_ms:.1f} img/s{twin} [{card}]", flush=True)
+        profile(lambda: model(px), f"detect core {name} B={batches[-1]}",
+                card, iters=2, top=14)
+        del px
+
+    model, params = state["cores"]["so400m-512"]
+    norm = torch.rand((8, 512, 512, 3), generator=g, device="cuda").to(
+        torch.bfloat16) * 2 - 1
+
+    def tower(int8_attn):
+        os.environ["TPUDF_INT8_ATTN"] = "1" if int8_attn else "0"
+        with torch.no_grad():
+            return siglip_forward(params["backbone"], norm, model.cfg)
+
+    os.environ["TPUDF_INT8_KERNELS"] = "PPP"
+    try:
+        i8_ms, k9_ms = paired_ms(lambda: tower(True), lambda: tower(False),
+                                 iters=5)
+    finally:
+        os.environ.pop("TPUDF_INT8_KERNELS", None)
+        os.environ.pop("TPUDF_INT8_ATTN", None)
+    print(f"tower so400m-512 PPP without ToMe B=8: K9 route {k9_ms:.3f} ms, "
+          f"TPUDF_INT8_ATTN=1 (9b) {i8_ms:.3f} ms [{card}]", flush=True)
+
+    engines, requests = state["engines"]
+    for e, eng in engines.items():
+        for mode, px in requests.items():
+            fast = mode == "fast"
+            ms = cuda_ms(lambda: eng.fetch_batch(eng.dispatch_batch(px, fast),
+                                                 fast), iters=3, warmup=1)
+            b = px.shape[0]
+            print(f"engine {e} large-384 {mode} B={b}: kernels {ms:.3f} ms = "
+                  f"{b * 1e3 / ms:.1f} img/s [{card}]", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -358,7 +1174,6 @@ def main() -> int:
     from tpudf_torch.ops.tome import (DEPLOYED_PATCH_TOME_R, DEPLOYED_TOME_R,
                                       deployed_floor, deployed_patch_floor,
                                       merge_schedule)
-    from tpudf_torch.serve.engine import FAST_SCALARS, FULL_SCALARS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -868,6 +1683,8 @@ def main() -> int:
     del x, got, ref, bad, qkv, q, k, v, a8, a8k, h8, y16
     torch.cuda.empty_cache()
 
+    large_kernel_checks(rec, dev, card)
+
     # ---- 3a. the detect core
     print("phase 3: paths", flush=True)
     t0 = time.perf_counter()
@@ -931,20 +1748,6 @@ def main() -> int:
     rg = torch.Generator(device=dev).manual_seed(5)
     route_launches = {}
 
-    def vs_twins(label, kern_pooled, twin_pooled, kern_pb=None, twin_pb=None):
-        cos = F.cosine_similarity(kern_pooled.float(), twin_pooled.float(),
-                                  dim=-1)
-        dpb = (0.0 if kern_pb is None
-               else float((kern_pb - twin_pb).abs().max()))
-        if not torch.isfinite(kern_pooled.float()).all():
-            raise AssertionError(f"{label}: pooled not finite")
-        if float(cos.min()) < 0.99 or dpb > 1e-2:
-            raise AssertionError(f"{label}: kernels vs twins disagree "
-                                 f"(cosine {float(cos.min()):.6f}, "
-                                 f"|Δp_blend| {dpb:.3e})")
-        return (f"pooled cosine min {float(cos.min()):.6f} mean "
-                f"{float(cos.mean()):.6f}; max|Δp_blend| twin {dpb:.3e}")
-
     try:
         for route in ROUTES:
             os.environ["TPUDF_INT8_KERNELS"] = route
@@ -969,9 +1772,9 @@ def main() -> int:
                     raise AssertionError(f"twins launched "
                                          f"{LAUNCHES.snapshot()}")
                 print(f"detect core {route} B={b}: launches {launched}; "
-                      + vs_twins(f"detect core {route} B={b}",
-                                 kern["pooled"], twin["pooled"],
-                                 kern["p_blend"], twin["p_blend"])
+                      + pooled_vs(f"detect core {route} B={b}",
+                                  kern["pooled"], twin["pooled"],
+                                  (kern["p_blend"], twin["p_blend"]))
                       + f"; p_blend mean "
                       f"{float(out['p_blend'].float().mean()):.4f} [{card}]",
                       flush=True)
@@ -995,8 +1798,8 @@ def main() -> int:
                 twin = siglip_forward(params["backbone"], norm, model.cfg,
                                       kernels=TWINS)
             print(f"tower {route} without ToMe B=8: launches {launched}; "
-                  + vs_twins(f"tower {route}", kern["pooled"],
-                             twin["pooled"]) + f" [{card}]", flush=True)
+                  + pooled_vs(f"tower {route}", kern["pooled"],
+                              twin["pooled"]) + f" [{card}]", flush=True)
     finally:
         os.environ.pop("TPUDF_INT8_KERNELS", None)
     del kern, twin, out
@@ -1032,65 +1835,9 @@ def main() -> int:
     requests[("B", "full")] = requests[("A", "full")]
     engine_launches = {}
     for (e, mode), px in requests.items():
-        eng, fast = engines[e], mode == "fast"
-        b = px.shape[0]
-        LAUNCHES.reset()
-        out = eng.fetch_batch(eng.dispatch_batch(px, fast), fast)
-        launches = LAUNCHES.snapshot()
-        engine_launches[(e, mode)] = launches
-        check_launches(f"engine {e} {mode} B={b}", launches,
-                       engine_expect[(e, mode)])
-        names = FAST_SCALARS if fast else FULL_SCALARS
-        want = {k: (b,) for k in names}
-        want["risk_probs"] = (b, 5)
-        if not fast:
-            want.update(patch_probs=(b, 16), embed_feat=(b, w))
-        shapes = {k: v.shape for k, v in out.items()}
-        if shapes != want:
-            raise AssertionError(f"engine {e} {mode}: shapes {shapes}")
-        for k, v in out.items():
-            if not np.isfinite(v).all():
-                raise AssertionError(f"engine {e} {mode}: {k} not finite")
-        for k in ("p_blend", "patch_probs", "max_patch"):
-            if k in out and not ((out[k] >= 0) & (out[k] <= 1)).all():
-                raise AssertionError(f"engine {e} {mode}: {k} outside [0,1]")
-        if not fast and not (out["max_patch"] >= out["patch_mean"]).all():
-            raise AssertionError(f"engine {e}: max_patch < patch_mean")
-        if not np.allclose(out["risk_probs"].sum(-1), 1.0, atol=1e-5):
-            raise AssertionError(f"engine {e} {mode}: risk_probs rows "
-                                 f"do not sum to 1")
-        # the same request through the twins: the probabilities within
-        # 1e-2, the logits z_sig / z_freq within 5e-2 (1e-2 of probability
-        # near 0.5), and the pooled features of every view of every tower
-        # forward (main and patch views, or the fast pair) cosine >= 0.99.
-        # W8A8 (engine B): int8 rounding ties move the visual head's output
-        # further (visual_prob 8.3e-3, z_sig 3.3e-2 on an H100), so its
-        # visual_prob and z_sig are held at twice those limits
-        tw = twins[e]
-        ref = tw.fetch_batch(tw.dispatch_batch(px, fast), fast)
-        vis = 2.0 if e == "B" else 1.0
-        limits = {"p_blend": 1e-2, "visual_prob": 1e-2 * vis,
-                  "freq_prob": 1e-2, "z_sig": 5e-2 * vis, "z_freq": 5e-2}
-        if not fast:
-            limits.update(patch_probs=1e-2, max_patch=1e-2, patch_mean=1e-2)
-        delta = {k: float(np.abs(out[k] - ref[k]).max()) for k in limits}
-        feats_k = eng.pooled_features(px, fast)
-        feats_t = tw.pooled_features(px, fast)
-        cos = {k: float(F.cosine_similarity(feats_k[k].float(),
-                                            feats_t[k].float(), dim=-1).min())
-               for k in feats_k}
-        del feats_k, feats_t
-        print(f"engine {e} {mode} B={b}: launches {launches}; max|Δ| twin "
-              + ", ".join(f"{k} {v:.3e}" for k, v in delta.items())
-              + "; pooled cosine min "
-              + ", ".join(f"{k} {v:.6f}" for k, v in cos.items())
-              + f"; p_blend mean {float(out['p_blend'].mean()):.4f}",
-              flush=True)
-        bad = [k for k, v in delta.items() if v > limits[k]]
-        bad += [f"pooled {k}" for k, v in cos.items() if v < 0.99]
-        if bad:
-            raise AssertionError(f"engine {e} {mode}: kernels vs twins "
-                                 f"disagree on {bad}")
+        engine_launches[(e, mode)] = engine_request(
+            f"engine {e} {mode}", engines[e], twins[e], px, mode == "fast",
+            e == "B", engine_expect[(e, mode)], w)
 
     # ---- 3d. the MTL trainer: (a) float prefix, (b) int8 prefix
     bg = torch.Generator(device=dev).manual_seed(4)
@@ -1295,6 +2042,9 @@ def main() -> int:
             fault_checks(twin)
         del twin
 
+    # ---- 3e-3g. the large backbones: detect cores, routes, engines
+    large = large_paths(dev, card)
+
     # ---- 4. timings of the paths
     print("phase 4: path timings", flush=True)
     for b, iters in ((8, 20), (256, 5)):
@@ -1375,21 +2125,27 @@ def main() -> int:
         del boxes
         torch.cuda.empty_cache()
 
+    large_timings(large, card)
+
     names = {"K1": int8_block.KERNEL, "K2": mlp.KERNEL, "K3": srm.KERNEL,
              "K4": layernorm.KERNEL, "K5": int8_block.KERNEL_LN_QKV,
              "K6": int8_block.KERNEL_ATTN_OUT,
              "K7": int8_block.KERNEL_LAYER, "K8": layernorm.KERNEL_QUANT,
              "K9": attention.KERNEL, "K10": attention.KERNEL_BWD,
-             "K13": linear.KERNEL, "K14": mlp.KERNEL_BF16}
+             "K13": linear.KERNEL, "K14": mlp.KERNEL_BF16,
+             "K9b": attention.KERNEL_INT8}
     engine_a = engine_launches[("A", "full")]
     # per run of the path each kernel serves: a detect-core forward (K5-K8:
     # under the route that runs them), engine A's full analysis, a train
     # step of (a)
+    # 9b: so400m-512's tower under PPP without ToMe, TPUDF_INT8_ATTN=1
     route_of = {"K5": "PPP", "K6": "PPP", "K7": "LLL", "K8": "XXX"}
     launches = {k: (core_launches if k in ("K1", "K2", "K3", "K4")
                     else route_launches[route_of[k]] if k in route_of
                     else mtl_launches["a"] if k == "K10"
-                    else engine_a)[n] for k, n in names.items()}
+                    else large["launches"][("so400m-512", "PPP", True)]
+                    if k == "K9b" else engine_a)[n]
+                for k, n in names.items()}
     print(rec.line(launches))
     print(card)
     print(json.dumps({"ok": True, "device": {

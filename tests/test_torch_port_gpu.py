@@ -1,6 +1,8 @@
 """Card-only tests: each CUDA kernel of tpudf_torch against its plain twin
 on the card, at small shapes (K8's int8 codes within one step: a tie of
-the f32 LN may round the other way), both serving engines and one MTL train step
+the f32 LN may round the other way), and at the large backbones' longer
+sequences and wider heads (K1, K6, K9 and 9b at S = 576 / 1024, head_dim
+64 / 128, the LN passes at width 1152), both serving engines and one MTL train step
 against the same parameters through the twins (the main path's shapes are
 checked by chip_smoke.py). Marked `gpu`; each test skips inside its body when no card
 is visible, so every worker collects the same tests. This file imports no
@@ -142,6 +144,128 @@ def test_kernel_matches_twin_on_card(name):
     got, ref, atol, rtol = _card_case(name, torch.device("cuda"))
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def _share_apart(a, b):
+    """The share of elements of a and b more than one bf16 step apart."""
+    a, b = a.float(), b.float()
+    m = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(m)) - 7)
+    return float(((a - b).abs() > step).float().mean())
+
+
+def _large_case(name, dev):
+    """(kernel output, twin output, atol, rtol, measure, limit, planted
+    faults' outputs) at the large backbones' shapes: S = 576 with heads of
+    64 (large-384), S = 1024 with heads of 72 zero-padded to 128 and scale
+    72^-0.5 (so400m-512). q, k and v have std ~1.5 (scores of std ~2.25),
+    so that the attention shows: K9 and 9b are held to at most 1e-2 of
+    their outputs more than a bf16 step from the twin, K1 and K6 to
+    |out - twin| <= 5e-2 |twin - x| (the attention sublayer's part; the
+    twin quantises the bf16-rounded attention output), and each measure
+    must exceed its limit for the kernel with the scale taken from the
+    padded head_dim (at heads of 64 the same 0.75 ratio) and with the key
+    bias dropped."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s, std=1.0: torch.randn(s, generator=g, device=dev) * std
+    s_, hd, heads, scale = ((576, 64, 2, None) if name.endswith("576")
+                            else (1024, 128, 1, 72 ** -0.5))
+    bad_scale = 0.75 * hd ** -0.5 if scale is None else hd ** -0.5
+    wa = heads * hd
+    qkv = r(2, s_, 3, heads, hd, std=1.5)
+    if hd == 128:
+        qkv[..., 72:] = 0.0             # prepad_siglip_static's zero dims
+    qkv = qkv.reshape(2, s_, 3 * wa).to(torch.bfloat16)
+    lb = torch.log(torch.randint(1, 5, (2, s_), generator=g,
+                                 device=dev).float())
+    if name.startswith("9b"):
+        return (attention.attention_qkv_int8(qkv, heads, hd, scale),
+                attention.attention_qkv_int8_reference(qkv, heads, hd,
+                                                       scale),
+                1e-2, 2 ** -7, _share_apart, 1e-2,
+                [attention.attention_qkv_int8(qkv, heads, hd, bad_scale),
+                 attention.attention_qkv_int8_reference(
+                     qkv, heads, hd, scale, q_block=64)])
+    if name.startswith("K9"):
+        k9 = lambda sc, b_: attention.attention_qkv(qkv, heads, hd, sc,
+                                                    logit_bias=b_)
+        return (k9(scale, lb),
+                attention.attention_qkv_reference(qkv, heads, hd, scale,
+                                                  logit_bias=lb),
+                1e-2, 2 ** -7, _share_apart, 1e-2,
+                [k9(bad_scale, lb), k9(scale, None)])
+    ln = {"scale": 1.0 + r(W, std=0.1), "bias": r(W, std=0.1)}
+    if hd == 128:
+        out_w = r(heads, hd, W, std=wa ** -0.5)
+        out_w[:, 72:] = 0.0
+        out_w = out_w.reshape(wa, W)
+    else:
+        out_w = r(wa, W, std=wa ** -0.5)
+    out_wq = quant.quantize_weight(out_w)
+    a_out = torch.tensor(6.0, device=dev)
+    x = r(2, s_, W).to(torch.bfloat16)
+    rel = lambda got, ref: float((got.float() - ref.float()).norm()
+                                 / (ref.float() - x.float()).norm())
+    if name.startswith("K6"):
+        args = (qkv, x, out_wq, r(W, std=0.1), a_out, heads, hd)
+        return (int8_block.attn_out_int8(*args, scale),
+                int8_block.attn_out_reference(*args, scale), 5e-2, 2e-2,
+                rel, 5e-2, [int8_block.attn_out_int8(*args, bad_scale)])
+    qkv_w = r(W, 3, heads, hd, std=1.5 * W ** -0.5)
+    qkv_b = r(3, heads, hd, std=0.1)
+    if hd == 128:
+        qkv_w[..., 72:] = 0.0
+        qkv_b[..., 72:] = 0.0
+    wq = quant.quantize_weight(qkv_w.reshape(W, 3 * wa))
+    args = (x, ln, wq, qkv_b.reshape(-1), out_wq, r(W, std=0.1),
+            torch.tensor(4.0, device=dev), a_out, heads, hd, 1e-6)
+    k1 = lambda sc, b_: int8_block.attn_sublayer_int8(*args, sc,
+                                                      logit_bias=b_)
+    return (k1(scale, lb),
+            int8_block.attn_sublayer_reference(*args, scale, logit_bias=lb),
+            5e-2, 2e-2, rel, 5e-2, [k1(bad_scale, lb), k1(scale, None)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["K1-576", "K1-1024", "K6-576", "K6-1024",
+                                  "K9-576", "K9-1024", "9b-576", "9b-1024"])
+def test_large_attention_matches_twin_on_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got, ref, atol, rtol, measure, limit, faults = _large_case(
+        name, torch.device("cuda"))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    assert measure(got, ref) <= limit
+    assert all(measure(f, ref) > limit for f in faults)
+
+
+@pytest.mark.gpu
+def test_ln_passes_at_width_1152_on_card():
+    """K4, K8 (codes within one step: f32 LN ties) and K5 at so400m's
+    width, 4.5 chunks of 8 a lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s, std=1.0: torch.randn(s, generator=g, device=dev) * std
+    w = 1152
+    sc, bi = 1.0 + r(w, std=0.1), r(w, std=0.1)
+    x = (r(300, w) * 3 + 0.5).to(torch.bfloat16)
+    torch.testing.assert_close(
+        layernorm.layer_norm_fused(x, sc, bi).float(),
+        layernorm.layer_norm_reference(x, sc, bi).float(), atol=1e-6,
+        rtol=2 ** -7)
+    a = torch.tensor(3.0, device=dev)
+    d = (layernorm.layer_norm_quant(x, sc, bi, a).int()
+         - layernorm.layer_norm_quant_reference(x, sc, bi, a).int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+    wq = quant.quantize_weight(r(w, 384, std=w ** -0.5))
+    args = (x, {"scale": sc, "bias": bi}, wq, r(384, std=0.1), a)
+    torch.testing.assert_close(int8_block.ln_qkv_int8(*args).float(),
+                               int8_block.ln_qkv_reference(*args).float(),
+                               atol=5e-2, rtol=2e-2)
 
 
 @pytest.mark.gpu

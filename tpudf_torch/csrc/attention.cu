@@ -1,34 +1,31 @@
 // Per-image, per-head full-softmax attention over the fused bf16 qkv
-// activation (B, S, 3W) laid out [q | k | v], with an optional per-key
+// activation (B, S, 3Wa) laid out [q | k | v], with an optional per-key
 // logit bias (ToMe proportional attention, log token size). One kernel,
 // two output epilogues:
 //   int8  K1 (b): the static int8 quant of o that feeds the out-projection
 //         GEMM; replaces the attention loop of tpudf/ops/int8_block.py
 //         `_attn_sublayer_kernel`, whose TPU kernel kept qkv in VMEM
 //         between the QKV projection and this step.
-//   bf16  K9: o itself, (B, S, W) bf16; replaces tpudf/ops/attention.py
+//   bf16  K9: o itself, (B, S, Wa) bf16; replaces tpudf/ops/attention.py
 //         `_attention_qkv_pallas` (inner `kernel`, `_one_head` without
-//         int8_attn), the float tower's attention. The Pallas kernel sliced
-//         per-head columns of the qkv block in VMEM; here each block reads
-//         its head's columns from device memory once.
+//         int8_attn), the float tower's attention and the reference route
+//         of `attn_out_int8`. The Pallas kernel sliced per-head columns of
+//         the qkv block in VMEM; here each block reads its head's columns
+//         from device memory.
 // Same arithmetic in both: scores = (q . k) * scale in f32, + bias,
 // p = e / sum(e) with e = exp(s - max) in f32, p rounded to bf16, o = p . v
 // accumulated in f32, then o rounded once to the output.
 //
 // One block per (query tile of 64, head, image), four warps of 16 query
-// rows. The head's K and V (S <= 256 rows of 64, zero-padded to a multiple
-// of 16 keys) and the Q tile sit in shared memory, rows padded by 16 bytes
-// so that ldmatrix's eight row addresses hit distinct banks (up to 81 KB).
-// Both products run on the tensor cores (mma.sync m16n8k16 bf16, f32
-// accumulate): a warp keeps its 16 x S score rows in registers (the full
-// row, so the softmax is exact, not online), and the score accumulators of
-// two key tiles are, once rounded to bf16, the A fragment of the P . V
-// product (no trip through shared memory). At the float engine's shape
-// (S = 256) the bound is the bytes of qkv; K and V are re-read from L2 by
-// each of the S/64 query-tile blocks of a head. The score row is sized
-// at compile time; an instance capped at 64 keys serves S <= 64 (the ToMe
-// floors) with a quarter of the registers, so more blocks fit an SM. The
-// per-warp core (scores, softmax, p . v) is `attn_rows` in attn_tile.cuh.
+// rows, head_dim 64 or 128 (a template parameter), S <= kMaxSeq = 1024.
+// The Q tile sits in shared memory until each warp has its fragments; the
+// head's K and V stream through a two-stage cp.async ring of 64-key tiles
+// (attn_stream in attn_tile.cuh): a pass over K for each row's max and
+// sum, then a pass over K and V for p and p . v, both products on the
+// tensor cores (mma.sync m16n8k16 bf16, f32 accumulate). Shared memory:
+// 46 KB at head_dim 64, 87 KB at 128, whatever S. At the float engine's
+// shapes the bound is the bytes of qkv; K and V are re-read from L2 by
+// each of the S/64 query-tile blocks of a head, K twice.
 //
 // K6, replacing tpudf/ops/int8_block.py `_attn_out_kernel` (wrapper
 // `attn_out_int8`): qkv (B, S, 3Wa) bf16 and the residual x (B, S, W) ->
@@ -37,12 +34,12 @@
 // image) blocks of 8 warps (attn_out_tile in attn_tile.cuh). The TPU kernel
 // kept the attention output in VMEM; here it stays in a (128 x Wa) int8
 // tile in shared memory. Per block the heads run one after another, K and
-// V re-read from L2; the out-projection's weight streams from L2 for each
-// block. 128 query rows (not the TPU kernel's 256, nor the K1 attention's
-// 64) give the out-projection the GEMM's own 128 x 128 tile and keep the
-// block within shared memory (K, V, Q 92 KB and the o tile 100 KB at S =
-// 256, Wa = 768). At the detect core's S = 256 the bound is the
-// tensor-core operations.
+// V streamed from L2 as above; the out-projection's weight streams from L2
+// for each block. 128 query rows (not the TPU kernel's 256, nor the K1
+// attention's 64) give the out-projection the GEMM's own 128 x 128 tile;
+// with the K/V ring the block's shared memory no longer depends on S (188
+// KB at large-384's S = 576, Wa = 1024). At the detect core's shapes the
+// bound is the tensor-core operations.
 #include "attn_tile.cuh"
 
 namespace tpudf {
@@ -50,8 +47,7 @@ namespace tpudf {
 constexpr int kQTile = 64;               // query rows per block
 constexpr int kAttnWarps = 4;            // 16 query rows each
 
-// kSeqCap: the most keys a score row holds (64 or kMaxSeq)
-template <bool kI8Out, int kSeqCap>
+template <int HD, bool kI8Out>
 __global__ void __launch_bounds__(kAttnWarps * 32)
     attention_kernel(const __nv_bfloat16* __restrict__ qkv,
                      const float* __restrict__ key_bias,
@@ -59,45 +55,41 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
                      void* __restrict__ out, int seq, int heads,
                      float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int seq_pad = (seq + 15) & ~15;
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + seq_pad * kRowLd;
-  __nv_bfloat16* qs = vs + seq_pad * kRowLd;
-  const int wa = heads * kHd;                   // attention width
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ring = qs + kQTile * row_ld<HD>();
+  const int wa = heads * HD;                    // attention width
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = blockIdx.x * kQTile;
-
-  // ---- K, V of the head and the Q tile into shared memory, 16 B a load
   const size_t row3 = static_cast<size_t>(3) * wa;         // qkv row stride
   const __nv_bfloat16* base =
-      qkv + static_cast<size_t>(b) * seq * row3 + h * kHd;
-  load_rows(ks, base + wa, row3, 0, seq_pad, seq);
-  load_rows(vs, base + 2 * wa, row3, 0, seq_pad, seq);
-  load_rows(qs, base, row3, q0, kQTile, seq);
+      qkv + static_cast<size_t>(b) * seq * row3 + h * HD;
+  load_rows<HD>(qs, base, row3, q0, kQTile, seq);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * 16;                 // this warp's first tile row
-  if (q0 + r0 >= seq) return;               // no more barriers below
-  const int g = lane >> 2, t = lane & 3;
-  float o[kHd / 8][4];
-  attn_rows<kSeqCap>(o, qs + r0 * kRowLd, ks, vs, seq,
-                     key_bias == nullptr
-                         ? nullptr
-                         : key_bias + static_cast<size_t>(b) * seq,
-                     scale, lane);
+  // every warp joins the ring's barriers; rows past seq hold zero queries
+  // (finite) and are never stored
+  AttnWarp<HD> w;
+  load_q<HD>(w, qs + r0 * row_ld<HD>(), lane);
+  attn_stream<HD>(w, base + wa, base + 2 * wa, row3, seq,
+                  key_bias == nullptr
+                      ? nullptr
+                      : key_bias + static_cast<size_t>(b) * seq,
+                  scale, ring, lane);
 
   // ---- epilogue: rows q0 + r0 + g (e = 0, 1) and + 8 (e = 2, 3)
+  const int g = lane >> 2, t = lane & 3;
   const float inv_out = kI8Out ? 127.0f / act_scale[0] : 0.0f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + r0 + g + 8 * r;
     if (qi >= seq) continue;
-    const size_t row = (static_cast<size_t>(b) * seq + qi) * wa + h * kHd;
+    const size_t row = (static_cast<size_t>(b) * seq + qi) * wa + h * HD;
 #pragma unroll
-    for (int dt = 0; dt < kHd / 8; ++dt) {
+    for (int dt = 0; dt < HD / 8; ++dt) {
       const size_t o_ix = row + dt * 8 + 2 * t;
-      const float o0 = o[dt][2 * r], o1 = o[dt][2 * r + 1];
+      const float o0 = w.o[dt][2 * r], o1 = w.o[dt][2 * r + 1];
       if constexpr (kI8Out) {
         char2 q8;
         q8.x = quant_i8(o0, inv_out);
@@ -112,20 +104,20 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
   }
 }
 
-template <bool kI8Out, int kSeqCap>
-int launch_attention_capped(const void* qkv, const void* key_bias,
-                            const void* act_scale, void* out, int batch,
-                            int seq, int heads, float scale, void* stream) {
-  const int seq_pad = (seq + 15) & ~15;
-  const size_t smem = static_cast<size_t>(2 * seq_pad + kQTile) * kRowLd *
-                      sizeof(__nv_bfloat16);
+template <int HD, bool kI8Out>
+int launch_attention_hd(const void* qkv, const void* key_bias,
+                        const void* act_scale, void* out, int batch, int seq,
+                        int heads, float scale, void* stream) {
+  const size_t smem =
+      static_cast<size_t>(kQTile * row_ld<HD>() + ring_elems<HD>()) *
+      sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<kI8Out, kSeqCap>,
+      attention_kernel<HD, kI8Out>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq + kQTile - 1) / kQTile, heads, batch);
-  attention_kernel<kI8Out, kSeqCap><<<grid, kAttnWarps * 32, smem,
-                                      static_cast<cudaStream_t>(stream)>>>(
+  attention_kernel<HD, kI8Out><<<grid, kAttnWarps * 32, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(qkv),
       static_cast<const float*>(key_bias),
       static_cast<const float*>(act_scale), out, seq, heads, scale);
@@ -137,14 +129,15 @@ int launch_attention(const void* qkv, const void* key_bias,
                      const void* act_scale, void* out, int batch, int seq,
                      int heads, int head_dim, float scale, void* stream) {
   if (batch <= 0 || seq <= 0) return 0;
-  if (head_dim != kHd || seq > kMaxSeq || (kI8Out && act_scale == nullptr))
+  if (seq > kMaxSeq || (kI8Out && act_scale == nullptr))
     return cudaErrorInvalidValue;
-  if (seq <= 64)
-    return launch_attention_capped<kI8Out, 64>(qkv, key_bias, act_scale, out,
-                                               batch, seq, heads, scale,
-                                               stream);
-  return launch_attention_capped<kI8Out, kMaxSeq>(
-      qkv, key_bias, act_scale, out, batch, seq, heads, scale, stream);
+  if (head_dim == 64)
+    return launch_attention_hd<64, kI8Out>(qkv, key_bias, act_scale, out,
+                                           batch, seq, heads, scale, stream);
+  if (head_dim == 128)
+    return launch_attention_hd<128, kI8Out>(qkv, key_bias, act_scale, out,
+                                            batch, seq, heads, scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -175,6 +168,10 @@ int launch_attention(const void* qkv, const void* key_bias,
 // The scores and products never touch device memory; each pass reads qkv
 // and g of its head once per tile from L2. The card's bound at the MTL
 // step's shape (16, 256, 2304) is the bytes of qkv, g and dqkv.
+
+constexpr int kHd = 64;                  // K10's head_dim
+constexpr int kBwdSeq = 256;             // K10's longest sequence
+constexpr int kRowLd = row_ld<kHd>();
 
 // A fragments (16 rows x 64 dims) of shared rows r0.. (ldmatrix)
 __device__ __forceinline__ void load_a_rows(unsigned (&f)[kHd / 16][4],
@@ -247,16 +244,6 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* out, size_t ld,
   }
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // stats: (3, B, H, S) f32 — row max, row sum of exp(s - max), D
 __global__ void __launch_bounds__(kAttnWarps * 32)
     attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ qkv,
@@ -275,11 +262,11 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQTile;
   const __nv_bfloat16* base =
       qkv + static_cast<size_t>(b) * seq * row3 + h * kHd;
-  load_rows(ks, base + wa, row3, 0, seq_pad, seq);
-  load_rows(vs, base + 2 * wa, row3, 0, seq_pad, seq);
-  load_rows(qs, base, row3, q0, kQTile, seq);
-  load_rows(gs, gout + static_cast<size_t>(b) * seq * wa + h * kHd, wa, q0,
-            kQTile, seq);
+  load_rows<kHd>(ks, base + wa, row3, 0, seq_pad, seq);
+  load_rows<kHd>(vs, base + 2 * wa, row3, 0, seq_pad, seq);
+  load_rows<kHd>(qs, base, row3, q0, kQTile, seq);
+  load_rows<kHd>(gs, gout + static_cast<size_t>(b) * seq * wa + h * kHd, wa,
+                 q0, kQTile, seq);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -401,11 +388,11 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kQTile;
   const __nv_bfloat16* base =
       qkv + static_cast<size_t>(b) * seq * row3 + h * kHd;
-  load_rows(qs, base, row3, 0, seq_pad, seq);
-  load_rows(gs, gout + static_cast<size_t>(b) * seq * wa + h * kHd, wa, 0,
-            seq_pad, seq);
-  load_rows(ks, base + wa, row3, k0, kQTile, seq);
-  load_rows(vs, base + 2 * wa, row3, k0, kQTile, seq);
+  load_rows<kHd>(qs, base, row3, 0, seq_pad, seq);
+  load_rows<kHd>(gs, gout + static_cast<size_t>(b) * seq * wa + h * kHd, wa,
+                 0, seq_pad, seq);
+  load_rows<kHd>(ks, base + wa, row3, k0, kQTile, seq);
+  load_rows<kHd>(vs, base + 2 * wa, row3, k0, kQTile, seq);
   const size_t n_rows = static_cast<size_t>(gridDim.z) * heads * seq;
   const size_t head_row = (static_cast<size_t>(b) * heads + h) * seq;
   for (int i = threadIdx.x; i < seq_pad; i += blockDim.x) {
@@ -461,7 +448,7 @@ int launch_attention_bwd(const void* qkv, const void* gout, void* dqkv,
                          void* stats, int batch, int seq, int heads,
                          int head_dim, float scale, void* stream) {
   if (batch <= 0 || seq <= 0) return 0;
-  if (head_dim != kHd || seq > kMaxSeq) return cudaErrorInvalidValue;
+  if (head_dim != kHd || seq > kBwdSeq) return cudaErrorInvalidValue;
   const int seq_pad = (seq + 15) & ~15;
   const size_t rows_smem = static_cast<size_t>(2 * seq_pad + 2 * kQTile) *
                            kRowLd * sizeof(__nv_bfloat16);
@@ -492,24 +479,28 @@ int launch_attention_bwd(const void* qkv, const void* gout, void* dqkv,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kSeqCap>
+template <int HD>
 __global__ void __launch_bounds__(kGemmThreads)
     attn_out_i8_kernel(AttnOutArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  attn_out_tile<kSeqCap, kEpiResidual>(p, blockIdx.y, blockIdx.x * kOutQTile,
-                                       smem);
+  attn_out_tile<HD, kEpiResidual>(p, blockIdx.y, blockIdx.x * kOutQTile,
+                                  smem);
 }
 
-template <int kSeqCap>
-int launch_attn_out_capped(const AttnOutArgs& p, int batch, void* stream) {
-  const size_t smem = attn_out_smem(p.seq, p.proj.K);
+// the most dynamic shared memory a block may have on sm_90
+constexpr size_t kMaxBlockSmem = 232448;
+
+template <int HD>
+int launch_attn_out(const AttnOutArgs& p, int batch, void* stream) {
+  const size_t smem = attn_out_smem<HD>(p.proj.K);
+  if (smem > kMaxBlockSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_out_i8_kernel<kSeqCap>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      attn_out_i8_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.seq + kOutQTile - 1) / kOutQTile, batch);
-  attn_out_i8_kernel<kSeqCap><<<grid, kGemmThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(p);
+  attn_out_i8_kernel<HD><<<grid, kGemmThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -539,16 +530,20 @@ TPUDF_API int tpudf_attention_bwd_bf16(const void* qkv, const void* gout,
 }
 
 // K6: out (B*S, W) bf16 = bf16(x + (quant(attention(qkv)) . wt^T dequantised
-// + bias)); qkv (B, S, 3 * heads * 64), wt (W, heads * 64)
+// + bias)); qkv (B, S, 3 * heads * head_dim), wt (W, heads * head_dim);
+// head_dim 64 or 128, S <= kMaxSeq, and the block's shared memory (the
+// (128 x Wa) int8 tile beside Q and the K/V ring) within the 227 KB a
+// block may have: Wa <= 1024 at head_dim 64, Wa <= 768 at 128
 TPUDF_API int tpudf_attn_out_i8(const void* qkv, const void* x,
                                 const void* wt, const void* col_scale,
                                 const void* bias, const void* act, void* out,
-                                int batch, int seq, int heads, int width,
-                                float scale, void* stream) {
+                                int batch, int seq, int heads, int head_dim,
+                                int width, float scale, void* stream) {
   using namespace tpudf;
   if (batch <= 0 || seq <= 0) return 0;
-  const int wa = heads * kHd;
-  if (seq > kMaxSeq || width % kBN != 0 || wa > 1024)
+  const int wa = heads * head_dim;
+  if (seq > kMaxSeq || width % kBN != 0 || wa % kBK != 0 ||
+      (head_dim != 64 && head_dim != 128))
     return cudaErrorInvalidValue;
   AttnOutArgs p{static_cast<const __nv_bfloat16*>(qkv),
                 GemmArgs{nullptr, static_cast<const int8_t*>(wt),
@@ -557,6 +552,6 @@ TPUDF_API int tpudf_attn_out_i8(const void* qkv, const void* x,
                          static_cast<const float*>(act), x, out, nullptr,
                          nullptr, batch * seq, width, wa},
                 seq, heads, scale};
-  if (seq <= 64) return launch_attn_out_capped<64>(p, batch, stream);
-  return launch_attn_out_capped<kMaxSeq>(p, batch, stream);
+  if (head_dim == 64) return launch_attn_out<64>(p, batch, stream);
+  return launch_attn_out<128>(p, batch, stream);
 }

@@ -1,0 +1,319 @@
+// Kernel 9b: the fused-QKV attention with dynamically quantised int8
+// products, replacing tpudf/ops/attention.py `_attention_qkv_pallas` with
+// int8_attn=True (`_one_head`, lines 209-246), which the static-W8A8
+// block's reference route runs under TPUDF_INT8_ATTN=1 (int8_block.py
+// `_attn_out_reference`). Per image and head, the TPU kernel's function:
+//   aq = amax|q| + 1e-6 over the head's rows of one query block of
+//        qb = min(256, S) rows (the Pallas grid's q block; the q axis is
+//        zero-padded to a multiple of qb), ak, av = amax|k|, amax|v| + 1e-6
+//        over all S rows;
+//   q8 = clip(round(q * (127 / aq)), +-127), k8 and v8 likewise;
+//   s = int32(q8 . k8) * ((aq * ak) / (127 * 127) * scale) in f32;
+//   p = e / sum(e), e = exp(s - max) in f32 (an exact softmax);
+//   ap = max p + 1e-20 per row (= 1 / l, as the row's largest e is 1);
+//   p8 = round(p * (127 / ap)), not clipped (p <= ap);
+//   o = int32(p8 . v8) * (ap * (av / (127 * 127))), rounded to bf16.
+//
+// Two launches. The amax pass: one block per (head, image) reduces |q|
+// over each query block and |k|, |v| over the sequence into a (B, H,
+// nqb + 2) f32 table (exact: a max does not depend on its order). The
+// main pass: one block per (64-query tile, head, image), four warps of 16
+// rows; qb is 256 or S, so a tile never straddles two query blocks. The
+// tile's q is quantised into shared memory once; the head's K and V are
+// quantised tile by tile (64 keys) into shared memory as they stream in,
+// in two passes over the keys as in attn_tile.cuh: the first for each
+// row's max and sum, the second for p8 and p8 . v8. Both products run on
+// the tensor cores as int8 mma.sync m16n8k32 with exact int32 sums (at
+// most 127 * 127 * 1024 < 2^24, so their f32 conversion is exact too). The
+// p8 fragment is built in registers from the score accumulators: the
+// product sums over keys, so the keys may go in any order that A and B
+// share, and V is stored transposed with its keys in the order in which
+// a thread holds its scores (`vt_pos`). Bound at the reference route's
+// (8, 1024, 6144): the bytes of qkv and the output.
+#include "attn_tile.cuh"
+
+namespace tpudf {
+
+constexpr int kI8QTile = 64;            // query rows per block: 4 warps
+constexpr int kI8Warps = 4;
+constexpr int kVtLd = kKeyTile + 16;    // bytes of a transposed V row
+
+// bytes of a q8 / k8 row in shared memory (16 bytes of padding keep the
+// lds32 of 8 rows x 4 lanes on distinct banks)
+template <int HD>
+__host__ __device__ constexpr int i8_ld() {
+  return HD + 16;
+}
+
+__global__ void __launch_bounds__(256)
+    attention_i8_amax_kernel(const __nv_bfloat16* __restrict__ qkv,
+                             float* __restrict__ amax, int seq, int heads,
+                             int head_dim, int qb) {
+  __shared__ float red[8];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int wa = heads * head_dim, chunks = head_dim / 8;
+  const int nqb = (seq + qb - 1) / qb;
+  const size_t row3 = static_cast<size_t>(3) * wa;
+  const __nv_bfloat16* base =
+      qkv + static_cast<size_t>(b) * seq * row3 + h * head_dim;
+  float* out = amax + (static_cast<size_t>(b) * heads + h) * (nqb + 2);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int seg = 0; seg < nqb + 2; ++seg) {
+    const int col = seg < nqb ? 0 : (seg == nqb ? wa : 2 * wa);
+    const int r0 = seg < nqb ? seg * qb : 0;
+    const int r1 = seg < nqb ? min(seq, r0 + qb) : seq;
+    float m = 0.0f;
+    for (int i = threadIdx.x; i < (r1 - r0) * chunks; i += blockDim.x) {
+      float f[8];
+      load8(base + static_cast<size_t>(r0 + i / chunks) * row3 + col +
+                (i % chunks) * 8,
+            f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(f[j]));
+    }
+    m = warp_max(m);
+    if (lane == 0) red[warp] = m;
+    __syncthreads();
+    if (warp == 0) {
+      m = warp_max(lane < 8 ? red[lane] : 0.0f);
+      if (lane == 0) out[seg] = __fadd_rn(m, 1e-6f);
+    }
+    __syncthreads();
+  }
+}
+
+// the position of key x (0..63 of a tile) in a transposed V row: keys
+// 2t, 2t + 1, 8 + 2t, 9 + 2t of each 16 go to 4t .. 4t + 3, the bytes lane
+// t's A fragment holds for them
+__device__ __forceinline__ int vt_pos(int x) {
+  const int y = x & 15;
+  return (x & ~15) + 4 * ((y & 7) >> 1) + 2 * (y >> 3) + (y & 1);
+}
+
+__device__ __forceinline__ unsigned pack_s8x4(int a, int b, int c, int d) {
+  return (static_cast<unsigned>(a) & 0xffu) |
+         ((static_cast<unsigned>(b) & 0xffu) << 8) |
+         ((static_cast<unsigned>(c) & 0xffu) << 16) |
+         ((static_cast<unsigned>(d) & 0xffu) << 24);
+}
+
+// rows r0 .. r0 + n - 1 (zero past seq) of one head's HD columns at `src`
+// (rows `ld` apart) as int8 codes clip(round(x * inv), +-127): row-major
+// into `dst` (rows i8_ld<HD>() bytes apart) or, with kTransposed, into
+// `dst` (dims kVtLd bytes apart) at the keys' vt_pos; all threads
+template <int HD, bool kTransposed>
+__device__ __forceinline__ void quant_rows_i8(int8_t* dst,
+                                              const __nv_bfloat16* src,
+                                              size_t ld, int r0, int n,
+                                              int seq, float inv) {
+  constexpr int kChunks = HD / 8;
+  for (int i = threadIdx.x; i < n * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    float f[8];
+    if (r0 + r < seq) {
+      load8(src + static_cast<size_t>(r0 + r) * ld + c, f);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) f[j] = 0.0f;
+    }
+    if constexpr (kTransposed) {
+      const int pos = vt_pos(r);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        dst[(c + j) * kVtLd + pos] = quant_i8(f[j], inv);
+    } else {
+      __align__(8) int8_t v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = quant_i8(f[j], inv);
+      *reinterpret_cast<uint2*>(dst + r * i8_ld<HD>() + c) =
+          *reinterpret_cast<uint2*>(v);
+    }
+  }
+}
+
+// s[j][e]: the warp's rows g (e = 0, 1) and g + 8 (e = 2, 3) against keys
+// k0 + 8j + 2t + (e & 1) of the int8 tile `k8`: int32(q8 . k8) * fac in
+// f32, -inf past seq
+template <int HD>
+__device__ __forceinline__ void scores_i8(float (&s)[kKeyTile / 8][4],
+                                          const unsigned (&qa)[HD / 32][4],
+                                          const int8_t* k8, int k0, int seq,
+                                          float fac, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float neg_inf = __int_as_float(0xff800000);
+#pragma unroll
+  for (int j = 0; j < kKeyTile / 8; ++j) {
+    int acc[4] = {0, 0, 0, 0};
+    const int8_t* kr = k8 + (j * 8 + g) * i8_ld<HD>() + 4 * t;
+#pragma unroll
+    for (int kc = 0; kc < HD / 32; ++kc) {
+      const unsigned b[2] = {lds32(kr + kc * 32), lds32(kr + kc * 32 + 16)};
+      mma_s8(acc, qa[kc], b);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + j * 8 + 2 * t + (e & 1);
+      s[j][e] = key < seq ? __fmul_rn(static_cast<float>(acc[e]), fac)
+                          : neg_inf;
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kI8Warps * 32)
+    attention_i8_kernel(const __nv_bfloat16* __restrict__ qkv,
+                        const float* __restrict__ amax,
+                        __nv_bfloat16* __restrict__ out, int seq, int heads,
+                        int qb, float scale) {
+  __shared__ __align__(16) int8_t q8s[kI8QTile * i8_ld<HD>()];
+  __shared__ __align__(16) int8_t k8s[kKeyTile * i8_ld<HD>()];
+  __shared__ __align__(16) int8_t v8t[HD * kVtLd];
+  const int wa = heads * HD;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kI8QTile;
+  const int nqb = (seq + qb - 1) / qb;
+  const float* am = amax + (static_cast<size_t>(b) * heads + h) * (nqb + 2);
+  const float aq = am[q0 / qb], ak = am[nqb], av = am[nqb + 1];
+  const float fac =
+      __fmul_rn(__fdiv_rn(__fmul_rn(aq, ak), 16129.0f), scale);
+  const float inv_k = __fdiv_rn(127.0f, ak), inv_v = __fdiv_rn(127.0f, av);
+  const size_t row3 = static_cast<size_t>(3) * wa;
+  const __nv_bfloat16* base =
+      qkv + static_cast<size_t>(b) * seq * row3 + h * HD;
+
+  quant_rows_i8<HD, false>(q8s, base, row3, q0, kI8QTile, seq,
+                           __fdiv_rn(127.0f, aq));
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16;
+  // A fragments of the warp's rows: rows g, g + 8 x k 4t.. and 16 + 4t..
+  unsigned qa[HD / 32][4];
+#pragma unroll
+  for (int kc = 0; kc < HD / 32; ++kc) {
+    const int8_t* qr = q8s + (r0 + g) * i8_ld<HD>() + kc * 32 + 4 * t;
+    qa[kc][0] = lds32(qr);
+    qa[kc][1] = lds32(qr + 8 * i8_ld<HD>());
+    qa[kc][2] = lds32(qr + 16);
+    qa[kc][3] = lds32(qr + 8 * i8_ld<HD>() + 16);
+  }
+  const int ntiles = (seq + kKeyTile - 1) / kKeyTile;
+  const float neg_inf = __int_as_float(0xff800000);
+  float mx[2] = {neg_inf, neg_inf}, sum[2] = {0.0f, 0.0f};
+  float s[kKeyTile / 8][4];
+
+  // ---- pass 1: row max and row sum
+  for (int kt = 0; kt < ntiles; ++kt) {
+    __syncthreads();                    // the last tile's reads are done
+    quant_rows_i8<HD, false>(k8s, base + wa, row3, kt * kKeyTile, kKeyTile,
+                             seq, inv_k);
+    __syncthreads();
+    scores_i8<HD>(s, qa, k8s, kt * kKeyTile, seq, fac, lane);
+    online_stats(s, mx, sum);
+  }
+  sum[0] = quad_sum(sum[0]);
+  sum[1] = quad_sum(sum[1]);
+  float inv_ap[2], o_scale[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float ap = __fadd_rn(__fdiv_rn(1.0f, sum[r]), 1e-20f);
+    inv_ap[r] = __fdiv_rn(127.0f, ap);
+    o_scale[r] = __fmul_rn(ap, __fdiv_rn(av, 16129.0f));
+  }
+
+  // ---- pass 2: p8 = round(p * 127 / ap), o += p8 . v8 (int32)
+  int acc[HD / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0;
+  for (int kt = 0; kt < ntiles; ++kt) {
+    __syncthreads();
+    quant_rows_i8<HD, false>(k8s, base + wa, row3, kt * kKeyTile, kKeyTile,
+                             seq, inv_k);
+    quant_rows_i8<HD, true>(v8t, base + 2 * wa, row3, kt * kKeyTile,
+                            kKeyTile, seq, inv_v);
+    __syncthreads();
+    scores_i8<HD>(s, qa, k8s, kt * kKeyTile, seq, fac, lane);
+    int p8[kKeyTile / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeyTile / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = __fdiv_rn(expf(s[j][e] - mx[r]), sum[r]);
+        p8[j][e] = static_cast<int>(rintf(__fmul_rn(p, inv_ap[r])));
+      }
+    // 32 keys a product: score tiles 4kc .. 4kc + 3
+#pragma unroll
+    for (int kc = 0; kc < kKeyTile / 32; ++kc) {
+      const int j = 4 * kc;
+      const unsigned a[4] = {
+          pack_s8x4(p8[j][0], p8[j][1], p8[j + 1][0], p8[j + 1][1]),
+          pack_s8x4(p8[j][2], p8[j][3], p8[j + 1][2], p8[j + 1][3]),
+          pack_s8x4(p8[j + 2][0], p8[j + 2][1], p8[j + 3][0], p8[j + 3][1]),
+          pack_s8x4(p8[j + 2][2], p8[j + 2][3], p8[j + 3][2], p8[j + 3][3])};
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        const int8_t* vr = v8t + (dt * 8 + g) * kVtLd + kc * 32 + 4 * t;
+        const unsigned bv[2] = {lds32(vr), lds32(vr + 16)};
+        mma_s8(acc[dt], a, bv);
+      }
+    }
+  }
+
+  // ---- rows q0 + r0 + g (e = 0, 1) and + 8 (e = 2, 3), bf16
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + r0 + g + 8 * r;
+    if (qi >= seq) continue;
+    __nv_bfloat16* dst =
+        out + (static_cast<size_t>(b) * seq + qi) * wa + h * HD + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
+          __floats2bfloat162_rn(
+              __fmul_rn(static_cast<float>(acc[dt][2 * r]), o_scale[r]),
+              __fmul_rn(static_cast<float>(acc[dt][2 * r + 1]), o_scale[r]));
+  }
+}
+
+template <int HD>
+int launch_attention_i8(const void* qkv, void* amax, void* out, int batch,
+                        int seq, int heads, int qb, float scale,
+                        cudaStream_t s) {
+  attention_i8_amax_kernel<<<dim3(heads, batch), 256, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<float*>(amax), seq,
+      heads, HD, qb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((seq + kI8QTile - 1) / kI8QTile, heads, batch);
+  attention_i8_kernel<HD><<<grid, kI8Warps * 32, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(qkv),
+      static_cast<const float*>(amax), static_cast<__nv_bfloat16*>(out), seq,
+      heads, qb, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tpudf
+
+// 9b: qkv (B, S, 3 * heads * head_dim) bf16 -> out (B, S, heads *
+// head_dim) bf16; amax: (B, heads, ceil(S / qb) + 2) f32 scratch; qb =
+// min(256, S), so that the 64-row query tiles never straddle a block;
+// head_dim 64 or 128, S <= kMaxSeq
+TPUDF_API int tpudf_attention_i8dyn(const void* qkv, void* amax, void* out,
+                                    int batch, int seq, int heads,
+                                    int head_dim, int qb, float scale,
+                                    void* stream) {
+  using namespace tpudf;
+  if (batch <= 0 || seq <= 0) return 0;
+  if (seq > kMaxSeq || qb <= 0 || (qb < seq && qb % kI8QTile != 0))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64)
+    return launch_attention_i8<64>(qkv, amax, out, batch, seq, heads, qb,
+                                   scale, s);
+  if (head_dim == 128)
+    return launch_attention_i8<128>(qkv, amax, out, batch, seq, heads, qb,
+                                    scale, s);
+  return cudaErrorInvalidValue;
+}

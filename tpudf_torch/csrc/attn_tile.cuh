@@ -1,160 +1,283 @@
 // Device pieces of the fused-QKV attention, shared by K1's and K9's
-// attention kernel (attention.cu), K6 (attention.cu) and K7's attention
-// phase (layer_int8.cu).
+// attention kernel (attention.cu), K6 (attention.cu), K7's attention phase
+// (layer_int8.cu) and K10 (attention.cu, its row loads).
 //
-// `attn_rows`: one warp's 16 query rows against one head's keys, both
-// products on the tensor cores (mma.sync m16n8k16 bf16, f32 accumulate):
-// scores = (q . k) * scale in f32, + an optional per-key bias, p = e / sum(e)
-// with e = exp(s - max) in f32 over the full row held in registers (exact,
-// not online), p rounded to bf16 for p . v, o accumulated in f32.
+// `attn_stream`: each warp's 16 query rows (A fragments in registers)
+// against one head's keys, the keys streamed through shared memory in
+// tiles of kKeyTile rows (a two-stage cp.async ring: the next tile is in
+// flight while the current one is multiplied), both products on the
+// tensor cores (mma.sync m16n8k16 bf16, f32 accumulate), in TWO passes
+// over the keys:
+//   pass 1 (K tiles)     s = (q . k) * scale in f32 (+ an optional
+//                        per-key bias), the row max m and the row sum
+//                        l = sum exp(s - m) (kept online: l is rescaled
+//                        when m grows);
+//   pass 2 (K, V tiles)  s again, p = exp(s - m) / l in f32, rounded to
+//                        bf16 for p . v, o accumulated in f32.
+// That is the TPU kernel's function: an exact softmax, not an online
+// one, with p rounded where the TPU kernel rounds it. A full score row
+// no longer has to fit a warp's registers (16 x 1024 f32 would be 64 KB a
+// warp), so S goes to kMaxSeq; the price is a second sweep of QK^T.
+// head_dim is a template parameter (64, or 128 for so400m's heads of 72
+// padded by prepad_siglip_static); the softmax scale is an argument and is
+// never derived from it.
 //
-// `attn_out_tile`: K6's work for 128 query rows of one image: for each head
-// in turn, the head's K and V (S <= 256 rows) and the tile's Q go to shared
-// memory, each of the 8 warps runs attn_rows on 16 rows, and the f32 o is
-// quantised to int8 (not rounded to bf16 first: the TPU kernel's order)
-// into a (128 x Wa) int8 tile in shared memory. The out-projection then
-// runs over that tile with the GEMM tile of gemm_i8.cuh, the int8 weight
-// streamed from L2 by cp.async through the space K and V took, and the
-// epilogue (dequant + bias + residual) writes the rows of this image only.
-// The attention output never reaches device memory.
+// `attn_out_tile`: K6's work for 128 query rows of one image: for each
+// head in turn, the tile's Q goes to shared memory and each of the 8 warps
+// runs attn_stream on 16 rows; the f32 o is quantised to int8 (not rounded
+// to bf16 first: the TPU kernel's order) into a (128 x Wa) int8 tile in
+// shared memory. The out-projection then runs over that tile with the
+// GEMM tile of gemm_i8.cuh, the int8 weight streamed from L2 by cp.async
+// through the space Q and the K/V ring took, and the epilogue (dequant +
+// bias + residual) writes the rows of this image only. The attention
+// output never reaches device memory.
 #pragma once
 
 #include "gemm_i8.cuh"
 
 namespace tpudf {
 
-constexpr int kHd = 64;                  // head_dim the kernels are built for
-constexpr int kMaxSeq = 256;
-constexpr int kRowLd = kHd + 8;          // padded smem row: 144 bytes
-constexpr int kOutQTile = 128;           // K6's query rows: 8 warps x 16
+constexpr int kMaxSeq = 1024;          // longest sequence the kernels take
+constexpr int kKeyTile = 64;           // keys a stage of the K/V ring holds
+constexpr int kOutQTile = 128;         // K6's query rows: 8 warps x 16
 
-// o[dt][e]: rows g (e = 0, 1) and g + 8 (e = 2, 3) of the warp's 16 query
-// rows at `qrows` (shared, kRowLd apart), dims 8 dt + 2t + (e & 1), against
-// the seq keys of `ks` / `vs` (shared, zero-padded to a multiple of 16
-// rows); key_bias: the image's (seq,) f32 per-key bias, or null.
-// kSeqCap: the most keys a score row holds (64 or kMaxSeq).
-template <int kSeqCap>
-__device__ __forceinline__ void attn_rows(float (&o)[kHd / 8][4],
-                                          const __nv_bfloat16* qrows,
-                                          const __nv_bfloat16* ks,
-                                          const __nv_bfloat16* vs, int seq,
-                                          const float* key_bias, float scale,
-                                          int lane) {
+// bf16 elements of a shared row of HD: padded by 16 bytes, so that
+// ldmatrix's eight row addresses hit distinct banks
+template <int HD>
+__host__ __device__ constexpr int row_ld() {
+  return HD + 8;
+}
+
+// bf16 elements of the K/V ring: two stages of K, two of V
+template <int HD>
+__host__ __device__ constexpr int ring_elems() {
+  return 4 * kKeyTile * row_ld<HD>();
+}
+
+// `n` rows of HD bf16 from row r0 of a row-major matrix (rows `ld` apart)
+// into shared rows of row_ld<HD>(), zero past seq; all threads of the
+// block, plain loads
+template <int HD>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, size_t ld,
+                                          int r0, int n, int seq) {
+  constexpr int kChunks = HD / 8;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < n * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    uint4 v = zero;
+    if (r0 + r < seq)
+      v = *reinterpret_cast<const uint4*>(src + (r0 + r) * ld + c);
+    *reinterpret_cast<uint4*>(dst + r * row_ld<HD>() + c) = v;
+  }
+}
+
+// kKeyTile rows of HD bf16 from row r0 into a ring stage by cp.async; rows
+// past seq repeat row seq - 1 (finite: their scores are masked to -inf and
+// their p is 0); all threads of the block, not committed
+template <int HD>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           size_t ld, int r0, int seq) {
+  constexpr int kChunks = HD / 8;
+  for (int i = threadIdx.x; i < kKeyTile * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const int sr = min(r0 + r, seq - 1);
+    cp_async16(dst + r * row_ld<HD>() + c,
+               src + static_cast<size_t>(sr) * ld + c);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// One warp's state: its 16 query rows as A fragments, the f32 output
+// o[dt][e] (rows g (e = 0, 1) and g + 8 (e = 2, 3), dims 8 dt + 2t +
+// (e & 1)), and per row the max and the sum of exp(s - max)
+template <int HD>
+struct AttnWarp {
+  unsigned qf[HD / 16][4];
+  float o[HD / 8][4];
+  float mx[2], sum[2];
+};
+
+// the A fragments of the warp's 16 shared query rows at `qrows`
+template <int HD>
+__device__ __forceinline__ void load_q(AttnWarp<HD>& w,
+                                       const __nv_bfloat16* qrows, int lane) {
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc)
+    ldsm_x4(w.qf[kc], qrows + (lane & 15) * row_ld<HD>() + kc * 16 +
+                          (lane >> 4) * 8);
+}
+
+// s[j][e]: rows g (e = 0, 1) and g + 8 (e = 2, 3) against keys
+// k0 + 8j + 2t + (e & 1) of the shared tile `ks`: (q . k) * scale + bias
+// in f32, -inf past seq
+template <int HD>
+__device__ __forceinline__ void tile_scores(float (&s)[kKeyTile / 8][4],
+                                            const AttnWarp<HD>& w,
+                                            const __nv_bfloat16* ks, int k0,
+                                            int seq, const float* key_bias,
+                                            float scale, int lane) {
   const int t = lane & 3;
-  const int seq_pad = (seq + 15) & ~15;
-  const int ntiles = seq_pad / 8;           // even
-  constexpr int kKeyTiles = kSeqCap / 8;    // n8 tiles of keys in a row
-
-  // ---- scores: the warp's 16 rows x seq_pad keys, in registers
-  unsigned qf[kHd / 16][4];
 #pragma unroll
-  for (int kc = 0; kc < kHd / 16; ++kc)
-    ldsm_x4(qf[kc], qrows + (lane & 15) * kRowLd + kc * 16 + (lane >> 4) * 8);
-  float sc[kKeyTiles][4];
+  for (int j = 0; j < kKeyTile / 8; j += 2) {
 #pragma unroll
-  for (int j = 0; j < kKeyTiles; j += 2) {
+    for (int e = 0; e < 4; ++e) s[j][e] = s[j + 1][e] = 0.0f;
+    // K rows are the n index: matrices (keys 8j..+7 | +8..+15) x (dims
+    // 16kc..+7 | +8..+15) give b0, b1 of key tiles j and j + 1
+    const __nv_bfloat16* kr =
+        ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * row_ld<HD>() +
+        ((lane >> 3) & 1) * 8;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) sc[j][e] = sc[j + 1][e] = 0.0f;
-    if (j < ntiles) {
-      // K rows are the n index: matrices (keys j8..+7 | +8..+15) x
-      // (dims kc16..+7 | +8..+15) give b0, b1 of key tiles j and j+1
-      const __nv_bfloat16* kr =
-          ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * kRowLd +
-          ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int kc = 0; kc < kHd / 16; ++kc) {
-        unsigned r[4];
-        ldsm_x4(r, kr + kc * 16);
-        mma_bf16(sc[j], qf[kc], r[0], r[1]);
-        mma_bf16(sc[j + 1], qf[kc], r[2], r[3]);
-      }
+    for (int kc = 0; kc < HD / 16; ++kc) {
+      unsigned r[4];
+      ldsm_x4(r, kr + kc * 16);
+      mma_bf16(s[j], w.qf[kc], r[0], r[1]);
+      mma_bf16(s[j + 1], w.qf[kc], r[2], r[3]);
     }
   }
-
-  // ---- softmax over each row: thread holds rows g (e = 0, 1) and g + 8
-  // (e = 2, 3) at keys 8j + 2t + (e & 1); a row lives in 4 lanes
   const float neg_inf = __int_as_float(0xff800000);
-  float mx[2] = {neg_inf, neg_inf};
 #pragma unroll
-  for (int j = 0; j < kKeyTiles; ++j) {
-    if (j < ntiles) {
+  for (int j = 0; j < kKeyTile / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j * 8 + 2 * t + (e & 1);
-        float s = neg_inf;
-        if (key < seq) {
-          s = __fmul_rn(sc[j][e], scale);
-          if (key_bias != nullptr) s = __fadd_rn(s, key_bias[key]);
-        }
-        sc[j][e] = s;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s);
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + j * 8 + 2 * t + (e & 1);
+      float v = neg_inf;
+      if (key < seq) {
+        v = __fmul_rn(s[j][e], scale);
+        if (key_bias != nullptr) v = __fadd_rn(v, key_bias[key]);
       }
+      s[j][e] = v;
     }
-  }
-  float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-  }
-#pragma unroll
-  for (int j = 0; j < kKeyTiles; ++j) {
-    if (j < ntiles) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float ex = expf(sc[j][e] - mx[e >> 1]);   // masked: exp(-inf)
-        sc[j][e] = ex;
-        sum[e >> 1] += ex;
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-  }
+}
 
-  // ---- o = p . v: p = e / sum rounded to bf16 is the A fragment; V rows
-  // are the k index, ldmatrix.trans gives b0, b1 of two 8-dim tiles
+// pass 1 on one tile: the row max over the quad's lanes, the thread's part
+// of the row sum rescaled to it (the quad shares each row's max, so the
+// four parts add up at the end)
+__device__ __forceinline__ void online_stats(
+    const float (&s)[kKeyTile / 8][4], float (&mx)[2], float (&sum)[2]) {
+  float tm[2] = {mx[0], mx[1]};
 #pragma unroll
-  for (int dt = 0; dt < kHd / 8; ++dt)
+  for (int j = 0; j < kKeyTile / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) tm[e >> 1] = fmaxf(tm[e >> 1], s[j][e]);
 #pragma unroll
-  for (int kc = 0; kc < kKeyTiles / 2; ++kc) {
-    if (2 * kc < ntiles) {
-      unsigned a[4];
-      a[0] = pack_bf16x2(sc[2 * kc][0] / sum[0], sc[2 * kc][1] / sum[0]);
-      a[1] = pack_bf16x2(sc[2 * kc][2] / sum[1], sc[2 * kc][3] / sum[1]);
-      a[2] = pack_bf16x2(sc[2 * kc + 1][0] / sum[0],
-                         sc[2 * kc + 1][1] / sum[0]);
-      a[3] = pack_bf16x2(sc[2 * kc + 1][2] / sum[1],
-                         sc[2 * kc + 1][3] / sum[1]);
-      const __nv_bfloat16* vr =
-          vs + (kc * 16 + (lane & 15)) * kRowLd + (lane >> 4) * 8;
+  for (int r = 0; r < 2; ++r) {
+    tm[r] = quad_max(tm[r]);
+    if (tm[r] != mx[r]) sum[r] *= expf(mx[r] - tm[r]);
+    mx[r] = tm[r];
+  }
 #pragma unroll
-      for (int dn = 0; dn < kHd / 16; ++dn) {
-        unsigned r[4];
-        ldsm_x4_trans(r, vr + dn * 16);
-        mma_bf16(o[2 * dn], a, r[0], r[1]);
-        mma_bf16(o[2 * dn + 1], a, r[2], r[3]);
-      }
+  for (int j = 0; j < kKeyTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[e >> 1] += expf(s[j][e] - mx[e >> 1]);
+}
+
+// pass 2 on one tile: o += bf16(exp(s - m) / l) . v for the shared V tile
+// `vs`; the score accumulators of two key tiles, once rounded, are the A
+// fragment (no trip through shared memory), V rows the k index
+// (ldmatrix.trans gives b0, b1 of two 8-dim tiles)
+template <int HD>
+__device__ __forceinline__ void tile_pv(AttnWarp<HD>& w,
+                                        const float (&s)[kKeyTile / 8][4],
+                                        const __nv_bfloat16* vs, int lane) {
+#pragma unroll
+  for (int kc = 0; kc < kKeyTile / 16; ++kc) {
+    float p[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[n][e] = expf(s[2 * kc + n][e] - w.mx[e >> 1]) / w.sum[e >> 1];
+    unsigned a[4];
+    a[0] = pack_bf16x2(p[0][0], p[0][1]);
+    a[1] = pack_bf16x2(p[0][2], p[0][3]);
+    a[2] = pack_bf16x2(p[1][0], p[1][1]);
+    a[3] = pack_bf16x2(p[1][2], p[1][3]);
+    const __nv_bfloat16* vr =
+        vs + (kc * 16 + (lane & 15)) * row_ld<HD>() + (lane >> 4) * 8;
+#pragma unroll
+    for (int dn = 0; dn < HD / 16; ++dn) {
+      unsigned r[4];
+      ldsm_x4_trans(r, vr + dn * 16);
+      mma_bf16(w.o[2 * dn], a, r[0], r[1]);
+      mma_bf16(w.o[2 * dn + 1], a, r[2], r[3]);
     }
   }
 }
 
-// `n` rows of 64 bf16 from row r0 of a row-major matrix (rows `ld` apart)
-// into shared rows of kRowLd, zero past seq; all threads of the block
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, size_t ld,
-                                          int r0, int n, int seq) {
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < n * 8; i += blockDim.x) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 v = zero;
-    if (r0 + r < seq)
-      v = *reinterpret_cast<const uint4*>(src + (r0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * kRowLd + c) = v;
+// The attention of every warp's 16 query rows (w.qf) against keys
+// [0, seq) of one head: K rows at kg and V rows at vg in device memory,
+// `ld` elements apart, streamed through the ring at `ring`
+// (ring_elems<HD>() shared bf16); key_bias: the image's (seq,) f32
+// per-key bias, or null. Leaves w.o, w.mx and w.sum (the full row sums).
+// Every thread of the block calls it (it holds barriers); the caller's
+// own shared reads must be done before, as the ring's first stages are
+// issued at once.
+template <int HD>
+__device__ __forceinline__ void attn_stream(AttnWarp<HD>& w,
+                                            const __nv_bfloat16* kg,
+                                            const __nv_bfloat16* vg,
+                                            size_t ld, int seq,
+                                            const float* key_bias,
+                                            float scale,
+                                            __nv_bfloat16* ring, int lane) {
+  constexpr int kTile = kKeyTile * row_ld<HD>();
+  // stage i of K at ring + i kTile, of V at ring + (2 + i) kTile
+  auto kst = [&](int t) { return ring + (t & 1) * kTile; };
+  auto vst = [&](int t) { return ring + (2 + (t & 1)) * kTile; };
+  const int ntiles = (seq + kKeyTile - 1) / kKeyTile;
+  const float neg_inf = __int_as_float(0xff800000);
+  w.mx[0] = w.mx[1] = neg_inf;
+  w.sum[0] = w.sum[1] = 0.0f;
+  float s[kKeyTile / 8][4];
+
+  // ---- pass 1: row max and row sum over the K tiles
+  stage_rows<HD>(kst(0), kg, ld, 0, seq);
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles)
+      stage_rows<HD>(kst(t + 1), kg, ld, (t + 1) * kKeyTile, seq);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    tile_scores<HD>(s, w, kst(t), t * kKeyTile, seq, key_bias, scale,
+                    lane);
+    online_stats(s, w.mx, w.sum);
+    __syncthreads();                  // the stage may be refilled
+  }
+  w.sum[0] = quad_sum(w.sum[0]);
+  w.sum[1] = quad_sum(w.sum[1]);
+
+  // ---- pass 2: p = exp(s - m) / l, o += bf16(p) . v over K and V tiles
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) w.o[dt][e] = 0.0f;
+  stage_rows<HD>(kst(0), kg, ld, 0, seq);
+  stage_rows<HD>(vst(0), vg, ld, 0, seq);
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      stage_rows<HD>(kst(t + 1), kg, ld, (t + 1) * kKeyTile, seq);
+      stage_rows<HD>(vst(t + 1), vg, ld, (t + 1) * kKeyTile, seq);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    tile_scores<HD>(s, w, kst(t), t * kKeyTile, seq, key_bias, scale,
+                    lane);
+    tile_pv<HD>(w, s, vst(t), lane);
+    __syncthreads();
   }
 }
 
@@ -168,26 +291,25 @@ struct AttnOutArgs {
   float scale;
 };
 
-// shared bytes of attn_out_tile: K, V (seq_pad rows) and Q (128 rows) of a
-// head, then the (128 x Wa) int8 o tile
-__host__ __device__ __forceinline__ size_t attn_out_smem(int seq, int wa) {
-  const int seq_pad = (seq + 15) & ~15;
-  return static_cast<size_t>(2 * seq_pad + kOutQTile) * kRowLd *
+// shared bytes of attn_out_tile: the Q tile (128 rows) and the K/V ring,
+// then the (128 x Wa) int8 o tile; independent of S
+template <int HD>
+__host__ __device__ constexpr size_t attn_out_smem(int wa) {
+  return static_cast<size_t>(kOutQTile * row_ld<HD>() + ring_elems<HD>()) *
              sizeof(__nv_bfloat16) +
          static_cast<size_t>(kOutQTile) * (wa + 16);
 }
 
 // K6's work for query rows q0 .. q0 + 127 of image b (256 threads)
-template <int kSeqCap, int MODE>
+template <int HD, int MODE>
 __device__ __forceinline__ void attn_out_tile(const AttnOutArgs& p, int b,
                                               int q0, unsigned char* smem) {
   const TileThread q = tile_thread();
-  const int seq = p.seq, seq_pad = (seq + 15) & ~15;
-  const int wa = p.heads * kHd, ldo = wa + 16;
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + seq_pad * kRowLd;
-  __nv_bfloat16* qs = vs + seq_pad * kRowLd;
-  int8_t* o8 = reinterpret_cast<int8_t*>(qs + kOutQTile * kRowLd);
+  const int seq = p.seq;
+  const int wa = p.heads * HD, ldo = wa + 16;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ring = qs + kOutQTile * row_ld<HD>();
+  int8_t* o8 = reinterpret_cast<int8_t*>(ring + ring_elems<HD>());
   const float inv = 127.0f / p.proj.act[0];
   const size_t row3 = static_cast<size_t>(3) * wa;
   const __nv_bfloat16* base = p.qkv + static_cast<size_t>(b) * seq * row3;
@@ -195,27 +317,26 @@ __device__ __forceinline__ void attn_out_tile(const AttnOutArgs& p, int b,
 
   for (int h = 0; h < p.heads; ++h) {
     __syncthreads();                    // the last head's reads are done
-    load_rows(ks, base + wa + h * kHd, row3, 0, seq_pad, seq);
-    load_rows(vs, base + 2 * wa + h * kHd, row3, 0, seq_pad, seq);
-    load_rows(qs, base + h * kHd, row3, q0, kOutQTile, seq);
+    load_rows<HD>(qs, base + h * HD, row3, q0, kOutQTile, seq);
     __syncthreads();
     // rows past seq hold zero queries: finite, never stored
-    float o[kHd / 8][4];
-    attn_rows<kSeqCap>(o, qs + r0 * kRowLd, ks, vs, seq, nullptr, p.scale,
-                       q.lane);
+    AttnWarp<HD> w;
+    load_q<HD>(w, qs + r0 * row_ld<HD>(), q.lane);
+    attn_stream<HD>(w, base + wa + h * HD, base + 2 * wa + h * HD, row3, seq,
+                    nullptr, p.scale, ring, q.lane);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      int8_t* dst = o8 + (r0 + q.g + 8 * r) * ldo + h * kHd + 2 * q.t;
+      int8_t* dst = o8 + (r0 + q.g + 8 * r) * ldo + h * HD + 2 * q.t;
 #pragma unroll
-      for (int dt = 0; dt < kHd / 8; ++dt) {
+      for (int dt = 0; dt < HD / 8; ++dt) {
         char2 c;
-        c.x = quant_i8(o[dt][2 * r], inv);
-        c.y = quant_i8(o[dt][2 * r + 1], inv);
+        c.x = quant_i8(w.o[dt][2 * r], inv);
+        c.y = quant_i8(w.o[dt][2 * r + 1], inv);
         *reinterpret_cast<char2*>(dst + dt * 8) = c;
       }
     }
   }
-  __syncthreads();                      // o8 complete; K, V, Q space free
+  __syncthreads();                      // o8 complete; Q and ring free
 
   int8_t* bs = reinterpret_cast<int8_t*>(smem);
   const int m0 = b * seq + q0;

@@ -53,10 +53,15 @@ __device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
   f[4] = hi.x; f[5] = hi.y; f[6] = hi.z; f[7] = hi.w;
 }
 
-// One warp holds one row of up to 1024 values (bf16 or f32; 4 chunks of 8
-// per lane) and computes its f32 mean and 1/sqrt(E[x^2] - E[x]^2 + eps).
+// One warp holds one row of up to kLnMaxWidth values (bf16 or f32; chunk
+// c of 8 values goes to lane c % 32, at most kLnChunks chunks a lane) and
+// computes its f32 mean and 1/sqrt(E[x^2] - E[x]^2 + eps). so400m's 1152
+// is 144 chunks: 4.5 a lane, so the fifth slot is used by half the lanes.
+constexpr int kLnChunks = 5;
+constexpr int kLnMaxWidth = kLnChunks * 32 * 8;     // 1280
+
 struct RowLN {
-  float v[32];
+  float v[kLnChunks * 8];
   float mu, rstd;
 };
 
@@ -66,7 +71,7 @@ __device__ __forceinline__ void load_row_ln(const T* row, int width,
   const int nchunks = width / 8;
   float s = 0.0f, ss = 0.0f;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
+  for (int c = 0; c < kLnChunks; ++c) {
     const int chunk = lane + c * 32;
     if (chunk < nchunks) {
       float f[8];

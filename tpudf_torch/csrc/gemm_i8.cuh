@@ -283,9 +283,9 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& p, int m0, int n0,
 }
 
 // LN + static int8 quant of the tile's 128 rows of x (bf16 or f32, width
-// K <= 1024) into a shared int8 panel of rows `ldp` bytes apart: each warp
-// takes 16 rows, one row at a time held in registers (load_row_ln); rows
-// past M are zero
+// K <= kLnMaxWidth) into a shared int8 panel of rows `ldp` bytes apart:
+// each warp takes 16 rows, one row at a time held in registers
+// (load_row_ln); rows past M are zero
 template <typename T>
 __device__ __forceinline__ void ln_quant_panel(int8_t* panel, int ldp,
                                                const T* x, int M, int K,
@@ -305,7 +305,7 @@ __device__ __forceinline__ void ln_quant_panel(int8_t* panel, int ldp,
     RowLN rl;
     load_row_ln(x + static_cast<size_t>(row) * K, K, eps, q.lane, rl);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < kLnChunks; ++c) {
       const int chunk = q.lane + c * 32;
       if (chunk < nchunks) {
         __align__(8) int8_t v[8];

@@ -22,7 +22,8 @@
 // `ln_qkv_int8`): bf16 x -> LN with f32 statistics -> static int8 quant ->
 // int8 QKV product -> dequant + bias -> bf16, in ONE launch. Each block
 // first normalises and quantises its 128 rows of x into an int8 panel in
-// shared memory (K + 16 bytes a row, at most 130 KB for K = 1024), with the
+// shared memory (K + 16 bytes a row: 170 KB with the weight stages at
+// so400m's K = 1152, at most 186 KB for K = kLnMaxWidth), with the
 // first weight stage already in flight, then streams the weight through
 // two cp.async stages: the int8 LN output never reaches device memory, as
 // it never left VMEM on the TPU. Each of the N / 128 column blocks of a
@@ -92,7 +93,8 @@ TPUDF_API int tpudf_ln_qkv_i8(const void* x, const void* g, const void* b,
                               int M, int N, int K, float eps, void* stream) {
   using namespace tpudf;
   if (M <= 0) return 0;
-  if (N % kBN != 0 || K % kBK != 0 || K > 1024) return cudaErrorInvalidValue;
+  if (N % kBN != 0 || K % kBK != 0 || K > kLnMaxWidth)
+    return cudaErrorInvalidValue;
   const size_t smem = ln_gemm_smem(K);
   cudaError_t err = cudaFuncSetAttribute(
       ln_qkv_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

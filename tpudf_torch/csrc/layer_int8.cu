@@ -47,7 +47,12 @@ struct LayerArgs {
   float eps;
 };
 
-template <int kSeqCap>
+// K7's limits: head_dim 64, S <= 256 and W <= 1024 (the whole-layer
+// kernel is not widened; the block routes FPP beyond them, as JAX's does)
+constexpr int kLayerHd = 64;
+constexpr int kLayerSeq = 256;
+constexpr int kLayerWidth = 1024;
+
 __global__ void __launch_bounds__(kGemmThreads, 1)
     layer_int8_kernel(LayerArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -63,8 +68,8 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 
   const int qt = (p.attn.seq + kOutQTile - 1) / kOutQTile;
   for (int i = blockIdx.x; i < p.batch * qt; i += gridDim.x)
-    attn_out_tile<kSeqCap, kEpiResF32Out>(p.attn, i / qt,
-                                          (i % qt) * kOutQTile, smem);
+    attn_out_tile<kLayerHd, kEpiResF32Out>(p.attn, i / qt,
+                                           (i % qt) * kOutQTile, smem);
   grid.sync();
 
   nt = p.fc1.N / kBN;
@@ -80,9 +85,8 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
                                reinterpret_cast<int8_t*>(smem));
 }
 
-template <int kSeqCap>
 int launch_layer(LayerArgs& p, size_t smem, int max_tiles, void* stream) {
-  auto* kernel = layer_int8_kernel<kSeqCap>;
+  auto* kernel = layer_int8_kernel;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -125,8 +129,8 @@ TPUDF_API int tpudf_layer_i8(
     int inter, float eps, float scale, void* stream) {
   using namespace tpudf;
   if (batch <= 0 || seq <= 0) return 0;
-  if (heads * kHd != width || width % kBN != 0 || width > 1024 ||
-      inter % kBN != 0 || seq > kMaxSeq)
+  if (heads * kLayerHd != width || width % kBN != 0 ||
+      width > kLayerWidth || inter % kBN != 0 || seq > kLayerSeq)
     return cudaErrorInvalidValue;
   const int m = batch * seq;
   const float* a = static_cast<const float*>(acts);
@@ -155,10 +159,10 @@ TPUDF_API int tpudf_layer_i8(
               gemm(w2, s2, b2, a + 3, x1_ws, out, width, inter, nullptr,
                    hid_ws),
               batch, eps};
-  const size_t smem = std::max(ln_gemm_smem(width), attn_out_smem(seq, width));
+  const size_t smem =
+      std::max(ln_gemm_smem(width), attn_out_smem<kLayerHd>(width));
   const int row_tiles = (m + kBM - 1) / kBM;
   const int max_tiles = std::max(row_tiles * (inter / kBN),
                                  row_tiles * (3 * width / kBN));
-  if (seq <= 64) return launch_layer<64>(p, smem, max_tiles, stream);
-  return launch_layer<kMaxSeq>(p, smem, max_tiles, stream);
+  return launch_layer(p, smem, max_tiles, stream);
 }

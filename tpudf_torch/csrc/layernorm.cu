@@ -28,7 +28,7 @@ __global__ void __launch_bounds__(kLnWarps * 32)
   load_row_ln(x + static_cast<size_t>(row) * width, width, eps, lane, r);
   const int nchunks = width / 8;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
+  for (int c = 0; c < kLnChunks; ++c) {
     const int chunk = lane + c * 32;
     if (chunk < nchunks) {
       __align__(16) __nv_bfloat16 o[8];
@@ -58,7 +58,7 @@ __global__ void __launch_bounds__(kLnWarps * 32)
   load_row_ln(x + static_cast<size_t>(row) * width, width, eps, lane, r);
   const int nchunks = width / 8;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
+  for (int c = 0; c < kLnChunks; ++c) {
     const int chunk = lane + c * 32;
     if (chunk < nchunks) {
       __align__(8) int8_t q[8];
@@ -79,7 +79,8 @@ TPUDF_API int tpudf_layer_norm_bf16(const void* x, const void* g,
                                     const void* b, void* out, int rows,
                                     int width, float eps, void* stream) {
   if (rows <= 0) return 0;
-  if (width % 8 != 0 || width > 1024) return cudaErrorInvalidValue;
+  if (width % 8 != 0 || width > tpudf::kLnMaxWidth)
+    return cudaErrorInvalidValue;
   const dim3 grid((rows + tpudf::kLnWarps - 1) / tpudf::kLnWarps);
   tpudf::layer_norm_bf16_kernel<<<grid, tpudf::kLnWarps * 32, 0,
                                   static_cast<cudaStream_t>(stream)>>>(
@@ -93,7 +94,8 @@ TPUDF_API int tpudf_ln_quant_i8(const void* x, const void* g, const void* b,
                                 const void* act_scale, void* out, int rows,
                                 int width, float eps, void* stream) {
   if (rows <= 0) return 0;
-  if (width % 8 != 0 || width > 1024) return cudaErrorInvalidValue;
+  if (width % 8 != 0 || width > tpudf::kLnMaxWidth)
+    return cudaErrorInvalidValue;
   const dim3 grid((rows + tpudf::kLnWarps - 1) / tpudf::kLnWarps);
   tpudf::ln_quant_i8_kernel<<<grid, tpudf::kLnWarps * 32, 0,
                               static_cast<cudaStream_t>(stream)>>>(

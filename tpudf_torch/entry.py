@@ -7,12 +7,17 @@ base-256 tower with ToMe at the deployed schedule (r=96, floor S/8: tokens
 pixels → 24-d FFT/SRM/Haar vector → frequency MLP (z_freq); then the
 Linear(2→1) fusion of the two probabilities and CORAL.
 
-`build(device, seed)` initialises seeded random weights, calibrates the
-activation scales on 32 seeded images, quantises, and returns a
-`DetectCore` whose `forward(pixels)` is that path. `build_engine(device,
-...)` returns the `serve.engine.DetectEngine` of `tpudf/cli/infer.py`
-(`_build_engine`) with seeded random weights: by default the bf16 tower,
-no ToMe, linear fusion. `build_mtl_trainer(device, ...)` returns the
+`build(device, seed, cfg_name)` initialises seeded random weights,
+calibrates the activation scales on 32 seeded images, quantises (with
+`prepad_siglip_static`: so400m-512's heads of 72 and MLP of 4304 padded
+to 128 and 4352), and returns a `DetectCore` whose `forward(pixels)` is
+that path at the config's image size; base-256 by default, also
+large-384 (576 → 72 tokens) and so400m-512 (1024 → 128).
+`build_engine(device, ...)` returns the `serve.engine.DetectEngine` of
+`tpudf/cli/infer.py` (`_build_engine`) with seeded random weights: by
+default the bf16 tower, no ToMe, linear fusion; base-256 or large-384
+(so400m-512's engines are later work: its float MLP of 4304 is not
+lane-aligned, and the bf16 GEMM raises on it on the card). `build_mtl_trainer(device, ...)` returns the
 multi-task trainer of `tpudf/cli/train_mtl.py` (SegFormer decoder over the
 tower's hidden states, frozen prefix, AdamW) with seeded random weights.
 """

@@ -13,7 +13,8 @@ block leaves stacked on a leading L axis; int8 leaves {q, scale}):
   }
 Pixels are NHWC. On the card the tower runs the static-W8A8 blocks through
 kernels K1 and K2 by default, or through the route `TPUDF_INT8_KERNELS`
-names (K5, K6, K7, K8 and the int8 products; `_static_int8_block`), the
+names (K5, K6 or K9 / 9b and the out-projection, K7, K8 and the int8
+products; `_static_int8_block`), the
 dynamic-int8 blocks through the int8 products, K9 and K4, the float
 (bf16) blocks through K13 (LN1 + QKV), K9 (attention), K13 (out-proj +
 residual) and K14 (LN2 + MLP + residual), and its bf16 layer norms
@@ -42,7 +43,8 @@ from tpudf_torch.convert import add_kernel_layout
 from tpudf_torch.core.precision import (DEFAULT_POLICY, Policy, cast_tree,
                                         round_tree, tree_map)
 from tpudf_torch.ops.attention import attention_qkv_vjp
-from tpudf_torch.ops.int8_block import layer_int8_eligible
+from tpudf_torch.ops.int8_block import (attn_sublayer_int8_fits,
+                                        layer_int8_eligible)
 from tpudf_torch.ops.quant import (int8_matmul, int8_matmul_pre,
                                    int8_matmul_static, is_quantized,
                                    is_static_quantized)
@@ -299,9 +301,13 @@ def _static_int8_block(x, bp, cfg: SigLIPConfig, logit_bias, emit_sumsq,
     (after P or X) P = K6, X = K9 + int8_matmul_static; third P = K2, X =
     K8 + int8_matmul_pre + GELU + int8_matmul_static. LLL runs K7, the
     whole layer, where `layer_int8_eligible` holds and there is no logit
-    bias; otherwise FPP. The X routes keep JAX's dtypes: the vectors are
-    cast to the compute dtype before their adds, and int8_matmul_pre
-    rounds to bf16 before the bias."""
+    bias; otherwise FPP. JAX's wrappers decide from the shapes as well:
+    F where `attn_sublayer_int8_fits` is false runs K5 then the P
+    attention, and P's `attn_out_int8` takes its reference route (K9, or
+    9b under TPUDF_INT8_ATTN=1, + the out-projection) where its own
+    predicate fails (so400m-512) or a logit bias is present. The X routes
+    keep JAX's dtypes: the vectors are cast to the compute dtype before
+    their adds, and int8_matmul_pre rounds to bf16 before the bias."""
     sc = bp["act_scales"]
     heads = cfg.heads
     d = cfg.head_dim
@@ -322,6 +328,10 @@ def _static_int8_block(x, bp, cfg: SigLIPConfig, logit_bias, emit_sumsq,
                                             attn_scale)
             return _with_sumsq(out) if emit_sumsq else out
         variant = "FPP"
+    b, s, w = x.shape
+    if variant[0] == "F" and not attn_sublayer_int8_fits(b, s, w, heads * d,
+                                                         d):
+        variant = "PP" + variant[2]
     if variant[0] == "F":
         x = kernels.attn_sublayer_int8(
             x, bp["ln1"], attn["qkv_w"], attn["qkv_b"], attn["out_w"],

@@ -45,7 +45,8 @@ SIGNATURES = {
     "tpudf_bf16_gemm": "pppppiiiip",
     "tpudf_srm_moments": "pppiiip",
     "tpudf_ln_qkv_i8": "ppppppppiiifp",
-    "tpudf_attn_out_i8": "pppppppiiiifp",
+    "tpudf_attn_out_i8": "pppppppiiiiifp",
+    "tpudf_attention_i8dyn": "pppiiiiifp",
     "tpudf_layer_i8": "p" * 22 + "iiiiiffp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

@@ -13,10 +13,13 @@ output rounded once to bf16.
 
 The CUDA kernel is `csrc/attention.cu`, the attention kernel of K1 with a
 bf16 output epilogue in place of its int8 quant (one template). It takes
-head_dim 64 and S ≤ 256 (base-256); any other shape on a CUDA tensor
-raises. Both products run on the tensor cores (mma.sync bf16, f32
-accumulate) with each warp's full score rows in registers; at S=256 the
-card's bound is the bytes of qkv.
+head_dim 64 or 128 (so400m's heads of 72, padded by the caller, keep their
+own scale) and S ≤ 1024 (large-384's 576, so400m-512's 1024); any other
+shape on a CUDA tensor raises. Both products run on the tensor cores
+(mma.sync bf16, f32 accumulate), K and V streamed through shared memory
+in 64-key tiles, in two passes over the keys (row max and sum, then
+p · v; `csrc/attn_tile.cuh`); at the engine's shapes the card's bound is
+the bytes of qkv.
 
 `attention_qkv_reference` is the twin, the JAX package's `_reference_qkv`;
 it also serves calibration and the twin of K1.
@@ -34,9 +37,23 @@ one bf16 rounding of each output. The CUDA kernels are in
 `csrc/attention.cu`: a pass over query tiles (row statistics, D and dQ)
 and a pass over key tiles (dK and dV), FlashAttention-2's split, because
 one head's (S, S) f32 P (256 KB at S = 256) does not fit an SM. It takes
-head_dim 64 and S <= 256, as K9 does; at the MTL step's shape the card's
-bound is the bytes of qkv, g and dqkv. `attention_qkv_bwd_reference` is
-its twin, the TPU kernel's formulas in PyTorch.
+head_dim 64 and S <= 256 (base-256 training); at the MTL step's shape the
+card's bound is the bytes of qkv, g and dqkv.
+`attention_qkv_bwd_reference` is its twin, the TPU kernel's formulas in
+PyTorch.
+
+Kernel 9b (`attention_qkv_int8`), the same attention with dynamically
+quantised int8 products, replaces `_attention_qkv_pallas(...,
+int8_attn=True)` (`_one_head`), which JAX's static-W8A8 block runs on its
+`attn_out_int8` reference route under TPUDF_INT8_ATTN=1: per head, q
+quantised with aq = amax|q| + 1e-6 over each query block of min(256, S)
+rows (the Pallas grid's block, the q axis zero-padded), k and v with their
+amax over all S rows, clipped to ±127; int8 QKᵀ with int32 sums scaled by
+(aq·ak)/127² · scale; an exact f32 softmax; p quantised per row with ap =
+max p + 1e-20, not clipped; int8 p·v scaled by ap·av/127²; bf16 out. Its
+CUDA kernel is `csrc/attention_i8.cu` (an amax pass, then the two-pass
+tile with int8 mma.sync); head_dim 64 or 128, S ≤ 1024.
+`attention_qkv_int8_reference` is its twin, written from `_one_head`.
 
 `attention_qkv_vjp` is the tower's attention: one autograd Function whose
 forward is K9 and whose backward is K10 (or their twins), saving only qkv
@@ -52,8 +69,24 @@ from tpudf_torch.ops import _build
 
 KERNEL = "attention_qkv"
 KERNEL_BWD = "attention_qkv_bwd"
-HEAD_DIM = 64
-MAX_SEQ = 256
+KERNEL_INT8 = "attention_qkv_int8"
+HEAD_DIMS = (64, 128)       # K1, K6, K9 and 9b
+MAX_SEQ = 1024
+BWD_HEAD_DIM = 64           # K10
+BWD_MAX_SEQ = 256
+INT8_Q_BLOCK = 256          # JAX's q_block: 9b's aq is taken per block
+
+
+def check_attention_shape(name, qkv, heads, head_dim):
+    """Raise unless `qkv` is bf16 (B, S, 3·heads·head_dim) with head_dim
+    in HEAD_DIMS and S <= MAX_SEQ (the attention kernels' limits)."""
+    b, s, w3 = qkv.shape
+    if (qkv.dtype != torch.bfloat16 or head_dim not in HEAD_DIMS
+            or s > MAX_SEQ or w3 != 3 * heads * head_dim):
+        raise ValueError(f"{name} takes bf16 qkv with head_dim in "
+                         f"{HEAD_DIMS} and S <= {MAX_SEQ}, got "
+                         f"{qkv.dtype} {tuple(qkv.shape)} heads {heads} "
+                         f"head_dim {head_dim}")
 
 
 def attention_qkv_reference(qkv, heads, head_dim, scale=None,
@@ -79,12 +112,8 @@ def attention_qkv_reference(qkv, heads, head_dim, scale=None,
 
 
 def _attention_qkv_cuda(qkv, heads, head_dim, scale, logit_bias):
-    b, s, w3 = qkv.shape
-    if (qkv.dtype != torch.bfloat16 or head_dim != HEAD_DIM or s > MAX_SEQ
-            or w3 != 3 * heads * head_dim):
-        raise ValueError(f"K9 takes bf16 qkv with head_dim {HEAD_DIM} and "
-                         f"S <= {MAX_SEQ}, got {qkv.dtype} {tuple(qkv.shape)} "
-                         f"heads {heads} head_dim {head_dim}")
+    check_attention_shape("K9", qkv, heads, head_dim)
+    b, s, _ = qkv.shape
     out = torch.empty((b, s, heads * head_dim), dtype=torch.bfloat16,
                       device=qkv.device)
     bias = None if logit_bias is None else logit_bias.float().contiguous()
@@ -103,6 +132,70 @@ def attention_qkv(qkv, heads, head_dim, scale=None, *, logit_bias=None):
         return attention_qkv_reference(qkv, heads, head_dim, scale,
                                        logit_bias)
     return _attention_qkv_cuda(qkv, heads, head_dim, scale, logit_bias)
+
+
+def _quant_amax(t, amax):
+    """clip(round(t · 127/amax), ±127) in f32, as `_one_head` codes."""
+    return torch.clamp(torch.round(t * (127.0 / amax)), -127, 127)
+
+
+def attention_qkv_int8_reference(qkv, heads, head_dim, scale=None, *,
+                                 q_block=INT8_Q_BLOCK):
+    """Plain twin of 9b: (B, S, 3W) → (B, S, W) in qkv's dtype, the
+    arithmetic of `_one_head(int8_attn=True)` with the int8 products as
+    exact f32 sums of small integers. q_block: the rows over which aq is
+    taken (JAX's min(q_block, S)); the smoke run plants a fault by
+    changing it."""
+    scale = scale if scale is not None else head_dim ** -0.5
+    b, s, w3 = qkv.shape
+    w = w3 // 3
+    qb = min(q_block, s)
+    sp = -(-s // qb) * qb
+
+    def heads_first(t):                     # (B, S, W) → (B, H, S, d) f32
+        return t.reshape(b, -1, heads, head_dim).transpose(1, 2).float()
+
+    q, k, v = (heads_first(qkv[..., i * w:(i + 1) * w]) for i in range(3))
+    qp = torch.nn.functional.pad(q, (0, 0, 0, sp - s))
+    qblk = qp.reshape(b, heads, sp // qb, qb, head_dim)
+    aq = torch.amax(torch.abs(qblk), dim=(-2, -1), keepdim=True) + 1e-6
+    q8 = _quant_amax(qblk, aq).reshape(b, heads, sp, head_dim)[:, :, :s]
+    aq = torch.repeat_interleave(aq.reshape(b, heads, -1), qb,
+                                 dim=-1)[..., :s, None]
+    ak = torch.amax(torch.abs(k), dim=(-2, -1), keepdim=True) + 1e-6
+    av = torch.amax(torch.abs(v), dim=(-2, -1), keepdim=True) + 1e-6
+    acc = torch.matmul(q8, _quant_amax(k, ak).transpose(-1, -2))
+    sc = acc * ((aq * ak) / (127.0 * 127.0) * scale)
+    e = torch.exp(sc - torch.amax(sc, dim=-1, keepdim=True))
+    p = e / torch.sum(e, dim=-1, keepdim=True)
+    ap = torch.amax(p, dim=-1, keepdim=True) + 1e-20
+    p8 = torch.round(p * (127.0 / ap))
+    o = torch.matmul(p8, _quant_amax(v, av)) * (ap * (av / (127.0 * 127.0)))
+    return o.transpose(1, 2).reshape(b, s, w).to(qkv.dtype)
+
+
+def _attention_qkv_int8_cuda(qkv, heads, head_dim, scale):
+    check_attention_shape("9b", qkv, heads, head_dim)
+    b, s, _ = qkv.shape
+    qb = min(INT8_Q_BLOCK, s)
+    amax = torch.empty((b, heads, -(-s // qb) + 2), dtype=torch.float32,
+                       device=qkv.device)
+    out = torch.empty((b, s, heads * head_dim), dtype=torch.bfloat16,
+                      device=qkv.device)
+    _build.call("tpudf_attention_i8dyn", qkv.contiguous(), amax, out, b, s,
+                heads, head_dim, qb, float(scale))
+    LAUNCHES.hit(KERNEL_INT8)
+    return out
+
+
+def attention_qkv_int8(qkv, heads, head_dim, scale=None):
+    """(B, S, 3W) → (B, S, W) with dynamic-int8 QKᵀ and p·v (no logit
+    bias, no gradient: JAX's int8_attn mode is inference-only). CPU
+    tensors take the plain twin; CUDA tensors launch 9b or raise."""
+    scale = scale if scale is not None else head_dim ** -0.5
+    if not qkv.is_cuda:
+        return attention_qkv_int8_reference(qkv, heads, head_dim, scale)
+    return _attention_qkv_int8_cuda(qkv, heads, head_dim, scale)
 
 
 def attention_qkv_bwd_reference(qkv, g, heads, head_dim, scale=None):
@@ -134,10 +227,11 @@ def attention_qkv_bwd_reference(qkv, g, heads, head_dim, scale=None):
 def _attention_qkv_bwd_cuda(qkv, g, heads, head_dim, scale):
     b, s, w3 = qkv.shape
     if (qkv.dtype != torch.bfloat16 or g.dtype != torch.bfloat16
-            or head_dim != HEAD_DIM or s > MAX_SEQ
+            or head_dim != BWD_HEAD_DIM or s > BWD_MAX_SEQ
             or w3 != 3 * heads * head_dim or g.shape != (b, s, w3 // 3)):
         raise ValueError(f"K10 takes bf16 qkv (B, S, 3W) and g (B, S, W) "
-                         f"with head_dim {HEAD_DIM} and S <= {MAX_SEQ}, got "
+                         f"with head_dim {BWD_HEAD_DIM} and S <= "
+                         f"{BWD_MAX_SEQ}, got "
                          f"{qkv.dtype} {tuple(qkv.shape)}, {g.dtype} "
                          f"{tuple(g.shape)}, heads {heads} head_dim "
                          f"{head_dim}")

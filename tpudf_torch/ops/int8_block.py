@@ -23,11 +23,20 @@ output never reaches device memory. Twin: `ln_qkv_reference`.
 
 K6 (`attn_out_int8`, replacing `_attn_out_kernel`): qkv + residual x →
 attention → int8 quant of the f32 output → int8 out-proj → dequant + bias
-+ residual, ONE launch (`csrc/attention.cu`). With a logit bias the JAX
-function takes its reference route, and so does this one: K9 with the
-bias, then the int8 out-proj GEMM with the residual epilogue. Twin:
-`attn_out_reference` (it quantises the bf16-rounded attention output, the
-JAX reference form; the kernel quantises the f32 one, the TPU kernel's).
++ residual, ONE launch (`csrc/attention.cu`). With a logit bias, or where
+JAX's VMEM estimate does not fit (`attn_out_int8_fits`: so400m-512's S =
+1024, Wa = 2048), the JAX function takes its reference route, and so does
+this one: K9 (with the bias), or without a bias and under
+TPUDF_INT8_ATTN=1 kernel 9b, then the int8 out-proj GEMM with the
+residual epilogue. Twin: `attn_out_reference` (it quantises the
+bf16-rounded attention output, the JAX reference form; the kernel
+quantises the f32 one, the TPU kernel's).
+
+The routing predicates are JAX's own decisions from shapes, copied:
+`attn_sublayer_int8_fits` (K1, else K5 + `attn_out_int8`),
+`attn_out_int8_fits` (K6, else the reference route) and
+`layer_int8_eligible` (K7, else FPP; with K7's own limits in place of
+JAX's 13 MB VMEM fit).
 
 K7 (`siglip_layer_int8`, replacing `_layer_kernel`): the whole layer in
 ONE cooperative launch (`csrc/layer_int8.cu`): K5's, K6's and K2's tiles
@@ -39,12 +48,15 @@ it returns None); the twin `siglip_layer_int8_reference` is written from
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from tpudf_torch.core.backend import LAUNCHES
 from tpudf_torch.ops import _build
-from tpudf_torch.ops.attention import (HEAD_DIM, MAX_SEQ, attention_qkv,
-                                       attention_qkv_reference)
+from tpudf_torch.ops.attention import (HEAD_DIMS, MAX_SEQ,
+                                       attention_qkv_reference,
+                                       check_attention_shape)
 from tpudf_torch.ops.layernorm import MAX_WIDTH, ln_quant_cuda, ln_rows_f32
 from tpudf_torch.ops.quant import (KERNEL_GEMM, f32_scalar, int8_mm,
                                    quant_rows, transposed)
@@ -54,6 +66,55 @@ KERNEL = "attn_sublayer_int8"
 KERNEL_LN_QKV = "ln_qkv_int8"
 KERNEL_ATTN_OUT = "attn_out_int8"
 KERNEL_LAYER = "siglip_layer_int8"
+LAYER_MAX_SEQ = 256         # K7's own limits (the whole-layer kernel is
+LAYER_MAX_WIDTH = 1024      # not widened: beyond them the block routes FPP)
+MiB = 1024 * 1024
+
+
+def _lane_ok(head_dim):
+    return head_dim % 128 == 0 or 128 % head_dim == 0
+
+
+def attn_sublayer_int8_fits(b, s, w, wa, head_dim):
+    """JAX `attn_sublayer_int8`'s test for its fused kernel
+    (tpudf/ops/int8_block.py:197-219, formula copied): lane-aligned heads,
+    W, Wa and S aligned, and the VMEM estimate of a program of `group`
+    images within 48 MB. Otherwise JAX runs `ln_qkv_int8` then
+    `attn_out_int8`."""
+    group = 1
+    for g in (16, 8, 4, 2):
+        if b % g == 0 and g * s <= 512:
+            group = g
+            break
+    vmem = (4 * w * wa + group * s * 3 * wa * 2 + s * s * 4
+            + 2 * group * s * w * 4 + group * s * wa * 4)
+    return (_lane_ok(head_dim) and w % 128 == 0 and wa % 128 == 0
+            and s % 8 == 0 and vmem <= 48 * MiB)
+
+
+def attn_out_int8_fits(s, wa, wm, head_dim, q_block=256):
+    """JAX `attn_out_int8`'s test for its fused kernel
+    (tpudf/ops/int8_block.py:456-468, formula copied): lane-aligned heads,
+    Wa and W aligned, S % 8 == 0, and the VMEM estimate within 13 MB
+    (base-256 and large-384 fit; so400m-512's S = 1024, Wa = 2048 does
+    not). Otherwise, and always with a logit bias, JAX takes
+    `_attn_out_reference`."""
+    qb0 = min(q_block, s)
+    vmem = (2 * (qb0 * wa * 2 + 2 * s * wa * 2 + qb0 * wm * 2)
+            + wa * wm + qb0 * s * 4 + qb0 * wa * 4)
+    return (_lane_ok(head_dim) and wa % 128 == 0 and wm % 128 == 0
+            and s % 8 == 0 and vmem <= 13 * MiB)
+
+
+def _route_attention(qkv, heads, head_dim, scale, logit_bias, kernels):
+    """The attention of JAX's `_attn_out_reference`, from `kernels`
+    (routes.KERNELS on the card, routes.TWINS for the twin): dynamic int8
+    (9b) without a logit bias under TPUDF_INT8_ATTN=1, which is read here
+    and nowhere else, else the bf16 attention (K9) with the bias."""
+    if logit_bias is None and os.environ.get("TPUDF_INT8_ATTN") == "1":
+        return kernels.attention_qkv_int8(qkv, heads, head_dim, scale)
+    return kernels.attention_qkv(qkv, heads, head_dim, scale,
+                                 logit_bias=logit_bias)
 
 
 def ln_qkv_reference(x, ln_params, wq, bias, act_scale, eps=1e-6):
@@ -68,13 +129,9 @@ def ln_qkv_reference(x, ln_params, wq, bias, act_scale, eps=1e-6):
     return out.to(x.dtype).reshape(*x.shape[:-1], -1)
 
 
-def attn_out_reference(qkv, x, wq, bias, act_scale, heads, head_dim,
-                       scale=None, *, logit_bias=None):
-    """Plain PyTorch twin of K6 on any device, the JAX package's reference
-    form: it quantises the attention output rounded to qkv's dtype."""
-    scale = scale if scale is not None else head_dim ** -0.5
-    o = attention_qkv_reference(qkv, heads, head_dim, scale, logit_bias)
-    a = f32_scalar(act_scale, qkv.device)
+def _out_proj_reference(o, x, wq, bias, act_scale):
+    """quant(o) · Wout dequantised + bias + residual x, in x's dtype."""
+    a = f32_scalar(act_scale, o.device)
     b, s, wa = o.shape
     q8 = quant_rows(o.float(), a)
     acc = int8_mm(q8.reshape(b * s, wa), wq["q"]).reshape(b, s, -1)
@@ -82,13 +139,32 @@ def attn_out_reference(qkv, x, wq, bias, act_scale, heads, head_dim,
     return (x.float() + proj).to(x.dtype)
 
 
+def attn_out_reference(qkv, x, wq, bias, act_scale, heads, head_dim,
+                       scale=None, *, logit_bias=None):
+    """Plain PyTorch twin of K6 and of its reference route on any device,
+    the JAX package's reference form: it quantises the attention output
+    rounded to qkv's dtype. On the reference route (`attn_out_int8_fits`
+    false) without a bias, TPUDF_INT8_ATTN=1 takes 9b's twin."""
+    scale = scale if scale is not None else head_dim ** -0.5
+    if attn_out_int8_fits(qkv.shape[1], qkv.shape[2] // 3, x.shape[-1],
+                          head_dim):
+        o = attention_qkv_reference(qkv, heads, head_dim, scale, logit_bias)
+    else:
+        from tpudf_torch.ops.routes import TWINS   # routes imports this
+        o = _route_attention(qkv, heads, head_dim, scale, logit_bias, TWINS)
+    return _out_proj_reference(o, x, wq, bias, act_scale)
+
+
 def attn_sublayer_reference(x, ln_params, qkv_wq, qkv_b, out_wq, out_b,
                             a_qkv, a_out, heads, head_dim, eps=1e-6,
                             scale=None, *, logit_bias=None):
-    """Plain PyTorch twin of K1 on any device: K5's twin, then K6's."""
+    """Plain PyTorch twin of K1 on any device: K5's twin, the bf16
+    attention (K1's, whatever TPUDF_INT8_ATTN says), the out-projection
+    of K6's twin."""
+    scale = scale if scale is not None else head_dim ** -0.5
     qkv = ln_qkv_reference(x, ln_params, qkv_wq, qkv_b, a_qkv, eps)
-    return attn_out_reference(qkv, x, out_wq, out_b, a_out, heads, head_dim,
-                              scale, logit_bias=logit_bias)
+    o = attention_qkv_reference(qkv, heads, head_dim, scale, logit_bias)
+    return _out_proj_reference(o, x, out_wq, out_b, a_out)
 
 
 def _f32(t):
@@ -123,13 +199,18 @@ def _attn_sublayer_cuda(x, ln_params, qkv_wq, qkv_b, out_wq, out_b, a_qkv,
                         a_out, heads, head_dim, eps, scale, logit_bias):
     b, s, w = x.shape
     wa = heads * head_dim
-    if x.dtype != torch.bfloat16 or head_dim != 64 or w % 8 or s > 256:
-        raise ValueError(f"K1 takes bf16 x, head_dim 64 and S <= 256, got "
-                         f"{x.dtype} head_dim {head_dim} S {s}")
+    wt = transposed(qkv_wq)
+    if (x.dtype != torch.bfloat16 or head_dim not in HEAD_DIMS
+            or s > MAX_SEQ or w % 64 or w > MAX_WIDTH
+            or tuple(wt.shape) != (3 * wa, w)):
+        raise ValueError(f"K1 takes bf16 x of width 64k <= {MAX_WIDTH}, "
+                         f"head_dim in {HEAD_DIMS}, S <= {MAX_SEQ} and a "
+                         f"(W, 3 heads head_dim) weight, got {x.dtype} "
+                         f"{tuple(x.shape)} head_dim {head_dim} weight "
+                         f"{tuple(wt.t().shape)}")
     x2d = x.reshape(b * s, w).contiguous()
     h8 = ln_quant_cuda(x2d, ln_params, a_qkv, eps)
-    qkv = i8_gemm_cuda(h8, transposed(qkv_wq), qkv_wq["scale"], qkv_b,
-                       a_qkv, GEMM_BF16)
+    qkv = i8_gemm_cuda(h8, wt, qkv_wq["scale"], qkv_b, a_qkv, GEMM_BF16)
     o8 = torch.empty((b * s, wa), dtype=torch.int8, device=x.device)
     bias = None if logit_bias is None else _f32(logit_bias)
     _build.call("tpudf_attention_i8", qkv, bias, _f32(a_out), o8, b, s,
@@ -188,12 +269,13 @@ def ln_qkv_int8(x, ln_params, wq, bias, act_scale, eps=1e-6):
 
 # ------------------------------------------------------------------ K6
 
-def _attn_out_biased_cuda(qkv, x, wq, bias, a, heads, head_dim, scale,
-                          logit_bias):
-    """JAX's reference route of a biased call, on the card: K9 with the
-    bias, then the int8 out-projection GEMM with the residual epilogue."""
+def _attn_out_route_cuda(qkv, x, wq, bias, a, heads, head_dim, scale,
+                         logit_bias):
+    """JAX's reference route on the card: K9 (with the bias) or 9b, then
+    the int8 out-projection GEMM with the residual epilogue."""
+    from tpudf_torch.ops.routes import KERNELS     # routes imports this
     b, s, w = x.shape
-    o = attention_qkv(qkv, heads, head_dim, scale, logit_bias=logit_bias)
+    o = _route_attention(qkv, heads, head_dim, scale, logit_bias, KERNELS)
     o8 = quant_rows(o.float(), a).reshape(b * s, -1)
     out = i8_gemm_cuda(o8, transposed(wq), wq["scale"], bias, a,
                        GEMM_RESIDUAL,
@@ -206,34 +288,34 @@ def attn_out_int8(qkv, x, wq, bias, act_scale, heads, head_dim, scale=None,
                   *, logit_bias=None):
     """qkv (B, S, 3Wa) + residual x (B, S, W) → (B, S, W): attention, int8
     quant, int8 out-projection, dequant + bias + residual. CPU tensors take
-    the plain twin; CUDA tensors launch K6 (bf16, head_dim 64, S <= 256,
-    Wa <= 1024, W % 128 == 0) or raise; with a logit bias, K9 and the
-    out-projection GEMM."""
+    the plain twin; CUDA tensors launch K6 (bf16, head_dim 64 or 128, S <=
+    1024, W % 128 == 0, Wa <= 1024 at head_dim 64 and <= 768 at 128: its
+    shared memory) or raise; with a logit bias or where
+    `attn_out_int8_fits` is false, K9 or 9b and the out-projection GEMM."""
     scale = scale if scale is not None else head_dim ** -0.5
     if not qkv.is_cuda:
         return attn_out_reference(qkv, x, wq, bias, act_scale, heads,
                                   head_dim, scale, logit_bias=logit_bias)
     a = f32_scalar(act_scale, qkv.device)
-    if logit_bias is not None:
-        return _attn_out_biased_cuda(qkv, x, wq, bias, a, heads, head_dim,
-                                     scale, logit_bias)
     b, s, w3 = qkv.shape
     w = x.shape[-1]
+    if logit_bias is not None or not attn_out_int8_fits(s, w3 // 3, w,
+                                                         head_dim):
+        return _attn_out_route_cuda(qkv, x, wq, bias, a, heads, head_dim,
+                                    scale, logit_bias)
     wt = transposed(wq)
     wa = heads * head_dim
-    if (qkv.dtype != torch.bfloat16 or x.dtype != torch.bfloat16
-            or head_dim != HEAD_DIM or s > MAX_SEQ or w3 != 3 * wa
-            or wa > 1024 or w % 128 or tuple(wt.shape) != (w, wa)
+    check_attention_shape("K6", qkv, heads, head_dim)
+    if (x.dtype != torch.bfloat16 or wa > (1024 if head_dim == 64 else 768)
+            or w % 128 or tuple(wt.shape) != (w, wa)
             or x.shape != (b, s, w)):
-        raise ValueError(f"K6 takes bf16 qkv (B, S <= {MAX_SEQ}, 3 heads "
-                         f"64) and x (B, S, W % 128 == 0), got "
-                         f"{qkv.dtype} {tuple(qkv.shape)}, {x.dtype} "
-                         f"{tuple(x.shape)}, heads {heads} head_dim "
-                         f"{head_dim}")
+        raise ValueError(f"K6 takes x (B, S, W % 128 == 0) bf16 and Wa <= "
+                         f"1024 (head_dim 64) or 768 (128), got {x.dtype} "
+                         f"{tuple(x.shape)}, Wa {wa}, head_dim {head_dim}")
     out = torch.empty((b * s, w), dtype=torch.bfloat16, device=x.device)
     _build.call("tpudf_attn_out_i8", qkv.contiguous(),
                 x.reshape(b * s, w).contiguous(), wt, _f32(wq["scale"]),
-                _f32(bias), a, out, b, s, heads, w, float(scale))
+                _f32(bias), a, out, b, s, heads, head_dim, w, float(scale))
     LAUNCHES.hit(KERNEL_ATTN_OUT)
     return out.reshape(b, s, w)
 
@@ -243,12 +325,14 @@ def attn_out_int8(qkv, x, wq, bias, act_scale, heads, head_dim, scale=None,
 def layer_int8_eligible(x, bp, heads, head_dim, logit_bias=None):
     """JAX's structural conditions for the whole-layer kernel (not its
     13 MB VMEM fit): no logit bias, head slots not padded, head_dim 64,
-    W, the MLP width and S aligned. Otherwise the block routes FPP."""
+    W, the MLP width and S aligned; and K7's own limits, S <= 256 and W <=
+    1024 (so large-384 and so400m-512 route FPP, as JAX's fit sends them).
+    Otherwise the block routes FPP."""
     _, s, w = x.shape
     attn = bp["attn"]
     inter = bp["mlp"]["fc1_w"]["q"].shape[-1]
-    return (logit_bias is None and head_dim == HEAD_DIM
-            and heads * head_dim == w
+    return (logit_bias is None and head_dim == 64 and s <= LAYER_MAX_SEQ
+            and w <= LAYER_MAX_WIDTH and heads * head_dim == w
             and tuple(attn["qkv_w"]["q"].shape) == (w, 3 * w)
             and tuple(attn["out_w"]["q"].shape) == (w, w)
             and w % 128 == 0 and inter % 128 == 0 and s % 8 == 0)
@@ -297,11 +381,11 @@ def _layer_cuda(x, bp, heads, head_dim, eps, scale):
     b, s, w = x.shape
     attn, mlp = bp["attn"], bp["mlp"]
     inter = mlp["fc1_w"]["q"].shape[-1]
-    if (x.dtype != torch.bfloat16 or s > MAX_SEQ or w > MAX_WIDTH
+    if (x.dtype != torch.bfloat16
             or not layer_int8_eligible(x, bp, heads, head_dim)):
         raise ValueError(f"K7 takes bf16 x with head_dim 64, unpadded "
-                         f"heads, W % 128 == 0, W <= {MAX_WIDTH}, S % 8 == 0 "
-                         f"and S <= {MAX_SEQ}, got {x.dtype} "
+                         f"heads, W % 128 == 0, W <= {LAYER_MAX_WIDTH}, "
+                         f"S % 8 == 0 and S <= {LAYER_MAX_SEQ}, got {x.dtype} "
                          f"{tuple(x.shape)} heads {heads} head_dim "
                          f"{head_dim} MLP {inter}")
     m, dev = b * s, x.device

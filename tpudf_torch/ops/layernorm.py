@@ -2,7 +2,9 @@
 
 K4 replaces tpudf/ops/layernorm.py `_ln_kernel` (via `_ln_pallas` /
 `layer_norm_fused`). The CUDA kernel is `csrc/layernorm.cu`: one warp per
-row, the row held in registers, one bf16 read and one bf16 write. It is
+row, the row held in registers (any multiple of 8 up to MAX_WIDTH = 1280:
+so400m's 1152 is 4.5 chunks of 8 a lane), one bf16 read and one bf16
+write. It is
 bound by device-memory bytes (4 bytes moved per element, a handful of flops);
 its design reads each row exactly once. The backward recomputes the twin
 and applies its VJP (`twin_vjp`), as the JAX VJP does.
@@ -25,7 +27,7 @@ from tpudf_torch.ops.twin_vjp import with_twin_vjp
 
 KERNEL = "layer_norm_fused"
 KERNEL_QUANT = "layer_norm_quant"
-MAX_WIDTH = 1024
+MAX_WIDTH = 1280        # csrc/common.cuh kLnMaxWidth
 
 
 def ln_rows_f32(x2d, g, b, eps):

@@ -33,6 +33,7 @@ from tpudf_torch.ops import _build
 from tpudf_torch.ops.attention import attention_qkv_reference
 
 _EXACT_K = 1024          # 1024 * 127 * 127 < 2**24
+_CALIB_SCORE_BYTES = 512 * 2**20   # f32 scores of one calibration chunk
 KERNEL_GEMM = "int8_gemm"      # launches of the port's int8 GEMM
                             # outside K1, K2 and K5-K7
 GEMM_I32 = 3             # csrc/gemm_i8.cuh kEpiI32
@@ -182,6 +183,9 @@ def calibrate_siglip_act_scales(params, cfg, pixels, policy=None):
     """Run the float tower over a calibration batch and record the abs-max
     of each projection's input per layer.
 
+    The twin attention materialises (B, H, S, S) f32 scores, so it runs in
+    batch chunks of at most 512 MB of scores (so400m-512: 64 MB an image).
+
     Returns {"qkv": (L,), "out": (L,), "fc1": (L,), "fc2": (L,)} f32."""
     from tpudf_torch.models import siglip as S   # siglip imports this module
 
@@ -194,12 +198,16 @@ def calibrate_siglip_act_scales(params, cfg, pixels, policy=None):
     def amax(t):
         return torch.clamp(torch.amax(torch.abs(t.float())), min=1e-3)
 
+    n = x.shape[1]
+    chunk = max(1, _CALIB_SCORE_BYTES // (cfg.heads * n * n * 4))
+
     for i in range(cfg.layers):
         bp = cast_tree(S.layer_slice(params["blocks"], i), cdt)
         h1 = S.layer_norm(x, bp["ln1"], cfg.ln_eps)
         scales["qkv"].append(amax(h1))
         qkv = h1 @ bp["attn"]["qkv_w"] + bp["attn"]["qkv_b"]
-        o = attention_qkv_reference(qkv, cfg.heads, cfg.head_dim)
+        o = torch.cat([attention_qkv_reference(c, cfg.heads, cfg.head_dim)
+                       for c in torch.split(qkv, chunk)])
         scales["out"].append(amax(o))
         x = x + (o @ bp["attn"]["out_w"] + bp["attn"]["out_b"])
         h2 = S.layer_norm(x, bp["ln2"], cfg.ln_eps)

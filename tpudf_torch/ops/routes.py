@@ -34,6 +34,8 @@ class KernelSet:
     layer_norm_quant: Callable      # K8
     int8_acc: Callable              # exact int32 product of quant.py's
                                     # int8_matmul* (XLA in JAX)
+    attention_qkv_int8: Callable    # 9b (K9's dynamic-int8 mode; the
+                                    # reference route of attn_out_int8)
 
 
 KERNELS = KernelSet(
@@ -50,6 +52,7 @@ KERNELS = KernelSet(
     siglip_layer_int8=int8_block.siglip_layer_int8,
     layer_norm_quant=layernorm.layer_norm_quant,
     int8_acc=quant.int8_acc,
+    attention_qkv_int8=attention.attention_qkv_int8,
 )
 
 TWINS = KernelSet(
@@ -66,4 +69,5 @@ TWINS = KernelSet(
     siglip_layer_int8=int8_block.siglip_layer_int8_reference,
     layer_norm_quant=layernorm.layer_norm_quant_reference,
     int8_acc=quant.int8_acc_reference,
+    attention_qkv_int8=attention.attention_qkv_int8_reference,
 )
