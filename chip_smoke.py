@@ -48,6 +48,16 @@ back to the CPU or to a twin):
      bound, 9b also within atol 1e-2 + rtol 2^-7 of its twin (at std 1.5
      one flipped probability code moves an output by up to ~3e-2) and
      within K9B_COS / K9B_REL of K9;
+  2c. kernels 11 and 12 (`plain_attention_checks`: plain attention over
+     separate q, k, v in the (B, H, S, D) and (B, S, H, D) layouts) at
+     PLAIN_SHAPES (base-256's, large-384's and so400m's raw heads of 72
+     at S = 1024, Sq != Skv with ragged keys, a single query, f32) on
+     q, k, v of std 1.5: bf16 within atol 1e-2 + rtol 2^-7 with at most
+     ATTN_SHARE of the outputs a bf16 step apart, f32 within atol 5e-4 +
+     rtol 1e-3; each check shown to reject planted faults (the scale from
+     the padded head_dim, the key mask dropped at Skv = 577 and 1000, the
+     (B, H, S, D) head stride read by kernel 12); the gradient through
+     `attention` against the twins'; kernel, twin and SDPA timed;
   3. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      (a) the detect core (build("cuda", seed=0), base-256, W8A8 + ToMe),
@@ -99,6 +109,15 @@ back to the CPU or to a twin):
          (build_engine(cfg_name="large-384")): a full analysis of 8 and a
          fast request of 32 with exact launches, held against the twins
          on 2 images (`engine_request`);
+     (w1)-(w5) (`weights_paths`): an HF state dict of large-384 built by
+         name, converted by `python -m tpudf_torch.models.convert` and held
+         leaf for leaf against its sources, served by build_engine(...,
+         backbone_ckpt=) A and B; the MTL trainer fine-tuning large-384 at
+         256 px from it (interpolated position table), float and int8
+         prefix against the twins, and the MTL CLI for one step; the
+         multi-query `_mha` at full width through kernels 11 and 12;
+         so400m-512's engines A and B (its MLP padded to 4352); so400m's
+         dynamic-int8 tower and an un-prepadded static tree;
   4. CUDA-event timings: each kernel vs its twin and, where one PyTorch
      call computes the same function or a part of it, that call (timed
      here only; the port never calls it; the SDPA backward by its kernels'
@@ -110,7 +129,9 @@ back to the CPU or to a twin):
      largest kernels and the device's idle share; the trainer's peak
      memory; the large backbones' detect cores (large-384 at B=8 and 128,
      so400m-512 at B=8 and 64) with a profile each, so400m-512's PPP
-     tower with and without TPUDF_INT8_ATTN=1, large-384's engines.
+     tower with and without TPUDF_INT8_ATTN=1, large-384's engines; the
+     large-384 MTL step at 256 px, (a) and (b), with a profile of (a),
+     and so400m-512's engines A and B.
 Prints a JSON line of the kernels (with each one's bound: the larger of
 its operations over the card's peak for their type and its bytes, each
 input read once and each output written once, over 3.35 TB/s), the card
@@ -124,6 +145,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPLACES = {
@@ -140,6 +162,8 @@ REPLACES = {
     "K13": "tpudf/ops/linear.py:20",
     "K14": "tpudf/ops/mlp.py:21",
     "K9b": "tpudf/ops/attention.py:209",
+    "K11": "tpudf/ops/attention.py:53",
+    "K12": "tpudf/ops/attention.py:108",
 }
 SOURCES = {
     "K1": "tpudf_torch/csrc/attention.cu",
@@ -155,6 +179,8 @@ SOURCES = {
     "K13": "tpudf_torch/csrc/bf16_gemm.cu",
     "K14": "tpudf_torch/csrc/bf16_gemm.cu",
     "K9b": "tpudf_torch/csrc/attention_i8.cu",
+    "K11": "tpudf_torch/csrc/attention_plain.cu",
+    "K12": "tpudf_torch/csrc/attention_plain.cu",
 }
 # dense peaks of one H100 SXM (NVIDIA's data sheet) and its memory rate
 PEAK = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
@@ -927,6 +953,35 @@ def pooled_vs(label, kern, twin, pb=None):
             f"{float(cos.mean()):.6f}; max|Δp_blend| {dpb:.3e}")
 
 
+def merges(n, layers, r, floor):
+    """The ToMe merges of a schedule: the Σout² forms of K2 it launches."""
+    from tpudf_torch.ops.tome import merge_schedule
+    return sum(1 for ri in merge_schedule(n, layers, r, floor) if ri)
+
+
+def engine_expect(layers, n):
+    """Launches per request of engines A (bf16) and B (W8A8 + ToMe + patch
+    ToMe) of a `layers`-deep tower over n tokens, full analysis and fast."""
+    from tpudf_torch.ops import (attention, int8_block, layernorm, linear,
+                                 mlp, srm)
+    from tpudf_torch.ops.tome import (DEPLOYED_PATCH_TOME_R, DEPLOYED_TOME_R,
+                                      deployed_floor, deployed_patch_floor)
+    floats = {linear.KERNEL: 2 * layers, attention.KERNEL: layers,
+              mlp.KERNEL_BF16: layers, layernorm.KERNEL: 2, srm.KERNEL: 1}
+    main_m = merges(n, layers, DEPLOYED_TOME_R, deployed_floor(n))
+    patch_m = merges(n, layers, DEPLOYED_PATCH_TOME_R,
+                     deployed_patch_floor(n))
+    return {("A", "full"): floats, ("A", "fast"): floats,
+            # two tower forwards: the main views and the patch views
+            ("B", "full"): {int8_block.KERNEL: 2 * layers,
+                            mlp.KERNEL: 2 * layers,
+                            mlp.KERNEL_SUMSQ: main_m + patch_m,
+                            layernorm.KERNEL: 4, srm.KERNEL: 1},
+            ("B", "fast"): {int8_block.KERNEL: layers, mlp.KERNEL: layers,
+                            mlp.KERNEL_SUMSQ: main_m, layernorm.KERNEL: 2,
+                            srm.KERNEL: 1}}
+
+
 def large_paths(dev, card):
     """Phase 3 (e)-(g): the detect core of large-384 and of so400m-512
     (build(cfg_name=...): random weights from seed 0, calibrated on 32
@@ -944,15 +999,9 @@ def large_paths(dev, card):
     from tpudf_torch.core.backend import LAUNCHES
     from tpudf_torch.entry import build, build_engine, detect_core
     from tpudf_torch.models.siglip import siglip_forward
-    from tpudf_torch.ops import (attention, int8_block, layernorm, linear,
-                                 mlp, srm)
+    from tpudf_torch.ops import int8_block
     from tpudf_torch.ops.routes import TWINS
-    from tpudf_torch.ops.tome import (DEPLOYED_PATCH_TOME_R, DEPLOYED_TOME_R,
-                                      deployed_floor, deployed_patch_floor,
-                                      merge_schedule)
-
-    def merges(n, layers, r, floor):
-        return sum(1 for ri in merge_schedule(n, layers, r, floor) if ri)
+    from tpudf_torch.ops.tome import DEPLOYED_TOME_R, deployed_floor
 
     state = {"cores": {}, "launches": {}}
     pg = torch.Generator(device=dev).manual_seed(6)
@@ -1059,20 +1108,7 @@ def large_paths(dev, card):
           f"images + quantise) {time.perf_counter() - t0:.2f} s [{card}]",
           flush=True)
     layers = eng_a.cfg.layers
-    floats = {linear.KERNEL: 2 * layers, attention.KERNEL: layers,
-              mlp.KERNEL_BF16: layers, layernorm.KERNEL: 2, srm.KERNEL: 1}
-    main_m = merges(n, layers, DEPLOYED_TOME_R, deployed_floor(n))
-    patch_m = merges(n, layers, DEPLOYED_PATCH_TOME_R,
-                     deployed_patch_floor(n))
-    expect = {("A", "full"): floats, ("A", "fast"): floats,
-              # two tower forwards: the main views and the patch views
-              ("B", "full"): {int8_block.KERNEL: 2 * layers,
-                              mlp.KERNEL: 2 * layers,
-                              mlp.KERNEL_SUMSQ: main_m + patch_m,
-                              layernorm.KERNEL: 4, srm.KERNEL: 1},
-              ("B", "fast"): {int8_block.KERNEL: layers, mlp.KERNEL: layers,
-                              mlp.KERNEL_SUMSQ: main_m, layernorm.KERNEL: 2,
-                              srm.KERNEL: 1}}
+    expect = engine_expect(layers, n)
     rng = np.random.default_rng(8)
     size = eng_a.cfg.image_size
     requests = {"full": rng.integers(0, 256, (8, size, size, 3), np.uint8),
@@ -1152,6 +1188,777 @@ def large_timings(state, card):
             b = px.shape[0]
             print(f"engine {e} large-384 {mode} B={b}: kernels {ms:.3f} ms = "
                   f"{b * 1e3 / ms:.1f} img/s [{card}]", flush=True)
+
+
+# kernels 11 and 12 at the paths' shapes, (B, H, Sq, Skv, D, dtype): base-256,
+# large-384, so400m-512's raw heads of 72, Sq != Skv with ragged keys, a
+# single query (over 576 keys, and over 577: a ragged tile of one key), f32
+PLAIN_SHAPES = [(8, 12, 256, 256, 64, "bfloat16"),
+                (8, 16, 576, 576, 64, "bfloat16"),
+                (8, 16, 1024, 1024, 72, "bfloat16"),
+                (8, 16, 77, 576, 64, "bfloat16"),
+                (4, 16, 577, 1000, 64, "bfloat16"),
+                (8, 16, 1, 576, 64, "bfloat16"),
+                (8, 16, 1, 577, 64, "bfloat16"),
+                (2, 16, 576, 576, 64, "float32")]
+PLAIN_KEY_TILE = 64          # csrc/attention_plain.cu's key tile
+
+
+def plain_attention_checks(rec, dev, card):
+    """Phase 2c: kernels 11 ((B, H, S, D)) and 12 ((B, S, H, D)) against
+    their twins at PLAIN_SHAPES on q, k, v of std 1.5: bf16 within atol
+    1e-2 + rtol 2^-7 with at most ATTN_SHARE of the outputs more than one
+    bf16 step apart, f32 within atol 5e-4 + rtol 1e-3 (JAX's own bound);
+    each check shown to reject planted faults: the softmax scale from the
+    padded head_dim (128^-0.5 in place of 72^-0.5; x0.75 at heads of 64),
+    the key mask dropped (at Skv = 577 and 1000: the twin over keys padded
+    to the kernel's 64-key tile with the last key, unmasked), and for
+    kernel 12 the (B, H, S, D) layout's head stride (the twin reading the
+    buffer as (B, H, S, D)); the gradient through `attention` (kernel 11
+    forward, the twin's VJP backward) against the twins' at (2, 16, 576,
+    576, 64); then kernel, twin and SDPA timed at each shape, and the
+    kernel's device time (the host's launch outlasts it at the small
+    shapes)."""
+    import torch
+    import torch.nn.functional as F
+    from tpudf_torch.ops import attention
+
+    print("phase 2c: kernels 11 and 12 vs twins", flush=True)
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def rejects(got, ref, dt):
+        """(the check rejects got against ref, max|Δ|, share apart)"""
+        atol, rtol = (1e-2, 2 ** -7) if dt == torch.bfloat16 else (5e-4, 1e-3)
+        err = (got.float() - ref.float()).abs()
+        outside = int((err > atol + rtol * ref.float().abs()).sum())
+        share = share_apart(got, ref) if dt == torch.bfloat16 else 0.0
+        return (outside > 0 or share > ATTN_SHARE
+                or not torch.isfinite(got.float()).all()), float(err.max()), \
+            share
+
+    def unmasked(twin, q, k, v, scale, axis):
+        skv = k.shape[axis]
+        pad = -(-skv // PLAIN_KEY_TILE) * PLAIN_KEY_TILE - skv
+        idx = torch.cat([torch.arange(skv, device=dev),
+                         torch.full((pad,), skv - 1, device=dev)])
+        return twin(q, k.index_select(axis, idx), v.index_select(axis, idx),
+                    scale)
+
+    for b, h, sq, skv, d, dtype in PLAIN_SHAPES:
+        dt = getattr(torch, dtype)
+        scale = d ** -0.5
+        bad_scale, bad_name = ((128 ** -0.5, "scale 128^-0.5") if d == 72
+                               else (0.75 * scale, "scale x0.75"))
+        for key, bshd in (("K11", False), ("K12", True)):
+            shapes = [(b, n, h, d) if bshd else (b, h, n, d)
+                      for n in (sq, skv, skv)]
+            q, k, v = ((torch.randn(s_, generator=g, device=dev) * 1.5)
+                       .to(dt) for s_ in shapes)
+            fn = attention.attention_bshd if bshd else attention.attention
+            twin = (attention._reference_bshd if bshd
+                    else attention.attention_reference)
+            got = fn(q, k, v, scale)
+            ref = twin(q, k, v, scale)
+            faults = {bad_name: twin(q, k, v, bad_scale)}
+            if skv in (577, 1000):
+                faults["key mask dropped"] = unmasked(
+                    twin, q, k, v, scale, 1 if bshd else 2)
+            if bshd:
+                faults["BHSD head stride"] = twin(
+                    *(t.reshape(t.shape[0], h, -1, d).transpose(1, 2)
+                      for t in (q, k, v)), scale)
+            torch.cuda.synchronize()
+            label = f"{key} {(b, h, sq, skv, d)} {dtype}"
+            bad, err, share = rejects(got, ref, dt)
+            caught = {n: rejects(f, ref, dt) for n, f in faults.items()}
+            print(f"  {label}: max|Δ| {err:.3e}, share > 1 bf16 step "
+                  f"{share:.3e} (limit {ATTN_SHARE:g}); planted faults "
+                  + ", ".join(f"{n} max|Δ| {c[1]:.3e} share {c[2]:.3e}"
+                              for n, c in caught.items()) + f" [{card}]",
+                  flush=True)
+            if bad:
+                raise AssertionError(f"{label}: kernel vs twin outside the "
+                                     f"tolerance")
+            missed = [n for n, c in caught.items() if not c[0]]
+            if missed:
+                raise AssertionError(f"{label}: the check misses {missed}")
+            del faults, caught
+            heads_first = ((lambda t: t.transpose(1, 2)) if bshd
+                           else (lambda t: t))
+            rec.add(key, "attention_bshd" if bshd else "attention",
+                    (b, h, sq, skv, d, dtype), err,
+                    lambda: fn(q, k, v, scale), lambda: twin(q, k, v, scale),
+                    ({"bf16" if dt == torch.bfloat16 else "f32":
+                      4 * b * h * sq * skv * d}, nbytes(q, k, v, got)),
+                    library={"SDPA": lambda: F.scaled_dot_product_attention(
+                        heads_first(q), heads_first(k), heads_first(v),
+                        scale=scale)}, iters=10, twin_iters=2,
+                    device_time=True)
+            del q, k, v, got, ref
+    # the gradient: kernel 11 forward, the twin's VJP backward
+    q, k, v = (torch.randn((2, 16, 576, 64), generator=g, device=dev)
+               .requires_grad_() for _ in range(3))
+    ct = torch.randn((2, 16, 576, 64), generator=g, device=dev)
+    got = torch.autograd.grad(attention.attention(q, k, v), (q, k, v), ct)
+    ref = torch.autograd.grad(attention.attention_reference(q, k, v),
+                              (q, k, v), ct)
+    torch.cuda.synchronize()
+    err = max(max_abs(a, b_) for a, b_ in zip(got, ref))
+    print(f"  K11 gradient (kernel forward, twin VJP) vs the twins' at (2, "
+          f"16, 576, 576, 64) f32: max|Δ| {err:.3e} [{card}]", flush=True)
+    if err > 1e-5:
+        raise AssertionError(f"K11 gradient: max|Δ| {err:.3e}")
+    torch.cuda.empty_cache()
+
+
+def hf_state_dict(cfg, seed):
+    """An HF SiglipVisionModel state dict of `cfg`, built by name in numpy
+    f32 in HF's layouts ((out, in) Linear weights, a (W, 3, p, p) conv,
+    head.probe (1, 1, W)), from a seed: weights N(0, 1/fan_in), LN scales
+    1 + N(0, 0.05²), biases N(0, 0.05²), the position embedding and the
+    probe N(0, 0.02²)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    w, m, p = cfg.width, cfg.mlp_dim, cfg.patch_size
+    sd = {}
+
+    def n(*shape, std):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    def lin(name, o, i):
+        sd[name + ".weight"] = n(o, i, std=i ** -0.5)
+        sd[name + ".bias"] = n(o, std=0.05)
+
+    def ln(name):
+        sd[name + ".weight"] = 1 + n(w, std=0.05)
+        sd[name + ".bias"] = n(w, std=0.05)
+
+    pre = "vision_model."
+    sd[pre + "embeddings.patch_embedding.weight"] = n(w, 3, p, p,
+                                                      std=(3 * p * p) ** -0.5)
+    sd[pre + "embeddings.patch_embedding.bias"] = n(w, std=0.05)
+    sd[pre + "embeddings.position_embedding.weight"] = n(cfg.num_patches, w,
+                                                         std=0.02)
+    for i in range(cfg.layers):
+        e = f"{pre}encoder.layers.{i}."
+        ln(e + "layer_norm1")
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            lin(e + "self_attn." + proj, w, w)
+        ln(e + "layer_norm2")
+        lin(e + "mlp.fc1", m, w)
+        lin(e + "mlp.fc2", w, m)
+    ln(pre + "post_layernorm")
+    sd[pre + "head.probe"] = n(1, 1, w, std=0.02)
+    sd[pre + "head.attention.in_proj_weight"] = n(3 * w, w, std=w ** -0.5)
+    sd[pre + "head.attention.in_proj_bias"] = n(3 * w, std=0.05)
+    lin(pre + "head.attention.out_proj", w, w)
+    ln(pre + "head.layernorm")
+    lin(pre + "head.mlp.fc1", m, w)
+    lin(pre + "head.mlp.fc2", w, m)
+    return sd
+
+
+def hf_leaves_held(tree, sd, cfg, label):
+    """Every leaf of a converted tree bit-equal to its name-for-name source
+    array, transposed as JAX transposes it (Linear (out, in) -> (in, out);
+    the conv (W, 3, p, p) -> (p, p, 3, W) flattened; q, k, v concatenated
+    along the output columns; the probe (1, 1, W) -> (1, W))."""
+    import numpy as np
+    import torch
+    pre = "vision_model."
+    p = cfg.patch_size
+
+    def a(name):
+        return sd[pre + name]
+
+    want = {("embed", "kernel"): a("embeddings.patch_embedding.weight")
+            .transpose(2, 3, 1, 0).reshape(p * p * 3, cfg.width),
+            ("embed", "bias"): a("embeddings.patch_embedding.bias"),
+            ("embed", "pos"): a("embeddings.position_embedding.weight"),
+            ("post_ln", "scale"): a("post_layernorm.weight"),
+            ("post_ln", "bias"): a("post_layernorm.bias"),
+            ("head", "probe"): a("head.probe").reshape(1, cfg.width),
+            ("head", "in_w"): a("head.attention.in_proj_weight").T,
+            ("head", "in_b"): a("head.attention.in_proj_bias"),
+            ("head", "out_w"): a("head.attention.out_proj.weight").T,
+            ("head", "out_b"): a("head.attention.out_proj.bias"),
+            ("head", "ln", "scale"): a("head.layernorm.weight"),
+            ("head", "ln", "bias"): a("head.layernorm.bias"),
+            ("head", "fc1_w"): a("head.mlp.fc1.weight").T,
+            ("head", "fc1_b"): a("head.mlp.fc1.bias"),
+            ("head", "fc2_w"): a("head.mlp.fc2.weight").T,
+            ("head", "fc2_b"): a("head.mlp.fc2.bias")}
+    for i in range(cfg.layers):
+        e = f"encoder.layers.{i}."
+        sa = e + "self_attn."
+        for path, arr in {
+                ("ln1", "scale"): a(e + "layer_norm1.weight"),
+                ("ln1", "bias"): a(e + "layer_norm1.bias"),
+                ("attn", "qkv_w"): np.concatenate(
+                    [a(sa + f"{x}_proj.weight").T for x in "qkv"], axis=1),
+                ("attn", "qkv_b"): np.concatenate(
+                    [a(sa + f"{x}_proj.bias") for x in "qkv"]),
+                ("attn", "out_w"): a(sa + "out_proj.weight").T,
+                ("attn", "out_b"): a(sa + "out_proj.bias"),
+                ("ln2", "scale"): a(e + "layer_norm2.weight"),
+                ("ln2", "bias"): a(e + "layer_norm2.bias"),
+                ("mlp", "fc1_w"): a(e + "mlp.fc1.weight").T,
+                ("mlp", "fc1_b"): a(e + "mlp.fc1.bias"),
+                ("mlp", "fc2_w"): a(e + "mlp.fc2.weight").T,
+                ("mlp", "fc2_b"): a(e + "mlp.fc2.bias")}.items():
+            want[("blocks",) + path + (i,)] = arr
+    n = 0
+    for path, arr in want.items():
+        leaf = tree
+        for k in path:
+            leaf = leaf[k]
+        if not (leaf.dtype == torch.float32 and torch.equal(
+                leaf.cpu(), torch.from_numpy(np.ascontiguousarray(arr)))):
+            raise AssertionError(f"{label}: leaf {path} is not its source")
+        n += 1
+    print(f"  {label}: {n} leaves (every layer's) bit-equal to their "
+          f"named sources, transposed as JAX transposes them", flush=True)
+
+
+def sid_folder(root, n, size, seed):
+    """A local SID-style dataset ({train,val}/images, masks, labels.csv) of
+    n seeded images a split, for the MTL CLI (its loader reads PNGs with
+    PIL)."""
+    import csv
+
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    for split in ("train", "val"):
+        for sub in ("images", "masks"):
+            os.makedirs(os.path.join(root, split, sub), exist_ok=True)
+        rows = []
+        for i in range(n):
+            label, name = i % 3, f"{i}.png"
+            Image.fromarray(rng.integers(0, 256, (size, size, 3), np.uint8)) \
+                .save(os.path.join(root, split, "images", name))
+            if label == 2:
+                mask = np.zeros((size, size), np.uint8)
+                mask[size // 4:size // 2, size // 4:size // 2] = 255
+                Image.fromarray(mask).save(os.path.join(root, split, "masks",
+                                                        name))
+            rows.append({"name": name, "label": label})
+        with open(os.path.join(root, split, "labels.csv"), "w",
+                  newline="") as f:
+            wr = csv.DictWriter(f, fieldnames=["name", "label"])
+            wr.writeheader()
+            wr.writerows(rows)
+
+
+def weights_paths(dev, card, mtl_batches, tmp):
+    """Phase 3 (w1)-(w5), each path with the launch counts set to 0 just
+    before it and read just after:
+    (w1) an HF SiglipVisionModel state dict of large-384 (24 layers, W
+    1024, MLP 4096, head.* included), built by name from seed 0 and
+    written with torch.save, converted by `python -m
+    tpudf_torch.models.convert` in a subprocess: kind hf, config.json
+    exactly CONFIGS["large-384"], every restored leaf bit-equal to
+    `from_hf_state_dict` of the same dict and to its named source; then
+    `build_engine(cfg_name="large-384", backbone_ckpt=...)` A (bf16) and B
+    (W8A8 + ToMe + patch ToMe): a full analysis of 8 and a fast request of
+    32 each, exact launches, held against the twins on 2 images;
+    (w2) the MTL trainer from that file at the CLI's defaults
+    (large-384 at 256 px: a 16 x 16 grid on the 24 x 24 position table,
+    freeze_below 21, taps (2, 6, 10, -1), embed_dim 256, B = 16), float
+    (a) and int8 (b) prefix, 5 steps each against the twins: |Δloss|,
+    the step-1 gradient cosine per group, frozen parameters bit-identical,
+    exact launches (K10 at (16, 256, 3072) on the 3 trainable layers), and
+    on (a) also phase 3 (d)'s per-slice limits;
+    `interpolate_pos` at W = 1024 held to a float64 evaluation of the same
+    matrices (1e-5 relative); the CLI itself for one step where PIL
+    imports;
+    (w3) the multi-query `_mha` at full width (large-384's MAP-head
+    projections on (8, 576, 1024) tokens, and so400m's width on (8, 1024,
+    1152), heads of 72): one launch of kernel 11 each against the twins,
+    and the same projections in (B, S, H, D) through kernel 12;
+    (w4) so400m-512's engines A and B (build_engine(cfg_name=
+    "so400m-512")): a full analysis of 8 and a fast request of 32 each,
+    exact launches (K14 at hidden 4352), twins on 2 images;
+    (w5) so400m-512's dynamic-int8 tower (quantize_siglip(params, cfg)) at
+    B = 8 without ToMe against the twins (pooled cosine >= 0.99), and a
+    static tree quantised without cfg against the pre-padded one, bit for
+    bit. Returns what phase 4 times and the launches seen."""
+    import dataclasses
+    import json
+
+    import numpy as np
+    import torch
+    from tpudf_torch.convert import add_kernel_layout
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.core.precision import tree_map
+    from tpudf_torch.entry import build_engine, build_mtl_trainer
+    from tpudf_torch.models import siglip as S
+    from tpudf_torch.models.convert import from_hf_state_dict
+    from tpudf_torch.ops import (attention, int8_block, layernorm, linear,
+                                 mlp, quant)
+    from tpudf_torch.ops.routes import KERNELS, TWINS
+    from tpudf_torch.train.checkpoint import restore_checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    state = {"launches": {}}
+    name = "large-384"
+    cfg = S.CONFIGS[name]
+    print("phase 3w: weights in, large-384 MTL at 256 px, multi-query "
+          "_mha, so400m's engines and int8 trees", flush=True)
+
+    # ---- (w1) weights in
+    t0 = time.perf_counter()
+    sd = hf_state_dict(cfg, 0)
+    pt = os.path.join(tmp, "siglip_large_384.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pt)
+    n_params = sum(v.size for v in sd.values())
+    print(f"w1: HF state dict of {name} ({len(sd)} tensors, "
+          f"{n_params / 1e6:.1f}M values, {os.path.getsize(pt) / 2**30:.2f} "
+          f"GiB) built and written in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    out_dir = os.path.join(tmp, "converted")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "tpudf_torch.models.convert",
+                          "--src", pt, "--out", out_dir], cwd=root,
+                         capture_output=True, text=True, timeout=900)
+    convert_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"convert failed: {run.stderr[-4000:]}")
+    print(f"w1: {run.stdout.strip()} in {convert_s:.2f} s (a subprocess)",
+          flush=True)
+    side = json.load(open(os.path.join(out_dir, "config.json")))
+    if (side["kind"] != "hf" or "[convert] kind=hf" not in run.stdout
+            or S.SigLIPConfig(**side["backbone"]) != cfg):
+        raise AssertionError(f"w1: config.json {side}")
+    restored = restore_checkpoint(os.path.join(out_dir, "params"))
+    direct = from_hf_state_dict(sd, cfg)
+    flat_r, flat_d = [], []
+
+    def flat(tree, out, path=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                flat(v, out, path + (k,))
+            else:
+                out.append((path + (k,), v))
+
+    flat(restored, flat_r)
+    flat(direct, flat_d)
+    if [p for p, _ in flat_r] != [p for p, _ in flat_d] or not all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(flat_r, flat_d)):
+        raise AssertionError("w1: the restored checkpoint differs from "
+                             "from_hf_state_dict of the same dict")
+    print(f"w1: config.json is CONFIGS[{name!r}]; {len(flat_r)} restored "
+          f"leaves bit-equal to from_hf_state_dict", flush=True)
+    hf_leaves_held(restored, sd, cfg, "w1 restored checkpoint")
+    del restored, flat_r, flat_d
+    state["head"] = direct["head"]
+    rng = np.random.default_rng(12)
+    requests = {m_: rng.integers(0, 256, (b, cfg.image_size, cfg.image_size,
+                                          3), np.uint8)
+                for m_, b in (("full", 8), ("fast", 32))}
+    expect = engine_expect(cfg.layers, cfg.num_patches)
+    for e, kw in (("A", {}), ("B", {"int8": True, "tome": True,
+                                    "patch_tome": True})):
+        t0 = time.perf_counter()
+        eng = build_engine(dev, seed=0, cfg_name=name, backbone_ckpt=pt, **kw)
+        torch.cuda.synchronize()
+        print(f"w1: build_engine({name!r}, backbone_ckpt=...) {e} in "
+              f"{time.perf_counter() - t0:.2f} s (reading the file, "
+              f"{'calibrating, quantising, ' if e == 'B' else ''}loading "
+              f"onto the card) [{card}]", flush=True)
+        if not torch.equal(eng.backbone["embed"]["pos"].cpu(),
+                           direct["embed"]["pos"]):
+            raise AssertionError("w1: the engine's tower is not the file's")
+        tw = dataclasses.replace(eng, kernels=TWINS)
+        for mode, px in requests.items():
+            state["launches"][("w1", e, mode)] = engine_request(
+                f"w1 engine {e} {name} from the checkpoint {mode}", eng, tw,
+                px, mode == "fast", e == "B", expect[(e, mode)], cfg.width,
+                twin_images=2)
+        del eng, tw
+        torch.cuda.empty_cache()
+    del direct
+
+    # ---- (w2) large-384 MTL at 256 px from the file
+    pos = S.interpolate_pos(
+        torch.from_numpy(sd["vision_model.embeddings.position_embedding"
+                            ".weight"]).to(dev), cfg.grid, (16, 16))
+    mh, mw = S._bicubic_matrix(cfg.grid, 16), S._bicubic_matrix(cfg.grid, 16)
+    grid64 = sd["vision_model.embeddings.position_embedding.weight"].astype(
+        np.float64).reshape(cfg.grid, cfg.grid, cfg.width)
+    ref = np.einsum("kj,ijc->ikc", mw, np.einsum("ij,jkc->ikc", mh, grid64))
+    rel = float(np.abs(pos.cpu().double().numpy() - ref.reshape(256, -1))
+                .max() / np.abs(ref).max())
+    print(f"w2: interpolate_pos 24x24 -> 16x16 at W = {cfg.width} on the "
+          f"card vs float64: max|Δ| / max|ref| {rel:.3e} (limit 1e-5) "
+          f"[{card}]", flush=True)
+    if rel > 1e-5:
+        raise AssertionError(f"w2: interpolate_pos {rel:.3e}")
+    del sd, pos
+    freeze, layers = 21, cfg.layers
+
+    def make(cfg_key, ks=KERNELS):
+        return build_mtl_trainer(
+            dev, seed=0, cfg_name=name, image_size=256, backbone_ckpt=pt,
+            freeze_below=freeze, seg_layers=(2, 6, 10, -1), embed_dim=256,
+            int8_frozen=cfg_key == "b", lr=MTL_LR, warmup_steps=1,
+            calib_pixels=mtl_batches[0]["pixels"], kernels=ks)
+
+    trainable = layers - freeze
+    w2_expect = {
+        "a": {linear.KERNEL: 2 * layers, attention.KERNEL: layers,
+              mlp.KERNEL_BF16: layers, layernorm.KERNEL: 2,
+              attention.KERNEL_BWD: trainable},
+        "b": {int8_block.KERNEL: freeze, mlp.KERNEL: freeze,
+              linear.KERNEL: 2 * trainable, attention.KERNEL: trainable,
+              mlp.KERNEL_BF16: trainable, layernorm.KERNEL: 2,
+              attention.KERNEL_BWD: trainable}}
+    for cfg_key in ("a", "b"):
+        label = f"w2 {name} 256 px ({cfg_key})"
+        kern = train_run(make, cfg_key, KERNELS, f"{label} kernels",
+                         mtl_batches, freeze, dev, card)
+        for i, launches in enumerate(kern[3]):
+            check_launches(f"{label} step {i}", launches, w2_expect[cfg_key])
+        twin = train_run(make, cfg_key, TWINS, f"{label} twins", mtl_batches,
+                         freeze, dev, card)
+        if any(twin[3]):
+            raise AssertionError(f"twins launched {twin[3]}")
+        dloss, cos, g_worst, p_worst = versus(kern, twin)
+        print(f"{label}: launches per step {kern[3][0]} (K10 at (16, 256, "
+              f"3072))", flush=True)
+        print(report(label, dloss, cos, g_worst, p_worst, card), flush=True)
+        # (b): the per-slice limits of phase 3 (d) are held on (a), where
+        # they isolate K10 and the float kernels; in (b) the 21 frozen
+        # layers' int8 ties (K1 quantises the f32 attention output, its
+        # twin the bf16-rounded one) move every tap the trainable layers
+        # read, and the slices are reported, not held (6.9e-2 measured)
+        slices_ok = g_worst[1] <= MTL_GRAD_ERR and p_worst[1] <= MTL_PARAM_LR
+        if (max(dloss) > MTL_DLOSS[cfg_key] or min(cos.values()) < 0.99
+                or (cfg_key == "a" and not slices_ok)):
+            raise AssertionError(f"{label}: kernels vs twins disagree")
+        state["launches"][("w2", cfg_key)] = kern[3][0]
+        del kern, twin
+        torch.cuda.empty_cache()
+    state["mtl"] = make
+    try:
+        import PIL  # noqa: F401
+        has_pil = True
+    except ImportError:
+        has_pil = False
+    print(f"w2: PIL {'imports' if has_pil else 'does not import'} here",
+          flush=True)
+    if has_pil:
+        data = os.path.join(tmp, "sid")
+        sid_folder(data, 16, 300, 13)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "tpudf_torch.cli.train_mtl",
+             "--model_size", name, "--backbone_ckpt", pt, "--data_dir", data,
+             "--save_dir", os.path.join(tmp, "mtl_run"), "--epochs", "1",
+             "--batch_size", "16", "--device", "cuda"], cwd=root,
+            capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            raise AssertionError(f"w2 CLI failed: {run.stderr[-4000:]}")
+        rows = open(os.path.join(tmp, "mtl_run",
+                                 "training_log.csv")).read().splitlines()
+        if len(rows) != 2:
+            raise AssertionError(f"w2 CLI: training log {rows}")
+        print(f"w2: python -m tpudf_torch.cli.train_mtl --model_size {name} "
+              f"--backbone_ckpt ... (image_size 256, 16 images, one step, "
+              f"eval, checkpoint) in {time.perf_counter() - t0:.2f} s; log "
+              f"{rows[1][:160]} [{card}]", flush=True)
+
+    # ---- (w3) the multi-query _mha at full width
+    g = torch.Generator(device=dev).manual_seed(14)
+    so = "so400m-512"
+    scfg = S.CONFIGS[so]
+    for label, c_, hp in ((f"{name} MAP-head projections", cfg,
+                           state["head"]),
+                          (f"{so} width, heads of 72", scfg, None)):
+        w, heads, s_ = c_.width, c_.heads, c_.num_patches
+        if hp is None:
+            hp = {"in_w": torch.randn((w, 3 * w), generator=g, device=dev)
+                  * w ** -0.5,
+                  "in_b": torch.randn(3 * w, generator=g, device=dev) * 0.05,
+                  "out_w": torch.randn((w, w), generator=g, device=dev)
+                  * w ** -0.5,
+                  "out_b": torch.randn(w, generator=g, device=dev) * 0.05}
+        args = [hp[k].to(dev, torch.bfloat16)
+                for k in ("in_w", "in_b", "out_w", "out_b")]
+        x = torch.randn((8, s_, w), generator=g, device=dev).to(
+            torch.bfloat16)
+        LAUNCHES.reset()
+        got = S._mha(x, x, heads, *args)
+        d = w // heads
+        proj = (x @ args[0] + args[1]).reshape(8, s_, 3, heads, d)
+        o_bshd = attention.attention_bshd(*(proj[:, :, i].contiguous()
+                                            for i in range(3)))
+        torch.cuda.synchronize()
+        launched = LAUNCHES.snapshot()
+        check_launches(f"w3 _mha {label}", launched,
+                       {attention.KERNEL_PLAIN: 1, attention.KERNEL_BSHD: 1})
+        ref = S._mha(x, x, heads, *args, kernels=TWINS)
+        o_ref = attention._reference_bshd(*(proj[:, :, i] for i in range(3)))
+        torch.cuda.synchronize()
+        check_close(f"w3 _mha {label}", got, ref, atol=1e-2, rtol=2 ** -7)
+        check_close(f"w3 kernel 12 {label}", o_bshd, o_ref, atol=1e-2,
+                    rtol=2 ** -7)
+        sh = (share_apart(got, ref), share_apart(o_bshd, o_ref))
+        print(f"w3 _mha(x, x, {heads}, ...) {label}, x {tuple(x.shape)}: "
+              f"launches {launched}; vs twins max|Δ| {max_abs(got, ref):.3e}"
+              f", share > 1 bf16 step {sh[0]:.3e}; kernel 12 on the (B, S, "
+              f"H, D) projections max|Δ| {max_abs(o_bshd, o_ref):.3e}, share "
+              f"{sh[1]:.3e} [{card}]", flush=True)
+        if max(sh) > ATTN_SHARE:
+            raise AssertionError(f"w3 {label}: share {sh}")
+        state["launches"][("w3", c_.width)] = launched
+        del x, got, ref, proj, o_bshd, o_ref
+    torch.cuda.empty_cache()
+
+    # ---- (w4) so400m-512's engines
+    rng = np.random.default_rng(15)
+    so_requests = {m_: rng.integers(0, 256, (b, scfg.image_size,
+                                             scfg.image_size, 3), np.uint8)
+                   for m_, b in (("full", 8), ("fast", 32))}
+    expect = engine_expect(scfg.layers, scfg.num_patches)
+    engines = {}
+    for e, kw in (("A", {}), ("B", {"int8": True, "tome": True,
+                                    "patch_tome": True})):
+        t0 = time.perf_counter()
+        eng = build_engine(dev, seed=0, cfg_name=so, **kw)
+        torch.cuda.synchronize()
+        hidden = (eng.tower["blocks"]["mlp"]["fc1_w"]["q"] if e == "B"
+                  else eng.tower["blocks"]["mlp"]["fc1_w"]).shape[-1]
+        print(f"w4: build_engine({so!r}) {e} in "
+              f"{time.perf_counter() - t0:.2f} s; the tower's MLP hidden "
+              f"{hidden} [{card}]", flush=True)
+        if hidden != 4352:
+            raise AssertionError(f"w4 engine {e}: MLP hidden {hidden}")
+        tw = dataclasses.replace(eng, kernels=TWINS)
+        for mode, px in so_requests.items():
+            state["launches"][("w4", e, mode)] = engine_request(
+                f"w4 engine {e} {so} {mode}", eng, tw, px, mode == "fast",
+                e == "B", expect[(e, mode)], scfg.width, twin_images=2)
+            torch.cuda.empty_cache()
+        engines[e] = eng
+        del tw
+    state["so400m engines"] = (engines, so_requests)
+
+    # ---- (w5) so400m-512's dynamic-int8 tower, an un-prepadded static tree
+    p = tree_map(lambda t: t.to(dev),
+                 S.init_siglip(torch.Generator().manual_seed(16), scfg))
+    norm = torch.rand((8, 512, 512, 3), generator=g, device=dev) * 2 - 1
+    dyn = add_kernel_layout(quant.quantize_siglip(p, scfg))
+    with torch.no_grad():
+        LAUNCHES.reset()
+        kern = S.siglip_forward(dyn, norm, scfg)
+        torch.cuda.synchronize()
+        launched = LAUNCHES.snapshot()
+        check_launches("w5 dynamic-int8 tower so400m-512", launched,
+                       {quant.KERNEL_GEMM: 4 * scfg.layers,
+                        attention.KERNEL: scfg.layers,
+                        layernorm.KERNEL: 2 * scfg.layers + 2})
+        twin = S.siglip_forward(dyn, norm, scfg, kernels=TWINS)
+    print(f"w5 dynamic-int8 tower {so} (pre-padded once: heads 72 -> 128, "
+          f"MLP 4304 -> 4352) B=8 without ToMe: launches {launched}; "
+          + pooled_vs("w5 dynamic", kern["pooled"], twin["pooled"])
+          + f" [{card}]", flush=True)
+    state["launches"]["w5"] = launched
+    del dyn, kern, twin
+    scales = quant.calibrate_siglip_act_scales(p, scfg, norm)
+    trees = [add_kernel_layout(quant.quantize_siglip_static(p, scales, c))
+             for c in (None, scfg)]
+    with torch.no_grad():
+        outs = [S.siglip_forward(t, norm, scfg) for t in trees]
+    torch.cuda.synchronize()
+    same = all(torch.equal(outs[0][k], outs[1][k])
+               for k in ("tokens", "pooled"))
+    print(f"w5 static tree quantised without cfg (padded in the graph) vs "
+          f"the pre-padded tree, B=8 without ToMe: tokens and pooled "
+          f"bit-equal {same} [{card}]", flush=True)
+    if not same:
+        raise AssertionError("w5: the un-prepadded static tree differs")
+    del p, trees, outs, norm
+    torch.cuda.empty_cache()
+    return state
+
+
+def weights_timings(state, card, mtl_batches):
+    """Phase 4 of the (w) paths: the large-384 MTL step at 256 px from the
+    checkpoint, (a) and (b), kernels vs twins, with a profile of (a); and
+    so400m-512's engines A and B, full analysis of 8 and fast 32."""
+    import torch
+    from tpudf_torch.ops.routes import TWINS
+
+    def run(box):
+        box["state"], _ = box["step"](box["state"], mtl_batches[0], None,
+                                      1.0, 0.5)
+
+    for cfg_key in ("a", "b"):
+        boxes = {}
+        for label, ks in (("kernels", None), ("twins", TWINS)):
+            st, step, _ = (state["mtl"](cfg_key) if ks is None
+                           else state["mtl"](cfg_key, ks))
+            boxes[label] = {"state": st, "step": step}
+        k_ms, t_ms = paired_ms(lambda: run(boxes["kernels"]),
+                               lambda: run(boxes["twins"]), iters=5,
+                               twin_iters=3)
+        print(f"w2 train step large-384 256 px ({cfg_key}) B={MTL_BATCH}: "
+              f"kernels {k_ms:.3f} ms = {MTL_BATCH * 1e3 / k_ms:.1f} img/s; "
+              f"twins {t_ms:.3f} ms [{card}]", flush=True)
+        if cfg_key == "a":
+            profile(lambda: run(boxes["kernels"]),
+                    f"w2 train step large-384 256 px (a) B={MTL_BATCH}",
+                    card, top=14)
+        del boxes
+        torch.cuda.empty_cache()
+    engines, requests = state["so400m engines"]
+    for e, eng in engines.items():
+        for mode, px in requests.items():
+            fast = mode == "fast"
+            ms = cuda_ms(lambda: eng.fetch_batch(eng.dispatch_batch(px, fast),
+                                                 fast), iters=3, warmup=1)
+            b = px.shape[0]
+            print(f"w4 engine {e} so400m-512 {mode} B={b}: kernels "
+                  f"{ms:.3f} ms = {b * 1e3 / ms:.1f} img/s [{card}]",
+                  flush=True)
+
+
+def trainable_slices(params, attr, freeze):
+    """{name: f32 copy} of the trainable parameters (attr "data") or
+    their gradients ("grad"): each trainable block layer on its own,
+    the fused [q | k | v] leaves cut in thirds. The key biases are left
+    out: a key bias adds the same q·b to every score of a row, so its
+    gradient is zero in exact arithmetic and holds rounding noise."""
+    out = {}
+
+    def walk(tree, path):
+        items = (tree.items() if isinstance(tree, dict)
+                 else enumerate(tree))
+        for k, v in items:
+            p = path + (str(k),)
+            if isinstance(v, (dict, list)):
+                walk(v, p)
+                continue
+            if p[:2] == ("backbone", "embed"):
+                continue
+            t = getattr(v, attr).detach()
+            blocks = p[:2] == ("backbone", "blocks")
+            for layer in (range(freeze, t.shape[0]) if blocks
+                          else (None,)):
+                x = t if layer is None else t[layer]
+                name = ("/".join(p) if layer is None
+                        else f"blocks.{layer}/" + "/".join(p[2:]))
+                if k not in ("qkv_w", "qkv_b", "in_w", "in_b"):
+                    out[name] = x.float().clone()
+                    continue
+                n = x.shape[-1] // 3
+                for j, part in enumerate("qkv"):
+                    if not (k.endswith("_b") and part == "k"):
+                        out[f"{name}[{part}]"] = (
+                            x[..., j * n:(j + 1) * n].float().clone())
+
+    walk(params, ())
+    return out
+
+
+def group_of(name):
+    if name.startswith("blocks."):
+        return "top blocks"
+    return "decoder" if name.startswith("decoder") else "heads"
+
+
+def frozen_values(params, freeze):
+    bb = params["backbone"]
+    vals = [t.detach().clone() for t in bb["embed"].values()]
+
+    def rows(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                yield from rows(v)
+            else:
+                yield v.detach()[:freeze].clone()
+    return vals + list(rows(bb["blocks"]))
+
+
+def train_run(make, cfg_key, ks, label, batches, freeze, dev, card):
+    """5 steps on the seeded batches: (losses, step-1 gradients and
+    final parameters by slice, launches per step)."""
+    import numpy as np
+    import torch
+    from tpudf_torch.core.backend import LAUNCHES
+    t0 = time.perf_counter()
+    state, step, eval_step = make(cfg_key, ks)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    frozen0 = frozen_values(state.params, freeze)
+    losses, grads0, per_step = [], None, []
+    for i, batch in enumerate(batches):
+        LAUNCHES.reset()
+        state, m = step(state, batch,
+                        torch.Generator(device=dev).manual_seed(i),
+                        1.0, 0.5)
+        torch.cuda.synchronize()
+        per_step.append(LAUNCHES.snapshot())
+        losses.append(float(m["loss"]))
+        if i == 0:
+            grads0 = trainable_slices(state.params, "grad", freeze)
+    frozen_ok = all(torch.equal(a, b) for a, b in zip(
+        frozen0, frozen_values(state.params, freeze)))
+    cls_logits, seg_probs = eval_step(state.params,
+                                      batches[0]["pixels"])
+    torch.cuda.synchronize()
+    if not (np.isfinite(losses).all() and frozen_ok
+            and cls_logits.shape == (MTL_BATCH, 3)
+            and seg_probs.shape == (MTL_BATCH, 256, 256)
+            and torch.isfinite(cls_logits).all()
+            and ((seg_probs >= 0) & (seg_probs <= 1)).all()):
+        raise AssertionError(
+            f"trainer {label}: losses {losses}, frozen bit-identical "
+            f"{frozen_ok}, eval {tuple(cls_logits.shape)} "
+            f"{tuple(seg_probs.shape)}")
+    print(f"trainer {label}: build {build_s:.2f} s; losses "
+          f"{['%.6f' % v for v in losses]}; frozen bit-identical after "
+          f"{MTL_STEPS} steps; eval finite, seg probs in [0, 1] [{card}]",
+          flush=True)
+    final = trainable_slices(state.params, "data", freeze)
+    del state, step, eval_step, frozen0
+    torch.cuda.empty_cache()
+    return losses, grads0, final, per_step
+
+
+def versus(run, ref):
+    """A run against the twins' run: |Δloss| per step, the step-1
+    gradient cosine per group, the worst slice's step-1 gradient error
+    ‖g − g_twin‖ / ‖g_twin‖, and the worst slice's mean |p − p_twin|
+    after the 5 steps in units of lr (a slice, not a leaf's tail:
+    Adam steps each parameter by about lr, so a mean near 0 means few
+    of them moved otherwise)."""
+    import torch
+    import torch.nn.functional as F
+    (lk, gk, pk, _), (lt, gt, pt, _) = run, ref
+    dloss = [abs(a - b) for a, b in zip(lk, lt)]
+    cos = {}
+    for grp in ("top blocks", "heads", "decoder"):
+        names = [n for n in gt if group_of(n) == grp]
+        cos[grp] = float(F.cosine_similarity(
+            torch.cat([gk[n].flatten() for n in names]),
+            torch.cat([gt[n].flatten() for n in names]), dim=0))
+    rel = {n: float(torch.linalg.vector_norm(gk[n] - gt[n])
+                    / torch.linalg.vector_norm(gt[n])) for n in gt}
+    dp = {n: float((pk[n] - pt[n]).abs().mean()) / MTL_LR for n in pt}
+    g_worst = max(rel, key=rel.get)
+    p_worst = max(dp, key=dp.get)
+    return dloss, cos, (g_worst, rel[g_worst]), (p_worst, dp[p_worst])
+
+
+def report(label, dloss, cos, g_worst, p_worst, card):
+    return (f"trainer {label}: |Δloss| vs twins per step "
+            f"{['%.3e' % d for d in dloss]}; step-1 gradient cosine "
+            + ", ".join(f"{k} {v:.6f}" for k, v in cos.items())
+            + f"; worst slice step-1 gradient error {g_worst[1]:.3e} "
+            f"({g_worst[0]}); worst slice mean |Δp| after {MTL_STEPS} "
+            f"steps {p_worst[1]:.4f} lr ({p_worst[0]}) [{card}]")
 
 
 def main() -> int:
@@ -1684,6 +2491,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     large_kernel_checks(rec, dev, card)
+    plain_attention_checks(rec, dev, card)
 
     # ---- 3a. the detect core
     print("phase 3: paths", flush=True)
@@ -1872,131 +2680,9 @@ def main() -> int:
                                  calib_pixels=mtl_batches[0]["pixels"],
                                  kernels=kernels)
 
-    def trainable_slices(params, attr):
-        """{name: f32 copy} of the trainable parameters (attr "data") or
-        their gradients ("grad"): each trainable block layer on its own,
-        the fused [q | k | v] leaves cut in thirds. The key biases are left
-        out: a key bias adds the same q·b to every score of a row, so its
-        gradient is zero in exact arithmetic and holds rounding noise."""
-        out = {}
-
-        def walk(tree, path):
-            items = (tree.items() if isinstance(tree, dict)
-                     else enumerate(tree))
-            for k, v in items:
-                p = path + (str(k),)
-                if isinstance(v, (dict, list)):
-                    walk(v, p)
-                    continue
-                if p[:2] == ("backbone", "embed"):
-                    continue
-                t = getattr(v, attr).detach()
-                blocks = p[:2] == ("backbone", "blocks")
-                for layer in (range(MTL_FREEZE, t.shape[0]) if blocks
-                              else (None,)):
-                    x = t if layer is None else t[layer]
-                    name = ("/".join(p) if layer is None
-                            else f"blocks.{layer}/" + "/".join(p[2:]))
-                    if k not in ("qkv_w", "qkv_b", "in_w", "in_b"):
-                        out[name] = x.float().clone()
-                        continue
-                    n = x.shape[-1] // 3
-                    for j, part in enumerate("qkv"):
-                        if not (k.endswith("_b") and part == "k"):
-                            out[f"{name}[{part}]"] = (
-                                x[..., j * n:(j + 1) * n].float().clone())
-
-        walk(params, ())
-        return out
-
-    def group_of(name):
-        if name.startswith("blocks."):
-            return "top blocks"
-        return "decoder" if name.startswith("decoder") else "heads"
-
-    def frozen_values(params):
-        bb = params["backbone"]
-        vals = [t.detach().clone() for t in bb["embed"].values()]
-
-        def rows(tree):
-            for v in tree.values():
-                if isinstance(v, dict):
-                    yield from rows(v)
-                else:
-                    yield v.detach()[:MTL_FREEZE].clone()
-        return vals + list(rows(bb["blocks"]))
-
-    def train_run(cfg_key, ks, label):
-        """5 steps on the seeded batches: (losses, step-1 gradients and
-        final parameters by slice, launches per step)."""
-        t0 = time.perf_counter()
-        state, step, eval_step = trainer(cfg_key, ks)
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        frozen0 = frozen_values(state.params)
-        losses, grads0, per_step = [], None, []
-        for i, batch in enumerate(mtl_batches):
-            LAUNCHES.reset()
-            state, m = step(state, batch,
-                            torch.Generator(device=dev).manual_seed(i),
-                            1.0, 0.5)
-            torch.cuda.synchronize()
-            per_step.append(LAUNCHES.snapshot())
-            losses.append(float(m["loss"]))
-            if i == 0:
-                grads0 = trainable_slices(state.params, "grad")
-        frozen_ok = all(torch.equal(a, b) for a, b in zip(
-            frozen0, frozen_values(state.params)))
-        cls_logits, seg_probs = eval_step(state.params,
-                                          mtl_batches[0]["pixels"])
-        torch.cuda.synchronize()
-        if not (np.isfinite(losses).all() and frozen_ok
-                and cls_logits.shape == (MTL_BATCH, 3)
-                and seg_probs.shape == (MTL_BATCH, 256, 256)
-                and torch.isfinite(cls_logits).all()
-                and ((seg_probs >= 0) & (seg_probs <= 1)).all()):
-            raise AssertionError(
-                f"trainer {label}: losses {losses}, frozen bit-identical "
-                f"{frozen_ok}, eval {tuple(cls_logits.shape)} "
-                f"{tuple(seg_probs.shape)}")
-        print(f"trainer {label}: build {build_s:.2f} s; losses "
-              f"{['%.6f' % v for v in losses]}; frozen bit-identical after "
-              f"{MTL_STEPS} steps; eval finite, seg probs in [0, 1] [{card}]",
-              flush=True)
-        final = trainable_slices(state.params, "data")
-        del state, step, eval_step, frozen0
-        torch.cuda.empty_cache()
-        return losses, grads0, final, per_step
-
-    def versus(run, ref):
-        """A run against the twins' run: |Δloss| per step, the step-1
-        gradient cosine per group, the worst slice's step-1 gradient error
-        ‖g − g_twin‖ / ‖g_twin‖, and the worst slice's mean |p − p_twin|
-        after the 5 steps in units of lr (a slice, not a leaf's tail:
-        Adam steps each parameter by about lr, so a mean near 0 means few
-        of them moved otherwise)."""
-        (lk, gk, pk, _), (lt, gt, pt, _) = run, ref
-        dloss = [abs(a - b) for a, b in zip(lk, lt)]
-        cos = {}
-        for grp in ("top blocks", "heads", "decoder"):
-            names = [n for n in gt if group_of(n) == grp]
-            cos[grp] = float(F.cosine_similarity(
-                torch.cat([gk[n].flatten() for n in names]),
-                torch.cat([gt[n].flatten() for n in names]), dim=0))
-        rel = {n: float(torch.linalg.vector_norm(gk[n] - gt[n])
-                        / torch.linalg.vector_norm(gt[n])) for n in gt}
-        dp = {n: float((pk[n] - pt[n]).abs().mean()) / MTL_LR for n in pt}
-        g_worst = max(rel, key=rel.get)
-        p_worst = max(dp, key=dp.get)
-        return dloss, cos, (g_worst, rel[g_worst]), (p_worst, dp[p_worst])
-
-    def report(label, dloss, cos, g_worst, p_worst):
-        return (f"trainer {label}: |Δloss| vs twins per step "
-                f"{['%.3e' % d for d in dloss]}; step-1 gradient cosine "
-                + ", ".join(f"{k} {v:.6f}" for k, v in cos.items())
-                + f"; worst slice step-1 gradient error {g_worst[1]:.3e} "
-                f"({g_worst[0]}); worst slice mean |Δp| after {MTL_STEPS} "
-                f"steps {p_worst[1]:.4f} lr ({p_worst[0]}) [{card}]")
+    def train_run_(cfg_key, ks, label):
+        return train_run(trainer, cfg_key, ks, label, mtl_batches,
+                         MTL_FREEZE, dev, card)
 
     def fault_checks(twin):
         """The checks below against a planted fault: K10 with its dQ, dK or
@@ -2010,28 +2696,29 @@ def main() -> int:
                 return d
 
             label = f"(a) K10 with d{part} zeroed"
-            bad = train_run("a", dataclasses.replace(
+            bad = train_run_("a", dataclasses.replace(
                 KERNELS, attention_qkv_bwd=faulty_bwd), label)
             dloss, cos, g_worst, p_worst = versus(bad, twin)
-            print(report(label, dloss, cos, g_worst, p_worst), flush=True)
+            print(report(label, dloss, cos, g_worst, p_worst, card),
+                  flush=True)
             if g_worst[1] <= MTL_GRAD_ERR or p_worst[1] <= MTL_PARAM_LR:
                 raise AssertionError(f"trainer: the kernels-vs-twins check "
                                      f"misses K10 with d{part} zeroed")
 
     mtl_launches = {}
     for cfg_key in ("a", "b"):
-        kern = train_run(cfg_key, KERNELS, f"({cfg_key}) kernels")
+        kern = train_run_(cfg_key, KERNELS, f"({cfg_key}) kernels")
         for i, launches in enumerate(kern[3]):
             check_launches(f"trainer ({cfg_key}) step {i}", launches,
                            mtl_expect[cfg_key])
         mtl_launches[cfg_key] = kern[3][0]
-        twin = train_run(cfg_key, TWINS, f"({cfg_key}) twins")
+        twin = train_run_(cfg_key, TWINS, f"({cfg_key}) twins")
         if any(twin[3]):
             raise AssertionError(f"twins launched {twin[3]}")
         dloss, cos, g_worst, p_worst = versus(kern, twin)
         print(f"trainer ({cfg_key}): launches per step "
               f"{mtl_launches[cfg_key]}", flush=True)
-        print(report(f"({cfg_key})", dloss, cos, g_worst, p_worst),
+        print(report(f"({cfg_key})", dloss, cos, g_worst, p_worst, card),
               flush=True)
         if (max(dloss) > MTL_DLOSS[cfg_key] or min(cos.values()) < 0.99
                 or g_worst[1] > MTL_GRAD_ERR or p_worst[1] > MTL_PARAM_LR):
@@ -2044,6 +2731,12 @@ def main() -> int:
 
     # ---- 3e-3g. the large backbones: detect cores, routes, engines
     large = large_paths(dev, card)
+
+    # ---- 3w. weights in, large-384 MTL at 256 px, the multi-query _mha,
+    # so400m's engines and int8 trees (the checkpoint lives in tmp until
+    # phase 4 has timed the trainer built from it)
+    tmp = tempfile.TemporaryDirectory()
+    weights = weights_paths(dev, card, mtl_batches, tmp.name)
 
     # ---- 4. timings of the paths
     print("phase 4: path timings", flush=True)
@@ -2126,6 +2819,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     large_timings(large, card)
+    weights_timings(weights, card, mtl_batches)
+    tmp.cleanup()
 
     names = {"K1": int8_block.KERNEL, "K2": mlp.KERNEL, "K3": srm.KERNEL,
              "K4": layernorm.KERNEL, "K5": int8_block.KERNEL_LN_QKV,
@@ -2133,18 +2828,22 @@ def main() -> int:
              "K7": int8_block.KERNEL_LAYER, "K8": layernorm.KERNEL_QUANT,
              "K9": attention.KERNEL, "K10": attention.KERNEL_BWD,
              "K13": linear.KERNEL, "K14": mlp.KERNEL_BF16,
-             "K9b": attention.KERNEL_INT8}
+             "K9b": attention.KERNEL_INT8, "K11": attention.KERNEL_PLAIN,
+             "K12": attention.KERNEL_BSHD}
     engine_a = engine_launches[("A", "full")]
     # per run of the path each kernel serves: a detect-core forward (K5-K8:
     # under the route that runs them), engine A's full analysis, a train
     # step of (a)
     # 9b: so400m-512's tower under PPP without ToMe, TPUDF_INT8_ATTN=1
+    # 11, 12: (w3)'s multi-query _mha at large-384's width
     route_of = {"K5": "PPP", "K6": "PPP", "K7": "LLL", "K8": "XXX"}
     launches = {k: (core_launches if k in ("K1", "K2", "K3", "K4")
                     else route_launches[route_of[k]] if k in route_of
                     else mtl_launches["a"] if k == "K10"
                     else large["launches"][("so400m-512", "PPP", True)]
-                    if k == "K9b" else engine_a)[n]
+                    if k == "K9b"
+                    else weights["launches"][("w3", LARGE["large-384"][0])]
+                    if k in ("K11", "K12") else engine_a)[n]
                 for k, n in names.items()}
     print(rec.line(launches))
     print(card)

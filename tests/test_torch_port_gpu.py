@@ -2,7 +2,9 @@
 on the card, at small shapes (K8's int8 codes within one step: a tie of
 the f32 LN may round the other way), and at the large backbones' longer
 sequences and wider heads (K1, K6, K9 and 9b at S = 576 / 1024, head_dim
-64 / 128, the LN passes at width 1152), both serving engines and one MTL train step
+64 / 128, the LN passes at width 1152), kernels 11 and 12 (plain attention
+in both layouts, ragged keys, Sq != Skv, heads of 72, bf16 and f32, and
+the gradient through kernel 11), both serving engines and one MTL train step
 against the same parameters through the twins (the main path's shapes are
 checked by chip_smoke.py). Marked `gpu`; each test skips inside its body when no card
 is visible, so every worker collects the same tests. This file imports no
@@ -452,3 +454,79 @@ def test_dynamic_int8_tower_matches_twins_on_card():
                                                 dim=-1)
     assert torch.isfinite(got.float()).all()
     assert float(cos.min()) >= 0.99, cos
+
+
+# (B, H, Sq, Skv, D): ragged Skv, Sq != Skv, a single query, heads of 72
+_PLAIN_SHAPES = [(2, 3, 100, 100, 64), (2, 2, 3, 100, 72),
+                 (1, 2, 77, 130, 128), (2, 2, 1, 577, 64),
+                 (1, 2, 130, 64, 72)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bshd", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", _PLAIN_SHAPES)
+def test_plain_attention_matches_twin_on_card(shape, dtype, bshd):
+    """Kernels 11 (B, H, S, D) and 12 (B, S, H, D) against their twins on
+    q, k, v of std 1.5: bf16 within atol 1e-2 + rtol 2^-7 and at most 1e-2
+    of the outputs more than a bf16 step apart, f32 within atol 5e-4 +
+    rtol 1e-3 (JAX's own bound); one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpudf_torch.core.backend import LAUNCHES
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, sq, skv, d = shape
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    r = lambda s: (torch.randn(s, generator=g, device="cuda") * 1.5).to(dt)
+    if bshd:
+        q, k, v = r((b, sq, h, d)), r((b, skv, h, d)), r((b, skv, h, d))
+        fn, twin, name = (attention.attention_bshd, attention._reference_bshd,
+                          attention.KERNEL_BSHD)
+    else:
+        q, k, v = r((b, h, sq, d)), r((b, h, skv, d)), r((b, h, skv, d))
+        fn, twin, name = (attention.attention, attention.attention_reference,
+                          attention.KERNEL_PLAIN)
+    LAUNCHES.reset()
+    got = fn(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {name: 1}
+    ref = twin(q, k, v)
+    assert got.shape == q.shape and got.dtype == dt
+    if dt == torch.float32:
+        torch.testing.assert_close(got, ref, atol=5e-4, rtol=1e-3)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                   rtol=2 ** -7)
+        assert _share_apart(got, ref) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_plain_attention_gradient_and_range_on_card():
+    """The gradient through `attention` (kernel 11 forward, the twin's VJP
+    backward) equals the twin's own (f32, 1e-5); a head_dim or dtype
+    outside the kernels' range raises on a CUDA tensor, and JAX's XLA
+    route (Sq > 4096) runs the twin without a launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpudf_torch.core.backend import LAUNCHES
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn((2, 2, 40, 64), generator=g, device="cuda")
+               .requires_grad_() for _ in range(3))
+    ct = torch.randn((2, 2, 40, 64), generator=g, device="cuda")
+    got = torch.autograd.grad(attention.attention(q, k, v), (q, k, v), ct)
+    ref = torch.autograd.grad(attention.attention_reference(q, k, v),
+                              (q, k, v), ct)
+    for a, b_ in zip(got, ref):
+        torch.testing.assert_close(a, b_, atol=1e-5, rtol=1e-5)
+    x = torch.zeros((1, 1, 8, 96), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        attention.attention(x, x, x)
+    with pytest.raises(ValueError):
+        attention.attention_bshd(*(torch.zeros((1, 8, 1, 64), device="cuda",
+                                               dtype=torch.float16),) * 3)
+    long_q = torch.zeros((1, 1, 4097, 64), device="cuda")
+    LAUNCHES.reset()
+    attention.attention(long_q, long_q[:, :, :8], long_q[:, :, :8])
+    assert LAUNCHES.snapshot() == {}

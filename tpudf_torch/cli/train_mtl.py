@@ -7,8 +7,11 @@ Usage:
 
 DIR holds {train,val}/images/*.png, {train,val}/masks/<same name>.png
 (optional) and {train,val}/labels.csv with `name,label` (0 real / 1
-synthetic / 2 tampered). The Hugging Face SID_Set loader and
---backbone_ckpt are not ported: without --data_dir the CLI exits.
+synthetic / 2 tampered). The Hugging Face SID_Set loader is not ported:
+without --data_dir the CLI exits. --backbone_ckpt reads an HF
+SiglipVisionModel state dict (`.safetensors`, or a torch `.pt`) into the
+tower; --image_size other than the config's interpolates the position
+table (the production run: --model_size large-384 at 256 px).
 """
 
 from __future__ import annotations
@@ -103,9 +106,6 @@ def main(argv=None):
     from tpudf_torch.train.loops import LoopConfig, run_training
     from tpudf_torch.train.mtl import dynamic_loss_weights
 
-    if args.backbone_ckpt:
-        raise SystemExit("--backbone_ckpt (HF safetensors) is not ported; "
-                         "convert a tpudf checkpoint with tpudf_torch.convert")
     if not args.data_dir:
         raise SystemExit("SID_Set unavailable (the Hugging Face loader is not "
                          "ported); provide --data_dir")
@@ -129,7 +129,8 @@ def main(argv=None):
         seg_layers=args.seg_layers, lr=args.lr,
         total_steps=max(len(train_data) // args.batch_size, 1) * args.epochs,
         accum_steps=args.accum_steps, seg_loss=args.seg_loss,
-        calib_pixels=pixels_of(train_data[:16]) if int8_frozen else None)
+        calib_pixels=pixels_of(train_data[:16]) if int8_frozen else None,
+        backbone_ckpt=args.backbone_ckpt, image_size=args.image_size)
     state_box = {"state": state, "mask_thr": args.mask_thr}
 
     def batches(data, shuffle, seed):

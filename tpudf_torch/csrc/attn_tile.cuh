@@ -19,8 +19,9 @@
 // no longer has to fit a warp's registers (16 x 1024 f32 would be 64 KB a
 // warp), so S goes to kMaxSeq; the price is a second sweep of QK^T.
 // head_dim is a template parameter (64, or 128 for so400m's heads of 72
-// padded by prepad_siglip_static); the softmax scale is an argument and is
-// never derived from it.
+// padded by prepad_siglip_static; 80 for kernels 11 and 12's raw heads of
+// 72, of which LIVE = 72 columns are staged); the softmax scale is an
+// argument and is never derived from it.
 //
 // `attn_out_tile`: K6's work for 128 query rows of one image: for each
 // head in turn, the tile's Q goes to shared memory and each of the 8 warps
@@ -74,12 +75,14 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
 
 // kKeyTile rows of HD bf16 from row r0 into a ring stage by cp.async; rows
 // past seq repeat row seq - 1 (finite: their scores are masked to -inf and
-// their p is 0); all threads of the block, not committed
-template <int HD>
+// their p is 0); all threads of the block, not committed. LIVE < HD: only
+// the first LIVE columns are copied (a head of 72 in an 80-wide tile); the
+// caller zeroes the rest of every stage once
+template <int HD, int LIVE = HD>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
                                            const __nv_bfloat16* src,
                                            size_t ld, int r0, int seq) {
-  constexpr int kChunks = HD / 8;
+  constexpr int kChunks = LIVE / 8;
   for (int i = threadIdx.x; i < kKeyTile * kChunks; i += blockDim.x) {
     const int r = i / kChunks, c = (i % kChunks) * 8;
     const int sr = min(r0 + r, seq - 1);
@@ -222,8 +225,8 @@ __device__ __forceinline__ void tile_pv(AttnWarp<HD>& w,
 // per-key bias, or null. Leaves w.o, w.mx and w.sum (the full row sums).
 // Every thread of the block calls it (it holds barriers); the caller's
 // own shared reads must be done before, as the ring's first stages are
-// issued at once.
-template <int HD>
+// issued at once. LIVE: the head's own columns (stage_rows).
+template <int HD, int LIVE = HD>
 __device__ __forceinline__ void attn_stream(AttnWarp<HD>& w,
                                             const __nv_bfloat16* kg,
                                             const __nv_bfloat16* vg,
@@ -242,11 +245,11 @@ __device__ __forceinline__ void attn_stream(AttnWarp<HD>& w,
   float s[kKeyTile / 8][4];
 
   // ---- pass 1: row max and row sum over the K tiles
-  stage_rows<HD>(kst(0), kg, ld, 0, seq);
+  stage_rows<HD, LIVE>(kst(0), kg, ld, 0, seq);
   cp_async_commit();
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles)
-      stage_rows<HD>(kst(t + 1), kg, ld, (t + 1) * kKeyTile, seq);
+      stage_rows<HD, LIVE>(kst(t + 1), kg, ld, (t + 1) * kKeyTile, seq);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -263,13 +266,13 @@ __device__ __forceinline__ void attn_stream(AttnWarp<HD>& w,
   for (int dt = 0; dt < HD / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) w.o[dt][e] = 0.0f;
-  stage_rows<HD>(kst(0), kg, ld, 0, seq);
-  stage_rows<HD>(vst(0), vg, ld, 0, seq);
+  stage_rows<HD, LIVE>(kst(0), kg, ld, 0, seq);
+  stage_rows<HD, LIVE>(vst(0), vg, ld, 0, seq);
   cp_async_commit();
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) {
-      stage_rows<HD>(kst(t + 1), kg, ld, (t + 1) * kKeyTile, seq);
-      stage_rows<HD>(vst(t + 1), vg, ld, (t + 1) * kKeyTile, seq);
+      stage_rows<HD, LIVE>(kst(t + 1), kg, ld, (t + 1) * kKeyTile, seq);
+      stage_rows<HD, LIVE>(vst(t + 1), vg, ld, (t + 1) * kKeyTile, seq);
     }
     cp_async_commit();
     cp_async_wait<1>();

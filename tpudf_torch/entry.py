@@ -14,12 +14,17 @@ to 128 and 4352), and returns a `DetectCore` whose `forward(pixels)` is
 that path at the config's image size; base-256 by default, also
 large-384 (576 → 72 tokens) and so400m-512 (1024 → 128).
 `build_engine(device, ...)` returns the `serve.engine.DetectEngine` of
-`tpudf/cli/infer.py` (`_build_engine`) with seeded random weights: by
-default the bf16 tower, no ToMe, linear fusion; base-256 or large-384
-(so400m-512's engines are later work: its float MLP of 4304 is not
-lane-aligned, and the bf16 GEMM raises on it on the card). `build_mtl_trainer(device, ...)` returns the
-multi-task trainer of `tpudf/cli/train_mtl.py` (SegFormer decoder over the
-tower's hidden states, frozen prefix, AdamW) with seeded random weights.
+`tpudf/cli/infer.py` (`build_engine`) with seeded random weights, or with
+the backbone read from an HF SiglipVisionModel state dict
+(`backbone_ckpt`, through `models/convert.py`): by default the bf16 tower,
+no ToMe, linear fusion; base-256, large-384 or so400m-512 (its float MLP
+of 4304 padded to 4352 once, `siglip.tower_params`).
+`build_mtl_trainer(device, ...)` returns the multi-task trainer of
+`tpudf/cli/train_mtl.py` (SegFormer decoder over the tower's hidden
+states, frozen prefix, AdamW) with seeded random weights or a converted
+backbone, at the config's image size or another (`image_size`: the
+position table is interpolated, as the CLI's default large-384 at 256 px
+does).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from tpudf_torch.convert import add_kernel_layout
 from tpudf_torch.core.precision import DEFAULT_POLICY, Policy, tree_map
 from tpudf_torch.models.freq_mlp import apply_freq_mlp, init_freq_mlp
 from tpudf_torch.models.fusion import apply_fusion_linear, init_fusion_linear
+from tpudf_torch.models.convert import _load_state_dict, from_hf_state_dict
 from tpudf_torch.models.heads import apply_binary_head, init_binary_head
 from tpudf_torch.models.segformer import MTLConfig, init_mtl
 from tpudf_torch.models.siglip import (CONFIGS, SigLIPConfig, init_siglip,
@@ -140,17 +146,30 @@ def build(device, seed: int = 0, cfg_name: str = "base-256",
                       CoralCutpoints.default()).to(device)
 
 
+def load_backbone(path: str, cfg: SigLIPConfig):
+    """The tower tree of an HF SiglipVisionModel state dict file (a
+    `.safetensors` file, or a torch `.pt` of {name: tensor}), on the CPU,
+    as the JAX CLIs read `--backbone_ckpt`."""
+    return from_hf_state_dict(_load_state_dict(path), cfg)
+
+
 def build_engine(device, seed: int = 0, cfg_name: str = "base-256",
                  int8: bool = False, tome: bool = False,
-                 patch_tome: bool = False, fusion: bool = True):
+                 patch_tome: bool = False, fusion: bool = True,
+                 backbone_ckpt: str | None = None):
     """The serving engine on `device` with seeded random weights.
 
     int8: quantize() to static W8A8 (calibrated on the engine's default
     noise batch); tome / patch_tome: the deployed ToMe schedule (r=96,
     floor S/8) / the deployed deeper patch-view schedule (r=128, floor
-    S/16); fusion=False: no fusion head (the MoE fallback)."""
+    S/16); fusion=False: no fusion head (the MoE fallback);
+    backbone_ckpt: the tower from this HF state dict file (`load_backbone`)
+    in place of the random one, loaded onto `device`. base-256, large-384
+    and so400m-512."""
     cfg = CONFIGS[cfg_name]
     params = init_params(torch.Generator().manual_seed(seed), cfg)
+    if backbone_ckpt:
+        params["backbone"] = load_backbone(backbone_ckpt, cfg)
     params = tree_map(lambda t: t.to(device), params)
     n = cfg.num_patches
     eng = DetectEngine(
@@ -172,10 +191,16 @@ def build_mtl_trainer(device="cuda", seed: int = 0,
                       seg_layers=(2, 6, 10, -1), lr: float = 5e-5,
                       warmup_steps: int = 100, total_steps: int = 10_000,
                       accum_steps: int = 1, seg_loss: str = "combined",
-                      kernels: KernelSet = KERNELS, calib_pixels=None):
+                      kernels: KernelSet = KERNELS, calib_pixels=None,
+                      backbone_ckpt: str | None = None,
+                      image_size: int | None = None):
     """The MTL trainer on `device` with seeded random weights, the default
     policy (bf16 compute, f32 master weights) and make_optimizer(lr,
     warmup_steps=warmup_steps, total_steps=total_steps).
+    backbone_ckpt: the tower from this HF state dict file
+    (`load_backbone`), as `init_mtl(..., backbone)` takes it in the JAX
+    CLI; image_size: the training images' size (the config's by default;
+    another one interpolates the position table in the forward).
     Returns (state, step, eval_step): step(state, batch,
     generator, cls_w, seg_w) → (state, metrics) updates the state in place;
     eval_step(params, pixels) → (cls_logits, seg_probs).
@@ -183,19 +208,21 @@ def build_mtl_trainer(device="cuda", seed: int = 0,
     freeze_below: the embeddings and layers below it are frozen (None
     trains everything). int8_frozen: those layers run on the static-W8A8
     kernels, calibrated on `calib_pixels` (SigLIP-normalised, (N, S, S, 3);
-    default 16 seeded images), as the CLI calibrates on the first 16
-    training images. kernels=TWINS runs the same trainer through the plain
-    twins."""
+    default 16 seeded images of image_size), as the CLI calibrates on the
+    first 16 training images. kernels=TWINS runs the same trainer through
+    the plain twins."""
     cfg = MTLConfig(backbone=CONFIGS[cfg_name], seg_layers=tuple(seg_layers),
                     embed_dim=embed_dim)
     gen = torch.Generator().manual_seed(seed)
-    params = tree_map(lambda t: t.to(device), init_mtl(gen, cfg))
+    backbone = (load_backbone(backbone_ckpt, cfg.backbone) if backbone_ckpt
+                else None)
+    params = tree_map(lambda t: t.to(device), init_mtl(gen, cfg, backbone))
     frozen_q = None
     if int8_frozen:
         if freeze_below is None:
             raise ValueError("int8_frozen needs freeze_below")
         if calib_pixels is None:
-            s = cfg.backbone.image_size
+            s = image_size or cfg.backbone.image_size
             calib_pixels = (torch.rand((16, s, s, 3), generator=gen)
                             - 0.5) / 0.5
         frozen_q = quantize_frozen_prefix(params, cfg,

@@ -32,10 +32,12 @@ optionally on a static-W8A8 copy of those k layers (`frozen_blocks_q`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -47,7 +49,7 @@ from tpudf_torch.ops.int8_block import (attn_sublayer_int8_fits,
                                         layer_int8_eligible)
 from tpudf_torch.ops.quant import (int8_matmul, int8_matmul_pre,
                                    int8_matmul_static, is_quantized,
-                                   is_static_quantized)
+                                   is_static_quantized, prepad_siglip_static)
 from tpudf_torch.ops.routes import KERNELS, KernelSet
 from tpudf_torch.ops.tome import merge_schedule, merge_step
 from tpudf_torch.utils.nn import gelu_tanh
@@ -186,36 +188,110 @@ def patch_embed(pixels, kernel, bias, patch):
     return y + bias.to(pixels.dtype)
 
 
+def _bicubic_matrix(src: int, dst: int) -> np.ndarray:
+    """(dst, src) float64 interpolation matrix of torch F.interpolate
+    mode='bicubic', align_corners=False, antialias=False (cubic convolution
+    kernel a=-0.75, border-replicate): JAX's `_bicubic_matrix`."""
+    a = -0.75
+
+    def k(x):
+        x = abs(x)
+        if x <= 1:
+            return (a + 2) * x ** 3 - (a + 3) * x ** 2 + 1
+        if x < 2:
+            return a * x ** 3 - 5 * a * x ** 2 + 8 * a * x - 4 * a
+        return 0.0
+
+    m = np.zeros((dst, src), np.float64)
+    scale = src / dst
+    for i in range(dst):
+        c = (i + 0.5) * scale - 0.5
+        x0 = int(np.floor(c))
+        t = c - x0
+        for tap, dist in zip(range(x0 - 1, x0 + 3),
+                             (1 + t, t, 1 - t, 2 - t)):
+            m[i, min(max(tap, 0), src - 1)] += k(dist)
+    return m
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """f32 products in f32 on the card (TF32 keeps ~3 digits)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def interpolate_pos(pos, src_grid: int, dst_hw: tuple[int, int]):
+    """Bicubic position-embedding interpolation for another image size:
+    (src_grid², W) → (dst_h · dst_w, W) in f32, HF's
+    interpolate_pos_encoding=True (JAX's `interpolate_pos`): the float64
+    matrices of `_bicubic_matrix` applied as f32 by two products."""
+    n, w = pos.shape
+    grid = pos.float().reshape(src_grid, src_grid, w)
+    mh, mw = (torch.from_numpy(_bicubic_matrix(src_grid, d)).to(
+        device=pos.device, dtype=torch.float32) for d in dst_hw)
+    with _no_tf32():
+        out = torch.einsum("ij,jkc->ikc", mh, grid)
+        out = torch.einsum("kj,ijc->ikc", mw, out)
+    return out.reshape(dst_hw[0] * dst_hw[1], w)
+
+
 def embed(ep, pixels, cfg: SigLIPConfig):
-    """Patch embedding + position embedding at the config's grid."""
+    """Patch embedding + position embedding, interpolated when the patch
+    grid is not the config's (JAX's siglip_forward)."""
     _, h, w, _ = pixels.shape
-    if (h // cfg.patch_size, w // cfg.patch_size) != (cfg.grid, cfg.grid):
-        raise NotImplementedError(
-            "position-embedding interpolation (other image sizes) is not "
-            "ported yet")
+    gh, gw = h // cfg.patch_size, w // cfg.patch_size
     x = patch_embed(pixels, ep["kernel"], ep["bias"], cfg.patch_size)
-    return x + ep["pos"].to(pixels.dtype)
+    pos = ep["pos"]
+    if (gh, gw) != (cfg.grid, cfg.grid):
+        pos = interpolate_pos(pos, cfg.grid, (gh, gw))
+    return x + pos.to(pixels.dtype)
 
 
-def _mha_single_query(x_q, x_kv, heads, in_w, in_b, out_w, out_b,
-                      logit_bias=None):
-    """The single-query (MAP probe) attention of JAX `_mha` (sq == 1)."""
+def _mha(x_q, x_kv, heads, in_w, in_b, out_w, out_b, *, logit_bias=None,
+         kernels: KernelSet = KERNELS):
+    """Multi-head attention with the fused (W, 3W) input projection
+    (columns [q | k | v]), JAX's `_mha`. x_q (B, Sq, W), x_kv (B, Skv, W).
+    Sq == 1 (the MAP probe) takes the single-query path; otherwise the
+    projections go to (B, H, S, d) and, without a logit bias, through
+    kernel 11 (`kernels.attention`); with one, through the plain softmax,
+    as JAX sends it to XLA. logit_bias: optional (B, Skv) per-key bias."""
     b, sq, w = x_q.shape
-    if sq != 1:
-        raise NotImplementedError("multi-query _mha needs the attention "
-                                  "kernel, not ported yet")
     skv = x_kv.shape[1]
     d = w // heads
-    q = (x_q[:, 0] @ in_w[:, :w] + in_b[:w]).reshape(b, heads, d)
-    kv = x_kv.reshape(b * skv, w) @ in_w[:, w:] + in_b[w:]
-    kv = kv.reshape(b, skv, 2, heads, d)
-    k, v = kv[:, :, 0], kv[:, :, 1]                         # (B, S, H, d)
-    logits = torch.sum(k.float() * q.float()[:, None], dim=-1) * (d ** -0.5)
-    if logit_bias is not None:
-        logits = logits + logit_bias[:, :, None].float()
-    probs = torch.softmax(logits, dim=1)                    # over S
-    o = torch.sum(v.float() * probs[..., None], dim=1)
-    o = o.reshape(b, 1, w).to(x_q.dtype)
+    if sq == 1:
+        q = (x_q[:, 0] @ in_w[:, :w] + in_b[:w]).reshape(b, heads, d)
+        kv = x_kv.reshape(b * skv, w) @ in_w[:, w:] + in_b[w:]
+        kv = kv.reshape(b, skv, 2, heads, d)
+        k, v = kv[:, :, 0], kv[:, :, 1]                     # (B, S, H, d)
+        logits = (torch.sum(k.float() * q.float()[:, None], dim=-1)
+                  * (d ** -0.5))
+        if logit_bias is not None:
+            logits = logits + logit_bias[:, :, None].float()
+        probs = torch.softmax(logits, dim=1)                # over S
+        o = torch.sum(v.float() * probs[..., None], dim=1)
+        o = o.reshape(b, 1, w).to(x_q.dtype)
+        return o @ out_w + out_b
+
+    def heads_first(t, n):
+        return t.reshape(b, n, heads, d).transpose(1, 2)
+
+    q = heads_first(x_q @ in_w[:, :w] + in_b[:w], sq)
+    k = heads_first(x_kv @ in_w[:, w:2 * w] + in_b[w:2 * w], skv)
+    v = heads_first(x_kv @ in_w[:, 2 * w:] + in_b[2 * w:], skv)
+    if logit_bias is None:
+        o = kernels.attention(q, k, v)
+    else:
+        logits = (torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+                  * (d ** -0.5) + logit_bias[:, None, None, :].float())
+        probs = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(),
+                         v.float()).to(v.dtype)
+    o = o.transpose(1, 2).reshape(b, sq, w)
     return o @ out_w + out_b
 
 
@@ -226,9 +302,9 @@ def map_head(tokens, hp, cfg: SigLIPConfig, logit_bias=None,
     b = tokens.shape[0]
     dt = tokens.dtype
     probe = hp["probe"][None].to(dt).expand(b, 1, cfg.width)
-    h = _mha_single_query(probe, tokens, cfg.heads, hp["in_w"].to(dt),
-                          hp["in_b"].to(dt), hp["out_w"].to(dt),
-                          hp["out_b"].to(dt), logit_bias=logit_bias)
+    h = _mha(probe, tokens, cfg.heads, hp["in_w"].to(dt), hp["in_b"].to(dt),
+             hp["out_w"].to(dt), hp["out_b"].to(dt), logit_bias=logit_bias,
+             kernels=kernels)
     res = h
     h = layer_norm(h, hp["ln"], cfg.ln_eps, kernels)
     h = gelu_tanh(h @ hp["fc1_w"].to(dt) + hp["fc1_b"].to(dt))
@@ -273,11 +349,45 @@ def _with_sumsq(out):
     return out, torch.sum(o32 * o32, dim=-1)
 
 
+def _kernel_heads(cfg: SigLIPConfig):
+    """(head_dim as the kernels see it, softmax scale): a head_dim that is
+    not lane-aligned (so400m's 72) is zero-padded to a 128 multiple and
+    keeps its own scale, 72^-0.5; an aligned one runs as it is (None)."""
+    d = cfg.head_dim
+    if d % 128 == 0 or 128 % d == 0:
+        return d, None
+    return ((d + 127) // 128) * 128, d ** -0.5
+
+
+def _aligned_quant_block(bp, cfg: SigLIPConfig):
+    """One quantised layer (static or dynamic) as the kernels take it:
+    each head's slot zero-padded to `_kernel_heads` and the MLP hidden to a
+    128 multiple (so400m: 72 → 128, 4304 → 4352), the pads of
+    `quant.prepad_siglip_static`. A tree quantised with cfg is padded
+    already and passes unchanged; one quantised without cfg is padded here,
+    in the graph, as JAX's static branch keeps un-prepadded trees working
+    (tpudf/models/siglip.py:375-431). Exact algebra: padded columns are
+    exactly 0."""
+    d_run, _ = _kernel_heads(cfg)
+    if (bp["attn"]["qkv_w"]["q"].shape[-1] == 3 * cfg.heads * d_run
+            and bp["mlp"]["fc1_w"]["q"].shape[-1] % 128 == 0):
+        return bp
+    one = tree_map(lambda a: a[None], bp)
+    return tree_map(lambda a: a[0],
+                    prepad_siglip_static({"blocks": one}, cfg)["blocks"])
+
+
 def _dynamic_int8_block(x, bp, cfg: SigLIPConfig, logit_bias, kernels):
     """quantize_siglip without act_scales: per-row dynamic activation
     scales on the four projections (quant.int8_matmul, XLA in JAX), the
-    attention through K9 and the layer norms through K4."""
+    attention through K9 and the layer norms through K4. At so400m the
+    heads run padded to 128 with scale 72^-0.5 and the MLP at 4352
+    (`_aligned_quant_block`): the padded columns of qkv, o and the hidden
+    are exactly 0, so each row's dynamic scale is JAX's, whose dynamic
+    branch runs the unpadded geometry through XLA."""
     cdt = x.dtype
+    bp = _aligned_quant_block(bp, cfg)
+    d_run, attn_scale = _kernel_heads(cfg)
     attn, mlp_p = bp["attn"], bp["mlp"]
 
     def mm(a, wq):
@@ -285,7 +395,7 @@ def _dynamic_int8_block(x, bp, cfg: SigLIPConfig, logit_bias, kernels):
 
     h = layer_norm(x, bp["ln1"], cfg.ln_eps, kernels)
     qkv = mm(h, attn["qkv_w"]) + attn["qkv_b"].to(cdt)
-    o = kernels.attention_qkv(qkv, cfg.heads, cfg.head_dim,
+    o = kernels.attention_qkv(qkv, cfg.heads, d_run, attn_scale,
                               logit_bias=logit_bias)
     x = x + (mm(o, attn["out_w"]) + attn["out_b"].to(cdt))
     h = layer_norm(x, bp["ln2"], cfg.ln_eps, kernels)
@@ -308,17 +418,10 @@ def _static_int8_block(x, bp, cfg: SigLIPConfig, logit_bias, emit_sumsq,
     predicate fails (so400m-512) or a logit bias is present. The X routes
     keep JAX's dtypes: the vectors are cast to the compute dtype before
     their adds, and int8_matmul_pre rounds to bf16 before the bias."""
+    bp = _aligned_quant_block(bp, cfg)
     sc = bp["act_scales"]
     heads = cfg.heads
-    d = cfg.head_dim
-    attn_scale = None
-    if not (d % 128 == 0 or 128 % d == 0):
-        # prepad_siglip_static padded each head's slot to a 128 multiple
-        attn_scale = d ** -0.5
-        d = ((d + 127) // 128) * 128
-        if bp["attn"]["qkv_w"]["q"].shape[1] != 3 * heads * d:
-            raise ValueError("lane-misaligned heads need "
-                             "quant.prepad_siglip_static first")
+    d, attn_scale = _kernel_heads(cfg)
     attn, mlp_p = bp["attn"], bp["mlp"]
     cdt = x.dtype
     variant = os.environ.get("TPUDF_INT8_KERNELS", "FPP")
@@ -398,15 +501,34 @@ def _compute_blocks(blocks, cdt):
     return cast_tree(blocks, cdt)
 
 
+def _pad_float_mlp(blocks):
+    """The float blocks' MLP hidden zero-padded to a 128 multiple (so400m:
+    4304 → 4352): fc1 columns, fc1 bias and fc2 rows. Exact algebra, the
+    pad of JAX's int8 prepad: the padded hidden units are gelu(0) = 0 and
+    the zero fc2 rows ignore them; K14's GEMMs take the padded shapes."""
+    m = blocks["mlp"]
+    inter = m["fc1_w"].shape[-1]
+    if inter % 128 == 0:
+        return blocks
+    pad = ((inter + 127) // 128) * 128 - inter
+    return {**blocks, "mlp": {
+        "fc1_w": F.pad(m["fc1_w"], (0, pad)),
+        "fc1_b": F.pad(m["fc1_b"], (0, pad)),
+        "fc2_w": F.pad(m["fc2_w"], (0, 0, 0, pad)),
+        "fc2_b": m["fc2_b"]}}
+
+
 def tower_params(params, cdt):
     """What `siglip_forward` reads, derived once (at engine build): float
-    blocks cast to the compute dtype, int8 blocks with the kernel layout.
-    The values are those the forward would derive itself."""
+    blocks cast to the compute dtype with their MLP hidden padded to a 128
+    multiple (`_pad_float_mlp`), int8 blocks with the kernel layout. The
+    outputs are those of the tree as given. The trainer's float blocks do
+    not come through here and stay unpadded."""
     blocks = params["blocks"]
     if is_quantized(blocks):
         blocks = add_kernel_layout(blocks)
     else:
-        blocks = cast_tree(blocks, cdt)
+        blocks = cast_tree(_pad_float_mlp(blocks), cdt)
     return {**params, "blocks": blocks}
 
 

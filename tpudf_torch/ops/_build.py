@@ -48,6 +48,7 @@ SIGNATURES = {
     "tpudf_attn_out_i8": "pppppppiiiiifp",
     "tpudf_attention_i8dyn": "pppiiiiifp",
     "tpudf_layer_i8": "p" * 22 + "iiiiiffp",
+    "tpudf_attention_plain": "pppp" + "i" * 12 + "fp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

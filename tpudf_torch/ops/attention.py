@@ -58,6 +58,27 @@ tile with int8 mma.sync); head_dim 64 or 128, S ≤ 1024.
 `attention_qkv_vjp` is the tower's attention: one autograd Function whose
 forward is K9 and whose backward is K10 (or their twins), saving only qkv
 as the JAX VJP does.
+
+Kernels 11 and 12 (`attention`, `attention_bshd`), plain multi-head
+attention over separate q, k and v with Sq != Skv allowed:
+
+    q (B, H, Sq, D), k, v (B, H, Skv, D) → o (B, H, Sq, D)     kernel 11
+    q (B, Sq, H, D), k, v (B, Skv, H, D) → o (B, Sq, H, D)     kernel 12
+
+replace tpudf/ops/attention.py `_attn_kernel` (wrapper `_attention_pallas`,
+behind `attention`; the multi-query branch of the tower's `_mha`) and the
+inner `kernel` of `_attention_pallas_bshd` (behind `attention_bshd`). Same
+arithmetic: scores in f32 times scale, keys past Skv masked to -inf, an
+exact softmax, p cast to v's dtype, f32 sums, the output in q's dtype. One
+CUDA source (`csrc/attention_plain.cu`) takes the layout as strides, so
+the (B, S, H, D) layout is never transposed: bf16 on the tensor cores
+(K9's two-pass tile; head_dim 64, 72 in an 80-wide tile with zero
+columns, or 128), f32 in exact f32 SIMT products (head_dim <= 128). Other
+dtypes or head_dims on a CUDA tensor raise, except where JAX's own
+predicate sends `attention` to XLA (Sq > 4096), where the twin runs.
+`attention_reference` and `_reference_bshd` are the twins (JAX's); the
+backward recomputes the twin and applies its VJP (`twin_vjp`), as JAX's
+`_fused_with_vjp` and `_fused_bshd_with_vjp` recompute through XLA.
 """
 
 from __future__ import annotations
@@ -66,6 +87,7 @@ import torch
 
 from tpudf_torch.core.backend import LAUNCHES
 from tpudf_torch.ops import _build
+from tpudf_torch.ops.twin_vjp import with_twin_vjp
 
 KERNEL = "attention_qkv"
 KERNEL_BWD = "attention_qkv_bwd"
@@ -75,6 +97,11 @@ MAX_SEQ = 1024
 BWD_HEAD_DIM = 64           # K10
 BWD_MAX_SEQ = 256
 INT8_Q_BLOCK = 256          # JAX's q_block: 9b's aq is taken per block
+KERNEL_PLAIN = "attention"  # kernel 11, (B, H, S, D)
+KERNEL_BSHD = "attention_bshd"   # kernel 12, (B, S, H, D)
+PLAIN_HEAD_DIMS = (64, 72, 128)  # kernels 11 and 12 in bf16
+PLAIN_F32_MAX_HEAD_DIM = 128     # and in f32
+PALLAS_MAX_SQ = 4096        # JAX's `attention` sends longer queries to XLA
 
 
 def check_attention_shape(name, qkv, heads, head_dim):
@@ -285,3 +312,110 @@ def attention_qkv_vjp(qkv, heads, head_dim, scale=None, *, fwd=attention_qkv,
                              "kernel; it is a serving path")
         return fwd(qkv, heads, head_dim, scale, logit_bias=logit_bias)
     return _FusedQKVAttention.apply(qkv, heads, head_dim, scale, fwd, bwd)
+
+
+# ---------------------------------------------------------- kernels 11, 12
+
+def attention_reference(q, k, v, scale=None):
+    """Plain twin of kernel 11 (JAX's `attention_reference`): q (B, H, Sq,
+    D), k, v (B, H, Skv, D) → (B, H, Sq, D) in v's dtype; scores and softmax
+    in f32, the probabilities cast to v's dtype, f32 sums."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(),
+                        v.float()).to(v.dtype)
+
+
+def _reference_bshd(q, k, v, scale=None):
+    """Plain twin of kernel 12 (JAX's `_reference_bshd`): the same in the
+    (B, S, H, D) layout."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
+                        v.float()).to(v.dtype)
+
+
+def _plain_dims(q, k, bshd):
+    """(B, H, Sq, Skv, D) of q and k in their layout."""
+    if bshd:
+        b, sq, h, d = q.shape
+        return b, h, sq, k.shape[1], d
+    b, h, sq, d = q.shape
+    return b, h, sq, k.shape[2], d
+
+
+def check_plain_attention(name, q, k, v, bshd=False):
+    """Raise unless kernels 11 (bshd False) and 12 take q, k, v: 4-D, one
+    dtype, bf16 with head_dim in PLAIN_HEAD_DIMS or f32 with head_dim <=
+    PLAIN_F32_MAX_HEAD_DIM, k and v of one shape matching q's batch, heads
+    and head_dim, Skv >= 1, and each tensor under 2^31 elements."""
+    ok = q.dim() == 4 and k.shape == v.shape and k.dim() == 4
+    if ok:
+        b, h, sq, skv, d = _plain_dims(q, k, bshd)
+        kb, kh, _, _, kd = _plain_dims(k, k, bshd)
+        ok = ((kb, kh, kd) == (b, h, d) and skv >= 1
+              and q.dtype == k.dtype == v.dtype
+              and max(q.numel(), k.numel()) < 2 ** 31
+              and (d in PLAIN_HEAD_DIMS if q.dtype == torch.bfloat16
+                   else q.dtype == torch.float32
+                   and d <= PLAIN_F32_MAX_HEAD_DIM))
+    if not ok:
+        raise ValueError(
+            f"{name} takes q, k, v of one dtype, bf16 with head_dim in "
+            f"{PLAIN_HEAD_DIMS} or f32 with head_dim <= "
+            f"{PLAIN_F32_MAX_HEAD_DIM}, k and v of one shape, got "
+            f"{q.dtype} {tuple(q.shape)}, {k.dtype} {tuple(k.shape)}, "
+            f"{v.dtype} {tuple(v.shape)}")
+
+
+def _plain_strides(t, bshd):
+    """(image, head, row) element strides of a contiguous tensor."""
+    return ((t.stride(0), t.stride(2), t.stride(1)) if bshd
+            else (t.stride(0), t.stride(1), t.stride(2)))
+
+
+def _attention_plain_cuda(q, k, v, scale, bshd):
+    name = "kernel 12" if bshd else "kernel 11"
+    check_plain_attention(name, q, k, v, bshd)
+    b, h, sq, skv, d = _plain_dims(q, k, bshd)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    _build.call("tpudf_attention_plain", q, k, v, out,
+                int(q.dtype == torch.float32), b, h, sq, skv, d,
+                *_plain_strides(q, bshd), *_plain_strides(k, bshd),
+                float(scale))
+    LAUNCHES.hit(KERNEL_BSHD if bshd else KERNEL_PLAIN)
+    return out
+
+
+def _attention_fwd(q, k, v, *, scale):
+    if not q.is_cuda or q.shape[2] > PALLAS_MAX_SQ:
+        return attention_reference(q, k, v, scale)
+    return _attention_plain_cuda(q, k, v, scale, bshd=False)
+
+
+def _attention_bshd_fwd(q, k, v, *, scale):
+    if not q.is_cuda:
+        return _reference_bshd(q, k, v, scale)
+    return _attention_plain_cuda(q, k, v, scale, bshd=True)
+
+
+def attention(q, k, v, scale=None):
+    """Multi-head attention, q (B, H, Sq, D), k, v (B, H, Skv, D) → (B, H,
+    Sq, D), JAX's `attention`: CPU tensors take the twin; CUDA tensors
+    launch kernel 11 or raise, but for Sq > 4096, which JAX sends to XLA
+    and the port to the twin. Differentiable through the twin's VJP."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return with_twin_vjp(_attention_fwd, attention_reference, q, k, v,
+                         scale=float(scale))
+
+
+def attention_bshd(q, k, v, scale=None):
+    """Multi-head attention in the (B, S, H, D) layout → (B, Sq, H, D),
+    JAX's `attention_bshd`: CPU tensors take the twin; CUDA tensors launch
+    kernel 12 or raise. Differentiable through the twin's VJP."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return with_twin_vjp(_attention_bshd_fwd, _reference_bshd, q, k, v,
+                         scale=float(scale))

@@ -174,6 +174,15 @@ def _f32(t):
 GEMM_BF16, GEMM_GELU_I8, GEMM_RESIDUAL = 0, 1, 2
 
 
+def check_i8_gemm(k, wt):
+    """Raise unless the int8 GEMM takes K = k against the (N, K) weight
+    wt: N % 128 == 0 and K % 64 == 0."""
+    n = wt.shape[0]
+    if wt.shape[1] != k or n % 128 or k % 64:
+        raise ValueError(f"i8 GEMM needs N % 128 == 0 and K % 64 == 0, got "
+                         f"N={n} K={k} (weight {tuple(wt.shape)})")
+
+
 def i8_gemm_cuda(a8, wt, col_scale, bias, act, mode, *, residual=None,
                  sumsq=None, act_out=None):
     """out[m, n] = epilogue(Σ_k a8[m, k]·wt[n, k]) on the card.
@@ -184,9 +193,7 @@ def i8_gemm_cuda(a8, wt, col_scale, bias, act, mode, *, residual=None,
     (f32 atomics across column tiles) when sumsq is given."""
     m, k = a8.shape
     n = wt.shape[0]
-    if wt.shape[1] != k or n % 128 or k % 64:
-        raise ValueError(f"i8 GEMM needs N % 128 == 0 and K % 64 == 0, got "
-                         f"M={m} N={n} K={k} (weight {tuple(wt.shape)})")
+    check_i8_gemm(k, wt)
     dt = torch.int8 if mode == GEMM_GELU_I8 else torch.bfloat16
     out = torch.empty((m, n), dtype=dt, device=a8.device)
     _build.call("tpudf_i8_gemm", a8, wt, _f32(col_scale), _f32(bias),
@@ -195,9 +202,11 @@ def i8_gemm_cuda(a8, wt, col_scale, bias, act, mode, *, residual=None,
     return out
 
 
-def _attn_sublayer_cuda(x, ln_params, qkv_wq, qkv_b, out_wq, out_b, a_qkv,
-                        a_out, heads, head_dim, eps, scale, logit_bias):
-    b, s, w = x.shape
+def check_attn_sublayer_int8(x, qkv_wq, out_wq, heads, head_dim):
+    """Raise unless K1 takes this layer: bf16 x (B, S, W) of width 64k <=
+    MAX_WIDTH, head_dim in HEAD_DIMS, S <= MAX_SEQ, a (W, 3 heads head_dim)
+    QKV weight, and both int8 GEMMs' shapes (`check_i8_gemm`)."""
+    _, s, w = x.shape
     wa = heads * head_dim
     wt = transposed(qkv_wq)
     if (x.dtype != torch.bfloat16 or head_dim not in HEAD_DIMS
@@ -208,6 +217,16 @@ def _attn_sublayer_cuda(x, ln_params, qkv_wq, qkv_b, out_wq, out_b, a_qkv,
                          f"(W, 3 heads head_dim) weight, got {x.dtype} "
                          f"{tuple(x.shape)} head_dim {head_dim} weight "
                          f"{tuple(wt.t().shape)}")
+    check_i8_gemm(w, wt)
+    check_i8_gemm(wa, transposed(out_wq))
+
+
+def _attn_sublayer_cuda(x, ln_params, qkv_wq, qkv_b, out_wq, out_b, a_qkv,
+                        a_out, heads, head_dim, eps, scale, logit_bias):
+    check_attn_sublayer_int8(x, qkv_wq, out_wq, heads, head_dim)
+    b, s, w = x.shape
+    wa = heads * head_dim
+    wt = transposed(qkv_wq)
     x2d = x.reshape(b * s, w).contiguous()
     h8 = ln_quant_cuda(x2d, ln_params, a_qkv, eps)
     qkv = i8_gemm_cuda(h8, wt, qkv_wq["scale"], qkv_b, a_qkv, GEMM_BF16)

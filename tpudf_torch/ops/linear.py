@@ -53,17 +53,34 @@ def linear_fused_reference(x, w, bias, *, ln=None, residual=None,
     return y.to(x.dtype).reshape(*x.shape[:-1], dout)
 
 
-def bf16_gemm_cuda(a2d, w, bias, mode, residual=None):
-    """out = epilogue(a2d @ w + bias) on the card, one launch (uncounted:
-    K13 and K14 count their own). a2d (M, K) and w (K, N) bf16; N a
-    multiple of 128, K of 32."""
-    m, k = a2d.shape
-    n = w.shape[1]
-    if (a2d.dtype != torch.bfloat16 or w.dtype != torch.bfloat16
+def check_bf16_gemm(a_dtype, m, k, w):
+    """Raise unless the bf16 GEMM takes an (m, k) operand of a_dtype times
+    w (K, N): both bf16, K == k, N a multiple of 128, K of 32."""
+    n = w.shape[-1]
+    if (a_dtype != torch.bfloat16 or w.dtype != torch.bfloat16
             or w.shape[0] != k or n % 128 or k % 32):
         raise ValueError(f"bf16 GEMM takes bf16 (M, K) @ (K, N) with N % 128 "
-                         f"== 0 and K % 32 == 0, got {a2d.dtype} "
-                         f"{tuple(a2d.shape)} @ {w.dtype} {tuple(w.shape)}")
+                         f"== 0 and K % 32 == 0, got {a_dtype} ({m}, {k}) @ "
+                         f"{w.dtype} {tuple(w.shape)}")
+
+
+def check_linear_fused(x, w, residual=None, activation=None):
+    """Raise unless K13 takes this call: activation None or "gelu" (not
+    with a residual), and the GEMM's shapes (`check_bf16_gemm`)."""
+    if activation not in _MODES or (activation and residual is not None):
+        raise ValueError(f"K13 takes activation None or 'gelu' without a "
+                         f"residual, got {activation!r}")
+    din = w.shape[0]
+    check_bf16_gemm(x.dtype, x.numel() // max(din, 1), x.shape[-1], w)
+
+
+def bf16_gemm_cuda(a2d, w, bias, mode, residual=None):
+    """out = epilogue(a2d @ w + bias) on the card, one launch (uncounted:
+    K13 and K14 count their own). a2d (M, K) and w (K, N) bf16 under
+    `check_bf16_gemm`."""
+    m, k = a2d.shape
+    n = w.shape[1]
+    check_bf16_gemm(a2d.dtype, m, k, w)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a2d.device)
     _build.call("tpudf_bf16_gemm", a2d, w.contiguous(),
                 bias.float().contiguous(), residual, out, m, n, k, mode)
@@ -72,9 +89,7 @@ def bf16_gemm_cuda(a2d, w, bias, mode, residual=None):
 
 def _linear_cuda(x, w, bias, ln, residual, activation, eps):
     din, dout = w.shape
-    if activation not in _MODES or (activation and residual is not None):
-        raise ValueError(f"K13 takes activation None or 'gelu' without a "
-                         f"residual, got {activation!r}")
+    check_linear_fused(x, w, residual, activation)
     x2d = x.reshape(-1, din).contiguous()
     if ln is not None:
         x2d = ln_bf16_cuda(x2d, ln[0], ln[1], eps)

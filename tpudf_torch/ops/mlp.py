@@ -41,10 +41,11 @@ import torch
 
 from tpudf_torch.core.backend import LAUNCHES
 from tpudf_torch.ops.int8_block import (GEMM_GELU_I8, GEMM_RESIDUAL,
-                                        i8_gemm_cuda)
+                                        check_i8_gemm, i8_gemm_cuda)
 from tpudf_torch.ops.layernorm import (layer_norm_reference, ln_bf16_cuda,
                                        ln_quant_cuda, ln_rows_f32)
 from tpudf_torch.ops.linear import (GEMM_GELU, bf16_gemm_cuda,
+                                    check_bf16_gemm,
                                     GEMM_RESIDUAL as BF16_RESIDUAL)
 from tpudf_torch.ops.quant import int8_mm, quant_rows, transposed
 from tpudf_torch.ops.twin_vjp import with_twin_vjp
@@ -81,10 +82,19 @@ def mlp_block_int8_reference(x, ln_params, mlp_q, act_scales, eps=1e-6, *,
     return out
 
 
-def _mlp_cuda(x, ln_params, mlp_q, act_scales, eps, emit_sumsq):
-    w = x.shape[-1]
+def check_mlp_block_fused_int8(x, mlp_q):
+    """Raise unless K2 takes this MLP: bf16 x, and its fc1 and fc2 shapes
+    for the int8 GEMM (`check_i8_gemm`)."""
     if x.dtype != torch.bfloat16:
         raise ValueError(f"K2 takes bf16 x, got {x.dtype}")
+    w1 = transposed(mlp_q["fc1_w"])
+    check_i8_gemm(x.shape[-1], w1)
+    check_i8_gemm(w1.shape[0], transposed(mlp_q["fc2_w"]))
+
+
+def _mlp_cuda(x, ln_params, mlp_q, act_scales, eps, emit_sumsq):
+    w = x.shape[-1]
+    check_mlp_block_fused_int8(x, mlp_q)
     x2d = x.reshape(-1, w).contiguous()
     a1, a2 = act_scales["fc1"], act_scales["fc2"]
     h8 = ln_quant_cuda(x2d, ln_params, a1, eps)
@@ -128,7 +138,18 @@ def mlp_block_reference(x, ln_params, mlp_params, eps=1e-6):
     return (x2d.float() + h2).to(x.dtype).reshape(x.shape)
 
 
+def check_mlp_block_fused(x, mlp_params):
+    """Raise unless K14 takes this MLP: both bf16 GEMMs' shapes
+    (`check_bf16_gemm`: the hidden a 128 multiple, the width a 32 and a
+    128 multiple)."""
+    m, w = x.reshape(-1, x.shape[-1]).shape
+    w1, w2 = mlp_params["fc1_w"], mlp_params["fc2_w"]
+    check_bf16_gemm(x.dtype, m, w, w1)
+    check_bf16_gemm(w1.dtype, m, w1.shape[-1], w2)
+
+
 def _mlp_bf16_cuda(x, ln_params, mlp_params, eps):
+    check_mlp_block_fused(x, mlp_params)
     w = x.shape[-1]
     x2d = x.reshape(-1, w).contiguous()
     h = ln_bf16_cuda(x2d, ln_params["scale"], ln_params["bias"], eps)

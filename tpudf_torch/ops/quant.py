@@ -67,19 +67,27 @@ def int8_acc_reference(a8, wq):
     return int8_mm(a8, wq["q"])
 
 
+def check_int8_acc(a8, wq):
+    """Raise unless the int8 GEMM takes a8 (..., K) int8 codes times wq's
+    (K, N) int8 weight: N % 128 == 0 and K % 64 == 0."""
+    k = a8.shape[-1]
+    kw, n = wq["q"].shape
+    if a8.dtype != torch.int8 or kw != k or n % 128 or k % 64:
+        raise ValueError(f"the int8 GEMM takes int8 codes with N % 128 == 0 "
+                         f"and K % 64 == 0, got {a8.dtype} K={k} weight "
+                         f"{tuple(wq['q'].shape)}")
+
+
 def int8_acc(a8, wq):
     """`int8_acc_reference` on a CPU tensor; on a CUDA tensor one launch of
-    the port's int8 GEMM with an int32 output (N % 128 == 0, K % 64 == 0,
-    or it raises)."""
+    the port's int8 GEMM with an int32 output (`check_int8_acc`, or it
+    raises)."""
     if not a8.is_cuda:
         return int8_acc_reference(a8, wq)
+    check_int8_acc(a8, wq)
     lead, k = a8.shape[:-1], a8.shape[-1]
     wt = transposed(wq)
     n = wt.shape[0]
-    if a8.dtype != torch.int8 or wt.shape[1] != k or n % 128 or k % 64:
-        raise ValueError(f"the int8 GEMM takes int8 codes with N % 128 == 0 "
-                         f"and K % 64 == 0, got {a8.dtype} K={k} weight "
-                         f"{tuple(wt.shape)}")
     a2 = a8.reshape(-1, k).contiguous()
     m = a2.shape[0]
     out = torch.empty((m, n), dtype=torch.int32, device=a8.device)
@@ -145,9 +153,11 @@ def _q_stacked(w):
     return {"q": q.to(torch.int8), "scale": scale.float()}
 
 
-def quantize_siglip(params):
+def quantize_siglip(params, cfg=None):
     """int8 inference tree: the stacked block projection weights become
-    {q, scale}; everything else stays float."""
+    {q, scale}; everything else stays float. With cfg, also pre-pad for
+    the kernels (`prepad_siglip_static`), once: the dynamic-int8 tower of
+    a lane-misaligned geometry (so400m) then pads nothing per forward."""
     blocks = params["blocks"]
     out = dict(params)
     out["blocks"] = {
@@ -166,7 +176,7 @@ def quantize_siglip(params):
             "fc2_b": blocks["mlp"]["fc2_b"],
         },
     }
-    return out
+    return out if cfg is None else prepad_siglip_static(out, cfg)
 
 
 def is_quantized(block_params) -> bool:
@@ -181,7 +191,9 @@ def is_static_quantized(block_params) -> bool:
 @torch.no_grad()
 def calibrate_siglip_act_scales(params, cfg, pixels, policy=None):
     """Run the float tower over a calibration batch and record the abs-max
-    of each projection's input per layer.
+    of each projection's input per layer. Pixels of another size than the
+    config's get the interpolated position embedding (`siglip.embed`), as
+    in JAX's calibration.
 
     The twin attention materialises (B, H, S, S) f32 scores, so it runs in
     batch chunks of at most 512 MB of scores (so400m-512: 64 MB an image).
@@ -231,8 +243,9 @@ def quantize_siglip_static(params, act_scales, cfg=None):
 
 def prepad_siglip_static(params, cfg):
     """Zero-pad each head's slot to a 128 multiple (so400m head_dim 72 →
-    128) and the MLP hidden dim to a 128 multiple (4304 → 4352). Exact
-    algebra; scales pad with 1. No-op for aligned geometries."""
+    128) and the MLP hidden dim to a 128 multiple (4304 → 4352) of a
+    quantised tree, static or dynamic. Exact algebra; scales pad with 1.
+    No-op for aligned geometries."""
     d, heads = cfg.head_dim, cfg.heads
     blocks = dict(params["blocks"])
     if not (d % 128 == 0 or 128 % d == 0):

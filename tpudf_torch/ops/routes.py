@@ -1,6 +1,6 @@
-"""The kernels of the detect-core, engine and MTL-training paths, and their
-plain twins (with the port's int8 GEMM for the W8A8 block's XLA products,
-which is no TPU kernel's port: `int8_acc`).
+"""The kernels of the detect-core, engine, MTL-training and weights-in
+paths, and their plain twins (with the port's int8 GEMM for the W8A8
+block's XLA products, which is no TPU kernel's port: `int8_acc`).
 
 The main path always runs `KERNELS`: each wrapper takes its plain twin for
 a CPU tensor and launches its CUDA kernel for a CUDA tensor. `TWINS` holds
@@ -36,6 +36,8 @@ class KernelSet:
                                     # int8_matmul* (XLA in JAX)
     attention_qkv_int8: Callable    # 9b (K9's dynamic-int8 mode; the
                                     # reference route of attn_out_int8)
+    attention: Callable             # 11 (B, H, S, D): the multi-query _mha
+    attention_bshd: Callable        # 12 (B, S, H, D)
 
 
 KERNELS = KernelSet(
@@ -53,6 +55,8 @@ KERNELS = KernelSet(
     layer_norm_quant=layernorm.layer_norm_quant,
     int8_acc=quant.int8_acc,
     attention_qkv_int8=attention.attention_qkv_int8,
+    attention=attention.attention,
+    attention_bshd=attention.attention_bshd,
 )
 
 TWINS = KernelSet(
@@ -70,4 +74,6 @@ TWINS = KernelSet(
     layer_norm_quant=layernorm.layer_norm_quant_reference,
     int8_acc=quant.int8_acc_reference,
     attention_qkv_int8=attention.attention_qkv_int8_reference,
+    attention=attention.attention_reference,
+    attention_bshd=attention._reference_bshd,
 )
