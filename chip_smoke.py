@@ -58,6 +58,15 @@ back to the CPU or to a twin):
      the padded head_dim, the key mask dropped at Skv = 577 and 1000, the
      (B, H, S, D) head stride read by kernel 12); the gradient through
      `attention` against the twins'; kernel, twin and SDPA timed;
+  2d. K10 past S = 256 and at head_dim 128 (`k10_long_checks`): at
+     K10_LONG (large-384's MTL and binary shapes at S = 576, S = 1024 with
+     heads of 64, heads of 128 with so400m's scale 72^-0.5, the ragged S =
+     1000) on q, k, v of std 1.5, within atol 1e-2 + rtol 2^-7 with at
+     most ATTN_SHARE of the outputs a bf16 step apart, each check shown to
+     fail on planted faults (the scale of the padded head_dim, the D term
+     dropped, the ragged keys unmasked); kernel, twin and SDPA's backward
+     timed; JAX's route at so400m's (16, 1024, 6144), d = 128: the twin's
+     VJP, no K10 launch;
   3. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      (a) the detect core (build("cuda", seed=0), base-256, W8A8 + ToMe),
@@ -118,6 +127,15 @@ back to the CPU or to a twin):
          multi-query `_mha` at full width through kernels 11 and 12;
          so400m-512's engines A and B (its MLP padded to 4352); so400m's
          dynamic-int8 tower and an un-prepadded static tree;
+     (t2)-(t4) (`training_rest`): large-384 MTL at 384 px (K10 at S = 576)
+         float and int8 prefix and the MTL CLI at --image_size 384;
+         so400m-512 MTL (K14 at the padded hidden of 4352, K10's route the
+         twin's VJP); the binary trainer (`build_binary_trainer`) at
+         large-384: the frozen bf16 tower (v5 head with EMA and mixup; the
+         fast head) and the W8A8 + ToMe tower at B = 64, the tower trained
+         at B = 8 with and without remat, each against the twins with
+         exact launches; the binary CLI for an epoch, then --evaluate_only
+         --resume;
   4. CUDA-event timings: each kernel vs its twin and, where one PyTorch
      call computes the same function or a part of it, that call (timed
      here only; the port never calls it; the SDPA backward by its kernels'
@@ -131,7 +149,8 @@ back to the CPU or to a twin):
      so400m-512 at B=8 and 64) with a profile each, so400m-512's PPP
      tower with and without TPUDF_INT8_ATTN=1, large-384's engines; the
      large-384 MTL step at 256 px, (a) and (b), with a profile of (a),
-     and so400m-512's engines A and B.
+     and so400m-512's engines A and B; the (t) steps, each with a profile
+     (`training_rest_timings`).
 Prints a JSON line of the kernels (with each one's bound: the larger of
 its operations over the card's peak for their type and its bytes, each
 input read once and each output written once, over 3.35 TB/s), the card
@@ -1824,6 +1843,572 @@ def weights_timings(state, card, mtl_batches):
                   flush=True)
 
 
+# K10 past S = 256 and at head_dim 128 (phase 2d): (B, S, heads, head_dim,
+# scale): large-384's MTL step at 384 px and its binary trainer with the
+# tower trained (S = 576, heads of 64), a narrow S = 1024, heads of 128
+# (so400m's 72 padded, scale 72^-0.5, the padded dims zero) and a ragged S
+# (a multiple of 8, not of the 64-key tile)
+K10_LONG = [(16, 576, 16, 64, None), (8, 576, 16, 64, None),
+            (4, 1024, 2, 64, None), (8, 512, 8, 128, 72 ** -0.5),
+            (2, 1000, 2, 64, None)]
+
+
+def k10_twin_fault(qkv, g, heads, hd, scale, fault):
+    """K10's twin with a planted fault: "D" drops D = rowsum(dP * P);
+    "unmasked" lets the keys past S into the softmax as the kernel's ring
+    holds them (row S - 1 repeated up to the 64-key tile)."""
+    import torch
+    b, s, w3 = qkv.shape
+    w = w3 // 3
+    k, v = qkv[..., w:2 * w], qkv[..., 2 * w:]
+    sp = s
+    if fault == "unmasked":
+        sp = -(-s // 64) * 64
+        k = torch.cat([k, k[:, -1:].expand(b, sp - s, w)], 1)
+        v = torch.cat([v, v[:, -1:].expand(b, sp - s, w)], 1)
+
+    def hf(t, n):
+        return t.reshape(b, n, heads, hd).transpose(1, 2).float()
+
+    q, k, v, gh = hf(qkv[..., :w], s), hf(k, sp), hf(v, sp), hf(g, s)
+    p = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1)
+    dv = p.bfloat16().float().transpose(-1, -2) @ gh
+    dp = gh @ v.transpose(-1, -2)
+    d = 0.0 if fault == "D" else torch.sum(dp * p, -1, keepdim=True)
+    ds = (p * (dp - d) * scale).bfloat16().float()
+    dq, dk = ds @ k, ds.transpose(-1, -2) @ q
+    return torch.cat([t[:, :, :s].transpose(1, 2).reshape(b, s, w)
+                      for t in (dq, dk, dv)], -1).bfloat16()
+
+
+def k10_agrees(got, ref):
+    """(within atol 1e-2 + rtol 2^-7, share more than a bf16 step apart)."""
+    err = (got.float() - ref.float()).abs()
+    ok = bool((err <= 1e-2 + 2 ** -7 * ref.float().abs()).all())
+    return ok, share_apart(got, ref)
+
+
+def k10_long_checks(rec, dev, card):
+    """Phase 2d: K10 at K10_LONG on q, k, v of std 1.5 against its twin
+    (atol 1e-2 + rtol 2^-7, at most ATTN_SHARE of the outputs more than a
+    bf16 step apart), one launch each; each check shown to fail on planted
+    faults: the scale from the padded head_dim (at heads of 64 the same
+    0.75 ratio), the D term dropped, and at the ragged S the keys past S
+    unmasked; kernel, twin and SDPA's backward timed. Then JAX's route at
+    so400m-512's padded heads, (16, 1024, 6144) with d = 128 and JAX's 72:
+    no K10 launch, the twin's VJP counted once."""
+    import torch
+    import torch.nn.functional as F
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.ops import attention
+    print("phase 2d: K10 past S = 256 and at head_dim 128", flush=True)
+    g = torch.Generator(device=dev).manual_seed(21)
+    for b, s, heads, hd, scale in K10_LONG:
+        w = heads * hd
+        qkv = torch.randn((b, s, 3, heads, hd), generator=g,
+                          device=dev) * 1.5
+        if scale is not None:                 # so400m's zero padded dims
+            qkv[..., 72:] = 0.0
+        qkv = qkv.reshape(b, s, 3 * w).to(torch.bfloat16)
+        gout = torch.randn((b, s, w), generator=g, device=dev).to(
+            torch.bfloat16)
+        sc = scale if scale is not None else hd ** -0.5
+        LAUNCHES.reset()
+        got = attention.attention_qkv_bwd(qkv, gout, heads, hd, scale)
+        torch.cuda.synchronize()
+        check_launches(f"K10 {(b, s, 3 * w)}", LAUNCHES.snapshot(),
+                       {attention.KERNEL_BWD: 1})
+        ref = attention.attention_qkv_bwd_reference(qkv, gout, heads, hd,
+                                                    scale)
+        ok, share = k10_agrees(got, ref)
+        bad_scale = hd ** -0.5 if scale is not None else 0.75 * sc
+        faults = {"scale": k10_agrees(attention.attention_qkv_bwd(
+                      qkv, gout, heads, hd, bad_scale), ref),
+                  "D dropped": k10_agrees(got, k10_twin_fault(
+                      qkv, gout, heads, hd, sc, "D"))}
+        if s % 64:
+            faults["keys unmasked"] = k10_agrees(got, k10_twin_fault(
+                qkv, gout, heads, hd, sc, "unmasked"))
+        print(f"  K10 {(b, s, 3 * w)} d {hd} scale {sc:.5f}: max|Δ| "
+              f"{max_abs(got, ref):.3e}, share > 1 bf16 step {share:.3e}; "
+              "planted faults: " + ", ".join(
+                  f"{k} {'within' if o and sh <= ATTN_SHARE else 'caught'} "
+                  f"(share {sh:.4f})" for k, (o, sh) in faults.items())
+              + f" [{card}]", flush=True)
+        if not ok or share > ATTN_SHARE:
+            raise AssertionError(f"K10 {(b, s, 3 * w)} vs twin: share "
+                                 f"{share:.3e}")
+        missed = [k for k, (o, sh) in faults.items()
+                  if o and sh <= ATTN_SHARE]
+        if missed:
+            raise AssertionError(f"K10 {(b, s, 3 * w)}: the check misses "
+                                 f"{missed}")
+        qv, kv_, vv = (qkv[..., i * w:(i + 1) * w].reshape(b, s, heads, hd)
+                       .transpose(1, 2).detach().requires_grad_(True)
+                       for i in range(3))
+        go = gout.reshape(b, s, heads, hd).transpose(1, 2)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qv, kv_, vv, scale=sc)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), (qv, kv_, vv), go)
+
+        sdpa_bwd = device_ms(sdpa_fwd_bwd) - device_ms(sdpa_fwd)
+        rec.add("K10", "attention_qkv_bwd", (b, s, 3 * w, hd),
+                max_abs(got, ref),
+                lambda: attention.attention_qkv_bwd(qkv, gout, heads, hd,
+                                                    scale),
+                lambda: attention.attention_qkv_bwd_reference(
+                    qkv, gout, heads, hd, scale),
+                ({"bf16": 5 * 2 * s * s * hd * heads * b},
+                 nbytes(qkv, gout) + nbytes(got)),
+                library={"SDPA backward": sdpa_bwd}, iters=10,
+                twin_iters=3, device_time=True)
+        del qkv, gout, got, ref, qv, kv_, vv, go, faults
+        torch.cuda.empty_cache()
+    # JAX's route at so400m-512's padded heads: its fit fails
+    qkv = torch.randn((16, 1024, 6144), generator=g, device=dev).to(
+        torch.bfloat16)
+    gout = torch.randn((16, 1024, 2048), generator=g, device=dev).to(
+        torch.bfloat16)
+    LAUNCHES.reset()
+    attention.attention_qkv_bwd(qkv, gout, 16, 128, 72 ** -0.5,
+                                jax_head_dim=72)
+    torch.cuda.synchronize()
+    launched = LAUNCHES.snapshot()
+    check_launches("K10 route at (16, 1024, 6144), d 128 (JAX's 72)",
+                   launched, {attention.KERNEL_BWD_TWIN: 1})
+    print(f"  K10 route at so400m's (16, 1024, 6144), d 128 (JAX's 72): "
+          f"{launched}: JAX's XLA route, no K10 launch [{card}]", flush=True)
+    del qkv, gout
+    torch.cuda.empty_cache()
+
+
+def mtl_batches_at(dev, size, b, steps, seed):
+    """Seeded MTL batches of b images of size x size: pixels in [-1, 1],
+    3-class labels, one square mask each, every other one flagged (so that
+    each batch's seg loss reaches the decoder)."""
+    import torch
+    bg = torch.Generator(device=dev).manual_seed(seed)
+    out, side = [], size // 4
+    for _ in range(steps):
+        masks = torch.zeros((b, size, size), device=dev)
+        for i in range(b):
+            y0, x0 = torch.randint(0, size - side, (2,), generator=bg,
+                                   device=dev)
+            masks[i, y0:y0 + side, x0:x0 + side] = 1.0
+        out.append({
+            "pixels": torch.rand((b, size, size, 3), generator=bg,
+                                 device=dev) * 2 - 1,
+            "cls": torch.randint(0, 3, (b,), generator=bg, device=dev),
+            "mask": masks,
+            "has_mask": (torch.arange(b, device=dev) % 2 == 0).float()})
+    return out
+
+
+def real_fake_folder(root, n, size, seed):
+    """A TRAIN/VAL x REAL|FAKE folder of n seeded PNGs per class and split
+    (FAKE brighter), the binary CLI's layout."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    for split in ("train", "val"):
+        for cls, bias in (("REAL", 0.0), ("FAKE", 0.5)):
+            d = os.path.join(root, split, cls)
+            os.makedirs(d, exist_ok=True)
+            for i in range(n):
+                arr = np.clip(rng.random((size, size, 3)) * 0.5 + bias, 0, 1)
+                Image.fromarray((arr * 255).astype(np.uint8)).save(
+                    os.path.join(d, f"{i}.png"))
+
+
+def binary_run(make, ks, label, batches, dev, card, ema_decay=None):
+    """Steps of a BinaryTrainer (`make(ks)`) on the seeded batches, each
+    with the launch counts set to 0 just before it and a generator seeded
+    by its index (the same mixup and dropout draws for kernels and
+    twins): (losses, step-1 gradients by leaf, launches per step, the
+    trainer and state). With ema_decay: the EMA held to its formula from
+    the parameters after each step (relative 1e-6)."""
+    import numpy as np
+    import torch
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.train.steps import tensor_leaves
+    t0 = time.perf_counter()
+    tr = make(ks)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    state = tr.state
+    ema = ([p.detach().clone() for p in tensor_leaves(state.params)]
+           if ema_decay else None)
+    losses, grads0, per_step = [], None, []
+    for i, batch in enumerate(batches):
+        LAUNCHES.reset()
+        state, m = tr.step(state, tr.backbone, batch,
+                           torch.Generator(device=dev).manual_seed(100 + i))
+        torch.cuda.synchronize()
+        per_step.append(LAUNCHES.snapshot())
+        losses.append(float(m["loss"]))
+        if i == 0:
+            grads0 = (trainable_slices(state.params, "grad", 0)
+                      if "backbone" in state.params else
+                      {f"head leaf {j}": p.grad.float().clone()
+                       for j, p in enumerate(tensor_leaves(state.params))})
+        if ema is not None:
+            for e, p in zip(ema, tensor_leaves(state.params)):
+                e.mul_(ema_decay).add_(p.detach(), alpha=1 - ema_decay)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"binary {label}: losses {losses}")
+    msg = ""
+    if ema is not None:
+        rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                  for a, b in zip(tensor_leaves(state.ema), ema))
+        msg = f"; EMA vs its formula max rel |Δ| {rel:.3e}"
+        if rel > 1e-6:
+            raise AssertionError(f"binary {label}: EMA {rel:.3e}")
+    print(f"binary {label}: build {build_s:.2f} s; losses "
+          f"{['%.6f' % v for v in losses]}{msg} [{card}]", flush=True)
+    return losses, grads0, per_step, (tr, state)
+
+
+def binary_versus(label, run, ref, limit, card):
+    """|Δloss| per step within `limit`, the step-1 gradient cosine >= 0.99
+    over all trainable parameters; returns the worst relative step-1
+    gradient error of the tower's slices (`trainable_slices`: each block
+    layer's leaf, a third of a fused q|k|v leaf, the key biases left out),
+    where the tower trains, else of the head's leaves. The heads' slices
+    are printed, not held: the v5 head's SE gate at B = 8 has a gradient
+    small next to the rounding of the features it reads (7.3e-2 measured
+    on an H100), and the head runs no kernel."""
+    import torch
+    import torch.nn.functional as F
+    dloss = [abs(a - b) for a, b in zip(run[0], ref[0])]
+    names = list(ref[1])
+    cos = float(F.cosine_similarity(
+        torch.cat([run[1][n].flatten() for n in names]),
+        torch.cat([ref[1][n].flatten() for n in names]), dim=0))
+    rel = {n: float(torch.linalg.vector_norm(run[1][n] - ref[1][n])
+                    / torch.linalg.vector_norm(ref[1][n]).clamp_min(1e-30))
+           for n in names}
+    worst = max(rel, key=rel.get)
+    tower = {n: v for n, v in rel.items() if n.startswith("blocks.")}
+    worst_t = max(tower, key=tower.get) if tower else None
+    print(f"binary {label}: |Δloss| per step {['%.3e' % d for d in dloss]}; "
+          f"step-1 gradient cosine {cos:.6f}; worst slice step-1 gradient "
+          f"error {rel[worst]:.3e} ({worst})"
+          + (f", of the tower's {tower[worst_t]:.3e} ({worst_t})" if tower
+             else "") + f" [{card}]", flush=True)
+    if max(dloss) > limit or cos < 0.99:
+        raise AssertionError(f"binary {label}: runs disagree")
+    return tower[worst_t] if tower else rel[worst]
+
+
+def training_rest(dev, card, tmp):
+    """Phase 3t, each path with the launch counts set to 0 just before it
+    and read just after:
+    (t2) large-384 MTL at its native 384 px (S = 576, no interpolation;
+    freeze_below 21, taps (2, 6, 10, -1), embed_dim 256, B = 16), float (a)
+    and int8 (b) prefix, 5 steps each against the twins: exact launches
+    (K10 3 a step at (16, 576, 3072)), |Δloss|, the step-1 gradient cosine
+    per group, frozen parameters bit-identical, and on (a) phase 3 (d)'s
+    per-slice limits; the MTL CLI for one step at --image_size 384;
+    (t3) so400m-512 MTL at 512 px (freeze_below 24: 3 of 27 layers
+    trainable, B = 8, float prefix), 3 steps against the twins: K14 at the
+    compute copy's hidden of 4352 in every layer, no K10 launch and the
+    twin's VJP 3 times a step (JAX's fit fails), |Δloss|, group cosine,
+    frozen bit-identical (slices printed);
+    (t4) the binary trainer at large-384, 384 px (`build_binary_trainer`):
+    the frozen bf16 tower with the v5 head, EMA 0.999 and mixup 0.2 at B =
+    64; the W8A8 tower with the deployed ToMe (calibrated on the first
+    batch's 16 images); the fast head; 5 steps each against the twins:
+    exact launches, |Δloss|, the step-1 head-gradient cosine, the EMA equal
+    to its formula; the tower trained with the head at B = 8, 2 steps with
+    and without remat against the twins: K10 24 times a step, K9 24 and
+    48 with remat, the remat gradients within the twin limits of those
+    without; the binary CLI for one epoch on a seeded REAL/FAKE folder,
+    then --evaluate_only --resume. Returns the trainers phase 4 times."""
+    import torch
+    from tpudf_torch.entry import build_binary_trainer, build_mtl_trainer
+    from tpudf_torch.ops import (attention, int8_block, layernorm, linear,
+                                 mlp)
+    from tpudf_torch.ops.routes import KERNELS, TWINS
+    from tpudf_torch.ops.tome import DEPLOYED_TOME_R, deployed_floor
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    state = {}
+    print("phase 3t: training at the large backbones (large-384 MTL at 384 "
+          "px, so400m-512 MTL, the binary trainer)", flush=True)
+
+    # ---- (t2) large-384 MTL at 384 px
+    name, layers, freeze = "large-384", 24, 21
+    b384 = mtl_batches_at(dev, 384, MTL_BATCH, MTL_STEPS, 31)
+
+    def make(cfg_key, ks=KERNELS):
+        return build_mtl_trainer(
+            dev, seed=0, cfg_name=name, image_size=384, freeze_below=freeze,
+            seg_layers=(2, 6, 10, -1), embed_dim=256,
+            int8_frozen=cfg_key == "b", lr=MTL_LR, warmup_steps=1,
+            calib_pixels=b384[0]["pixels"], kernels=ks)
+
+    trainable = layers - freeze
+    t2_expect = {
+        "a": {linear.KERNEL: 2 * layers, attention.KERNEL: layers,
+              mlp.KERNEL_BF16: layers, layernorm.KERNEL: 2,
+              attention.KERNEL_BWD: trainable},
+        "b": {int8_block.KERNEL: freeze, mlp.KERNEL: freeze,
+              linear.KERNEL: 2 * trainable, attention.KERNEL: trainable,
+              mlp.KERNEL_BF16: trainable, layernorm.KERNEL: 2,
+              attention.KERNEL_BWD: trainable}}
+    for cfg_key in ("a", "b"):
+        label = f"t2 {name} 384 px ({cfg_key})"
+        kern = train_run(make, cfg_key, KERNELS, f"{label} kernels", b384,
+                         freeze, dev, card)
+        for i, launches in enumerate(kern[3]):
+            check_launches(f"{label} step {i}", launches, t2_expect[cfg_key])
+        twin = train_run(make, cfg_key, TWINS, f"{label} twins", b384,
+                         freeze, dev, card)
+        if any(twin[3]):
+            raise AssertionError(f"twins launched {twin[3]}")
+        dloss, cos, g_worst, p_worst = versus(kern, twin)
+        print(f"{label}: launches per step {kern[3][0]} (K10 at (16, 576, "
+              f"3072))", flush=True)
+        print(report(label, dloss, cos, g_worst, p_worst, card), flush=True)
+        slices_ok = g_worst[1] <= MTL_GRAD_ERR and p_worst[1] <= MTL_PARAM_LR
+        if (max(dloss) > MTL_DLOSS[cfg_key] or min(cos.values()) < 0.99
+                or (cfg_key == "a" and not slices_ok)):
+            raise AssertionError(f"{label}: kernels vs twins disagree")
+        state[("t2", cfg_key, "launches")] = kern[3][0]
+        del kern, twin
+        torch.cuda.empty_cache()
+    state["t2"] = (make, b384)
+    data = os.path.join(tmp, "sid384")
+    sid_folder(data, 16, 384, 32)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "tpudf_torch.cli.train_mtl", "--model_size",
+         name, "--image_size", "384", "--data_dir", data, "--save_dir",
+         os.path.join(tmp, "mtl384"), "--epochs", "1", "--batch_size", "16",
+         "--device", "cuda"], cwd=root, capture_output=True, text=True,
+        timeout=900)
+    if run.returncode != 0:
+        raise AssertionError(f"t2 CLI failed: {run.stderr[-4000:]}")
+    rows = open(os.path.join(tmp, "mtl384",
+                             "training_log.csv")).read().splitlines()
+    if len(rows) != 2:
+        raise AssertionError(f"t2 CLI: training log {rows}")
+    print(f"t2: python -m tpudf_torch.cli.train_mtl --model_size {name} "
+          f"--image_size 384 (16 images, one step, eval, checkpoint) in "
+          f"{time.perf_counter() - t0:.2f} s; log {rows[1][:160]} [{card}]",
+          flush=True)
+
+    # ---- (t3) so400m-512 MTL
+    so, so_layers, so_freeze, so_b, so_steps = "so400m-512", 27, 24, 8, 3
+    b512 = mtl_batches_at(dev, 512, so_b, so_steps, 33)
+
+    def make_so(cfg_key, ks=KERNELS):
+        return build_mtl_trainer(
+            dev, seed=0, cfg_name=so, freeze_below=so_freeze,
+            seg_layers=(2, 6, 10, -1), embed_dim=256, lr=MTL_LR,
+            warmup_steps=1, kernels=ks)
+
+    label = f"t3 {so} 512 px (a)"
+    kern = train_run(make_so, "a", KERNELS, f"{label} kernels", b512,
+                     so_freeze, dev, card)
+    t3_expect = {linear.KERNEL: 2 * so_layers, attention.KERNEL: so_layers,
+                 mlp.KERNEL_BF16: so_layers, layernorm.KERNEL: 2,
+                 attention.KERNEL_BWD_TWIN: so_layers - so_freeze}
+    for i, launches in enumerate(kern[3]):
+        check_launches(f"{label} step {i}", launches, t3_expect)
+    twin = train_run(make_so, "a", TWINS, f"{label} twins", b512, so_freeze,
+                     dev, card)
+    if any(twin[3]):
+        raise AssertionError(f"twins launched {twin[3]}")
+    dloss, cos, g_worst, p_worst = versus(kern, twin)
+    print(f"{label}: launches per step {kern[3][0]} (K14 at hidden 4352, "
+          f"K10's route: the twin's VJP) ", flush=True)
+    print(report(label, dloss, cos, g_worst, p_worst, card), flush=True)
+    if max(dloss) > MTL_DLOSS["a"] or min(cos.values()) < 0.99:
+        raise AssertionError(f"{label}: kernels vs twins disagree")
+    state[("t3", "launches")] = kern[3][0]
+    state["t3"] = (make_so, b512)
+    del kern, twin
+    torch.cuda.empty_cache()
+
+    # ---- (t4) the binary trainer at large-384, 384 px
+    bg = torch.Generator(device=dev).manual_seed(34)
+
+    def bin_batches(b, steps):
+        return [{"pixels": torch.rand((b, 384, 384, 3), generator=bg,
+                                      device=dev) * 2 - 1,
+                 "labels": (torch.rand((b,), generator=bg, device=dev)
+                            < 0.5).float()} for _ in range(steps)]
+
+    b64 = bin_batches(64, MTL_STEPS)
+    n_merge = merges(576, layers, DEPLOYED_TOME_R, deployed_floor(576))
+    float_fwd = {linear.KERNEL: 2 * layers, attention.KERNEL: layers,
+                 mlp.KERNEL_BF16: layers, layernorm.KERNEL: 2}
+    variants = {
+        "frozen bf16, v5 head, EMA 0.999, mixup 0.2": (
+            dict(ema_decay=0.999, mixup_alpha=0.2), float_fwd, 1e-2),
+        "frozen W8A8 + deployed ToMe": (
+            dict(int8_backbone=True, tome_r=-1,
+                 calib_pixels=b64[0]["pixels"][:16]),
+            w8a8_launches("FPP", layers, n_merge, tome=False, k6_fits=True),
+            2e-2),
+        # the fast head's LN reads the bf16 pooled features: K4, as JAX's
+        # layer_norm sends bf16 rows of a 128 multiple to its Pallas LN
+        "frozen bf16, fast head": (
+            dict(head="fast"), dict(float_fwd, **{layernorm.KERNEL: 3}),
+            1e-2)}
+    for vname, (kw, expect, limit) in variants.items():
+        def make_b(ks, kw=kw):
+            return build_binary_trainer(dev, seed=0, cfg_name=name,
+                                        warmup_steps=1, kernels=ks, **kw)
+        label = f"t4 {name} 384 px {vname} B=64"
+        kern = binary_run(make_b, KERNELS, f"{label} kernels", b64, dev,
+                          card, kw.get("ema_decay"))
+        for i, launches in enumerate(kern[2]):
+            check_launches(f"{label} step {i}", launches, expect)
+        twin = binary_run(make_b, TWINS, f"{label} twins", b64, dev, card,
+                          kw.get("ema_decay"))
+        if any(twin[2]):
+            raise AssertionError(f"twins launched {twin[2]}")
+        print(f"binary {label}: launches per step {kern[2][0]}", flush=True)
+        binary_versus(label, kern, twin, limit, card)
+        state[("t4", vname)] = (kern[3], b64)
+        state[("t4", vname, "launches")] = kern[2][0]
+        del twin
+        torch.cuda.empty_cache()
+
+    b8 = bin_batches(8, 2)
+    runs = {}
+    for remat, ks in ((False, KERNELS), (True, KERNELS), (False, TWINS)):
+        def make_t(ks_, remat=remat):
+            return build_binary_trainer(dev, seed=0, cfg_name=name,
+                                        train_backbone=True, remat=remat,
+                                        warmup_steps=1, kernels=ks_)
+        label = (f"t4 {name} 384 px tower trained B=8"
+                 f"{' remat' if remat else ''} "
+                 f"{'twins' if ks is TWINS else 'kernels'}")
+        run_ = binary_run(make_t, ks, label, b8, dev, card)
+        runs[(remat, ks is TWINS)] = run_[:3]
+        if ks is KERNELS:
+            expect = dict(float_fwd, **{attention.KERNEL_BWD: layers})
+            if remat:
+                expect.update({linear.KERNEL: 4 * layers,
+                               attention.KERNEL: 2 * layers,
+                               mlp.KERNEL_BF16: 2 * layers})
+            for i, launches in enumerate(run_[2]):
+                check_launches(f"{label} step {i}", launches, expect)
+            print(f"binary {label}: launches per step {run_[2][0]}",
+                  flush=True)
+            state[("t4", "tower", remat)] = (run_[3], b8)
+        elif any(run_[2]):
+            raise AssertionError(f"twins launched {run_[2]}")
+        del run_
+        torch.cuda.empty_cache()
+    twin = runs[(False, True)]
+    for remat in (False, True):
+        label = f"t4 tower trained{' remat' if remat else ''}"
+        rel = binary_versus(label, runs[(remat, False)], twin, 1e-2, card)
+        if rel > MTL_GRAD_ERR:
+            raise AssertionError(f"{label}: leaf gradient error {rel:.3e}")
+    rel = binary_versus("t4 tower trained, remat vs without remat",
+                        runs[(True, False)], runs[(False, False)], 1e-2,
+                        card)
+    if rel > MTL_GRAD_ERR:
+        raise AssertionError(f"t4 remat: slice gradient error {rel:.3e}")
+    del runs, twin
+    torch.cuda.empty_cache()
+
+    data = os.path.join(tmp, "real_fake")
+    real_fake_folder(data, 8, 384, 35)
+    save = os.path.join(tmp, "binary_run")
+    cli = [sys.executable, "-m", "tpudf_torch.cli.train_binary",
+           "--data_dir", data, "--model_size", name, "--batch_size", "16",
+           "--device", "cuda", "--save_dir", save]
+    t0 = time.perf_counter()
+    run = subprocess.run(cli + ["--epochs", "1", "--ema_decay", "0.999",
+                                "--mixup_alpha", "0.2"], cwd=root,
+                         capture_output=True, text=True, timeout=900)
+    if run.returncode != 0:
+        raise AssertionError(f"t4 CLI failed: {run.stderr[-4000:]}")
+    rows = open(os.path.join(save, "training_log.csv")).read().splitlines()
+    t1 = time.perf_counter()
+    ev = subprocess.run(cli + ["--evaluate_only", "--resume",
+                               os.path.join(save, "best")], cwd=root,
+                        capture_output=True, text=True, timeout=900)
+    if (ev.returncode != 0 or len(rows) != 2
+            or "[evaluate_only]" not in ev.stdout
+            or "[resume] restored" not in ev.stdout):
+        raise AssertionError(f"t4 CLI: log {rows}; evaluate_only "
+                             f"{ev.stdout[-2000:]} {ev.stderr[-2000:]}")
+    print(f"t4: python -m tpudf_torch.cli.train_binary --model_size {name} "
+          f"(16 training images, one epoch, eval, checkpoint) in "
+          f"{t1 - t0:.2f} s; log {rows[1][:160]}; then --evaluate_only "
+          f"--resume in {time.perf_counter() - t1:.2f} s: "
+          f"{ev.stdout.strip().splitlines()[-1][:160]} [{card}]", flush=True)
+    return state
+
+
+def training_rest_timings(state, card):
+    """Phase 4 of the (t) paths: the large-384 MTL step at 384 px, (a)
+    kernels vs twins with a profile and (b); so400m-512's MTL step; the
+    binary steps at large-384 (frozen bf16 tower at B = 64, W8A8 + ToMe,
+    the fast head; the tower trained at B = 8 with and without remat): ms,
+    img/s and a profile each (its idle share)."""
+    import torch
+    from tpudf_torch.ops.routes import TWINS
+
+    def mtl_step(box, batch):
+        box["state"], _ = box["step"](box["state"], batch, None, 1.0, 0.5)
+
+    for key, label in ((("t2", "a"), "t2 large-384 384 px (a)"),
+                       (("t2", "b"), "t2 large-384 384 px (b)"),
+                       (("t3", "a"), "t3 so400m-512 512 px (a)")):
+        make, batches = state[key[0]]
+        st, step, _ = make(key[1])
+        box = {"state": st, "step": step}
+        b = batches[0]["pixels"].shape[0]
+        if key == ("t2", "a"):
+            st, step, _ = make("a", TWINS)
+            tbox = {"state": st, "step": step}
+            k_ms, t_ms = paired_ms(lambda: mtl_step(box, batches[0]),
+                                   lambda: mtl_step(tbox, batches[0]),
+                                   iters=5, twin_iters=3)
+            twin = f"; twins {t_ms:.3f} ms"
+            del tbox
+        else:
+            k_ms, twin = cuda_ms(lambda: mtl_step(box, batches[0]), iters=5,
+                                 warmup=1), ""
+        print(f"{label} train step B={b}: kernels {k_ms:.3f} ms = "
+              f"{b * 1e3 / k_ms:.1f} img/s{twin} [{card}]", flush=True)
+        profile(lambda: mtl_step(box, batches[0]), f"{label} train step "
+                f"B={b}", card, top=16 if key == ("t2", "a") else 8)
+        del box, st, step
+        torch.cuda.empty_cache()
+    for key, ((tr, st), batches) in [(k, v) for k, v in state.items()
+                                     if k[0] == "t4" and len(k) == 2
+                                     or k[:2] == ("t4", "tower")]:
+        box = {"state": st}
+        gen = torch.Generator(device="cuda").manual_seed(7)
+
+        def bstep():
+            box["state"], _ = tr.step(box["state"], tr.backbone, batches[0],
+                                      gen)
+
+        b = batches[0]["pixels"].shape[0]
+        label = (key[1] if len(key) == 2 else
+                 "tower trained" + (" remat" if key[2] else ""))
+        ms = cuda_ms(bstep, iters=5, warmup=1)
+        print(f"t4 binary step large-384 384 px {label} B={b}: kernels "
+              f"{ms:.3f} ms = {b * 1e3 / ms:.1f} img/s [{card}]", flush=True)
+        profile(bstep, f"t4 binary step {label} B={b}", card, top=6)
+        del box, tr, st
+        state[key] = None
+        torch.cuda.empty_cache()
+
+
 def trainable_slices(params, attr, freeze):
     """{name: f32 copy} of the trainable parameters (attr "data") or
     their gradients ("grad"): each trainable block layer on its own,
@@ -1908,9 +2493,10 @@ def train_run(make, cfg_key, ks, label, batches, freeze, dev, card):
     cls_logits, seg_probs = eval_step(state.params,
                                       batches[0]["pixels"])
     torch.cuda.synchronize()
+    b, size = batches[0]["mask"].shape[:2]
     if not (np.isfinite(losses).all() and frozen_ok
-            and cls_logits.shape == (MTL_BATCH, 3)
-            and seg_probs.shape == (MTL_BATCH, 256, 256)
+            and cls_logits.shape == (b, 3)
+            and seg_probs.shape == (b, size, size)
             and torch.isfinite(cls_logits).all()
             and ((seg_probs >= 0) & (seg_probs <= 1)).all()):
         raise AssertionError(
@@ -1919,7 +2505,7 @@ def train_run(make, cfg_key, ks, label, batches, freeze, dev, card):
             f"{tuple(seg_probs.shape)}")
     print(f"trainer {label}: build {build_s:.2f} s; losses "
           f"{['%.6f' % v for v in losses]}; frozen bit-identical after "
-          f"{MTL_STEPS} steps; eval finite, seg probs in [0, 1] [{card}]",
+          f"{len(batches)} steps; eval finite, seg probs in [0, 1] [{card}]",
           flush=True)
     final = trainable_slices(state.params, "data", freeze)
     del state, step, eval_step, frozen0
@@ -1957,7 +2543,7 @@ def report(label, dloss, cos, g_worst, p_worst, card):
             f"{['%.3e' % d for d in dloss]}; step-1 gradient cosine "
             + ", ".join(f"{k} {v:.6f}" for k, v in cos.items())
             + f"; worst slice step-1 gradient error {g_worst[1]:.3e} "
-            f"({g_worst[0]}); worst slice mean |Δp| after {MTL_STEPS} "
+            f"({g_worst[0]}); worst slice mean |Δp| after {len(dloss)} "
             f"steps {p_worst[1]:.4f} lr ({p_worst[0]}) [{card}]")
 
 
@@ -2492,6 +3078,7 @@ def main() -> int:
 
     large_kernel_checks(rec, dev, card)
     plain_attention_checks(rec, dev, card)
+    k10_long_checks(rec, dev, card)
 
     # ---- 3a. the detect core
     print("phase 3: paths", flush=True)
@@ -2738,6 +3325,10 @@ def main() -> int:
     tmp = tempfile.TemporaryDirectory()
     weights = weights_paths(dev, card, mtl_batches, tmp.name)
 
+    # ---- 3t. training at the large backbones: large-384 MTL at 384 px,
+    # so400m-512 MTL, the binary trainer and its CLI
+    rest = training_rest(dev, card, tmp.name)
+
     # ---- 4. timings of the paths
     print("phase 4: path timings", flush=True)
     for b, iters in ((8, 20), (256, 5)):
@@ -2820,6 +3411,7 @@ def main() -> int:
 
     large_timings(large, card)
     weights_timings(weights, card, mtl_batches)
+    training_rest_timings(rest, card)
     tmp.cleanup()
 
     names = {"K1": int8_block.KERNEL, "K2": mlp.KERNEL, "K3": srm.KERNEL,

@@ -243,6 +243,64 @@ def test_large_attention_matches_twin_on_card(name):
     assert all(measure(f, ref) > limit for f in faults)
 
 
+# K10 past S = 256 and at head_dim 128: (B, S, heads, head_dim, scale);
+# ragged S = 1000 is a multiple of 8 and not of the 64-row tile
+K10_LONG = [(2, 576, 2, 64, None), (1, 1000, 2, 64, None),
+            (1, 1024, 1, 128, 72 ** -0.5), (2, 512, 2, 128, None),
+            (1, 1560, 1, 128, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", K10_LONG)
+def test_k10_long_sequences_match_twin_on_card(shape):
+    """K10 against its twin on q, k, v of std 1.5: atol 1e-2 + rtol 2^-7
+    and at most 1e-2 of the outputs more than a bf16 step apart; the
+    launch goes through K10 (JAX's Pallas fit holds at each shape)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpudf_torch.core.backend import LAUNCHES
+    b, s_, heads, hd, scale = shape
+    assert attention.attention_qkv_bwd_fits(s_, heads * hd, hd)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn((b, s_, 3 * heads * hd), generator=g,
+                      device="cuda") * 1.5
+    qkv = qkv.to(torch.bfloat16)
+    g_out = torch.randn((b, s_, heads * hd), generator=g,
+                        device="cuda").to(torch.bfloat16)
+    LAUNCHES.reset()
+    got = attention.attention_qkv_bwd(qkv, g_out, heads, hd, scale)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {attention.KERNEL_BWD: 1}
+    ref = attention.attention_qkv_bwd_reference(qkv, g_out, heads, hd, scale)
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                               rtol=2 ** -7)
+    assert _share_apart(got, ref) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_k10_route_takes_the_twin_vjp_where_jax_does_on_card():
+    """so400m-512's padded heads (d 128, S 1024, W 2048) miss JAX's 12 MiB
+    fit: no K10 launch, the twin's VJP counted once, equal to autograd
+    through the forward's twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpudf_torch.core.backend import LAUNCHES
+    heads, hd = 16, 128
+    assert not attention.attention_qkv_bwd_fits(1024, heads * hd, hd)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    qkv = torch.randn((1, 1024, 3 * heads * hd), generator=g,
+                      device="cuda").to(torch.bfloat16)
+    g_out = torch.randn((1, 1024, heads * hd), generator=g,
+                        device="cuda").to(torch.bfloat16)
+    LAUNCHES.reset()
+    got = attention.attention_qkv_bwd(qkv, g_out, heads, hd, 72 ** -0.5)
+    assert LAUNCHES.snapshot() == {attention.KERNEL_BWD_TWIN: 1}
+    x = qkv.clone().requires_grad_(True)
+    attention.attention_qkv_reference(x, heads, hd, 72 ** -0.5).backward(
+        g_out)
+    torch.testing.assert_close(got, x.grad)
+
+
 @pytest.mark.gpu
 def test_ln_passes_at_width_1152_on_card():
     """K4, K8 (codes within one step: f32 LN ties) and K5 at so400m's

@@ -483,8 +483,8 @@ def test_frozen_prefix_must_cover_the_frozen_layers():
     with pytest.raises(ValueError, match="same freeze boundary"):
         T_seg.mtl_forward(params, torch.zeros((1, 32, 32, 3)), cfg,
                           F32_POLICY, stop_grad_below=2, frozen_blocks_q=tq)
-    with pytest.raises(NotImplementedError):
-        make_optimizer(kind="adafactor")
+    with pytest.raises(ValueError):
+        make_optimizer(kind="sgd")
 
 
 def test_schedule_matches_optax():

@@ -113,9 +113,7 @@ def _bit_equal(port_tree, jax_tree):
 
 
 def _same_config(port_cfg, jax_cfg):
-    want = dataclasses.asdict(jax_cfg)
-    want.pop("remat")
-    assert dataclasses.asdict(port_cfg) == want
+    assert dataclasses.asdict(port_cfg) == dataclasses.asdict(jax_cfg)
 
 
 # ------------------------------------------------------ kernels 11 and 12

@@ -151,68 +151,82 @@ int launch_attention(const void* qkv, const void* key_bias,
 // forward's [q | k | v] layout. P is rounded to bf16 only for dV and dS
 // only for dQ and dK; D uses the unrounded P, as the TPU kernel does.
 //
-// The TPU kernel held one head's whole (S, S) f32 P in VMEM; at S = 256
-// that is 256 KB, more than an SM's shared memory, and dK, dV sum over
-// every query row. So the work is split as FlashAttention-2 splits it,
-// into two launches over (64-row tile, head, image) blocks of four warps
-// of 16 rows, each recomputing the scores it needs on the tensor cores
-// (mma.sync m16n8k16 bf16, f32 accumulate) instead of storing P:
-//   dq pass   (query tiles): K and V of the head in shared memory; per warp
-//             four sweeps over the keys: the row max, the row sum of
-//             exp(s - max), D, then dS and dQ += bf16(dS) K. It writes dQ
-//             and the rows' max, sum and D (f32 scratch, 12 bytes a row).
-//   dkv pass  (key tiles): Q and g of the head in shared memory; per warp
-//             one sweep over the queries in chunks of 16: S^T = K Q^T,
-//             P^T from the saved max and sum, dV += bf16(P^T) g,
+// The TPU kernel held one head's whole (S, S) f32 P in VMEM (JAX sends a
+// shape to it while that tile and the qkv rows fit 12 MiB: S up to ~1,560
+// at W = 128); at S = 576 one head's P is 1.3 MB, far beyond an SM's
+// shared memory, and dK, dV sum over every query row. So the work is
+// split as FlashAttention-2 splits it, into two launches over (64-row
+// tile, head, image) blocks of four warps of 16 rows, each recomputing
+// the scores it needs on the tensor cores (mma.sync m16n8k16 bf16, f32
+// accumulate) instead of storing P, with the other side's rows streamed
+// through a two-stage cp.async ring of 64-row tiles (as K9's attn_stream
+// streams K and V), so that shared memory does not grow with S:
+//   dq pass   (query tiles; Q and g of the tile in shared memory, K and V
+//             streamed): four sweeps over the keys: the row max, the row
+//             sum of exp(s - max) (the exact softmax, not an online one),
+//             D, then dS and dQ += bf16(dS) K. It writes dQ and the rows'
+//             max, sum and D (f32 scratch, 12 bytes a row).
+//   dkv pass  (key tiles; K and V of the tile in shared memory, Q and g
+//             streamed, the head's row statistics in shared memory): one
+//             sweep over the queries in chunks of 16: S^T = K Q^T, P^T
+//             from the saved max and sum, dV += bf16(P^T) g,
 //             dP^T = V g^T, dS^T, dK += bf16(dS^T) Q.
-// The scores and products never touch device memory; each pass reads qkv
-// and g of its head once per tile from L2. The card's bound at the MTL
-// step's shape (16, 256, 2304) is the bytes of qkv, g and dqkv.
+// head_dim is a template parameter (64, or 128 for so400m's heads of 72
+// padded by the caller, whose scale stays 72^-0.5: the scale is an
+// argument and never derived from head_dim). Registers: the warp's own
+// A fragments are read from shared memory for each 16-row chunk instead of
+// being held, so a thread holds only its accumulators (dQ: HD/2 f32; dK
+// and dV: HD) and two 16 x 16 score tiles. Ragged S (a multiple of 8, not
+// of 64): keys past S score -inf in the dq pass and queries past S have
+// P = 0 in the dkv pass; streamed rows past S repeat row S - 1 (finite,
+// no read outside the tensor), rows of the block's own tile past S are
+// zero and never stored. The scores and products never touch device
+// memory; each block reads its head's qkv and g rows from L2. The card's
+// bound at the MTL step's shapes is the bytes of qkv, g and dqkv at S =
+// 256 and the tensor-core operations at S = 576 and above.
 
-constexpr int kHd = 64;                  // K10's head_dim
-constexpr int kBwdSeq = 256;             // K10's longest sequence
-constexpr int kRowLd = row_ld<kHd>();
+constexpr int kBwdTile = 64;             // rows of a block: 4 warps x 16
 
-// A fragments (16 rows x 64 dims) of shared rows r0.. (ldmatrix)
-__device__ __forceinline__ void load_a_rows(unsigned (&f)[kHd / 16][4],
-                                            const __nv_bfloat16* rows,
-                                            int lane) {
+// the most dynamic shared memory a block may have on sm_90
+constexpr size_t kMaxBlockSmem = 232448;
+
+// c (16 x 16) += A . B^T for the 16 shared rows A at `a` and the 16 shared
+// rows B at `b` (rows of HD dims; A's fragments by ldmatrix, B's rows as
+// the n index of two n8 tiles): scores against keys, or dP against V
+template <int HD>
+__device__ __forceinline__ void mma_nt16(float (&c)[2][4],
+                                         const __nv_bfloat16* a,
+                                         const __nv_bfloat16* b, int lane) {
+  constexpr int ld = row_ld<HD>();
+  const __nv_bfloat16* ar = a + (lane & 15) * ld + (lane >> 4) * 8;
+  const __nv_bfloat16* br =
+      b + ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8;
 #pragma unroll
-  for (int kc = 0; kc < kHd / 16; ++kc)
-    ldsm_x4(f[kc], rows + (lane & 15) * kRowLd + kc * 16 + (lane >> 4) * 8);
-}
-
-// c[n] += A (16 x 64) . R^T for the 16 shared rows R at `rows` (the n index
-// of two n8 tiles, dims as k): scores against keys, or dP against V
-__device__ __forceinline__ void mma_rows_nt(float (&c)[2][4],
-                                            const unsigned (&a)[kHd / 16][4],
-                                            const __nv_bfloat16* rows,
-                                            int lane) {
-  const __nv_bfloat16* r =
-      rows + ((lane & 7) + (lane >> 4) * 8) * kRowLd + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kc = 0; kc < kHd / 16; ++kc) {
-    unsigned b[4];
-    ldsm_x4(b, r + kc * 16);
-    mma_bf16(c[0], a[kc], b[0], b[1]);
-    mma_bf16(c[1], a[kc], b[2], b[3]);
+  for (int kc = 0; kc < HD / 16; ++kc) {
+    unsigned af[4], bfr[4];
+    ldsm_x4(af, ar + kc * 16);
+    ldsm_x4(bfr, br + kc * 16);
+    mma_bf16(c[0], af, bfr[0], bfr[1]);
+    mma_bf16(c[1], af, bfr[2], bfr[3]);
   }
 }
 
-// acc (16 x 64) += A (16 x 16, the bf16 pack of c) . R for the 16 shared
-// rows R at `rows` (the k index, dims as n; ldmatrix.trans)
-__device__ __forceinline__ void mma_rows_nn(float (&acc)[kHd / 8][4],
-                                            const float (&c)[2][4],
-                                            const __nv_bfloat16* rows,
-                                            int lane) {
+// acc (16 x HD) += bf16(c) (16 x 16) . R for the 16 shared rows R at
+// `rows` (the k index, dims as n; ldmatrix.trans)
+template <int HD>
+__device__ __forceinline__ void mma_nn16(float (&acc)[HD / 8][4],
+                                         const float (&c)[2][4],
+                                         const __nv_bfloat16* rows,
+                                         int lane) {
   unsigned a[4];
   a[0] = pack_bf16x2(c[0][0], c[0][1]);
   a[1] = pack_bf16x2(c[0][2], c[0][3]);
   a[2] = pack_bf16x2(c[1][0], c[1][1]);
   a[3] = pack_bf16x2(c[1][2], c[1][3]);
-  const __nv_bfloat16* r = rows + (lane & 15) * kRowLd + (lane >> 4) * 8;
+  const __nv_bfloat16* r =
+      rows + (lane & 15) * row_ld<HD>() + (lane >> 4) * 8;
 #pragma unroll
-  for (int dn = 0; dn < kHd / 16; ++dn) {
+  for (int dn = 0; dn < HD / 16; ++dn) {
     unsigned b[4];
     ldsm_x4_trans(b, r + dn * 16);
     mma_bf16(acc[2 * dn], a, b[0], b[1]);
@@ -220,17 +234,26 @@ __device__ __forceinline__ void mma_rows_nn(float (&acc)[kHd / 8][4],
   }
 }
 
-__device__ __forceinline__ void zero_acc(float (&acc)[kHd / 8][4]) {
+__device__ __forceinline__ void zero16(float (&c)[2][4]) {
 #pragma unroll
-  for (int dt = 0; dt < kHd / 8; ++dt)
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.0f;
+}
+
+template <int HD>
+__device__ __forceinline__ void zero_acc(float (&acc)[HD / 8][4]) {
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.0f;
 }
 
-// bf16 rows of a 16 x 64 accumulator: tile rows row0 + g (e = 0, 1) and
+// bf16 rows of a 16 x HD accumulator: tile rows row0 + g (e = 0, 1) and
 // + 8 (e = 2, 3), each row `ld` apart, those < seq only
+template <int HD>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* out, size_t ld,
-                                          const float (&acc)[kHd / 8][4],
+                                          const float (&acc)[HD / 8][4],
                                           int row0, int seq, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -238,13 +261,35 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* out, size_t ld,
     const int row = row0 + g + 8 * r;
     if (row >= seq) continue;
 #pragma unroll
-    for (int dt = 0; dt < kHd / 8; ++dt)
+    for (int dt = 0; dt < HD / 8; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(out + row * ld + dt * 8 + 2 * t) =
           __floats2bfloat162_rn(acc[dt][2 * r], acc[dt][2 * r + 1]);
   }
 }
 
+// the scores of the warp's 16 query rows `qrows` against the 16 shared
+// key rows `krows` (keys k0 ..): (q . k) * scale in f32, -inf past seq
+template <int HD>
+__device__ __forceinline__ void key_scores(float (&s)[2][4],
+                                           const __nv_bfloat16* qrows,
+                                           const __nv_bfloat16* krows,
+                                           int k0, int seq, float scale,
+                                           int lane) {
+  zero16(s);
+  mma_nt16<HD>(s, qrows, krows, lane);
+  const int t = lane & 3;
+  const float neg_inf = __int_as_float(0xff800000);
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + n * 8 + 2 * t + (e & 1);
+      s[n][e] = key < seq ? __fmul_rn(s[n][e], scale) : neg_inf;
+    }
+}
+
 // stats: (3, B, H, S) f32 — row max, row sum of exp(s - max), D
+template <int HD>
 __global__ void __launch_bounds__(kAttnWarps * 32)
     attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ qkv,
                             const __nv_bfloat16* __restrict__ gout,
@@ -252,114 +297,123 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
                             float* __restrict__ stats, int seq, int heads,
                             float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int seq_pad = (seq + 15) & ~15;
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + seq_pad * kRowLd;
-  __nv_bfloat16* qs = vs + seq_pad * kRowLd;
-  __nv_bfloat16* gs = qs + kQTile * kRowLd;
-  const int wa = heads * kHd;
+  constexpr int ld = row_ld<HD>();
+  constexpr int kTile = kKeyTile * ld;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* gs = qs + kBwdTile * ld;
+  __nv_bfloat16* ring = gs + kBwdTile * ld;
+  // stage i of K at ring + i kTile, of V at ring + (2 + i) kTile
+  auto kst = [&](int t) { return ring + (t & 1) * kTile; };
+  auto vst = [&](int t) { return ring + (2 + (t & 1)) * kTile; };
+  const int wa = heads * HD;
   const size_t row3 = static_cast<size_t>(3) * wa;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kQTile;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBwdTile;
   const __nv_bfloat16* base =
-      qkv + static_cast<size_t>(b) * seq * row3 + h * kHd;
-  load_rows<kHd>(ks, base + wa, row3, 0, seq_pad, seq);
-  load_rows<kHd>(vs, base + 2 * wa, row3, 0, seq_pad, seq);
-  load_rows<kHd>(qs, base, row3, q0, kQTile, seq);
-  load_rows<kHd>(gs, gout + static_cast<size_t>(b) * seq * wa + h * kHd, wa,
-                 q0, kQTile, seq);
-  __syncthreads();
+      qkv + static_cast<size_t>(b) * seq * row3 + h * HD;
+  const __nv_bfloat16* kg = base + wa;
+  const __nv_bfloat16* vg = base + 2 * wa;
+  // rows past seq hold zero queries and cotangents: finite, never stored
+  load_rows<HD>(qs, base, row3, q0, kBwdTile, seq);
+  load_rows<HD>(gs, gout + static_cast<size_t>(b) * seq * wa + h * HD, wa,
+                q0, kBwdTile, seq);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = warp * 16;
-  if (q0 + r0 >= seq) return;               // no more barriers below
-  const int t = lane & 3;
-  unsigned qf[kHd / 16][4], gf[kHd / 16][4];
-  load_a_rows(qf, qs + r0 * kRowLd, lane);
-  load_a_rows(gf, gs + r0 * kRowLd, lane);
+  const __nv_bfloat16* qrows = qs + warp * 16 * ld;
+  const __nv_bfloat16* grows = gs + warp * 16 * ld;
+  const int ntiles = (seq + kKeyTile - 1) / kKeyTile;
   const float neg_inf = __int_as_float(0xff800000);
-
-  // scaled scores of keys 16 kc .. + 15, -inf past seq
-  auto scores = [&](int kc, float (&s)[2][4]) {
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-    mma_rows_nt(s, qf, ks + kc * 16 * kRowLd, lane);
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kc * 16 + n * 8 + 2 * t + (e & 1);
-        s[n][e] = key < seq ? __fmul_rn(s[n][e], scale) : neg_inf;
-      }
-  };
-  const int nk = seq_pad / 16;
   float mx[2] = {neg_inf, neg_inf}, sum[2] = {0.0f, 0.0f};
   float dsum[2] = {0.0f, 0.0f};
   float s[2][4], dp[2][4];
-  for (int kc = 0; kc < nk; ++kc) {
-    scores(kc, s);
+
+  // ---- sweeps 1 and 2 (K tiles): the row max, then the row sum of
+  // exp(s - max) with the final max (the exact softmax of the TPU kernel)
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    stage_rows<HD>(kst(0), kg, row3, 0, seq);
+    cp_async_commit();
+    for (int t = 0; t < ntiles; ++t) {
+      if (t + 1 < ntiles)
+        stage_rows<HD>(kst(t + 1), kg, row3, (t + 1) * kKeyTile, seq);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+      for (int c = 0; c < kKeyTile / 16; ++c) {
+        key_scores<HD>(s, qrows, kst(t) + c * 16 * ld,
+                       t * kKeyTile + c * 16, seq, scale, lane);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-  }
-  mx[0] = quad_max(mx[0]);
-  mx[1] = quad_max(mx[1]);
-  for (int kc = 0; kc < nk; ++kc) {
-    scores(kc, s);
+        for (int n = 0; n < 2; ++n)
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sum[e >> 1] += expf(s[n][e] - mx[e >> 1]);
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            if (sweep == 0)
+              mx[r] = fmaxf(mx[r], s[n][e]);
+            else
+              sum[r] += expf(s[n][e] - mx[r]);
+          }
+      }
+      __syncthreads();                // the stage may be refilled
+    }
+    if (sweep == 0) {
+      mx[0] = quad_max(mx[0]);
+      mx[1] = quad_max(mx[1]);
+    }
   }
   sum[0] = quad_sum(sum[0]);
   sum[1] = quad_sum(sum[1]);
-  // p = exp(s - max) / sum, as the forward computes it
-  for (int kc = 0; kc < nk; ++kc) {
-    scores(kc, s);
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[n][e] = 0.0f;
-    mma_rows_nt(dp, gf, vs + kc * 16 * kRowLd, lane);
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dsum[e >> 1] += __fmul_rn(dp[n][e],
-                                  expf(s[n][e] - mx[e >> 1]) / sum[e >> 1]);
-  }
-  dsum[0] = quad_sum(dsum[0]);
-  dsum[1] = quad_sum(dsum[1]);
-  float dq[kHd / 8][4];
-  zero_acc(dq);
-  for (int kc = 0; kc < nk; ++kc) {
-    scores(kc, s);
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[n][e] = 0.0f;
-    mma_rows_nt(dp, gf, vs + kc * 16 * kRowLd, lane);
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float p = expf(s[n][e] - mx[r]) / sum[r];
-        s[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], dsum[r])),
-                            scale);
+
+  // ---- sweeps 3 and 4 (K and V tiles): D = rowsum(dP * P) with
+  // p = exp(s - max) / sum as the forward computes it, then dS and dQ
+  float dq[HD / 8][4];
+  zero_acc<HD>(dq);
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    stage_rows<HD>(kst(0), kg, row3, 0, seq);
+    stage_rows<HD>(vst(0), vg, row3, 0, seq);
+    cp_async_commit();
+    for (int t = 0; t < ntiles; ++t) {
+      if (t + 1 < ntiles) {
+        stage_rows<HD>(kst(t + 1), kg, row3, (t + 1) * kKeyTile, seq);
+        stage_rows<HD>(vst(t + 1), vg, row3, (t + 1) * kKeyTile, seq);
       }
-    mma_rows_nn(dq, s, ks + kc * 16 * kRowLd, lane);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+#pragma unroll
+      for (int c = 0; c < kKeyTile / 16; ++c) {
+        key_scores<HD>(s, qrows, kst(t) + c * 16 * ld, t * kKeyTile + c * 16,
+                       seq, scale, lane);
+        zero16(dp);
+        mma_nt16<HD>(dp, grows, vst(t) + c * 16 * ld, lane);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float p = expf(s[n][e] - mx[r]) / sum[r];
+            if (sweep == 0)
+              dsum[r] += __fmul_rn(dp[n][e], p);
+            else
+              s[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], dsum[r])),
+                                  scale);
+          }
+        if (sweep == 1) mma_nn16<HD>(dq, s, kst(t) + c * 16 * ld, lane);
+      }
+      __syncthreads();
+    }
+    if (sweep == 0) {
+      dsum[0] = quad_sum(dsum[0]);
+      dsum[1] = quad_sum(dsum[1]);
+    }
   }
-  store_acc(dqkv + static_cast<size_t>(b) * seq * row3 + h * kHd, row3, dq,
-            q0 + r0, seq, lane);
-  if (t == 0) {
+  const int row0 = q0 + warp * 16;
+  store_acc<HD>(dqkv + static_cast<size_t>(b) * seq * row3 + h * HD, row3,
+                dq, row0, seq, lane);
+  if ((lane & 3) == 0) {
     const size_t n_rows = static_cast<size_t>(gridDim.z) * heads * seq;
     const size_t head_row = (static_cast<size_t>(b) * heads + h) * seq;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int qi = q0 + r0 + (lane >> 2) + 8 * r;
+      const int qi = row0 + (lane >> 2) + 8 * r;
       if (qi >= seq) continue;
       stats[head_row + qi] = mx[r];
       stats[n_rows + head_row + qi] = sum[r];
@@ -368,6 +422,13 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
   }
 }
 
+// rows of the row statistics in the dkv pass: S rounded up to the
+// streamed tiles
+__host__ __device__ constexpr int bwd_stat_rows(int seq) {
+  return (seq + kKeyTile - 1) / kKeyTile * kKeyTile;
+}
+
+template <int HD>
 __global__ void __launch_bounds__(kAttnWarps * 32)
     attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ qkv,
                              const __nv_bfloat16* __restrict__ gout,
@@ -375,108 +436,134 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
                              const float* __restrict__ stats, int seq,
                              int heads, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int seq_pad = (seq + 15) & ~15;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* gs = qs + seq_pad * kRowLd;
-  __nv_bfloat16* ks = gs + seq_pad * kRowLd;
-  __nv_bfloat16* vs = ks + kQTile * kRowLd;
-  float* s_max = reinterpret_cast<float*>(vs + kQTile * kRowLd);
-  float* s_sum = s_max + seq_pad;
-  float* s_d = s_sum + seq_pad;
-  const int wa = heads * kHd;
+  constexpr int ld = row_ld<HD>();
+  constexpr int kTile = kKeyTile * ld;
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vs = ks + kBwdTile * ld;
+  __nv_bfloat16* ring = vs + kBwdTile * ld;
+  // stage i of Q at ring + i kTile, of g at ring + (2 + i) kTile
+  auto qst = [&](int t) { return ring + (t & 1) * kTile; };
+  auto gst = [&](int t) { return ring + (2 + (t & 1)) * kTile; };
+  const int n_stat = bwd_stat_rows(seq);
+  float* s_max = reinterpret_cast<float*>(ring + 4 * kTile);
+  float* s_sum = s_max + n_stat;
+  float* s_d = s_sum + n_stat;
+  const int wa = heads * HD;
   const size_t row3 = static_cast<size_t>(3) * wa;
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kQTile;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBwdTile;
   const __nv_bfloat16* base =
-      qkv + static_cast<size_t>(b) * seq * row3 + h * kHd;
-  load_rows<kHd>(qs, base, row3, 0, seq_pad, seq);
-  load_rows<kHd>(gs, gout + static_cast<size_t>(b) * seq * wa + h * kHd, wa,
-                 0, seq_pad, seq);
-  load_rows<kHd>(ks, base + wa, row3, k0, kQTile, seq);
-  load_rows<kHd>(vs, base + 2 * wa, row3, k0, kQTile, seq);
+      qkv + static_cast<size_t>(b) * seq * row3 + h * HD;
+  const __nv_bfloat16* gg = gout + static_cast<size_t>(b) * seq * wa + h * HD;
+  // keys past seq are zero rows: finite, never stored
+  load_rows<HD>(ks, base + wa, row3, k0, kBwdTile, seq);
+  load_rows<HD>(vs, base + 2 * wa, row3, k0, kBwdTile, seq);
   const size_t n_rows = static_cast<size_t>(gridDim.z) * heads * seq;
   const size_t head_row = (static_cast<size_t>(b) * heads + h) * seq;
-  for (int i = threadIdx.x; i < seq_pad; i += blockDim.x) {
+  for (int i = threadIdx.x; i < n_stat; i += blockDim.x) {
     const bool in = i < seq;
     s_max[i] = in ? stats[head_row + i] : 0.0f;
     s_sum[i] = in ? stats[n_rows + head_row + i] : 1.0f;
     s_d[i] = in ? stats[2 * n_rows + head_row + i] : 0.0f;
   }
-  __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = warp * 16;                 // this warp's first key
-  if (k0 + r0 >= seq) return;
-  const int t = lane & 3;
-  unsigned kf[kHd / 16][4], vf[kHd / 16][4];
-  load_a_rows(kf, ks + r0 * kRowLd, lane);
-  load_a_rows(vf, vs + r0 * kRowLd, lane);
-  float dk[kHd / 8][4], dv[kHd / 8][4];
-  zero_acc(dk);
-  zero_acc(dv);
+  const __nv_bfloat16* krows = ks + warp * 16 * ld;
+  const __nv_bfloat16* vrows = vs + warp * 16 * ld;
+  const int t4 = lane & 3;
+  const int ntiles = (seq + kKeyTile - 1) / kKeyTile;
+  float dk[HD / 8][4], dv[HD / 8][4];
+  zero_acc<HD>(dk);
+  zero_acc<HD>(dv);
   float p[2][4], ds[2][4];
-  for (int qc = 0; qc < seq_pad / 16; ++qc) {
-    const __nv_bfloat16* qrows = qs + qc * 16 * kRowLd;
-    const __nv_bfloat16* grows = gs + qc * 16 * kRowLd;
-    // S^T = K Q^T and P^T: rows are keys, columns queries
+  stage_rows<HD>(qst(0), base, row3, 0, seq);
+  stage_rows<HD>(gst(0), gg, wa, 0, seq);
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      stage_rows<HD>(qst(t + 1), base, row3, (t + 1) * kKeyTile, seq);
+      stage_rows<HD>(gst(t + 1), gg, wa, (t + 1) * kKeyTile, seq);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+    for (int c = 0; c < kKeyTile / 16; ++c) {
+      const __nv_bfloat16* qrows = qst(t) + c * 16 * ld;
+      const __nv_bfloat16* grows = gst(t) + c * 16 * ld;
+      // S^T = K Q^T and P^T: rows are keys, columns queries
+      zero16(p);
+      zero16(ds);
+      mma_nt16<HD>(p, krows, qrows, lane);
+      mma_nt16<HD>(ds, vrows, grows, lane);     // dP^T = V g^T
 #pragma unroll
-      for (int e = 0; e < 4; ++e) p[n][e] = ds[n][e] = 0.0f;
-    mma_rows_nt(p, kf, qrows, lane);
-    mma_rows_nt(ds, vf, grows, lane);       // dP^T = V g^T
+      for (int n = 0; n < 2; ++n)
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = qc * 16 + n * 8 + 2 * t + (e & 1);
-        const float pv =
-            qi < seq ? expf(__fmul_rn(p[n][e], scale) - s_max[qi]) / s_sum[qi]
-                     : 0.0f;
-        p[n][e] = pv;
-        ds[n][e] = __fmul_rn(__fmul_rn(pv, __fsub_rn(ds[n][e], s_d[qi])),
-                             scale);
-      }
-    mma_rows_nn(dv, p, grows, lane);        // dV += bf16(P^T) g
-    mma_rows_nn(dk, ds, qrows, lane);       // dK += bf16(dS^T) Q
+        for (int e = 0; e < 4; ++e) {
+          const int qi = t * kKeyTile + c * 16 + n * 8 + 2 * t4 + (e & 1);
+          const float pv =
+              qi < seq
+                  ? expf(__fmul_rn(p[n][e], scale) - s_max[qi]) / s_sum[qi]
+                  : 0.0f;
+          p[n][e] = pv;
+          ds[n][e] = __fmul_rn(__fmul_rn(pv, __fsub_rn(ds[n][e], s_d[qi])),
+                               scale);
+        }
+      mma_nn16<HD>(dv, p, grows, lane);         // dV += bf16(P^T) g
+      mma_nn16<HD>(dk, ds, qrows, lane);        // dK += bf16(dS^T) Q
+    }
+    __syncthreads();                  // the stage may be refilled
   }
-  __nv_bfloat16* out = dqkv + static_cast<size_t>(b) * seq * row3 + h * kHd;
-  store_acc(out + wa, row3, dk, k0 + r0, seq, lane);
-  store_acc(out + 2 * wa, row3, dv, k0 + r0, seq, lane);
+  __nv_bfloat16* out = dqkv + static_cast<size_t>(b) * seq * row3 + h * HD;
+  store_acc<HD>(out + wa, row3, dk, k0 + warp * 16, seq, lane);
+  store_acc<HD>(out + 2 * wa, row3, dv, k0 + warp * 16, seq, lane);
 }
 
-int launch_attention_bwd(const void* qkv, const void* gout, void* dqkv,
-                         void* stats, int batch, int seq, int heads,
-                         int head_dim, float scale, void* stream) {
-  if (batch <= 0 || seq <= 0) return 0;
-  if (head_dim != kHd || seq > kBwdSeq) return cudaErrorInvalidValue;
-  const int seq_pad = (seq + 15) & ~15;
-  const size_t rows_smem = static_cast<size_t>(2 * seq_pad + 2 * kQTile) *
-                           kRowLd * sizeof(__nv_bfloat16);
-  const size_t smem_dq = rows_smem;
-  const size_t smem_dkv = rows_smem + 3 * seq_pad * sizeof(float);
+template <int HD>
+int launch_attention_bwd_hd(const void* qkv, const void* gout, void* dqkv,
+                            void* stats, int batch, int seq, int heads,
+                            float scale, void* stream) {
+  constexpr size_t rows_smem =
+      static_cast<size_t>(2 * kBwdTile * row_ld<HD>() + ring_elems<HD>()) *
+      sizeof(__nv_bfloat16);
+  const size_t smem_dkv =
+      rows_smem + 3 * static_cast<size_t>(bwd_stat_rows(seq)) * sizeof(float);
+  if (smem_dkv > kMaxBlockSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_dq));
+      attention_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(rows_smem));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attention_bwd_dkv_kernel,
+    err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_dkv));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq + kQTile - 1) / kQTile, heads, batch);
+  const dim3 grid((seq + kBwdTile - 1) / kBwdTile, heads, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  attention_bwd_dq_kernel<<<grid, kAttnWarps * 32, smem_dq, s>>>(
+  attention_bwd_dq_kernel<HD><<<grid, kAttnWarps * 32, rows_smem, s>>>(
       static_cast<const __nv_bfloat16*>(qkv),
       static_cast<const __nv_bfloat16*>(gout),
       static_cast<__nv_bfloat16*>(dqkv), static_cast<float*>(stats), seq,
       heads, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dkv_kernel<<<grid, kAttnWarps * 32, smem_dkv, s>>>(
+  attention_bwd_dkv_kernel<HD><<<grid, kAttnWarps * 32, smem_dkv, s>>>(
       static_cast<const __nv_bfloat16*>(qkv),
       static_cast<const __nv_bfloat16*>(gout),
       static_cast<__nv_bfloat16*>(dqkv), static_cast<const float*>(stats),
       seq, heads, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_attention_bwd(const void* qkv, const void* gout, void* dqkv,
+                         void* stats, int batch, int seq, int heads,
+                         int head_dim, float scale, void* stream) {
+  if (batch <= 0 || seq <= 0) return 0;
+  if (head_dim == 64)
+    return launch_attention_bwd_hd<64>(qkv, gout, dqkv, stats, batch, seq,
+                                       heads, scale, stream);
+  if (head_dim == 128)
+    return launch_attention_bwd_hd<128>(qkv, gout, dqkv, stats, batch, seq,
+                                        heads, scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <int HD>
@@ -486,9 +573,6 @@ __global__ void __launch_bounds__(kGemmThreads)
   attn_out_tile<HD, kEpiResidual>(p, blockIdx.y, blockIdx.x * kOutQTile,
                                   smem);
 }
-
-// the most dynamic shared memory a block may have on sm_90
-constexpr size_t kMaxBlockSmem = 232448;
 
 template <int HD>
 int launch_attn_out(const AttnOutArgs& p, int batch, void* stream) {

@@ -1,0 +1,90 @@
+"""Host-side folder image dataset (tpudf/data/datasets.py, numpy only):
+the CIFAKE-style TRAIN/VAL/TEST x REAL|FAKE layout
+(cifake_binary_classifier.py:112-209, simple_classifier.py:65-114).
+
+Decode runs on the host with PIL in a thread pool; batches are uint8 NHWC
+numpy arrays for the device's preprocessing (data/pipeline.py). A file that
+fails to decode becomes a noise image, the reference's graceful
+degradation (hidf :243-247, simple_classifier.py:108-114). The JAX
+package's native C++ JPEG decoder (`tpudf/data/decode.py`) is not part of
+the port; PIL is the JAX package's own fallback. The video dataset and the
+Hugging Face SID_Set loader are not ported.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import os
+from typing import Iterator
+
+import numpy as np
+
+IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+
+
+def list_images(root: str) -> list[str]:
+    """Every image file under root (by extension), sorted."""
+    out = []
+    for dirpath, _, files in os.walk(root):
+        for f in sorted(files):
+            if f.lower().endswith(IMG_EXTS):
+                out.append(os.path.join(dirpath, f))
+    return sorted(out)
+
+
+def _decode_image(path: str, size: int) -> np.ndarray:
+    """uint8 (size, size, 3): PIL decode, EXIF orientation, RGB, bicubic
+    resize; a noise image (seeded by the path's hash) if that fails."""
+    try:
+        from PIL import Image, ImageOps
+        with Image.open(path) as im:
+            im = ImageOps.exif_transpose(im).convert("RGB")
+            im = im.resize((size, size), Image.BICUBIC)
+            return np.asarray(im, np.uint8)
+    except Exception:
+        return np.random.default_rng(abs(hash(path)) % 2**32).integers(
+            0, 256, (size, size, 3), np.uint8)
+
+
+class FolderImageDataset:
+    """TRAIN/VAL/TEST x REAL|FAKE folder dataset
+    (cifake_binary_classifier.py:112-209). label 1 = FAKE."""
+
+    def __init__(self, root: str, split: str = "train", image_size: int = 256,
+                 class_dirs=("REAL", "FAKE")):
+        split_dir = None
+        for cand in (split.upper(), split.lower(), split.capitalize(), ""):
+            p = os.path.join(root, cand) if cand else root
+            if all(os.path.isdir(os.path.join(p, c)) for c in class_dirs):
+                split_dir = p
+                break
+        if split_dir is None:
+            raise FileNotFoundError(f"no {class_dirs} dirs under {root}")
+        self.samples: list[tuple[str, int]] = []
+        for label, cdir in enumerate(class_dirs):
+            for f in list_images(os.path.join(split_dir, cdir)):
+                self.samples.append((f, label))
+        self.image_size = image_size
+
+    def __len__(self):
+        return len(self.samples)
+
+    def batches(self, batch_size: int, *, shuffle=False, seed=0,
+                drop_last=False, workers: int = 8
+                ) -> Iterator[dict[str, np.ndarray]]:
+        """{"pixels": uint8 (B, S, S, 3), "labels": f32 (B,), "paths"}."""
+        idx = np.arange(len(self.samples))
+        if shuffle:
+            np.random.default_rng(seed).shuffle(idx)
+        if drop_last:
+            idx = idx[:len(idx) - len(idx) % batch_size]
+        with cf.ThreadPoolExecutor(workers) as ex:
+            for s in range(0, len(idx), batch_size):
+                chunk = idx[s:s + batch_size]
+                paths = [self.samples[i][0] for i in chunk]
+                labels = np.asarray([self.samples[i][1] for i in chunk],
+                                    np.float32)
+                imgs = list(ex.map(
+                    lambda p: _decode_image(p, self.image_size), paths))
+                yield {"pixels": np.stack(imgs), "labels": labels,
+                       "paths": paths}

@@ -24,10 +24,18 @@ of 4304 padded to 4352 once, `siglip.tower_params`).
 states, frozen prefix, AdamW) with seeded random weights or a converted
 backbone, at the config's image size or another (`image_size`: the
 position table is interpolated, as the CLI's default large-384 at 256 px
-does).
+does). `build_binary_trainer(device, ...)` returns the binary classifier
+trainer of `tpudf/cli/train_binary.py` (a frozen tower, bf16 or static
+W8A8 with optional ToMe, or the tower trained with the head; the v5 or
+fast head; EMA, mixup, AdamW or Adafactor), the one function that the
+`train_binary` CLI and chip_smoke.py both drive.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, NamedTuple
 
 import torch
 from torch import nn
@@ -38,10 +46,12 @@ from tpudf_torch.core.precision import DEFAULT_POLICY, Policy, tree_map
 from tpudf_torch.models.freq_mlp import apply_freq_mlp, init_freq_mlp
 from tpudf_torch.models.fusion import apply_fusion_linear, init_fusion_linear
 from tpudf_torch.models.convert import _load_state_dict, from_hf_state_dict
-from tpudf_torch.models.heads import apply_binary_head, init_binary_head
+from tpudf_torch.models.heads import (apply_binary_head,
+                                     apply_fast_binary_head,
+                                     init_binary_head, init_fast_binary_head)
 from tpudf_torch.models.segformer import MTLConfig, init_mtl
 from tpudf_torch.models.siglip import (CONFIGS, SigLIPConfig, init_siglip,
-                                       siglip_forward)
+                                       siglip_forward, tower_params)
 from tpudf_torch.ops.fft_features import extract_freq_vector
 from tpudf_torch.ops.quant import (calibrate_siglip_act_scales,
                                    quantize_siglip_static)
@@ -51,7 +61,8 @@ from tpudf_torch.ops.tome import (DEPLOYED_PATCH_TOME_R, DEPLOYED_TOME_R,
 from tpudf_torch.serve.engine import DetectEngine
 from tpudf_torch.train.mtl import (make_mtl_eval_step, make_mtl_train_step,
                                    quantize_frozen_prefix)
-from tpudf_torch.train.steps import make_optimizer
+from tpudf_torch.train.steps import (TrainState, init_train_state,
+                                     make_binary_train_step, make_optimizer)
 
 ENTRY_KEYS = ("p_blend", "risk_probs", "z_sig", "z_freq")
 GRAY = (0.299, 0.587, 0.114)
@@ -235,3 +246,96 @@ def build_mtl_trainer(device="cuda", seed: int = 0,
         accum_steps=accum_steps, frozen_q=frozen_q, kernels=kernels)
     return (init_fn(params), step,
             make_mtl_eval_step(cfg, DEFAULT_POLICY, kernels))
+
+
+class BinaryTrainer(NamedTuple):
+    """What `build_binary_trainer` returns. step(state, backbone, batch,
+    generator) → (state, metrics) updates the state in place (`make_binary
+    _train_step`); logits(params, pixels) → (B,) evaluates a head (or
+    {"backbone", "head"} when the tower trains) without dropout, with the
+    trainer's ToMe, as the CLI's eval does."""
+    state: TrainState
+    backbone: Any              # the frozen tower as the step reads it
+    step: Callable
+    logits: Callable
+
+
+def build_binary_trainer(device="cuda", seed: int = 0,
+                         cfg_name: str = "base-256", head: str = "v5",
+                         int8_backbone: bool = False,
+                         tome_r: int | None = None,
+                         ema_decay: float | None = None,
+                         mixup_alpha: float = 0.0,
+                         train_backbone: bool = False, remat: bool = False,
+                         backbone_ckpt: str | None = None, lr: float = 1e-4,
+                         weight_decay: float = 1e-4, warmup_steps: int = 100,
+                         total_steps: int = 10_000, calib_pixels=None,
+                         kernels: KernelSet = KERNELS):
+    """The binary classifier trainer of `tpudf/cli/train_binary.py` on
+    `device`: the tower from `backbone_ckpt` (an HF state dict file,
+    `load_backbone`) or seeded random weights (seed), the head ("v5", or
+    "fast": the CiFake "small" head) from seed + 1, the default policy
+    (bf16 compute, f32 masters) and make_optimizer(lr, weight_decay,
+    warmup_steps, total_steps).
+
+    Frozen tower (the default): bf16 (`tower_params`), or with
+    int8_backbone statically quantised to W8A8 after calibrating its
+    activation scales on `calib_pixels` (SigLIP-normalised (N, S, S, 3);
+    default 16 seeded images), as the CLI calibrates on the first training
+    batch. tome_r: None no ToMe, -1 the deployed schedule (r = 96, floor
+    S/8: the CLI's bare --tome_r), else that r with the default floor.
+    train_backbone: the tower's f32 masters train with the head (remat:
+    each block recomputed in the backward); ToMe is refused there, as in
+    JAX. ema_decay: an EMA of the trainable parameters; mixup_alpha > 0:
+    mixup on each batch. Returns a `BinaryTrainer`."""
+    cfg = dataclasses.replace(CONFIGS[cfg_name], remat=remat)
+    policy = DEFAULT_POLICY
+    gen = torch.Generator().manual_seed(seed)
+    backbone = (load_backbone(backbone_ckpt, cfg) if backbone_ckpt
+                else init_siglip(gen, cfg))
+    hgen = torch.Generator().manual_seed(seed + 1)
+    head_p = (init_binary_head(hgen, cfg.width) if head == "v5"
+              else init_fast_binary_head(hgen, cfg.width, "small"))
+    backbone = tree_map(lambda t: t.to(device), backbone)
+    head_p = tree_map(lambda t: t.to(device) if torch.is_tensor(t) else t,
+                      head_p)
+    r, floor = 0, 0
+    if tome_r is not None:
+        r = DEPLOYED_TOME_R if tome_r < 0 else int(tome_r)
+        floor = deployed_floor(cfg.num_patches) if tome_r < 0 else 0
+    if train_backbone and (int8_backbone or r):
+        raise ValueError("int8_backbone and tome_r are frozen-backbone "
+                         "modes")
+    if int8_backbone:
+        if calib_pixels is None:
+            s = cfg.image_size
+            calib_pixels = (torch.rand((16, s, s, 3), generator=gen)
+                            - 0.5) / 0.5
+        with torch.no_grad():
+            scales = calibrate_siglip_act_scales(
+                backbone, cfg, calib_pixels.to(device), policy)
+            backbone = quantize_siglip_static(backbone, scales, cfg)
+    opt = make_optimizer(lr, weight_decay, warmup_steps, total_steps)
+    if train_backbone:
+        state = init_train_state({"backbone": backbone, "head": head_p}, opt,
+                                 ema_decay)
+        frozen = None
+    else:
+        state = init_train_state(head_p, opt, ema_decay)
+        frozen = tower_params(backbone, policy.compute_dtype)
+    step = make_binary_train_step(
+        cfg, opt, policy, head, ema_decay=ema_decay, mixup_alpha=mixup_alpha,
+        train_backbone=train_backbone, tome_r=r, tome_floor=floor,
+        kernels=kernels)
+    apply = apply_binary_head if head == "v5" else functools.partial(
+        apply_fast_binary_head, kernels=kernels)
+
+    @torch.no_grad()
+    def logits(params, pixels):
+        bb, hp = ((params["backbone"], params["head"]) if train_backbone
+                  else (frozen, params))
+        feats = siglip_forward(bb, pixels, cfg, policy, tome_r=r,
+                               tome_floor=floor, kernels=kernels)["pooled"]
+        return apply(hp, feats)
+
+    return BinaryTrainer(state, frozen, step, logits)

@@ -40,6 +40,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from tpudf_torch.convert import add_kernel_layout
 from tpudf_torch.core.precision import (DEFAULT_POLICY, Policy, cast_tree,
@@ -65,6 +66,7 @@ class SigLIPConfig:
     patch_size: int = 16
     ln_eps: float = 1e-6
     with_head: bool = True          # MAP attention-pooling head
+    remat: bool = False             # recompute each block in the backward
 
     @property
     def grid(self) -> int:
@@ -339,7 +341,8 @@ def _float_block(x, bp, cfg: SigLIPConfig, logit_bias, kernels):
     o = attention_qkv_vjp(qkv, cfg.heads, d_run, scale,
                           fwd=kernels.attention_qkv,
                           bwd=kernels.attention_qkv_bwd,
-                          logit_bias=logit_bias)
+                          logit_bias=logit_bias,
+                          jax_head_dim=None if d_run == d else d)
     x = kernels.linear_fused(o, out_w, bp["attn"]["out_b"], residual=x)
     return kernels.mlp_block_fused(x, bp["ln2"], bp["mlp"], cfg.ln_eps)
 
@@ -494,11 +497,16 @@ def _block_apply(x, bp, cfg: SigLIPConfig, logit_bias=None, emit_sumsq=False,
 def _compute_blocks(blocks, cdt):
     """The JAX tower casts every floating block leaf to the compute dtype
     in its graph. Float blocks are cast (no copy for leaves already in it,
-    as `tower_params` leaves them); int8 blocks keep f32 vectors, rounded
-    through the compute dtype, because their kernels read f32."""
+    as `tower_params` leaves them) and their MLP hidden padded to a 128
+    multiple (`_pad_float_mlp`, a no-op on `tower_params`' blocks): the
+    trainer's f32 masters keep JAX's shapes, autograd slices the gradient
+    of the padded copy back, and K14 takes the padded shapes (so400m-512:
+    4304 → 4352), where JAX sends the unaligned hidden to its XLA
+    `_reference`. Int8 blocks keep f32 vectors, rounded through the
+    compute dtype, because their kernels read f32."""
     if is_quantized(blocks):
         return round_tree(blocks, cdt)
-    return cast_tree(blocks, cdt)
+    return _pad_float_mlp(cast_tree(blocks, cdt))
 
 
 def _pad_float_mlp(blocks):
@@ -523,7 +531,8 @@ def tower_params(params, cdt):
     blocks cast to the compute dtype with their MLP hidden padded to a 128
     multiple (`_pad_float_mlp`), int8 blocks with the kernel layout. The
     outputs are those of the tree as given. The trainer's float blocks do
-    not come through here and stay unpadded."""
+    not come through here: `_compute_blocks` pads their compute copy in
+    the graph each step."""
     blocks = params["blocks"]
     if is_quantized(blocks):
         blocks = add_kernel_layout(blocks)
@@ -551,7 +560,12 @@ def siglip_forward(params, pixels, cfg: SigLIPConfig,
     so their outputs and taps carry no gradient (JAX's stop_gradient at the
     freeze boundary). frozen_blocks_q: a static-W8A8 block tree of exactly
     those k layers (train/mtl.quantize_frozen_prefix), run on K1/K2 in
-    their place. The serving callers run under torch.no_grad()."""
+    their place. The serving callers run under torch.no_grad().
+
+    cfg.remat: each block that runs with autograd is recomputed in the
+    backward (`torch.utils.checkpoint`, non-reentrant), as JAX wraps the
+    block in `jax.checkpoint`: activation memory for one more forward of
+    each block (its kernels launch twice)."""
     cdt = policy.compute_dtype
     k = max(0, min(int(stop_grad_below), cfg.layers))
     if tome_r and (output_hidden_states or k):
@@ -586,8 +600,13 @@ def siglip_forward(params, pixels, cfg: SigLIPConfig,
         lb = None if (sizes is None or i == 0) else torch.log(sizes)
         merging = sizes is not None and i < cfg.layers - 1 and sched[i] > 0
         with torch.set_grad_enabled(grad and i >= k):
-            out = _block_apply(x, bp, cfg, lb, emit_sumsq=merging,
-                               kernels=kernels)
+            if cfg.remat and torch.is_grad_enabled():
+                out = torch.utils.checkpoint.checkpoint(
+                    _block_apply, x, bp, cfg, lb, merging, kernels,
+                    use_reentrant=False)
+            else:
+                out = _block_apply(x, bp, cfg, lb, emit_sumsq=merging,
+                                   kernels=kernels)
         if merging:
             x, sumsq = out
             x, sizes = merge_step(x, sizes, sched[i], sumsq=sumsq)

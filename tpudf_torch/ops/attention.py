@@ -35,12 +35,22 @@ dV = bf16(P)^T g, dP = g V^T, D = rowsum(dP * P) with the unrounded P,
 dS = P * (dP - D) * scale, dQ = bf16(dS) K, dK = bf16(dS)^T Q, f32 sums,
 one bf16 rounding of each output. The CUDA kernels are in
 `csrc/attention.cu`: a pass over query tiles (row statistics, D and dQ)
-and a pass over key tiles (dK and dV), FlashAttention-2's split, because
-one head's (S, S) f32 P (256 KB at S = 256) does not fit an SM. It takes
-head_dim 64 and S <= 256 (base-256 training); at the MTL step's shape the
-card's bound is the bytes of qkv, g and dqkv.
+and a pass over key tiles (dK and dV), FlashAttention-2's split, with the
+other side's rows streamed through shared memory in 64-row tiles, because
+one head's (S, S) f32 P does not fit an SM. It takes head_dim 64 and 128
+(so400m's heads of 72 padded by the caller keep their own scale) and any
+S, ragged ones (a multiple of 8, not of 64) included.
 `attention_qkv_bwd_reference` is its twin, the TPU kernel's formulas in
-PyTorch.
+PyTorch. The route is JAX's (`_fused_qkv_with_vjp.bwd`,
+`attention_qkv_bwd_fits`): where the (S, S) f32 tile and the qkv rows fit
+12 MiB, lanes align, S % 8 == 0 and W % 128 == 0 (and
+TPUDF_PALLAS_ATTN_BWD is not "0") a CUDA tensor launches K10 and a CPU
+tensor takes its twin; elsewhere (so400m-512's padded heads at S = 1024,
+large-384 at 512 px) the gradient is the VJP of the forward's twin
+recomputed under autograd (`attention_qkv_bwd_twin_vjp`), the port's
+counterpart of JAX's XLA recompute, counted on the card as
+KERNEL_BWD_TWIN. A K10 that fails to build or launch raises; it never
+gives way to that route.
 
 Kernel 9b (`attention_qkv_int8`), the same attention with dynamically
 quantised int8 products, replaces `_attention_qkv_pallas(...,
@@ -83,6 +93,8 @@ backward recomputes the twin and applies its VJP (`twin_vjp`), as JAX's
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from tpudf_torch.core.backend import LAUNCHES
@@ -94,8 +106,9 @@ KERNEL_BWD = "attention_qkv_bwd"
 KERNEL_INT8 = "attention_qkv_int8"
 HEAD_DIMS = (64, 128)       # K1, K6, K9 and 9b
 MAX_SEQ = 1024
-BWD_HEAD_DIM = 64           # K10
-BWD_MAX_SEQ = 256
+KERNEL_BWD_TWIN = "attention_qkv_bwd_twin_vjp"  # JAX's XLA-recompute route
+BWD_HEAD_DIMS = (64, 128)   # K10
+BWD_FIT_BYTES = 12 * 1024 * 1024   # JAX's VMEM fit for the Pallas backward
 INT8_Q_BLOCK = 256          # JAX's q_block: 9b's aq is taken per block
 KERNEL_PLAIN = "attention"  # kernel 11, (B, H, S, D)
 KERNEL_BSHD = "attention_bshd"   # kernel 12, (B, S, H, D)
@@ -225,11 +238,13 @@ def attention_qkv_int8(qkv, heads, head_dim, scale=None):
     return _attention_qkv_int8_cuda(qkv, heads, head_dim, scale)
 
 
-def attention_qkv_bwd_reference(qkv, g, heads, head_dim, scale=None):
+def attention_qkv_bwd_reference(qkv, g, heads, head_dim, scale=None, *,
+                                jax_head_dim=None):
     """Plain twin of K10: (B, S, 3W) qkv and (B, S, W) cotangent g → dqkv
     (B, S, 3W) in qkv's dtype, laid out [dq | dk | dv]. P and dS are cast
     to qkv's dtype (bf16 on the card) only for the products that read
-    them, as the TPU kernel casts them."""
+    them, as the TPU kernel casts them. jax_head_dim: the wrapper's routing
+    argument, which the twin does not need."""
     scale = scale if scale is not None else head_dim ** -0.5
     b, s, w3 = qkv.shape
     w = w3 // 3
@@ -251,14 +266,39 @@ def attention_qkv_bwd_reference(qkv, g, heads, head_dim, scale=None):
                       for t in (dq, dk, dv)], dim=-1).to(dt)
 
 
+def attention_qkv_bwd_fits(s, w, head_dim):
+    """JAX's choice of the Pallas backward (`_fused_qkv_with_vjp.bwd`,
+    tpudf/ops/attention.py:388-393) for qkv (B, s, 3w): the (S, S) f32
+    tile plus the qkv and g rows fit 12 MiB, head_dim divides or is a
+    multiple of the 128 lanes, S % 8 == 0, W % 128 == 0, and
+    TPUDF_PALLAS_ATTN_BWD is not "0" (read per call, as JAX reads it per
+    trace). False: JAX's XLA-recompute VJP."""
+    enabled = os.environ.get("TPUDF_PALLAS_ATTN_BWD", "1") != "0"
+    fits = s * s * 4 + 2 * s * 3 * w * 2 + s * w * 2 <= BWD_FIT_BYTES
+    lane_ok = head_dim % 128 == 0 or 128 % head_dim == 0
+    return bool(enabled and fits and lane_ok and s % 8 == 0
+                and w % 128 == 0)
+
+
+def attention_qkv_bwd_twin_vjp(qkv, g, heads, head_dim, scale=None):
+    """dqkv as the VJP of the forward's twin (`attention_qkv_reference`)
+    recomputed under autograd: JAX's XLA route, `jax.vjp(_reference_qkv)`,
+    where its Pallas backward does not fit."""
+    scale = scale if scale is not None else head_dim ** -0.5
+    with torch.enable_grad():
+        x = qkv.detach().requires_grad_(True)
+        o = attention_qkv_reference(x, heads, head_dim, scale)
+        (d,) = torch.autograd.grad(o, x, g)
+    return d
+
+
 def _attention_qkv_bwd_cuda(qkv, g, heads, head_dim, scale):
     b, s, w3 = qkv.shape
     if (qkv.dtype != torch.bfloat16 or g.dtype != torch.bfloat16
-            or head_dim != BWD_HEAD_DIM or s > BWD_MAX_SEQ
+            or head_dim not in BWD_HEAD_DIMS
             or w3 != 3 * heads * head_dim or g.shape != (b, s, w3 // 3)):
         raise ValueError(f"K10 takes bf16 qkv (B, S, 3W) and g (B, S, W) "
-                         f"with head_dim {BWD_HEAD_DIM} and S <= "
-                         f"{BWD_MAX_SEQ}, got "
+                         f"with head_dim in {BWD_HEAD_DIMS}, got "
                          f"{qkv.dtype} {tuple(qkv.shape)}, {g.dtype} "
                          f"{tuple(g.shape)}, heads {heads} head_dim "
                          f"{head_dim}")
@@ -271,10 +311,22 @@ def _attention_qkv_bwd_cuda(qkv, g, heads, head_dim, scale):
     return dqkv
 
 
-def attention_qkv_bwd(qkv, g, heads, head_dim, scale=None):
-    """dqkv of K9 at qkv for the output cotangent g. CPU tensors take the
-    plain twin; CUDA tensors launch K10 or raise."""
+def attention_qkv_bwd(qkv, g, heads, head_dim, scale=None, *,
+                      jax_head_dim=None):
+    """dqkv of K9 at qkv for the output cotangent g, routed as JAX routes
+    it (`attention_qkv_bwd_fits`): where its Pallas backward runs, a CUDA
+    tensor launches K10 (or raises) and a CPU tensor takes K10's twin;
+    elsewhere the VJP of the forward's twin (counted on the card).
+    jax_head_dim: the head_dim of JAX's graph where the caller zero-padded
+    the heads (so400m's 72 → 128); JAX decides on the unpadded width and
+    head_dim, and at 72 its forward already leaves Pallas."""
     scale = scale if scale is not None else head_dim ** -0.5
+    b, s, _ = qkv.shape
+    d_jax = jax_head_dim or head_dim
+    if not attention_qkv_bwd_fits(s, heads * d_jax, d_jax):
+        if qkv.is_cuda:
+            LAUNCHES.hit(KERNEL_BWD_TWIN)
+        return attention_qkv_bwd_twin_vjp(qkv, g, heads, head_dim, scale)
     if not qkv.is_cuda:
         return attention_qkv_bwd_reference(qkv, g, heads, head_dim, scale)
     return _attention_qkv_bwd_cuda(qkv, g, heads, head_dim, scale)
@@ -284,24 +336,26 @@ class _FusedQKVAttention(torch.autograd.Function):
     """fwd(qkv) forward, bwd(qkv, g) backward; only qkv is saved."""
 
     @staticmethod
-    def forward(ctx, qkv, heads, head_dim, scale, fwd, bwd):
+    def forward(ctx, qkv, heads, head_dim, scale, fwd, bwd, bwd_kw):
         ctx.save_for_backward(qkv)
-        ctx.args = (heads, head_dim, scale, bwd)
+        ctx.args = (heads, head_dim, scale, bwd, bwd_kw)
         return fwd(qkv, heads, head_dim, scale)
 
     @staticmethod
     def backward(ctx, g):
         (qkv,) = ctx.saved_tensors
-        heads, head_dim, scale, bwd = ctx.args
-        return (bwd(qkv, g.contiguous(), heads, head_dim, scale),
-                None, None, None, None, None)
+        heads, head_dim, scale, bwd, bwd_kw = ctx.args
+        return (bwd(qkv, g.contiguous(), heads, head_dim, scale, **bwd_kw),
+                None, None, None, None, None, None)
 
 
 def attention_qkv_vjp(qkv, heads, head_dim, scale=None, *, fwd=attention_qkv,
-                      bwd=attention_qkv_bwd, logit_bias=None):
+                      bwd=attention_qkv_bwd, logit_bias=None,
+                      jax_head_dim=None):
     """The tower's differentiable attention: fwd (K9 or its twin) forward
-    and bwd (K10 or its twin) backward. With a logit bias (ToMe, serving
-    only) it calls fwd directly, as JAX sends biased attention to its XLA
+    and bwd (K10 or its twin, routed as JAX routes; `jax_head_dim` as in
+    `attention_qkv_bwd`) backward. With a logit bias (ToMe, serving only)
+    it calls fwd directly, as JAX sends biased attention to its XLA
     reference: the CPU twin is then differentiated by autograd, and a CUDA
     tensor that needs a gradient raises, since no kernel computes that
     gradient."""
@@ -311,7 +365,9 @@ def attention_qkv_vjp(qkv, heads, head_dim, scale=None, *, fwd=attention_qkv,
             raise ValueError("attention with a logit bias has no backward "
                              "kernel; it is a serving path")
         return fwd(qkv, heads, head_dim, scale, logit_bias=logit_bias)
-    return _FusedQKVAttention.apply(qkv, heads, head_dim, scale, fwd, bwd)
+    bwd_kw = {} if jax_head_dim is None else {"jax_head_dim": jax_head_dim}
+    return _FusedQKVAttention.apply(qkv, heads, head_dim, scale, fwd, bwd,
+                                    bwd_kw)
 
 
 # ---------------------------------------------------------- kernels 11, 12

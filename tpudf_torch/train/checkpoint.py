@@ -41,6 +41,23 @@ def restore_checkpoint(path: str, device="cpu"):
                       weights_only=True)
 
 
+def restore_train_state(path: str, device="cpu"):
+    """A binary trainer's checkpoint (`state._asdict() | {"epoch": e}`,
+    what the CLIs' save_best writes) with or without an EMA slot: the
+    restored dict (params, opt_state, ema — None when the run kept no EMA
+    —, step, epoch), tensors on `device`. torch.save keeps the tree's
+    structure, so no template is needed: JAX's version tries templates
+    with and without the slot (inference_ai_human_images.py:804-827)."""
+    if not os.path.exists(path):         # genuine I/O problems surface
+        raise FileNotFoundError(path)
+    state = restore_checkpoint(path, device)
+    if not isinstance(state, dict) or not {"params", "opt_state",
+                                           "step"} <= state.keys():
+        raise ValueError(f"cannot restore train state from {path}")
+    state.setdefault("ema", None)
+    return state
+
+
 def load_metrics(path: str) -> dict | None:
     p = path + ".metrics.json"
     if os.path.exists(p):

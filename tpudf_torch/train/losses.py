@@ -7,11 +7,14 @@ Dice and their combinations. The morphology is grayscale max/min pooling
 over the last two axes with ±inf padding, as JAX's `reduce_window`; a
 window holding tied maxima sends its gradient to the first of them in
 row-major order (`F.max_pool2d`'s rule, and XLA's select-and-scatter's).
-`mixup` belongs to the binary trainer and is not ported yet.
+JAX's `mixup` (the binary trainer's) is split into its draws
+(`mixup_draws`, from an explicit torch.Generator) and a pure apply
+(`mixup_apply`), so that a test can feed JAX's draws to the apply.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -142,3 +145,22 @@ def dice_iou_from_logits(logits, targets, thr=0.5, eps=1e-6):
     union = torch.sum(p + targets - p * targets, axes) + eps
     dice = 2 * inter / (torch.sum(p, axes) + torch.sum(targets, axes) + eps)
     return dice, inter / union, p
+
+
+def mixup_draws(generator: torch.Generator, n: int, alpha=0.2):
+    """The draws of JAX's `mixup`: (lam ~ Beta(alpha, alpha) as a Python float,
+    a permutation of n on the generator's device). torch samples a Beta
+    only from its global generator, so lam comes from a numpy generator
+    seeded by one draw of `generator`."""
+    dev = generator.device
+    seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator,
+                             device=dev))
+    lam = float(np.random.default_rng(seed).beta(alpha, alpha))
+    return lam, torch.randperm(n, generator=generator, device=dev)
+
+
+def mixup_apply(x, y, lam, perm):
+    """Mixup (cifake_binary_classifier.py training loop): lam · x + (1 −
+    lam) · x[perm], and the same of the labels."""
+    return lam * x + (1 - lam) * x[perm], lam * y + (1 - lam) * y[perm]
+
