@@ -67,6 +67,13 @@ back to the CPU or to a twin):
      dropped, the ragged keys unmasked); kernel, twin and SDPA's backward
      timed; JAX's route at so400m's (16, 1024, 6144), d = 128: the twin's
      VJP, no K10 launch;
+  2e. the probes' kernels 15, 16 and 17 (`probe_checks`, tpudf_torch/probes),
+     each at its JAX probe's full shape against its twin on the same
+     seeded inputs, with one launch a call (17: no amax pass) and the
+     tolerances of tests/test_torch_port_probes.py (PROBE_TOL), each check
+     shown to fail on a planted fault; k_pure also bit-equal to
+     torch._int_mm; then each probe's main() (its timing lines), whose
+     launches are the kernels line's count;
   3. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      (a) the detect core (build("cuda", seed=0), base-256, W8A8 + ToMe),
@@ -183,6 +190,14 @@ REPLACES = {
     "K9b": "tpudf/ops/attention.py:209",
     "K11": "tpudf/ops/attention.py:53",
     "K12": "tpudf/ops/attention.py:108",
+    "15-bf16": "scripts/micro_pallas_int8.py:21",
+    "15-int8": "scripts/micro_pallas_int8.py:27",
+    "16-full": "scripts/micro_epilogue.py:28",
+    "16-nogelu": "scripts/micro_epilogue.py:39",
+    "16-bf16_epi": "scripts/micro_epilogue.py:48",
+    "16-noquant": "scripts/micro_epilogue.py:59",
+    "16-pure": "scripts/micro_epilogue.py:67",
+    "17": "scripts/micro_attn_static.py:79",
 }
 SOURCES = {
     "K1": "tpudf_torch/csrc/attention.cu",
@@ -200,6 +215,14 @@ SOURCES = {
     "K9b": "tpudf_torch/csrc/attention_i8.cu",
     "K11": "tpudf_torch/csrc/attention_plain.cu",
     "K12": "tpudf_torch/csrc/attention_plain.cu",
+    "15-bf16": "tpudf_torch/csrc/bf16_gemm.cu",
+    "15-int8": "tpudf_torch/csrc/probe_gemm.cu",
+    "16-full": "tpudf_torch/csrc/probe_gemm.cu",
+    "16-nogelu": "tpudf_torch/csrc/probe_gemm.cu",
+    "16-bf16_epi": "tpudf_torch/csrc/probe_gemm.cu",
+    "16-noquant": "tpudf_torch/csrc/int8_gemm.cu",
+    "16-pure": "tpudf_torch/csrc/int8_gemm.cu",
+    "17": "tpudf_torch/csrc/attention_i8.cu",
 }
 # dense peaks of one H100 SXM (NVIDIA's data sheet) and its memory rate
 PEAK = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
@@ -379,19 +402,23 @@ class Records:
         self.rows = {}
 
     def add(self, key, name, shape, err, kernel_fn, twin_fn, work,
-            library=None, iters=20, twin_iters=None, device_time=False):
+            library=None, iters=20, twin_iters=None, device_time=False,
+            nearest=None):
         """work: (ops by type, bytes); library: {label: fn} of PyTorch
         calls, one entry if one call computes the whole function, else
         one per part (labelled part times); a float entry is a time the
         caller measured itself. device_time: also the kernel's device time
         by the profiler (CUDA events time the host's launches where those
-        take longer than the kernel)."""
+        take longer than the kernel). nearest: {label: fn} of one PyTorch
+        call that computes a neighbouring function (kept apart from
+        library_ms)."""
         import torch
         ms, plain = paired_ms(kernel_fn, twin_fn, iters, twin_iters)
         dev_ms = device_ms(kernel_fn) if device_time else None
         b_ms, b_by = bound(*work)
         lib = {k: f if isinstance(f, float) else cuda_ms(f, iters)
                for k, f in (library or {}).items()}
+        near = {k: cuda_ms(f, iters) for k, f in (nearest or {}).items()}
         torch.cuda.synchronize()
         row = self.rows.setdefault(key, {
             "name": name, "route": "cuda", "source": SOURCES[key],
@@ -405,8 +432,11 @@ class Records:
             case["library_ms"] = next(iter(lib.values()))
         elif lib:
             case["library_part_ms"] = lib
+        if near:
+            case["nearest_library_ms"] = near
         row["cases"].append(case)
-        libs = "  ".join(f"{k} {v:.4f} ms" for k, v in lib.items())
+        libs = "  ".join(f"{k} {v:.4f} ms" for k, v in {**lib,
+                                                        **near}.items())
         dev = "" if dev_ms is None else f" (device {dev_ms:.4f} ms)"
         print(f"  {key} {name} {shape}: max|Δ| {err:.3e}  kernel {ms:.4f} ms"
               f"{dev}  twin {plain:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
@@ -1985,6 +2015,191 @@ def k10_long_checks(rec, dev, card):
     torch.cuda.empty_cache()
 
 
+# the probes' kernels (phase 2e): the tolerances of
+# tests/test_torch_port_probes.py, (bf16 steps, atol) against the twin;
+# on the card the bf16 product sums 768 products (the CPU test 128), so
+# its atol is 2e-5 (f32 sums in another order on the tensor cores, at an
+# output that cancels to near 0). Kernel 17: 9b's card rule (at most
+# ATTN_SHARE of the outputs more than a bf16 step apart, all within atol
+# 1e-2 + rtol 2^-7). k_pure: bit-equal.
+PROBE_TOL = {"15-bf16": (1, 2e-5), "15-int8": (1, 0.0),
+             "16-full": (1, 1e-6), "16-nogelu": (1, 0.0),
+             "16-bf16_epi": (2, 0.0), "16-noquant": (1, 0.0)}
+
+
+def probe_agrees(key, got, ref):
+    """(within the key's tolerance, share more than one bf16 step apart,
+    max |Δ|)."""
+    import torch
+    if key == "16-pure":
+        same = bool(torch.equal(got, ref))
+        return same, 0.0 if same else 1.0, max_abs(got, ref)
+    share = share_apart(got, ref)
+    if key == "17":
+        err = (got.float() - ref.float()).abs()
+        ok = bool((err <= 1e-2 + 2 ** -7 * ref.float().abs()).all())
+        return ok and share <= ATTN_SHARE, share, max_abs(got, ref)
+    steps, atol = PROBE_TOL[key]
+    a, b = got.float(), ref.float()
+    lim = steps * bf16_step(torch.maximum(a.abs(), b.abs())) + atol
+    ok = bool(((a - b).abs() <= lim).all() and torch.isfinite(a).all())
+    return ok, share, max_abs(got, ref)
+
+
+def probe_checks(rec, dev, card):
+    """Phase 2e: kernels 15, 16 and 17 (`tpudf_torch/probes`) at their JAX
+    probes' full shapes against their twins on the probes' seeded inputs:
+    one launch a call (17: no amax pass), the tolerances of PROBE_TOL,
+    each check shown to fail on a planted fault (15: the twin's last
+    32-deep K slice dropped, x quantised at amax 3.9; 16: GELU dropped,
+    the bias dropped, the 4/127 factor in k_bf16_epi's chain, act 3.9,
+    torch._int_mm on x with its last 64 columns zeroed; 17: aq = 3.1),
+    k_pure bit-equal to torch._int_mm; kernel, twin and library timed. Then
+    each probe's main(), counts set to 0 just before it: its launches of
+    the probe's kernels must equal the calls it made, and are returned as
+    the kernels line's counts."""
+    import torch
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.probes import common
+    from tpudf_torch.probes import micro_attn_static as p17
+    from tpudf_torch.probes import micro_epilogue as p16
+    from tpudf_torch.probes import micro_pallas_int8 as p15
+    print("phase 2e: kernels 15-17 (the probes) vs twins", flush=True)
+    act = common.act_scale(dev)
+
+    def held(key, label, counter, call, twin, faults, work, **timing):
+        LAUNCHES.reset()
+        got = call()
+        torch.cuda.synchronize()
+        check_launches(label, LAUNCHES.snapshot(), {counter: 1})
+        ref = twin()
+        ok, share, err = probe_agrees(key, got, ref)
+        caught = {}
+        for name, fault in faults.items():
+            caught[name] = not probe_agrees(key, got, fault())[0]
+            torch.cuda.empty_cache()
+        print(f"  {key} {label}: max|Δ| {err:.3e}, share > 1 bf16 step "
+              f"{share:.3e}, within tolerance {ok}; planted faults: "
+              + ", ".join(f"{k} {'caught' if c else 'MISSED'}"
+                          for k, c in caught.items()) + f" [{card}]",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{key} {label} vs twin: max|Δ| {err:.3e},"
+                                 f" share {share:.3e}")
+        if not all(caught.values()):
+            raise AssertionError(f"{key} {label}: the check misses "
+                                 f"{[k for k, c in caught.items() if not c]}")
+        rec.add(key, label, tuple(got.shape), err, call, twin, work,
+                **timing)
+        del got, ref
+        torch.cuda.empty_cache()
+
+    # ---- 15 at (16384, 768, 3072)
+    t = p15.inputs(dev)
+    x, w_bf, wt, s = t["x"], t["w_bf"], t["wt"], t["s"]
+    m, k, n = p15.M, p15.K, p15.N
+    out_bytes = m * n * 2                    # the bf16 output
+    held("15-bf16", "bf16_matmul", p15.KERNEL_BF16,
+         lambda: p15.bf16_matmul(x, w_bf),
+         lambda: p15.bf16_matmul_reference(x, w_bf),
+         {"last K slice dropped": lambda: p15.bf16_matmul_reference(
+             x[:, :-32], w_bf[:-32])},
+         ({"bf16": 2 * m * k * n}, nbytes(x, w_bf) + out_bytes),
+         library={"torch.matmul bf16": lambda: torch.matmul(x, w_bf)},
+         iters=20, twin_iters=5)
+
+    def q_at(amax):
+        return ((common.int_dot(common.quant_codes(x, 127.0 / amax), wt)
+                 .float() * common.C_ACT) * s).to(torch.bfloat16)
+
+    held("15-int8", "int8_matmul_staticq", p15.KERNEL_INT8,
+         lambda: p15.int8_matmul_staticq(x, wt, s, act=act),
+         lambda: p15.int8_matmul_staticq_reference(x, wt, s),
+         {"amax 3.9": lambda: q_at(3.9)},
+         ({"int8": 2 * m * k * n}, nbytes(x, wt, s) + out_bytes),
+         library=p15.library_parts(x, wt, s), iters=20, twin_iters=5)
+    del t, x, w_bf, wt, s
+    torch.cuda.empty_cache()
+
+    # ---- 16 at (65536, 768, 3072)
+    t = p16.inputs(dev)
+    wt, s, b = t["wt"], t["s"], t["b"]
+    m, k, n = p16.M, p16.K, p16.N
+    xi = t["x_i8"]
+    bf = torch.bfloat16
+
+    def twin_of(v, x=None, **kw):
+        return lambda: p16.fc1_matmul_reference(
+            v, p16.x_of(v, t) if x is None else x, wt, s, b, **kw)
+
+    xi_cut = xi.clone()
+    xi_cut[:, -64:] = 0
+    faults = {
+        "full": {"GELU dropped": twin_of("nogelu")},
+        "nogelu": {"bias dropped": lambda: p16.fc1_matmul_reference(
+            "nogelu", t["x_bf"], wt, s, torch.zeros_like(b))},
+        "bf16_epi": {"4/127 factor added": lambda: p16.epilogue(
+            "bf16_epi", common.int_dot(common.quant_codes(
+                t["x_bf"], common.INV_ACT), wt), (s * common.C_ACT), b)},
+        "noquant": {"act 3.9": lambda: (common.int_dot(xi, wt).float() * (
+            common.f32(3.9 / 127.0) * s) + b).to(bf)},
+        "pure": {"x's last 64 columns zeroed": lambda: torch._int_mm(
+            xi_cut, wt.t())}}
+    for v in p16.VARIANTS:
+        x = p16.x_of(v, t)
+        ins = (x, wt) if v == "pure" else (x, wt, s, b)
+        out_bytes = m * n * (4 if v == "pure" else 2)
+        held(f"16-{v}", f"fc1_matmul {v}", p16.KERNELS[v],
+             lambda: p16.fc1_matmul(v, x, wt, s, b, act=act), twin_of(v),
+             faults[v], ({"int8": p16.OPS}, nbytes(*ins) + out_bytes),
+             library=p16.library(v, t), iters=10, twin_iters=3)
+        if v == "pure":
+            got = p16.fc1_matmul(v, x, wt, s, b)
+            same = bool(torch.equal(got, torch._int_mm(x, wt.t())))
+            print(f"  16-pure bit-equal to torch._int_mm: {same} [{card}]",
+                  flush=True)
+            if not same:
+                raise AssertionError("16-pure differs from torch._int_mm")
+            del got
+        torch.cuda.empty_cache()
+    del t, wt, s, b, xi, xi_cut, faults
+    torch.cuda.empty_cache()
+
+    # ---- 17 at so400m-pad (8, 1024, 6144), 16 heads of 128
+    name, b, s, w, d = p17.GEOMETRIES[0]
+    heads, scale = w // d, d ** -0.5
+    g = torch.Generator(device=dev).manual_seed(0)
+    qkv = torch.randn((b, s, 3 * w), generator=g, device=dev).to(bf)
+    held("17", "attention_qkv_int8_static", p17.KERNEL,
+         lambda: p17.attention_qkv_int8_static(qkv, heads, d, scale),
+         lambda: p17.attention_qkv_int8_static_reference(qkv, heads, d,
+                                                         scale),
+         {"aq 3.1": lambda: p17.attention_qkv_int8_static_reference(
+             qkv, heads, d, scale, aq=3.1)},
+         ({"int8": 4 * b * heads * s * s * d}, nbytes(qkv) + b * s * w * 2),
+         nearest={"SDPA bf16 (nearest)": p17.sdpa_bf16(qkv, heads, d,
+                                                       scale)},
+         iters=20, twin_iters=3)
+    del qkv
+    torch.cuda.empty_cache()
+
+    # ---- each probe's main(): its lines, and the launches of its run
+    launches = {}
+    keys = {p15.KERNEL_BF16: "15-bf16", p15.KERNEL_INT8: "15-int8",
+            p17.KERNEL: "17",
+            **{c: f"16-{v}" for v, c in p16.KERNELS.items()}}
+    for probe in (p17, p15, p16):
+        LAUNCHES.reset()
+        made = probe.main()["launches"]
+        torch.cuda.synchronize()
+        seen = LAUNCHES.snapshot()
+        check_launches(f"{probe.__name__}.main()",
+                       {c: seen.get(c, 0) for c in made}, made)
+        launches.update({keys[c]: n for c, n in made.items()})
+        torch.cuda.empty_cache()
+    return launches
+
+
 def mtl_batches_at(dev, size, b, steps, seed):
     """Seeded MTL batches of b images of size x size: pixels in [-1, 1],
     3-class labels, one square mask each, every other one flagged (so that
@@ -3079,6 +3294,7 @@ def main() -> int:
     large_kernel_checks(rec, dev, card)
     plain_attention_checks(rec, dev, card)
     k10_long_checks(rec, dev, card)
+    probe_launches = probe_checks(rec, dev, card)
 
     # ---- 3a. the detect core
     print("phase 3: paths", flush=True)
@@ -3437,6 +3653,7 @@ def main() -> int:
                     else weights["launches"][("w3", LARGE["large-384"][0])]
                     if k in ("K11", "K12") else engine_a)[n]
                 for k, n in names.items()}
+    launches.update(probe_launches)      # 15-17: each probe's main() run
     print(rec.line(launches))
     print(card)
     print(json.dumps({"ok": True, "device": {

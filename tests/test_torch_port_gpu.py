@@ -4,11 +4,13 @@ the f32 LN may round the other way), and at the large backbones' longer
 sequences and wider heads (K1, K6, K9 and 9b at S = 576 / 1024, head_dim
 64 / 128, the LN passes at width 1152), kernels 11 and 12 (plain attention
 in both layouts, ragged keys, Sq != Skv, heads of 72, bf16 and f32, and
-the gradient through kernel 11), both serving engines and one MTL train step
-against the same parameters through the twins (the main path's shapes are
-checked by chip_smoke.py). Marked `gpu`; each test skips inside its body when no card
-is visible, so every worker collects the same tests. This file imports no
-JAX, so it also runs where JAX is not installed:
+the gradient through kernel 11), the probes' kernels 15, 16 and 17 (the
+tolerances of tests/test_torch_port_probes.py; 17 by 9b's card rule), both
+serving engines and one MTL train step against the same parameters through
+the twins (the main path's shapes are checked by chip_smoke.py). Marked
+`gpu`; each test skips inside its body when no card is visible, so every
+worker collects the same tests. This file imports no JAX, so it also runs
+where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 """
@@ -19,6 +21,9 @@ import torch
 
 from tpudf_torch.ops import (attention, int8_block, layernorm, linear, mlp,
                              quant, srm)
+from tpudf_torch.probes import micro_attn_static as p17
+from tpudf_torch.probes import micro_epilogue as p16
+from tpudf_torch.probes import micro_pallas_int8 as p15
 
 W, HEADS, HD, INTER = 128, 2, 64, 256
 
@@ -588,3 +593,69 @@ def test_plain_attention_gradient_and_range_on_card():
     LAUNCHES.reset()
     attention.attention(long_q, long_q[:, :, :8], long_q[:, :, :8])
     assert LAUNCHES.snapshot() == {}
+
+
+_PROBES = ["15-bf16", "15-int8"] + [f"16-{v}" for v in p16.VARIANTS] + ["17"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", _PROBES)
+def test_probe_kernels_match_twins_on_card(kernel):
+    """Kernels 15-17 at (M, K, N) = (1024, 128, 256) and (2, 300, 768) with
+    heads of 128, one launch each: within one bf16 step of the twin (15's
+    bf16 product + 1e-6, k_full + 1e-6, k_bf16_epi two steps), k_pure
+    bit-equal to the twin and to torch._int_mm, 17 with at most 1e-2 of
+    its outputs a bf16 step apart and all within atol 1e-2 + rtol 2^-7."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpudf_torch.core.backend import LAUNCHES
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    m, k, n = 1024, 128, 256
+    x_bf = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    x_i8 = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                         dtype=torch.int8)
+    wt = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    s = torch.rand((n,), generator=g, device=dev) * 0.01 + 0.01
+    b = torch.rand((n,), generator=g, device=dev)
+    steps, atol = 1, 0.0
+    LAUNCHES.reset()
+    if kernel == "17":
+        qkv = torch.randn((2, 300, 768), generator=g, device=dev).to(
+            torch.bfloat16)
+        got = p17.attention_qkv_int8_static(qkv, 2, 128)
+        ref = p17.attention_qkv_int8_static_reference(qkv, 2, 128)
+        counter = p17.KERNEL
+    elif kernel == "15-bf16":
+        w = (torch.randn((k, n), generator=g, device=dev) * 0.03).to(
+            torch.bfloat16)
+        got, ref = p15.bf16_matmul(x_bf, w), p15.bf16_matmul_reference(x_bf, w)
+        counter, atol = p15.KERNEL_BF16, 1e-6
+    elif kernel == "15-int8":
+        got = p15.int8_matmul_staticq(x_bf, wt, s)
+        ref = p15.int8_matmul_staticq_reference(x_bf, wt, s)
+        counter = p15.KERNEL_INT8
+    else:
+        v = kernel[3:]
+        x = x_bf if v in p16.QUANTISED else x_i8
+        got = p16.fc1_matmul(v, x, wt, s, b)
+        ref = p16.fc1_matmul_reference(v, x, wt, s, b)
+        counter = p16.KERNELS[v]
+        steps, atol = {"full": (1, 1e-6), "bf16_epi": (2, 0.0)}.get(
+            v, (1, 0.0))
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {counter: 1}
+    if kernel == "16-pure":
+        assert torch.equal(got, ref)
+        assert torch.equal(got, torch._int_mm(x_i8, wt.t()))
+        return
+    a, r = got.float(), ref.float()
+    if kernel == "17":
+        assert _share_apart(a, r) <= 1e-2
+        torch.testing.assert_close(a, r, atol=1e-2, rtol=2 ** -7)
+        return
+    m_ab = torch.maximum(a.abs(), r.abs()).clamp_min(1e-30)
+    lim = steps * torch.exp2(torch.floor(torch.log2(m_ab)) - 7) + atol
+    assert bool(((a - r).abs() <= lim).all())

@@ -14,7 +14,10 @@ Layering:
   serve/     the batched detection engine (53-view and fast paths)
   train/     losses, AdamW, the multi-task (MTL) step, loops, checkpoints
   eval/      metrics (numpy)
-  cli/       the MTL trainer CLI (`python -m tpudf_torch.cli.train_mtl`)
+  cli/       the MTL and binary trainer CLIs (`python -m
+             tpudf_torch.cli.train_mtl`, `train_binary`)
+  probes/    kernels 15-17, the JAX probe scripts' kernels, each a runnable
+             module (`python -m tpudf_torch.probes.micro_epilogue`)
   convert.py numpy copy of a tpudf params pytree -> tensors of this package
   entry.py   the detect-core main path (`build`, `DetectCore`), the
              serving engine as the inference CLI builds it (`build_engine`)

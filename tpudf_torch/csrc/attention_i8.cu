@@ -30,6 +30,17 @@
 // share, and V is stored transposed with its keys in the order in which
 // a thread holds its scores (`vt_pos`). Bound at the reference route's
 // (8, 1024, 6144): the bytes of qkv and the output.
+//
+// Kernel 17: the same main pass with static scales, replacing
+// scripts/micro_attn_static.py's `kernel` (`static_variant` -> `build` ->
+// `fn`, `_one_head` at lines 40-59), a probe of whether fixed per-tensor
+// scales aq = ak = av (3.0 there) beat the amax pass. One launch, no amax
+// table: the five constants 127 / aq, 127 / ak, 127 / av,
+// (aq * ak) / 127^2 * scale and av / 127^2 come in as arguments, computed
+// by the caller in double and rounded once to f32, as JAX rounds the probe's
+// Python-float constants. The probe runs only at head_dim 128 (its
+// pl.multiple_of(h * d, 128) slice), so only that width is built. Bound at
+// its (8, 1024, 6144): the bytes of qkv and the output.
 #include "attn_tile.cuh"
 
 namespace tpudf {
@@ -37,6 +48,13 @@ namespace tpudf {
 constexpr int kI8QTile = 64;            // query rows per block: 4 warps
 constexpr int kI8Warps = 4;
 constexpr int kVtLd = kKeyTile + 16;    // bytes of a transposed V row
+
+// the main pass's f32 constants: 127 / aq, 127 / ak, 127 / av, the score
+// factor (aq * ak) / 127^2 * scale and av / 127^2 (kernel 17 passes them;
+// 9b derives them from the amax table)
+struct I8AttnScales {
+  float inv_q, inv_k, inv_v, fac, cv;
+};
 
 // bytes of a q8 / k8 row in shared memory (16 bytes of padding keep the
 // lds32 of 8 rows x 4 lanes on distinct banks)
@@ -159,29 +177,36 @@ __device__ __forceinline__ void scores_i8(float (&s)[kKeyTile / 8][4],
   }
 }
 
-template <int HD>
+// kStatic: the scales are `st` (kernel 17; amax and qb unused); else
+// from the amax table (9b)
+template <int HD, bool kStatic>
 __global__ void __launch_bounds__(kI8Warps * 32)
     attention_i8_kernel(const __nv_bfloat16* __restrict__ qkv,
                         const float* __restrict__ amax,
                         __nv_bfloat16* __restrict__ out, int seq, int heads,
-                        int qb, float scale) {
+                        int qb, float scale, I8AttnScales st) {
   __shared__ __align__(16) int8_t q8s[kI8QTile * i8_ld<HD>()];
   __shared__ __align__(16) int8_t k8s[kKeyTile * i8_ld<HD>()];
   __shared__ __align__(16) int8_t v8t[HD * kVtLd];
   const int wa = heads * HD;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kI8QTile;
-  const int nqb = (seq + qb - 1) / qb;
-  const float* am = amax + (static_cast<size_t>(b) * heads + h) * (nqb + 2);
-  const float aq = am[q0 / qb], ak = am[nqb], av = am[nqb + 1];
-  const float fac =
-      __fmul_rn(__fdiv_rn(__fmul_rn(aq, ak), 16129.0f), scale);
-  const float inv_k = __fdiv_rn(127.0f, ak), inv_v = __fdiv_rn(127.0f, av);
+  if constexpr (!kStatic) {
+    const int nqb = (seq + qb - 1) / qb;
+    const float* am =
+        amax + (static_cast<size_t>(b) * heads + h) * (nqb + 2);
+    const float aq = am[q0 / qb], ak = am[nqb], av = am[nqb + 1];
+    st.fac = __fmul_rn(__fdiv_rn(__fmul_rn(aq, ak), 16129.0f), scale);
+    st.inv_q = __fdiv_rn(127.0f, aq);
+    st.inv_k = __fdiv_rn(127.0f, ak);
+    st.inv_v = __fdiv_rn(127.0f, av);
+    st.cv = __fdiv_rn(av, 16129.0f);
+  }
+  const float fac = st.fac, inv_k = st.inv_k, inv_v = st.inv_v;
   const size_t row3 = static_cast<size_t>(3) * wa;
   const __nv_bfloat16* base =
       qkv + static_cast<size_t>(b) * seq * row3 + h * HD;
 
-  quant_rows_i8<HD, false>(q8s, base, row3, q0, kI8QTile, seq,
-                           __fdiv_rn(127.0f, aq));
+  quant_rows_i8<HD, false>(q8s, base, row3, q0, kI8QTile, seq, st.inv_q);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -217,7 +242,7 @@ __global__ void __launch_bounds__(kI8Warps * 32)
   for (int r = 0; r < 2; ++r) {
     const float ap = __fadd_rn(__fdiv_rn(1.0f, sum[r]), 1e-20f);
     inv_ap[r] = __fdiv_rn(127.0f, ap);
-    o_scale[r] = __fmul_rn(ap, __fdiv_rn(av, 16129.0f));
+    o_scale[r] = __fmul_rn(ap, st.cv);
   }
 
   // ---- pass 2: p8 = round(p * 127 / ap), o += p8 . v8 (int32)
@@ -287,10 +312,10 @@ int launch_attention_i8(const void* qkv, void* amax, void* out, int batch,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq + kI8QTile - 1) / kI8QTile, heads, batch);
-  attention_i8_kernel<HD><<<grid, kI8Warps * 32, 0, s>>>(
+  attention_i8_kernel<HD, false><<<grid, kI8Warps * 32, 0, s>>>(
       static_cast<const __nv_bfloat16*>(qkv),
       static_cast<const float*>(amax), static_cast<__nv_bfloat16*>(out), seq,
-      heads, qb, scale);
+      heads, qb, scale, I8AttnScales{});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -316,4 +341,26 @@ TPUDF_API int tpudf_attention_i8dyn(const void* qkv, void* amax, void* out,
     return launch_attention_i8<128>(qkv, amax, out, batch, seq, heads, qb,
                                     scale, s);
   return cudaErrorInvalidValue;
+}
+
+// 17: qkv (B, S, 3 * heads * 128) bf16 -> out (B, S, heads * 128) bf16
+// with static scales: inv_q = 127 / aq, inv_k, inv_v likewise, fac = (aq *
+// ak) / 127^2 * scale, cv = av / 127^2, each rounded once to f32 by the
+// caller; S <= kMaxSeq. The probe pads queries to its 256-row blocks; no
+// row depends on another's block here, so nothing is padded.
+TPUDF_API int tpudf_attention_i8_static(const void* qkv, void* out, int batch,
+                                        int seq, int heads, int head_dim,
+                                        float inv_q, float inv_k,
+                                        float inv_v, float fac, float cv,
+                                        void* stream) {
+  using namespace tpudf;
+  if (batch <= 0 || seq <= 0) return 0;
+  if (seq > kMaxSeq || head_dim != 128) return cudaErrorInvalidValue;
+  const dim3 grid((seq + kI8QTile - 1) / kI8QTile, heads, batch);
+  attention_i8_kernel<128, true>
+      <<<grid, kI8Warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(qkv), nullptr,
+          static_cast<__nv_bfloat16*>(out), seq, heads, 0, 0.0f,
+          I8AttnScales{inv_q, inv_k, inv_v, fac, cv});
+  return static_cast<int>(cudaGetLastError());
 }

@@ -18,9 +18,12 @@
 // QKV, fc1 and fc2 products are bound by tensor-core operations, the
 // out-proj (K = N = 768) nearly by bytes; wgmma + TMA are later work.
 //
+// Kernel 15's bf16 product, scripts/micro_pallas_int8.py `bf16_kernel`
+// (bf16(x . w) with f32 sums, no bias), is MODE 0 with a null bias.
+//
 // Epilogues (per output element, f = acc + bias[n] in f32, the result
 // rounded once to bf16, as the Pallas kernels do):
-//   MODE 0  out = bf16(f)                          (QKV)
+//   MODE 0  out = bf16(f)                          (QKV; bias may be null)
 //   MODE 1  out = bf16(gelu_tanh(f))               (fc1 -> hidden)
 //   MODE 2  out = bf16(f + residual)               (out-proj, fc2)
 #include "common.cuh"
@@ -141,7 +144,11 @@ __global__ void __launch_bounds__(kHThreads)
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
       const int col = n0 + wn * 32 + ni * 8 + t * 2;
-      const float b0 = p.bias[col], b1 = p.bias[col + 1];
+      // MODE 0 may run without a bias (kernel 15's bf16 product): f32
+      // acc + 0 is acc
+      const bool no_bias = MODE == 0 && p.bias == nullptr;
+      const float b0 = no_bias ? 0.0f : p.bias[col];
+      const float b1 = no_bias ? 0.0f : p.bias[col + 1];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + wm * 64 + mi * 16 + g + h * 8;
@@ -184,7 +191,8 @@ TPUDF_API int tpudf_bf16_gemm(const void* a, const void* w, const void* bias,
   using namespace tpudf;
   if (M <= 0) return 0;
   if (N % kHBN != 0 || K % kHBK != 0 || mode < 0 || mode > 2 ||
-      (mode == 2 && residual == nullptr) || (M + kHBM - 1) / kHBM > 65535)
+      (mode != 0 && bias == nullptr) || (mode == 2 && residual == nullptr) ||
+      (M + kHBM - 1) / kHBM > 65535)
     return cudaErrorInvalidValue;
   const Bf16GemmArgs p{static_cast<const __nv_bfloat16*>(a),
                        static_cast<const __nv_bfloat16*>(w),

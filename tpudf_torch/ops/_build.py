@@ -49,6 +49,8 @@ SIGNATURES = {
     "tpudf_attention_i8dyn": "pppiiiiifp",
     "tpudf_layer_i8": "p" * 22 + "iiiiiffp",
     "tpudf_attention_plain": "pppp" + "i" * 12 + "fp",
+    "tpudf_attention_i8_static": "ppiiiifffffp",
+    "tpudf_i8_gemm_quant": "ppppppiiiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
