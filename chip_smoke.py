@@ -7,7 +7,10 @@ Phases (any failure raises and the script exits non-zero; nothing falls
 back to the CPU or to a twin):
   1. card name and power limit (nvidia-smi), build of every kernel from
      tpudf_torch/csrc with nvcc for sm_90a (one nvcc per source, in
-     parallel), registers and spills from ptxas;
+     parallel), registers and spills from ptxas; K9's and K10's kernels
+     (attention_sm90.cu) must show wgmma (HGMMA) and TMA loads (UTMALDG) in
+     their SASS where the toolkit's cuobjdump is present, and no spills;
+     the host's cost of encoding a tensor map;
   2. each kernel against its plain PyTorch twin on the card (TF32 off for
      cuBLAS and cuDNN), tolerances below: K1-K4 at the detect core's
      shapes, K1 and K2 also at every token count of engine B's two ToMe
@@ -143,7 +146,9 @@ back to the CPU or to a twin):
          at B = 8 with and without remat, each against the twins with
          exact launches; the binary CLI for an epoch, then --evaluate_only
          --resume;
-  4. CUDA-event timings: each kernel vs its twin and, where one PyTorch
+  4. K9 and K10 at the paths' shapes beside SDPA's forward and backward
+     (`attention_factors`: each factor, from phases 2, 2b and 2d of this
+     run); CUDA-event timings: each kernel vs its twin and, where one PyTorch
      call computes the same function or a part of it, that call (timed
      here only; the port never calls it; the SDPA backward by its kernels'
      device time from torch.profiler); the detect-core forwards (also under
@@ -169,6 +174,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -208,8 +214,8 @@ SOURCES = {
     "K6": "tpudf_torch/csrc/attention.cu",
     "K7": "tpudf_torch/csrc/layer_int8.cu",
     "K8": "tpudf_torch/csrc/layernorm.cu",
-    "K9": "tpudf_torch/csrc/attention.cu",
-    "K10": "tpudf_torch/csrc/attention.cu",
+    "K9": "tpudf_torch/csrc/attention_sm90.cu",
+    "K10": "tpudf_torch/csrc/attention_sm90.cu",
     "K13": "tpudf_torch/csrc/bf16_gemm.cu",
     "K14": "tpudf_torch/csrc/bf16_gemm.cu",
     "K9b": "tpudf_torch/csrc/attention_i8.cu",
@@ -458,6 +464,96 @@ class Records:
             r["cases"] = cases
             kernels.append(r)
         return json.dumps({"kernels": kernels})
+
+
+def sm90_build_checks(card):
+    """Phase 1 for the kernels on wgmma and TMA (attention_sm90.cu): no
+    spills in ptxas's report, HGMMA and UTMALDG instructions in each
+    kernel's SASS (cuobjdump of the built library, where the toolkit has
+    it), and the host's ns to encode one tensor map."""
+    import shutil
+    import torch
+    from tpudf_torch.ops import _build
+    log = _build.build_log.read_text().splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line and "sm90" in line:
+            rest = " ".join(log[i + 1:i + 4])
+            if " 0 bytes spill stores" not in rest:
+                raise AssertionError(f"ptxas reports spills: {line} {rest}")
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(home, "bin",
+                                                          "cuobjdump")
+    so = sorted(_build.BUILD_DIR.glob("libtpudf_kernels-*.so"),
+                key=os.path.getmtime)[-1]
+    if not os.path.exists(cuobjdump):
+        print(f"  sm90 SASS: cuobjdump absent ({cuobjdump}); HGMMA / "
+              f"UTMALDG not counted", flush=True)
+    else:
+        sass = subprocess.run([cuobjdump, "-sass", str(so)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function : " in line:
+                fn = line.split("Function : ")[1].strip()
+                fn = fn if "sm90" in fn else None
+                if fn:
+                    counts[fn] = [0, 0]
+            elif fn is not None:
+                counts[fn][0] += "HGMMA" in line
+                counts[fn][1] += "UTMALDG" in line
+        if len(counts) != 6:
+            raise AssertionError(f"sm90 kernels in the SASS: {list(counts)}")
+        for fn, (hgmma, utmaldg) in sorted(counts.items()):
+            m = re.search(r"(attention_(?:fwd|bwd_dq|bwd_dkv)_sm90)ILi(\d+)E",
+                          fn)
+            print(f"  sm90 SASS {m.group(1)}<{m.group(2)}>: HGMMA {hgmma}, "
+                  f"UTMALDG {utmaldg}", flush=True)
+            if not hgmma or not utmaldg:
+                raise AssertionError(f"{fn}: no wgmma or TMA in its SASS")
+    from tpudf_torch.ops import attention
+    lib = _build.load()
+    for hd in (64, 128):
+        dkv = {s: lib.tpudf_sm90_smem(2, hd, s) for s in (256, 576, 1560)}
+        print(f"  sm90 shared memory a block, head_dim {hd}: K9 "
+              f"{lib.tpudf_sm90_smem(0, hd, 0)} B, K10 dq "
+              f"{lib.tpudf_sm90_smem(1, hd, 0)} B, dkv {dkv} B (S: bytes)",
+              flush=True)
+        for s, n in dkv.items():
+            if n != attention.sm90_dkv_smem(s, hd):
+                raise AssertionError(f"sm90_dkv_smem({s}, {hd}) != {n}")
+    base = torch.empty(16, device="cuda")
+    ns = lib.tpudf_sm90_encode_ns(base.data_ptr(), 2000)
+    print(f"  tensor map encode (host, cuTensorMapEncodeTiled through "
+          f"cudaGetDriverEntryPoint): {ns} ns a map; K9 encodes 2 (3 with "
+          f"the bias), K10 3 a launch [{card}]", flush=True)
+
+
+# K9 and K10 at the shapes of the paths that run them (phase 4): qkv's
+# (B, S, 3W) (K10's long cases also head_dim) as phases 2, 2b and 2d
+# record them
+K9_PATHS = [(424, 256, 2304), (106, 576, 3072), (8, 1024, 6144)]
+K10_PATHS = [(16, 256, 2304), (16, 576, 3072, 64), (8, 576, 3072, 64)]
+
+
+def attention_factors(rec, card):
+    """Phase 4: K9 and K10 at the paths' shapes beside SDPA's forward and
+    backward, as phases 2, 2b and 2d timed them in this call: the factor
+    kernel / SDPA, K10's by device time where the profiler measured it
+    (SDPA's backward is device time: CUDA events around autograd time the
+    host's call). Raises if a path shape was not timed."""
+    for key, paths in (("K9", K9_PATHS), ("K10", K10_PATHS)):
+        cases = {tuple(c["shape"]): c for c in rec.rows[key]["cases"]}
+        for shape in paths:
+            c = cases[shape]
+            ms = c.get("device_ms", c["ms"])
+            lib = c["library_ms"]
+            print(f"  {key} {shape}: kernel {c['ms']:.4f} ms"
+                  + (f" (device {c['device_ms']:.4f})" if "device_ms" in c
+                     else "")
+                  + f", SDPA{' backward' if key == 'K10' else ''} "
+                  f"{lib:.4f} ms: {ms / lib:.2f}x; bound {c['bound_ms']:.4f}"
+                  f" ms [{card}]", flush=True)
 
 
 def check_launches(label, got, expect):
@@ -2801,6 +2897,7 @@ def main() -> int:
     for line in _build.build_log.read_text().splitlines():
         if "Compiling" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    sm90_build_checks(card)
 
     # ---- 2. kernels vs twins
     rec = Records(card)
@@ -3625,6 +3722,8 @@ def main() -> int:
         del boxes
         torch.cuda.empty_cache()
 
+    print("phase 4: K9 and K10 at the paths' shapes beside SDPA", flush=True)
+    attention_factors(rec, card)
     large_timings(large, card)
     weights_timings(weights, card, mtl_batches)
     training_rest_timings(rest, card)

@@ -2,7 +2,8 @@
 on the card, at small shapes (K8's int8 codes within one step: a tie of
 the f32 LN may round the other way), and at the large backbones' longer
 sequences and wider heads (K1, K6, K9 and 9b at S = 576 / 1024, head_dim
-64 / 128, the LN passes at width 1152), kernels 11 and 12 (plain attention
+64 / 128, the LN passes at width 1152), K9 and K10 at the edges of their
+tiles (S = 32, ragged S, heads of 128, the bias), kernels 11 and 12 (plain attention
 in both layouts, ragged keys, Sq != Skv, heads of 72, bf16 and f32, and
 the gradient through kernel 11), the probes' kernels 15, 16 and 17 (the
 tolerances of tests/test_torch_port_probes.py; 17 by 9b's card rule), both
@@ -277,6 +278,53 @@ def test_k10_long_sequences_match_twin_on_card(shape):
     torch.cuda.synchronize()
     assert LAUNCHES.snapshot() == {attention.KERNEL_BWD: 1}
     ref = attention.attention_qkv_bwd_reference(qkv, g_out, heads, hd, scale)
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                               rtol=2 ** -7)
+    assert _share_apart(got, ref) <= 1e-2
+
+
+# K9 and K10 (attention_sm90.cu) at the edges of their tiles: (kernel, B,
+# S, heads, head_dim, scale, bias): S = 32 (one ragged tile, a warpgroup
+# with no rows), ragged S = 200 and 1000, heads of 128 with so400m's scale
+SM90_EDGES = [("K9", 2, 32, 2, 64, None, True),
+              ("K9", 1, 1000, 2, 64, None, True),
+              ("K9", 3, 200, 1, 128, None, False),
+              ("K9", 1, 1000, 1, 128, 72 ** -0.5, True),
+              ("K10", 2, 32, 2, 64, None, False),
+              ("K10", 3, 200, 1, 128, None, False),
+              ("K10", 1, 1000, 1, 128, 72 ** -0.5, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SM90_EDGES)
+def test_sm90_attention_edges_match_twins_on_card(case):
+    """K9 and K10 against their twins on q, k, v of std 1.5: atol 1e-2 +
+    rtol 2^-7 and at most 1e-2 of the outputs more than a bf16 step
+    apart, one launch of the kernel a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpudf_torch.core.backend import LAUNCHES
+    name, b, s_, heads, hd, scale, with_bias = case
+    g = torch.Generator(device="cuda").manual_seed(s_ + hd)
+    qkv = (torch.randn((b, s_, 3 * heads * hd), generator=g, device="cuda")
+           * 1.5).to(torch.bfloat16)
+    LAUNCHES.reset()
+    if name == "K9":
+        lb = (torch.log(torch.randint(1, 5, (b, s_), generator=g,
+                                      device="cuda").float())
+              if with_bias else None)
+        got = attention.attention_qkv(qkv, heads, hd, scale, logit_bias=lb)
+        ref = attention.attention_qkv_reference(qkv, heads, hd, scale, lb)
+        kernel = attention.KERNEL
+    else:
+        g_out = torch.randn((b, s_, heads * hd), generator=g,
+                            device="cuda").to(torch.bfloat16)
+        got = attention.attention_qkv_bwd(qkv, g_out, heads, hd, scale)
+        ref = attention.attention_qkv_bwd_reference(qkv, g_out, heads, hd,
+                                                    scale)
+        kernel = attention.KERNEL_BWD
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {kernel: 1}
     torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
                                rtol=2 ** -7)
     assert _share_apart(got, ref) <= 1e-2

@@ -1,6 +1,8 @@
-// Device pieces of the fused-QKV attention, shared by K1's and K9's
-// attention kernel (attention.cu), K6 (attention.cu), K7's attention phase
-// (layer_int8.cu) and K10 (attention.cu, its row loads).
+// Device pieces of the fused-QKV attention on mma.sync, shared by K1's
+// attention kernel and K6 (attention.cu), K7's attention phase
+// (layer_int8.cu), 9b and 17 (attention_i8.cu) and kernels
+// 11 and 12 (attention_plain.cu). (K9 and K10 run on wgmma and TMA:
+// attention_sm90.cu.)
 //
 // `attn_stream`: each warp's 16 query rows (A fragments in registers)
 // against one head's keys, the keys streamed through shared memory in
@@ -89,16 +91,6 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
     cp_async16(dst + r * row_ld<HD>() + c,
                src + static_cast<size_t>(sr) * ld + c);
   }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // One warp's state: its 16 query rows as A fragments, the f32 output

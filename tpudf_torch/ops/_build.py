@@ -40,8 +40,8 @@ SIGNATURES = {
     "tpudf_ln_quant_i8": "pppppiifp",
     "tpudf_i8_gemm": "pppppppppiiiip",
     "tpudf_attention_i8": "ppppiiiifp",
-    "tpudf_attention_bf16": "pppiiiifp",
-    "tpudf_attention_bwd_bf16": "ppppiiiifp",
+    "tpudf_attention_qkv_sm90": "pppiiiifp",
+    "tpudf_attention_qkv_bwd_sm90": "ppppiiiifp",
     "tpudf_bf16_gemm": "pppppiiiip",
     "tpudf_srm_moments": "pppiiip",
     "tpudf_ln_qkv_i8": "ppppppppiiifp",
@@ -51,6 +51,8 @@ SIGNATURES = {
     "tpudf_attention_plain": "pppp" + "i" * 12 + "fp",
     "tpudf_attention_i8_static": "ppiiiifffffp",
     "tpudf_i8_gemm_quant": "ppppppiiiip",
+    "tpudf_sm90_encode_ns": "pi",
+    "tpudf_sm90_smem": "iii",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

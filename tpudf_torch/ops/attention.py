@@ -11,15 +11,14 @@ takes it and routes it to `_reference_qkv`; here the same kernel takes
 it), softmax in f32, p rounded to bf16 for AV, AV accumulated in f32, the
 output rounded once to bf16.
 
-The CUDA kernel is `csrc/attention.cu`, the attention kernel of K1 with a
-bf16 output epilogue in place of its int8 quant (one template). It takes
-head_dim 64 or 128 (so400m's heads of 72, padded by the caller, keep their
-own scale) and S ≤ 1024 (large-384's 576, so400m-512's 1024); any other
-shape on a CUDA tensor raises. Both products run on the tensor cores
-(mma.sync bf16, f32 accumulate), K and V streamed through shared memory
-in 64-key tiles, in two passes over the keys (row max and sum, then
-p · v; `csrc/attn_tile.cuh`); at the engine's shapes the card's bound is
-the bytes of qkv.
+The CUDA kernel is `csrc/attention_sm90.cu` (Hopper's wgmma products and
+TMA loads through an mbarrier ring, `csrc/sm90.cuh`). It takes head_dim
+64 or 128 (so400m's heads of 72, padded by the caller, keep their own
+scale) and S ≤ 1024 (large-384's 576, so400m-512's 1024); any other shape
+on a CUDA tensor raises. One persistent block an SM takes items of 128
+query rows (two warpgroups of 64) of one head against its keys, streamed
+by TMA in 64-key tiles, in two passes over the keys (row max and sum,
+then p · v); at the engine's shapes the card's bound is the bytes of qkv.
 
 `attention_qkv_reference` is the twin, the JAX package's `_reference_qkv`;
 it also serves calibration and the twin of K1.
@@ -34,12 +33,12 @@ replaces tpudf/ops/attention.py `_attn_qkv_bwd_kernel` (wrapper
 dV = bf16(P)^T g, dP = g V^T, D = rowsum(dP * P) with the unrounded P,
 dS = P * (dP - D) * scale, dQ = bf16(dS) K, dK = bf16(dS)^T Q, f32 sums,
 one bf16 rounding of each output. The CUDA kernels are in
-`csrc/attention.cu`: a pass over query tiles (row statistics, D and dQ)
-and a pass over key tiles (dK and dV), FlashAttention-2's split, with the
-other side's rows streamed through shared memory in 64-row tiles, because
-one head's (S, S) f32 P does not fit an SM. It takes head_dim 64 and 128
-(so400m's heads of 72 padded by the caller keep their own scale) and any
-S, ragged ones (a multiple of 8, not of 64) included.
+`csrc/attention_sm90.cu`: a pass over query tiles (row statistics, D and
+dQ) and a pass over key tiles (dK and dV), FlashAttention-2's split, with
+the other side's rows streamed by TMA in 64-row tiles, because one head's
+(S, S) f32 P does not fit an SM. It takes head_dim 64 and 128 (so400m's
+heads of 72 padded by the caller keep their own scale) and any S up to
+SM90_MAX_SEQ_BWD, ragged ones (a multiple of 8, not of 64) included.
 `attention_qkv_bwd_reference` is its twin, the TPU kernel's formulas in
 PyTorch. The route is JAX's (`_fused_qkv_with_vjp.bwd`,
 `attention_qkv_bwd_fits`): where the (S, S) f32 tile and the qkv rows fit
@@ -82,7 +81,7 @@ arithmetic: scores in f32 times scale, keys past Skv masked to -inf, an
 exact softmax, p cast to v's dtype, f32 sums, the output in q's dtype. One
 CUDA source (`csrc/attention_plain.cu`) takes the layout as strides, so
 the (B, S, H, D) layout is never transposed: bf16 on the tensor cores
-(K9's two-pass tile; head_dim 64, 72 in an 80-wide tile with zero
+(K1's two-pass mma.sync tile; head_dim 64, 72 in an 80-wide tile with zero
 columns, or 128), f32 in exact f32 SIMT products (head_dim <= 128). Other
 dtypes or head_dims on a CUDA tensor raise, except where JAX's own
 predicate sends `attention` to XLA (Sq > 4096), where the twin runs.
@@ -115,6 +114,13 @@ KERNEL_BSHD = "attention_bshd"   # kernel 12, (B, S, H, D)
 PLAIN_HEAD_DIMS = (64, 72, 128)  # kernels 11 and 12 in bf16
 PLAIN_F32_MAX_HEAD_DIM = 128     # and in f32
 PALLAS_MAX_SQ = 4096        # JAX's `attention` sends longer queries to XLA
+# csrc/attention_sm90.cu (K9, K10): the longest sequences, the rows of a
+# streamed tile and of a block, and the shared memory a block may have
+SM90_MAX_SEQ_FWD = 1024
+SM90_MAX_SEQ_BWD = 2048
+SM90_TILE_ROWS = 64
+SM90_BLOCK_ROWS = 128
+SM90_BLOCK_SMEM = 232448
 
 
 def check_attention_shape(name, qkv, heads, head_dim):
@@ -127,6 +133,50 @@ def check_attention_shape(name, qkv, heads, head_dim):
                          f"{HEAD_DIMS} and S <= {MAX_SEQ}, got "
                          f"{qkv.dtype} {tuple(qkv.shape)} heads {heads} "
                          f"head_dim {head_dim}")
+
+
+def sm90_dkv_smem(s, head_dim):
+    """Shared bytes of K10's dkv block at sequence s (`DkvSmem`): K and V
+    of 128 rows, the ring's stages of a 64-row Q and g chunk (6 at
+    head_dim 64, 4 at 128), the barriers, the head's row statistics (4 f32
+    per row, S rounded up to the chunks) and 1 KB for the alignment of the
+    swizzled tiles."""
+    tile = lambda rows: rows * head_dim * 2
+    stages = 6 if head_dim == 64 else 4
+    n_stat = -(-s // SM90_TILE_ROWS) * SM90_TILE_ROWS
+    return (2 * tile(SM90_BLOCK_ROWS) + stages * 2 * tile(SM90_TILE_ROWS)
+            + 128 + 16 * n_stat + 1024)
+
+
+def sm90_fwd_fits(s, w, head_dim):
+    """Whether K9's kernel takes qkv (B, s, 3w): a head_dim it is built
+    for, S <= SM90_MAX_SEQ_FWD, and rows whose byte stride a tensor map
+    takes (a multiple of 16)."""
+    return (head_dim in HEAD_DIMS and 1 <= s <= SM90_MAX_SEQ_FWD
+            and w % head_dim == 0 and 3 * w * 2 % 16 == 0)
+
+
+def sm90_bwd_fits(s, w, head_dim):
+    """Whether K10's kernels take qkv (B, s, 3w) and g (B, s, w): a
+    head_dim they are built for, S <= SM90_MAX_SEQ_BWD, the dkv block's
+    shared memory within a block's, and 16-byte row strides."""
+    return (head_dim in BWD_HEAD_DIMS and 1 <= s <= SM90_MAX_SEQ_BWD
+            and w % head_dim == 0 and w * 2 % 16 == 0
+            and sm90_dkv_smem(s, head_dim) <= SM90_BLOCK_SMEM)
+
+
+def check_attention_bwd_shape(name, qkv, g, heads, head_dim):
+    """Raise unless K10 takes qkv (B, S, 3·heads·head_dim) and g (B, S, W),
+    both bf16, at a shape `sm90_bwd_fits` admits."""
+    b, s, w3 = qkv.shape
+    if (qkv.dtype != torch.bfloat16 or g.dtype != torch.bfloat16
+            or w3 != 3 * heads * head_dim or g.shape != (b, s, w3 // 3)
+            or not sm90_bwd_fits(s, w3 // 3, head_dim)):
+        raise ValueError(f"{name} takes bf16 qkv (B, S, 3W) and g (B, S, W) "
+                         f"with head_dim in {BWD_HEAD_DIMS} and S <= "
+                         f"{SM90_MAX_SEQ_BWD}, got {qkv.dtype} "
+                         f"{tuple(qkv.shape)}, {g.dtype} {tuple(g.shape)}, "
+                         f"heads {heads} head_dim {head_dim}")
 
 
 def attention_qkv_reference(qkv, heads, head_dim, scale=None,
@@ -154,11 +204,13 @@ def attention_qkv_reference(qkv, heads, head_dim, scale=None,
 def _attention_qkv_cuda(qkv, heads, head_dim, scale, logit_bias):
     check_attention_shape("K9", qkv, heads, head_dim)
     b, s, _ = qkv.shape
+    if not sm90_fwd_fits(s, heads * head_dim, head_dim):
+        raise ValueError(f"K9 has no kernel for S {s}, head_dim {head_dim}")
     out = torch.empty((b, s, heads * head_dim), dtype=torch.bfloat16,
                       device=qkv.device)
     bias = None if logit_bias is None else logit_bias.float().contiguous()
-    _build.call("tpudf_attention_bf16", qkv.contiguous(), bias, out, b, s,
-                heads, head_dim, float(scale))
+    _build.call("tpudf_attention_qkv_sm90", qkv.contiguous(), bias, out, b,
+                s, heads, head_dim, float(scale))
     LAUNCHES.hit(KERNEL)
     return out
 
@@ -293,20 +345,14 @@ def attention_qkv_bwd_twin_vjp(qkv, g, heads, head_dim, scale=None):
 
 
 def _attention_qkv_bwd_cuda(qkv, g, heads, head_dim, scale):
-    b, s, w3 = qkv.shape
-    if (qkv.dtype != torch.bfloat16 or g.dtype != torch.bfloat16
-            or head_dim not in BWD_HEAD_DIMS
-            or w3 != 3 * heads * head_dim or g.shape != (b, s, w3 // 3)):
-        raise ValueError(f"K10 takes bf16 qkv (B, S, 3W) and g (B, S, W) "
-                         f"with head_dim in {BWD_HEAD_DIMS}, got "
-                         f"{qkv.dtype} {tuple(qkv.shape)}, {g.dtype} "
-                         f"{tuple(g.shape)}, heads {heads} head_dim "
-                         f"{head_dim}")
+    check_attention_bwd_shape("K10", qkv, g, heads, head_dim)
+    b, s, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((3, b, heads, s), dtype=torch.float32,
                         device=qkv.device)
-    _build.call("tpudf_attention_bwd_bf16", qkv.contiguous(), g.contiguous(),
-                dqkv, stats, b, s, heads, head_dim, float(scale))
+    _build.call("tpudf_attention_qkv_bwd_sm90", qkv.contiguous(),
+                g.contiguous(), dqkv, stats, b, s, heads, head_dim,
+                float(scale))
     LAUNCHES.hit(KERNEL_BWD)
     return dqkv
 
