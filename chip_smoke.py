@@ -8,9 +8,11 @@ back to the CPU or to a twin):
   1. card name and power limit (nvidia-smi), build of every kernel from
      tpudf_torch/csrc with nvcc for sm_90a (one nvcc per source, in
      parallel), registers and spills from ptxas; K9's and K10's kernels
-     (attention_sm90.cu) must show wgmma (HGMMA) and TMA loads (UTMALDG) in
-     their SASS where the toolkit's cuobjdump is present, and no spills;
-     the host's cost of encoding a tensor map;
+     (attention_sm90.cu) and kernels 11 and 12 in bf16
+     (attention_plain_sm90.cu) must show wgmma (HGMMA) and TMA loads
+     (UTMALDG) in their SASS where the toolkit's cuobjdump is present, and
+     no spills; the wrappers' shared-memory functions equal to the
+     kernels'; the host's cost of encoding a tensor map;
   2. each kernel against its plain PyTorch twin on the card (TF32 off for
      cuBLAS and cuDNN), tolerances below: K1-K4 at the detect core's
      shapes, K1 and K2 also at every token count of engine B's two ToMe
@@ -59,8 +61,9 @@ back to the CPU or to a twin):
      ATTN_SHARE of the outputs a bf16 step apart, f32 within atol 5e-4 +
      rtol 1e-3; each check shown to reject planted faults (the scale from
      the padded head_dim, the key mask dropped at Skv = 577 and 1000, the
-     (B, H, S, D) head stride read by kernel 12); the gradient through
-     `attention` against the twins'; kernel, twin and SDPA timed;
+     (B, H, S, D) head stride read by kernel 12, and at head_dim 72 its
+     heads read 80 columns wide); the gradient through `attention`
+     against the twins'; kernel, twin and SDPA timed;
   2d. K10 past S = 256 and at head_dim 128 (`k10_long_checks`): at
      K10_LONG (large-384's MTL and binary shapes at S = 576, S = 1024 with
      heads of 64, heads of 128 with so400m's scale 72^-0.5, the ragged S =
@@ -146,14 +149,15 @@ back to the CPU or to a twin):
          at B = 8 with and without remat, each against the twins with
          exact launches; the binary CLI for an epoch, then --evaluate_only
          --resume;
-  4. K9 and K10 at the paths' shapes beside SDPA's forward and backward
-     (`attention_factors`: each factor, from phases 2, 2b and 2d of this
-     run); CUDA-event timings: each kernel vs its twin and, where one PyTorch
-     call computes the same function or a part of it, that call (timed
-     here only; the port never calls it; the SDPA backward by its kernels'
-     device time from torch.profiler); the detect-core forwards (also under
-     each TPUDF_INT8_KERNELS route) and the
-     engine requests, kernels vs twins; the train steps of (a) and (b),
+  4. K9 and K10 at the paths' shapes beside SDPA's forward and backward,
+     kernels 11 and 12 at every PLAIN_SHAPES case beside SDPA
+     (`attention_factors`: each factor, from phases 2, 2b, 2c and 2d of
+     this run); CUDA-event timings: each kernel vs its twin and, where one
+     PyTorch call computes the same function or a part of it, that call
+     (timed here only; the port never calls it; the SDPA backward by its
+     kernels' device time from torch.profiler); the detect-core forwards
+     (also under each TPUDF_INT8_KERNELS route) and the engine requests,
+     kernels vs twins; the train steps of (a) and (b),
      kernels vs twins; torch.profiler traces of the detect core at B=256,
      of engine A's full analysis and of a train step of (a) and of (b): the
      largest kernels and the device's idle share; the trainer's peak
@@ -219,8 +223,9 @@ SOURCES = {
     "K13": "tpudf_torch/csrc/bf16_gemm.cu",
     "K14": "tpudf_torch/csrc/bf16_gemm.cu",
     "K9b": "tpudf_torch/csrc/attention_i8.cu",
-    "K11": "tpudf_torch/csrc/attention_plain.cu",
-    "K12": "tpudf_torch/csrc/attention_plain.cu",
+    # bf16 (the paths' dtype); f32 runs tpudf_torch/csrc/attention_plain.cu
+    "K11": "tpudf_torch/csrc/attention_plain_sm90.cu",
+    "K12": "tpudf_torch/csrc/attention_plain_sm90.cu",
     "15-bf16": "tpudf_torch/csrc/bf16_gemm.cu",
     "15-int8": "tpudf_torch/csrc/probe_gemm.cu",
     "16-full": "tpudf_torch/csrc/probe_gemm.cu",
@@ -466,11 +471,21 @@ class Records:
         return json.dumps({"kernels": kernels})
 
 
+# the kernels on wgmma and TMA: K9, K10's two passes (attention_sm90.cu)
+# at head_dim 64 and 128, and kernels 11 and 12 in bf16
+# (attention_plain_sm90.cu) on the 64-, 80- and 128-wide tiles
+SM90_KERNELS = 9
+SM90_NAME = re.compile(r"(attention_(?:fwd|bwd_dq|bwd_dkv|plain)_sm90)"
+                       r"ILi(\d+)E")
+
+
 def sm90_build_checks(card):
-    """Phase 1 for the kernels on wgmma and TMA (attention_sm90.cu): no
-    spills in ptxas's report, HGMMA and UTMALDG instructions in each
-    kernel's SASS (cuobjdump of the built library, where the toolkit has
-    it), and the host's ns to encode one tensor map."""
+    """Phase 1 for the kernels on wgmma and TMA (attention_sm90.cu,
+    attention_plain_sm90.cu): no spills in ptxas's report, HGMMA and
+    UTMALDG instructions in each kernel's SASS (cuobjdump of the built
+    library, where the toolkit has it), the wrappers' shared-memory
+    functions equal to the kernels' (K10's dkv block, kernels 11 and 12 in
+    bf16 and f32), and the host's ns to encode one tensor map."""
     import shutil
     import torch
     from tpudf_torch.ops import _build
@@ -502,11 +517,10 @@ def sm90_build_checks(card):
             elif fn is not None:
                 counts[fn][0] += "HGMMA" in line
                 counts[fn][1] += "UTMALDG" in line
-        if len(counts) != 6:
+        if len(counts) != SM90_KERNELS:
             raise AssertionError(f"sm90 kernels in the SASS: {list(counts)}")
         for fn, (hgmma, utmaldg) in sorted(counts.items()):
-            m = re.search(r"(attention_(?:fwd|bwd_dq|bwd_dkv)_sm90)ILi(\d+)E",
-                          fn)
+            m = SM90_NAME.search(fn)
             print(f"  sm90 SASS {m.group(1)}<{m.group(2)}>: HGMMA {hgmma}, "
                   f"UTMALDG {utmaldg}", flush=True)
             if not hgmma or not utmaldg:
@@ -522,11 +536,27 @@ def sm90_build_checks(card):
         for s, n in dkv.items():
             if n != attention.sm90_dkv_smem(s, hd):
                 raise AssertionError(f"sm90_dkv_smem({s}, {hd}) != {n}")
+    plain = {("bf16", d): (lib.tpudf_plain_sm90_smem(d),
+                           attention.plain_sm90_smem(d)
+                           if attention.plain_fits(torch.bfloat16, d) else -1)
+             for d in (32, 64, 72, 96, 128)}
+    plain.update({("f32", d): (lib.tpudf_plain_f32_smem(d),
+                               attention.plain_f32_smem(d)
+                               if attention.plain_fits(torch.float32, d)
+                               else -1)
+                  for d in (1, 33, 64, 65, 100, 128, 129)})
+    print(f"  kernels 11 / 12 shared memory a block ((dtype, head_dim): "
+          f"bytes): { {k: v[0] for k, v in plain.items()} }", flush=True)
+    for key, (n, want) in plain.items():
+        if n != want:
+            raise AssertionError(f"kernels 11 / 12 {key}: kernel {n}, "
+                                 f"wrapper {want}")
     base = torch.empty(16, device="cuda")
     ns = lib.tpudf_sm90_encode_ns(base.data_ptr(), 2000)
     print(f"  tensor map encode (host, cuTensorMapEncodeTiled through "
           f"cudaGetDriverEntryPoint): {ns} ns a map; K9 encodes 2 (3 with "
-          f"the bias), K10 3 a launch [{card}]", flush=True)
+          f"the bias), K10 3, kernels 11 / 12 in bf16 4 (8 at head_dim 72) a "
+          f"launch [{card}]", flush=True)
 
 
 # K9 and K10 at the shapes of the paths that run them (phase 4): qkv's
@@ -538,22 +568,30 @@ K10_PATHS = [(16, 256, 2304), (16, 576, 3072, 64), (8, 576, 3072, 64)]
 
 def attention_factors(rec, card):
     """Phase 4: K9 and K10 at the paths' shapes beside SDPA's forward and
-    backward, as phases 2, 2b and 2d timed them in this call: the factor
-    kernel / SDPA, K10's by device time where the profiler measured it
-    (SDPA's backward is device time: CUDA events around autograd time the
-    host's call). Raises if a path shape was not timed."""
-    for key, paths in (("K9", K9_PATHS), ("K10", K10_PATHS)):
+    backward, and kernels 11 and 12 at every PLAIN_SHAPES case, as phases
+    2, 2b, 2c and 2d timed them in this call: the factor kernel / SDPA by
+    device time where the profiler measured it (SDPA's backward is device
+    time: CUDA events around autograd time the host's call; kernels 11 and
+    12 are also given by wall time), and the bound. Raises if a shape was
+    not timed."""
+    plain = [tuple(s) for s in PLAIN_SHAPES]
+    paths_of = {"K9": K9_PATHS, "K10": K10_PATHS, "K11": plain,
+                "K12": plain}
+    for key, paths in paths_of.items():
         cases = {tuple(c["shape"]): c for c in rec.rows[key]["cases"]}
         for shape in paths:
             c = cases[shape]
             ms = c.get("device_ms", c["ms"])
             lib = c["library_ms"]
+            wall = (f", wall {c['ms'] / lib:.2f}x" if key in ("K11", "K12")
+                    else "")
             print(f"  {key} {shape}: kernel {c['ms']:.4f} ms"
                   + (f" (device {c['device_ms']:.4f})" if "device_ms" in c
                      else "")
                   + f", SDPA{' backward' if key == 'K10' else ''} "
-                  f"{lib:.4f} ms: {ms / lib:.2f}x; bound {c['bound_ms']:.4f}"
-                  f" ms [{card}]", flush=True)
+                  f"{lib:.4f} ms: {ms / lib:.2f}x{wall}; bound "
+                  f"{c['bound_ms']:.4f} ms ({c['bound_by']}) [{card}]",
+                  flush=True)
 
 
 def check_launches(label, got, expect):
@@ -1346,7 +1384,7 @@ PLAIN_SHAPES = [(8, 12, 256, 256, 64, "bfloat16"),
                 (8, 16, 1, 576, 64, "bfloat16"),
                 (8, 16, 1, 577, 64, "bfloat16"),
                 (2, 16, 576, 576, 64, "float32")]
-PLAIN_KEY_TILE = 64          # csrc/attention_plain.cu's key tile
+PLAIN_KEY_TILE = 64          # the key tile of both kernels (f32 and bf16)
 
 
 def plain_attention_checks(rec, dev, card):
@@ -1359,11 +1397,13 @@ def plain_attention_checks(rec, dev, card):
     the key mask dropped (at Skv = 577 and 1000: the twin over keys padded
     to the kernel's 64-key tile with the last key, unmasked), and for
     kernel 12 the (B, H, S, D) layout's head stride (the twin reading the
-    buffer as (B, H, S, D)); the gradient through `attention` (kernel 11
-    forward, the twin's VJP backward) against the twins' at (2, 16, 576,
-    576, 64); then kernel, twin and SDPA timed at each shape, and the
-    kernel's device time (the host's launch outlasts it at the small
-    shapes)."""
+    buffer as (B, H, S, D)) and, at head_dim 72, a head read 80 columns
+    wide (the twin over 80 columns whose last 8 are the next head's, as a
+    map over (H D, S, B) with 80-wide boxes would read them); the gradient
+    through `attention` (kernel 11 forward, the twin's VJP backward) against the
+    twins' at (2, 16, 576, 576, 64); then kernel, twin and SDPA timed at
+    each shape, and the kernel's device time (the host's launch outlasts it
+    at the small shapes)."""
     import torch
     import torch.nn.functional as F
     from tpudf_torch.ops import attention
@@ -1389,6 +1429,16 @@ def plain_attention_checks(rec, dev, card):
         return twin(q, k.index_select(axis, idx), v.index_select(axis, idx),
                     scale)
 
+    def next_head_columns(t_, width):
+        """(B, S, H, d) -> (B, S, H, width): each head's row read `width`
+        columns wide from the flat buffer (past its d, the next head's
+        columns; zeros past the end)."""
+        b_, s_, h_, d_ = t_.shape
+        flat = torch.nn.functional.pad(t_.reshape(b_, -1), (0, width - d_))
+        idx = ((torch.arange(s_ * h_, device=dev) * d_)[:, None]
+               + torch.arange(width, device=dev)).reshape(-1)
+        return flat[:, idx].reshape(b_, s_, h_, width)
+
     for b, h, sq, skv, d, dtype in PLAIN_SHAPES:
         dt = getattr(torch, dtype)
         scale = d ** -0.5
@@ -1412,6 +1462,10 @@ def plain_attention_checks(rec, dev, card):
                 faults["BHSD head stride"] = twin(
                     *(t.reshape(t.shape[0], h, -1, d).transpose(1, 2)
                       for t in (q, k, v)), scale)
+            if bshd and d == 72:
+                faults["heads read 80 wide"] = twin(
+                    *(next_head_columns(t, 80) for t in (q, k, v)),
+                    scale)[..., :d]
             torch.cuda.synchronize()
             label = f"{key} {(b, h, sq, skv, d)} {dtype}"
             bad, err, share = rejects(got, ref, dt)
@@ -3722,7 +3776,8 @@ def main() -> int:
         del boxes
         torch.cuda.empty_cache()
 
-    print("phase 4: K9 and K10 at the paths' shapes beside SDPA", flush=True)
+    print("phase 4: K9, K10, kernels 11 and 12 at the paths' shapes beside "
+          "SDPA", flush=True)
     attention_factors(rec, card)
     large_timings(large, card)
     weights_timings(weights, card, mtl_batches)

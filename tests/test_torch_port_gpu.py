@@ -643,6 +643,40 @@ def test_plain_attention_gradient_and_range_on_card():
     assert LAUNCHES.snapshot() == {}
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("bshd", [False, True])
+def test_plain_attention_f32_at_an_odd_offset_on_card(bshd):
+    """f32 k and v that start one float past a 16-byte boundary (contiguous
+    views at storage offset 1, where the kernel's 16-byte copies would
+    fault) are refused with a ValueError before any launch, and the card
+    stays usable: the same values, aligned, then match the twin within
+    atol 5e-4 + rtol 1e-3 in one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpudf_torch.core.backend import LAUNCHES
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(5)
+    shapes = ([(2, 100, 3, 64), (2, 130, 3, 64)] if bshd
+              else [(2, 3, 100, 64), (2, 3, 130, 64)])
+    q, k, v = ((torch.randn(torch.Size(s).numel() + 1, generator=g,
+                            device="cuda") * 1.5)[1:].view(s)
+               for s in (shapes[0], shapes[1], shapes[1]))
+    assert k.data_ptr() % 16 == 4 and k.is_contiguous()
+    fn, twin, name = ((attention.attention_bshd, attention._reference_bshd,
+                       attention.KERNEL_BSHD) if bshd
+                      else (attention.attention, attention.attention_reference,
+                            attention.KERNEL_PLAIN))
+    LAUNCHES.reset()
+    with pytest.raises(ValueError):
+        fn(q.clone(), k, v)
+    assert LAUNCHES.snapshot() == {}
+    q, k, v = q.clone(), k.clone(), v.clone()
+    got = fn(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {name: 1}
+    torch.testing.assert_close(got, twin(q, k, v), atol=5e-4, rtol=1e-3)
+
+
 _PROBES = ["15-bf16", "15-int8"] + [f"16-{v}" for v in p16.VARIANTS] + ["17"]
 
 

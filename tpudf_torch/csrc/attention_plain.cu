@@ -1,294 +1,367 @@
-// Plain multi-head attention over separate q, k and v (kernels 11 and 12).
+// Plain multi-head attention in f32 (kernels 11 and 12 at f32).
 //
 //   o = softmax(scale * q k^T) v      per (image, head), Sq != Skv allowed
 //
 // Replaces tpudf/ops/attention.py `_attn_kernel` (launched by
 // `_attention_pallas`, the (B, H, S, D) layout; kernel 11) and the inner
-// `kernel` of `_attention_pallas_bshd` (the (B, S, H, D) layout; kernel 12).
-// One source serves both: the layout is given by element strides (image,
-// head, row) for q and o and for k and v, so the (B, S, H, D) layout is
-// read where it lies and never transposed, which is kernel 12's purpose.
-// The TPU kernels padded the keys to a multiple of 128 and masked them to
-// -inf; here a key tile past Skv is masked the same way (Skv = 100 or 577
-// is a softmax over Skv keys, not over zeros).
+// `kernel` of `_attention_pallas_bshd` (the (B, S, H, D) layout; kernel 12)
+// on f32 q, k, v: JAX's kernel is dtype-generic and its test holds f32 to
+// atol 5e-4, rtol 1e-3, so the products are exact f32 (no TF32, no bf16
+// cast). bf16 runs on the tensor cores in attention_plain_sm90.cu. One
+// kernel serves both layouts: q, k, v and o are addressed by element
+// strides (image, head, row), so the (B, S, H, D) layout is read where it
+// lies and never transposed.
 //
-// Same arithmetic as the TPU kernel: s = (q . k) * scale in f32, an exact
-// softmax (row max, e = exp(s - max), p = e / sum e in f32), p cast to v's
-// dtype, o = p . v with f32 sums, one rounding to q's dtype.
+// The function: s = (q . k) * scale in f32, keys past Skv masked to -inf,
+// an exact softmax (row max m, e = exp(s - m), p = e / l with l the row sum,
+// normalised before p . v), o = p . v summed in f32. Two sweeps over the
+// keys: the row statistics, then p and p . v.
 //
-// bf16: one block per (64-query tile, head, image), four warps of 16 query
-// rows, K and V streamed through the two-stage cp.async ring of 64-key
-// tiles of attn_tile.cuh (`attn_stream`: a pass over K for each row's max
-// and sum, then a pass over K and V for p and p . v, both products on the
-// tensor cores, mma.sync m16n8k16 bf16 with f32 accumulators). head_dim 64
-// and 128 run the tile as it is; so400m's raw heads of 72 run an 80-wide
-// tile whose last 8 columns are zero in shared memory (q, k and v are read
-// at 72 columns; the zero columns add exact zeros to the scores), which
-// costs 80/72 of the products, against 128/72 for a copy padded to 128.
-// The softmax scale is an argument, never derived from the tile width.
-// At the shapes of the main path the card's bound is the bytes of q, k, v
-// and o; K and V are re-read from L2 by each query tile of a head, K twice.
-//
-// f32: exact f32 products (no TF32, no bf16 cast: JAX's kernel is
-// dtype-generic, and its test holds f32 to atol 5e-4, rtol 1e-3), a SIMT
-// kernel: one block per (32-query tile, head, image), eight warps of four
-// query rows; 32-key tiles of K and V in shared memory (rows padded by one
-// float, so a lane's key row and a lane's dims both fall in distinct
-// banks); a pass for each row's max and sum, then a pass for p (per warp
-// through shared memory) and p . v, a lane owning dims lane, lane + 32, ...
-// head_dim <= 128.
-#include "attn_tile.cuh"
+// A SIMT kernel tiled in registers like an SGEMM micro-kernel: one block of
+// 192 threads for each (48 query rows, head, image), 64-key tiles of K and
+// V in shared memory; thread (ty, tx) of a 12 x 16 grid holds the scores
+// of rows 4 ty .. 4 ty + 3 and keys tx, tx + 16, tx + 32, tx + 48 of a
+// tile (32 FMAs for every six shared loads: Q^T as a float4 of its rows at
+// two columns, K as a float2 of each key's two columns), and the outputs of
+// the same rows at columns 4 tx .. 4 tx + 3 (+ 64 at head_dim > 64) (16
+// FMAs for every two float4 loads: p^T of its rows, a row of V). A warp
+// covers 16 rows by 32 keys, so its loads of Q^T and p^T are 64
+// contiguous bytes and those of K and V hit distinct banks (rows padded by
+// 4 floats). Each thread keeps its own running max and sum of each row
+// over its keys (rescaled at a new max); the 16 threads of a row merge
+// them once, after the first sweep (the eight lanes of a warp by xor 1, 2,
+// 4, then the two key halves through shared memory, in a fixed order). The
+// softmax's instructions are sm90.cuh's (ex2 on scores that carry log2 e,
+// p = e r). K and V arrive by cp.async of 16 bytes where every row start
+// is 16-byte aligned (head_dim, the strides and the base of k and v
+// multiples of 4 floats), else of 4 bytes, zero past Skv and past head_dim
+// (the zero columns add exact zeros); the block waits for its tile, and
+// the blocks an SM holds (three at head_dim <= 64) cover one another's
+// loads. 48 rows a block suit the table's (2, 16, 576) on 132 SMs: 384
+// blocks, three an SM, where 64 rows left 24 SMs a third block; other
+// row counts, a second stage of K and V and an 8 x 4 register tile were
+// measured and not kept (PERF.md).
+// The card's bound is the f32 FMAs: twice 2 Sq Skv D for q . k (both
+// sweeps) and 2 Sq Skv D for p . v.
+#include <cstdint>
+
+#include "sm90.cuh"
 
 namespace tpudf {
+namespace {
 
-constexpr int kPlainQTile = 64;          // bf16: query rows per block
-constexpr int kPlainWarps = 4;           // bf16: 16 query rows each
-constexpr int kF32QTile = 32;            // f32: query rows per block
-constexpr int kF32Warps = 8;             // f32: 4 query rows each
-constexpr int kF32Rows = kF32QTile / kF32Warps;
-constexpr int kF32KeyTile = 32;
-constexpr int kF32MaxHd = 128;
+using sm90::ex2;
+using sm90::kLog2e;
+using sm90::rcp_refined;
 
-struct PlainArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int heads, sq, skv;
-  int q_sb, q_sh, q_ss;      // q and o: element strides of image, head, row
-  int kv_sb, kv_sh, kv_ss;   // k and v
-  float scale;
-};
+constexpr int kKeys = 64;            // keys a tile
+constexpr int kRows = 48;            // query rows a block
+constexpr int kSmSmem = 233472;      // shared memory an SM holds (bytes)
 
-// the first element of (image b, head h) in a tensor of these strides
-template <typename T>
-__device__ __forceinline__ const T* head_base(const void* p, int sb, int sh,
-                                              int b, int h) {
-  return static_cast<const T*>(p) + static_cast<size_t>(b) * sb +
-         static_cast<size_t>(h) * sh;
+// row stride of the K and V tiles of DP columns (floats)
+template <int DP>
+__host__ __device__ constexpr int ld_kv() {
+  return DP + 4;
 }
 
-template <int HD, int LIVE>
-__global__ void __launch_bounds__(kPlainWarps * 32)
-    attention_plain_bf16_kernel(PlainArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ring = qs + kPlainQTile * row_ld<HD>();
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * kPlainQTile;
-  const __nv_bfloat16* qg = head_base<__nv_bfloat16>(a.q, a.q_sb, a.q_sh, b, h);
-  const __nv_bfloat16* kg =
-      head_base<__nv_bfloat16>(a.k, a.kv_sb, a.kv_sh, b, h);
-  const __nv_bfloat16* vg =
-      head_base<__nv_bfloat16>(a.v, a.kv_sb, a.kv_sh, b, h);
+// shared memory (floats) of a block of R query rows: Q^T (DP x R + 4), a
+// K and a V tile (kKeys x ld_kv), p^T (kKeys x R + 4), the row statistics
+// of the block's two key halves (2 x R x 2)
+template <int DP, int R>
+struct F32Smem {
+  static constexpr int kLdT = R + 4;
+  static constexpr int kTile = kKeys * ld_kv<DP>();
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + DP * kLdT;
+  static constexpr int kV = kK + kTile;
+  static constexpr int kP = kV + kTile;
+  static constexpr int kStats = kP + kKeys * kLdT;
+  static constexpr size_t kBytes = (kStats + 4 * R) * sizeof(float);
+  // blocks an SM holds (each also takes 1 KB of the SM's shared memory)
+  static constexpr int kBlocks = kSmSmem / static_cast<int>(kBytes + 1024);
+};
 
-  // the Q tile, zero past Sq and past LIVE columns; the ring's columns
-  // past LIVE zeroed once (stage_rows never writes them)
-  constexpr int kChunks = HD / 8, kLive = LIVE / 8;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < kPlainQTile * kChunks; i += blockDim.x) {
-    const int r = i / kChunks, c = i % kChunks;
-    uint4 val = zero;
-    if (q0 + r < a.sq && c < kLive)
-      val = *reinterpret_cast<const uint4*>(
-          qg + static_cast<size_t>(q0 + r) * a.q_ss + c * 8);
-    *reinterpret_cast<uint4*>(qs + r * row_ld<HD>() + c * 8) = val;
+struct F32Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  int heads, sq, skv, hd;
+  int q_sb, q_sh, q_ss;      // q and o: element strides of image, head, row
+  int kv_sb, kv_sh, kv_ss;   // k and v
+  float mul;                 // the scale, times log2 e
+};
+
+// N bytes global -> shared by cp.async, zeros in place of the source
+// where `in` is false (the source is then not read)
+template <int N>
+__device__ __forceinline__ void cp_async_zfill(float* smem, const float* gmem,
+                                               bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(in ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(in ? 4 : 0));
+}
+
+// (m, l) of a row merged with another part's: the larger max, the sums
+// rescaled to it
+__device__ __forceinline__ void merge(float& m, float& l, float mo,
+                                      float lo) {
+  const float mn = fmaxf(m, mo);
+  if (mn == __int_as_float(0xff800000)) return;      // no key seen yet
+  l = __fadd_rn(__fmul_rn(l, ex2(m - mn)), __fmul_rn(lo, ex2(mo - mn)));
+  m = mn;
+}
+
+// A block of 4R threads: R / 16 warp pairs, a warp 4 ty x 8 tx
+template <int DP, int VEC>
+__global__ void __launch_bounds__(4 * kRows, (F32Smem<DP, kRows>::kBlocks))
+    attention_plain_f32(F32Args a) {
+  constexpr int R = kRows;
+  using L = F32Smem<DP, R>;
+  constexpr int LD = ld_kv<DP>(), LT = L::kLdT, NT = 4 * R;
+  constexpr int NC = DP / 16;        // output columns a thread
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm + L::kQ;
+  float* ks = fsm + L::kK;
+  float* vs = fsm + L::kV;
+  float* ps = fsm + L::kP;
+  float* stats = fsm + L::kStats;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * R;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ty = (lane >> 3) + 4 * (warp >> 1);
+  const int tx = (lane & 7) + 8 * (warp & 1);
+  const float* qg = a.q + static_cast<size_t>(b) * a.q_sb +
+                    static_cast<size_t>(h) * a.q_sh;
+  const float* kg = a.k + static_cast<size_t>(b) * a.kv_sb +
+                    static_cast<size_t>(h) * a.kv_sh;
+  const float* vg = a.v + static_cast<size_t>(b) * a.kv_sb +
+                    static_cast<size_t>(h) * a.kv_sh;
+  const int dk = (a.hd + 1) & ~1;    // the products' depth, in steps of 2
+  const int ntiles = (a.skv + kKeys - 1) / kKeys;
+  const float neg_inf = __int_as_float(0xff800000);
+
+  // Q^T, zero past Sq and past head_dim
+  for (int i = threadIdx.x; i < R * DP; i += NT) {
+    const int r = i / DP, d = i % DP;
+    qs[d * LT + r] = q0 + r < a.sq && d < a.hd
+                         ? qg[static_cast<size_t>(q0 + r) * a.q_ss + d]
+                         : 0.0f;
   }
-  if constexpr (kLive < kChunks) {
-    for (int i = threadIdx.x; i < 4 * kKeyTile * (kChunks - kLive);
-         i += blockDim.x) {
-      const int r = i / (kChunks - kLive), c = kLive + i % (kChunks - kLive);
-      *reinterpret_cast<uint4*>(ring + r * row_ld<HD>() + c * 8) = zero;
+  // rows k0 .. k0 + 63 of K or V, zero past Skv and past head_dim
+  auto load_rows = [&](float* dst, const float* src, int k0) {
+    for (int i = threadIdx.x; i < kKeys * DP / VEC; i += NT) {
+      const int r = i / (DP / VEC), c = VEC * (i % (DP / VEC));
+      const bool in = k0 + r < a.skv && c < a.hd;
+      cp_async_zfill<4 * VEC>(
+          dst + r * LD + c,
+          in ? src + static_cast<size_t>(k0 + r) * a.kv_ss + c : src, in);
+    }
+  };
+  // the block's tile of sweep 1 (K) or sweep 2 (K and V) at key k0, once
+  // every thread is done with the last one
+  auto load_tile = [&](int k0, bool with_v) {
+    __syncthreads();
+    load_rows(ks, kg, k0);
+    if (with_v) load_rows(vs, vg, k0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  };
+  // s[i][j] = (q_{4 ty + i} . k_{tx + 16 j}) * mul, -inf past Skv
+  auto scores = [&](float (&s)[4][4], int k0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < dk; d += 2) {
+      const float4 qa = *reinterpret_cast<const float4*>(qs + d * LT + 4 * ty);
+      const float4 qb =
+          *reinterpret_cast<const float4*>(qs + (d + 1) * LT + 4 * ty);
+      const float qr[2][4] = {{qa.x, qa.y, qa.z, qa.w},
+                              {qb.x, qb.y, qb.z, qb.w}};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 kk =
+            *reinterpret_cast<const float2*>(ks + (tx + 16 * j) * LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[i][j] = fmaf(qr[1][i], kk.y, fmaf(qr[0][i], kk.x, s[i][j]));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool in = k0 + tx + 16 * j < a.skv;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        s[i][j] = in ? __fmul_rn(s[i][j], a.mul) : neg_inf;
+    }
+  };
+  // ---- sweep 1: each thread's running max and sum of its keys of a row
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = neg_inf;
+    l[i] = 0.0f;
+  }
+  float s[4][4];
+  for (int t = 0; t < ntiles; ++t) {
+    load_tile(t * kKeys, false);
+    scores(s, t * kKeys);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float tm = fmaxf(fmaxf(fmaxf(m[i], s[i][0]), s[i][1]),
+                             fmaxf(s[i][2], s[i][3]));
+      if (tm == neg_inf) continue;
+      if (tm != m[i]) l[i] = __fmul_rn(l[i], ex2(m[i] - tm));
+      m[i] = tm;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        l[i] = __fadd_rn(l[i], ex2(s[i][j] - tm));
+    }
+  }
+  // the 16 threads of a row: the eight lanes of its warp, then the other
+  // key half's warp, in a fixed order
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int off = 1; off <= 4; off <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[i], off);
+      merge(m[i], l[i], mo, lo);
+    }
+  if ((lane & 7) == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      stats[((warp & 1) * R + 4 * ty + i) * 2] = m[i];
+      stats[((warp & 1) * R + 4 * ty + i) * 2 + 1] = l[i];
     }
   }
   __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = warp * 16;
-  AttnWarp<HD> w;
-  load_q<HD>(w, qs + r0 * row_ld<HD>(), lane);
-  attn_stream<HD, LIVE>(w, kg, vg, static_cast<size_t>(a.kv_ss), a.skv,
-                        nullptr, a.scale, ring, lane);
-
-  // rows q0 + r0 + g (e = 0, 1) and + 8 (e = 2, 3), the LIVE columns
-  const int g = lane >> 2, t = lane & 3;
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) +
-                      static_cast<size_t>(b) * a.q_sb +
-                      static_cast<size_t>(h) * a.q_sh;
+  float r[4];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + r0 + g + 8 * r;
-    if (qi >= a.sq) continue;
-    __nv_bfloat16* row = og + static_cast<size_t>(qi) * a.q_ss;
-#pragma unroll
-    for (int dt = 0; dt < LIVE / 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(row + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(w.o[dt][2 * r], w.o[dt][2 * r + 1]);
-  }
-}
-
-template <int HD, int LIVE>
-int launch_plain_bf16(const PlainArgs& a, int batch, void* stream) {
-  const size_t smem =
-      static_cast<size_t>(kPlainQTile * row_ld<HD>() + ring_elems<HD>()) *
-      sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_plain_bf16_kernel<HD, LIVE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.sq + kPlainQTile - 1) / kPlainQTile, a.heads, batch);
-  attention_plain_bf16_kernel<HD, LIVE>
-      <<<grid, kPlainWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-          a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// row stride of the f32 tiles in shared memory: one float past head_dim
-__host__ __device__ constexpr int f32_ld(int hd) { return hd + 1; }
-
-__global__ void __launch_bounds__(kF32Warps * 32)
-    attention_plain_f32_kernel(PlainArgs a, int hd) {
-  extern __shared__ float fsm[];
-  const int ld = f32_ld(hd);
-  float* qs = fsm;                                  // kF32QTile x ld
-  float* ks = qs + kF32QTile * ld;                  // kF32KeyTile x ld
-  float* vs = ks + kF32KeyTile * ld;                // kF32KeyTile x ld
-  float* ps = vs + kF32KeyTile * ld;                // kF32QTile x 32
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * kF32QTile;
-  const float* qg = head_base<float>(a.q, a.q_sb, a.q_sh, b, h);
-  const float* kg = head_base<float>(a.k, a.kv_sb, a.kv_sh, b, h);
-  const float* vg = head_base<float>(a.v, a.kv_sb, a.kv_sh, b, h);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float neg_inf = __int_as_float(0xff800000);
-
-  for (int i = threadIdx.x; i < kF32QTile * hd; i += blockDim.x) {
-    const int r = i / hd, c = i % hd;
-    qs[r * ld + c] =
-        q0 + r < a.sq ? qg[static_cast<size_t>(q0 + r) * a.q_ss + c] : 0.0f;
+  for (int i = 0; i < 4; ++i) {
+    m[i] = stats[(4 * ty + i) * 2];
+    l[i] = stats[(4 * ty + i) * 2 + 1];
+    merge(m[i], l[i], stats[(R + 4 * ty + i) * 2],
+          stats[(R + 4 * ty + i) * 2 + 1]);
+    r[i] = rcp_refined(l[i]);
   }
 
-  auto load_tile = [&](float* dst, const float* src, int k0) {
-    for (int i = threadIdx.x; i < kF32KeyTile * hd; i += blockDim.x) {
-      const int r = i / hd, c = i % hd;
-      dst[r * ld + c] = k0 + r < a.skv
-                            ? src[static_cast<size_t>(k0 + r) * a.kv_ss + c]
-                            : 0.0f;
+  // ---- sweep 2: p = exp(s - m) / l, o += p . v
+  float o[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) o[i][c] = 0.0f;
+  for (int t = 0; t < ntiles; ++t) {
+    load_tile(t * kKeys, true);
+    scores(s, t * kKeys);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float4 p;
+      p.x = __fmul_rn(ex2(s[0][j] - m[0]), r[0]);
+      p.y = __fmul_rn(ex2(s[1][j] - m[1]), r[1]);
+      p.z = __fmul_rn(ex2(s[2][j] - m[2]), r[2]);
+      p.w = __fmul_rn(ex2(s[3][j] - m[3]), r[3]);
+      *reinterpret_cast<float4*>(ps + (tx + 16 * j) * LT + 4 * ty) = p;
     }
-  };
-  // (q_row . k_lane) * scale for key k0 + lane, -inf past Skv
-  auto score = [&](int row, int k0) {
-    if (k0 + lane >= a.skv) return neg_inf;
-    const float* qr = qs + row * ld;
-    const float* kr = ks + lane * ld;
-    float s = 0.0f;
-    for (int c = 0; c < hd; ++c) s = fmaf(qr[c], kr[c], s);
-    return s * a.scale;
-  };
-
-  float mx[kF32Rows], sum[kF32Rows];
-#pragma unroll
-  for (int r = 0; r < kF32Rows; ++r) {
-    mx[r] = neg_inf;
-    sum[r] = 0.0f;
-  }
-  // ---- pass 1: each row's max and sum of exp(s - max)
-  for (int k0 = 0; k0 < a.skv; k0 += kF32KeyTile) {
     __syncthreads();
-    load_tile(ks, kg, k0);
-    __syncthreads();
+#pragma unroll 4
+    for (int key = 0; key < kKeys; ++key) {
+      const float4 p4 =
+          *reinterpret_cast<const float4*>(ps + key * LT + 4 * ty);
+      const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
-    for (int r = 0; r < kF32Rows; ++r) {
-      const float s = score(warp * kF32Rows + r, k0);
-      const float m = fmaxf(mx[r], warp_max(s));
-      sum[r] = sum[r] * expf(mx[r] - m) + warp_sum(expf(s - m));
-      mx[r] = m;
-    }
-  }
-  // ---- pass 2: p = exp(s - max) / sum, o += p . v
-  constexpr int kDims = kF32MaxHd / 32;
-  float o[kF32Rows][kDims];
+      for (int cc = 0; cc < NC / 4; ++cc) {
+        const float4 v4 =
+            *reinterpret_cast<const float4*>(vs + key * LD + 4 * tx + 64 * cc);
+        const float vr[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
-  for (int r = 0; r < kF32Rows; ++r)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < kDims; ++j) o[r][j] = 0.0f;
-  for (int k0 = 0; k0 < a.skv; k0 += kF32KeyTile) {
-    __syncthreads();
-    load_tile(ks, kg, k0);
-    load_tile(vs, vg, k0);
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kF32Rows; ++r) {
-      const int row = warp * kF32Rows + r;
-      const float s = score(row, k0);
-      ps[row * 32 + lane] = expf(s - mx[r]) / sum[r];
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < kDims; ++j) {
-        const int c = lane + 32 * j;
-        if (c < hd) {
-          float acc = o[r][j];
-          for (int key = 0; key < kF32KeyTile; ++key)
-            acc = fmaf(ps[row * 32 + key], vs[key * ld + c], acc);
-          o[r][j] = acc;
-        }
+          for (int e = 0; e < 4; ++e)
+            o[i][4 * cc + e] = fmaf(pr[i], vr[e], o[i][4 * cc + e]);
       }
-      __syncwarp();
     }
   }
-  float* og = static_cast<float*>(a.o) + static_cast<size_t>(b) * a.q_sb +
+  float* og = a.o + static_cast<size_t>(b) * a.q_sb +
               static_cast<size_t>(h) * a.q_sh;
 #pragma unroll
-  for (int r = 0; r < kF32Rows; ++r) {
-    const int qi = q0 + warp * kF32Rows + r;
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + 4 * ty + i;
     if (qi >= a.sq) continue;
 #pragma unroll
-    for (int j = 0; j < kDims; ++j) {
-      const int c = lane + 32 * j;
-      if (c < hd) og[static_cast<size_t>(qi) * a.q_ss + c] = o[r][j];
+    for (int c = 0; c < NC; ++c) {
+      const int col = 4 * tx + (c & 3) + 64 * (c >> 2);
+      if (col < a.hd) og[static_cast<size_t>(qi) * a.q_ss + col] = o[i][c];
     }
   }
 }
 
-int launch_plain_f32(const PlainArgs& a, int batch, int hd, void* stream) {
-  const int ld = f32_ld(hd);
-  const size_t smem = static_cast<size_t>(kF32QTile * ld +
-                                          2 * kF32KeyTile * ld +
-                                          kF32QTile * 32) *
-                      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_plain_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.sq + kF32QTile - 1) / kF32QTile, a.heads, batch);
-  attention_plain_f32_kernel<<<grid, kF32Warps * 32, smem,
-                               static_cast<cudaStream_t>(stream)>>>(a, hd);
+template <int DP, int VEC>
+int launch_f32(const F32Args& a, int batch, cudaStream_t stream) {
+  using L = F32Smem<DP, kRows>;
+  static const cudaError_t attr = [] {
+    cudaError_t err = cudaFuncSetAttribute(
+        attention_plain_f32<DP, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::kBytes));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          attention_plain_f32<DP, VEC>,
+          cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    return err;
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((a.sq + kRows - 1) / kRows, a.heads, batch);
+  attention_plain_f32<DP, VEC><<<grid, 4 * kRows, L::kBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
 }  // namespace tpudf
 
 // q, o: (B, H, Sq, D) or (B, Sq, H, D); k, v: (B, H, Skv, D) or (B, Skv,
-// H, D), as the strides say (elements of image, head and row; unit stride
-// along D). bf16: head_dim 64, 72 or 128, every row start 16-byte aligned.
-// f32: head_dim <= 128. Sq, Skv >= 1.
-TPUDF_API int tpudf_attention_plain(const void* q, const void* k,
-                                    const void* v, void* o, int is_f32,
-                                    int batch, int heads, int sq, int skv,
-                                    int head_dim, int q_sb, int q_sh,
-                                    int q_ss, int kv_sb, int kv_sh,
-                                    int kv_ss, float scale, void* stream) {
+// H, D), f32, as the strides say (elements of image, head and row; unit
+// stride along D); head_dim <= 128; Sq, Skv >= 1.
+TPUDF_API int tpudf_attention_plain_f32(const void* q, const void* k,
+                                        const void* v, void* o, int batch,
+                                        int heads, int sq, int skv,
+                                        int head_dim, int q_sb, int q_sh,
+                                        int q_ss, int kv_sb, int kv_sh,
+                                        int kv_ss, float scale,
+                                        void* stream) {
   using namespace tpudf;
   if (batch <= 0 || heads <= 0 || sq <= 0) return 0;
-  if (skv <= 0) return cudaErrorInvalidValue;
-  const PlainArgs a{q,     k,     v,     o,     heads, sq,    skv, q_sb,
-                    q_sh,  q_ss,  kv_sb, kv_sh, kv_ss, scale};
-  if (is_f32) {
-    if (head_dim > kF32MaxHd) return cudaErrorInvalidValue;
-    return launch_plain_f32(a, batch, head_dim, stream);
-  }
-  if (head_dim == 64) return launch_plain_bf16<64, 64>(a, batch, stream);
-  if (head_dim == 72) return launch_plain_bf16<80, 72>(a, batch, stream);
-  if (head_dim == 128) return launch_plain_bf16<128, 128>(a, batch, stream);
-  return cudaErrorInvalidValue;
+  if (skv <= 0 || head_dim < 0 || head_dim > 128)
+    return cudaErrorInvalidValue;
+  const F32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<float*>(o),
+                  heads, sq, skv, head_dim, q_sb, q_sh, q_ss, kv_sb, kv_sh,
+                  kv_ss, scale * kLog2e};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 16-byte copies only where every row start of k and v is 16-byte aligned
+  const bool vec =
+      (head_dim | kv_sb | kv_sh | kv_ss) % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) &
+       15) == 0;
+  if (head_dim > 64)
+    return vec ? launch_f32<128, 4>(a, batch, s)
+               : launch_f32<128, 1>(a, batch, s);
+  return vec ? launch_f32<64, 4>(a, batch, s)
+             : launch_f32<64, 1>(a, batch, s);
+}
+
+// dynamic shared bytes of a launch at head_dim hd (-1 outside the domain)
+TPUDF_API int tpudf_plain_f32_smem(int hd) {
+  using namespace tpudf;
+  if (hd < 0 || hd > 128) return -1;
+  return static_cast<int>(hd > 64 ? F32Smem<128, kRows>::kBytes
+                                  : F32Smem<64, kRows>::kBytes);
 }

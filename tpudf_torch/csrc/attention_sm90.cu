@@ -72,131 +72,6 @@ using namespace sm90;
 
 constexpr int kMaxSeqFwd = 1024;     // K9: the longest sequence it takes
 constexpr int kMaxSeqBwd = 2048;     // K10: the statistics' shared memory
-constexpr int kBlockRows = 128;      // query (K9, dq) or key (dkv) rows
-constexpr int kWarpgroups = 2;       // consumers of 64 rows each
-constexpr int kThreads = (kWarpgroups + 1) * 128;  // + the producer's
-constexpr int kProducerRegs = 24;    // registers a thread after setmaxnreg
-constexpr int kConsumerRegs = 240;
-constexpr int kTileRows = 64;        // rows of a streamed tile
-constexpr int kBox = kTileRows * 128;            // a 64 x 64 bf16 box
-constexpr int kBlockSub = kBlockRows * 128;      // a 128-row sub-tile
-
-// bytes of a tile of `rows` rows of HD bf16
-template <int HD>
-__host__ __device__ constexpr int tile_bytes(int rows) {
-  return rows * HD * 2;
-}
-
-// stages of a ring: as many as shared memory holds beside the block's own
-// tiles
-template <int HD>
-__host__ __device__ constexpr int stages() {
-  return HD == 64 ? 6 : 4;
-}
-
-// whether the block holds the registers that setmaxnreg hands the
-// consumers at launch (its count a thread times kThreads): a kernel built
-// with fewer would wait forever in the consumers' raise
-template <typename Kernel>
-bool registers_suffice(Kernel kernel) {
-  cudaFuncAttributes a;
-  if (cudaFuncGetAttributes(&a, kernel) != cudaSuccess) return false;
-  return a.numRegs * kThreads >=
-         128 * kProducerRegs + kWarpgroups * 128 * kConsumerRegs;
-}
-
-// the position of a consumer thread: its warpgroup, and in the warpgroup's
-// 64 rows the rows r (e < 2) and r + 8 (e >= 2) it holds, and t = its
-// lane % 4 (columns 8 j + 2 t + (e & 1))
-struct Consumer {
-  int wg, row, t;
-};
-
-__device__ __forceinline__ Consumer consumer() {
-  const int tid = threadIdx.x & 127, lane = threadIdx.x & 31;
-  return {static_cast<int>(threadIdx.x >> 7), (tid >> 5) * 16 + (lane >> 2),
-          lane & 3};
-}
-
-// warpgroups of a block holding any of rows r0 .. r0 + 127 below seq
-__device__ __forceinline__ int active_warpgroups(int r0, int seq) {
-  return min(kWarpgroups, (seq - r0 + 63) / 64);
-}
-
-// c (64 x 64 f32) = A . B^T over HD for the A rows of descriptor `da`
-// (sub-tiles a_sub bytes apart) and the 64 B rows of a streamed tile at
-// `b`: fenced and issued, not committed
-template <int HD>
-__device__ __forceinline__ void issue_nt(float (&c)[32], uint64_t da,
-                                         int a_sub, const void* b) {
-  const uint64_t a0 = opaque(da), b0 = desc_k(b);
-  fence_regs(c);
-  wg_fence();
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks)
-    wgmma_ss<64>(c, step_k(a0, a_sub, ks), step_k(b0, kBox, ks), ks > 0);
-  fence_regs(c);
-}
-
-// acc (64 x HD) += bf16(c) . R for c (64 x 64, rows of the warpgroup,
-// columns the 64 rows of R; its register fragments `a`) and the 64-row
-// streamed tile R at `rows`: fenced and issued, not committed
-template <int HD>
-__device__ __forceinline__ void issue_nn(float (&acc)[HD / 2],
-                                         uint32_t (&a)[4][4],
-                                         const void* rows) {
-  const uint64_t b0 = desc_mn(rows, kBox);
-  fence_regs(acc);
-  fence_regs(a);
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs_t<HD>(acc, a[kk], step_mn(b0, kk));
-  fence_regs(acc);
-  fence_regs(a);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&c)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) c[i] = 0.0f;
-}
-
-// A warpgroup's (64 x HD) f32 accumulator to device memory, rounded to
-// bf16: first into its 64 rows of a 128-row block tile in shared memory
-// (`rows`, sub-tiles kBlockSub apart), in the 128-byte swizzle (a row's
-// 16-byte chunk j at chunk j ^ (row % 8): the 32 lanes of a store hit 32
-// banks), then by TMA, one 64-column box at a time, to `map` at column
-// col0, row row0 and image b, each row leaving as whole 128-byte lines;
-// rows past the tensor's S are clipped by the copy engine, so no thread
-// masks them. Every thread of the warpgroup calls it; it returns once the
-// boxes have read the tile, which may then be reused.
-template <int HD>
-__device__ __forceinline__ void store_tile(const float (&acc)[HD / 2],
-                                           unsigned char* rows,
-                                           const CUtensorMap* map, int col0,
-                                           int row0, int b,
-                                           const Consumer& c) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = c.row + 8 * r;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      const int off = (j / 8) * kBlockSub + row * 128 +
-                      (((j % 8) ^ (row & 7)) << 4) + 4 * c.t;
-      *reinterpret_cast<__nv_bfloat162*>(rows + off) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-    }
-  }
-  fence_proxy_async();
-  warpgroup_sync(c.wg);
-  if ((threadIdx.x & 127) == 0) {
-    for (int sub = 0; sub < HD / 64; ++sub)
-      tma_store_3d(map, rows + sub * kBlockSub, col0 + 64 * sub, row0, b);
-    tma_store_commit();
-    tma_store_wait_read();
-  }
-  warpgroup_sync(c.wg);
-}
 
 // ----------------------------------------------------------------- K9
 
@@ -215,12 +90,6 @@ struct FwdSmem {
   static constexpr size_t kBytes = kBars + 8 * (4 + 2 * kStages) + 1024;
 };
 
-// the dynamic shared memory from its first 1024-byte boundary (the
-// swizzled tiles' alignment), by pointer arithmetic on the shared array
-// itself, so that the compiler keeps its accesses in the shared space
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
 
 // s = (q . k) * scale (+ bias) in f32, -inf for keys k0 + .. past seq;
 // the mask only on a ragged tile, as selects
@@ -433,16 +302,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   if ((threadIdx.x & 127) == 0) tma_store_wait();
 }
 
-// the card's SMs: the persistent kernels' grid
-inline int sm_count() {
-  static const int n = [] {
-    int dev = 0, count = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    return count > 0 ? count : 1;
-  }();
-  return n;
-}
 
 template <int HD>
 int launch_fwd(const void* qkv, const void* key_bias, void* out, int batch,

@@ -48,11 +48,14 @@ SIGNATURES = {
     "tpudf_attn_out_i8": "pppppppiiiiifp",
     "tpudf_attention_i8dyn": "pppiiiiifp",
     "tpudf_layer_i8": "p" * 22 + "iiiiiffp",
-    "tpudf_attention_plain": "pppp" + "i" * 12 + "fp",
+    "tpudf_attention_plain_f32": "pppp" + "i" * 11 + "fp",
+    "tpudf_attention_plain_sm90": "pppp" + "i" * 11 + "fp",
     "tpudf_attention_i8_static": "ppiiiifffffp",
     "tpudf_i8_gemm_quant": "ppppppiiiip",
     "tpudf_sm90_encode_ns": "pi",
     "tpudf_sm90_smem": "iii",
+    "tpudf_plain_sm90_smem": "i",
+    "tpudf_plain_f32_smem": "i",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -78,13 +78,16 @@ replace tpudf/ops/attention.py `_attn_kernel` (wrapper `_attention_pallas`,
 behind `attention`; the multi-query branch of the tower's `_mha`) and the
 inner `kernel` of `_attention_pallas_bshd` (behind `attention_bshd`). Same
 arithmetic: scores in f32 times scale, keys past Skv masked to -inf, an
-exact softmax, p cast to v's dtype, f32 sums, the output in q's dtype. One
-CUDA source (`csrc/attention_plain.cu`) takes the layout as strides, so
-the (B, S, H, D) layout is never transposed: bf16 on the tensor cores
-(K1's two-pass mma.sync tile; head_dim 64, 72 in an 80-wide tile with zero
-columns, or 128), f32 in exact f32 SIMT products (head_dim <= 128). Other
-dtypes or head_dims on a CUDA tensor raise, except where JAX's own
-predicate sends `attention` to XLA (Sq > 4096), where the twin runs.
+exact softmax, p cast to v's dtype, f32 sums, the output in q's dtype.
+Both layouts are read where they lie, never transposed. bf16 runs on
+Hopper's wgmma and TMA (`csrc/attention_plain_sm90.cu`, K9's persistent
+block on `csrc/sm90.cuh`, 4-D tensor maps built from the strides; head_dim
+64 and 128 on tiles of their width, 72 on an 80-wide one, a 64-column and
+a 16-column sub-tile whose last 8 columns the copy engine fills with
+zeros), f32 in exact f32 SIMT products tiled in registers
+(`csrc/attention_plain.cu`, head_dim <= 128). Other dtypes or head_dims on
+a CUDA tensor raise, except where JAX's own predicate sends `attention` to
+XLA (Sq > 4096), where the twin runs.
 `attention_reference` and `_reference_bshd` are the twins (JAX's); the
 backward recomputes the twin and applies its VJP (`twin_vjp`), as JAX's
 `_fused_with_vjp` and `_fused_bshd_with_vjp` recompute through XLA.
@@ -114,6 +117,7 @@ KERNEL_BSHD = "attention_bshd"   # kernel 12, (B, S, H, D)
 PLAIN_HEAD_DIMS = (64, 72, 128)  # kernels 11 and 12 in bf16
 PLAIN_F32_MAX_HEAD_DIM = 128     # and in f32
 PALLAS_MAX_SQ = 4096        # JAX's `attention` sends longer queries to XLA
+PLAIN_F32_ROWS = 48         # csrc/attention_plain.cu: query rows a block
 # csrc/attention_sm90.cu (K9, K10): the longest sequences, the rows of a
 # streamed tile and of a block, and the shared memory a block may have
 SM90_MAX_SEQ_FWD = 1024
@@ -439,6 +443,40 @@ def _reference_bshd(q, k, v, scale=None):
                         v.float()).to(v.dtype)
 
 
+def plain_fits(dtype, head_dim):
+    """Whether kernels 11 and 12 are built for q, k, v of this dtype and
+    head_dim: bf16 at PLAIN_HEAD_DIMS (the wgmma kernel), f32 up to
+    PLAIN_F32_MAX_HEAD_DIM (the SIMT kernel). At these head_dims every row
+    stride of a contiguous bf16 tensor is a multiple of 16 bytes, as a
+    tensor map needs."""
+    if dtype == torch.bfloat16:
+        return head_dim in PLAIN_HEAD_DIMS
+    return dtype == torch.float32 and head_dim <= PLAIN_F32_MAX_HEAD_DIM
+
+
+def plain_sm90_smem(head_dim):
+    """Shared bytes of the bf16 kernel's block (`PlainSmem`): two Q buffers
+    of SM90_BLOCK_ROWS rows and the ring's stages of a K and a V tile of
+    SM90_TILE_ROWS rows (6 on the 64-wide tile of heads of 64, 4 on the
+    80-wide one of heads of 72 and the 128-wide one of heads of 128), the
+    barriers, and 1 KB for the alignment of the swizzled tiles."""
+    width = {64: 64, 72: 80}.get(head_dim, 128)
+    tile = lambda rows: rows * width * 2
+    stages = 6 if width == 64 else 4
+    return (2 * tile(SM90_BLOCK_ROWS) + stages * 2 * tile(SM90_TILE_ROWS)
+            + 8 * (4 + 2 * stages) + 1024)
+
+
+def plain_f32_smem(head_dim):
+    """Shared bytes of the f32 kernel's block of PLAIN_F32_ROWS query rows
+    (`F32Smem`): Q^T (DP columns of rows + 4), a K and a V tile (64 keys of
+    DP + 4 floats), p^T (64 keys of rows + 4) and the row statistics of the
+    block's two key halves, DP = 64 for head_dim <= 64, else 128."""
+    dp, rows = (64 if head_dim <= 64 else 128), PLAIN_F32_ROWS
+    return 4 * (dp * (rows + 4) + 2 * 64 * (dp + 4) + 64 * (rows + 4)
+                + 4 * rows)
+
+
 def _plain_dims(q, k, bshd):
     """(B, H, Sq, Skv, D) of q and k in their layout."""
     if bshd:
@@ -460,9 +498,7 @@ def check_plain_attention(name, q, k, v, bshd=False):
         ok = ((kb, kh, kd) == (b, h, d) and skv >= 1
               and q.dtype == k.dtype == v.dtype
               and max(q.numel(), k.numel()) < 2 ** 31
-              and (d in PLAIN_HEAD_DIMS if q.dtype == torch.bfloat16
-                   else q.dtype == torch.float32
-                   and d <= PLAIN_F32_MAX_HEAD_DIM))
+              and plain_fits(q.dtype, d))
     if not ok:
         raise ValueError(
             f"{name} takes q, k, v of one dtype, bf16 with head_dim in "
@@ -479,15 +515,16 @@ def _plain_strides(t, bshd):
 
 
 def _attention_plain_cuda(q, k, v, scale, bshd):
+    """One launch of kernel 11 (bshd False) or 12."""
     name = "kernel 12" if bshd else "kernel 11"
     check_plain_attention(name, q, k, v, bshd)
     b, h, sq, skv, d = _plain_dims(q, k, bshd)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    _build.call("tpudf_attention_plain", q, k, v, out,
-                int(q.dtype == torch.float32), b, h, sq, skv, d,
-                *_plain_strides(q, bshd), *_plain_strides(k, bshd),
-                float(scale))
+    args = (q, k, v, out, b, h, sq, skv, d, *_plain_strides(q, bshd),
+            *_plain_strides(k, bshd), float(scale))
+    _build.call("tpudf_attention_plain_f32" if q.dtype == torch.float32
+                else "tpudf_attention_plain_sm90", *args)
     LAUNCHES.hit(KERNEL_BSHD if bshd else KERNEL_PLAIN)
     return out
 
