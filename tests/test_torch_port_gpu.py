@@ -1,9 +1,11 @@
 """Card-only tests: each CUDA kernel of tpudf_torch against its plain twin
 on the card, at small shapes (K8's int8 codes within one step: a tie of
 the f32 LN may round the other way), and at the large backbones' longer
-sequences and wider heads (K1, K6, K9 and 9b at S = 576 / 1024, head_dim
-64 / 128, the LN passes at width 1152), K9 and K10 at the edges of their
-tiles (S = 32, ragged S, heads of 128, the bias), kernels 11 and 12 (plain attention
+sequences and wider heads (K1, K6, K9 and 9b at S = 576 / 1024 / 1296
+and ragged past 1024, head_dim 64 / 128, the LN passes at width 1152), the
+bf16 GEMM of K13, K14 and 15 in each epilogue mode at the edges of its
+tiles and at a path shape, K9 and K10 at the edges of their tiles (S =
+32, ragged S, heads of 128, the bias), kernels 11 and 12 (plain attention
 in both layouts, ragged keys, Sq != Skv, heads of 72, bf16 and f32, and
 the gradient through kernel 11), the probes' kernels 15, 16 and 17 (the
 tolerances of tests/test_torch_port_probes.py; 17 by 9b's card rule), both
@@ -166,7 +168,9 @@ def _large_case(name, dev):
     """(kernel output, twin output, atol, rtol, measure, limit, planted
     faults' outputs) at the large backbones' shapes: S = 576 with heads of
     64 (large-384), S = 1024 with heads of 72 zero-padded to 128 and scale
-    72^-0.5 (so400m-512). q, k and v have std ~1.5 (scores of std ~2.25),
+    72^-0.5 (so400m-512), and past 1024 with heads of 64 (S = 1296, a
+    patch-16 tower at 576 px, and the ragged 1297, or 1304 where the
+    kernel takes S % 8 == 0). q, k and v have std ~1.5 (scores of std ~2.25),
     so that the attention shows: K9 and 9b are held to at most 1e-2 of
     their outputs more than a bf16 step from the twin, K1 and K6 to
     |out - twin| <= 5e-2 |twin - x| (the attention sublayer's part; the
@@ -176,8 +180,9 @@ def _large_case(name, dev):
     bias dropped."""
     g = torch.Generator(device=dev).manual_seed(0)
     r = lambda *s, std=1.0: torch.randn(s, generator=g, device=dev) * std
-    s_, hd, heads, scale = ((576, 64, 2, None) if name.endswith("576")
-                            else (1024, 128, 1, 72 ** -0.5))
+    s_ = int(name.split("-")[1])
+    hd, heads, scale = ((128, 1, 72 ** -0.5) if s_ == 1024
+                        else (64, 2, None))
     bad_scale = 0.75 * hd ** -0.5 if scale is None else hd ** -0.5
     wa = heads * hd
     qkv = r(2, s_, 3, heads, hd, std=1.5)
@@ -236,7 +241,10 @@ def _large_case(name, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["K1-576", "K1-1024", "K6-576", "K6-1024",
-                                  "K9-576", "K9-1024", "9b-576", "9b-1024"])
+                                  "K9-576", "K9-1024", "9b-576", "9b-1024",
+                                  "K1-1296", "K1-1304", "K6-1296", "K6-1304",
+                                  "K9-1296", "K9-1297", "9b-1296",
+                                  "9b-1297"])
 def test_large_attention_matches_twin_on_card(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -741,3 +749,37 @@ def test_probe_kernels_match_twins_on_card(kernel):
     m_ab = torch.maximum(a.abs(), r.abs()).clamp_min(1e-30)
     lim = steps * torch.exp2(torch.floor(torch.log2(m_ab)) - 7) + atol
     assert bool(((a - r).abs() <= lim).all())
+
+
+# the bf16 GEMM of K13, K14 and kernel 15 (csrc/bf16_gemm_sm90.cu): a
+# ragged M with K % 64 == 32 and N % 256 == 128, a half tile after two
+# whole ones, and the QKV product of the float engine's full analysis
+_GEMM_SHAPES = [(300, 800, 384), (300, 768, 640), (108544, 768, 2304)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,with_bias", [(0, True), (0, False), (1, True),
+                                            (2, True)])
+@pytest.mark.parametrize("shape", _GEMM_SHAPES)
+def test_bf16_gemm_matches_twin_on_card(shape, mode, with_bias):
+    """The launch in each epilogue mode (MODE 0 also without a bias, as
+    kernel 15 runs it) against `linear_fused_reference`: atol 1e-2 + rtol
+    2^-7 and at most 1e-2 of the outputs more than a bf16 step apart."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = shape
+    g = torch.Generator(device="cuda").manual_seed(m + k + n)
+    r = lambda *s, std=1.0: torch.randn(s, generator=g, device="cuda") * std
+    a = r(m, k).to(torch.bfloat16)
+    w = r(k, n, std=k ** -0.5).to(torch.bfloat16)
+    bias = r(n, std=0.1) if with_bias else None
+    res = r(m, n).to(torch.bfloat16) if mode == linear.GEMM_RESIDUAL else None
+    got = linear.bf16_gemm_cuda(a, w, bias, mode, res)
+    ref = linear.linear_fused_reference(
+        a, w, bias, residual=res,
+        activation="gelu" if mode == linear.GEMM_GELU else None)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                               rtol=2 ** -7)
+    assert _share_apart(got, ref) <= 1e-2

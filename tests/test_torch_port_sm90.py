@@ -6,7 +6,8 @@ package on the CPU.
       `check_attention_shape` accepts, and `sm90_bwd_fits` (K10) every
       shape that JAX's Pallas backward admits (`attention_qkv_bwd_fits`,
       head_dim in BWD_HEAD_DIMS), over a grid of (B, S, heads, head_dim)
-      with ragged S, S = 32, 1000, 1024 and K10's S up to JAX's fit;
+      with ragged S, S = 32, 1000, 1024, past 1024 (K9 takes S up to
+      MAX_SEQ) and K10's S up to JAX's fit;
       shapes outside it are refused before any launch
   (b) the tiling  `k9_tile_model` and `k10_tile_model` compute what the
       kernels compute in their order: 64-key tiles; in K9's pass 1 the
@@ -97,7 +98,11 @@ def test_kernels_refuse_shapes_outside_their_domain():
         attention.check_attention_bwd_shape(
             "K10", torch.empty((1, 64, 3 * 144), dtype=bf),
             torch.empty((1, 64, 144), dtype=bf), 2, 72)
-    assert not attention.sm90_fwd_fits(1025, 128, 64)
+    # K9 takes S past 1024 up to MAX_SEQ (its K/V tiles stream) and no
+    # further
+    assert attention.sm90_fwd_fits(1025, 128, 64)
+    assert attention.sm90_fwd_fits(attention.MAX_SEQ, 128, 64)
+    assert not attention.sm90_fwd_fits(attention.MAX_SEQ + 1, 128, 64)
     assert not attention.sm90_fwd_fits(256, 144, 72)
 
 

@@ -10,7 +10,7 @@
 // bf16 output, is attention_sm90.cu.)
 //
 // One block per (query tile of 64, head, image), four warps of 16 query
-// rows, head_dim 64 or 128 (a template parameter), S <= kMaxSeq = 1024.
+// rows, head_dim 64 or 128 (a template parameter), S <= kMaxSeq.
 // The Q tile sits in shared memory until each warp has its fragments; the
 // head's K and V stream through a two-stage cp.async ring of 64-key tiles
 // (attn_stream in attn_tile.cuh): a pass over K for each row's max and
@@ -139,7 +139,8 @@ TPUDF_API int tpudf_attention_i8(const void* qkv, const void* key_bias,
                                  float scale, void* stream) {
   using namespace tpudf;
   if (batch <= 0 || seq <= 0) return 0;
-  if (seq > kMaxSeq || act_scale == nullptr) return cudaErrorInvalidValue;
+  if (!attention_seq_ok(batch, seq) || act_scale == nullptr)
+    return cudaErrorInvalidValue;
   if (head_dim == 64)
     return launch_attention_hd<64>(qkv, key_bias, act_scale, o8, batch, seq,
                                    heads, scale, stream);
@@ -162,7 +163,7 @@ TPUDF_API int tpudf_attn_out_i8(const void* qkv, const void* x,
   using namespace tpudf;
   if (batch <= 0 || seq <= 0) return 0;
   const int wa = heads * head_dim;
-  if (seq > kMaxSeq || width % kBN != 0 || wa % kBK != 0 ||
+  if (!attention_seq_ok(batch, seq) || width % kBN != 0 || wa % kBK != 0 ||
       (head_dim != 64 && head_dim != 128))
     return cudaErrorInvalidValue;
   AttnOutArgs p{static_cast<const __nv_bfloat16*>(qkv),

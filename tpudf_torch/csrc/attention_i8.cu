@@ -23,8 +23,10 @@
 // quantised tile by tile (64 keys) into shared memory as they stream in,
 // in two passes over the keys as in attn_tile.cuh: the first for each
 // row's max and sum, the second for p8 and p8 . v8. Both products run on
-// the tensor cores as int8 mma.sync m16n8k32 with exact int32 sums (at
-// most 127 * 127 * 1024 < 2^24, so their f32 conversion is exact too). The
+// the tensor cores as int8 mma.sync m16n8k32 with exact int32 sums (p8 .
+// v8 at most 127 * 127 * S, under 2^31 for S <= kMaxSeq), each rounded
+// once to f32, as JAX converts its int32 dot (past S = 1040 that
+// rounding can lose bits). The
 // p8 fragment is built in registers from the score accumulators: the
 // product sums over keys, so the keys may go in any order that A and B
 // share, and V is stored transposed with its keys in the order in which
@@ -331,7 +333,8 @@ TPUDF_API int tpudf_attention_i8dyn(const void* qkv, void* amax, void* out,
                                     void* stream) {
   using namespace tpudf;
   if (batch <= 0 || seq <= 0) return 0;
-  if (seq > kMaxSeq || qb <= 0 || (qb < seq && qb % kI8QTile != 0))
+  if (!attention_seq_ok(batch, seq) || qb <= 0 ||
+      (qb < seq && qb % kI8QTile != 0))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
@@ -355,7 +358,8 @@ TPUDF_API int tpudf_attention_i8_static(const void* qkv, void* out, int batch,
                                         void* stream) {
   using namespace tpudf;
   if (batch <= 0 || seq <= 0) return 0;
-  if (seq > kMaxSeq || head_dim != 128) return cudaErrorInvalidValue;
+  if (!attention_seq_ok(batch, seq) || head_dim != 128)
+    return cudaErrorInvalidValue;
   const dim3 grid((seq + kI8QTile - 1) / kI8QTile, heads, batch);
   attention_i8_kernel<128, true>
       <<<grid, kI8Warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(

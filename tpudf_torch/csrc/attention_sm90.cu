@@ -18,21 +18,23 @@
 // the consumers), one block an SM, persistent over work items of (128
 // query rows, head, image). The producer's first thread loads each item's
 // Q (double-buffered) and streams the head's K tiles (pass 1) and K and V
-// tiles (pass 2), 64 keys each, with the bias tile beside each K tile,
-// through a ring of 6 (head_dim 64) or 4 (128) stages that runs on across
-// items: each box of 64 columns by TMA from a 3-D tensor map over qkv (3Wa
-// columns, S rows, B images), whose rows past S arrive as zeros (a ragged
-// tile never reads the next image; those keys are still masked, as a zero
-// key scores 0). QK^T runs as wgmma with Q and K both K-major in shared
+// tiles (pass 2), 64 keys each, with the bias tile beside each K tile
+// (the wrapper pads each image's bias row to whole tiles), through a ring
+// of 6 (head_dim 64) or 4 (128) stages that runs on across items: each box
+// of 64 columns by TMA from a 3-D tensor map over qkv (3Wa columns, S
+// rows, B images), whose rows past S arrive as zeros (a ragged tile never
+// reads the next image; those keys are still masked, as a zero key scores
+// 0). QK^T runs as wgmma with Q and K both K-major in shared
 // memory; p is formed in registers from the score accumulators and is
 // wgmma's register A against V, read with the transpose bit; tile t's p is
 // formed while tile t - 1's p . v runs. o leaves through the warpgroup's
 // rows of the Q buffer and a TMA store. Head_dim 64 or 128 (a template
 // parameter; so400m's heads of 72 arrive zero-padded to 128, with their
 // own scale: the scale is an argument, never derived from head_dim), S <=
-// kMaxSeqFwd. Each score costs an expf in each pass and a division in the
-// second: on the card these instructions and the products take about half
-// of the time each, and do not overlap (PERF.md).
+// kMaxSeq (common.cuh): nothing in the block grows with S. Each score
+// costs an expf in each pass and a division in the second: on the card
+// these instructions and the products take about half of the time each,
+// and do not overlap (PERF.md).
 //
 // K10, replacing `_attn_qkv_bwd_kernel` (the backward of K9 without a
 // bias), from qkv and the cotangent g (B, S, Wa): the same P, then
@@ -70,7 +72,6 @@ namespace {
 
 using namespace sm90;
 
-constexpr int kMaxSeqFwd = 1024;     // K9: the longest sequence it takes
 constexpr int kMaxSeqBwd = 2048;     // K10: the statistics' shared memory
 
 // ----------------------------------------------------------------- K9
@@ -192,7 +193,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                         2 * wa + w.h * HD + 64 * c, k0, w.b);
         }
         if (has_bias)
-          tma_load_1d(st + L::kBias, &bias_map, full, w.b * seq + k0);
+          tma_load_1d(st + L::kBias, &bias_map, full,
+                      w.b * ntiles * kTileRows + k0);
       }
     }
     return;
@@ -312,8 +314,14 @@ int launch_fwd(const void* qkv, const void* key_bias, void* out, int batch,
       !map_bf16_3d(&out_map, out, wa, seq, batch, kTileRows))
     return cudaErrorInvalidValue;
   if (key_bias != nullptr) {
-    if (!map_f32_1d(&bias_map, key_bias,
-                    static_cast<uint64_t>(batch) * seq, kTileRows))
+    // the bias rows padded to whole tiles, so that every box starts on a
+    // 256-byte boundary (boxes that started off a 16-byte one, at b * S
+    // floats with S % 4 != 0, faulted on the card: CUDA error 715)
+    const long long rows = static_cast<long long>(batch) *
+                           ((seq + kTileRows - 1) / kTileRows) * kTileRows;
+    if (rows > kMaxRows ||
+        !map_f32_1d(&bias_map, key_bias, static_cast<uint64_t>(rows),
+                    kTileRows))
       return cudaErrorInvalidValue;
   } else {
     bias_map = qkv_map;                     // never read
@@ -327,6 +335,7 @@ int launch_fwd(const void* qkv, const void* key_bias, void* out, int batch,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const long long n_items = static_cast<long long>(
       (seq + kBlockRows - 1) / kBlockRows) * heads * batch;
+  if (n_items > 2147483647ll) return cudaErrorInvalidValue;
   const int grid = static_cast<int>(std::min<long long>(n_items, sm_count()));
   attention_fwd_sm90<HD><<<grid, kThreads, FwdSmem<HD>::kBytes, stream>>>(
       qkv_map, bias_map, out_map, key_bias != nullptr, batch, seq, heads,
@@ -686,15 +695,16 @@ int launch_bwd(const void* qkv, const void* gout, void* dqkv, void* stats,
 }  // namespace
 }  // namespace tpudf
 
-// K9: out (B, S, Wa) bf16 from qkv (B, S, 3 Wa) bf16 and an optional (B,
-// S) f32 key bias; head_dim 64 or 128, S <= 1024, 16-byte aligned rows
+// K9: out (B, S, Wa) bf16 from qkv (B, S, 3 Wa) bf16 and an optional f32
+// key bias (B, S rounded up to 64), zero past S; head_dim 64 or 128, S <=
+// kMaxSeq, B * S <= kMaxRows, 16-byte aligned rows
 TPUDF_API int tpudf_attention_qkv_sm90(const void* qkv, const void* key_bias,
                                        void* out, int batch, int seq,
                                        int heads, int head_dim, float scale,
                                        void* stream) {
   using namespace tpudf;
   if (batch <= 0 || seq <= 0) return 0;
-  if (seq > kMaxSeqFwd) return cudaErrorInvalidValue;
+  if (!attention_seq_ok(batch, seq)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
     return launch_fwd<64>(qkv, key_bias, out, batch, seq, heads, scale, s);

@@ -19,7 +19,8 @@
 // That is the TPU kernel's function: an exact softmax, not an online
 // one, with p rounded where the TPU kernel rounds it. A full score row
 // no longer has to fit a warp's registers (16 x 1024 f32 would be 64 KB a
-// warp), so S goes to kMaxSeq; the price is a second sweep of QK^T.
+// warp), so S goes to kMaxSeq (common.cuh); the price is a second sweep
+// of QK^T.
 // head_dim is a template parameter (64, or 128 for so400m's heads of 72
 // padded by prepad_siglip_static; 80 for kernels 11 and 12's raw heads of
 // 72, of which LIVE = 72 columns are staged); the softmax scale is an
@@ -40,7 +41,6 @@
 
 namespace tpudf {
 
-constexpr int kMaxSeq = 1024;          // longest sequence the kernels take
 constexpr int kKeyTile = 64;           // keys a stage of the K/V ring holds
 constexpr int kOutQTile = 128;         // K6's query rows: 8 warps x 16
 

@@ -21,6 +21,21 @@ namespace tpudf {
 // the most dynamic shared memory a block may have on sm_90
 constexpr size_t kMaxBlockSmem = 232448;
 
+// The attention kernels' longest sequence (K1, K6, K9, 9b, 17;
+// tpudf_torch/ops/attention.py MAX_SEQ): 9b's int32 sums of p8 . v8 reach
+// 127^2 S, under 2^31 up to S = 133,144. Nothing else in them grows with
+// S: K and V stream through rings of 64-key tiles, the row statistics sit
+// in registers, K9's bias tile is one per stage. A call's rows B * S are
+// indexed as ints (b * S + r): at most kMaxRows (MAX_ROWS).
+constexpr int kMaxSeq = 1 << 17;
+constexpr long long kMaxRows = 2147483647ll;
+
+// whether the attention kernels take `batch` images of `seq` tokens
+inline bool attention_seq_ok(int batch, int seq) {
+  return seq <= kMaxSeq &&
+         static_cast<long long>(batch) * seq <= kMaxRows;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -14,11 +14,13 @@ output rounded once to bf16.
 The CUDA kernel is `csrc/attention_sm90.cu` (Hopper's wgmma products and
 TMA loads through an mbarrier ring, `csrc/sm90.cuh`). It takes head_dim
 64 or 128 (so400m's heads of 72, padded by the caller, keep their own
-scale) and S ≤ 1024 (large-384's 576, so400m-512's 1024); any other shape
-on a CUDA tensor raises. One persistent block an SM takes items of 128
-query rows (two warpgroups of 64) of one head against its keys, streamed
-by TMA in 64-key tiles, in two passes over the keys (row max and sum,
-then p · v); at the engine's shapes the card's bound is the bytes of qkv.
+scale) and S up to MAX_SEQ (its K and V tiles stream, so nothing in it
+grows with S); any other shape on a CUDA tensor raises. One persistent
+block an SM takes items of 128 query rows (two warpgroups of 64) of one
+head against its keys, streamed by TMA in 64-key tiles, in two passes
+over the keys (row max and sum, then p · v); at the engine's shapes the
+card's bound is the bytes of qkv. A key bias reaches the kernel padded
+to whole 64-key tiles.
 
 `attention_qkv_reference` is the twin, the JAX package's `_reference_qkv`;
 it also serves calibration and the twin of K1.
@@ -61,7 +63,8 @@ amax over all S rows, clipped to ±127; int8 QKᵀ with int32 sums scaled by
 (aq·ak)/127² · scale; an exact f32 softmax; p quantised per row with ap =
 max p + 1e-20, not clipped; int8 p·v scaled by ap·av/127²; bf16 out. Its
 CUDA kernel is `csrc/attention_i8.cu` (an amax pass, then the two-pass
-tile with int8 mma.sync); head_dim 64 or 128, S ≤ 1024.
+tile with int8 mma.sync); head_dim 64 or 128, S up to MAX_SEQ (its int32
+sums of p8 · v8 reach 127² S, under 2^31 up to S = 133,144).
 `attention_qkv_int8_reference` is its twin, written from `_one_head`.
 
 `attention_qkv_vjp` is the tower's attention: one autograd Function whose
@@ -107,7 +110,11 @@ KERNEL = "attention_qkv"
 KERNEL_BWD = "attention_qkv_bwd"
 KERNEL_INT8 = "attention_qkv_int8"
 HEAD_DIMS = (64, 128)       # K1, K6, K9 and 9b
-MAX_SEQ = 1024
+# K1, K6, K9 and 9b: the longest sequence (csrc/common.cuh kMaxSeq; 9b's
+# int32 p8 · v8 sums bound it) and the most rows B·S of a call (the
+# kernels index rows b·S + r as ints)
+MAX_SEQ = 1 << 17
+MAX_ROWS = 2 ** 31 - 1
 KERNEL_BWD_TWIN = "attention_qkv_bwd_twin_vjp"  # JAX's XLA-recompute route
 BWD_HEAD_DIMS = (64, 128)   # K10
 BWD_FIT_BYTES = 12 * 1024 * 1024   # JAX's VMEM fit for the Pallas backward
@@ -118,9 +125,8 @@ PLAIN_HEAD_DIMS = (64, 72, 128)  # kernels 11 and 12 in bf16
 PLAIN_F32_MAX_HEAD_DIM = 128     # and in f32
 PALLAS_MAX_SQ = 4096        # JAX's `attention` sends longer queries to XLA
 PLAIN_F32_ROWS = 48         # csrc/attention_plain.cu: query rows a block
-# csrc/attention_sm90.cu (K9, K10): the longest sequences, the rows of a
+# csrc/attention_sm90.cu (K10): the longest sequence, the rows of a
 # streamed tile and of a block, and the shared memory a block may have
-SM90_MAX_SEQ_FWD = 1024
 SM90_MAX_SEQ_BWD = 2048
 SM90_TILE_ROWS = 64
 SM90_BLOCK_ROWS = 128
@@ -129,12 +135,15 @@ SM90_BLOCK_SMEM = 232448
 
 def check_attention_shape(name, qkv, heads, head_dim):
     """Raise unless `qkv` is bf16 (B, S, 3·heads·head_dim) with head_dim
-    in HEAD_DIMS and S <= MAX_SEQ (the attention kernels' limits)."""
+    in HEAD_DIMS, S <= MAX_SEQ and B·S <= MAX_ROWS (the attention
+    kernels' limits)."""
     b, s, w3 = qkv.shape
     if (qkv.dtype != torch.bfloat16 or head_dim not in HEAD_DIMS
-            or s > MAX_SEQ or w3 != 3 * heads * head_dim):
+            or s > MAX_SEQ or b * s > MAX_ROWS
+            or w3 != 3 * heads * head_dim):
         raise ValueError(f"{name} takes bf16 qkv with head_dim in "
-                         f"{HEAD_DIMS} and S <= {MAX_SEQ}, got "
+                         f"{HEAD_DIMS}, S <= {MAX_SEQ} and B·S <= "
+                         f"{MAX_ROWS}, got "
                          f"{qkv.dtype} {tuple(qkv.shape)} heads {heads} "
                          f"head_dim {head_dim}")
 
@@ -154,9 +163,9 @@ def sm90_dkv_smem(s, head_dim):
 
 def sm90_fwd_fits(s, w, head_dim):
     """Whether K9's kernel takes qkv (B, s, 3w): a head_dim it is built
-    for, S <= SM90_MAX_SEQ_FWD, and rows whose byte stride a tensor map
-    takes (a multiple of 16)."""
-    return (head_dim in HEAD_DIMS and 1 <= s <= SM90_MAX_SEQ_FWD
+    for, S <= MAX_SEQ, and rows whose byte stride a tensor map takes (a
+    multiple of 16)."""
+    return (head_dim in HEAD_DIMS and 1 <= s <= MAX_SEQ
             and w % head_dim == 0 and 3 * w * 2 % 16 == 0)
 
 
@@ -212,7 +221,13 @@ def _attention_qkv_cuda(qkv, heads, head_dim, scale, logit_bias):
         raise ValueError(f"K9 has no kernel for S {s}, head_dim {head_dim}")
     out = torch.empty((b, s, heads * head_dim), dtype=torch.bfloat16,
                       device=qkv.device)
-    bias = None if logit_bias is None else logit_bias.float().contiguous()
+    bias = None
+    if logit_bias is not None:
+        # rows of whole 64-key tiles: each TMA box of the bias starts on a
+        # 16-byte boundary
+        pad = -s % SM90_TILE_ROWS
+        bias = torch.nn.functional.pad(logit_bias.float(),
+                                       (0, pad)).contiguous()
     _build.call("tpudf_attention_qkv_sm90", qkv.contiguous(), bias, out, b,
                 s, heads, head_dim, float(scale))
     LAUNCHES.hit(KERNEL)
@@ -266,7 +281,10 @@ def attention_qkv_int8_reference(qkv, heads, head_dim, scale=None, *,
     p = e / torch.sum(e, dim=-1, keepdim=True)
     ap = torch.amax(p, dim=-1, keepdim=True) + 1e-20
     p8 = torch.round(p * (127.0 / ap))
-    o = torch.matmul(p8, _quant_amax(v, av)) * (ap * (av / (127.0 * 127.0)))
+    # the int32 sum of p8 · v8 rounded once to f32, as JAX and the kernel
+    # round it: exact in f64 (it passes 2^24 past S = 1040)
+    pv = torch.matmul(p8.double(), _quant_amax(v, av).double()).float()
+    o = pv * (ap * (av / (127.0 * 127.0)))
     return o.transpose(1, 2).reshape(b, s, w).to(qkv.dtype)
 
 

@@ -54,7 +54,7 @@ import torch
 
 from tpudf_torch.core.backend import LAUNCHES
 from tpudf_torch.ops import _build
-from tpudf_torch.ops.attention import (HEAD_DIMS, MAX_SEQ,
+from tpudf_torch.ops.attention import (HEAD_DIMS, MAX_ROWS, MAX_SEQ,
                                        attention_qkv_reference,
                                        check_attention_shape)
 from tpudf_torch.ops.layernorm import MAX_WIDTH, ln_quant_cuda, ln_rows_f32
@@ -204,13 +204,14 @@ def i8_gemm_cuda(a8, wt, col_scale, bias, act, mode, *, residual=None,
 
 def check_attn_sublayer_int8(x, qkv_wq, out_wq, heads, head_dim):
     """Raise unless K1 takes this layer: bf16 x (B, S, W) of width 64k <=
-    MAX_WIDTH, head_dim in HEAD_DIMS, S <= MAX_SEQ, a (W, 3 heads head_dim)
-    QKV weight, and both int8 GEMMs' shapes (`check_i8_gemm`)."""
-    _, s, w = x.shape
+    MAX_WIDTH, head_dim in HEAD_DIMS, S <= MAX_SEQ, B·S <= MAX_ROWS, a (W,
+    3 heads head_dim) QKV weight, and both int8 GEMMs' shapes
+    (`check_i8_gemm`)."""
+    b, s, w = x.shape
     wa = heads * head_dim
     wt = transposed(qkv_wq)
     if (x.dtype != torch.bfloat16 or head_dim not in HEAD_DIMS
-            or s > MAX_SEQ or w % 64 or w > MAX_WIDTH
+            or s > MAX_SEQ or b * s > MAX_ROWS or w % 64 or w > MAX_WIDTH
             or tuple(wt.shape) != (3 * wa, w)):
         raise ValueError(f"K1 takes bf16 x of width 64k <= {MAX_WIDTH}, "
                          f"head_dim in {HEAD_DIMS}, S <= {MAX_SEQ} and a "
@@ -303,13 +304,29 @@ def _attn_out_route_cuda(qkv, x, wq, bias, a, heads, head_dim, scale,
     return out.reshape(b, s, w)
 
 
+def check_attn_out_int8(qkv, x, wq, heads, head_dim):
+    """Raise unless K6 takes this call: qkv under `check_attention_shape`,
+    bf16 x (B, S, W % 128 == 0), a (Wa, W) out-projection, and Wa <= 1024
+    at head_dim 64, <= 768 at 128 (its block's shared memory)."""
+    b, s, _ = qkv.shape
+    w = x.shape[-1]
+    wa = heads * head_dim
+    check_attention_shape("K6", qkv, heads, head_dim)
+    if (x.dtype != torch.bfloat16 or wa > (1024 if head_dim == 64 else 768)
+            or w % 128 or tuple(wq["q"].shape) != (wa, w)
+            or x.shape != (b, s, w)):
+        raise ValueError(f"K6 takes x (B, S, W % 128 == 0) bf16 and Wa <= "
+                         f"1024 (head_dim 64) or 768 (128), got {x.dtype} "
+                         f"{tuple(x.shape)}, Wa {wa}, head_dim {head_dim}")
+
+
 def attn_out_int8(qkv, x, wq, bias, act_scale, heads, head_dim, scale=None,
                   *, logit_bias=None):
     """qkv (B, S, 3Wa) + residual x (B, S, W) → (B, S, W): attention, int8
     quant, int8 out-projection, dequant + bias + residual. CPU tensors take
     the plain twin; CUDA tensors launch K6 (bf16, head_dim 64 or 128, S <=
-    1024, W % 128 == 0, Wa <= 1024 at head_dim 64 and <= 768 at 128: its
-    shared memory) or raise; with a logit bias or where
+    MAX_SEQ, W % 128 == 0, Wa <= 1024 at head_dim 64 and <= 768 at 128:
+    its shared memory) or raise; with a logit bias or where
     `attn_out_int8_fits` is false, K9 or 9b and the out-projection GEMM."""
     scale = scale if scale is not None else head_dim ** -0.5
     if not qkv.is_cuda:
@@ -322,15 +339,8 @@ def attn_out_int8(qkv, x, wq, bias, act_scale, heads, head_dim, scale=None,
                                                          head_dim):
         return _attn_out_route_cuda(qkv, x, wq, bias, a, heads, head_dim,
                                     scale, logit_bias)
+    check_attn_out_int8(qkv, x, wq, heads, head_dim)
     wt = transposed(wq)
-    wa = heads * head_dim
-    check_attention_shape("K6", qkv, heads, head_dim)
-    if (x.dtype != torch.bfloat16 or wa > (1024 if head_dim == 64 else 768)
-            or w % 128 or tuple(wt.shape) != (w, wa)
-            or x.shape != (b, s, w)):
-        raise ValueError(f"K6 takes x (B, S, W % 128 == 0) bf16 and Wa <= "
-                         f"1024 (head_dim 64) or 768 (128), got {x.dtype} "
-                         f"{tuple(x.shape)}, Wa {wa}, head_dim {head_dim}")
     out = torch.empty((b * s, w), dtype=torch.bfloat16, device=x.device)
     _build.call("tpudf_attn_out_i8", qkv.contiguous(),
                 x.reshape(b * s, w).contiguous(), wt, _f32(wq["scale"]),

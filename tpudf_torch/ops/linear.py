@@ -8,11 +8,13 @@ takes f32 E[x²]−E[x]² statistics and is cast to bf16 before the product;
 the product is bf16 × bf16 with an f32 accumulator; bias, GELU and
 residual are added in f32 and the result is cast once to bf16.
 
-The CUDA kernel is the bf16 GEMM of `csrc/bf16_gemm.cu` (mma.sync m16n8k16,
-ldmatrix, a 3-stage cp.async ring) with a bias | bias+GELU | bias+residual
-epilogue; with `ln`, a launch of the K4 row pass (`csrc/layernorm.cu`)
-comes first and its bf16 output goes through device memory, where the TPU
-kernel kept LN(x) in VMEM (keeping it on-chip is later work). The weight
+The CUDA kernel is the bf16 GEMM of `csrc/bf16_gemm_sm90.cu` (Hopper's
+wgmma and TMA: a persistent block of two consumer warpgroups on 128 x 256
+output tiles, a producer warpgroup streaming 64-deep K steps through a
+4-stage mbarrier ring) with a bias | bias+GELU | bias+residual epilogue;
+with `ln`, a launch of the K4 row pass (`csrc/layernorm.cu`) comes first
+and its bf16 output goes through device memory, where the TPU kernel
+kept LN(x) in VMEM (keeping it on-chip is later work). The weight
 is read in the JAX package's (in, out) layout, in the compute dtype the
 engine cast it to once. At the float tower's shapes the QKV product is
 bound by tensor-core operations, the out-proj nearly by bytes.
@@ -40,12 +42,16 @@ _MODES = {None: GEMM_BIAS, "gelu": GEMM_GELU}
 
 def linear_fused_reference(x, w, bias, *, ln=None, residual=None,
                            activation=None, eps=1e-6):
-    """Plain PyTorch twin of K13 on any device, output in x's dtype."""
+    """Plain PyTorch twin of K13 on any device, output in x's dtype; also
+    the twin of one GEMM launch (ln None; bias None: kernel 15's
+    product)."""
     din, dout = w.shape
     h = x.reshape(-1, din)
     if ln is not None:
         h = layer_norm_reference(h, ln[0], ln[1], eps)
-    y = torch.matmul(h.float(), w.float()) + bias.float()
+    y = torch.matmul(h.float(), w.float())
+    if bias is not None:
+        y = y + bias.float()
     if activation == "gelu":
         y = gelu_tanh(y)
     if residual is not None:
@@ -75,15 +81,17 @@ def check_linear_fused(x, w, residual=None, activation=None):
 
 
 def bf16_gemm_cuda(a2d, w, bias, mode, residual=None):
-    """out = epilogue(a2d @ w + bias) on the card, one launch (uncounted:
-    K13 and K14 count their own). a2d (M, K) and w (K, N) bf16 under
-    `check_bf16_gemm`."""
+    """out = epilogue(a2d @ w + bias) on the card, one launch of
+    `csrc/bf16_gemm_sm90.cu` (uncounted: K13 and K14 count their own).
+    a2d (M, K) and w (K, N) bf16 under `check_bf16_gemm`; bias may be None
+    in mode GEMM_BIAS."""
     m, k = a2d.shape
     n = w.shape[1]
     check_bf16_gemm(a2d.dtype, m, k, w)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a2d.device)
     _build.call("tpudf_bf16_gemm", a2d, w.contiguous(),
-                bias.float().contiguous(), residual, out, m, n, k, mode)
+                None if bias is None else bias.float().contiguous(),
+                residual, out, m, n, k, mode)
     return out
 
 

@@ -22,11 +22,11 @@ replaces tpudf/ops/mlp.py `_kernel` (wrapper `mlp_block_fused`), the float
 tower's MLP. Same arithmetic: LN with f32 statistics cast to bf16, fc1 with
 an f32 accumulator + b1, tanh GELU, rounded to bf16; fc2 with an f32
 accumulator + b2; x32 + h2 cast to bf16. Three launches: the K4 row pass,
-the bf16 GEMM of `csrc/bf16_gemm.cu` with a bias + GELU epilogue writing
-the (rows, 4W) bf16 hidden, and the same GEMM with a bias + residual
-epilogue. The TPU kernel kept the LN output and the hidden in VMEM; here
-they pass through device memory (M·4W·2 bytes each way for the hidden),
-and keeping them on-chip is later work. Both GEMMs are bound by
+the bf16 GEMM of `csrc/bf16_gemm_sm90.cu` (wgmma + TMA) with a bias +
+GELU epilogue writing the (rows, 4W) bf16 hidden, and the same GEMM with a
+bias + residual epilogue. The TPU kernel kept the LN output and the hidden
+in VMEM; here they pass through device memory (M·4W·2 bytes each way for
+the hidden), and keeping them on-chip is later work. Both GEMMs are bound by
 tensor-core operations at the float tower's shapes. The plain twin
 `mlp_block_reference` repeats the kernel's arithmetic (at f32 it is the
 JAX package's `_reference`; in bf16 that reference rounds each product to

@@ -6,9 +6,9 @@ scripts/micro_pallas_int8.py, on one Hopper card.
 Replaces its `bf16_kernel` (:21) and `int8_kernel` (:27), launched by
 `run_bf16` / `run_int8` (:36, :46) at (M, K, N) = (16384, 768, 3072) in
 512-row blocks:
-  bf16   out = bf16(x · w), f32 sums, no bias: K13's tile
-         (`csrc/bf16_gemm.cu`, MODE 0) with a null bias (f32 acc + 0 is
-         acc), w read in its (K, N) layout;
+  bf16   out = bf16(x · w), f32 sums, no bias: K13's wgmma GEMM
+         (`csrc/bf16_gemm_sm90.cu`, MODE 0) with a null bias (f32 acc + 0
+         is acc), w read in its (K, N) layout;
   int8   q = clip(round(f32(x) · 127/4), ±127) on bf16 x, inside the GEMM
          (`csrc/probe_gemm.cu`: the int8 tile of `gemm_i8.cuh` with x
          quantised into shared memory), acc = int32(q · w), out =
