@@ -8,12 +8,14 @@ back to the CPU or to a twin):
   1. card name and power limit (nvidia-smi), build of every kernel from
      tpudf_torch/csrc with nvcc for sm_90a (one nvcc per source, in
      parallel), registers and spills from ptxas; K9's and K10's kernels
-     (attention_sm90.cu), kernels 11 and 12 in bf16
-     (attention_plain_sm90.cu) and the bf16 GEMM of K13, K14 and 15 in its
-     three epilogue modes (bf16_gemm_sm90.cu) must show wgmma (HGMMA) and
-     TMA loads (UTMALDG) in their SASS where the toolkit's cuobjdump is
-     present, and no spills; the wrappers' shared-memory functions equal
-     to the kernels'; the host's cost of encoding a tensor map;
+     (attention_sm90.cu, head_dim 64, 128 and 256), kernels 11 and 12 in
+     bf16 (attention_plain_sm90.cu), the bf16 GEMM of K13, K14 and 15 in
+     its three epilogue modes (bf16_gemm_sm90.cu) and the int8 GEMM in its
+     four modes at both tile widths (int8_gemm_sm90.cu) must show wgmma
+     (HGMMA; IGMMA for int8) and TMA loads (UTMALDG) in their SASS where
+     the toolkit's cuobjdump is present, and no spills; the wrappers'
+     shared-memory functions equal to the kernels'; the host's cost of
+     encoding a tensor map;
   2. each kernel against its plain PyTorch twin on the card (TF32 off for
      cuBLAS and cuDNN), tolerances below: K1-K4 at the detect core's
      shapes, K1 and K2 also at every token count of engine B's two ToMe
@@ -98,6 +100,26 @@ back to the CPU or to a twin):
      launch alone at K13's and K14's products of engine A's full analysis
      beside F.linear (`gemm_path_timings`: device times, the factor
      against GEMM_TARGET, the tensor maps a launch encodes);
+  2h. heads of 16, 32 and 256 (`headdim_checks`, ROADMAP Queue C 1): K9
+     and 9b at S = 576 and 577, K10, K1 and K6 (through a W8A8 layer) at
+     576 and 584, W = 768 in 48 heads of 16, 24 of 32 and 3 of 256, q, k,
+     v of std 1.5, with and without the key bias, one launch each, by the
+     card rules of phases 2b / 2d (K10: the share rule, and its largest
+     error from float64 within K10_F64_FACTOR of the twin's); each check shown to fail on planted
+     faults (the scale of a 64-wide head, a padded column left non-zero,
+     the second column slice of a head of 256 dropped, the bias dropped,
+     the keys past a ragged S unmasked);
+  2i. the int8 GEMM launch (`i8_gemm_checks`, int8_gemm_sm90.cu) at
+     I8_SHAPES in each mode: kEpiI32 bit-equal to torch._int_mm, the
+     others against the twin's epilogue on the kernel's own int32 sums
+     (at most I8_SHARE of the outputs not bit-equal, none more than a
+     bf16 step or one code apart), the sum of out^2 within rtol 1e-4;
+     each check shown to fail on planted faults (a 128-deep K slice skipped, a
+     weight box dropped, the bias, GELU or residual dropped, act_out
+     ignored, the weight read with the wrong swizzle); then the launch
+     alone at I8_PATHS beside torch._int_mm (`i8_gemm_path_timings`) and
+     K4 alone at LN_SHAPES beside F.layer_norm (`ln_timings`), device
+     times into the kernels line;
   3. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      (a) the detect core (build("cuda", seed=0), base-256, W8A8 + ToMe),
@@ -229,7 +251,7 @@ REPLACES = {
 }
 SOURCES = {
     "K1": "tpudf_torch/csrc/attention.cu",
-    "K2": "tpudf_torch/csrc/int8_gemm.cu",
+    "K2": "tpudf_torch/csrc/int8_gemm_sm90.cu",
     "K3": "tpudf_torch/csrc/srm.cu",
     "K4": "tpudf_torch/csrc/layernorm.cu",
     "K5": "tpudf_torch/csrc/int8_gemm.cu",
@@ -249,13 +271,14 @@ SOURCES = {
     "16-full": "tpudf_torch/csrc/probe_gemm.cu",
     "16-nogelu": "tpudf_torch/csrc/probe_gemm.cu",
     "16-bf16_epi": "tpudf_torch/csrc/probe_gemm.cu",
-    "16-noquant": "tpudf_torch/csrc/int8_gemm.cu",
-    "16-pure": "tpudf_torch/csrc/int8_gemm.cu",
+    "16-noquant": "tpudf_torch/csrc/int8_gemm_sm90.cu",
+    "16-pure": "tpudf_torch/csrc/int8_gemm_sm90.cu",
     "17": "tpudf_torch/csrc/attention_i8.cu",
 }
 # dense peaks of one H100 SXM (NVIDIA's data sheet) and its memory rate
 PEAK = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20             # the H100's L2
 # f32 operations per element of the two elementwise kernels (K3: the two
 # separable 3-tap stencils and the four moments of two residuals; K4: the
 # sums, the normalisation and the affine)
@@ -471,6 +494,30 @@ class Records:
               f"{dev}  twin {plain:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
               f"{'  ' + libs if libs else ''}  [{self.card}]", flush=True)
 
+    def note_gemm(self, timed):
+        """The int8 GEMM launch alone at I8_PATHS (`i8_gemm_path_timings`)
+        into the rows of the kernels it serves: probe 16's k_pure and
+        k_noquant, and K1's (QKV, out-projection) and K2's (fc1, fc2)
+        products, as device times with their bounds and torch._int_mm's."""
+        for label, (ms, b_ms, b_by, lib_ms) in timed.items():
+            path = next(p for p in I8_PATHS if p[0] == label)
+            key = ("16-pure" if "k_pure" in label else "16-noquant"
+                   if "k_noquant" in label else "K1"
+                   if label.endswith(("QKV", "out-proj")) else "K2")
+            self.rows[key].setdefault("gemm_launch", []).append(
+                {"path": label, "shape": path[1:4], "mode": path[4],
+                 "device_ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": lib_ms})
+
+    def note_ln(self, timed):
+        """K4 alone at LN_SHAPES (`ln_timings`) into its row: device times
+        with their bounds and F.layer_norm's."""
+        for (rows, w, dt), (ms, b_ms, lib_ms) in timed.items():
+            self.rows["K4"].setdefault("device", []).append(
+                {"shape": (rows, w), "params": dt, "device_ms": ms,
+                 "bound_ms": b_ms, "bound_by": "bytes",
+                 "library_ms": lib_ms})
+
     def line(self, launches):
         kernels = []
         for key, row in self.rows.items():
@@ -490,13 +537,14 @@ class Records:
 
 
 # the kernels on wgmma and TMA: K9, K10's two passes (attention_sm90.cu)
-# at head_dim 64 and 128, kernels 11 and 12 in bf16
-# (attention_plain_sm90.cu) on the 64-, 80- and 128-wide tiles, and the
-# bf16 GEMM of K13, K14 and 15 (bf16_gemm_sm90.cu) in its three epilogue
-# modes
-SM90_KERNELS = 12
+# at head_dim 64, 128 and 256, kernels 11 and 12 in bf16
+# (attention_plain_sm90.cu) on the 64-, 80- and 128-wide tiles, the bf16
+# GEMM of K13, K14 and 15 (bf16_gemm_sm90.cu) in its three epilogue modes,
+# and the int8 GEMM (int8_gemm_sm90.cu) in its four modes at tile widths
+# 256 and 128
+SM90_KERNELS = 23
 SM90_NAME = re.compile(r"((?:attention_(?:fwd|bwd_dq|bwd_dkv|plain)|"
-                       r"bf16_gemm)_sm90)ILi(\d+)E")
+                       r"bf16_gemm|i8_gemm)_sm90)ILi(\d+)E(?:Li(\d+)E)?")
 
 
 def sm90_build_checks(card):
@@ -536,20 +584,23 @@ def sm90_build_checks(card):
                 if fn:
                     counts[fn] = [0, 0]
             elif fn is not None:
-                counts[fn][0] += "HGMMA" in line
+                counts[fn][0] += "HGMMA" in line or "IGMMA" in line
                 counts[fn][1] += "UTMALDG" in line
         if len(counts) != SM90_KERNELS:
             raise AssertionError(f"sm90 kernels in the SASS: {list(counts)}")
         for fn, (hgmma, utmaldg) in sorted(counts.items()):
             m = SM90_NAME.search(fn)
-            print(f"  sm90 SASS {m.group(1)}<{m.group(2)}>: HGMMA {hgmma}, "
+            args = ", ".join(a for a in m.group(2, 3) if a)
+            mma = "IGMMA" if m.group(1) == "i8_gemm_sm90" else "HGMMA"
+            print(f"  sm90 SASS {m.group(1)}<{args}>: {mma} {hgmma}, "
                   f"UTMALDG {utmaldg}", flush=True)
             if not hgmma or not utmaldg:
                 raise AssertionError(f"{fn}: no wgmma or TMA in its SASS")
     from tpudf_torch.ops import attention
     lib = _build.load()
-    for hd in (64, 128):
-        dkv = {s: lib.tpudf_sm90_smem(2, hd, s) for s in (256, 576, 1560)}
+    for hd in (64, 128, 256):
+        dkv = {s: lib.tpudf_sm90_smem(2, hd, s)
+               for s in (256, 576, 1560, 2048)}
         print(f"  sm90 shared memory a block, head_dim {hd}: K9 "
               f"{lib.tpudf_sm90_smem(0, hd, 0)} B, K10 dq "
               f"{lib.tpudf_sm90_smem(1, hd, 0)} B, dkv {dkv} B (S: bytes)",
@@ -836,7 +887,8 @@ def large_kernel_checks(rec, dev, card):
             ({"f32": K4_OPS_PER_ELEMENT * x.numel()},
              nbytes(x, ln["scale"], ln["bias"]) + nbytes(got)),
             library={"F.layer_norm": lambda: F.layer_norm(x, (w,), g16, b16,
-                                                          1e-6)})
+                                                          1e-6)},
+            device_time=True)
     a = torch.tensor(4.0, device=dev)
     got = layernorm.layer_norm_quant(x, ln["scale"], ln["bias"], a)
     ref = layernorm.layer_norm_quant_reference(x, ln["scale"], ln["bias"], a)
@@ -3204,6 +3256,548 @@ def report(label, dloss, cos, g_worst, p_worst, card):
             f"steps {p_worst[1]:.4f} lr ({p_worst[0]}) [{card}]")
 
 
+# Heads of 16, 32 and 256 (phase 2h, ROADMAP Queue C 1): K9, 9b, K10, and
+# K1 / K6 through the W8A8 layer at W = 768: (heads, head_dim). K9 and 9b
+# at S = 576 and a ragged 577; K10, K1 and K6 (JAX's routes need S % 8 ==
+# 0 there) at 576 and 584
+HEADDIM_CASES = [(48, 16), (24, 32), (3, 256)]
+HEADDIM_S_K9 = (576, 577)
+HEADDIM_S_K1 = (576, 584)
+# K10 at heads of 16, 32 and 256: its largest error from the function in
+# float64 at most this many times the twin's own. A per-element rule on
+# kernel - twin (atol 1e-2 + rtol 2^-7, phase 2d's) does not hold there: at
+# 48 heads of 16, S 576, one element in 2.65 M fell 1.709e-2 from the twin
+# with the kernel and the twin equally far (3.092e-2) from float64 (PERF.md)
+K10_F64_FACTOR = 2.0
+
+
+def pad_fault(fn, qkv, heads, hd, scale, *more):
+    """The padded route of K9, 9b and K10 with a planted fault: each head
+    padded to 64 columns with values of std 1.5 left in the padding in
+    place of zeros (a constant would shift every score of a row alike and
+    leave the softmax as it is), the kernel run at 64 with the true scale,
+    the output sliced."""
+    import torch
+    from tpudf_torch.ops import attention
+    to = attention.PAD_HEAD_DIM
+    g = torch.Generator(device=qkv.device).manual_seed(53)
+
+    def pad(t):
+        p = attention.pad_heads(t, heads, hd, to)
+        n = p.shape[-1] // (heads * to)
+        p = p.reshape(*p.shape[:-1], n, heads, to).clone()
+        junk = torch.randn(p[..., hd:].shape, generator=g, device=p.device)
+        p[..., hd:] = (1.5 * junk).to(p.dtype)
+        return p.reshape(*p.shape[:-3], n * heads * to)
+
+    out = fn(pad(qkv), *(pad(m) for m in more), heads, to, scale)
+    return attention.unpad_heads(out, heads, hd, to)
+
+
+def slice_dropped(out, heads, hd, parts=1):
+    """A head of 256 with its second 128-column slice never computed (its
+    columns zero): what a column split that dropped a slice returns."""
+    o = out.clone().reshape(*out.shape[:-1], parts, heads, hd)
+    o[..., 128:] = 0
+    return o.reshape(out.shape)
+
+
+def k10_f64(qkv, g, heads, hd, scale):
+    """K10's function in float64 on its bf16 inputs: the VJP of the
+    attention with no rounding between the products, (B, S, 3W) [dq | dk |
+    dv]."""
+    import torch
+    b, s, w3 = qkv.shape
+    w = w3 // 3
+
+    def heads_first(t):
+        return t.reshape(b, s, heads, hd).transpose(1, 2).double()
+
+    q, k, v = (heads_first(qkv[..., i * w:(i + 1) * w]) for i in range(3))
+    gh = heads_first(g)
+    p = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1)
+    dp = gh @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    return torch.cat([t.transpose(1, 2).reshape(b, s, w)
+                      for t in (ds @ k, ds.transpose(-1, -2) @ q,
+                                p.transpose(-1, -2) @ gh)], dim=-1)
+
+
+def headdim_checks(dev, card):
+    """Phase 2h: K9, 9b and K10 (padded to 64 at heads of 16 and 32, native
+    at 256) and K1 / K6 (native; at 256 in two 128-column slices) at
+    HEADDIM_CASES, W = 768, on sharp attention inputs (q, k, v of std
+    1.5), with and without the key bias where the kernel takes one, one
+    launch each, to the card rules of phases 2b / 2d / 2f: K9 and 9b at
+    most ATTN_SHARE of the outputs a bf16 step apart (K9 also within atol
+    1e-2 + rtol 2^-7), K10 at most ATTN_SHARE apart and its largest error
+    from the function in float64 within K10_F64_FACTOR of the twin's, K1
+    and K6 within atol 5e-2 + rtol 2e-2 and ATTN_REL of the attention part;
+    each check shown to fail on planted faults: the scale of the padded
+    head (64^-0.5 in place of hd^-0.5; at 256 the scale x0.75), a padded
+    column left non-zero, the second column slice dropped (at 256), the
+    bias dropped, and at the ragged S the keys past S unmasked."""
+    import torch
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.ops import attention, int8_block
+    print("phase 2h: K1, K6, K9, 9b and K10 at heads of 16, 32 and 256",
+          flush=True)
+    g = torch.Generator(device=dev).manual_seed(51)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def once(label, counter, fn):
+        LAUNCHES.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        check_launches(label, LAUNCHES.snapshot(), {counter: 1})
+        return out
+
+    w, b = 768, 2
+    for heads, hd in HEADDIM_CASES:
+        scale = hd ** -0.5
+        padded = hd in attention.PADDED_HEAD_DIMS
+        bad_sd = (attention.PAD_HEAD_DIM ** -0.5 if padded
+                  else 0.75 * scale)
+        bad_name = "scale 64^-0.5" if padded else "scale x0.75"
+        p = w8a8_layer(randn, dev, w, heads, hd, 4 * w)
+        for s in sorted({*HEADDIM_S_K9, *HEADDIM_S_K1}):
+            qkv = sharp_qkv(randn, b, s, heads, hd, hd)
+            x = randn(b, s, w).to(torch.bfloat16)
+            lb = torch.log(torch.randint(1, 9, (b, s), generator=g,
+                                         device=dev).float())
+            tag = f"{(b, s, 3 * w)} {heads}x{hd}"
+            if s in HEADDIM_S_K9:
+                for bias in (None, lb):
+                    k9 = lambda sc, bi: attention.attention_qkv(
+                        qkv, heads, hd, sc, logit_bias=bi)
+                    got = once(f"K9 {tag}", attention.KERNEL,
+                               lambda: k9(scale, bias))
+                    ref = attention.attention_qkv_reference(
+                        qkv, heads, hd, scale, logit_bias=bias)
+                    faults = {bad_name: k9(bad_sd, bias)}
+                    if bias is not None:
+                        faults["bias dropped"] = k9(scale, None)
+                    elif s % 64:
+                        faults["keys unmasked"] = keys_unmasked(
+                            attention.attention_qkv_reference, qkv, heads,
+                            hd, scale)
+                    if padded and bias is None:
+                        faults["padded column non-zero"] = pad_fault(
+                            attention.attention_qkv, qkv, heads, hd, scale)
+                    if not padded:
+                        faults["slice dropped"] = slice_dropped(got, heads,
+                                                                hd)
+                    label = f"K9 {tag} bias={bias is not None}"
+                    check_close(label, got, ref, atol=1e-2, rtol=2 ** -7)
+                    held_check(f"{label}, share > 1 bf16 step", share_apart,
+                               ATTN_SHARE, got, ref, faults, card)
+                i8 = lambda sc: attention.attention_qkv_int8(qkv, heads, hd,
+                                                             sc)
+                got = once(f"9b {tag}", attention.KERNEL_INT8,
+                           lambda: i8(scale))
+                ref = attention.attention_qkv_int8_reference(qkv, heads, hd,
+                                                             scale)
+                faults = {
+                    "aq over 64-row tiles":
+                        attention.attention_qkv_int8_reference(
+                            qkv, heads, hd, scale, q_block=64),
+                    bad_name: i8(bad_sd)}
+                if s % 64:
+                    faults["keys unmasked"] = keys_unmasked(
+                        attention.attention_qkv_int8_reference, qkv, heads,
+                        hd, scale)
+                if padded:
+                    faults["padded column non-zero"] = pad_fault(
+                        attention.attention_qkv_int8, qkv, heads, hd, scale)
+                else:
+                    faults["slice dropped"] = slice_dropped(got, heads, hd)
+                held_check(f"9b {tag}, share > 1 bf16 step", share_apart,
+                           ATTN_SHARE, got, ref, faults, card)
+            if s not in HEADDIM_S_K1:
+                continue
+            # K10
+            q10 = randn(b, s, 3 * heads * hd, std=1.5).to(torch.bfloat16)
+            gout = randn(b, s, heads * hd).to(torch.bfloat16)
+            k10 = lambda sc: attention.attention_qkv_bwd(q10, gout, heads,
+                                                         hd, sc)
+            got = once(f"K10 {tag}", attention.KERNEL_BWD,
+                       lambda: k10(scale))
+            ref = attention.attention_qkv_bwd_reference(q10, gout, heads, hd,
+                                                        scale)
+            faults = {bad_name: k10(bad_sd),
+                      "D dropped": k10_twin_fault(q10, gout, heads, hd,
+                                                  scale, "D")}
+            if s % 64:
+                faults["keys unmasked"] = k10_twin_fault(
+                    q10, gout, heads, hd, scale, "unmasked")
+            if padded:
+                faults["padded column non-zero"] = pad_fault(
+                    attention.attention_qkv_bwd, q10, heads, hd, scale,
+                    gout)
+            else:
+                faults["slice dropped"] = slice_dropped(got, heads, hd, 3)
+            exact = k10_f64(q10, gout, heads, hd, scale)
+            twin_err = max_abs(ref, exact)
+            held_check(f"K10 {tag}, max |Δ| from f64 over the twin's "
+                       f"({twin_err:.3e})",
+                       lambda a, e: max_abs(a, e) / twin_err, K10_F64_FACTOR,
+                       got, exact, faults, card)
+            held_check(f"K10 {tag}, share > 1 bf16 step", share_apart,
+                       ATTN_SHARE, got, ref, faults, card)
+            # K1 and K6 through the W8A8 layer
+            args = (x, p["ln1"], p["qkv_wq"], p["qkv_b"], p["out_wq"],
+                    p["out_b"], p["a_qkv"], p["a_out"], heads, hd, 1e-6)
+            ln_qkv = int8_block.ln_qkv_reference(
+                x, p["ln1"], p["qkv_wq"], p["qkv_b"], p["a_qkv"])
+
+            def k1_twin_with(o_fn, bias):
+                o = o_fn(ln_qkv, bias)
+                return int8_block._out_proj_reference(
+                    o, x, p["out_wq"], p["out_b"], p["a_out"])
+
+            for bias in (None, lb):
+                k1 = lambda sc, bi: int8_block.attn_sublayer_int8(
+                    *args, sc, logit_bias=bi)
+                got = once(f"K1 {tag}", int8_block.KERNEL,
+                           lambda: k1(scale, bias))
+                ref = int8_block.attn_sublayer_reference(
+                    *args, scale, logit_bias=bias)
+                faults = {bad_name: k1(bad_sd, bias)}
+                if bias is not None:
+                    faults["bias dropped"] = k1(scale, None)
+                elif s % 64:
+                    faults["keys unmasked"] = k1_twin_with(
+                        lambda q, bi: keys_unmasked(
+                            attention.attention_qkv_reference, q, heads, hd,
+                            scale), bias)
+                if not padded:
+                    faults["slice dropped"] = k1_twin_with(
+                        lambda q, bi: slice_dropped(
+                            attention.attention_qkv_reference(
+                                q, heads, hd, scale, logit_bias=bi),
+                            heads, hd), bias)
+                label = f"K1 {tag} bias={bias is not None}"
+                check_close(label, got, ref, atol=5e-2, rtol=2e-2)
+                held_check(f"{label} |Δ|/|attention part|", rel_part(x),
+                           ATTN_REL, got, ref, faults, card)
+            args6 = (qkv, x, p["out_wq"], p["out_b"], p["a_out"], heads, hd)
+            assert int8_block.attn_out_int8_fits(s, heads * hd, w, hd)
+            got = once(f"K6 {tag}", int8_block.KERNEL_ATTN_OUT,
+                       lambda: int8_block.attn_out_int8(*args6, scale))
+            ref = int8_block.attn_out_reference(*args6, scale)
+
+            def k6_twin_with(o):
+                return int8_block._out_proj_reference(
+                    o, x, p["out_wq"], p["out_b"], p["a_out"])
+
+            faults = {bad_name: int8_block.attn_out_int8(*args6, bad_sd)}
+            if s % 64:
+                faults["keys unmasked"] = k6_twin_with(keys_unmasked(
+                    attention.attention_qkv_reference, qkv, heads, hd,
+                    scale))
+            if not padded:
+                faults["slice dropped"] = k6_twin_with(slice_dropped(
+                    attention.attention_qkv_reference(qkv, heads, hd, scale),
+                    heads, hd))
+            check_close(f"K6 {tag}", got, ref, atol=5e-2, rtol=2e-2)
+            held_check(f"K6 {tag} |Δ|/|attention part|", rel_part(x),
+                       ATTN_REL, got, ref, faults, card)
+            del qkv, q10, x, lb, gout, got, ref, faults, exact
+            torch.cuda.empty_cache()
+
+
+# the int8 GEMM launch (phase 2i): (M, K, N) of its checks, the tile's
+# edges (M ragged: 300, 2049; N: 768, 1152 and 4352 (N % 256 == 128: the
+# half tile where the 256-wide tiles run), 2304, 3072; K: 768, 1152, 4352,
+# and 832 (a 64-deep tail of the 128-deep slices)) and the paths' shapes
+# (base-256's QKV and fc2 at B = 256);
+# at most I8_SHARE of the outputs not bit-equal to the twin's epilogue on
+# the kernel's own int32 sums, each within one bf16 step (one code), the
+# int32 mode bit-equal to torch._int_mm
+I8_SHAPES = [(300, 768, 768), (300, 1152, 1152), (2049, 832, 2304),
+             (300, 4352, 3072), (2049, 1152, 4352), (2049, 4352, 1152),
+             (300, 768, 4352), (65536, 768, 2304), (65536, 3072, 768)]
+I8_SHARE = 1e-5
+
+
+def not_equal_share(a, b):
+    """The share of elements of a and b that are not bit-equal."""
+    return float((a != b).float().mean())
+
+
+def i8_epilogue_twin(acc, mode, cs, bias, act, residual=None, act_out=None):
+    """The twin's epilogue (gemm_i8.cuh's order, op by op in f32) on int32
+    sums `acc`."""
+    import torch
+    from tpudf_torch.ops import int8_block
+    from tpudf_torch.ops.quant import quant_rows
+    from tpudf_torch.utils.nn import gelu_tanh
+    if mode == 3:
+        return acc
+    f = acc.float() * ((act / 127.0) * cs.float()) + bias.float()
+    if mode == int8_block.GEMM_BF16:
+        return f.to(torch.bfloat16)
+    if mode == int8_block.GEMM_GELU_I8:
+        return quant_rows(gelu_tanh(f), act_out)
+    return (residual.float() + f).to(torch.bfloat16)
+
+
+def wrong_swizzle(wt):
+    """The weight as a tile read with the wrong swizzle would see it: each
+    row's 16-byte chunk c of every 128-byte K slice taken from chunk c ^
+    (row % 8)."""
+    import torch
+    n, k = wt.shape
+    kw = k // 128 * 128                 # whole slices; the tail as it is
+    chunks = wt[:, :kw].reshape(n, k // 128, 8, 16)
+    idx = torch.arange(8, device=wt.device)[None, :] ^ (
+        torch.arange(n, device=wt.device)[:, None] % 8)
+    body = torch.gather(chunks, 2, idx[:, None, :, None].expand(
+        n, k // 128, 8, 16)).reshape(n, kw)
+    return torch.cat([body, wt[:, kw:]], 1).contiguous()
+
+
+def i8_gemm_checks(dev, card):
+    """Phase 2i: the int8 GEMM launch (`int8_block.i8_gemm_cuda`, the wgmma
+    + TMA kernel of int8_gemm_sm90.cu) at I8_SHAPES in each mode: kEpiI32
+    bit-equal to torch._int_mm; kEpiBf16, kEpiGeluI8 and kEpiResidual
+    against the twin's epilogue on the kernel's own int32 sums, at most
+    I8_SHARE of the outputs not bit-equal and none more than a bf16 step
+    (one code) apart; sum of out^2 within rtol 1e-4 of the sums of its own
+    output; each check shown to fail on planted faults: a 128-deep K slice
+    skipped (A's columns zeroed), the weight's second box of a tile dropped
+    (at a half tile: its only box), the bias, GELU or residual dropped,
+    act_out ignored, the weight read with the wrong swizzle."""
+    import torch
+    from tpudf_torch.ops import _build, int8_block
+    print("phase 2i: the int8 GEMM (wgmma + TMA) vs torch._int_mm and its "
+          "twin", flush=True)
+    g = torch.Generator(device=dev).manual_seed(61)
+    lib = _build.load()
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    bf = torch.bfloat16
+    for m, k, n in I8_SHAPES:
+        a8, wt = codes(m, k), codes(n, k)
+        cs = (randn(n).abs() * 1e-3 + 1e-3)
+        bias = randn(n, std=0.1)
+        act = torch.tensor(4.0, device=dev)
+        act_out = torch.tensor(3.0, device=dev)
+        res = randn(m, n).to(bf)
+        acc = torch._int_mm(a8, wt.t())
+        k0 = (k // 256) * 128                    # a 128-deep slice mid-way
+        a_skip = a8.clone()
+        a_skip[:, k0:k0 + 128] = 0
+        n0 = (n - 1) // 256 * 256               # the last tile's columns
+        half = n - n0 == 128
+        wt_box = wt.clone()                      # its second (or only) box
+        wt_box[n0 + (0 if half else 128):n0 + 256] = 0
+        tile_n = lib.tpudf_i8_gemm_tile_n(m, n)
+        torch.cuda.synchronize()
+
+        def run(mode, a_=a8, w_=wt, b_=bias, ss=None, ao=act_out):
+            return int8_block.i8_gemm_cuda(
+                a_, w_, cs, b_, act, mode, residual=res if mode == 2 else
+                None, sumsq=ss, act_out=ao if mode == 1 else None)
+
+        def twin(mode, acc_=acc, b_=bias):
+            return i8_epilogue_twin(acc_, mode, cs, b_, act, res, act_out)
+
+        # kEpiI32: bit-equal to torch._int_mm
+        got = int8_block.i8_gemm_cuda(a8, wt, None, None, None, 3)
+        same = bool(torch.equal(got, acc))
+        faults = {"K slice skipped": int8_block.i8_gemm_cuda(
+                      a_skip, wt, None, None, None, 3),
+                  "weight box dropped": int8_block.i8_gemm_cuda(
+                      a8, wt_box, None, None, None, 3),
+                  "wrong swizzle": int8_block.i8_gemm_cuda(
+                      a8, wrong_swizzle(wt), None, None, None, 3)}
+        caught = {f: not torch.equal(v, acc) for f, v in faults.items()}
+        print(f"  i8 GEMM {(m, k, n)} tile n {tile_n} kEpiI32: bit-equal to "
+              f"torch._int_mm {same}; planted faults caught {caught} "
+              f"[{card}]", flush=True)
+        if not same or not all(caught.values()):
+            raise AssertionError(f"i8 GEMM {(m, k, n)} kEpiI32")
+        del got, faults
+        ss = torch.zeros(m, device=dev)
+        cases = [("kEpiBf16", run(0), twin(0),
+                  {"bias dropped": run(0, b_=torch.zeros_like(bias)),
+                   "K slice skipped": run(0, a_=a_skip),
+                   "weight box dropped": run(0, w_=wt_box),
+                   "wrong swizzle": run(0, w_=wrong_swizzle(wt))}),
+                 ("kEpiGeluI8", run(1), twin(1),
+                  {"GELU dropped": quant_no_gelu(acc, cs, bias, act,
+                                                 act_out),
+                   "act_out ignored": run(1, ao=act),
+                   "K slice skipped": run(1, a_=a_skip)}),
+                 ("kEpiResidual", run(2, ss=ss), twin(2),
+                  {"residual dropped": run(0),
+                   "weight box dropped": run(2, w_=wt_box)})]
+        torch.cuda.synchronize()
+        for label, got, ref, faults in cases:
+            step = (1.0 if got.dtype == torch.int8
+                    else bf16_step(torch.maximum(got.float().abs(),
+                                                 ref.float().abs())))
+            far = int(((got.float() - ref.float()).abs() > step).sum())
+            if far:
+                raise AssertionError(f"i8 GEMM {(m, k, n)} {label}: {far} "
+                                     f"outputs more than one step apart")
+            held_check(f"i8 GEMM {(m, k, n)} {label}, share not bit-equal",
+                       not_equal_share, I8_SHARE, got, ref, faults, card)
+        out = cases[2][1].float()
+        own = (out * out).sum(-1)
+        err = float(((ss - own).abs() / own.abs().clamp_min(1e-6)).max())
+        print(f"  i8 GEMM {(m, k, n)} sum of out^2: max rel err {err:.3e} "
+              f"(limit 1e-4) [{card}]", flush=True)
+        if err > 1e-4:
+            raise AssertionError(f"i8 GEMM {(m, k, n)}: sum of out^2 {err}")
+        del a8, wt, res, acc, a_skip, wt_box, cases, ss
+        torch.cuda.empty_cache()
+
+
+def quant_no_gelu(acc, cs, bias, act, act_out):
+    """kEpiGeluI8's twin with GELU dropped."""
+    from tpudf_torch.ops.quant import quant_rows
+    f = acc.float() * ((act / 127.0) * cs.float()) + bias.float()
+    return quant_rows(f, act_out)
+
+
+# the int8 GEMM launch alone at the paths' shapes (phase 2i timings): (path,
+# M, K, N, mode): probe 16's k_pure and k_noquant, and K1's and K2's four
+# products at the first layer of the detect cores (base-256 B = 256,
+# large-384 B = 128, so400m-512 B = 64: heads padded to 128, MLP to 4352)
+I8_PATHS = [("16 k_pure", 65536, 768, 3072, 3),
+            ("16 k_noquant", 65536, 768, 3072, 0)] + [
+    (f"{name} {part}", m, k, n, mode)
+    for name, m, w, wa, inter in (("base-256 B=256", 65536, 768, 768, 3072),
+                                  ("large-384 B=128", 73728, 1024, 1024,
+                                   4096),
+                                  ("so400m-512 B=64", 65536, 1152, 2048,
+                                   4352))
+    for part, k, n, mode in (("QKV", w, 3 * wa, 0), ("out-proj", wa, w, 2),
+                             ("fc1", w, inter, 1), ("fc2", inter, w, 2))]
+
+
+def i8_gemm_path_timings(dev, card):
+    """The int8 GEMM launch alone (`tpudf_i8_gemm`; the sum of out^2 with
+    the fc2 residual) at I8_PATHS: device time (profiler; CUDA events where
+    it records none), beside torch._int_mm alone and with the epilogue as
+    PyTorch calls, the bound, TOP/s. Returns {path: (ms, bound ms, bound
+    by, torch._int_mm ms)}."""
+    import torch
+    from tpudf_torch.ops import _build
+    g = torch.Generator(device=dev).manual_seed(63)
+    lib = _build.load()
+    out = {}
+    for label, m, k, n, mode in I8_PATHS:
+        a8 = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        wt = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        cs = torch.rand(n, generator=g, device=dev) * 1e-3 + 1e-3
+        bias = torch.randn(n, generator=g, device=dev) * 0.1
+        act = torch.tensor(4.0, device=dev)
+        act_out = torch.tensor(3.0, device=dev)
+        res = (torch.randn((m, n), generator=g, device=dev)
+               .to(torch.bfloat16) if mode == 2 else None)
+        ss = torch.zeros(m, device=dev) if "fc2" in label else None
+        out_t = torch.empty((m, n), device=dev, dtype={
+            0: torch.bfloat16, 1: torch.int8, 2: torch.bfloat16,
+            3: torch.int32}[mode])
+        eps = (None, None, None) if mode == 3 else (cs, bias, act)
+
+        def kern():
+            _build.call("tpudf_i8_gemm", a8, wt, *eps[:2], eps[2], res,
+                        out_t, ss, act_out if mode == 1 else None, m, n, k,
+                        mode)
+        lib_fn = lambda: torch._int_mm(a8, wt.t())
+        parts = lambda: i8_epilogue_twin(torch._int_mm(a8, wt.t()), mode,
+                                         cs, bias, act, res, act_out)
+        dev_ms, lib_ms = device_ms(kern), device_ms(lib_fn)
+        parts_ms = device_ms(parts) if mode != 3 else lib_ms
+        by = "device"
+        if not dev_ms or not lib_ms:
+            dev_ms, lib_ms, parts_ms, by = (cuda_ms(kern, 10),
+                                            cuda_ms(lib_fn, 10),
+                                            cuda_ms(parts, 10), "events")
+        out_b = m * n * (4 if mode == 3 else 1 if mode == 1 else 2)
+        b_ms, b_by = bound({"int8": 2 * m * k * n},
+                           nbytes(a8, wt, res) + out_b)
+        tile = lib.tpudf_i8_gemm_tile_n(m, n)
+        print(f"  i8 GEMM {label} ({m}, {k}, {n}) mode {mode} tile n {tile}:"
+              f" {by} {dev_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms "
+              f"({dev_ms / lib_ms:.2f}x), with the epilogue as PyTorch calls"
+              f" {parts_ms:.4f} ms ({dev_ms / parts_ms:.2f}x); bound "
+              f"{b_ms:.4f} ms ({b_by}, {b_ms / dev_ms:.2f} of it), "
+              f"{2 * m * k * n / dev_ms / 1e9:.1f} TOP/s [{card}]",
+              flush=True)
+        out[label] = (dev_ms, b_ms, b_by, lib_ms)
+        del a8, wt, res, ss, out_t
+        torch.cuda.empty_cache()
+    return out
+
+
+# K4 at the shapes its paths give it (phase 2i timings): rows, width
+LN_SHAPES = [(8192, 768), (8192, 1152), (8 * 53 * 256, 768)]
+
+
+def ln_timings(dev, card):
+    """K4 (`layernorm.layer_norm_fused`) alone at LN_SHAPES with its scale
+    and bias in f32 (the detect core's) and in bf16 (engine A's): device
+    time (profiler; CUDA events where it records none) beside
+    F.layer_norm's, the bound (the bytes of x, the output and the
+    parameters) and its share. Where x and the output fit in the card's L2
+    (L2_BYTES) they stay there across the timed calls, so the bound by
+    HBM bytes does not hold there: its share is printed for the largest
+    shape only. Returns {(rows, width, dtype): (ms, bound ms, F.layer_norm
+    ms)}."""
+    import torch
+    import torch.nn.functional as F
+    from tpudf_torch.ops import layernorm
+    g = torch.Generator(device=dev).manual_seed(65)
+    out = {}
+    for rows, w in LN_SHAPES:
+        x = (torch.randn((rows, w), generator=g, device=dev) * 3.0
+             + 0.5).to(torch.bfloat16)
+        for dt in (torch.float32, torch.bfloat16):
+            sc = (1.0 + torch.randn(w, generator=g, device=dev) * 0.1).to(dt)
+            bi = (torch.randn(w, generator=g, device=dev) * 0.1).to(dt)
+            g16, b16 = sc.to(torch.bfloat16), bi.to(torch.bfloat16)
+            kern = lambda: layernorm.layer_norm_fused(x, sc, bi)
+            lib = lambda: F.layer_norm(x, (w,), g16, b16, 1e-6)
+            got, ref = kern(), layernorm.layer_norm_reference(x, sc, bi)
+            torch.cuda.synchronize()
+            check_close(f"K4 ({rows}, {w}) {dt}", got, ref, atol=1e-6,
+                        rtol=2 ** -7)
+            dev_ms, lib_ms = device_ms(kern), device_ms(lib)
+            by = "device"
+            if not dev_ms or not lib_ms:
+                dev_ms, lib_ms, by = cuda_ms(kern, 20), cuda_ms(lib, 20), \
+                    "events"
+            b_ms, _ = bound({"f32": K4_OPS_PER_ELEMENT * x.numel()},
+                            nbytes(x, sc, bi, got))
+            name = "f32" if dt == torch.float32 else "bf16"
+            share = (f"{b_ms / dev_ms:.3f} of it"
+                     if nbytes(x, got) > L2_BYTES else
+                     "L2-resident, so not a bound here")
+            print(f"  K4 ({rows}, {w}) params {name}: {by} {dev_ms:.4f} ms,"
+                  f" F.layer_norm {lib_ms:.4f} ms ({dev_ms / lib_ms:.2f}x);"
+                  f" bound {b_ms:.4f} ms (HBM bytes), {share} [{card}]",
+                  flush=True)
+            out[(rows, w, name)] = (dev_ms, b_ms, lib_ms)
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3412,7 +4006,8 @@ def main() -> int:
             ({"f32": K4_OPS_PER_ELEMENT * x.numel()},
              nbytes(x, ln1["scale"], ln1["bias"]) + nbytes(got)),
             library={"F.layer_norm": lambda: F.layer_norm(x, (w,), g16, b16,
-                                                          1e-6)})
+                                                          1e-6)},
+            device_time=True)
 
     # the float engine's full analysis of 8 images: 424 views of 256
     # tokens, M = 108,544 rows, through K9, K13 and K14 per layer
@@ -3741,6 +4336,10 @@ def main() -> int:
     long_seq_checks(dev, card)
     gemm_checks(dev, card)
     gemm_path_timings(dev, card)
+    headdim_checks(dev, card)
+    i8_gemm_checks(dev, card)
+    rec.note_gemm(i8_gemm_path_timings(dev, card))
+    rec.note_ln(ln_timings(dev, card))
 
     # ---- 3a. the detect core
     print("phase 3: paths", flush=True)

@@ -7,7 +7,9 @@ bf16 GEMM of K13, K14 and 15 in each epilogue mode at the edges of its
 tiles and at a path shape, K9 and K10 at the edges of their tiles (S =
 32, ragged S, heads of 128, the bias), kernels 11 and 12 (plain attention
 in both layouts, ragged keys, Sq != Skv, heads of 72, bf16 and f32, and
-the gradient through kernel 11), the probes' kernels 15, 16 and 17 (the
+the gradient through kernel 11), K1, K6, K9, 9b and K10 at heads of 16,
+32 and 256 with planted faults, the int8 GEMM of int8_gemm_sm90.cu in
+each mode at the edges of its tiles, the probes' kernels 15, 16 and 17 (the
 tolerances of tests/test_torch_port_probes.py; 17 by 9b's card rule), both
 serving engines and one MTL train step against the same parameters through
 the twins (the main path's shapes are checked by chip_smoke.py). Marked
@@ -783,3 +785,213 @@ def test_bf16_gemm_matches_twin_on_card(shape, mode, with_bias):
     torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
                                rtol=2 ** -7)
     assert _share_apart(got, ref) <= 1e-2
+
+
+# heads of 16, 32 and 256 (chip_smoke.py phase 2h): (kernel, heads, head_dim,
+# S) at W = 768, q, k, v of std 1.5; K9 and 9b at a ragged S = 577, K10, K1
+# and K6 at S = 584 (JAX's routes need S % 8 == 0 there)
+_HEADDIM = [("K9", 48, 16, 577), ("K9", 24, 32, 576), ("K9", 3, 256, 577),
+            ("9b", 48, 16, 576), ("9b", 24, 32, 577), ("9b", 3, 256, 577),
+            ("K10", 48, 16, 584), ("K10", 24, 32, 576), ("K10", 3, 256, 584),
+            ("K1", 48, 16, 584), ("K1", 24, 32, 576), ("K1", 3, 256, 584),
+            ("K6", 48, 16, 576), ("K6", 24, 32, 584), ("K6", 3, 256, 576)]
+
+
+def _padded_junk(fn, t, heads, hd, scale, *more):
+    """The padded route with a planted fault: the padding of each head's
+    64 columns holds values of std 1.5, not zeros."""
+    to = attention.PAD_HEAD_DIM
+    g = torch.Generator(device=t.device).manual_seed(7)
+
+    def pad(u):
+        p = attention.pad_heads(u, heads, hd, to)
+        n = p.shape[-1] // (heads * to)
+        p = p.reshape(*p.shape[:-1], n, heads, to).clone()
+        p[..., hd:] = (1.5 * torch.randn(p[..., hd:].shape, generator=g,
+                                         device=p.device)).to(p.dtype)
+        return p.reshape(*p.shape[:-3], n * heads * to)
+
+    return attention.unpad_heads(fn(pad(t), *(pad(m) for m in more), heads,
+                                    to, scale), heads, hd, to)
+
+
+def _k10_f64(qkv, g, heads, hd, scale):
+    """K10's function in float64 on its bf16 inputs (no rounding between
+    the products): [dq | dk | dv]."""
+    b, s, w3 = qkv.shape
+    w = w3 // 3
+    hf = lambda t: t.reshape(b, s, heads, hd).transpose(1, 2).double()
+    q, k, v = (hf(qkv[..., i * w:(i + 1) * w]) for i in range(3))
+    gh = hf(g)
+    p = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1)
+    dp = gh @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    return torch.cat([t.transpose(1, 2).reshape(b, s, w)
+                      for t in (ds @ k, ds.transpose(-1, -2) @ q,
+                                p.transpose(-1, -2) @ gh)], dim=-1)
+
+
+def _slice_dropped(out, heads, hd, parts=1):
+    """A head of 256 whose second 128-column slice was never computed."""
+    o = out.clone().reshape(*out.shape[:-1], parts, heads, hd)
+    o[..., 128:] = 0
+    return o.reshape(out.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _HEADDIM,
+                         ids=[f"{k}-{h}x{d}-{s}" for k, h, d, s in _HEADDIM])
+def test_head_dims_match_twin_on_card(case):
+    """K9, 9b and K10 (padded to 64 at heads of 16 and 32, native at 256)
+    and K1 / K6 (native) against their twins, one launch a call, by the
+    card rules of chip_smoke.py's phases 2b / 2d / 2h (K9, 9b, K10: at
+    most 1e-2 of the outputs a bf16 step apart, K9 also atol 1e-2 + rtol
+    2^-7, K10 at most twice the twin's largest error from float64; K1, K6: atol 5e-2 + rtol 2e-2 and 5e-2 of the attention
+    part); the planted faults (the scale of a 64-wide head, the padding
+    non-zero, the second slice dropped) fail the same rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpudf_torch.core.backend import LAUNCHES
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel, heads, hd, s = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(heads + hd + s)
+    r = lambda *sh, std=1.0: torch.randn(sh, generator=g, device=dev) * std
+    w = heads * hd
+    scale = hd ** -0.5
+    padded = hd in attention.PADDED_HEAD_DIMS
+    bad = attention.PAD_HEAD_DIM ** -0.5 if padded else 0.75 * scale
+    qkv = r(1, s, 3 * w, std=1.5).to(torch.bfloat16)
+    LAUNCHES.reset()
+    if kernel in ("K9", "9b", "K10"):
+        if kernel == "K9":
+            fn, twin, counter = (attention.attention_qkv,
+                                 attention.attention_qkv_reference,
+                                 attention.KERNEL)
+            more = ()
+        elif kernel == "9b":
+            fn, twin, counter = (attention.attention_qkv_int8,
+                                 attention.attention_qkv_int8_reference,
+                                 attention.KERNEL_INT8)
+            more = ()
+        else:
+            fn, twin, counter = (attention.attention_qkv_bwd,
+                                 attention.attention_qkv_bwd_reference,
+                                 attention.KERNEL_BWD)
+            more = (r(1, s, w).to(torch.bfloat16),)
+        got = fn(qkv, *more, heads, hd, scale)
+        torch.cuda.synchronize()
+        assert LAUNCHES.snapshot() == {counter: 1}
+        ref = twin(qkv, *more, heads, hd, scale)
+        faults = [fn(qkv, *more, heads, hd, bad)]
+        faults.append(_padded_junk(fn, qkv, heads, hd, scale, *more) if padded
+                      else _slice_dropped(got, heads, hd,
+                                          3 if kernel == "K10" else 1))
+        if kernel == "K9":
+            torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                       rtol=2 ** -7)
+        if kernel == "K10":
+            exact = _k10_f64(qkv, *more, heads, hd, scale)
+            far = lambda t: float((t.double() - exact).abs().max())
+            assert far(got) <= 2.0 * far(ref)
+            assert all(far(f) > 2.0 * far(ref) for f in faults)
+        assert _share_apart(got, ref) <= 1e-2
+        assert all(_share_apart(f, ref) > 1e-2 for f in faults)
+        return
+    x = r(1, s, w).to(torch.bfloat16)
+    out_wq = quant.quantize_weight(r(w, w, std=w ** -0.5))
+    out_b, a_out = r(w, std=0.1), torch.tensor(6.0, device=dev)
+    rel = lambda got, ref: float((got.float() - ref.float()).norm()
+                                 / (ref.float() - x.float()).norm())
+    if kernel == "K6":
+        args = (qkv, x, out_wq, out_b, a_out, heads, hd)
+        got = int8_block.attn_out_int8(*args, scale)
+        counter = int8_block.KERNEL_ATTN_OUT
+        torch.cuda.synchronize()
+        assert LAUNCHES.snapshot() == {counter: 1}
+        ref = int8_block.attn_out_reference(*args, scale)
+        faults = [int8_block.attn_out_int8(*args, bad)]
+    else:
+        ln = {"scale": 1.0 + r(w, std=0.1), "bias": r(w, std=0.1)}
+        wq = quant.quantize_weight(r(w, 3 * w, std=1.5 * w ** -0.5))
+        lb = torch.log(torch.randint(1, 5, (1, s), generator=g,
+                                     device=dev).float())
+        args = (x, ln, wq, r(3 * w, std=0.1), out_wq, out_b,
+                torch.tensor(4.0, device=dev), a_out, heads, hd, 1e-6)
+        got = int8_block.attn_sublayer_int8(*args, scale, logit_bias=lb)
+        torch.cuda.synchronize()
+        assert LAUNCHES.snapshot() == {int8_block.KERNEL: 1}
+        ref = int8_block.attn_sublayer_reference(*args, scale, logit_bias=lb)
+        faults = [int8_block.attn_sublayer_int8(*args, bad, logit_bias=lb),
+                  int8_block.attn_sublayer_int8(*args, scale)]
+    torch.testing.assert_close(got.float(), ref.float(), atol=5e-2,
+                               rtol=2e-2)
+    assert rel(got, ref) <= 5e-2
+    assert all(rel(f, ref) > 5e-2 for f in faults)
+
+
+# the int8 GEMM (csrc/int8_gemm_sm90.cu; chip_smoke.py phase 2i): (M, K, N)
+# at its tile edges (ragged M, N % 256 == 128, a 64-deep K tail)
+_I8_SHAPES = [(300, 768, 1152), (2049, 832, 2304), (2049, 1152, 4352)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("shape", _I8_SHAPES)
+def test_int8_gemm_matches_twin_on_card(shape, mode):
+    """The launch in each mode: the int32 mode bit-equal to torch._int_mm;
+    the others against the twin's epilogue on those sums, at most 1e-5 of
+    the outputs not bit-equal and none more than a bf16 step (one code)
+    apart, the sum of out^2 within rtol 1e-4 of its own output's; a
+    128-deep K slice skipped and the weight read with the wrong swizzle
+    fail it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpudf_torch.ops.quant import quant_rows
+    from tpudf_torch.utils.nn import gelu_tanh
+    m, k, n = shape
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(m + k + n + mode)
+    codes = lambda *sh: torch.randint(-127, 128, sh, generator=g, device=dev,
+                                      dtype=torch.int8)
+    a8, wt = codes(m, k), codes(n, k)
+    cs = torch.rand(n, generator=g, device=dev) * 1e-3 + 1e-3
+    bias = torch.randn(n, generator=g, device=dev) * 0.1
+    act, act_out = (torch.tensor(v, device=dev) for v in (4.0, 3.0))
+    res = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    ss = torch.zeros(m, device=dev)
+
+    def run(a_, w_, sumsq=None):
+        return int8_block.i8_gemm_cuda(
+            a_, w_, cs, bias, act, mode, residual=res if mode == 2 else None,
+            sumsq=sumsq, act_out=act_out if mode == 1 else None)
+
+    acc = torch._int_mm(a8, wt.t())
+    got = run(a8, wt, ss if mode == 2 else None)
+    f = acc.float() * ((act / 127.0) * cs) + bias
+    ref = [f.to(torch.bfloat16), quant_rows(gelu_tanh(f), act_out),
+           (res.float() + f).to(torch.bfloat16), acc][mode]
+    skip = a8.clone()
+    skip[:, 128:256] = 0
+    kw = k // 128 * 128
+    idx = (torch.arange(8, device=dev)[None, :]
+           ^ (torch.arange(n, device=dev)[:, None] % 8))
+    swz = torch.cat([torch.gather(
+        wt[:, :kw].reshape(n, k // 128, 8, 16), 2,
+        idx[:, None, :, None].expand(n, k // 128, 8, 16)).reshape(n, kw),
+        wt[:, kw:]], 1).contiguous()
+    faults = [run(skip, wt), run(a8, swz)]
+    torch.cuda.synchronize()
+    if mode == 3:
+        assert torch.equal(got, acc)
+        assert not any(torch.equal(x, acc) for x in faults)
+        return
+    a, b = got.float(), ref.float()
+    step = (torch.ones_like(a) if mode == 1 else torch.exp2(torch.floor(
+        torch.log2(torch.maximum(a.abs(), b.abs()).clamp_min(1e-30))) - 7))
+    assert bool(((a - b).abs() <= step).all())
+    assert float((got != ref).float().mean()) <= 1e-5
+    assert all(float((x != ref).float().mean()) > 1e-5 for x in faults)
+    if mode == 2:
+        own = (a * a).sum(-1)
+        torch.testing.assert_close(ss, own, atol=0, rtol=1e-4)

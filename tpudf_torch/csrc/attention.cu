@@ -10,13 +10,16 @@
 // bf16 output, is attention_sm90.cu.)
 //
 // One block per (query tile of 64, head, image), four warps of 16 query
-// rows, head_dim 64 or 128 (a template parameter), S <= kMaxSeq.
+// rows, head_dim 16, 32, 64, 128 or 256 (a template parameter), S <=
+// kMaxSeq; at 256 one block per 128-column slice of the head's o, each
+// computing the full 256-deep scores (attn_tile.cuh `out_hv`: 160
+// registers of Q fragments, o and scores a thread, not 224).
 // The Q tile sits in shared memory until each warp has its fragments; the
 // head's K and V stream through a two-stage cp.async ring of 64-key tiles
 // (attn_stream in attn_tile.cuh): a pass over K for each row's max and
 // sum, then a pass over K and V for p and p . v, both products on the
 // tensor cores (mma.sync m16n8k16 bf16, f32 accumulate). Shared memory:
-// 46 KB at head_dim 64, 87 KB at 128, whatever S. K and V are re-read
+// 46 KB at head_dim 64, 87 KB at 128, 133 KB at 256, whatever S. K and V are re-read
 // from L2 by each of the S/64 query-tile blocks of a head, K twice.
 //
 // K6, replacing tpudf/ops/int8_block.py `_attn_out_kernel` (wrapper
@@ -30,7 +33,8 @@
 // for each block. 128 query rows (not the TPU kernel's 256, nor the K1
 // attention's 64) give the out-projection the GEMM's own 128 x 128 tile;
 // with the K/V ring the block's shared memory no longer depends on S (188
-// KB at large-384's S = 576, Wa = 1024). At the detect core's shapes the
+// KB at large-384's S = 576, Wa = 1024; 198 KB at three heads of 256,
+// where Q and the ring share their space). At the detect core's shapes the
 // bound is the tensor-core operations.
 #include "attn_tile.cuh"
 
@@ -47,10 +51,12 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
                      int8_t* __restrict__ out, int seq, int heads,
                      float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int HV = out_hv<HD>(), kSlices = HD / HV;
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* ring = qs + kQTile * row_ld<HD>();
   const int wa = heads * HD;                    // attention width
-  const int b = blockIdx.z, h = blockIdx.y;
+  const int b = blockIdx.z, h = blockIdx.y / kSlices;
+  const int c0 = (blockIdx.y % kSlices) * HV;   // this block's o columns
   const int q0 = blockIdx.x * kQTile;
   const size_t row3 = static_cast<size_t>(3) * wa;         // qkv row stride
   const __nv_bfloat16* base =
@@ -62,9 +68,9 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
   const int r0 = warp * 16;                 // this warp's first tile row
   // every warp joins the ring's barriers; rows past seq hold zero queries
   // (finite) and are never stored
-  AttnWarp<HD> w;
+  AttnWarp<HD, HV> w;
   load_q<HD>(w, qs + r0 * row_ld<HD>(), lane);
-  attn_stream<HD>(w, base + wa, base + 2 * wa, row3, seq,
+  attn_stream<HD, HD, HV>(w, base + wa, base + 2 * wa + c0, row3, seq,
                   key_bias == nullptr
                       ? nullptr
                       : key_bias + static_cast<size_t>(b) * seq,
@@ -77,9 +83,10 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + r0 + g + 8 * r;
     if (qi >= seq) continue;
-    const size_t row = (static_cast<size_t>(b) * seq + qi) * wa + h * HD;
+    const size_t row =
+        (static_cast<size_t>(b) * seq + qi) * wa + h * HD + c0;
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
+    for (int dt = 0; dt < HV / 8; ++dt) {
       char2 q8;
       q8.x = quant_i8(w.o[dt][2 * r], inv_out);
       q8.y = quant_i8(w.o[dt][2 * r + 1], inv_out);
@@ -92,14 +99,17 @@ template <int HD>
 int launch_attention_hd(const void* qkv, const void* key_bias,
                         const void* act_scale, void* out, int batch, int seq,
                         int heads, float scale, void* stream) {
+  constexpr int HV = out_hv<HD>();
   const size_t smem =
-      static_cast<size_t>(kQTile * row_ld<HD>() + ring_elems<HD>()) *
+      static_cast<size_t>(kQTile * row_ld<HD>() + ring_elems<HD, HV>()) *
       sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq + kQTile - 1) / kQTile, heads, batch);
+  if (static_cast<long long>(heads) * (HD / HV) > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid((seq + kQTile - 1) / kQTile, heads * (HD / HV), batch);
   attention_kernel<HD><<<grid, kAttnWarps * 32, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(qkv),
@@ -141,20 +151,32 @@ TPUDF_API int tpudf_attention_i8(const void* qkv, const void* key_bias,
   if (batch <= 0 || seq <= 0) return 0;
   if (!attention_seq_ok(batch, seq) || act_scale == nullptr)
     return cudaErrorInvalidValue;
-  if (head_dim == 64)
-    return launch_attention_hd<64>(qkv, key_bias, act_scale, o8, batch, seq,
-                                   heads, scale, stream);
-  if (head_dim == 128)
-    return launch_attention_hd<128>(qkv, key_bias, act_scale, o8, batch,
-                                    seq, heads, scale, stream);
+  switch (head_dim) {
+    case 16:
+      return launch_attention_hd<16>(qkv, key_bias, act_scale, o8, batch,
+                                     seq, heads, scale, stream);
+    case 32:
+      return launch_attention_hd<32>(qkv, key_bias, act_scale, o8, batch,
+                                     seq, heads, scale, stream);
+    case 64:
+      return launch_attention_hd<64>(qkv, key_bias, act_scale, o8, batch,
+                                     seq, heads, scale, stream);
+    case 128:
+      return launch_attention_hd<128>(qkv, key_bias, act_scale, o8, batch,
+                                      seq, heads, scale, stream);
+    case 256:
+      return launch_attention_hd<256>(qkv, key_bias, act_scale, o8, batch,
+                                      seq, heads, scale, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
 // K6: out (B*S, W) bf16 = bf16(x + (quant(attention(qkv)) . wt^T dequantised
 // + bias)); qkv (B, S, 3 * heads * head_dim), wt (W, heads * head_dim);
-// head_dim 64 or 128, S <= kMaxSeq, and the block's shared memory (the
-// (128 x Wa) int8 tile beside Q and the K/V ring) within the 227 KB a
-// block may have: Wa <= 1024 at head_dim 64, Wa <= 768 at 128
+// head_dim 16, 32, 64, 128 or 256, S <= kMaxSeq, and the block's shared
+// memory (the (128 x Wa) int8 tile beside Q and the K/V ring) within the
+// 227 KB a block may have: Wa <= 1024 at head_dim 16, 32 and 64, Wa <= 768
+// at 128 and 256
 TPUDF_API int tpudf_attn_out_i8(const void* qkv, const void* x,
                                 const void* wt, const void* col_scale,
                                 const void* bias, const void* act, void* out,
@@ -163,8 +185,7 @@ TPUDF_API int tpudf_attn_out_i8(const void* qkv, const void* x,
   using namespace tpudf;
   if (batch <= 0 || seq <= 0) return 0;
   const int wa = heads * head_dim;
-  if (!attention_seq_ok(batch, seq) || width % kBN != 0 || wa % kBK != 0 ||
-      (head_dim != 64 && head_dim != 128))
+  if (!attention_seq_ok(batch, seq) || width % kBN != 0 || wa % kBK != 0)
     return cudaErrorInvalidValue;
   AttnOutArgs p{static_cast<const __nv_bfloat16*>(qkv),
                 GemmArgs{nullptr, static_cast<const int8_t*>(wt),
@@ -173,6 +194,12 @@ TPUDF_API int tpudf_attn_out_i8(const void* qkv, const void* x,
                          static_cast<const float*>(act), x, out, nullptr,
                          nullptr, batch * seq, width, wa},
                 seq, heads, scale};
-  if (head_dim == 64) return launch_attn_out<64>(p, batch, stream);
-  return launch_attn_out<128>(p, batch, stream);
+  switch (head_dim) {
+    case 16: return launch_attn_out<16>(p, batch, stream);
+    case 32: return launch_attn_out<32>(p, batch, stream);
+    case 64: return launch_attn_out<64>(p, batch, stream);
+    case 128: return launch_attn_out<128>(p, batch, stream);
+    case 256: return launch_attn_out<256>(p, batch, stream);
+  }
+  return cudaErrorInvalidValue;
 }

@@ -31,7 +31,12 @@
 // product sums over keys, so the keys may go in any order that A and B
 // share, and V is stored transposed with its keys in the order in which
 // a thread holds its scores (`vt_pos`). Bound at the reference route's
-// (8, 1024, 6144): the bytes of qkv and the output.
+// (8, 1024, 6144): the bytes of qkv and the output. Head_dim 64, 128 or
+// 256 (16 and 32 arrive zero-padded to 64: the padded columns quantise to
+// 0 and add nothing); at 256 one block per 128-column slice of the head's
+// o (its int32 o would be 128 registers a thread beside 32 of q8
+// fragments and 64 of scores and codes), each computing the full
+// 256-deep scores, its V codes 10 KB of the 44 KB of static shared memory.
 //
 // Kernel 17: the same main pass with static scales, replacing
 // scripts/micro_attn_static.py's `kernel` (`static_variant` -> `build` ->
@@ -180,8 +185,8 @@ __device__ __forceinline__ void scores_i8(float (&s)[kKeyTile / 8][4],
 }
 
 // kStatic: the scales are `st` (kernel 17; amax and qb unused); else
-// from the amax table (9b)
-template <int HD, bool kStatic>
+// from the amax table (9b). Grid y: head x slice of HV columns of o.
+template <int HD, bool kStatic, int HV = HD>
 __global__ void __launch_bounds__(kI8Warps * 32)
     attention_i8_kernel(const __nv_bfloat16* __restrict__ qkv,
                         const float* __restrict__ amax,
@@ -189,9 +194,11 @@ __global__ void __launch_bounds__(kI8Warps * 32)
                         int qb, float scale, I8AttnScales st) {
   __shared__ __align__(16) int8_t q8s[kI8QTile * i8_ld<HD>()];
   __shared__ __align__(16) int8_t k8s[kKeyTile * i8_ld<HD>()];
-  __shared__ __align__(16) int8_t v8t[HD * kVtLd];
+  __shared__ __align__(16) int8_t v8t[HV * kVtLd];
   const int wa = heads * HD;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kI8QTile;
+  const int b = blockIdx.z, h = blockIdx.y / (HD / HV);
+  const int c0 = (blockIdx.y % (HD / HV)) * HV;   // this block's o columns
+  const int q0 = blockIdx.x * kI8QTile;
   if constexpr (!kStatic) {
     const int nqb = (seq + qb - 1) / qb;
     const float* am =
@@ -248,16 +255,16 @@ __global__ void __launch_bounds__(kI8Warps * 32)
   }
 
   // ---- pass 2: p8 = round(p * 127 / ap), o += p8 . v8 (int32)
-  int acc[HD / 8][4];
+  int acc[HV / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
+  for (int dt = 0; dt < HV / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0;
   for (int kt = 0; kt < ntiles; ++kt) {
     __syncthreads();
     quant_rows_i8<HD, false>(k8s, base + wa, row3, kt * kKeyTile, kKeyTile,
                              seq, inv_k);
-    quant_rows_i8<HD, true>(v8t, base + 2 * wa, row3, kt * kKeyTile,
+    quant_rows_i8<HV, true>(v8t, base + 2 * wa + c0, row3, kt * kKeyTile,
                             kKeyTile, seq, inv_v);
     __syncthreads();
     scores_i8<HD>(s, qa, k8s, kt * kKeyTile, seq, fac, lane);
@@ -280,7 +287,7 @@ __global__ void __launch_bounds__(kI8Warps * 32)
           pack_s8x4(p8[j + 2][0], p8[j + 2][1], p8[j + 3][0], p8[j + 3][1]),
           pack_s8x4(p8[j + 2][2], p8[j + 2][3], p8[j + 3][2], p8[j + 3][3])};
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
+      for (int dt = 0; dt < HV / 8; ++dt) {
         const int8_t* vr = v8t + (dt * 8 + g) * kVtLd + kc * 32 + 4 * t;
         const unsigned bv[2] = {lds32(vr), lds32(vr + 16)};
         mma_s8(acc[dt], a, bv);
@@ -294,9 +301,9 @@ __global__ void __launch_bounds__(kI8Warps * 32)
     const int qi = q0 + r0 + g + 8 * r;
     if (qi >= seq) continue;
     __nv_bfloat16* dst =
-        out + (static_cast<size_t>(b) * seq + qi) * wa + h * HD + 2 * t;
+        out + (static_cast<size_t>(b) * seq + qi) * wa + h * HD + c0 + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt)
+    for (int dt = 0; dt < HV / 8; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
           __floats2bfloat162_rn(
               __fmul_rn(static_cast<float>(acc[dt][2 * r]), o_scale[r]),
@@ -313,8 +320,11 @@ int launch_attention_i8(const void* qkv, void* amax, void* out, int batch,
       heads, HD, qb);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq + kI8QTile - 1) / kI8QTile, heads, batch);
-  attention_i8_kernel<HD, false><<<grid, kI8Warps * 32, 0, s>>>(
+  constexpr int HV = HD > 128 ? 128 : HD;
+  if (static_cast<long long>(heads) * (HD / HV) > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid((seq + kI8QTile - 1) / kI8QTile, heads * (HD / HV), batch);
+  attention_i8_kernel<HD, false, HV><<<grid, kI8Warps * 32, 0, s>>>(
       static_cast<const __nv_bfloat16*>(qkv),
       static_cast<const float*>(amax), static_cast<__nv_bfloat16*>(out), seq,
       heads, qb, scale, I8AttnScales{});
@@ -326,7 +336,7 @@ int launch_attention_i8(const void* qkv, void* amax, void* out, int batch,
 // 9b: qkv (B, S, 3 * heads * head_dim) bf16 -> out (B, S, heads *
 // head_dim) bf16; amax: (B, heads, ceil(S / qb) + 2) f32 scratch; qb =
 // min(256, S), so that the 64-row query tiles never straddle a block;
-// head_dim 64 or 128, S <= kMaxSeq
+// head_dim 64, 128 or 256, S <= kMaxSeq
 TPUDF_API int tpudf_attention_i8dyn(const void* qkv, void* amax, void* out,
                                     int batch, int seq, int heads,
                                     int head_dim, int qb, float scale,
@@ -342,6 +352,9 @@ TPUDF_API int tpudf_attention_i8dyn(const void* qkv, void* amax, void* out,
                                    scale, s);
   if (head_dim == 128)
     return launch_attention_i8<128>(qkv, amax, out, batch, seq, heads, qb,
+                                    scale, s);
+  if (head_dim == 256)
+    return launch_attention_i8<256>(qkv, amax, out, batch, seq, heads, qb,
                                     scale, s);
   return cudaErrorInvalidValue;
 }

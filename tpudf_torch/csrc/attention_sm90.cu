@@ -74,16 +74,44 @@ using namespace sm90;
 
 constexpr int kMaxSeqBwd = 2048;     // K10: the statistics' shared memory
 
+// Heads of 256 (the widest head_dim JAX's lane rule admits at W <= 1280
+// that a block can hold): K9 keeps one Q buffer (64 KB) and two ring
+// stages; K10's blocks keep one stage (their Q and g, or K and V, take
+// 128 KB) and split the head's columns: each block owns one 128-wide
+// slice of dq, or of dk and dv, and computes the full 256-deep S and dP,
+// so the score work repeats once per slice.
+template <int HD>
+__host__ __device__ constexpr int fwd_q_bufs() {
+  return HD > 128 ? 1 : 2;
+}
+
+template <int HD>
+__host__ __device__ constexpr int fwd_stages() {
+  return HD > 128 ? 2 : stages<HD>();
+}
+
+template <int HD>
+__host__ __device__ constexpr int bwd_stages() {
+  return HD > 128 ? 1 : stages<HD>();
+}
+
+// the columns of dq (dk, dv) one K10 block owns
+template <int HD>
+__host__ __device__ constexpr int bwd_slice() {
+  return HD > 128 ? 128 : HD;
+}
+
 // ----------------------------------------------------------------- K9
 
-// shared memory: two Q buffers (128 rows each), then kStages stages of a
-// K tile, a V tile and the bias tile (64 f32, padded to 1 KB), then the
-// barriers
+// shared memory: fwd_q_bufs Q buffers (128 rows each), then kStages
+// stages of a K tile, a V tile and the bias tile (64 f32, padded to 1
+// KB), then the barriers
 template <int HD>
 struct FwdSmem {
-  static constexpr int kStages = stages<HD>();
+  static constexpr int kStages = fwd_stages<HD>();
+  static constexpr int kQBufs = fwd_q_bufs<HD>();
   static constexpr int kQ = 0;
-  static constexpr int kStage0 = 2 * tile_bytes<HD>(kBlockRows);
+  static constexpr int kStage0 = kQBufs * tile_bytes<HD>(kBlockRows);
   static constexpr int kV = tile_bytes<HD>(kTileRows);
   static constexpr int kBias = 2 * tile_bytes<HD>(kTileRows);
   static constexpr int kStage = kBias + 1024;
@@ -126,7 +154,8 @@ __device__ __forceinline__ FwdItem fwd_item(int it, int n_qt, int heads) {
 // The blocks are persistent: block x takes items x, x + gridDim.x, ...
 // (query tiles fastest, so that the blocks running together share heads
 // in L2), and the ring runs on across items, so that the next item's Q
-// and first tiles load while the last one finishes. Q is double-buffered.
+// and first tiles load while the last one finishes. Q is double-buffered
+// (at head_dim 256 single: the next item's Q waits for this one's end).
 // In pass 2 a warpgroup forms tile t's p while tile t - 1's p . v runs
 // on the tensor cores (FlashAttention-3's order within a warpgroup: the
 // product of t's scores, then t - 1's p . v, wait for the first).
@@ -141,7 +170,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
-  uint64_t* q_full = bars;            // two each
+  uint64_t* q_full = bars;            // two slots each (kQBufs used)
   uint64_t* q_empty = bars + 2;
   const Ring<L::kStages> ring{bars + 4, bars + 4 + L::kStages};
   auto stage = [&](int r) {
@@ -152,7 +181,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_items = n_qt * heads * batch;
   const int ntiles = (seq + kTileRows - 1) / kTileRows;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < L::kQBufs; ++i) {
       mbar_init(&q_full[i], 1);
       mbar_init(&q_empty[i], kWarpgroups * 128);
     }
@@ -172,12 +201,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     int r = 0;
     for (int it = blockIdx.x, n = 0; it < n_items; it += gridDim.x, ++n) {
       const FwdItem w = fwd_item(it, n_qt, heads);
-      if (n >= 2) mbar_wait(&q_empty[n & 1], ((n >> 1) - 1) & 1);
-      mbar_expect_tx(&q_full[n & 1], tile_bytes<HD>(kBlockRows));
-      unsigned char* q = smem + L::kQ + (n & 1) * tile_bytes<HD>(kBlockRows);
+      const int qb = n % L::kQBufs, round = n / L::kQBufs;
+      if (round > 0) mbar_wait(&q_empty[qb], (round - 1) & 1);
+      mbar_expect_tx(&q_full[qb], tile_bytes<HD>(kBlockRows));
+      unsigned char* q = smem + L::kQ + qb * tile_bytes<HD>(kBlockRows);
       for (int c = 0; c < HD / 64; ++c)
         for (int rr = 0; rr < kBlockRows / kTileRows; ++rr)
-          tma_load_3d(q + c * kBlockSub + rr * kBox, &qkv_map, &q_full[n & 1],
+          tma_load_3d(q + c * kBlockSub + rr * kBox, &qkv_map, &q_full[qb],
                       w.h * HD + 64 * c, w.q0 + rr * kTileRows, w.b);
       for (int i = 0; i < 2 * ntiles; ++i, ++r) {
         const bool pass2 = i >= ntiles;
@@ -213,18 +243,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   int r = 0;
   for (int it = blockIdx.x, n = 0; it < n_items; it += gridDim.x, ++n) {
     const FwdItem w = fwd_item(it, n_qt, heads);
-    mbar_wait(&q_full[n & 1], (n >> 1) & 1);
+    const int qb = n % L::kQBufs;
+    mbar_wait(&q_full[qb], (n / L::kQBufs) & 1);
     if (w.q0 + c.wg * 64 >= seq) {
       // rows all past seq: keep the barriers' counts, skip the work
       for (int i = 0; i < 2 * ntiles; ++i, ++r) {
         ring.consumer_wait(r);
         ring.release(r);
       }
-      mbar_arrive(&q_empty[n & 1]);
+      mbar_arrive(&q_empty[qb]);
       continue;
     }
     unsigned char* qw =
-        smem + L::kQ + (n & 1) * tile_bytes<HD>(kBlockRows) + c.wg * kBox;
+        smem + L::kQ + qb * tile_bytes<HD>(kBlockRows) + c.wg * kBox;
     const uint64_t qd = desc_k(qw);
     float mx[2] = {neg_inf, neg_inf}, sum[2] = {0.0f, 0.0f};
 
@@ -299,7 +330,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     r += ntiles;
     // o through this warpgroup's rows of the Q buffer, then Q is free
     store_tile<HD>(o, qw, &out_map, w.h * HD, w.q0 + c.wg * 64, w.b, c);
-    mbar_arrive(&q_empty[n & 1]);
+    mbar_arrive(&q_empty[qb]);
   }
   if ((threadIdx.x & 127) == 0) tma_store_wait();
 }
@@ -349,7 +380,7 @@ int launch_fwd(const void* qkv, const void* key_bias, void* out, int batch,
 // tile, then the barriers
 template <int HD>
 struct DqSmem {
-  static constexpr int kStages = stages<HD>();
+  static constexpr int kStages = bwd_stages<HD>();
   static constexpr int kQ = 0;
   static constexpr int kG = tile_bytes<HD>(kBlockRows);
   static constexpr int kStage0 = 2 * tile_bytes<HD>(kBlockRows);
@@ -364,7 +395,7 @@ struct DqSmem {
 // D and the sum's reciprocal)
 template <int HD>
 struct DkvSmem {
-  static constexpr int kStages = stages<HD>();
+  static constexpr int kStages = bwd_stages<HD>();
   static constexpr int kK = 0;
   static constexpr int kV = tile_bytes<HD>(kBlockRows);
   static constexpr int kStage0 = 2 * tile_bytes<HD>(kBlockRows);
@@ -382,8 +413,10 @@ __host__ __device__ constexpr int stat_rows(int seq) {
   return (seq + kTileRows - 1) / kTileRows * kTileRows;
 }
 
-// stats: (3, B, H, S) f32 — row max, row sum of exp(s - max), D
-template <int HD>
+// stats: (3, B, H, S) f32 — row max, row sum of exp(s - max), D; grid z:
+// image x slice of the head's columns (HV of them), the statistics
+// written by slice 0
+template <int HD, int HV>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_bwd_dq_sm90(const __grid_constant__ CUtensorMap qkv_map,
                           const __grid_constant__ CUtensorMap g_map,
@@ -391,6 +424,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                           float* __restrict__ stats, int seq, int heads,
                           float scale) {
   using L = DqSmem<HD>;
+  constexpr int kSlices = HD / HV;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
@@ -400,7 +434,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     return smem + L::kStage0 + ring.stage(i) * L::kStage;
   };
   const int wa = heads * HD;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockRows;
+  const int b = blockIdx.z / kSlices, sl = blockIdx.z % kSlices;
+  const int h = blockIdx.y, q0 = blockIdx.x * kBlockRows;
   const int ntiles = (seq + kTileRows - 1) / kTileRows;
   const int n_wg = active_warpgroups(q0, seq);
   if (threadIdx.x == 0) {
@@ -454,7 +489,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float neg_inf = __int_as_float(0xff800000);
   float mx[2] = {neg_inf, neg_inf}, sum[2] = {0.0f, 0.0f};
   float dsum[2] = {0.0f, 0.0f}, rsum[2] = {1.0f, 1.0f};
-  float s[32], dp[32], dq[HD / 2];
+  float s[32], dp[32], dq[HV / 2];
   zero(s);
   zero(dp);
   zero(dq);
@@ -494,7 +529,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           uint32_t a[4][4];
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) acc_to_a(a[kk], s, kk);
-          issue_nn<HD>(dq, a, st);           // dQ += bf16(dS) K
+          // dQ += bf16(dS) K, this block's columns of K
+          issue_nn<HV>(dq, a, st + sl * (HV / 64) * kBox);
           wg_commit();
           wg_wait<0>();
           fence_regs(dq);
@@ -513,9 +549,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   const int r0 = q0 + c.wg * 64;
-  store_tile<HD>(dq, qw, &dqkv_map, h * HD, r0, b, c);
-  if (c.t == 0) {
-    const size_t n_rows = static_cast<size_t>(gridDim.z) * heads * seq;
+  store_tile<HV>(dq, qw, &dqkv_map, h * HD + sl * HV, r0, b, c);
+  if (c.t == 0 && sl == 0) {
+    const size_t n_rows =
+        static_cast<size_t>(gridDim.z / kSlices) * heads * seq;
     const size_t head_row = (static_cast<size_t>(b) * heads + h) * seq;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -529,7 +566,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if ((threadIdx.x & 127) == 0) tma_store_wait();
 }
 
-template <int HD>
+template <int HD, int HV>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_bwd_dkv_sm90(const __grid_constant__ CUtensorMap qkv_map,
                            const __grid_constant__ CUtensorMap g_map,
@@ -537,6 +574,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const float* __restrict__ stats, int seq,
                            int heads, float scale) {
   using L = DkvSmem<HD>;
+  constexpr int kSlices = HD / HV;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
@@ -551,10 +589,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* s_d = s_sum + n_stat;
   float* s_rcp = s_d + n_stat;
   const int wa = heads * HD;
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBlockRows;
+  const int b = blockIdx.z / kSlices, sl = blockIdx.z % kSlices;
+  const int h = blockIdx.y, k0 = blockIdx.x * kBlockRows;
   const int ntiles = (seq + kTileRows - 1) / kTileRows;
   const int n_wg = active_warpgroups(k0, seq);
-  const size_t n_rows = static_cast<size_t>(gridDim.z) * heads * seq;
+  const size_t n_rows =
+      static_cast<size_t>(gridDim.z / kSlices) * heads * seq;
   const size_t head_row = (static_cast<size_t>(b) * heads + h) * seq;
   for (int i = threadIdx.x; i < n_stat; i += blockDim.x) {
     const bool in = i < seq;
@@ -607,7 +647,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned char* kw = smem + L::kK + c.wg * kBox;
   unsigned char* vw = smem + L::kV + c.wg * kBox;
   const uint64_t kd = desc_k(kw), vd = desc_k(vw);
-  float st_[32], dpt[32], dk[HD / 2], dv[HD / 2];
+  float st_[32], dpt[32], dk[HV / 2], dv[HV / 2];
   zero(st_);
   zero(dpt);
   zero(dk);
@@ -640,16 +680,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       acc_to_a(ap[kk], st_, kk);
       acc_to_a(ads[kk], dpt, kk);
     }
-    issue_nn<HD>(dv, ap, st + L::kG);      // dV += bf16(P^T) g
-    issue_nn<HD>(dk, ads, st);             // dK += bf16(dS^T) Q
+    // dV += bf16(P^T) g and dK += bf16(dS^T) Q, this block's columns
+    const int cs = sl * (HV / 64) * kBox;
+    issue_nn<HV>(dv, ap, st + L::kG + cs);
+    issue_nn<HV>(dk, ads, st + cs);
     wg_commit();
     wg_wait<0>();
     fence_regs(dv);
     fence_regs(dk);
     ring.release(i);
   }
-  store_tile<HD>(dk, kw, &dqkv_map, wa + h * HD, k0 + c.wg * 64, b, c);
-  store_tile<HD>(dv, vw, &dqkv_map, 2 * wa + h * HD, k0 + c.wg * 64, b, c);
+  store_tile<HV>(dk, kw, &dqkv_map, wa + h * HD + sl * HV, k0 + c.wg * 64,
+                 b, c);
+  store_tile<HV>(dv, vw, &dqkv_map, 2 * wa + h * HD + sl * HV,
+                 k0 + c.wg * 64, b, c);
   if ((threadIdx.x & 127) == 0) tma_store_wait();
 }
 
@@ -666,27 +710,33 @@ int launch_bwd(const void* qkv, const void* gout, void* dqkv, void* stats,
       !map_bf16_3d(&g_map, gout, wa, seq, batch, kTileRows) ||
       !map_bf16_3d(&dqkv_map, dqkv, 3 * wa, seq, batch, kTileRows))
     return cudaErrorInvalidValue;
+  constexpr int HV = bwd_slice<HD>();
   static const cudaError_t attr = [] {
-    if (!registers_suffice(attention_bwd_dq_sm90<HD>) ||
-        !registers_suffice(attention_bwd_dkv_sm90<HD>))
+    if (!registers_suffice(attention_bwd_dq_sm90<HD, HV>) ||
+        !registers_suffice(attention_bwd_dkv_sm90<HD, HV>))
       return cudaErrorInvalidDeviceFunction;
     cudaError_t err = cudaFuncSetAttribute(
-        attention_bwd_dq_sm90<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attention_bwd_dq_sm90<HD, HV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(DqSmem<HD>::kBytes));
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(attention_bwd_dkv_sm90<HD>,
+      err = cudaFuncSetAttribute(attention_bwd_dkv_sm90<HD, HV>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(kMaxBlockSmem));
     return err;
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((seq + kBlockRows - 1) / kBlockRows, heads, batch);
-  attention_bwd_dq_sm90<HD><<<grid, kThreads, DqSmem<HD>::kBytes, stream>>>(
-      qkv_map, g_map, dqkv_map, static_cast<float*>(stats), seq, heads,
-      scale);
+  if (static_cast<long long>(batch) * (HD / HV) > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid((seq + kBlockRows - 1) / kBlockRows, heads,
+                  batch * (HD / HV));
+  attention_bwd_dq_sm90<HD, HV>
+      <<<grid, kThreads, DqSmem<HD>::kBytes, stream>>>(
+          qkv_map, g_map, dqkv_map, static_cast<float*>(stats), seq, heads,
+          scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dkv_sm90<HD><<<grid, kThreads, smem_dkv, stream>>>(
+  attention_bwd_dkv_sm90<HD, HV><<<grid, kThreads, smem_dkv, stream>>>(
       qkv_map, g_map, dqkv_map, static_cast<const float*>(stats), seq, heads,
       scale);
   return static_cast<int>(cudaGetLastError());
@@ -696,8 +746,9 @@ int launch_bwd(const void* qkv, const void* gout, void* dqkv, void* stats,
 }  // namespace tpudf
 
 // K9: out (B, S, Wa) bf16 from qkv (B, S, 3 Wa) bf16 and an optional f32
-// key bias (B, S rounded up to 64), zero past S; head_dim 64 or 128, S <=
-// kMaxSeq, B * S <= kMaxRows, 16-byte aligned rows
+// key bias (B, S rounded up to 64), zero past S; head_dim 64, 128 or 256
+// (16 and 32 arrive zero-padded to 64), S <= kMaxSeq, B * S <= kMaxRows,
+// 16-byte aligned rows
 TPUDF_API int tpudf_attention_qkv_sm90(const void* qkv, const void* key_bias,
                                        void* out, int batch, int seq,
                                        int heads, int head_dim, float scale,
@@ -710,11 +761,14 @@ TPUDF_API int tpudf_attention_qkv_sm90(const void* qkv, const void* key_bias,
     return launch_fwd<64>(qkv, key_bias, out, batch, seq, heads, scale, s);
   if (head_dim == 128)
     return launch_fwd<128>(qkv, key_bias, out, batch, seq, heads, scale, s);
+  if (head_dim == 256)
+    return launch_fwd<256>(qkv, key_bias, out, batch, seq, heads, scale, s);
   return cudaErrorInvalidValue;
 }
 
 // K10: dqkv (B, S, 3 Wa) bf16 from qkv and g (B, S, Wa) bf16; stats: a (3,
-// B, heads, S) f32 scratch; head_dim 64 or 128, S <= 4096
+// B, heads, S) f32 scratch; head_dim 64, 128 or 256 (16 and 32 arrive
+// zero-padded to 64), S <= kMaxSeqBwd
 TPUDF_API int tpudf_attention_qkv_bwd_sm90(const void* qkv, const void* gout,
                                            void* dqkv, void* stats,
                                            int batch, int seq, int heads,
@@ -729,21 +783,27 @@ TPUDF_API int tpudf_attention_qkv_bwd_sm90(const void* qkv, const void* gout,
   if (head_dim == 128)
     return launch_bwd<128>(qkv, gout, dqkv, stats, batch, seq, heads, scale,
                            s);
+  if (head_dim == 256)
+    return launch_bwd<256>(qkv, gout, dqkv, stats, batch, seq, heads, scale,
+                           s);
   return cudaErrorInvalidValue;
 }
 
 // dynamic shared bytes of a launch at head_dim hd and sequence seq: which 0
 // K9, 1 K10's dq pass, 2 its dkv pass
-TPUDF_API int tpudf_sm90_smem(int which, int hd, int seq) {
+template <int HD>
+int sm90_smem(int which, int seq) {
   using namespace tpudf;
-  if (hd != 64 && hd != 128) return -1;
-  const bool wide = hd == 128;
-  if (which == 0)
-    return static_cast<int>(wide ? FwdSmem<128>::kBytes : FwdSmem<64>::kBytes);
-  if (which == 1)
-    return static_cast<int>(wide ? DqSmem<128>::kBytes : DqSmem<64>::kBytes);
-  return static_cast<int>(wide ? DkvSmem<128>::bytes(stat_rows(seq))
-                               : DkvSmem<64>::bytes(stat_rows(seq)));
+  if (which == 0) return static_cast<int>(FwdSmem<HD>::kBytes);
+  if (which == 1) return static_cast<int>(DqSmem<HD>::kBytes);
+  return static_cast<int>(DkvSmem<HD>::bytes(stat_rows(seq)));
+}
+
+TPUDF_API int tpudf_sm90_smem(int which, int hd, int seq) {
+  if (hd == 64) return sm90_smem<64>(which, seq);
+  if (hd == 128) return sm90_smem<128>(which, seq);
+  if (hd == 256) return sm90_smem<256>(which, seq);
+  return -1;
 }
 
 // the host's cost of a K9 launch's tensor map: mean ns of `reps` encodes

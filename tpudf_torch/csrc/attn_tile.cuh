@@ -21,10 +21,15 @@
 // no longer has to fit a warp's registers (16 x 1024 f32 would be 64 KB a
 // warp), so S goes to kMaxSeq (common.cuh); the price is a second sweep
 // of QK^T.
-// head_dim is a template parameter (64, or 128 for so400m's heads of 72
-// padded by prepad_siglip_static; 80 for kernels 11 and 12's raw heads of
-// 72, of which LIVE = 72 columns are staged); the softmax scale is an
-// argument and is never derived from it.
+// head_dim is a template parameter (16, 32, 64, 256, or 128 for so400m's
+// heads of 72 padded by prepad_siglip_static; 80 for kernels 11 and 12's
+// raw heads of 72, of which LIVE = 72 columns are staged); the softmax
+// scale is an argument and is never derived from it. HV <= HD: the
+// columns of o (and of V) one stream computes. At head_dim 256 a warp
+// holding all of o (128 f32) beside its Q fragments (64) and scores (32)
+// would spill, so the callers split the head's columns into two slices of
+// 128 and run the stream once per slice: the full 256-deep scores each
+// time (`out_hv`).
 //
 // `attn_out_tile`: K6's work for 128 query rows of one image: for each
 // head in turn, the tile's Q goes to shared memory and each of the 8 warps
@@ -51,10 +56,17 @@ __host__ __device__ constexpr int row_ld() {
   return HD + 8;
 }
 
-// bf16 elements of the K/V ring: two stages of K, two of V
-template <int HD>
+// bf16 elements of the K/V ring: two stages of K (HD wide), two of V (HV
+// wide)
+template <int HD, int HV = HD>
 __host__ __device__ constexpr int ring_elems() {
-  return 4 * kKeyTile * row_ld<HD>();
+  return 2 * kKeyTile * (row_ld<HD>() + row_ld<HV>());
+}
+
+// the columns of o one attention stream computes at head_dim HD
+template <int HD>
+__host__ __device__ constexpr int out_hv() {
+  return HD > 128 ? 128 : HD;
 }
 
 // `n` rows of HD bf16 from row r0 of a row-major matrix (rows `ld` apart)
@@ -95,17 +107,18 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
 
 // One warp's state: its 16 query rows as A fragments, the f32 output
 // o[dt][e] (rows g (e = 0, 1) and g + 8 (e = 2, 3), dims 8 dt + 2t +
-// (e & 1)), and per row the max and the sum of exp(s - max)
-template <int HD>
+// (e & 1) of the stream's HV columns), and per row the max and the sum of
+// exp(s - max)
+template <int HD, int HV = HD>
 struct AttnWarp {
   unsigned qf[HD / 16][4];
-  float o[HD / 8][4];
+  float o[HV / 8][4];
   float mx[2], sum[2];
 };
 
 // the A fragments of the warp's 16 shared query rows at `qrows`
-template <int HD>
-__device__ __forceinline__ void load_q(AttnWarp<HD>& w,
+template <int HD, int HV>
+__device__ __forceinline__ void load_q(AttnWarp<HD, HV>& w,
                                        const __nv_bfloat16* qrows, int lane) {
 #pragma unroll
   for (int kc = 0; kc < HD / 16; ++kc)
@@ -116,9 +129,9 @@ __device__ __forceinline__ void load_q(AttnWarp<HD>& w,
 // s[j][e]: rows g (e = 0, 1) and g + 8 (e = 2, 3) against keys
 // k0 + 8j + 2t + (e & 1) of the shared tile `ks`: (q . k) * scale + bias
 // in f32, -inf past seq
-template <int HD>
+template <int HD, int HV>
 __device__ __forceinline__ void tile_scores(float (&s)[kKeyTile / 8][4],
-                                            const AttnWarp<HD>& w,
+                                            const AttnWarp<HD, HV>& w,
                                             const __nv_bfloat16* ks, int k0,
                                             int seq, const float* key_bias,
                                             float scale, int lane) {
@@ -178,11 +191,12 @@ __device__ __forceinline__ void online_stats(
 }
 
 // pass 2 on one tile: o += bf16(exp(s - m) / l) . v for the shared V tile
-// `vs`; the score accumulators of two key tiles, once rounded, are the A
-// fragment (no trip through shared memory), V rows the k index
-// (ldmatrix.trans gives b0, b1 of two 8-dim tiles)
-template <int HD>
-__device__ __forceinline__ void tile_pv(AttnWarp<HD>& w,
+// `vs` (HV columns, rows row_ld<HV>() apart); the score accumulators of two
+// key tiles, once rounded, are the A fragment (no trip through shared
+// memory), V rows the k index (ldmatrix.trans gives b0, b1 of two 8-dim
+// tiles)
+template <int HD, int HV>
+__device__ __forceinline__ void tile_pv(AttnWarp<HD, HV>& w,
                                         const float (&s)[kKeyTile / 8][4],
                                         const __nv_bfloat16* vs, int lane) {
 #pragma unroll
@@ -199,9 +213,9 @@ __device__ __forceinline__ void tile_pv(AttnWarp<HD>& w,
     a[2] = pack_bf16x2(p[1][0], p[1][1]);
     a[3] = pack_bf16x2(p[1][2], p[1][3]);
     const __nv_bfloat16* vr =
-        vs + (kc * 16 + (lane & 15)) * row_ld<HD>() + (lane >> 4) * 8;
+        vs + (kc * 16 + (lane & 15)) * row_ld<HV>() + (lane >> 4) * 8;
 #pragma unroll
-    for (int dn = 0; dn < HD / 16; ++dn) {
+    for (int dn = 0; dn < HV / 16; ++dn) {
       unsigned r[4];
       ldsm_x4_trans(r, vr + dn * 16);
       mma_bf16(w.o[2 * dn], a, r[0], r[1]);
@@ -211,15 +225,16 @@ __device__ __forceinline__ void tile_pv(AttnWarp<HD>& w,
 }
 
 // The attention of every warp's 16 query rows (w.qf) against keys
-// [0, seq) of one head: K rows at kg and V rows at vg in device memory,
-// `ld` elements apart, streamed through the ring at `ring`
-// (ring_elems<HD>() shared bf16); key_bias: the image's (seq,) f32
-// per-key bias, or null. Leaves w.o, w.mx and w.sum (the full row sums).
-// Every thread of the block calls it (it holds barriers); the caller's
-// own shared reads must be done before, as the ring's first stages are
-// issued at once. LIVE: the head's own columns (stage_rows).
-template <int HD, int LIVE = HD>
-__device__ __forceinline__ void attn_stream(AttnWarp<HD>& w,
+// [0, seq) of one head: K rows at kg and V rows at vg (the HV columns of
+// this stream) in device memory, `ld` elements apart, streamed through
+// the ring at `ring` (ring_elems<HD, HV>() shared bf16); key_bias: the
+// image's (seq,) f32 per-key bias, or null. Leaves w.o, w.mx and w.sum
+// (the full row sums). Every thread of the block calls it (it holds
+// barriers); the caller's own shared reads must be done before, as the
+// ring's first stages are issued at once. LIVE: the head's own columns
+// (stage_rows).
+template <int HD, int LIVE = HD, int HV = HD>
+__device__ __forceinline__ void attn_stream(AttnWarp<HD, HV>& w,
                                             const __nv_bfloat16* kg,
                                             const __nv_bfloat16* vg,
                                             size_t ld, int seq,
@@ -227,9 +242,11 @@ __device__ __forceinline__ void attn_stream(AttnWarp<HD>& w,
                                             float scale,
                                             __nv_bfloat16* ring, int lane) {
   constexpr int kTile = kKeyTile * row_ld<HD>();
-  // stage i of K at ring + i kTile, of V at ring + (2 + i) kTile
+  constexpr int kTileV = kKeyTile * row_ld<HV>();
+  constexpr int kLiveV = HV < HD ? HV : LIVE;    // V columns staged
+  // stage i of K at ring + i kTile, of V at ring + 2 kTile + i kTileV
   auto kst = [&](int t) { return ring + (t & 1) * kTile; };
-  auto vst = [&](int t) { return ring + (2 + (t & 1)) * kTile; };
+  auto vst = [&](int t) { return ring + 2 * kTile + (t & 1) * kTileV; };
   const int ntiles = (seq + kKeyTile - 1) / kKeyTile;
   const float neg_inf = __int_as_float(0xff800000);
   w.mx[0] = w.mx[1] = neg_inf;
@@ -255,23 +272,23 @@ __device__ __forceinline__ void attn_stream(AttnWarp<HD>& w,
 
   // ---- pass 2: p = exp(s - m) / l, o += bf16(p) . v over K and V tiles
 #pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt)
+  for (int dt = 0; dt < HV / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) w.o[dt][e] = 0.0f;
   stage_rows<HD, LIVE>(kst(0), kg, ld, 0, seq);
-  stage_rows<HD, LIVE>(vst(0), vg, ld, 0, seq);
+  stage_rows<HV, kLiveV>(vst(0), vg, ld, 0, seq);
   cp_async_commit();
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) {
       stage_rows<HD, LIVE>(kst(t + 1), kg, ld, (t + 1) * kKeyTile, seq);
-      stage_rows<HD, LIVE>(vst(t + 1), vg, ld, (t + 1) * kKeyTile, seq);
+      stage_rows<HV, kLiveV>(vst(t + 1), vg, ld, (t + 1) * kKeyTile, seq);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     tile_scores<HD>(s, w, kst(t), t * kKeyTile, seq, key_bias, scale,
                     lane);
-    tile_pv<HD>(w, s, vst(t), lane);
+    tile_pv(w, s, vst(t), lane);
     __syncthreads();
   }
 }
@@ -286,12 +303,24 @@ struct AttnOutArgs {
   float scale;
 };
 
-// shared bytes of attn_out_tile: the Q tile (128 rows) and the K/V ring,
-// then the (128 x Wa) int8 o tile; independent of S
+// bf16 elements before K6's int8 o tile: the Q tile (128 rows) and the
+// K/V ring; at head_dim 256 they share their space (each warp has its Q
+// fragments in registers before the ring is filled), so that Wa = 768
+// fits; at least the out-projection's two weight stages (2 kStageBytes
+// bytes), which stream through the same space
+template <int HD>
+__host__ __device__ constexpr int attn_out_front() {
+  constexpr int q = kOutQTile * row_ld<HD>();
+  constexpr int ring = ring_elems<HD, out_hv<HD>()>();
+  constexpr int front = HD > 128 ? (q > ring ? q : ring) : q + ring;
+  return front > kStageBytes ? front : kStageBytes;
+}
+
+// shared bytes of attn_out_tile: the front (Q and the ring), then the
+// (128 x Wa) int8 o tile; independent of S
 template <int HD>
 __host__ __device__ constexpr size_t attn_out_smem(int wa) {
-  return static_cast<size_t>(kOutQTile * row_ld<HD>() + ring_elems<HD>()) *
-             sizeof(__nv_bfloat16) +
+  return static_cast<size_t>(attn_out_front<HD>()) * sizeof(__nv_bfloat16) +
          static_cast<size_t>(kOutQTile) * (wa + 16);
 }
 
@@ -299,12 +328,14 @@ __host__ __device__ constexpr size_t attn_out_smem(int wa) {
 template <int HD, int MODE>
 __device__ __forceinline__ void attn_out_tile(const AttnOutArgs& p, int b,
                                               int q0, unsigned char* smem) {
+  constexpr int HV = out_hv<HD>();
+  constexpr bool kShared = HD > 128;         // Q and the ring overlap
   const TileThread q = tile_thread();
   const int seq = p.seq;
   const int wa = p.heads * HD, ldo = wa + 16;
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ring = qs + kOutQTile * row_ld<HD>();
-  int8_t* o8 = reinterpret_cast<int8_t*>(ring + ring_elems<HD>());
+  __nv_bfloat16* ring = kShared ? qs : qs + kOutQTile * row_ld<HD>();
+  int8_t* o8 = reinterpret_cast<int8_t*>(qs + attn_out_front<HD>());
   const float inv = 127.0f / p.proj.act[0];
   const size_t row3 = static_cast<size_t>(3) * wa;
   const __nv_bfloat16* base = p.qkv + static_cast<size_t>(b) * seq * row3;
@@ -315,19 +346,24 @@ __device__ __forceinline__ void attn_out_tile(const AttnOutArgs& p, int b,
     load_rows<HD>(qs, base + h * HD, row3, q0, kOutQTile, seq);
     __syncthreads();
     // rows past seq hold zero queries: finite, never stored
-    AttnWarp<HD> w;
+    AttnWarp<HD, HV> w;
     load_q<HD>(w, qs + r0 * row_ld<HD>(), q.lane);
-    attn_stream<HD>(w, base + wa + h * HD, base + 2 * wa + h * HD, row3, seq,
-                    nullptr, p.scale, ring, q.lane);
+    if (kShared) __syncthreads();       // every warp's Q read: the ring may
+    for (int sl = 0; sl < HD / HV; ++sl) {       // overwrite it
+      attn_stream<HD, HD, HV>(w, base + wa + h * HD,
+                              base + 2 * wa + h * HD + sl * HV, row3, seq,
+                              nullptr, p.scale, ring, q.lane);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      int8_t* dst = o8 + (r0 + q.g + 8 * r) * ldo + h * HD + 2 * q.t;
+      for (int r = 0; r < 2; ++r) {
+        int8_t* dst =
+            o8 + (r0 + q.g + 8 * r) * ldo + h * HD + sl * HV + 2 * q.t;
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        char2 c;
-        c.x = quant_i8(w.o[dt][2 * r], inv);
-        c.y = quant_i8(w.o[dt][2 * r + 1], inv);
-        *reinterpret_cast<char2*>(dst + dt * 8) = c;
+        for (int dt = 0; dt < HV / 8; ++dt) {
+          char2 c;
+          c.x = quant_i8(w.o[dt][2 * r], inv);
+          c.y = quant_i8(w.o[dt][2 * r + 1], inv);
+          *reinterpret_cast<char2*>(dst + dt * 8) = c;
+        }
       }
     }
   }

@@ -1,6 +1,8 @@
-// Device pieces of the int8 x int8 -> int32 GEMM tile, shared by the
-// plain GEMM (int8_gemm.cu), K5's LN-prologue GEMM (int8_gemm.cu), K6's
-// out-projection (attention.cu) and K7's four phases (layer_int8.cu).
+// Device pieces of the int8 x int8 -> int32 GEMM tile on mma.sync, shared
+// by K5's LN-prologue GEMM (int8_gemm.cu), K6's out-projection
+// (attention.cu), K7's four phases (layer_int8.cu) and the quantising probe
+// GEMM (probe_gemm.cu). The plain int8 GEMM is int8_gemm_sm90.cu (wgmma and
+// TMA), which shares the epilogue modes below (kEpiI32 only there).
 //
 // A tile is 128 x 128 outputs for 256 threads: 8 warps, 2 (M, 64 rows) x
 // 4 (N, 32 columns), mma.sync m16n8k32 s8 with exact int32 accumulators;
@@ -14,7 +16,8 @@
 //   kEpiResidual     out = bf16(residual + f), and, when sumsq is not
 //                    null, sumsq[m] += out^2 (f32 atomics across column
 //                    tiles; the order of the adds varies from run to run)
-//   kEpiI32          out = acc (int32; the caller dequantises)
+//   kEpiI32          out = acc (int32; the caller dequantises; the sm90
+//                    GEMM only)
 //   kEpiResF32Out    out = f32((residual + acc * cs) + bias[n]), residual
 //                    bf16: K7's attention sublayer, whose residual stays
 //                    f32 into LN2 (the order of _layer_kernel's adds)
@@ -172,8 +175,8 @@ __device__ __forceinline__ void gemm_epilogue(const int (&acc)[4][4][4],
                                               const GemmArgs& p, int m0,
                                               int m_end, int n0,
                                               const TileThread& q) {
-  float a_div = 0.0f, inv_out = 0.0f;
-  if constexpr (MODE != kEpiI32) a_div = p.act[0] / 127.0f;
+  const float a_div = p.act[0] / 127.0f;
+  float inv_out = 0.0f;
   if constexpr (MODE == kEpiGeluI8) inv_out = 127.0f / p.act_out[0];
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
@@ -181,24 +184,15 @@ __device__ __forceinline__ void gemm_epilogue(const int (&acc)[4][4][4],
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
       const int col = n0 + q.wn * 32 + ni * 8 + q.t * 2;
-      float cs0 = 0.0f, cs1 = 0.0f, b0 = 0.0f, b1 = 0.0f;
-      if constexpr (MODE != kEpiI32) {
-        cs0 = __fmul_rn(a_div, p.col_scale[col]);
-        cs1 = __fmul_rn(a_div, p.col_scale[col + 1]);
-        b0 = p.bias[col];
-        b1 = p.bias[col + 1];
-      }
+      const float cs0 = __fmul_rn(a_div, p.col_scale[col]);
+      const float cs1 = __fmul_rn(a_div, p.col_scale[col + 1]);
+      const float b0 = p.bias[col], b1 = p.bias[col + 1];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + q.wm * 64 + mi * 16 + q.g + h * 8;
         if (row >= m_end) continue;
         const size_t o = static_cast<size_t>(row) * p.N + col;
         const int i0 = acc[mi][ni][2 * h], i1 = acc[mi][ni][2 * h + 1];
-        if constexpr (MODE == kEpiI32) {
-          *reinterpret_cast<int2*>(static_cast<int*>(p.out) + o) =
-              make_int2(i0, i1);
-          continue;
-        }
         const float p0 = __fmul_rn(static_cast<float>(i0), cs0);
         const float p1 = __fmul_rn(static_cast<float>(i1), cs1);
         const float f0 = __fadd_rn(p0, b0), f1 = __fadd_rn(p1, b1);

@@ -15,7 +15,8 @@
 //               dequant chain in bf16, with no 4 / 127 factor, as the TPU
 //               kernel writes it (|acc| <= 768 * 127^2 < 2^24, so f32(acc)
 //               is exact and bf16(acc) one rounding)
-//   k_noquant   int8 x: tpudf_i8_gemm's kEpiBf16 with act = 4 (int8_gemm.cu)
+//   k_noquant   int8 x: tpudf_i8_gemm's kEpiBf16 with act = 4
+//               (int8_gemm_sm90.cu)
 //   k_pure      int8 x, int32 out: tpudf_i8_gemm's kEpiI32
 // The last two need no new code; the first four are this file's entry
 // point. Per output element the f32 arithmetic is rounded op by op in the

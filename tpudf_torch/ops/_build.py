@@ -36,9 +36,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C signature of each entry point: p = pointer (c_void_p), i = int, f = float
 SIGNATURES = {
-    "tpudf_layer_norm_bf16": "ppppiifp",
-    "tpudf_ln_quant_i8": "pppppiifp",
+    "tpudf_layer_norm_bf16": "ppppiiifp",
+    "tpudf_ln_quant_i8": "pppppiiifp",
     "tpudf_i8_gemm": "pppppppppiiiip",
+    "tpudf_i8_gemm_tile_n": "ii",
     "tpudf_attention_i8": "ppppiiiifp",
     "tpudf_attention_qkv_sm90": "pppiiiifp",
     "tpudf_attention_qkv_bwd_sm90": "ppppiiiifp",

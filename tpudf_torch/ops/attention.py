@@ -12,10 +12,15 @@ it), softmax in f32, p rounded to bf16 for AV, AV accumulated in f32, the
 output rounded once to bf16.
 
 The CUDA kernel is `csrc/attention_sm90.cu` (Hopper's wgmma products and
-TMA loads through an mbarrier ring, `csrc/sm90.cuh`). It takes head_dim
-64 or 128 (so400m's heads of 72, padded by the caller, keep their own
-scale) and S up to MAX_SEQ (its K and V tiles stream, so nothing in it
-grows with S); any other shape on a CUDA tensor raises. One persistent
+TMA loads through an mbarrier ring, `csrc/sm90.cuh`). It takes every
+head_dim JAX's lane rule admits (`HEAD_DIMS`: 1 to 256;
+so400m's heads of 72, padded by the caller, keep their own scale) and S
+up to MAX_SEQ (its K and V tiles stream, so nothing in it grows with S);
+any other shape on a CUDA tensor raises. Heads of 32 and fewer run on
+the 64-wide tiles: the wrapper zero-pads each head's columns of qkv to 64
+(`pad_heads`; zero columns add exact zeros to q·k and p·v, and the scale
+stays the true head_dim's) and slices the output (`unpad_heads`); 9b and
+K10 do the same. Heads of 256 run natively. One persistent
 block an SM takes items of 128 query rows (two warpgroups of 64) of one
 head against its keys, streamed by TMA in 64-key tiles, in two passes
 over the keys (row max and sum, then p · v); at the engine's shapes the
@@ -38,8 +43,9 @@ one bf16 rounding of each output. The CUDA kernels are in
 `csrc/attention_sm90.cu`: a pass over query tiles (row statistics, D and
 dQ) and a pass over key tiles (dK and dV), FlashAttention-2's split, with
 the other side's rows streamed by TMA in 64-row tiles, because one head's
-(S, S) f32 P does not fit an SM. It takes head_dim 64 and 128 (so400m's
-heads of 72 padded by the caller keep their own scale) and any S up to
+(S, S) f32 P does not fit an SM. It takes HEAD_DIMS (so400m's heads of 72
+padded by the caller keep their own scale; at 256 each block owns one
+128-column slice of dq, or of dk and dv) and any S up to
 SM90_MAX_SEQ_BWD, ragged ones (a multiple of 8, not of 64) included.
 `attention_qkv_bwd_reference` is its twin, the TPU kernel's formulas in
 PyTorch. The route is JAX's (`_fused_qkv_with_vjp.bwd`,
@@ -63,7 +69,7 @@ amax over all S rows, clipped to ±127; int8 QKᵀ with int32 sums scaled by
 (aq·ak)/127² · scale; an exact f32 softmax; p quantised per row with ap =
 max p + 1e-20, not clipped; int8 p·v scaled by ap·av/127²; bf16 out. Its
 CUDA kernel is `csrc/attention_i8.cu` (an amax pass, then the two-pass
-tile with int8 mma.sync); head_dim 64 or 128, S up to MAX_SEQ (its int32
+tile with int8 mma.sync); HEAD_DIMS, S up to MAX_SEQ (its int32
 sums of p8 · v8 reach 127² S, under 2^31 up to S = 133,144).
 `attention_qkv_int8_reference` is its twin, written from `_one_head`.
 
@@ -109,14 +115,20 @@ from tpudf_torch.ops.twin_vjp import with_twin_vjp
 KERNEL = "attention_qkv"
 KERNEL_BWD = "attention_qkv_bwd"
 KERNEL_INT8 = "attention_qkv_int8"
-HEAD_DIMS = (64, 128)       # K1, K6, K9 and 9b
+# K1, K6, K9, 9b and K10: the head_dims JAX's lane rule (head_dim % 128
+# == 0 or 128 % head_dim == 0) admits at W <= 1280 that a block holds
+HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+# K9, 9b and K10 run these on zero-padded 64-wide heads (K1 and K6 take
+# 16 and 32 natively and pad the narrower ones to 16)
+PADDED_HEAD_DIMS = (1, 2, 4, 8, 16, 32)
+PAD_HEAD_DIM = 64
 # K1, K6, K9 and 9b: the longest sequence (csrc/common.cuh kMaxSeq; 9b's
 # int32 p8 · v8 sums bound it) and the most rows B·S of a call (the
 # kernels index rows b·S + r as ints)
 MAX_SEQ = 1 << 17
 MAX_ROWS = 2 ** 31 - 1
 KERNEL_BWD_TWIN = "attention_qkv_bwd_twin_vjp"  # JAX's XLA-recompute route
-BWD_HEAD_DIMS = (64, 128)   # K10
+BWD_HEAD_DIMS = HEAD_DIMS   # K10
 BWD_FIT_BYTES = 12 * 1024 * 1024   # JAX's VMEM fit for the Pallas backward
 INT8_Q_BLOCK = 256          # JAX's q_block: 9b's aq is taken per block
 KERNEL_PLAIN = "attention"  # kernel 11, (B, H, S, D)
@@ -131,6 +143,29 @@ SM90_MAX_SEQ_BWD = 2048
 SM90_TILE_ROWS = 64
 SM90_BLOCK_ROWS = 128
 SM90_BLOCK_SMEM = 232448
+
+
+def kernel_head_dim(head_dim):
+    """The head_dim K9, 9b and K10's kernels run `head_dim` at: 64 for
+    the PADDED_HEAD_DIMS, else itself."""
+    return PAD_HEAD_DIM if head_dim in PADDED_HEAD_DIMS else head_dim
+
+
+def pad_heads(t, heads, head_dim, to):
+    """(..., n·heads·head_dim) → (..., n·heads·to): each head's columns of
+    each of the n parts ([q | k | v], or one) zero-padded to `to`."""
+    lead, n = t.shape[:-1], t.shape[-1] // (heads * head_dim)
+    return torch.nn.functional.pad(
+        t.reshape(*lead, n, heads, head_dim),
+        (0, to - head_dim)).reshape(*lead, n * heads * to)
+
+
+def unpad_heads(t, heads, head_dim, to):
+    """The inverse of `pad_heads`: each head's first head_dim of `to`
+    columns."""
+    lead, n = t.shape[:-1], t.shape[-1] // (heads * to)
+    return t.reshape(*lead, n, heads, to)[..., :head_dim].reshape(
+        *lead, n * heads * head_dim)
 
 
 def check_attention_shape(name, qkv, heads, head_dim):
@@ -151,11 +186,12 @@ def check_attention_shape(name, qkv, heads, head_dim):
 def sm90_dkv_smem(s, head_dim):
     """Shared bytes of K10's dkv block at sequence s (`DkvSmem`): K and V
     of 128 rows, the ring's stages of a 64-row Q and g chunk (6 at
-    head_dim 64, 4 at 128), the barriers, the head's row statistics (4 f32
-    per row, S rounded up to the chunks) and 1 KB for the alignment of the
-    swizzled tiles."""
+    head_dim 64, 4 at 128, 1 at 256; heads of 16 and 32 run at 64), the
+    barriers, the head's row statistics (4 f32 per row, S rounded up to the
+    chunks) and 1 KB for the alignment of the swizzled tiles."""
+    head_dim = kernel_head_dim(head_dim)
     tile = lambda rows: rows * head_dim * 2
-    stages = 6 if head_dim == 64 else 4
+    stages = {64: 6, 128: 4}.get(head_dim, 1)
     n_stat = -(-s // SM90_TILE_ROWS) * SM90_TILE_ROWS
     return (2 * tile(SM90_BLOCK_ROWS) + stages * 2 * tile(SM90_TILE_ROWS)
             + 128 + 16 * n_stat + 1024)
@@ -163,10 +199,11 @@ def sm90_dkv_smem(s, head_dim):
 
 def sm90_fwd_fits(s, w, head_dim):
     """Whether K9's kernel takes qkv (B, s, 3w): a head_dim it is built
-    for, S <= MAX_SEQ, and rows whose byte stride a tensor map takes (a
-    multiple of 16)."""
+    for, S <= MAX_SEQ, and rows (padded, at heads of 16 and 32) whose byte
+    stride a tensor map takes (a multiple of 16)."""
     return (head_dim in HEAD_DIMS and 1 <= s <= MAX_SEQ
-            and w % head_dim == 0 and 3 * w * 2 % 16 == 0)
+            and w % head_dim == 0
+            and 3 * (w // head_dim) * kernel_head_dim(head_dim) * 2 % 16 == 0)
 
 
 def sm90_bwd_fits(s, w, head_dim):
@@ -174,7 +211,8 @@ def sm90_bwd_fits(s, w, head_dim):
     head_dim they are built for, S <= SM90_MAX_SEQ_BWD, the dkv block's
     shared memory within a block's, and 16-byte row strides."""
     return (head_dim in BWD_HEAD_DIMS and 1 <= s <= SM90_MAX_SEQ_BWD
-            and w % head_dim == 0 and w * 2 % 16 == 0
+            and w % head_dim == 0
+            and (w // head_dim) * kernel_head_dim(head_dim) * 2 % 16 == 0
             and sm90_dkv_smem(s, head_dim) <= SM90_BLOCK_SMEM)
 
 
@@ -219,7 +257,10 @@ def _attention_qkv_cuda(qkv, heads, head_dim, scale, logit_bias):
     b, s, _ = qkv.shape
     if not sm90_fwd_fits(s, heads * head_dim, head_dim):
         raise ValueError(f"K9 has no kernel for S {s}, head_dim {head_dim}")
-    out = torch.empty((b, s, heads * head_dim), dtype=torch.bfloat16,
+    hk = kernel_head_dim(head_dim)
+    if hk != head_dim:
+        qkv = pad_heads(qkv, heads, head_dim, hk)
+    out = torch.empty((b, s, heads * hk), dtype=torch.bfloat16,
                       device=qkv.device)
     bias = None
     if logit_bias is not None:
@@ -229,9 +270,9 @@ def _attention_qkv_cuda(qkv, heads, head_dim, scale, logit_bias):
         bias = torch.nn.functional.pad(logit_bias.float(),
                                        (0, pad)).contiguous()
     _build.call("tpudf_attention_qkv_sm90", qkv.contiguous(), bias, out, b,
-                s, heads, head_dim, float(scale))
+                s, heads, hk, float(scale))
     LAUNCHES.hit(KERNEL)
-    return out
+    return out if hk == head_dim else unpad_heads(out, heads, head_dim, hk)
 
 
 def attention_qkv(qkv, heads, head_dim, scale=None, *, logit_bias=None):
@@ -291,15 +332,18 @@ def attention_qkv_int8_reference(qkv, heads, head_dim, scale=None, *,
 def _attention_qkv_int8_cuda(qkv, heads, head_dim, scale):
     check_attention_shape("9b", qkv, heads, head_dim)
     b, s, _ = qkv.shape
+    hk = kernel_head_dim(head_dim)
+    if hk != head_dim:          # zero columns: amax and the codes unchanged
+        qkv = pad_heads(qkv, heads, head_dim, hk)
     qb = min(INT8_Q_BLOCK, s)
     amax = torch.empty((b, heads, -(-s // qb) + 2), dtype=torch.float32,
                        device=qkv.device)
-    out = torch.empty((b, s, heads * head_dim), dtype=torch.bfloat16,
+    out = torch.empty((b, s, heads * hk), dtype=torch.bfloat16,
                       device=qkv.device)
     _build.call("tpudf_attention_i8dyn", qkv.contiguous(), amax, out, b, s,
-                heads, head_dim, qb, float(scale))
+                heads, hk, qb, float(scale))
     LAUNCHES.hit(KERNEL_INT8)
-    return out
+    return out if hk == head_dim else unpad_heads(out, heads, head_dim, hk)
 
 
 def attention_qkv_int8(qkv, heads, head_dim, scale=None):
@@ -369,14 +413,17 @@ def attention_qkv_bwd_twin_vjp(qkv, g, heads, head_dim, scale=None):
 def _attention_qkv_bwd_cuda(qkv, g, heads, head_dim, scale):
     check_attention_bwd_shape("K10", qkv, g, heads, head_dim)
     b, s, _ = qkv.shape
+    hk = kernel_head_dim(head_dim)
+    if hk != head_dim:          # the padded columns of dqkv come out 0
+        qkv = pad_heads(qkv, heads, head_dim, hk)
+        g = pad_heads(g, heads, head_dim, hk)
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((3, b, heads, s), dtype=torch.float32,
                         device=qkv.device)
     _build.call("tpudf_attention_qkv_bwd_sm90", qkv.contiguous(),
-                g.contiguous(), dqkv, stats, b, s, heads, head_dim,
-                float(scale))
+                g.contiguous(), dqkv, stats, b, s, heads, hk, float(scale))
     LAUNCHES.hit(KERNEL_BWD)
-    return dqkv
+    return dqkv if hk == head_dim else unpad_heads(dqkv, heads, head_dim, hk)
 
 
 def attention_qkv_bwd(qkv, g, heads, head_dim, scale=None, *,

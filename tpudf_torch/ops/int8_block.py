@@ -6,12 +6,13 @@ int8 QKV GEMM (int32 accumulate) → dequant + bias → bf16 qkv → per-image,
 per-head full softmax with an optional per-key bias log(size) → p cast to
 bf16 for AV → int8 quant → int8 out-proj → dequant + bias + residual.
 Replaces tpudf/ops/int8_block.py `_attn_sublayer_kernel`. The CUDA kernels
-live in `csrc/int8_gemm.cu` and `csrc/attention.cu` and run as four
+live in `csrc/layernorm.cu`, `csrc/int8_gemm_sm90.cu` and
+`csrc/attention.cu` and run as four
 launches: LN + quant (one bf16 read, one int8 write), the QKV GEMM, the
 attention, the out-proj GEMM. The TPU kernel kept the int8 LN output, the
 bf16 qkv and the attention output in VMEM; here they pass through device
 memory (int8, bf16, int8), and keeping them on-chip is later work. On the
-card the GEMMs are bound by tensor-core operations (mma.sync s8, int32
+card the GEMMs are bound by tensor-core operations (wgmma s8, int32
 accumulate); the attention runs both of its products on the tensor cores
 (mma.sync bf16) over shared-memory K/V. Its twin is `ln_qkv_reference`
 then `attn_out_reference`, the JAX package's reference forms.
@@ -56,7 +57,8 @@ from tpudf_torch.core.backend import LAUNCHES
 from tpudf_torch.ops import _build
 from tpudf_torch.ops.attention import (HEAD_DIMS, MAX_ROWS, MAX_SEQ,
                                        attention_qkv_reference,
-                                       check_attention_shape)
+                                       check_attention_shape, pad_heads,
+                                       unpad_heads)
 from tpudf_torch.ops.layernorm import MAX_WIDTH, ln_quant_cuda, ln_rows_f32
 from tpudf_torch.ops.quant import (KERNEL_GEMM, f32_scalar, int8_mm,
                                    quant_rows, transposed)
@@ -68,6 +70,18 @@ KERNEL_ATTN_OUT = "attn_out_int8"
 KERNEL_LAYER = "siglip_layer_int8"
 LAYER_MAX_SEQ = 256         # K7's own limits (the whole-layer kernel is
 LAYER_MAX_WIDTH = 1024      # not widened: beyond them the block routes FPP)
+# K6's widest Wa at each head_dim its tile runs (csrc/attention.cu: the
+# (128 x Wa) int8 tile beside Q and the K/V ring within a block's shared
+# memory)
+K6_MAX_WA = {16: 1536, 32: 1536, 64: 1024, 128: 768, 256: 768}
+I8_ATTN_MIN_HEAD_DIM = 16   # mma.sync's k16: narrower heads are padded
+
+
+def i8_attn_head_dim(head_dim):
+    """The head_dim K1's attention and K6 run `head_dim` at: at least
+    I8_ATTN_MIN_HEAD_DIM (narrower heads zero-padded: zero columns add
+    nothing to q·k, p·v or the out-projection)."""
+    return max(head_dim, I8_ATTN_MIN_HEAD_DIM)
 MiB = 1024 * 1024
 
 
@@ -168,10 +182,10 @@ def attn_sublayer_reference(x, ln_params, qkv_wq, qkv_b, out_wq, out_b,
 
 
 def _f32(t):
-    return t.float().contiguous()
+    return None if t is None else t.float().contiguous()
 
 
-GEMM_BF16, GEMM_GELU_I8, GEMM_RESIDUAL = 0, 1, 2
+GEMM_BF16, GEMM_GELU_I8, GEMM_RESIDUAL, GEMM_I32 = 0, 1, 2, 3
 
 
 def check_i8_gemm(k, wt):
@@ -190,11 +204,13 @@ def i8_gemm_cuda(a8, wt, col_scale, bias, act, mode, *, residual=None,
     mode GEMM_BF16: bf16(acc·(act/127)·col_scale + bias);
     GEMM_GELU_I8: int8 quant with act_out of gelu_tanh of that;
     GEMM_RESIDUAL: bf16(residual + that), and Σ out² per row into sumsq
-    (f32 atomics across column tiles) when sumsq is given."""
+    (f32 atomics across column tiles) when sumsq is given; GEMM_I32: acc
+    (col_scale, bias and act unused)."""
     m, k = a8.shape
     n = wt.shape[0]
     check_i8_gemm(k, wt)
-    dt = torch.int8 if mode == GEMM_GELU_I8 else torch.bfloat16
+    dt = {GEMM_GELU_I8: torch.int8, GEMM_I32: torch.int32}.get(
+        mode, torch.bfloat16)
     out = torch.empty((m, n), dtype=dt, device=a8.device)
     _build.call("tpudf_i8_gemm", a8, wt, _f32(col_scale), _f32(bias),
                 _f32(act), residual, out, sumsq,
@@ -231,10 +247,15 @@ def _attn_sublayer_cuda(x, ln_params, qkv_wq, qkv_b, out_wq, out_b, a_qkv,
     x2d = x.reshape(b * s, w).contiguous()
     h8 = ln_quant_cuda(x2d, ln_params, a_qkv, eps)
     qkv = i8_gemm_cuda(h8, wt, qkv_wq["scale"], qkv_b, a_qkv, GEMM_BF16)
-    o8 = torch.empty((b * s, wa), dtype=torch.int8, device=x.device)
+    hk = i8_attn_head_dim(head_dim)
+    if hk != head_dim:
+        qkv = pad_heads(qkv, heads, head_dim, hk).contiguous()
+    o8 = torch.empty((b * s, heads * hk), dtype=torch.int8, device=x.device)
     bias = None if logit_bias is None else _f32(logit_bias)
     _build.call("tpudf_attention_i8", qkv, bias, _f32(a_out), o8, b, s,
-                heads, head_dim, float(scale))
+                heads, hk, float(scale))
+    if hk != head_dim:
+        o8 = unpad_heads(o8, heads, head_dim, hk).contiguous()
     out = i8_gemm_cuda(o8, transposed(out_wq), out_wq["scale"], out_b, a_out,
                        GEMM_RESIDUAL, residual=x2d)
     LAUNCHES.hit(KERNEL)
@@ -306,27 +327,31 @@ def _attn_out_route_cuda(qkv, x, wq, bias, a, heads, head_dim, scale,
 
 def check_attn_out_int8(qkv, x, wq, heads, head_dim):
     """Raise unless K6 takes this call: qkv under `check_attention_shape`,
-    bf16 x (B, S, W % 128 == 0), a (Wa, W) out-projection, and Wa <= 1024
-    at head_dim 64, <= 768 at 128 (its block's shared memory)."""
+    bf16 x (B, S, W % 128 == 0), a (Wa, W) out-projection, and Wa within
+    K6_MAX_WA (its block's shared memory)."""
     b, s, _ = qkv.shape
     w = x.shape[-1]
     wa = heads * head_dim
     check_attention_shape("K6", qkv, heads, head_dim)
-    if (x.dtype != torch.bfloat16 or wa > (1024 if head_dim == 64 else 768)
+    hk = i8_attn_head_dim(head_dim)
+    if (x.dtype != torch.bfloat16 or heads * hk > K6_MAX_WA[hk]
             or w % 128 or tuple(wq["q"].shape) != (wa, w)
             or x.shape != (b, s, w)):
         raise ValueError(f"K6 takes x (B, S, W % 128 == 0) bf16 and Wa <= "
-                         f"1024 (head_dim 64) or 768 (128), got {x.dtype} "
-                         f"{tuple(x.shape)}, Wa {wa}, head_dim {head_dim}")
+                         f"{K6_MAX_WA}[head_dim] (heads narrower than "
+                         f"{I8_ATTN_MIN_HEAD_DIM} padded to it), got "
+                         f"{x.dtype} {tuple(x.shape)}, Wa {wa}, head_dim "
+                         f"{head_dim}")
 
 
 def attn_out_int8(qkv, x, wq, bias, act_scale, heads, head_dim, scale=None,
                   *, logit_bias=None):
     """qkv (B, S, 3Wa) + residual x (B, S, W) → (B, S, W): attention, int8
     quant, int8 out-projection, dequant + bias + residual. CPU tensors take
-    the plain twin; CUDA tensors launch K6 (bf16, head_dim 64 or 128, S <=
-    MAX_SEQ, W % 128 == 0, Wa <= 1024 at head_dim 64 and <= 768 at 128:
-    its shared memory) or raise; with a logit bias or where
+    the plain twin; CUDA tensors launch K6 (bf16, head_dim in HEAD_DIMS,
+    narrower than 16 padded to 16, S <= MAX_SEQ, W % 128 == 0, Wa within
+    K6_MAX_WA: its shared memory) or
+    raise; with a logit bias or where
     `attn_out_int8_fits` is false, K9 or 9b and the out-projection GEMM."""
     scale = scale if scale is not None else head_dim ** -0.5
     if not qkv.is_cuda:
@@ -341,10 +366,14 @@ def attn_out_int8(qkv, x, wq, bias, act_scale, heads, head_dim, scale=None,
                                     scale, logit_bias)
     check_attn_out_int8(qkv, x, wq, heads, head_dim)
     wt = transposed(wq)
+    hk = i8_attn_head_dim(head_dim)
+    if hk != head_dim:          # zero q, k, v columns and weight rows
+        qkv = pad_heads(qkv, heads, head_dim, hk)
+        wt = pad_heads(wt, heads, head_dim, hk).contiguous()
     out = torch.empty((b * s, w), dtype=torch.bfloat16, device=x.device)
     _build.call("tpudf_attn_out_i8", qkv.contiguous(),
                 x.reshape(b * s, w).contiguous(), wt, _f32(wq["scale"]),
-                _f32(bias), a, out, b, s, heads, head_dim, w, float(scale))
+                _f32(bias), a, out, b, s, heads, hk, w, float(scale))
     LAUNCHES.hit(KERNEL_ATTN_OUT)
     return out.reshape(b, s, w)
 

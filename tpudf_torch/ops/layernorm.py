@@ -1,13 +1,15 @@
 """Row layer norm with f32 E[x²]−E[x]² statistics — kernels K4 and K8.
 
 K4 replaces tpudf/ops/layernorm.py `_ln_kernel` (via `_ln_pallas` /
-`layer_norm_fused`). The CUDA kernel is `csrc/layernorm.cu`: one warp per
-row, the row held in registers (any multiple of 8 up to MAX_WIDTH = 1280:
-so400m's 1152 is 4.5 chunks of 8 a lane), one bf16 read and one bf16
-write. It is
-bound by device-memory bytes (4 bytes moved per element, a handful of flops);
-its design reads each row exactly once. The backward recomputes the twin
-and applies its VJP (`twin_vjp`), as the JAX VJP does.
+`layer_norm_fused`). The CUDA kernel is `csrc/layernorm.cu`: one warp a
+row at a time, the row held in registers (any multiple of 8 up to
+MAX_WIDTH = 1280: so400m's 1152 is 4.5 chunks of 8 a lane), one bf16 read
+and one bf16 write; each warp walks rows and loads the next one while it
+reduces this one; the scale and bias are read in the dtype they are
+stored in (bf16 or f32), so no call casts them. It is bound by
+device-memory bytes (4 bytes moved per element, a handful of flops). The
+backward recomputes the twin and applies its VJP (`twin_vjp`), as the JAX
+VJP does.
 
 K8 (`layer_norm_quant`) replaces tpudf/ops/layernorm.py `_ln_quant_kernel`:
 the same LN emitting static int8 codes, round(y·127/a) half to even,
@@ -39,6 +41,22 @@ def ln_rows_f32(x2d, g, b, eps):
     return (x32 - mu) * torch.rsqrt(var + eps) * g.float() + b.float()
 
 
+def _params(t):
+    """The kernels' scale or bias: as stored where that is bf16 or f32
+    (read in that dtype), else cast to f32; and whether it is bf16."""
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        t = t.float()
+    return t.contiguous(), int(t.dtype == torch.bfloat16)
+
+
+def _pair(scale, bias):
+    """scale and bias in one dtype for a launch (bf16 only if both are)."""
+    (g, gb), (b, bb) = _params(scale), _params(bias)
+    if gb != bb:
+        g, b, gb = g.float(), b.float(), 0
+    return g, b, gb
+
+
 def _check_rows(x2d, name):
     w = x2d.shape[-1]
     if x2d.dtype != torch.bfloat16 or w % 8 or w > MAX_WIDTH:
@@ -63,8 +81,9 @@ def ln_bf16_cuda(x2d, scale, bias, eps):
     _check_rows(x2d, "the layer_norm kernel")
     w = x2d.shape[-1]
     out = torch.empty_like(x2d)
-    _build.call("tpudf_layer_norm_bf16", x2d, scale.float().contiguous(),
-                bias.float().contiguous(), out, x2d.shape[0], w, float(eps))
+    g, b, is_bf16 = _pair(scale, bias)
+    _build.call("tpudf_layer_norm_bf16", x2d, g, b, out, x2d.shape[0], w,
+                is_bf16, float(eps))
     return out
 
 
@@ -95,9 +114,9 @@ def ln_quant_cuda(x2d, ln_params, a, eps):
     _check_rows(x2d, "the LN + quant row pass")
     m, w = x2d.shape
     out = torch.empty((m, w), dtype=torch.int8, device=x2d.device)
-    _build.call("tpudf_ln_quant_i8", x2d, ln_params["scale"].float()
-                .contiguous(), ln_params["bias"].float().contiguous(),
-                f32_scalar(a, x2d.device), out, m, w, float(eps))
+    g, b, is_bf16 = _pair(ln_params["scale"], ln_params["bias"])
+    _build.call("tpudf_ln_quant_i8", x2d, g, b, f32_scalar(a, x2d.device),
+                out, m, w, is_bf16, float(eps))
     return out
 
 

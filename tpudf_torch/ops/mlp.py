@@ -8,12 +8,12 @@ row of the bf16 output (the row norms the following ToMe merge reads).
 
 Replaces tpudf/ops/mlp.py `_kernel_int8` and `_kernel_int8_ss` (wrapper
 `mlp_block_fused_int8`). The CUDA kernels are the LN + quant pass and the
-int8 GEMM of `csrc/int8_gemm.cu`, three launches: LN + quant, fc1 with a
+int8 GEMM of `csrc/int8_gemm_sm90.cu`, three launches: LN + quant, fc1 with a
 GELU + quant epilogue that writes the int8 hidden, fc2 with a residual
 (+ Σ out², f32 atomics across the column tiles of a row) epilogue. The TPU
 kernel kept the (rows, 4W) hidden in VMEM; here it passes through device
 memory as int8 (M·4W bytes each way), and keeping it on-chip is later work.
-On the card both GEMMs are bound by tensor-core operations (mma.sync s8).
+On the card both GEMMs are bound by tensor-core operations (wgmma s8).
 
 The plain twin is `_reference_int8`, the JAX package's reference form.
 

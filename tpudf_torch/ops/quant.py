@@ -18,7 +18,7 @@ products (no Pallas kernel): the dynamic-int8 block and the X routes of
 the static block use them. Their quantisation and dequantisation are
 plain torch in the JAX order and dtypes; the exact int32 product `acc` is
 `int8_acc`: `int8_mm` on a CPU tensor, the port's int8 GEMM
-(`csrc/int8_gemm.cu`, int32 output) on a CUDA tensor. `int8_acc_reference`
+(`csrc/int8_gemm_sm90.cu`, int32 output) on a CUDA tensor. `int8_acc_reference`
 is the product without a kernel on any device (`routes.TWINS`).
 """
 

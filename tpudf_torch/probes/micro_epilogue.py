@@ -14,9 +14,9 @@ c = f32(4/127), acc = int32(codes · w):
             bf16(s)) + bf16(b)), with no 4/127 factor, as the TPU kernel
             writes it                                   (`probe_gemm.cu`)
   noquant   int8 x read from memory, out = bf16(acc · (c · s) + b):
-            `tpudf_i8_gemm`'s kEpiBf16 at act 4.0       (`int8_gemm.cu`)
+            `tpudf_i8_gemm`'s kEpiBf16 at act 4.0 (`int8_gemm_sm90.cu`)
   pure      int8 x, out = acc (int32): `tpudf_i8_gemm`'s kEpiI32
-                                                        (`int8_gemm.cu`)
+                                                  (`int8_gemm_sm90.cu`)
 The int8 tile reads the weight transposed, wt (N, K): the probe's (K, N)
 w is transposed once, outside the timed loop. At this shape pure is bound
 by the bytes of its int32 output, the others by tensor-core operations.
