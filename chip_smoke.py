@@ -7,9 +7,10 @@ Phases (any failure raises and the script exits non-zero; nothing falls
 back to the CPU or to a twin):
   1. card name and power limit (nvidia-smi), build of every kernel from
      tpudf_torch/csrc with nvcc for sm_90a (one nvcc per source, in
-     parallel), registers and spills from ptxas; K9's and K10's kernels
-     (attention_sm90.cu, head_dim 64, 128 and 256), kernels 11 and 12 in
-     bf16 (attention_plain_sm90.cu), the bf16 GEMM of K13, K14 and 15 in
+     parallel), registers and spills from ptxas; K9's, K1's attention and
+     K10's kernels (attention_sm90.cu, head_dim 64, 128 and 256, K1's also
+     on the 80-wide tile, and the wide heads' kernels), kernels 11 and 12
+     in bf16 (attention_plain_sm90.cu), the bf16 GEMM of K13, K14 and 15 in
      its three epilogue modes (bf16_gemm_sm90.cu) and the int8 GEMM in its
      four modes at both tile widths (int8_gemm_sm90.cu) must show wgmma
      (HGMMA; IGMMA for int8) and TMA loads (UTMALDG) in their SASS where
@@ -43,7 +44,8 @@ back to the CPU or to a twin):
      1152) with heads of 72 padded to 128 and scale 72^-0.5, K6 at (8,
      576, 3 x 1024), K9 at engine A's (106, 576, 3072), K1 and K2 at every
      token count of large-384's two ToMe schedules; 9b (K9's dynamic-int8
-     mode) at (8, 576, 3072) and (8, 1024, 6144). The attention inputs are
+     mode) at (8, 576, 3072) and (8, 1024, 6144); so400m's K1 runs its
+     attention on the 80-wide tile (live = 72). The attention inputs are
      sharp (q, k and v of std 1.5, scores of std ~2.25), so that a wrong
      attention shows: K9 and 9b with at most ATTN_SHARE of the outputs
      more than a bf16 step from the twin, K1 and K6 with the error of
@@ -85,7 +87,8 @@ back to the CPU or to a twin):
      launches are the kernels line's count;
   2f. K1, K6, K9 and 9b past S = 1024 (`long_seq_checks`): at S = 1296
      and a ragged S (1304 for K1 and K6, 1297 for K9 and 9b), at
-     base-256's width with heads of 64 and of 128 (72 live), on q, k, v
+     base-256's width with heads of 64 and of 128 (72 live: K1 on the
+     80-wide tile), on q, k, v
      of std 1.5 with and without the key bias, one launch each, to phase
      2b's tolerances, each check shown to fail on planted faults (the
      scale, the bias dropped, 9b's aq over 64-row tiles, the keys past S
@@ -100,15 +103,18 @@ back to the CPU or to a twin):
      launch alone at K13's and K14's products of engine A's full analysis
      beside F.linear (`gemm_path_timings`: device times, the factor
      against GEMM_TARGET, the tensor maps a launch encodes);
-  2h. heads of 16, 32 and 256 (`headdim_checks`, ROADMAP Queue C 1): K9
-     and 9b at S = 576 and 577, K10, K1 and K6 (through a W8A8 layer) at
-     576 and 584, W = 768 in 48 heads of 16, 24 of 32 and 3 of 256, q, k,
-     v of std 1.5, with and without the key bias, one launch each, by the
-     card rules of phases 2b / 2d (K10: the share rule, and its largest
-     error from float64 within K10_F64_FACTOR of the twin's); each check shown to fail on planted
+  2h. heads of 16, 32, 256 and 384-1280 (`headdim_checks`, ROADMAP Queue
+     C 1 and 2): K9 and 9b at S = 576 and 577, K10, K1 and K6 (through a
+     W8A8 layer; at the wide heads K6 as two launches) at 576 and 584, in
+     48 heads of 16, 24 of 32 and 3 of 256 (W = 768), 2 of 384 (768), 2
+     of 640 and 1 of 1280 (1280), q, k, v of std 1.5, with and without
+     the key bias, one launch each, by the card rules of phases 2b / 2d
+     (K10: the share rule, and its largest error from float64 within
+     K10_F64_FACTOR of the twin's); each check shown to fail on planted
      faults (the scale of a 64-wide head, a padded column left non-zero,
-     the second column slice of a head of 256 dropped, the bias dropped,
-     the keys past a ragged S unmasked);
+     the second column slice of a wide head dropped, a 128-deep chunk of
+     the scores skipped, one 64-row block of one head at a wrong scale,
+     the bias dropped, the keys past a ragged S unmasked);
   2i. the int8 GEMM launch (`i8_gemm_checks`, int8_gemm_sm90.cu) at
      I8_SHAPES in each mode: kEpiI32 bit-equal to torch._int_mm, the
      others against the twin's epilogue on the kernel's own int32 sums
@@ -120,6 +126,14 @@ back to the CPU or to a twin):
      alone at I8_PATHS beside torch._int_mm (`i8_gemm_path_timings`) and
      K4 alone at LN_SHAPES beside F.layer_norm (`ln_timings`), device
      times into the kernels line;
+  2j. K1's attention launch alone (`k1_attention_checks`) at the first
+     layer of each detect core phase 4 times and at B = 8: its int8 codes
+     against the twin's (at most K1_CODE_SHARE differ, by one), with and
+     without the bias, shown to fail on planted faults (the scale, the
+     bias dropped, and on so400m's 80-wide tile the codes of columns
+     80-127 left as a pre-filled buffer had them and columns 72-79 that
+     hold values read as zeros); its device time beside its bound, SDPA
+     and K9, into K1's row of the kernels line;
   3. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      (a) the detect core (build("cuda", seed=0), base-256, W8A8 + ToMe),
@@ -250,7 +264,7 @@ REPLACES = {
     "17": "scripts/micro_attn_static.py:79",
 }
 SOURCES = {
-    "K1": "tpudf_torch/csrc/attention.cu",
+    "K1": "tpudf_torch/csrc/attention_sm90.cu",
     "K2": "tpudf_torch/csrc/int8_gemm_sm90.cu",
     "K3": "tpudf_torch/csrc/srm.cu",
     "K4": "tpudf_torch/csrc/layernorm.cu",
@@ -428,8 +442,18 @@ def kernel_events(fn, iters):
 
 def device_ms(fn, iters=10):
     """The device time of one call of fn: its kernels' summed durations
-    (profiler), free of the host's launch time."""
-    return sum(kernel_events(fn, iters)[0].values())
+    (profiler), free of the host's launch time. A trace with no device
+    events (CUPTI dropped them) is taken again, twice at most; then fn is
+    timed by CUDA events instead (the host's launch gaps included), and
+    the log says so."""
+    for _ in range(3):
+        ms = sum(kernel_events(fn, iters)[0].values())
+        if ms > 0:
+            return ms
+    ms = cuda_ms(fn, iters)
+    print(f"  (the profiler saw no device time three times: {ms:.4f} ms by "
+          f"CUDA events)", flush=True)
+    return ms
 
 
 def profile(fn, label, card, iters=3, top=12):
@@ -536,15 +560,18 @@ class Records:
         return json.dumps({"kernels": kernels})
 
 
-# the kernels on wgmma and TMA: K9, K10's two passes (attention_sm90.cu)
-# at head_dim 64, 128 and 256, kernels 11 and 12 in bf16
-# (attention_plain_sm90.cu) on the 64-, 80- and 128-wide tiles, the bf16
-# GEMM of K13, K14 and 15 (bf16_gemm_sm90.cu) in its three epilogue modes,
-# and the int8 GEMM (int8_gemm_sm90.cu) in its four modes at tile widths
-# 256 and 128
-SM90_KERNELS = 23
-SM90_NAME = re.compile(r"((?:attention_(?:fwd|bwd_dq|bwd_dkv|plain)|"
-                       r"bf16_gemm|i8_gemm)_sm90)ILi(\d+)E(?:Li(\d+)E)?")
+# the kernels on wgmma and TMA: K9 at head_dim 64, 128 and 256 and K1's
+# attention on the 64-, 80-, 128- and 256-wide tiles (attention_sm90.cu's
+# forward, by output), both at the wide heads (attention_fwd_wide), K10's
+# two passes at 64, 128 and 256 and at the wide heads, kernels 11 and 12
+# in bf16 (attention_plain_sm90.cu) on the 64-, 80- and 128-wide tiles,
+# the bf16 GEMM of K13, K14 and 15 (bf16_gemm_sm90.cu) in its three
+# epilogue modes, and the int8 GEMM (int8_gemm_sm90.cu) in its four modes
+# at tile widths 256 and 128
+SM90_KERNELS = 31
+SM90_NAME = re.compile(r"((?:attention_(?:fwd|bwd_dq|bwd_dkv|plain)"
+                       r"(?:_wide)?|bf16_gemm|i8_gemm)_sm90)ILi(\d+)E"
+                       r"(?:Li(\d+)E)?")
 
 
 def sm90_build_checks(card):
@@ -598,7 +625,7 @@ def sm90_build_checks(card):
                 raise AssertionError(f"{fn}: no wgmma or TMA in its SASS")
     from tpudf_torch.ops import attention
     lib = _build.load()
-    for hd in (64, 128, 256):
+    for hd in (64, 128, 256, 384, 1280):
         dkv = {s: lib.tpudf_sm90_smem(2, hd, s)
                for s in (256, 576, 1560, 2048)}
         print(f"  sm90 shared memory a block, head_dim {hd}: K9 "
@@ -960,12 +987,15 @@ def large_kernel_checks(rec, dev, card):
             args = (x, p["ln1"], p["qkv_wq"], p["qkv_b"], p["out_wq"],
                     p["out_b"], p["a_qkv"], p["a_out"], heads, hd, 1e-6,
                     scale)
-            got = int8_block.attn_sublayer_int8(*args, logit_bias=lb)
+            live = None if p["live"] == hd else p["live"]   # 80-wide tile
+            got = int8_block.attn_sublayer_int8(*args, logit_bias=lb,
+                                                live=live)
             ref = int8_block.attn_sublayer_reference(*args, logit_bias=lb)
             faults = {bad_name: int8_block.attn_sublayer_int8(
-                *args[:-1], bad_sd, logit_bias=lb)}
+                *args[:-1], bad_sd, logit_bias=lb, live=live)}
             if with_bias:
-                faults["bias dropped"] = int8_block.attn_sublayer_int8(*args)
+                faults["bias dropped"] = int8_block.attn_sublayer_int8(
+                    *args, live=live)
             torch.cuda.synchronize()
             check_close(f"K1 {(b, s, w)} bias={with_bias}", got, ref,
                         atol=5e-2, rtol=2e-2)
@@ -975,8 +1005,8 @@ def large_kernel_checks(rec, dev, card):
             rec.add("K1", "attn_sublayer_int8",
                     (b, s, w, "bias" if with_bias else f"d={hd}"),
                     max_abs(got, ref),
-                    lambda: int8_block.attn_sublayer_int8(*args,
-                                                          logit_bias=lb),
+                    lambda: int8_block.attn_sublayer_int8(
+                        *args, logit_bias=lb, live=live),
                     lambda: int8_block.attn_sublayer_reference(
                         *args, logit_bias=lb),
                     ({"int8": 2 * m * w * 4 * wa,
@@ -2313,9 +2343,10 @@ def long_seq_checks(dev, card):
             if s in LONG_SEQ_K1_K6:
                 args = (x, p["ln1"], p["qkv_wq"], p["qkv_b"], p["out_wq"],
                         p["out_b"], p["a_qkv"], p["a_out"], heads, hd, 1e-6)
+                live = None if p["live"] == hd else p["live"]
                 for bias in (None, lb):
                     k1 = lambda sc, bi: int8_block.attn_sublayer_int8(
-                        *args, sc, logit_bias=bi)
+                        *args, sc, logit_bias=bi, live=live)
                     got = once(f"K1 {tag}", int8_block.KERNEL,
                                lambda: k1(scale, bias))
                     ref = int8_block.attn_sublayer_reference(
@@ -3256,11 +3287,13 @@ def report(label, dloss, cos, g_worst, p_worst, card):
             f"steps {p_worst[1]:.4f} lr ({p_worst[0]}) [{card}]")
 
 
-# Heads of 16, 32 and 256 (phase 2h, ROADMAP Queue C 1): K9, 9b, K10, and
-# K1 / K6 through the W8A8 layer at W = 768: (heads, head_dim). K9 and 9b
-# at S = 576 and a ragged 577; K10, K1 and K6 (JAX's routes need S % 8 ==
-# 0 there) at 576 and 584
-HEADDIM_CASES = [(48, 16), (24, 32), (3, 256)]
+# Heads of 16, 32 and 256 (phase 2h, ROADMAP Queue C 1) and of 384 to
+# 1280 (Queue C 2): K9, 9b, K10, and K1 / K6 through the W8A8 layer at W =
+# heads x head_dim (768 to 1280): (heads, head_dim). K9 and 9b at S = 576
+# and a ragged 577; K10, K1 and K6 (JAX's routes need S % 8 == 0 there) at
+# 576 and 584
+HEADDIM_CASES = [(48, 16), (24, 32), (3, 256), (2, 384), (2, 640),
+                 (1, 1280)]
 HEADDIM_S_K9 = (576, 577)
 HEADDIM_S_K1 = (576, 584)
 # K10 at heads of 16, 32 and 256: its largest error from the function in
@@ -3295,10 +3328,28 @@ def pad_fault(fn, qkv, heads, hd, scale, *more):
 
 
 def slice_dropped(out, heads, hd, parts=1):
-    """A head of 256 with its second 128-column slice never computed (its
-    columns zero): what a column split that dropped a slice returns."""
+    """A head of 256 or more with its second 128-column slice never
+    computed (its columns zero): what a column split that dropped a slice
+    returns."""
     o = out.clone().reshape(*out.shape[:-1], parts, heads, hd)
-    o[..., 128:] = 0
+    o[..., 128:256] = 0
+    return o.reshape(out.shape)
+
+
+def chunk_skipped(qkv, heads, hd):
+    """qkv with each head's q columns 128-255 zeroed: the scores of a wide
+    head whose second 128-deep chunk the sum over the depth skipped."""
+    t = qkv.clone().reshape(*qkv.shape[:-1], 3, heads, hd)
+    t[..., 0, :, 128:256] = 0
+    return t.reshape(qkv.shape)
+
+
+def block_scale_wrong(out, bad, heads, hd, parts=1):
+    """out with rows 64-127 of head 0 (in each of its parts) taken from
+    `bad`, a run at a wrong scale: one 64-row block of one head with the
+    wrong scale."""
+    o = out.clone().reshape(*out.shape[:2], parts, heads, hd)
+    o[:, 64:128, :, 0] = bad.reshape(o.shape)[:, 64:128, :, 0]
     return o.reshape(out.shape)
 
 
@@ -3325,23 +3376,27 @@ def k10_f64(qkv, g, heads, hd, scale):
 
 def headdim_checks(dev, card):
     """Phase 2h: K9, 9b and K10 (padded to 64 at heads of 16 and 32, native
-    at 256) and K1 / K6 (native; at 256 in two 128-column slices) at
-    HEADDIM_CASES, W = 768, on sharp attention inputs (q, k, v of std
-    1.5), with and without the key bias where the kernel takes one, one
-    launch each, to the card rules of phases 2b / 2d / 2f: K9 and 9b at
-    most ATTN_SHARE of the outputs a bf16 step apart (K9 also within atol
-    1e-2 + rtol 2^-7), K10 at most ATTN_SHARE apart and its largest error
-    from the function in float64 within K10_F64_FACTOR of the twin's, K1
-    and K6 within atol 5e-2 + rtol 2e-2 and ATTN_REL of the attention part;
-    each check shown to fail on planted faults: the scale of the padded
-    head (64^-0.5 in place of hd^-0.5; at 256 the scale x0.75), a padded
-    column left non-zero, the second column slice dropped (at 256), the
-    bias dropped, and at the ragged S the keys past S unmasked."""
+    at 256 and on their wide kernels at 384-1280) and K1 / K6 (K1 padded
+    to 64 at 16 and 32; K6 native there, at 256 in two 128-column slices
+    and at the wide heads as two launches) at HEADDIM_CASES, on sharp
+    attention inputs (q, k, v of std 1.5), with and without the key bias
+    where the kernel takes one, one launch each, to the card rules of
+    phases 2b / 2d / 2f: K9 and 9b at most ATTN_SHARE of the outputs a bf16
+    step apart (K9 also within atol 1e-2 + rtol 2^-7), K10 at most
+    ATTN_SHARE apart and its largest error from the function in float64
+    within K10_F64_FACTOR of the twin's, K1 and K6 within atol 5e-2 + rtol
+    2e-2 and ATTN_REL of the attention part; each check shown to fail on
+    planted faults: the scale of the padded head (64^-0.5 in place of
+    hd^-0.5; at 256 and wider the scale x0.75), a padded column left
+    non-zero, the second column slice dropped (at 256 and wider), at the
+    wide heads a 128-deep chunk of the scores skipped and one 64-row block
+    of one head at the wrong scale, the bias dropped, and at the ragged S
+    the keys past S unmasked."""
     import torch
     from tpudf_torch.core.backend import LAUNCHES
     from tpudf_torch.ops import attention, int8_block
-    print("phase 2h: K1, K6, K9, 9b and K10 at heads of 16, 32 and 256",
-          flush=True)
+    print("phase 2h: K1, K6, K9, 9b and K10 at heads of 16, 32, 256 and "
+          "384-1280", flush=True)
     g = torch.Generator(device=dev).manual_seed(51)
 
     def randn(*shape, std=1.0):
@@ -3354,10 +3409,12 @@ def headdim_checks(dev, card):
         check_launches(label, LAUNCHES.snapshot(), {counter: 1})
         return out
 
-    w, b = 768, 2
+    b = 2
     for heads, hd in HEADDIM_CASES:
+        w = heads * hd
         scale = hd ** -0.5
         padded = hd in attention.PADDED_HEAD_DIMS
+        wide = hd in attention.WIDE_HEAD_DIMS
         bad_sd = (attention.PAD_HEAD_DIM ** -0.5 if padded
                   else 0.75 * scale)
         bad_name = "scale 64^-0.5" if padded else "scale x0.75"
@@ -3368,6 +3425,7 @@ def headdim_checks(dev, card):
             lb = torch.log(torch.randint(1, 9, (b, s), generator=g,
                                          device=dev).float())
             tag = f"{(b, s, 3 * w)} {heads}x{hd}"
+            skipped = chunk_skipped(qkv, heads, hd) if wide else None
             if s in HEADDIM_S_K9:
                 for bias in (None, lb):
                     k9 = lambda sc, bi: attention.attention_qkv(
@@ -3389,6 +3447,12 @@ def headdim_checks(dev, card):
                     if not padded:
                         faults["slice dropped"] = slice_dropped(got, heads,
                                                                 hd)
+                    if wide:
+                        faults["chunk skipped"] = (
+                            attention.attention_qkv_reference(
+                                skipped, heads, hd, scale, logit_bias=bias))
+                        faults["64-row block's scale"] = block_scale_wrong(
+                            got, faults[bad_name], heads, hd)
                     label = f"K9 {tag} bias={bias is not None}"
                     check_close(label, got, ref, atol=1e-2, rtol=2 ** -7)
                     held_check(f"{label}, share > 1 bf16 step", share_apart,
@@ -3413,6 +3477,12 @@ def headdim_checks(dev, card):
                         attention.attention_qkv_int8, qkv, heads, hd, scale)
                 else:
                     faults["slice dropped"] = slice_dropped(got, heads, hd)
+                if wide:
+                    faults["chunk skipped"] = (
+                        attention.attention_qkv_int8_reference(
+                            skipped, heads, hd, scale))
+                    faults["64-row block's scale"] = block_scale_wrong(
+                        got, faults[bad_name], heads, hd)
                 held_check(f"9b {tag}, share > 1 bf16 step", share_apart,
                            ATTN_SHARE, got, ref, faults, card)
             if s not in HEADDIM_S_K1:
@@ -3438,6 +3508,13 @@ def headdim_checks(dev, card):
                     gout)
             else:
                 faults["slice dropped"] = slice_dropped(got, heads, hd, 3)
+            if wide:
+                faults["chunk skipped"] = (
+                    attention.attention_qkv_bwd_reference(
+                        chunk_skipped(q10, heads, hd), gout, heads, hd,
+                        scale))
+                faults["64-row block's scale"] = block_scale_wrong(
+                    got, faults[bad_name], heads, hd, 3)
             exact = k10_f64(q10, gout, heads, hd, scale)
             twin_err = max_abs(ref, exact)
             held_check(f"K10 {tag}, max |Δ| from f64 over the twin's "
@@ -3457,6 +3534,10 @@ def headdim_checks(dev, card):
                 return int8_block._out_proj_reference(
                     o, x, p["out_wq"], p["out_b"], p["a_out"])
 
+            def twin_o(q, bi, sc=scale):
+                return attention.attention_qkv_reference(q, heads, hd, sc,
+                                                         logit_bias=bi)
+
             for bias in (None, lb):
                 k1 = lambda sc, bi: int8_block.attn_sublayer_int8(
                     *args, sc, logit_bias=bi)
@@ -3474,17 +3555,25 @@ def headdim_checks(dev, card):
                             scale), bias)
                 if not padded:
                     faults["slice dropped"] = k1_twin_with(
-                        lambda q, bi: slice_dropped(
-                            attention.attention_qkv_reference(
-                                q, heads, hd, scale, logit_bias=bi),
-                            heads, hd), bias)
+                        lambda q, bi: slice_dropped(twin_o(q, bi), heads,
+                                                    hd), bias)
+                if wide:
+                    faults["chunk skipped"] = k1_twin_with(
+                        lambda q, bi: twin_o(chunk_skipped(q, heads, hd),
+                                             bi), bias)
+                    faults["64-row block's scale"] = k1_twin_with(
+                        lambda q, bi: block_scale_wrong(
+                            twin_o(q, bi), twin_o(q, bi, bad_sd), heads,
+                            hd), bias)
                 label = f"K1 {tag} bias={bias is not None}"
                 check_close(label, got, ref, atol=5e-2, rtol=2e-2)
                 held_check(f"{label} |Δ|/|attention part|", rel_part(x),
                            ATTN_REL, got, ref, faults, card)
             args6 = (qkv, x, p["out_wq"], p["out_b"], p["a_out"], heads, hd)
             assert int8_block.attn_out_int8_fits(s, heads * hd, w, hd)
-            got = once(f"K6 {tag}", int8_block.KERNEL_ATTN_OUT,
+            k6_counter = (int8_block.KERNEL_ATTN_OUT_SPLIT if wide
+                          else int8_block.KERNEL_ATTN_OUT)
+            got = once(f"K6 {tag}", k6_counter,
                        lambda: int8_block.attn_out_int8(*args6, scale))
             ref = int8_block.attn_out_reference(*args6, scale)
 
@@ -3499,13 +3588,170 @@ def headdim_checks(dev, card):
                     scale))
             if not padded:
                 faults["slice dropped"] = k6_twin_with(slice_dropped(
-                    attention.attention_qkv_reference(qkv, heads, hd, scale),
-                    heads, hd))
-            check_close(f"K6 {tag}", got, ref, atol=5e-2, rtol=2e-2)
-            held_check(f"K6 {tag} |Δ|/|attention part|", rel_part(x),
+                    twin_o(qkv, None), heads, hd))
+            if wide:
+                faults["chunk skipped"] = k6_twin_with(twin_o(skipped, None))
+                faults["64-row block's scale"] = k6_twin_with(
+                    block_scale_wrong(twin_o(qkv, None),
+                                      twin_o(qkv, None, bad_sd), heads, hd))
+            label = f"K6 {tag}{' (two launches)' if wide else ''}"
+            check_close(label, got, ref, atol=5e-2, rtol=2e-2)
+            held_check(f"{label} |Δ|/|attention part|", rel_part(x),
                        ATTN_REL, got, ref, faults, card)
-            del qkv, q10, x, lb, gout, got, ref, faults, exact
+            del qkv, q10, x, lb, gout, got, ref, faults, exact, skipped
             torch.cuda.empty_cache()
+
+
+# K1's attention launch alone (phase 2j, `k1_attention_checks`): the first
+# layer of each detect core phase 4 times (base-256 B = 256, large-384 B =
+# 128, so400m-512 B = 64, whose heads of 72 sit in 128-wide slots and run
+# on the 80-wide tile) and each at B = 8, beside K9 at that shape: (label,
+# B, S, heads, head_dim, live columns, softmax scale)
+K1_ATTN_PATHS = [("base-256", 256, 256, 12, 64, 64, None),
+                 ("large-384", 128, 576, 16, 64, 64, None),
+                 ("so400m-512", 64, 1024, 16, 128, 72, 72 ** -0.5)]
+# its codes against the twin's, the int8 codes of the f32 o: at most
+# K1_CODE_SHARE of them differ, none by more than one (f32 sums in another
+# order and 127 / act rounded another way move a code at a rounding tie)
+K1_CODE_SHARE = 1e-3
+K1_PAD_CODE = 85                # the pre-filled buffer's code
+
+
+def code_share(got, ref):
+    """The share of int8 codes of got and ref that differ."""
+    return float((got != ref).float().mean())
+
+
+def held_codes(label, got, ref, faults, card):
+    """K1's attention codes within K1_CODE_SHARE of the twin's, none more
+    than one apart; every planted fault's beyond the share."""
+    held_check(label, code_share, K1_CODE_SHARE, got, ref, faults, card)
+    step = int((got.int() - ref.int()).abs().max())
+    if step > 1:
+        raise AssertionError(f"{label}: a code {step} from the twin's")
+
+
+def k1_attention_checks(rec, dev, card):
+    """Phase 2j: K1's attention launch alone (`int8_block.attention_i8`) at
+    K1_ATTN_PATHS. At B = 8, on q, k, v of std 1.5 in the live columns,
+    with and without the key bias: its codes within K1_CODE_SHARE of the
+    twin's, the check shown to fail on planted faults (the scale; the bias
+    dropped; on the 80-wide tile the codes of columns 80-127 left as a
+    pre-filled buffer had them, and a head whose columns 72-79 are not
+    zero read as if they were, which the twin reads). Then its device time
+    at each path's shape and at B = 8, beside its bound (operations over
+    the bf16 peak or bytes over 3.35 TB/s, whichever is larger, on the
+    live columns and on the tile's computed ones), SDPA on the same live
+    q, k, v with a bf16 output (the nearest single PyTorch call) and, at B
+    = 8, K9 at the same qkv; into K1's row of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from tpudf_torch.models.siglip import CONFIGS
+    from tpudf_torch.ops import attention, int8_block
+    print("phase 2j: K1's attention launch alone (wgmma + TMA)", flush=True)
+    g = torch.Generator(device=dev).manual_seed(61)
+    act = torch.tensor(6.0, device=dev)
+
+    def qkv_of(b, s, heads, hd, live):
+        t = torch.randn((b, s, 3, heads, hd), generator=g, device=dev) * 1.5
+        t[..., live:] = 0.0
+        return t.reshape(b, s, -1).to(torch.bfloat16)
+
+    for label, bp, s, heads, hd, live, scale in K1_ATTN_PATHS:
+        sd = scale if scale is not None else hd ** -0.5
+        bad_sd = hd ** -0.5 if scale is not None else 0.75 * sd
+        arg = None if live == hd else live
+        width, hs = int8_block.i8_attn_tile(hd, arg)
+        b = 8
+        qkv = qkv_of(b, s, heads, hd, live)
+        lb = torch.log(torch.randint(1, 9, (b, s), generator=g,
+                                     device=dev).float())
+        tag = f"{label} {(b, s, 3 * heads * hd)} tile {width}"
+
+        def k1(q=qkv, sc=sd, bias=None, out=None):
+            return int8_block.attention_i8(q, heads, hd, act, sc,
+                                           logit_bias=bias, live=arg,
+                                           out=out)
+
+        for bias in (None, lb):
+            ref = int8_block.attention_i8_reference(qkv, heads, hd, act, sd,
+                                                    logit_bias=bias)
+            faults = {"scale": k1(sc=bad_sd, bias=bias)}
+            if bias is not None:
+                faults["bias dropped"] = k1()
+            if width != hd and bias is None:
+                # the output buffer pre-filled with non-zero codes: the
+                # kernel must write columns 80-127 of each head
+                buf = torch.full((b * s, heads * hs), K1_PAD_CODE,
+                                 dtype=torch.int8, device=dev)
+                got = k1(out=buf)
+                unwritten = got.clone().reshape(b * s, heads, hs)
+                unwritten[..., width:] = K1_PAD_CODE
+                faults["columns 80-127 unwritten"] = unwritten.reshape(
+                    got.shape)
+            else:
+                got = k1(bias=bias)
+            torch.cuda.synchronize()
+            held_codes(f"K1 attention {tag} bias={bias is not None}, codes "
+                       f"differing", got, ref, faults, card)
+        if width != hd:
+            # columns 72-79 not zero: the 80-wide tile reads them, as the
+            # twin does; a tile that took only the live 72 would not
+            q80 = qkv.clone().reshape(b, s, 3, heads, hd)
+            q80[..., live:width] = (torch.randn(
+                q80[..., live:width].shape, generator=g, device=dev)
+                * 1.5).to(torch.bfloat16)
+            q80 = q80.reshape(qkv.shape)
+            ref = int8_block.attention_i8_reference(q80, heads, hd, act, sd)
+            got = k1(q=q80)
+            torch.cuda.synchronize()
+            held_codes(f"K1 attention {tag}, columns 72-79 non-zero, codes "
+                       f"differing", got, ref,
+                       {"columns 72-79 skipped": k1()}, card)
+            del q80
+        del ref, got, faults
+        # timings: at B = 8 (beside K9 there, and with the key bias that
+        # ToMe's layers pass) and at the path's B
+        layers = CONFIGS[label].layers
+        for bt in (8, bp):
+            q = qkv if bt == 8 else qkv_of(bt, s, heads, hd, live)
+            ms = device_ms(lambda: k1(q=q))
+            qv, kv_, vv = (q[..., i * heads * hd:(i + 1) * heads * hd]
+                           .reshape(bt, s, heads, hd)[..., :live]
+                           .transpose(1, 2).contiguous() for i in range(3))
+            sdpa = device_ms(lambda: F.scaled_dot_product_attention(
+                qv, kv_, vv, scale=sd))
+            bounds = {}
+            for d in sorted({live, width}):
+                bounds[d] = bound({"bf16": 4 * bt * heads * s * s * d},
+                                  bt * s * 3 * heads * d * 2
+                                  + bt * s * heads * hs)
+            k9 = (device_ms(lambda: attention.attention_qkv(q, heads, hd,
+                                                            sd))
+                  if bt == 8 else None)
+            ms_bias = device_ms(lambda: k1(q=q, bias=lb)) if bt == 8 else None
+            shape = (bt, s, 3 * heads * hd)
+            print(f"  K1 attention launch alone {label} {shape} tile "
+                  f"{width} ({live} live): device {ms:.4f} ms; bound "
+                  + ", ".join(f"{v[0]:.4f} ms ({v[1]}) on {d} columns"
+                              for d, v in bounds.items())
+                  + f"; SDPA bf16 {sdpa:.4f} ms ({ms / sdpa:.2f}x)"
+                  + ("" if k9 is None else f"; K9 at this qkv {k9:.4f} ms "
+                     f"({ms / k9:.2f}x); with the key bias {ms_bias:.4f} "
+                     f"ms")
+                  + f"; {layers} launches a forward [{card}]", flush=True)
+            rec.rows["K1"].setdefault("attention_launch", []).append(
+                {"path": label, "shape": shape, "tile": width, "live": live,
+                 "device_ms": ms, "bound_ms": bounds[live][0],
+                 "bound_by": bounds[live][1],
+                 "bound_ms_computed": bounds[width][0], "library_ms": sdpa,
+                 "k9_device_ms": k9, "device_ms_bias": ms_bias,
+                 "launches": layers})
+            del qv, kv_, vv
+            if bt != 8:
+                del q
+        del qkv, lb
+        torch.cuda.empty_cache()
 
 
 # the int8 GEMM launch (phase 2i): (M, K, N) of its checks, the tile's
@@ -3986,11 +4232,32 @@ def main() -> int:
     ref = srm.srm_raw_moments_reference(gray)
     torch.cuda.synchronize()
     check_close("K3 (8, 256, 256)", got, ref, atol=1e-6, rtol=1e-4)
+    # the library's parts: both stencils as one F.conv2d (f32, TF32 off),
+    # then the four moments of both residuals
+    stencils = torch.from_numpy(np.stack(
+        [srm._norm(srm._K2), srm._norm(srm._K3)]))[:, None].to(dev)
+    res = F.conv2d(gray[:, None], stencils, padding=1)
+    powers = torch.arange(1, 5, device=dev, dtype=torch.float32)
+    k3_work = ({"f32": K3_OPS_PER_PIXEL * gray.numel()},
+               nbytes(gray) + nbytes(got))
     rec.add("K3", "srm_raw_moments", (8, 256, 256), max_abs(got, ref),
             lambda: srm.srm_raw_moments(gray),
-            lambda: srm.srm_raw_moments_reference(gray),
-            ({"f32": K3_OPS_PER_PIXEL * gray.numel()},
-             nbytes(gray) + nbytes(got)))
+            lambda: srm.srm_raw_moments_reference(gray), k3_work,
+            library={
+                "part F.conv2d (both stencils)": lambda: F.conv2d(
+                    gray[:, None], stencils, padding=1),
+                "part moments": lambda: torch.mean(res[..., None] ** powers,
+                                                   dim=(2, 3))},
+            device_time=True)
+    # its bound: no kernel beats it (the device time at or above)
+    k3_case = rec.rows["K3"]["cases"][-1]
+    print(f"  K3 bound check: device {k3_case['device_ms']:.4f} ms = "
+          f"{k3_case['device_ms'] / k3_case['bound_ms']:.1f}x its bound "
+          f"{k3_case['bound_ms']:.4f} ms ({k3_case['bound_by']}) [{card}]",
+          flush=True)
+    if k3_case["device_ms"] < k3_case["bound_ms"]:
+        raise AssertionError("K3: device time below its bound")
+    del res
 
     # K4: (256*32, 768) bf16 rows; one bf16 rounding step
     x = (randn(256 * 32, w) * 3.0 + 0.5).to(torch.bfloat16)
@@ -4340,6 +4607,7 @@ def main() -> int:
     i8_gemm_checks(dev, card)
     rec.note_gemm(i8_gemm_path_timings(dev, card))
     rec.note_ln(ln_timings(dev, card))
+    k1_attention_checks(rec, dev, card)
 
     # ---- 3a. the detect core
     print("phase 3: paths", flush=True)

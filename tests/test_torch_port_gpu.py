@@ -8,8 +8,10 @@ tiles and at a path shape, K9 and K10 at the edges of their tiles (S =
 32, ragged S, heads of 128, the bias), kernels 11 and 12 (plain attention
 in both layouts, ragged keys, Sq != Skv, heads of 72, bf16 and f32, and
 the gradient through kernel 11), K1, K6, K9, 9b and K10 at heads of 16,
-32 and 256 with planted faults, the int8 GEMM of int8_gemm_sm90.cu in
-each mode at the edges of its tiles, the probes' kernels 15, 16 and 17 (the
+32, 256 and 384-1280 with planted faults, K1's attention launch alone at
+the detect cores' first layers (so400m's on the 80-wide tile), the int8
+GEMM of int8_gemm_sm90.cu in each mode at the edges of its tiles, the
+probes' kernels 15, 16 and 17 (the
 tolerances of tests/test_torch_port_probes.py; 17 by 9b's card rule), both
 serving engines and one MTL train step against the same parameters through
 the twins (the main path's shapes are checked by chip_smoke.py). Marked
@@ -787,14 +789,19 @@ def test_bf16_gemm_matches_twin_on_card(shape, mode, with_bias):
     assert _share_apart(got, ref) <= 1e-2
 
 
-# heads of 16, 32 and 256 (chip_smoke.py phase 2h): (kernel, heads, head_dim,
-# S) at W = 768, q, k, v of std 1.5; K9 and 9b at a ragged S = 577, K10, K1
-# and K6 at S = 584 (JAX's routes need S % 8 == 0 there)
+# heads of 16, 32, 256 and 384-1280 (chip_smoke.py phase 2h): (kernel,
+# heads, head_dim, S) at W = 768 (1280 for 640 and 1280), q, k, v of std
+# 1.5; K9 and 9b at a ragged S = 577, K10, K1 and K6 at S = 584 (JAX's
+# routes need S % 8 == 0 there)
 _HEADDIM = [("K9", 48, 16, 577), ("K9", 24, 32, 576), ("K9", 3, 256, 577),
             ("9b", 48, 16, 576), ("9b", 24, 32, 577), ("9b", 3, 256, 577),
             ("K10", 48, 16, 584), ("K10", 24, 32, 576), ("K10", 3, 256, 584),
             ("K1", 48, 16, 584), ("K1", 24, 32, 576), ("K1", 3, 256, 584),
-            ("K6", 48, 16, 576), ("K6", 24, 32, 584), ("K6", 3, 256, 576)]
+            ("K6", 48, 16, 576), ("K6", 24, 32, 584), ("K6", 3, 256, 576),
+            ("K9", 2, 384, 577), ("K9", 1, 1280, 576), ("9b", 2, 384, 577),
+            ("9b", 2, 640, 576), ("K10", 2, 384, 584), ("K10", 1, 1280, 576),
+            ("K1", 2, 384, 584), ("K1", 2, 640, 576), ("K1", 1, 1280, 584),
+            ("K6", 2, 384, 576), ("K6", 1, 1280, 584)]
 
 
 def _padded_junk(fn, t, heads, hd, scale, *more):
@@ -832,9 +839,10 @@ def _k10_f64(qkv, g, heads, hd, scale):
 
 
 def _slice_dropped(out, heads, hd, parts=1):
-    """A head of 256 whose second 128-column slice was never computed."""
+    """A head of 256 or more whose second 128-column slice was never
+    computed."""
     o = out.clone().reshape(*out.shape[:-1], parts, heads, hd)
-    o[..., 128:] = 0
+    o[..., 128:256] = 0
     return o.reshape(out.shape)
 
 
@@ -842,11 +850,13 @@ def _slice_dropped(out, heads, hd, parts=1):
 @pytest.mark.parametrize("case", _HEADDIM,
                          ids=[f"{k}-{h}x{d}-{s}" for k, h, d, s in _HEADDIM])
 def test_head_dims_match_twin_on_card(case):
-    """K9, 9b and K10 (padded to 64 at heads of 16 and 32, native at 256)
-    and K1 / K6 (native) against their twins, one launch a call, by the
-    card rules of chip_smoke.py's phases 2b / 2d / 2h (K9, 9b, K10: at
-    most 1e-2 of the outputs a bf16 step apart, K9 also atol 1e-2 + rtol
-    2^-7, K10 at most twice the twin's largest error from float64; K1, K6: atol 5e-2 + rtol 2e-2 and 5e-2 of the attention
+    """K9, 9b and K10 (padded to 64 at heads of 16 and 32, native at 256,
+    on their wide kernels at 384-1280) and K1 / K6 (K1 padded to 64 at 16
+    and 32, K6 as two launches at the wide heads) against their twins, one
+    launch a call, by the card rules of chip_smoke.py's phases 2b / 2d /
+    2h (K9, 9b, K10: at most 1e-2 of the outputs a bf16 step apart, K9
+    also atol 1e-2 + rtol 2^-7, K10 at most twice the twin's largest error
+    from float64; K1, K6: atol 5e-2 + rtol 2e-2 and 5e-2 of the attention
     part); the planted faults (the scale of a 64-wide head, the padding
     non-zero, the second slice dropped) fail the same rule."""
     if not torch.cuda.is_available():
@@ -906,7 +916,9 @@ def test_head_dims_match_twin_on_card(case):
     if kernel == "K6":
         args = (qkv, x, out_wq, out_b, a_out, heads, hd)
         got = int8_block.attn_out_int8(*args, scale)
-        counter = int8_block.KERNEL_ATTN_OUT
+        counter = (int8_block.KERNEL_ATTN_OUT_SPLIT
+                   if hd in attention.WIDE_HEAD_DIMS
+                   else int8_block.KERNEL_ATTN_OUT)
         torch.cuda.synchronize()
         assert LAUNCHES.snapshot() == {counter: 1}
         ref = int8_block.attn_out_reference(*args, scale)
@@ -928,6 +940,70 @@ def test_head_dims_match_twin_on_card(case):
                                rtol=2e-2)
     assert rel(got, ref) <= 5e-2
     assert all(rel(f, ref) > 5e-2 for f in faults)
+
+
+# K1's attention launch alone (csrc/attention_sm90.cu; chip_smoke.py phase
+# 2j) at the first layer of each detect core, B = 8: (label, S, heads,
+# head_dim, live columns); so400m's heads of 72 in 128-wide slots run on the
+# 80-wide tile
+_K1_ATTN = [("base-256", 256, 12, 64, 64), ("large-384", 576, 16, 64, 64),
+            ("so400m-512", 1024, 16, 128, 72)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _K1_ATTN, ids=[c[0] for c in _K1_ATTN])
+def test_k1_attention_matches_twin_on_card(case):
+    """K1's attention kernel (wgmma + TMA, int8 codes of the f32 o) against
+    its twin, with and without the key bias: at most 1e-3 of the codes
+    differ, none by more than one; the scale and the dropped bias fail
+    that rule, and on the 80-wide tile the codes of columns 80-127 are 0
+    in a buffer pre-filled with other codes, and columns 72-79 that hold
+    values are read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    label, s, heads, hd, live = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(s + hd)
+    b, a = 8, torch.tensor(6.0, device=dev)
+    sd = live ** -0.5
+    arg = None if live == hd else live
+
+    def agrees(got, ref):
+        d = (got.int() - ref.int()).abs()
+        return int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+
+    qkv = torch.randn((b, s, 3, heads, hd), generator=g, device=dev) * 1.5
+    qkv[..., live:] = 0.0
+    qkv = qkv.reshape(b, s, -1).to(torch.bfloat16)
+    lb = torch.log(torch.randint(1, 9, (b, s), generator=g,
+                                 device=dev).float())
+    k1 = lambda q=qkv, sc=sd, bias=None, out=None: int8_block.attention_i8(
+        q, heads, hd, a, sc, logit_bias=bias, live=arg, out=out)
+    for bias in (None, lb):
+        ref = int8_block.attention_i8_reference(qkv, heads, hd, a, sd,
+                                                logit_bias=bias)
+        assert agrees(k1(bias=bias), ref)
+        assert not agrees(k1(sc=0.75 * sd, bias=bias), ref)
+        if bias is not None:
+            assert not agrees(k1(), ref)
+    if arg is None:
+        return
+    buf = torch.full((b * s, heads * hd), 85, dtype=torch.int8, device=dev)
+    got = k1(out=buf)
+    torch.cuda.synchronize()
+    assert int(got.reshape(b * s, heads, hd)[..., 80:].abs().max()) == 0
+    assert agrees(got, int8_block.attention_i8_reference(qkv, heads, hd, a,
+                                                         sd))
+    # qkv with values in columns 72-79: read, as the twin reads them; the
+    # same inputs with those columns zero (what a 72-wide read sees) differ
+    q80 = qkv.clone().reshape(b, s, 3, heads, hd)
+    q80[..., live:80] = (1.5 * torch.randn(q80[..., live:80].shape,
+                                           generator=g, device=dev)).to(
+        torch.bfloat16)
+    q80 = q80.reshape(qkv.shape)
+    ref = int8_block.attention_i8_reference(q80, heads, hd, a, sd)
+    assert agrees(k1(q=q80), ref)
+    assert not agrees(k1(), ref)
 
 
 # the int8 GEMM (csrc/int8_gemm_sm90.cu; chip_smoke.py phase 2i): (M, K, N)

@@ -311,6 +311,219 @@ __global__ void __launch_bounds__(kI8Warps * 32)
   }
 }
 
+// 9b at heads of 384 to 1280 (the multiples of 128 past 256 that JAX's lane
+// rule admits at W <= 1280): a tile's q codes would be 96 to 320 fragment
+// registers a thread and, with a key tile's codes, more than static shared
+// memory holds, so both sit in dynamic shared memory (64 rows of hd + 16
+// bytes each: 162 KB at 1280 with the V codes) and the scores read their A
+// and B fragments from it, 32 dims at a time; the int32 sums over those
+// depth chunks are the full-depth sums. o in 128-column slices (grid y:
+// head x slice), each block computing the full-depth scores.
+constexpr int kI8WideSlice = 128;
+
+// rows r0 .. r0 + n - 1 (zero past seq) of one head's hd columns at `src`
+// (rows `sld` apart) as int8 codes clip(round(x * inv), +-127), row-major
+// into `dst` (rows `ld` bytes apart); all threads
+__device__ __forceinline__ void quant_rows_i8_wide(int8_t* dst, int ld,
+                                                   const __nv_bfloat16* src,
+                                                   size_t sld, int r0, int n,
+                                                   int seq, float inv,
+                                                   int hd) {
+  const int chunks = hd / 8;
+  for (int i = threadIdx.x; i < n * chunks; i += blockDim.x) {
+    const int r = i / chunks, c = (i % chunks) * 8;
+    float f[8];
+    if (r0 + r < seq) {
+      load8(src + static_cast<size_t>(r0 + r) * sld + c, f);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) f[j] = 0.0f;
+    }
+    __align__(8) int8_t v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = quant_i8(f[j], inv);
+    *reinterpret_cast<uint2*>(dst + r * ld + c) =
+        *reinterpret_cast<uint2*>(v);
+  }
+}
+
+// scores_i8 over hd dims with both operands' fragments read from shared
+// memory: the warp's rows r0 + g (e = 0, 1) and + 8 (e = 2, 3) of `q8`
+// against keys k0 + 8j + 2t + (e & 1) of `k8` (rows `ld` bytes apart)
+__device__ __forceinline__ void scores_i8_wide(float (&s)[kKeyTile / 8][4],
+                                               const int8_t* q8,
+                                               const int8_t* k8, int ld,
+                                               int hd, int r0, int k0,
+                                               int seq, float fac,
+                                               int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float neg_inf = __int_as_float(0xff800000);
+  int acc[kKeyTile / 8][4];
+#pragma unroll
+  for (int j = 0; j < kKeyTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+  for (int kc = 0; kc < hd / 32; ++kc) {
+    const int8_t* qr = q8 + (r0 + g) * ld + kc * 32 + 4 * t;
+    const unsigned qa[4] = {lds32(qr), lds32(qr + 8 * ld), lds32(qr + 16),
+                            lds32(qr + 8 * ld + 16)};
+#pragma unroll
+    for (int j = 0; j < kKeyTile / 8; ++j) {
+      const int8_t* kr = k8 + (j * 8 + g) * ld + kc * 32 + 4 * t;
+      const unsigned b[2] = {lds32(kr), lds32(kr + 16)};
+      mma_s8(acc[j], qa, b);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kKeyTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + j * 8 + 2 * t + (e & 1);
+      s[j][e] = key < seq ? __fmul_rn(static_cast<float>(acc[j][e]), fac)
+                          : neg_inf;
+    }
+}
+
+// dynamic shared bytes of the wide kernel at head_dim hd: the q and k
+// codes (64 rows of hd + 16 bytes each) and the transposed V codes
+__host__ __device__ constexpr int i8_wide_smem(int hd) {
+  return 2 * kI8QTile * (hd + 16) + kI8WideSlice * kVtLd;
+}
+
+__global__ void __launch_bounds__(kI8Warps * 32)
+    attention_i8_wide_kernel(const __nv_bfloat16* __restrict__ qkv,
+                             const float* __restrict__ amax,
+                             __nv_bfloat16* __restrict__ out, int seq,
+                             int heads, int hd, int qb, float scale) {
+  extern __shared__ __align__(16) int8_t smem_i8[];
+  constexpr int HV = kI8WideSlice;
+  const int ld = hd + 16, n_sl = hd / HV;
+  int8_t* q8s = smem_i8;
+  int8_t* k8s = q8s + kI8QTile * ld;
+  int8_t* v8t = k8s + kKeyTile * ld;
+  const int wa = heads * hd;
+  const int b = blockIdx.z, h = blockIdx.y / n_sl;
+  const int c0 = (blockIdx.y % n_sl) * HV;   // this block's o columns
+  const int q0 = blockIdx.x * kI8QTile;
+  const int nqb = (seq + qb - 1) / qb;
+  const float* am = amax + (static_cast<size_t>(b) * heads + h) * (nqb + 2);
+  const float aq = am[q0 / qb], ak = am[nqb], av = am[nqb + 1];
+  const float fac = __fmul_rn(__fdiv_rn(__fmul_rn(aq, ak), 16129.0f), scale);
+  const float inv_k = __fdiv_rn(127.0f, ak), inv_v = __fdiv_rn(127.0f, av);
+  const float cv = __fdiv_rn(av, 16129.0f);
+  const size_t row3 = static_cast<size_t>(3) * wa;
+  const __nv_bfloat16* base =
+      qkv + static_cast<size_t>(b) * seq * row3 + h * hd;
+
+  quant_rows_i8_wide(q8s, ld, base, row3, q0, kI8QTile, seq,
+                     __fdiv_rn(127.0f, aq), hd);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16;
+  const int ntiles = (seq + kKeyTile - 1) / kKeyTile;
+  const float neg_inf = __int_as_float(0xff800000);
+  float mx[2] = {neg_inf, neg_inf}, sum[2] = {0.0f, 0.0f};
+  float s[kKeyTile / 8][4];
+
+  // ---- pass 1: row max and row sum
+  for (int kt = 0; kt < ntiles; ++kt) {
+    __syncthreads();                    // the last tile's reads are done
+    quant_rows_i8_wide(k8s, ld, base + wa, row3, kt * kKeyTile, kKeyTile,
+                       seq, inv_k, hd);
+    __syncthreads();
+    scores_i8_wide(s, q8s, k8s, ld, hd, r0, kt * kKeyTile, seq, fac, lane);
+    online_stats(s, mx, sum);
+  }
+  sum[0] = quad_sum(sum[0]);
+  sum[1] = quad_sum(sum[1]);
+  float inv_ap[2], o_scale[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float ap = __fadd_rn(__fdiv_rn(1.0f, sum[r]), 1e-20f);
+    inv_ap[r] = __fdiv_rn(127.0f, ap);
+    o_scale[r] = __fmul_rn(ap, cv);
+  }
+
+  // ---- pass 2: p8 = round(p * 127 / ap), o += p8 . v8 (int32)
+  int acc[HV / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < HV / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0;
+  for (int kt = 0; kt < ntiles; ++kt) {
+    __syncthreads();
+    quant_rows_i8_wide(k8s, ld, base + wa, row3, kt * kKeyTile, kKeyTile,
+                       seq, inv_k, hd);
+    quant_rows_i8<HV, true>(v8t, base + 2 * wa + c0, row3, kt * kKeyTile,
+                            kKeyTile, seq, inv_v);
+    __syncthreads();
+    scores_i8_wide(s, q8s, k8s, ld, hd, r0, kt * kKeyTile, seq, fac, lane);
+    int p8[kKeyTile / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeyTile / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = __fdiv_rn(expf(s[j][e] - mx[r]), sum[r]);
+        p8[j][e] = static_cast<int>(rintf(__fmul_rn(p, inv_ap[r])));
+      }
+#pragma unroll
+    for (int kc = 0; kc < kKeyTile / 32; ++kc) {
+      const int j = 4 * kc;
+      const unsigned a[4] = {
+          pack_s8x4(p8[j][0], p8[j][1], p8[j + 1][0], p8[j + 1][1]),
+          pack_s8x4(p8[j][2], p8[j][3], p8[j + 1][2], p8[j + 1][3]),
+          pack_s8x4(p8[j + 2][0], p8[j + 2][1], p8[j + 3][0], p8[j + 3][1]),
+          pack_s8x4(p8[j + 2][2], p8[j + 2][3], p8[j + 3][2], p8[j + 3][3])};
+#pragma unroll
+      for (int dt = 0; dt < HV / 8; ++dt) {
+        const int8_t* vr = v8t + (dt * 8 + g) * kVtLd + kc * 32 + 4 * t;
+        const unsigned bv[2] = {lds32(vr), lds32(vr + 16)};
+        mma_s8(acc[dt], a, bv);
+      }
+    }
+  }
+
+  // ---- rows q0 + r0 + g (e = 0, 1) and + 8 (e = 2, 3), bf16
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + r0 + g + 8 * r;
+    if (qi >= seq) continue;
+    __nv_bfloat16* dst =
+        out + (static_cast<size_t>(b) * seq + qi) * wa + h * hd + c0 + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < HV / 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
+          __floats2bfloat162_rn(
+              __fmul_rn(static_cast<float>(acc[dt][2 * r]), o_scale[r]),
+              __fmul_rn(static_cast<float>(acc[dt][2 * r + 1]), o_scale[r]));
+  }
+}
+
+int launch_attention_i8_wide(const void* qkv, void* amax, void* out,
+                             int batch, int seq, int heads, int hd, int qb,
+                             float scale, cudaStream_t s) {
+  const int smem = i8_wide_smem(hd);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_i8_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      i8_wide_smem(1280));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (static_cast<long long>(heads) * (hd / kI8WideSlice) > 65535)
+    return cudaErrorInvalidValue;
+  attention_i8_amax_kernel<<<dim3(heads, batch), 256, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<float*>(amax), seq,
+      heads, hd, qb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((seq + kI8QTile - 1) / kI8QTile,
+                  heads * (hd / kI8WideSlice), batch);
+  attention_i8_wide_kernel<<<grid, kI8Warps * 32, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(qkv),
+      static_cast<const float*>(amax), static_cast<__nv_bfloat16*>(out), seq,
+      heads, hd, qb, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HD>
 int launch_attention_i8(const void* qkv, void* amax, void* out, int batch,
                         int seq, int heads, int qb, float scale,
@@ -336,7 +549,8 @@ int launch_attention_i8(const void* qkv, void* amax, void* out, int batch,
 // 9b: qkv (B, S, 3 * heads * head_dim) bf16 -> out (B, S, heads *
 // head_dim) bf16; amax: (B, heads, ceil(S / qb) + 2) f32 scratch; qb =
 // min(256, S), so that the 64-row query tiles never straddle a block;
-// head_dim 64, 128 or 256, S <= kMaxSeq
+// head_dim 64, 128 or 256 (16 and 32 arrive zero-padded to 64) or a wide
+// one (384 .. 1280, the multiples of 128), S <= kMaxSeq
 TPUDF_API int tpudf_attention_i8dyn(const void* qkv, void* amax, void* out,
                                     int batch, int seq, int heads,
                                     int head_dim, int qb, float scale,
@@ -356,6 +570,9 @@ TPUDF_API int tpudf_attention_i8dyn(const void* qkv, void* amax, void* out,
   if (head_dim == 256)
     return launch_attention_i8<256>(qkv, amax, out, batch, seq, heads, qb,
                                     scale, s);
+  if (head_dim >= 384 && head_dim <= 1280 && head_dim % 128 == 0)
+    return launch_attention_i8_wide(qkv, amax, out, batch, seq, heads,
+                                    head_dim, qb, scale, s);
   return cudaErrorInvalidValue;
 }
 

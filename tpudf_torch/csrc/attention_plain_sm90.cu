@@ -68,49 +68,10 @@ struct PlainSmem {
   static constexpr size_t kBytes = kBars + 8 * (4 + 2 * kStages) + 1024;
 };
 
-// the 64-column sub-tiles of a tile W wide, and rows of the 16-column one
+// the 64-column sub-tiles of a tile W wide (W = 80: and the 16-column
+// one of sm90.cuh's 80-wide tile)
 template <int W>
 constexpr int kSubs = W / 64;
-constexpr int kNarrowRow = 32;       // bytes of a row of the 16 columns
-
-// W = 80: c (64 x 64 f32) = A . B^T over 80 columns: four k16 steps of the
-// 64-column sub-tiles (A's rows at descriptor `da`, B's 64 rows at `b`)
-// and one of the 16-column ones (A's at `da16`, B's after its 64-column
-// sub-tile): fenced and issued, not committed
-__device__ __forceinline__ void issue_nt80(float (&c)[32], uint64_t da,
-                                           uint64_t da16, const void* b) {
-  const uint64_t a0 = opaque(da), a1 = opaque(da16), b0 = desc_k(b);
-  const uint64_t b1 = desc_32(static_cast<const unsigned char*>(b) + kBox);
-  fence_regs(c);
-  wg_fence();
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    wgmma_ss<64>(c, step_k(a0, kBlockSub, ks), step_k(b0, kBox, ks), ks > 0);
-  wgmma_ss<64>(c, a1, b1, 1);
-  fence_regs(c);
-}
-
-// W = 80: (o | o16) (64 x 80) += bf16(c) . R for the 64-row streamed tile
-// R at `rows` (its 64 columns, then its 16): fenced and issued, not
-// committed
-__device__ __forceinline__ void issue_nn80(float (&o)[32], float (&o16)[8],
-                                           uint32_t (&a)[4][4],
-                                           const void* rows) {
-  const uint64_t b0 = desc_mn(rows, kBox);
-  const uint64_t b1 = desc_32(static_cast<const unsigned char*>(rows) + kBox);
-  fence_regs(o);
-  fence_regs(o16);
-  fence_regs(a);
-  wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wgmma_rs_t<64>(o, a[kk], step_mn(b0, kk));
-    wgmma_rs_t<16>(o16, a[kk], step_mn32(b1, kk));
-  }
-  fence_regs(o);
-  fence_regs(o16);
-  fence_regs(a);
-}
 
 // W = 80: the warpgroup's (64 x 80) output through its rows of the Q
 // buffer: the 64 columns as `store_tile_4d` stages them, the 16 in the

@@ -1,8 +1,7 @@
-// Device pieces of the fused-QKV attention on mma.sync, shared by K1's
-// attention kernel and K6 (attention.cu), K7's attention phase
-// (layer_int8.cu), 9b and 17 (attention_i8.cu) and kernels
-// 11 and 12 (attention_plain.cu). (K9 and K10 run on wgmma and TMA:
-// attention_sm90.cu.)
+// Device pieces of the fused-QKV attention on mma.sync, shared by K6
+// (attention.cu) and K7's attention phase (layer_int8.cu); 9b and 17
+// (attention_i8.cu) take the key tile and the online row statistics. (K1's
+// attention, K9 and K10 run on wgmma and TMA: attention_sm90.cu.)
 //
 // `attn_stream`: each warp's 16 query rows (A fragments in registers)
 // against one head's keys, the keys streamed through shared memory in
@@ -22,9 +21,8 @@
 // warp), so S goes to kMaxSeq (common.cuh); the price is a second sweep
 // of QK^T.
 // head_dim is a template parameter (16, 32, 64, 256, or 128 for so400m's
-// heads of 72 padded by prepad_siglip_static; 80 for kernels 11 and 12's
-// raw heads of 72, of which LIVE = 72 columns are staged); the softmax
-// scale is an argument and is never derived from it. HV <= HD: the
+// heads of 72 padded by prepad_siglip_static); the softmax scale is an
+// argument and is never derived from it. HV <= HD: the
 // columns of o (and of V) one stream computes. At head_dim 256 a warp
 // holding all of o (128 f32) beside its Q fragments (64) and scores (32)
 // would spill, so the callers split the head's columns into two slices of
@@ -89,14 +87,12 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
 
 // kKeyTile rows of HD bf16 from row r0 into a ring stage by cp.async; rows
 // past seq repeat row seq - 1 (finite: their scores are masked to -inf and
-// their p is 0); all threads of the block, not committed. LIVE < HD: only
-// the first LIVE columns are copied (a head of 72 in an 80-wide tile); the
-// caller zeroes the rest of every stage once
-template <int HD, int LIVE = HD>
+// their p is 0); all threads of the block, not committed
+template <int HD>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
                                            const __nv_bfloat16* src,
                                            size_t ld, int r0, int seq) {
-  constexpr int kChunks = LIVE / 8;
+  constexpr int kChunks = HD / 8;
   for (int i = threadIdx.x; i < kKeyTile * kChunks; i += blockDim.x) {
     const int r = i / kChunks, c = (i % kChunks) * 8;
     const int sr = min(r0 + r, seq - 1);
@@ -231,9 +227,8 @@ __device__ __forceinline__ void tile_pv(AttnWarp<HD, HV>& w,
 // image's (seq,) f32 per-key bias, or null. Leaves w.o, w.mx and w.sum
 // (the full row sums). Every thread of the block calls it (it holds
 // barriers); the caller's own shared reads must be done before, as the
-// ring's first stages are issued at once. LIVE: the head's own columns
-// (stage_rows).
-template <int HD, int LIVE = HD, int HV = HD>
+// ring's first stages are issued at once.
+template <int HD, int HV = HD>
 __device__ __forceinline__ void attn_stream(AttnWarp<HD, HV>& w,
                                             const __nv_bfloat16* kg,
                                             const __nv_bfloat16* vg,
@@ -243,7 +238,6 @@ __device__ __forceinline__ void attn_stream(AttnWarp<HD, HV>& w,
                                             __nv_bfloat16* ring, int lane) {
   constexpr int kTile = kKeyTile * row_ld<HD>();
   constexpr int kTileV = kKeyTile * row_ld<HV>();
-  constexpr int kLiveV = HV < HD ? HV : LIVE;    // V columns staged
   // stage i of K at ring + i kTile, of V at ring + 2 kTile + i kTileV
   auto kst = [&](int t) { return ring + (t & 1) * kTile; };
   auto vst = [&](int t) { return ring + 2 * kTile + (t & 1) * kTileV; };
@@ -254,11 +248,11 @@ __device__ __forceinline__ void attn_stream(AttnWarp<HD, HV>& w,
   float s[kKeyTile / 8][4];
 
   // ---- pass 1: row max and row sum over the K tiles
-  stage_rows<HD, LIVE>(kst(0), kg, ld, 0, seq);
+  stage_rows<HD>(kst(0), kg, ld, 0, seq);
   cp_async_commit();
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles)
-      stage_rows<HD, LIVE>(kst(t + 1), kg, ld, (t + 1) * kKeyTile, seq);
+      stage_rows<HD>(kst(t + 1), kg, ld, (t + 1) * kKeyTile, seq);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -275,13 +269,13 @@ __device__ __forceinline__ void attn_stream(AttnWarp<HD, HV>& w,
   for (int dt = 0; dt < HV / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) w.o[dt][e] = 0.0f;
-  stage_rows<HD, LIVE>(kst(0), kg, ld, 0, seq);
-  stage_rows<HV, kLiveV>(vst(0), vg, ld, 0, seq);
+  stage_rows<HD>(kst(0), kg, ld, 0, seq);
+  stage_rows<HV>(vst(0), vg, ld, 0, seq);
   cp_async_commit();
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) {
-      stage_rows<HD, LIVE>(kst(t + 1), kg, ld, (t + 1) * kKeyTile, seq);
-      stage_rows<HV, kLiveV>(vst(t + 1), vg, ld, (t + 1) * kKeyTile, seq);
+      stage_rows<HD>(kst(t + 1), kg, ld, (t + 1) * kKeyTile, seq);
+      stage_rows<HV>(vst(t + 1), vg, ld, (t + 1) * kKeyTile, seq);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -350,7 +344,7 @@ __device__ __forceinline__ void attn_out_tile(const AttnOutArgs& p, int b,
     load_q<HD>(w, qs + r0 * row_ld<HD>(), q.lane);
     if (kShared) __syncthreads();       // every warp's Q read: the ring may
     for (int sl = 0; sl < HD / HV; ++sl) {       // overwrite it
-      attn_stream<HD, HD, HV>(w, base + wa + h * HD,
+      attn_stream<HD, HV>(w, base + wa + h * HD,
                               base + 2 * wa + h * HD + sl * HV, row3, seq,
                               nullptr, p.scale, ring, q.lane);
 #pragma unroll

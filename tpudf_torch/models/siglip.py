@@ -442,7 +442,8 @@ def _static_int8_block(x, bp, cfg: SigLIPConfig, logit_bias, emit_sumsq,
         x = kernels.attn_sublayer_int8(
             x, bp["ln1"], attn["qkv_w"], attn["qkv_b"], attn["out_w"],
             attn["out_b"], sc["qkv"], sc["out"], heads, d, cfg.ln_eps,
-            attn_scale, logit_bias=logit_bias)
+            attn_scale, logit_bias=logit_bias,
+            live=None if d == cfg.head_dim else cfg.head_dim)
     else:
         if variant[0] == "P":
             qkv = kernels.ln_qkv_int8(x, bp["ln1"], attn["qkv_w"],

@@ -40,7 +40,7 @@ SIGNATURES = {
     "tpudf_ln_quant_i8": "pppppiiifp",
     "tpudf_i8_gemm": "pppppppppiiiip",
     "tpudf_i8_gemm_tile_n": "ii",
-    "tpudf_attention_i8": "ppppiiiifp",
+    "tpudf_attention_i8_sm90": "ppppiiiiifp",
     "tpudf_attention_qkv_sm90": "pppiiiifp",
     "tpudf_attention_qkv_bwd_sm90": "ppppiiiifp",
     "tpudf_bf16_gemm": "pppppiiiip",

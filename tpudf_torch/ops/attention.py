@@ -13,19 +13,22 @@ output rounded once to bf16.
 
 The CUDA kernel is `csrc/attention_sm90.cu` (Hopper's wgmma products and
 TMA loads through an mbarrier ring, `csrc/sm90.cuh`). It takes every
-head_dim JAX's lane rule admits (`HEAD_DIMS`: 1 to 256;
-so400m's heads of 72, padded by the caller, keep their own scale) and S
-up to MAX_SEQ (its K and V tiles stream, so nothing in it grows with S);
-any other shape on a CUDA tensor raises. Heads of 32 and fewer run on
-the 64-wide tiles: the wrapper zero-pads each head's columns of qkv to 64
-(`pad_heads`; zero columns add exact zeros to q·k and p·v, and the scale
-stays the true head_dim's) and slices the output (`unpad_heads`); 9b and
-K10 do the same. Heads of 256 run natively. One persistent
-block an SM takes items of 128 query rows (two warpgroups of 64) of one
-head against its keys, streamed by TMA in 64-key tiles, in two passes
-over the keys (row max and sum, then p · v); at the engine's shapes the
-card's bound is the bytes of qkv. A key bias reaches the kernel padded
-to whole 64-key tiles.
+head_dim JAX's lane rule admits at W <= 1280 (`HEAD_DIMS`: 1 to 256 and
+the multiples of 128 from 384 to 1280; so400m's heads of 72, padded by
+the caller, keep their own scale) and S up to MAX_SEQ (its K and V tiles
+stream, so nothing in it grows with S); any other shape on a CUDA tensor
+raises. Heads of 32 and fewer run on the 64-wide tiles: the wrapper
+zero-pads each head's columns of qkv to 64 (`pad_heads`; zero columns add
+exact zeros to q·k and p·v, and the scale stays the true head_dim's) and
+slices the output (`unpad_heads`); 9b and K10 do the same. Heads of 256
+run natively. One persistent block an SM takes items of 128 query rows
+(two warpgroups of 64) of one head against its keys, streamed by TMA in
+64-key tiles, in two passes over the keys (row max and sum, then p · v);
+at the engine's shapes the card's bound is the bytes of qkv. A key bias
+reaches the kernel padded to whole 64-key tiles. The wide heads
+(WIDE_HEAD_DIMS, no config has them) run on a kernel of their own: Q
+streams beside K in 64-column chunks, the scores summed over the head's
+chunks, each item one 128-column slice of o.
 
 `attention_qkv_reference` is the twin, the JAX package's `_reference_qkv`;
 it also serves calibration and the twin of K1.
@@ -44,8 +47,9 @@ one bf16 rounding of each output. The CUDA kernels are in
 dQ) and a pass over key tiles (dK and dV), FlashAttention-2's split, with
 the other side's rows streamed by TMA in 64-row tiles, because one head's
 (S, S) f32 P does not fit an SM. It takes HEAD_DIMS (so400m's heads of 72
-padded by the caller keep their own scale; at 256 each block owns one
-128-column slice of dq, or of dk and dv) and any S up to
+padded by the caller keep their own scale; at 256 and wider each block
+owns one 128-column slice of dq, or of dk and dv, and at the wide heads
+its own rows stream in 64-column chunks too) and any S up to
 SM90_MAX_SEQ_BWD, ragged ones (a multiple of 8, not of 64) included.
 `attention_qkv_bwd_reference` is its twin, the TPU kernel's formulas in
 PyTorch. The route is JAX's (`_fused_qkv_with_vjp.bwd`,
@@ -69,8 +73,10 @@ amax over all S rows, clipped to ±127; int8 QKᵀ with int32 sums scaled by
 (aq·ak)/127² · scale; an exact f32 softmax; p quantised per row with ap =
 max p + 1e-20, not clipped; int8 p·v scaled by ap·av/127²; bf16 out. Its
 CUDA kernel is `csrc/attention_i8.cu` (an amax pass, then the two-pass
-tile with int8 mma.sync); HEAD_DIMS, S up to MAX_SEQ (its int32
-sums of p8 · v8 reach 127² S, under 2^31 up to S = 133,144).
+tile with int8 mma.sync; at the wide heads the q and k codes sit in
+dynamic shared memory and o runs in 128-column slices); HEAD_DIMS, S up
+to MAX_SEQ (its int32 sums of p8 · v8 reach 127² S, under 2^31 up to S =
+133,144).
 `attention_qkv_int8_reference` is its twin, written from `_one_head`.
 
 `attention_qkv_vjp` is the tower's attention: one autograd Function whose
@@ -116,10 +122,11 @@ KERNEL = "attention_qkv"
 KERNEL_BWD = "attention_qkv_bwd"
 KERNEL_INT8 = "attention_qkv_int8"
 # K1, K6, K9, 9b and K10: the head_dims JAX's lane rule (head_dim % 128
-# == 0 or 128 % head_dim == 0) admits at W <= 1280 that a block holds
-HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
-# K9, 9b and K10 run these on zero-padded 64-wide heads (K1 and K6 take
-# 16 and 32 natively and pad the narrower ones to 16)
+# == 0 or 128 % head_dim == 0) admits at W <= 1280
+WIDE_HEAD_DIMS = tuple(range(384, 1281, 128))   # their own kernels
+HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64, 128, 256) + WIDE_HEAD_DIMS
+# K1, K9, 9b and K10 run these on zero-padded 64-wide heads (K6 takes 16
+# and 32 natively and pads the narrower ones to 16)
 PADDED_HEAD_DIMS = (1, 2, 4, 8, 16, 32)
 PAD_HEAD_DIM = 64
 # K1, K6, K9 and 9b: the longest sequence (csrc/common.cuh kMaxSeq; 9b's
@@ -188,11 +195,17 @@ def sm90_dkv_smem(s, head_dim):
     of 128 rows, the ring's stages of a 64-row Q and g chunk (6 at
     head_dim 64, 4 at 128, 1 at 256; heads of 16 and 32 run at 64), the
     barriers, the head's row statistics (4 f32 per row, S rounded up to the
-    chunks) and 1 KB for the alignment of the swizzled tiles."""
+    chunks) and 1 KB for the alignment of the swizzled tiles. At the wide
+    heads (`WideDkvSmem`): two stages of 64-column chunks (K and V of 128
+    rows, Q and g of 64) with the 128-column Q and g slices, the staging
+    tile of dk and dv (128 x 128), the barriers, the statistics, 1 KB."""
+    n_stat = -(-s // SM90_TILE_ROWS) * SM90_TILE_ROWS
+    if head_dim in WIDE_HEAD_DIMS:
+        box = SM90_TILE_ROWS * 128
+        return 2 * 10 * box + 4 * box + 128 + 16 * n_stat + 1024
     head_dim = kernel_head_dim(head_dim)
     tile = lambda rows: rows * head_dim * 2
     stages = {64: 6, 128: 4}.get(head_dim, 1)
-    n_stat = -(-s // SM90_TILE_ROWS) * SM90_TILE_ROWS
     return (2 * tile(SM90_BLOCK_ROWS) + stages * 2 * tile(SM90_TILE_ROWS)
             + 128 + 16 * n_stat + 1024)
 

@@ -7,15 +7,20 @@ per-head full softmax with an optional per-key bias log(size) → p cast to
 bf16 for AV → int8 quant → int8 out-proj → dequant + bias + residual.
 Replaces tpudf/ops/int8_block.py `_attn_sublayer_kernel`. The CUDA kernels
 live in `csrc/layernorm.cu`, `csrc/int8_gemm_sm90.cu` and
-`csrc/attention.cu` and run as four
+`csrc/attention_sm90.cu` and run as four
 launches: LN + quant (one bf16 read, one int8 write), the QKV GEMM, the
 attention, the out-proj GEMM. The TPU kernel kept the int8 LN output, the
 bf16 qkv and the attention output in VMEM; here they pass through device
 memory (int8, bf16, int8), and keeping them on-chip is later work. On the
 card the GEMMs are bound by tensor-core operations (wgmma s8, int32
-accumulate); the attention runs both of its products on the tensor cores
-(mma.sync bf16) over shared-memory K/V. Its twin is `ln_qkv_reference`
-then `attn_out_reference`, the JAX package's reference forms.
+accumulate). The attention (`attention_i8`) is K9's block on wgmma and TMA
+with int8 codes of the f32 o out, on kernels 11 and 12's softmax sequence
+(ex2 on scores that carry log2 e, p = e·r): heads of 64, 128 and 256 on tiles of
+their width, 32 and fewer zero-padded to 64, the wide heads on their own
+kernel, and so400m's heads of 72 (padded to 128 in qkv, `live` = 72) on an
+80-wide tile whose columns 72-79 are read as they are and whose codes in
+columns 80-127 are 0. Its twin is `ln_qkv_reference` then
+`attn_out_reference`, the JAX package's reference forms.
 
 K5 (`ln_qkv_int8`, replacing `_ln_qkv_kernel`): x → LN → quant → int8 QKV
 → dequant + bias, ONE launch (`csrc/int8_gemm.cu`): each block quantises
@@ -24,7 +29,10 @@ output never reaches device memory. Twin: `ln_qkv_reference`.
 
 K6 (`attn_out_int8`, replacing `_attn_out_kernel`): qkv + residual x →
 attention → int8 quant of the f32 output → int8 out-proj → dequant + bias
-+ residual, ONE launch (`csrc/attention.cu`). With a logit bias, or where
++ residual, ONE launch (`csrc/attention.cu`), but at the wide heads (384
+to 1280), whose o tile does not fit a block beside the attention: there
+two launches, K1's attention kernel then the int8 GEMM with the residual
+epilogue, counted as KERNEL_ATTN_OUT_SPLIT. With a logit bias, or where
 JAX's VMEM estimate does not fit (`attn_out_int8_fits`: so400m-512's S =
 1024, Wa = 2048), the JAX function takes its reference route, and so does
 this one: K9 (with the bias), or without a bias and under
@@ -56,8 +64,10 @@ import torch
 from tpudf_torch.core.backend import LAUNCHES
 from tpudf_torch.ops import _build
 from tpudf_torch.ops.attention import (HEAD_DIMS, MAX_ROWS, MAX_SEQ,
+                                       SM90_TILE_ROWS, WIDE_HEAD_DIMS,
                                        attention_qkv_reference,
-                                       check_attention_shape, pad_heads,
+                                       check_attention_shape,
+                                       kernel_head_dim, pad_heads,
                                        unpad_heads)
 from tpudf_torch.ops.layernorm import MAX_WIDTH, ln_quant_cuda, ln_rows_f32
 from tpudf_torch.ops.quant import (KERNEL_GEMM, f32_scalar, int8_mm,
@@ -67,21 +77,42 @@ from tpudf_torch.utils.nn import gelu_tanh
 KERNEL = "attn_sublayer_int8"
 KERNEL_LN_QKV = "ln_qkv_int8"
 KERNEL_ATTN_OUT = "attn_out_int8"
+KERNEL_ATTN_OUT_SPLIT = "attn_out_int8_split"   # K6 as two launches
 KERNEL_LAYER = "siglip_layer_int8"
 LAYER_MAX_SEQ = 256         # K7's own limits (the whole-layer kernel is
 LAYER_MAX_WIDTH = 1024      # not widened: beyond them the block routes FPP)
 # K6's widest Wa at each head_dim its tile runs (csrc/attention.cu: the
 # (128 x Wa) int8 tile beside Q and the K/V ring within a block's shared
-# memory)
-K6_MAX_WA = {16: 1536, 32: 1536, 64: 1024, 128: 768, 256: 768}
-I8_ATTN_MIN_HEAD_DIM = 16   # mma.sync's k16: narrower heads are padded
+# memory); None: the wide heads, run as two launches at any Wa
+K6_MAX_WA = {16: 1536, 32: 1536, 64: 1024, 128: 768, 256: 768,
+             **dict.fromkeys(WIDE_HEAD_DIMS)}
+K6_MIN_HEAD_DIM = 16        # mma.sync's k16: narrower heads are padded
+I8_ATTN_NARROW = 80         # K1's tile for a head of 65-80 live of 128
 
 
-def i8_attn_head_dim(head_dim):
-    """The head_dim K1's attention and K6 run `head_dim` at: at least
-    I8_ATTN_MIN_HEAD_DIM (narrower heads zero-padded: zero columns add
-    nothing to q·k, p·v or the out-projection)."""
-    return max(head_dim, I8_ATTN_MIN_HEAD_DIM)
+def k6_head_dim(head_dim):
+    """The head_dim K6 runs `head_dim` at: at least K6_MIN_HEAD_DIM
+    (narrower heads zero-padded: zero columns add nothing to q·k, p·v or
+    the out-projection)."""
+    return max(head_dim, K6_MIN_HEAD_DIM)
+
+
+def i8_attn_tile(head_dim, live=None):
+    """(tile width, head stride in qkv's columns) K1's attention kernel
+    runs a head of `head_dim` columns at, `live` of them holding values
+    and the rest exact zeros (so400m's 72 of 128; None: all live): an
+    80-wide tile over the first 80 of 128 columns where 64 < live <= 80,
+    else `kernel_head_dim` (heads of 32 and fewer zero-padded to 64).
+    Raises on a live width outside 1 .. head_dim."""
+    if live is None:
+        live = head_dim
+    if not 1 <= live <= head_dim:
+        raise ValueError(f"K1: {live} live columns do not fit a head of "
+                         f"{head_dim}")
+    if head_dim == 128 and 64 < live <= I8_ATTN_NARROW:
+        return I8_ATTN_NARROW, 128
+    hk = kernel_head_dim(head_dim)
+    return hk, hk
 MiB = 1024 * 1024
 
 
@@ -171,10 +202,11 @@ def attn_out_reference(qkv, x, wq, bias, act_scale, heads, head_dim,
 
 def attn_sublayer_reference(x, ln_params, qkv_wq, qkv_b, out_wq, out_b,
                             a_qkv, a_out, heads, head_dim, eps=1e-6,
-                            scale=None, *, logit_bias=None):
+                            scale=None, *, logit_bias=None, live=None):
     """Plain PyTorch twin of K1 on any device: K5's twin, the bf16
     attention (K1's, whatever TPUDF_INT8_ATTN says), the out-projection
-    of K6's twin."""
+    of K6's twin. live: the kernel's argument; the twin reads every
+    column of the heads."""
     scale = scale if scale is not None else head_dim ** -0.5
     qkv = ln_qkv_reference(x, ln_params, qkv_wq, qkv_b, a_qkv, eps)
     o = attention_qkv_reference(qkv, heads, head_dim, scale, logit_bias)
@@ -218,14 +250,68 @@ def i8_gemm_cuda(a8, wt, col_scale, bias, act, mode, *, residual=None,
     return out
 
 
-def check_attn_sublayer_int8(x, qkv_wq, out_wq, heads, head_dim):
+def attention_i8_reference(qkv, heads, head_dim, act_out, scale=None, *,
+                           logit_bias=None):
+    """Plain twin of K1's attention launch: (B, S, 3Wa) → (B·S, Wa) int8
+    codes of the f32 attention output with activation scale act_out."""
+    scale = scale if scale is not None else head_dim ** -0.5
+    b, s, _ = qkv.shape
+    o = attention_qkv_reference(qkv, heads, head_dim, scale, logit_bias,
+                                out_dtype=torch.float32)
+    return quant_rows(o, f32_scalar(act_out, qkv.device)).reshape(b * s, -1)
+
+
+def _attention_i8_cuda(qkv, heads, head_dim, scale, act_out, logit_bias,
+                       live, out=None):
+    """One launch of K1's attention kernel (`tpudf_attention_i8_sm90`):
+    qkv (B, S, 3 heads head_dim) bf16 → (B·S, heads head_dim) int8 codes,
+    into `out` where given."""
+    b, s, _ = qkv.shape
+    width, hs = i8_attn_tile(head_dim, live)
+    if hs != head_dim:          # zero columns: nothing added to q·k or p·v
+        qkv = pad_heads(qkv, heads, head_dim, hs)
+    o8 = out if out is not None else torch.empty(
+        (b * s, heads * hs), dtype=torch.int8, device=qkv.device)
+    bias = None
+    if logit_bias is not None:
+        # rows of whole 64-key tiles: each TMA box of the bias starts on a
+        # 16-byte boundary
+        bias = torch.nn.functional.pad(logit_bias.float(),
+                                       (0, -s % SM90_TILE_ROWS)).contiguous()
+    _build.call("tpudf_attention_i8_sm90", qkv.contiguous(), bias,
+                f32_scalar(act_out, qkv.device), o8, b, s, heads, hs, width,
+                float(scale))
+    return o8 if hs == head_dim else unpad_heads(o8, heads, head_dim,
+                                                 hs).contiguous()
+
+
+def attention_i8(qkv, heads, head_dim, act_out, scale=None, *,
+                 logit_bias=None, live=None, out=None):
+    """K1's attention launch alone: qkv (B, S, 3Wa) bf16 and an optional
+    (B, S) f32 key bias → (B·S, Wa) int8 codes clip(round(o · 127 /
+    act_out), ±127) of the f32 attention output o, the input of K1's
+    out-projection. live: as `i8_attn_tile`; out: a (B·S, Wa) int8 buffer
+    to write (where no head is padded). CPU tensors take the plain twin;
+    CUDA tensors launch the kernel or raise."""
+    scale = scale if scale is not None else head_dim ** -0.5
+    i8_attn_tile(head_dim, live)
+    if not qkv.is_cuda:
+        return attention_i8_reference(qkv, heads, head_dim, act_out, scale,
+                                      logit_bias=logit_bias)
+    check_attention_shape("K1", qkv, heads, head_dim)
+    return _attention_i8_cuda(qkv, heads, head_dim, scale, act_out,
+                              logit_bias, live, out)
+
+
+def check_attn_sublayer_int8(x, qkv_wq, out_wq, heads, head_dim, live=None):
     """Raise unless K1 takes this layer: bf16 x (B, S, W) of width 64k <=
-    MAX_WIDTH, head_dim in HEAD_DIMS, S <= MAX_SEQ, B·S <= MAX_ROWS, a (W,
-    3 heads head_dim) QKV weight, and both int8 GEMMs' shapes
-    (`check_i8_gemm`)."""
+    MAX_WIDTH, head_dim in HEAD_DIMS, `live` fitting the head
+    (`i8_attn_tile`), S <= MAX_SEQ, B·S <= MAX_ROWS, a (W, 3 heads
+    head_dim) QKV weight, and both int8 GEMMs' shapes (`check_i8_gemm`)."""
     b, s, w = x.shape
     wa = heads * head_dim
     wt = transposed(qkv_wq)
+    i8_attn_tile(head_dim, live)
     if (x.dtype != torch.bfloat16 or head_dim not in HEAD_DIMS
             or s > MAX_SEQ or b * s > MAX_ROWS or w % 64 or w > MAX_WIDTH
             or tuple(wt.shape) != (3 * wa, w)):
@@ -239,23 +325,16 @@ def check_attn_sublayer_int8(x, qkv_wq, out_wq, heads, head_dim):
 
 
 def _attn_sublayer_cuda(x, ln_params, qkv_wq, qkv_b, out_wq, out_b, a_qkv,
-                        a_out, heads, head_dim, eps, scale, logit_bias):
-    check_attn_sublayer_int8(x, qkv_wq, out_wq, heads, head_dim)
+                        a_out, heads, head_dim, eps, scale, logit_bias, live):
+    check_attn_sublayer_int8(x, qkv_wq, out_wq, heads, head_dim, live)
     b, s, w = x.shape
     wa = heads * head_dim
     wt = transposed(qkv_wq)
     x2d = x.reshape(b * s, w).contiguous()
     h8 = ln_quant_cuda(x2d, ln_params, a_qkv, eps)
     qkv = i8_gemm_cuda(h8, wt, qkv_wq["scale"], qkv_b, a_qkv, GEMM_BF16)
-    hk = i8_attn_head_dim(head_dim)
-    if hk != head_dim:
-        qkv = pad_heads(qkv, heads, head_dim, hk).contiguous()
-    o8 = torch.empty((b * s, heads * hk), dtype=torch.int8, device=x.device)
-    bias = None if logit_bias is None else _f32(logit_bias)
-    _build.call("tpudf_attention_i8", qkv, bias, _f32(a_out), o8, b, s,
-                heads, hk, float(scale))
-    if hk != head_dim:
-        o8 = unpad_heads(o8, heads, head_dim, hk).contiguous()
+    o8 = _attention_i8_cuda(qkv.reshape(b, s, 3 * wa), heads, head_dim,
+                            scale, a_out, logit_bias, live)
     out = i8_gemm_cuda(o8, transposed(out_wq), out_wq["scale"], out_b, a_out,
                        GEMM_RESIDUAL, residual=x2d)
     LAUNCHES.hit(KERNEL)
@@ -264,20 +343,23 @@ def _attn_sublayer_cuda(x, ln_params, qkv_wq, qkv_b, out_wq, out_b, a_qkv,
 
 def attn_sublayer_int8(x, ln_params, qkv_wq, qkv_b, out_wq, out_b,
                        a_qkv, a_out, heads, head_dim, eps=1e-6,
-                       scale=None, *, logit_bias=None):
+                       scale=None, *, logit_bias=None, live=None):
     """(B, S, W) → (B, S, W): the attention sublayer. CPU tensors take the
     plain twin; CUDA tensors launch K1 or raise.
 
     qkv_wq/out_wq: {q: (in, out) int8, scale: (out,), optional qT}; a_qkv,
-    a_out: 0-d f32 activation scales; logit_bias: optional (B, S) f32."""
+    a_out: 0-d f32 activation scales; logit_bias: optional (B, S) f32;
+    live: the columns of each head that hold values, the rest exact zeros
+    (so400m's 72 of 128, from the tower's config; None: all)."""
     scale = scale if scale is not None else head_dim ** -0.5
     if not x.is_cuda:
+        i8_attn_tile(head_dim, live)
         return attn_sublayer_reference(
             x, ln_params, qkv_wq, qkv_b, out_wq, out_b, a_qkv, a_out, heads,
             head_dim, eps, scale, logit_bias=logit_bias)
     return _attn_sublayer_cuda(x, ln_params, qkv_wq, qkv_b, out_wq, out_b,
                                a_qkv, a_out, heads, head_dim, eps, scale,
-                               logit_bias)
+                               logit_bias, live)
 
 
 # ------------------------------------------------------------------ K5
@@ -328,20 +410,35 @@ def _attn_out_route_cuda(qkv, x, wq, bias, a, heads, head_dim, scale,
 def check_attn_out_int8(qkv, x, wq, heads, head_dim):
     """Raise unless K6 takes this call: qkv under `check_attention_shape`,
     bf16 x (B, S, W % 128 == 0), a (Wa, W) out-projection, and Wa within
-    K6_MAX_WA (its block's shared memory)."""
+    K6_MAX_WA (its block's shared memory; the wide heads run split, at any
+    Wa)."""
     b, s, _ = qkv.shape
     w = x.shape[-1]
     wa = heads * head_dim
     check_attention_shape("K6", qkv, heads, head_dim)
-    hk = i8_attn_head_dim(head_dim)
-    if (x.dtype != torch.bfloat16 or heads * hk > K6_MAX_WA[hk]
+    hk = k6_head_dim(head_dim)
+    limit = K6_MAX_WA[hk]
+    if (x.dtype != torch.bfloat16 or (limit is not None and heads * hk > limit)
             or w % 128 or tuple(wq["q"].shape) != (wa, w)
             or x.shape != (b, s, w)):
         raise ValueError(f"K6 takes x (B, S, W % 128 == 0) bf16 and Wa <= "
                          f"{K6_MAX_WA}[head_dim] (heads narrower than "
-                         f"{I8_ATTN_MIN_HEAD_DIM} padded to it), got "
+                         f"{K6_MIN_HEAD_DIM} padded to it), got "
                          f"{x.dtype} {tuple(x.shape)}, Wa {wa}, head_dim "
                          f"{head_dim}")
+
+
+def _attn_out_split_cuda(qkv, x, wq, bias, a, heads, head_dim, scale):
+    """K6 at the wide heads, two launches: K1's attention kernel writes the
+    int8 codes of o, then the int8 out-projection GEMM with the residual
+    epilogue."""
+    b, s, w = x.shape
+    o8 = _attention_i8_cuda(qkv, heads, head_dim, scale, a, None, None)
+    out = i8_gemm_cuda(o8, transposed(wq), wq["scale"], bias, a,
+                       GEMM_RESIDUAL,
+                       residual=x.reshape(b * s, w).contiguous())
+    LAUNCHES.hit(KERNEL_ATTN_OUT_SPLIT)
+    return out.reshape(b, s, w)
 
 
 def attn_out_int8(qkv, x, wq, bias, act_scale, heads, head_dim, scale=None,
@@ -350,7 +447,7 @@ def attn_out_int8(qkv, x, wq, bias, act_scale, heads, head_dim, scale=None,
     quant, int8 out-projection, dequant + bias + residual. CPU tensors take
     the plain twin; CUDA tensors launch K6 (bf16, head_dim in HEAD_DIMS,
     narrower than 16 padded to 16, S <= MAX_SEQ, W % 128 == 0, Wa within
-    K6_MAX_WA: its shared memory) or
+    K6_MAX_WA: its shared memory; the wide heads as two launches) or
     raise; with a logit bias or where
     `attn_out_int8_fits` is false, K9 or 9b and the out-projection GEMM."""
     scale = scale if scale is not None else head_dim ** -0.5
@@ -365,8 +462,11 @@ def attn_out_int8(qkv, x, wq, bias, act_scale, heads, head_dim, scale=None,
         return _attn_out_route_cuda(qkv, x, wq, bias, a, heads, head_dim,
                                     scale, logit_bias)
     check_attn_out_int8(qkv, x, wq, heads, head_dim)
+    hk = k6_head_dim(head_dim)
+    if K6_MAX_WA[hk] is None:
+        return _attn_out_split_cuda(qkv.contiguous(), x, wq, bias, a, heads,
+                                    head_dim, scale)
     wt = transposed(wq)
-    hk = i8_attn_head_dim(head_dim)
     if hk != head_dim:          # zero q, k, v columns and weight rows
         qkv = pad_heads(qkv, heads, head_dim, hk)
         wt = pad_heads(wt, heads, head_dim, hk).contiguous()
