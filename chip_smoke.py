@@ -11,10 +11,13 @@ back to the CPU or to a twin):
      K10's kernels (attention_sm90.cu, head_dim 64, 128 and 256, K1's also
      on the 80-wide tile, and the wide heads' kernels), kernels 11 and 12
      in bf16 (attention_plain_sm90.cu), the bf16 GEMM of K13, K14 and 15 in
-     its three epilogue modes (bf16_gemm_sm90.cu) and the int8 GEMM in its
-     four modes at both tile widths (int8_gemm_sm90.cu) must show wgmma
-     (HGMMA; IGMMA for int8) and TMA loads (UTMALDG) in their SASS where
-     the toolkit's cuobjdump is present, and no spills; the wrappers'
+     its three epilogue modes (bf16_gemm_sm90.cu), the int8 GEMM in its
+     four modes at both tile widths and its LN-panel instance, K5
+     (int8_gemm_sm90.cu), and 9b's main pass at heads of 64 and 128
+     (attention_i8.cu) must show wgmma (HGMMA; IGMMA for int8) and TMA
+     loads (UTMALDG) in their SASS where the toolkit's cuobjdump is
+     present, no spills, and no wgmma serialised by ptxas (C7515); the
+     wrappers'
      shared-memory functions equal to the kernels'; the host's cost of
      encoding a tensor map;
   2. each kernel against its plain PyTorch twin on the card (TF32 off for
@@ -134,6 +137,21 @@ back to the CPU or to a twin):
      80-127 left as a pre-filled buffer had them and columns 72-79 that
      hold values read as zeros); its device time beside its bound, SDPA
      and K9, into K1's row of the kernels line;
+  2k. K5 and 9b on wgmma + TMA (`k5_9b_checks`): K5 at K5_SHAPES (65536
+     rows, where blocks walk several row tiles; 8 x 257 rows; W = 832 and
+     1280) within atol 5e-2 + rtol 2e-2 of its twin, bit-equal to K8 + the
+     int8 GEMM and to itself over repeated launches, each shape's check
+     shown to fail on planted faults (no panel rebuilt after a block's
+     first unit, a 128-deep panel slice zero, g dropped, the act scale
+     ignored, one run of columns left as a pre-filled output had them);
+     9b's wgmma pass at K9B_SHAPES (heads of 64 and 128, S = 576, 1024 and
+     a ragged 1297): the pre-pass's codes bit-equal to their plain
+     version, the output by phase 2b's share rule, shown to fail on faults
+     planted in the pre-pass's scratch (v8t in natural key order, k8 from
+     each 64-key tile's amax, non-zero codes past a ragged S); then K5's
+     launch alone at K5_TIMED beside its bound, K8 + the int8 GEMM and the
+     PyTorch parts, and 9b's pre-pass and main pass at K9B_TIMED beside
+     their bound, K9 and SDPA, device times into the kernels line;
   3. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      (a) the detect core (build("cuda", seed=0), base-256, W8A8 + ToMe),
@@ -268,7 +286,7 @@ SOURCES = {
     "K2": "tpudf_torch/csrc/int8_gemm_sm90.cu",
     "K3": "tpudf_torch/csrc/srm.cu",
     "K4": "tpudf_torch/csrc/layernorm.cu",
-    "K5": "tpudf_torch/csrc/int8_gemm.cu",
+    "K5": "tpudf_torch/csrc/int8_gemm_sm90.cu",
     "K6": "tpudf_torch/csrc/attention.cu",
     "K7": "tpudf_torch/csrc/layer_int8.cu",
     "K8": "tpudf_torch/csrc/layernorm.cu",
@@ -566,12 +584,13 @@ class Records:
 # two passes at 64, 128 and 256 and at the wide heads, kernels 11 and 12
 # in bf16 (attention_plain_sm90.cu) on the 64-, 80- and 128-wide tiles,
 # the bf16 GEMM of K13, K14 and 15 (bf16_gemm_sm90.cu) in its three
-# epilogue modes, and the int8 GEMM (int8_gemm_sm90.cu) in its four modes
-# at tile widths 256 and 128
-SM90_KERNELS = 31
-SM90_NAME = re.compile(r"((?:attention_(?:fwd|bwd_dq|bwd_dkv|plain)"
+# epilogue modes, the int8 GEMM (int8_gemm_sm90.cu) in its four modes at
+# tile widths 256 and 128 and K5 (its LN-panel instance), and 9b's main
+# pass at head_dim 64 and 128 (attention_i8.cu)
+SM90_KERNELS = 34
+SM90_NAME = re.compile(r"((?:attention_(?:fwd|bwd_dq|bwd_dkv|plain|i8dyn)"
                        r"(?:_wide)?|bf16_gemm|i8_gemm)_sm90)ILi(\d+)E"
-                       r"(?:Li(\d+)E)?")
+                       r"(?:Li(\d+)E)?(?:Lb(\d)E)?")
 
 
 def sm90_build_checks(card):
@@ -591,6 +610,8 @@ def sm90_build_checks(card):
             rest = " ".join(log[i + 1:i + 4])
             if " 0 bytes spill stores" not in rest:
                 raise AssertionError(f"ptxas reports spills: {line} {rest}")
+        if "C7515" in line:                     # wgmma serialised
+            raise AssertionError(f"ptxas: {line.strip()}")
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cuobjdump = shutil.which("cuobjdump") or os.path.join(home, "bin",
                                                           "cuobjdump")
@@ -617,8 +638,11 @@ def sm90_build_checks(card):
             raise AssertionError(f"sm90 kernels in the SASS: {list(counts)}")
         for fn, (hgmma, utmaldg) in sorted(counts.items()):
             m = SM90_NAME.search(fn)
-            args = ", ".join(a for a in m.group(2, 3) if a)
-            mma = "IGMMA" if m.group(1) == "i8_gemm_sm90" else "HGMMA"
+            args = ", ".join(a for a in m.group(2, 3) if a) + (
+                ", LN panel" if m.group(4) == "1" else "")
+            mma = ("IGMMA" if m.group(1) in ("i8_gemm_sm90",
+                                             "attention_i8dyn_sm90")
+                   else "HGMMA")
             print(f"  sm90 SASS {m.group(1)}<{args}>: {mma} {hgmma}, "
                   f"UTMALDG {utmaldg}", flush=True)
             if not hgmma or not utmaldg:
@@ -4044,6 +4068,273 @@ def ln_timings(dev, card):
     return out
 
 
+# K5 and 9b on wgmma + TMA (phase 2k, `k5_9b_checks`). K5 at the shapes its
+# phases 2 and 2b do not reach: 65536 rows (blocks walk several row tiles
+# and rebuild their panel at each), a ragged M (8 x 257 rows), a 64-deep K
+# tail (W = 832) and the widest panel (W = 1280): (M, W, N)
+K5_SHAPES = [(65536, 1152, 6144), (8 * 257, 1152, 6144), (2049, 832, 2304),
+             (1000, 1280, 3840)]
+# K5's launch alone at the paths' shapes: the B = 8 detect cores' QKV and
+# so400m-512's at B = 64 (heads padded to 128): (path, M, W, N)
+K5_TIMED = [("base-256 B=8", 2048, 768, 2304),
+            ("large-384 B=8", 4608, 1024, 3072),
+            ("so400m-512 B=8", 8192, 1152, 6144),
+            ("so400m-512 B=64", 65536, 1152, 6144)]
+# 9b's wgmma pass: (B, S, heads, head_dim, scale) of its checks (the
+# reference route's shapes and a ragged S) and timings
+K9B_SHAPES = [(8, 576, 16, 64, None), (8, 1024, 16, 128, 72 ** -0.5),
+              (2, 1297, 4, 128, None), (2, 1297, 12, 64, None)]
+K9B_TIMED = [("large-384", 8, 576, 16, 64, None),
+             ("so400m-512", 8, 1024, 16, 128, 72 ** -0.5)]
+
+
+def k5_rel(got, ref):
+    """max |got - twin| / (5e-2 + 2e-2 |twin|): K5's card rule holds where
+    it is at most 1."""
+    e = (got.float() - ref.float()).abs() / (5e-2 + 2e-2 * ref.float().abs())
+    return float(e.max())
+
+
+def k5_from_codes(codes, wq, bias, a):
+    """K5's twin epilogue on given int8 LN codes (M, W): bf16 out."""
+    import torch
+    from tpudf_torch.ops.quant import int8_mm
+    acc = int8_mm(codes, wq["q"])
+    return (acc.float() * ((a / 127.0) * wq["scale"].float())
+            + bias.float()).to(torch.bfloat16)
+
+
+def k5_stale_panel(ref, m, n, sms):
+    """K5's output had no block rebuilt its panel after its first unit:
+    each later unit's columns computed from the first unit's rows
+    (`int8_block.k5_units`)."""
+    from tpudf_torch.ops import int8_block
+    out = ref.clone()
+    t = int8_block.K5_TILE
+    stale = 0
+    for block in int8_block.k5_units(m, n, sms):
+        r0 = block[0][0]
+        for rt, c0, c1 in block[1:]:
+            if rt == r0:
+                continue
+            rows = min(t, m - rt * t, m - r0 * t)
+            out[rt * t:rt * t + rows, c0 * t:c1 * t] = \
+                ref[r0 * t:r0 * t + rows, c0 * t:c1 * t]
+            stale += 1
+    return out, stale
+
+
+def k5_9b_checks(rec, dev, card):
+    """Phase 2k. K5 at K5_SHAPES against its twin (atol 5e-2 + rtol 2e-2),
+    bit-equal to its two-launch form (K8's codes, then the int8 GEMM in
+    kEpiBf16) and to itself over repeated launches, its split equal to
+    `int8_block.k5_splits`; each shape's check shown to fail on planted
+    faults: no block rebuilding its panel after its first unit (where
+    blocks walk several row tiles), one 128-deep panel slice left zero, g
+    dropped, the act scale ignored by the quant, and one run of each row
+    tile's columns not stored into an output pre-filled with 7. 9b's wgmma
+    pass at K9B_SHAPES: the pre-pass's codes bit-equal to their plain
+    version, the output by phase 2b's share rule (ATTN_SHARE), shown to
+    fail on faults planted in the pre-pass's scratch between its launch and
+    the main pass's: v8t in natural key order, k8 quantised with the amax
+    of each 64-key tile, and at a ragged S non-zero codes past S. Then both
+    launches alone: K5 at K5_TIMED beside its bound, its two-launch form
+    and the PyTorch parts; 9b's pre-pass and main pass at K9B_TIMED beside
+    their bound, K9 and SDPA; device times into K5's and 9b's rows."""
+    import torch
+    import torch.nn.functional as F
+    from tpudf_torch.ops import _build, attention, int8_block, layernorm
+    from tpudf_torch.ops.quant import quant_rows, transposed
+    print("phase 2k: K5 (LN panel on the int8 wgmma GEMM) and 9b (pre-pass + "
+          "int8 wgmma)", flush=True)
+    lib = _build.load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(67)
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def k5_inputs(m, w, n):
+        x = (randn(m, w) * 3.0 + 0.5).to(bf)
+        ln = {"scale": 1.0 + randn(w, std=0.1), "bias": randn(w, std=0.1)}
+        wq = {"q": torch.randint(-127, 128, (w, n), generator=g, device=dev,
+                                 dtype=torch.int8),
+              "scale": randn(n).abs() * 1e-3 + 1e-3}
+        wq["qT"] = transposed(wq)
+        return x, ln, wq, randn(n, std=0.1), torch.tensor(4.0, device=dev)
+
+    # ---- K5: checks and planted faults
+    for m, w, n in K5_SHAPES:
+        x, ln, wq, bias, a = k5_inputs(m, w, n)
+        args = (x, ln, wq, bias, a)
+        got = int8_block.ln_qkv_int8(*args)
+        ref = int8_block.ln_qkv_reference(*args)
+        two = int8_block.i8_gemm_cuda(layernorm.ln_quant_cuda(x, ln, a, 1e-6),
+                                      wq["qT"], wq["scale"], bias, a,
+                                      int8_block.GEMM_BF16)
+        again = all(torch.equal(int8_block.ln_qkv_int8(*args), got)
+                    for _ in range(3))
+        splits = lib.tpudf_ln_qkv_splits(m, n)
+        codes = quant_rows(layernorm.ln_rows_f32(x, ln["scale"], ln["bias"],
+                                                 1e-6), a)
+        k0 = w // 256 * 128                    # a slice mid-way
+        hole = codes.clone()
+        hole[:, k0:k0 + 128] = 0
+        faults = {
+            "panel slice left zero": k5_from_codes(hole, wq, bias, a),
+            "g dropped": int8_block.ln_qkv_reference(
+                x, {"scale": torch.ones_like(ln["scale"]),
+                    "bias": ln["bias"]}, wq, bias, a),
+            "act scale ignored": k5_from_codes(
+                quant_rows(layernorm.ln_rows_f32(
+                    x, ln["scale"], ln["bias"], 1e-6),
+                    torch.tensor(1.0, device=dev)), wq, bias, a)}
+        del hole, codes
+        stale, n_stale = k5_stale_panel(ref, m, n, sms)
+        if n_stale:
+            faults["panel not rebuilt"] = stale
+        del stale
+        pre = torch.full((m, n), 7.0, dtype=bf, device=dev)
+        filled = int8_block.ln_qkv_int8(*args, out=pre)
+        t = int8_block.K5_TILE
+        c0, c1 = [(u[1], u[2]) for blk in int8_block.k5_units(m, n, sms)
+                  for u in blk if u[2] * t == n][0]
+        unstored = filled.clone()
+        unstored[:, c0 * t:c1 * t] = 7.0
+        faults["one run's columns not stored"] = unstored
+        torch.cuda.synchronize()
+        ne = not_equal_share(got, two)
+        print(f"  K5 {(m, w, n)}: splits {splits} (k5_splits "
+              f"{int8_block.k5_splits(m, n, sms)}), stages "
+              f"{int8_block.k5_stages(w)}, not bit-equal to K8 + int8 GEMM "
+              f"{ne:.3e}, repeated launches equal {again} [{card}]",
+              flush=True)
+        if splits != int8_block.k5_splits(m, n, sms) or not again or ne:
+            raise AssertionError(f"K5 {(m, w, n)}: split, repeat or two-launch"
+                                 f" form")
+        check_close(f"K5 {(m, w, n)}", got, ref, atol=5e-2, rtol=2e-2)
+        held_check(f"K5 {(m, w, n)} |Δ| / (5e-2 + 2e-2 |twin|)", k5_rel, 1.0,
+                   filled, ref, faults, card)
+        del x, got, ref, two, filled, unstored, pre, faults
+        torch.cuda.empty_cache()
+
+    # ---- 9b's wgmma pass: codes, checks and faults planted in the scratch
+    for b, s, heads, hd, scale in K9B_SHAPES:
+        qkv = sharp_qkv(randn, b, s, heads, hd, hd)
+        sd = scale if scale is not None else hd ** -0.5
+        qb = min(attention.INT8_Q_BLOCK, s)
+        sp = attention.i8_pad(s)
+        codes = attention.i8dyn_prepass(qkv, heads, hd, qb)
+        plain = attention.attention_i8_codes_reference(qkv, heads, hd)
+        same = [bool(torch.equal(x_, y_)) for x_, y_ in zip(codes, plain)]
+        got = attention.i8dyn_main(codes, b, s, heads, hd, qb, sd)
+        whole = attention.attention_qkv_int8(qkv, heads, hd, scale)
+        ref = attention.attention_qkv_int8_reference(qkv, heads, hd, scale)
+        amax, q8, k8, v8t = codes
+        pos = torch.tensor([attention.vt_pos(x_) for x_ in range(sp)],
+                           device=dev)
+        k = qkv.float().reshape(b, s, 3, heads, hd)[:, :, 1].transpose(1, 2)
+        kt = torch.nn.functional.pad(k, (0, 0, 0, sp - s)).reshape(
+            b, heads, sp // 64, 64, hd)
+        ak = kt.abs().amax(dim=(-2, -1), keepdim=True) + 1e-6
+        k8t = torch.clamp(torch.round(kt * (127.0 / ak)), -127, 127).to(
+            torch.int8).reshape(b, heads, sp, hd).contiguous()
+        faults = {
+            "v8t in natural key order": attention.i8dyn_main(
+                (amax, q8, k8, v8t[..., pos].contiguous()), b, s, heads, hd,
+                qb, sd),
+            "ak over 64-key tiles": attention.i8dyn_main(
+                (amax, q8, k8t, v8t), b, s, heads, hd, qb, sd)}
+        if s % 64:
+            k8p, v8p = k8.clone(), v8t.clone()
+            k8p[:, :, s:] = 77
+            v8p[..., pos[s:]] = 77
+            faults["codes past S"] = attention.i8dyn_main(
+                (amax, q8, k8p, v8p), b, s, heads, hd, qb, sd)
+            del k8p, v8p
+        torch.cuda.synchronize()
+        print(f"  9b {(b, s, heads, hd)}: pre-pass codes equal to their plain"
+              f" version {same}, wrapper = pre-pass + main pass "
+              f"{bool(torch.equal(whole, got))} [{card}]", flush=True)
+        if not all(same) or not torch.equal(whole, got):
+            raise AssertionError(f"9b {(b, s, heads, hd)}: pre-pass codes")
+        held_check(f"9b {(b, s, 3 * heads * hd)} d={hd}, share > 1 bf16 "
+                   f"step", share_apart, ATTN_SHARE, got, ref, faults, card)
+        del qkv, codes, plain, got, whole, ref, faults, k, kt, k8t
+        torch.cuda.empty_cache()
+
+    # ---- K5 alone at the paths' shapes
+    for path, m, w, n in K5_TIMED:
+        x, ln, wq, bias, a = k5_inputs(m, w, n)
+        g16, b16 = ln["scale"].to(bf), ln["bias"].to(bf)
+        y16 = F.layer_norm(x, (w,), g16, b16, 1e-6)
+        inv = 127.0 / a
+        codes = torch.randint(-127, 128, (m, w), generator=g, device=dev,
+                              dtype=torch.int8)
+        kern = lambda: int8_block.ln_qkv_int8(x, ln, wq, bias, a)
+        two = lambda: int8_block.i8_gemm_cuda(
+            layernorm.ln_quant_cuda(x, ln, a, 1e-6), wq["qT"], wq["scale"],
+            bias, a, int8_block.GEMM_BF16)
+        parts = {"F.layer_norm": lambda: F.layer_norm(x, (w,), g16, b16,
+                                                      1e-6),
+                 "quant": lambda: torch.clamp(torch.round(
+                     y16.float() * inv), -127, 127).to(torch.int8),
+                 "torch._int_mm": lambda: torch._int_mm(codes,
+                                                        wq["qT"].t())}
+        ms, two_ms = device_ms(kern), device_ms(two)
+        part_ms = {k_: device_ms(f) for k_, f in parts.items()}
+        b_ms, b_by = bound({"int8": 2 * m * w * n},
+                           nbytes(x, ln["scale"], ln["bias"], wq["q"],
+                                  wq["scale"], bias, a) + m * n * 2)
+        print(f"  K5 {path} ({m}, {w} -> {n}): device {ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}, {b_ms / ms:.2f} of it); K8 + int8 "
+              f"GEMM {two_ms:.4f} ms ({ms / two_ms:.2f}x); PyTorch parts "
+              + ", ".join(f"{k_} {v:.4f}" for k_, v in part_ms.items())
+              + f" = {sum(part_ms.values()):.4f} ms [{card}]", flush=True)
+        rec.rows["K5"].setdefault("launch_alone", []).append(
+            {"path": path, "shape": (m, w, n), "device_ms": ms,
+             "bound_ms": b_ms, "bound_by": b_by, "two_launch_ms": two_ms,
+             "library_parts_ms": part_ms})
+        del x, y16, codes
+        torch.cuda.empty_cache()
+
+    # ---- 9b's two launches alone at the reference route's shapes
+    for path, b, s, heads, hd, scale in K9B_TIMED:
+        qkv = sharp_qkv(randn, b, s, heads, hd, hd)
+        sd = scale if scale is not None else hd ** -0.5
+        qb = min(attention.INT8_Q_BLOCK, s)
+        codes = attention.i8dyn_prepass(qkv, heads, hd, qb)
+        pre_ms = device_ms(lambda: attention.i8dyn_prepass(qkv, heads, hd,
+                                                           qb))
+        main_ms = device_ms(lambda: attention.i8dyn_main(codes, b, s, heads,
+                                                         hd, qb, sd))
+        k9_ms = device_ms(lambda: attention.attention_qkv(qkv, heads, hd,
+                                                          scale))
+        wa = heads * hd
+        qs = [qkv[..., i * wa:(i + 1) * wa].reshape(b, s, heads, hd)
+              .transpose(1, 2) for i in range(3)]
+        sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            *qs, scale=sd))
+        scratch = sum(nbytes(t_) for t_ in codes)
+        b_ms, b_by = bound({"int8": 4 * b * heads * s * s * hd},
+                           nbytes(qkv) + b * s * wa * 2)
+        ms = pre_ms + main_ms
+        print(f"  9b {path} ({b}, {s}, {3 * wa}) d={hd}: pre-pass "
+              f"{pre_ms:.4f} ms + main pass {main_ms:.4f} ms = {ms:.4f} ms "
+              f"device; bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.2f} of it); "
+              f"K9 {k9_ms:.4f} ms ({ms / k9_ms:.2f}x); SDPA bf16 (nearest "
+              f"one call) {sdpa_ms:.4f} ms; scratch {scratch / 2 ** 20:.1f} "
+              f"MiB [{card}]", flush=True)
+        rec.rows["K9b"].setdefault("launch_alone", []).append(
+            {"path": path, "shape": (b, s, 3 * wa), "head_dim": hd,
+             "prepass_ms": pre_ms, "main_ms": main_ms, "device_ms": ms,
+             "bound_ms": b_ms, "bound_by": b_by, "k9_ms": k9_ms,
+             "sdpa_ms": sdpa_ms, "scratch_bytes": scratch})
+        del qkv, codes, qs
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4608,6 +4899,7 @@ def main() -> int:
     rec.note_gemm(i8_gemm_path_timings(dev, card))
     rec.note_ln(ln_timings(dev, card))
     k1_attention_checks(rec, dev, card)
+    k5_9b_checks(rec, dev, card)
 
     # ---- 3a. the detect core
     print("phase 3: paths", flush=True)

@@ -10,7 +10,10 @@ in both layouts, ragged keys, Sq != Skv, heads of 72, bf16 and f32, and
 the gradient through kernel 11), K1, K6, K9, 9b and K10 at heads of 16,
 32, 256 and 384-1280 with planted faults, K1's attention launch alone at
 the detect cores' first layers (so400m's on the 80-wide tile), the int8
-GEMM of int8_gemm_sm90.cu in each mode at the edges of its tiles, the
+GEMM of int8_gemm_sm90.cu in each mode at the edges of its tiles, K5 on
+that GEMM with its LN panel (65536 rows, a ragged M, W = 832 and 1280,
+with planted faults) and 9b's pre-pass and int8 wgmma pass (heads of 64
+and 128, S = 576 / 1024 / 1297, v8t's key order), the
 probes' kernels 15, 16 and 17 (the
 tolerances of tests/test_torch_port_probes.py; 17 by 9b's card rule), both
 serving engines and one MTL train step against the same parameters through
@@ -1071,3 +1074,116 @@ def test_int8_gemm_matches_twin_on_card(shape, mode):
     if mode == 2:
         own = (a * a).sum(-1)
         torch.testing.assert_close(ss, own, atol=0, rtol=1e-4)
+
+
+# K5 on the int8 wgmma GEMM with its LN panel (chip_smoke.py phase 2k): (M,
+# W, N) where blocks walk several row tiles (65536 rows), a ragged M, a
+# 64-deep K tail and the widest panel
+_K5_SHAPES = [(65536, 1152, 6144), (8 * 257, 1152, 6144), (2049, 832, 2304),
+              (1000, 1280, 3840)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _K5_SHAPES)
+def test_k5_matches_twin_on_card(shape):
+    """K5 within atol 5e-2 + rtol 2e-2 of its twin, bit-equal to K8 + the
+    int8 GEMM (kEpiBf16) and to itself over repeated launches, every column
+    written into a pre-filled output; the twin with g dropped, a 128-deep
+    panel slice zero or the act scale ignored, and (where blocks walk
+    several row tiles) each block's later units computed from its first
+    unit's rows, break the rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    m, w, n = shape
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(m + w)
+    r = lambda *s, std=1.0: torch.randn(s, generator=g, device=dev) * std
+    x = (r(m, w) * 3.0 + 0.5).to(torch.bfloat16)
+    ln = {"scale": 1.0 + r(w, std=0.1), "bias": r(w, std=0.1)}
+    wq = {"q": torch.randint(-127, 128, (w, n), generator=g, device=dev,
+                             dtype=torch.int8),
+          "scale": r(n).abs() * 1e-3 + 1e-3}
+    wq["qT"] = quant.transposed(wq)
+    bias, a = r(n, std=0.1), torch.tensor(4.0, device=dev)
+    args = (x, ln, wq, bias, a)
+    pre = torch.full((m, n), 7.0, dtype=torch.bfloat16, device=dev)
+    got = int8_block.ln_qkv_int8(*args, out=pre)
+    ref = int8_block.ln_qkv_reference(*args)
+    two = int8_block.i8_gemm_cuda(layernorm.ln_quant_cuda(x, ln, a, 1e-6),
+                                  wq["qT"], wq["scale"], bias, a, 0)
+
+    def rel(out):
+        return float(((out.float() - ref.float()).abs()
+                      / (5e-2 + 2e-2 * ref.float().abs())).max())
+
+    def from_codes(codes):
+        acc = quant.int8_mm(codes, wq["q"])
+        return (acc.float() * ((a / 127.0) * wq["scale"].float())
+                + bias).to(torch.bfloat16)
+
+    y = layernorm.ln_rows_f32(x, ln["scale"], ln["bias"], 1e-6)
+    hole = quant.quant_rows(y, a)
+    hole[:, w // 256 * 128:w // 256 * 128 + 128] = 0
+    faults = [from_codes(hole), from_codes(quant.quant_rows(
+        y, torch.tensor(1.0, device=dev))),
+        int8_block.ln_qkv_reference(x, {"scale": torch.ones_like(
+            ln["scale"]), "bias": ln["bias"]}, wq, bias, a)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    walk = int8_block.k5_units(m, n, sms)
+    if any(len(blk) > 1 for blk in walk):
+        stale = ref.clone()
+        for blk in walk:
+            r0 = blk[0][0]
+            for rt, c0, c1 in blk[1:]:
+                stale[rt * 128:(rt + 1) * 128, c0 * 128:c1 * 128] = \
+                    ref[r0 * 128:(r0 + 1) * 128, c0 * 128:c1 * 128]
+        faults.append(stale)
+    torch.cuda.synchronize()
+    assert rel(got) <= 1.0
+    assert torch.equal(got, two)
+    assert all(torch.equal(int8_block.ln_qkv_int8(*args), got)
+               for _ in range(2))
+    assert all(rel(f) > 1.0 for f in faults)
+
+
+# 9b's pre-pass and int8 wgmma pass (chip_smoke.py phase 2k): (B, S, heads,
+# head_dim) at heads of 64 and 128 and S = 576, 1024 and a ragged 1297
+_9B_SM90 = [(4, 576, 8, 64), (2, 1024, 8, 128), (2, 1297, 4, 64),
+            (2, 1297, 4, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _9B_SM90)
+def test_9b_wgmma_pass_matches_twin_on_card(case):
+    """The pre-pass's codes bit-equal to `attention_i8_codes_reference`; the
+    output, on q, k, v of std 1.5, with at most 1e-2 of its elements a bf16
+    step from the twin's (9b's card rule), as the wrapper's; the same main
+    pass on v8t in natural key order breaks the rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, s, heads, hd = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(s + hd)
+    qkv = (torch.randn((b, s, 3 * heads * hd), generator=g, device=dev)
+           * 1.5).to(torch.bfloat16)
+    qb, sp = min(256, s), attention.i8_pad(s)
+    codes = attention.i8dyn_prepass(qkv, heads, hd, qb)
+    got = attention.i8dyn_main(codes, b, s, heads, hd, qb, hd ** -0.5)
+    ref = attention.attention_qkv_int8_reference(qkv, heads, hd)
+    pos = torch.tensor([attention.vt_pos(x) for x in range(sp)], device=dev)
+    amax, q8, k8, v8t = codes
+    natural = attention.i8dyn_main((amax, q8, k8, v8t[..., pos].contiguous()),
+                                   b, s, heads, hd, qb, hd ** -0.5)
+    torch.cuda.synchronize()
+
+    def share(out):
+        a_, r_ = out.float(), ref.float()
+        step = torch.exp2(torch.floor(torch.log2(torch.maximum(
+            a_.abs(), r_.abs()).clamp_min(1e-30))) - 7)
+        return float(((a_ - r_).abs() > step).float().mean())
+
+    plain = attention.attention_i8_codes_reference(qkv, heads, hd)
+    assert all(torch.equal(x, y) for x, y in zip(codes, plain))
+    assert torch.equal(attention.attention_qkv_int8(qkv, heads, hd), got)
+    assert share(got) <= 1e-2
+    assert share(natural) > 1e-2

@@ -14,29 +14,49 @@
 //   p8 = round(p * (127 / ap)), not clipped (p <= ap);
 //   o = int32(p8 . v8) * (ap * (av / (127 * 127))), rounded to bf16.
 //
-// Two launches. The amax pass: one block per (head, image) reduces |q|
-// over each query block and |k|, |v| over the sequence into a (B, H,
-// nqb + 2) f32 table (exact: a max does not depend on its order). The
-// main pass: one block per (64-query tile, head, image), four warps of 16
-// rows; qb is 256 or S, so a tile never straddles two query blocks. The
-// tile's q is quantised into shared memory once; the head's K and V are
-// quantised tile by tile (64 keys) into shared memory as they stream in,
-// in two passes over the keys as in attn_tile.cuh: the first for each
-// row's max and sum, the second for p8 and p8 . v8. Both products run on
-// the tensor cores as int8 mma.sync m16n8k32 with exact int32 sums (p8 .
-// v8 at most 127 * 127 * S, under 2^31 for S <= kMaxSeq), each rounded
-// once to f32, as JAX converts its int32 dot (past S = 1040 that
-// rounding can lose bits). The
-// p8 fragment is built in registers from the score accumulators: the
-// product sums over keys, so the keys may go in any order that A and B
-// share, and V is stored transposed with its keys in the order in which
-// a thread holds its scores (`vt_pos`). Bound at the reference route's
-// (8, 1024, 6144): the bytes of qkv and the output. Head_dim 64, 128 or
-// 256 (16 and 32 arrive zero-padded to 64: the padded columns quantise to
-// 0 and add nothing); at 256 one block per 128-column slice of the head's
-// o (its int32 o would be 128 registers a thread beside 32 of q8
-// fragments and 64 of scores and codes), each computing the full
-// 256-deep scores, its V codes 10 KB of the 44 KB of static shared memory.
+// Two launches. The pre-pass (`attention_i8_prepass`): one block per
+// (head, image) reduces |k| and |v| over the sequence and |q| over each
+// query block into a (B, H, nqb + 2) f32 table (exact: a max does not
+// depend on its order) and, at heads of 64 and 128, writes each code once:
+// q8 and k8 as (B, H, S_pad, hd) int8 and v8 transposed, (B, H, hd, S_pad),
+// with each 16 keys in the order in which a thread holds its scores
+// (`vt_pos`), zeros past S (S_pad: S rounded up to 128); each tensor's
+// codes are written right after its amax, while its rows are still in L2.
+// The main pass at heads of 64 and 128 (`attention_i8dyn_sm90`, on
+// sm90.cuh's machinery) is persistent over items of (128 query rows, head,
+// image): two consumer warpgroups of 64 rows and a producer warpgroup
+// (setmaxnreg); q8 arrives by TMA once an item (two buffers, so the next
+// item's lands during this one), k8 and v8t tiles of 64 keys by TMA
+// through an mbarrier ring, in two sweeps over the keys: the first for
+// each row's max and sum, the second for p8 and p8 . v8. qb is 256 or S,
+// so an item never straddles two query blocks. Both products run on the
+// tensor cores as int8 wgmma with exact int32 sums (p8 . v8 at most 127 *
+// 127 * S, under 2^31 for S <= kMaxSeq), each rounded once to f32, as JAX
+// converts its int32 dot (past S = 1040 that rounding can lose bits): q8 .
+// k8 as m64n64k32 with both operands K-major in shared memory (the
+// 128-byte swizzle at hd 128, the 64-byte one at 64), p8 . v8 as
+// m64n{hd}k32 with p8 as register A, built from the score accumulators
+// (a k32 step's fragment is mma.sync m16n8k32's per warp: lane t holds the
+// scores of keys 2t, 2t + 1, 8 + 2t, 9 + 2t of each 16, bytes 4t .. 4t + 3
+// of its row, which is why v8t's keys lie in `vt_pos` order), against v8t
+// K-major along the keys (64-byte rows: the 64-byte swizzle). The softmax
+// runs kernels 11 and 12's instructions (scores that carry log2 e, ex2, p
+// = e r with r = 1 / l by the IEEE division's fast path; sm90.cuh), and
+// ap = r + 1e-20. Keys past S are masked in the first sweep only: in the
+// second their p8 multiplies v8t's zero codes. o leaves as bf16 by TMA
+// stores, rows past S clipped. Bound at the reference route's (8, 1024,
+// 6144): the bytes of qkv and the output. Heads of 16 and 32 arrive
+// zero-padded to 64 (the padded columns quantise to 0 and add nothing).
+//
+// At heads of 256 and of 384 to 1280 the pre-pass fills the amax table
+// only, and the mma.sync kernels below quantise q, k and v themselves: one
+// block per (64-query tile, head, image), four warps of 16 rows, the
+// tile's q quantised into shared memory once and the head's K and V tile
+// by tile (64 keys) as they stream in, both products as int8 mma.sync
+// m16n8k32; at 256 one block per 128-column slice of the head's o (its
+// int32 o would be 128 registers a thread beside 32 of q8 fragments and 64
+// of scores and codes), each computing the full 256-deep scores, its V
+// codes 10 KB of the 44 KB of static shared memory.
 //
 // Kernel 17: the same main pass with static scales, replacing
 // scripts/micro_attn_static.py's `kernel` (`static_variant` -> `build` ->
@@ -49,6 +69,7 @@
 // pl.multiple_of(h * d, 128) slice), so only that width is built. Bound at
 // its (8, 1024, 6144): the bytes of qkv and the output.
 #include "attn_tile.cuh"
+#include "sm90.cuh"
 
 namespace tpudf {
 
@@ -70,43 +91,6 @@ __host__ __device__ constexpr int i8_ld() {
   return HD + 16;
 }
 
-__global__ void __launch_bounds__(256)
-    attention_i8_amax_kernel(const __nv_bfloat16* __restrict__ qkv,
-                             float* __restrict__ amax, int seq, int heads,
-                             int head_dim, int qb) {
-  __shared__ float red[8];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int wa = heads * head_dim, chunks = head_dim / 8;
-  const int nqb = (seq + qb - 1) / qb;
-  const size_t row3 = static_cast<size_t>(3) * wa;
-  const __nv_bfloat16* base =
-      qkv + static_cast<size_t>(b) * seq * row3 + h * head_dim;
-  float* out = amax + (static_cast<size_t>(b) * heads + h) * (nqb + 2);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int seg = 0; seg < nqb + 2; ++seg) {
-    const int col = seg < nqb ? 0 : (seg == nqb ? wa : 2 * wa);
-    const int r0 = seg < nqb ? seg * qb : 0;
-    const int r1 = seg < nqb ? min(seq, r0 + qb) : seq;
-    float m = 0.0f;
-    for (int i = threadIdx.x; i < (r1 - r0) * chunks; i += blockDim.x) {
-      float f[8];
-      load8(base + static_cast<size_t>(r0 + i / chunks) * row3 + col +
-                (i % chunks) * 8,
-            f);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(f[j]));
-    }
-    m = warp_max(m);
-    if (lane == 0) red[warp] = m;
-    __syncthreads();
-    if (warp == 0) {
-      m = warp_max(lane < 8 ? red[lane] : 0.0f);
-      if (lane == 0) out[seg] = __fadd_rn(m, 1e-6f);
-    }
-    __syncthreads();
-  }
-}
-
 // the position of key x (0..63 of a tile) in a transposed V row: keys
 // 2t, 2t + 1, 8 + 2t, 9 + 2t of each 16 go to 4t .. 4t + 3, the bytes lane
 // t's A fragment holds for them
@@ -121,6 +105,599 @@ __device__ __forceinline__ unsigned pack_s8x4(int a, int b, int c, int d) {
          ((static_cast<unsigned>(c) & 0xffu) << 16) |
          ((static_cast<unsigned>(d) & 0xffu) << 24);
 }
+
+// ------------------------------------------------------------- pre-pass
+
+constexpr int kPreThreads = 512;
+constexpr int kI8Rows = 128;            // the main pass's query rows an item
+
+// S rounded up to whole items: the rows of q8 and k8 and the keys of v8t
+__host__ __device__ constexpr int i8_pad(int seq) {
+  return (seq + kI8Rows - 1) / kI8Rows * kI8Rows;
+}
+
+// max |x| over rows r0 .. r1 - 1 of one head's hd = 8 chunks columns at
+// `src` (rows `ld` apart); all threads of the block, each gets it
+__device__ __forceinline__ float block_amax(const __nv_bfloat16* src,
+                                            size_t ld, int r0, int r1,
+                                            int chunks, float* red) {
+  float m = 0.0f;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < (r1 - r0) * chunks; i += blockDim.x) {
+    float f[8];
+    load8(src + static_cast<size_t>(r0 + i / chunks) * ld + (i % chunks) * 8,
+          f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(f[j]));
+  }
+  m = warp_max(m);
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = warp_max(lane < kPreThreads / 32 ? red[lane] : 0.0f);
+  __syncthreads();                      // red may be written again
+  return m;
+}
+
+// rows r0 .. r1 - 1 of one head at `src` (rows `ld` apart) as codes
+// clip(round(x * inv), +-127) into rows of `dst` (hd bytes each), and
+// rows r1 .. r2 - 1 of `dst` as zeros; all threads
+__device__ __forceinline__ void code_rows(int8_t* dst,
+                                          const __nv_bfloat16* src,
+                                          size_t ld, int r0, int r1, int r2,
+                                          int chunks, float inv) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < (r2 - r0) * chunks; i += blockDim.x) {
+    const int r = r0 + i / chunks, c = (i % chunks) * 8;
+    __align__(8) int8_t v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (r < r1) {
+      float f[8];
+      load8(src + static_cast<size_t>(r) * ld + c, f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = quant_i8(f[j], inv);
+    }
+    *reinterpret_cast<uint2*>(dst + static_cast<size_t>(r) * (chunks * 8) +
+                              c) = *reinterpret_cast<const uint2*>(v);
+  }
+}
+
+// the seq rows of one head's v at `src` as codes into v8t (hd rows of sp
+// bytes: the keys), kVtKeys keys at a time through `vt` (hd rows of
+// kVtKeys bytes), key x at (x & ~63) + vt_pos(x & 63); zeros past seq; all
+// threads
+constexpr int kVtKeys = 128;            // sp is a multiple of it
+
+__device__ __forceinline__ void code_vt(int8_t* v8t, const __nv_bfloat16* src,
+                                        size_t ld, int seq, int sp,
+                                        int chunks, float inv, int8_t* vt) {
+  for (int k0 = 0; k0 < sp; k0 += kVtKeys) {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < kVtKeys * chunks; i += blockDim.x) {
+      const int r = i / chunks, c = (i % chunks) * 8;
+      float f[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (k0 + r < seq) load8(src + static_cast<size_t>(k0 + r) * ld + c, f);
+      const int pos = (r & ~(kKeyTile - 1)) + vt_pos(r & (kKeyTile - 1));
+#pragma unroll
+      for (int j = 0; j < 8; ++j) vt[(c + j) * kVtKeys + pos] =
+          quant_i8(f[j], inv);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < chunks * 8 * (kVtKeys / 16);
+         i += blockDim.x) {
+      const int d = i / (kVtKeys / 16), q = (i % (kVtKeys / 16)) * 16;
+      *reinterpret_cast<uint4*>(v8t + static_cast<size_t>(d) * sp + k0 + q) =
+          *reinterpret_cast<const uint4*>(vt + d * kVtKeys + q);
+    }
+    __syncthreads();
+  }
+}
+
+// One block per (segment, head, image), segment z: |k| (z = 0) or |v|
+// (1) over the sequence or |q| over query block z - 2, + 1e-6, into the
+// amax table (the rows of `_one_head`'s scales), and where q8 is not null
+// that segment's codes right after its amax (its rows still in L2): k8
+// and q8 as (B, H, sp, hd), v8t as (B, H, hd, sp) in vt_pos order, zeros
+// past seq.
+__global__ void __launch_bounds__(kPreThreads)
+    attention_i8_prepass(const __nv_bfloat16* __restrict__ qkv,
+                         float* __restrict__ amax, int8_t* __restrict__ q8,
+                         int8_t* __restrict__ k8, int8_t* __restrict__ v8t,
+                         int seq, int heads, int hd, int qb) {
+  __shared__ float red[kPreThreads / 32];
+  __shared__ __align__(16) int8_t vt[128 * kVtKeys];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int wa = heads * hd, chunks = hd / 8, sp = i8_pad(seq);
+  const int nqb = (seq + qb - 1) / qb;
+  const size_t row3 = static_cast<size_t>(3) * wa;
+  const size_t bh = static_cast<size_t>(b) * heads + h;
+  const __nv_bfloat16* base =
+      qkv + static_cast<size_t>(b) * seq * row3 + h * hd;
+  float* am = amax + bh * (nqb + 2);
+  const int seg = blockIdx.z;
+  const int col = seg == 0 ? wa : (seg == 1 ? 2 * wa : 0);
+  const int r0 = seg < 2 ? 0 : (seg - 2) * qb;
+  const int r1 = seg < 2 ? seq : min(seq, r0 + qb);
+  const float a =
+      __fadd_rn(block_amax(base + col, row3, r0, r1, chunks, red), 1e-6f);
+  if (threadIdx.x == 0) am[seg < 2 ? nqb + seg : seg - 2] = a;
+  if (q8 == nullptr) return;
+  const float inv = __fdiv_rn(127.0f, a);
+  if (seg == 1)
+    code_vt(v8t + bh * hd * sp, base + col, row3, seq, sp, chunks, inv, vt);
+  else
+    code_rows((seg == 0 ? k8 : q8) + bh * sp * hd, base + col, row3, r0, r1,
+              r1 == seq ? sp : r1, chunks, inv);
+}
+
+// ---------------------------------------------- main pass (heads 64, 128)
+
+namespace i8dyn {
+using namespace sm90;
+
+constexpr int kStages = 6;
+
+// the main pass's shared memory at head width HK: two q8 buffers of 128
+// rows, o's staging (HK / 64 sub-tiles of 128 rows x 128 bytes), the ring
+// (a stage: a 64-key tile of k8, then one of v8t: HK rows of 64 keys),
+// the barriers (the ring's, and a full and an empty one a q8 buffer)
+template <int HK>
+struct Smem {
+  static constexpr int kQ = kBlockRows * HK;
+  static constexpr int kKv = kTileRows * HK;
+  static constexpr int kO = 2 * kQ;
+  static constexpr int kRing = kO + HK / 64 * kBlockSub;
+  static constexpr int kStage = 2 * kKv;
+  static constexpr int kBars = kRing + kStages * kStage;
+  static constexpr size_t kBytes = kBars + 8 * (2 * kStages + 4) + 1024;
+};
+static_assert(Smem<128>::kBytes <= kMaxBlockSmem, "9b main pass");
+
+// the descriptor of a K-major int8 operand of 64-byte rows in the 64-byte
+// swizzle (layout type 2: 8-row atoms 512 bytes apart), its rows starting
+// at `rows` (a multiple of 8 rows into a 512-byte-aligned tile)
+__device__ __forceinline__ uint64_t desc_k64(const void* rows) {
+  return static_cast<uint64_t>((smem_u32(rows) & 0x3FFFF) >> 4) |
+         (1ull << 16) | (static_cast<uint64_t>(512 >> 4) << 32) |
+         (2ull << 62);
+}
+
+// the K-major descriptor of rows of HK bytes: the 128-byte swizzle at 128,
+// the 64-byte one at 64; k32 step ks starts 32 ks bytes on (+2 ks)
+template <int HK>
+__device__ __forceinline__ uint64_t desc_rows(const void* rows) {
+  if constexpr (HK == 128)
+    return desc_k(rows);
+  else
+    return desc_k64(rows);
+}
+
+// s (64 x 64) int32 = A . B^T (+ s if scale_d): q8 and k8 K-major in
+// shared memory; s's layout as wgmma_ss's (sm90.cuh)
+__device__ __forceinline__ void wgmma_qk(int (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// o (64 x N) int32 += A . B: A (64 x 32) int8 in registers (the k32
+// fragment of mma.sync m16n8k32 per warp), B K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_pv(int (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(int (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(int (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// s = q8 . k8^T over HK for the warpgroup's q8 rows (descriptor `da`) and
+// the 64 keys of the tile at `k`: fenced and issued, not committed
+template <int HK>
+__device__ __forceinline__ void issue_qk(int (&s)[32], uint64_t da,
+                                         const void* k) {
+  const uint64_t a0 = opaque(da), b0 = opaque(desc_rows<HK>(k));
+  fence_regs(s);
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < HK / 32; ++ks)
+    wgmma_qk(s, a0 + 2 * ks, b0 + 2 * ks, ks > 0);
+  fence_regs(s);
+}
+
+// the first sweep on one tile's f32 scores f[4 j + e] (rows e >> 1, in
+// log2 units): each row's max m and sum l = sum 2^(f - m), kept online (l
+// rescaled when m grows), per thread over its keys
+__device__ __forceinline__ void online(const float (&f)[32], float (&m)[2],
+                                       float (&l)[2]) {
+  float tm[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tm[(i >> 1) & 1] = fmaxf(tm[(i >> 1) & 1], f[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tm[r] = quad_max(tm[r]);
+    l[r] = __fmul_rn(l[r], ex2(__fsub_rn(m[r], tm[r])));
+    m[r] = tm[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    l[(i >> 1) & 1] =
+        __fadd_rn(l[(i >> 1) & 1], ex2(__fsub_rn(f[i], m[(i >> 1) & 1])));
+}
+
+// int32 -> f32 exactly for |v| < 2^22 (the scores: |q8 . k8| <= 127^2
+// 128), by the add of 1.5 * 2^23 to the bits and its subtraction as a
+// float: two full-rate instructions in place of a quarter-rate convert
+constexpr float kMagic = 12582912.0f;        // 1.5 * 2^23: 0x4B400000
+
+__device__ __forceinline__ float i2f(int v) {
+  return __fsub_rn(__int_as_float(v + 0x4B400000), kMagic);
+}
+
+// four codes, the first in the low byte (the lowest k): the low byte of
+// each argument
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+// the second sweep's p8 = round(2^(f - m) r * (127 / ap)) of a tile's
+// scores, in place: the round is the add of 1.5 * 2^23 (round to nearest
+// even, as rint), whose low byte is the code for p8 in [0, 127] (keys past
+// seq, unmasked here, may give any byte: v8t's codes there are zero)
+__device__ __forceinline__ void p8_codes(int (&s)[32], float fac2,
+                                         const float (&m)[2],
+                                         const float (&rl)[2],
+                                         const float (&inv_ap)[2]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    const float e = ex2(__fsub_rn(__fmul_rn(i2f(s[i]), fac2), m[r]));
+    s[i] = __float_as_int(
+        __fadd_rn(__fmul_rn(__fmul_rn(e, rl[r]), inv_ap[r]), kMagic));
+  }
+}
+
+// the codes of a tile as the register A fragments of its two k32 steps
+// (keys 0-31, 32-63): lane t's bytes 4t .. 4t + 3 of a row are its codes
+// of keys 2t, 2t + 1, 8 + 2t, 9 + 2t of each 16
+__device__ __forceinline__ void p8_frags(uint32_t (&a)[2][4],
+                                         const int (&p8)[32]) {
+#pragma unroll
+  for (int kc = 0; kc < 2; ++kc) {
+    const int j = 16 * kc;
+    a[kc][0] = pack4(p8[j], p8[j + 1], p8[j + 4], p8[j + 5]);
+    a[kc][1] = pack4(p8[j + 2], p8[j + 3], p8[j + 6], p8[j + 7]);
+    a[kc][2] = pack4(p8[j + 8], p8[j + 9], p8[j + 12], p8[j + 13]);
+    a[kc][3] = pack4(p8[j + 10], p8[j + 11], p8[j + 14], p8[j + 15]);
+  }
+}
+
+template <int HK>
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_i8dyn_sm90(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap o_map,
+                         const float* __restrict__ amax, int seq, int heads,
+                         int batch, int qb, float scale) {
+  using L = Smem<HK>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  const Ring<kStages> ring{bars, bars + kStages};
+  uint64_t* q_full = bars + 2 * kStages;       // one a q8 buffer
+  uint64_t* q_empty = q_full + 2;
+  auto stage = [&](int r) {
+    return smem + L::kRing + ring.stage(r) * L::kStage;
+  };
+  const int sp = i8_pad(seq), n_qi = sp / kBlockRows;
+  const int items = n_qi * heads * batch;
+  const int ntiles = (seq + kTileRows - 1) / kTileRows;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&ring.full[i], 1);
+      mbar_init(&ring.empty[i], kWarpgroups * 128);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], kWarpgroups * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWarpgroups * 128) {
+    // ---- producer: one lane issues every load; item i's q8 into buffer
+    // i % 2 once item i - 2 has released it, then the k8 tiles of the
+    // first sweep and the k8 and v8t tiles of the second
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x != kWarpgroups * 128) return;
+    int r = 0, it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+      const int bh = item / n_qi, q0 = item % n_qi * kBlockRows;
+      const int buf = it & 1;
+      unsigned char* qs = smem + buf * L::kQ;
+      if (it >= 2) mbar_wait(&q_empty[buf], ((it >> 1) - 1) & 1);
+      mbar_expect_tx(&q_full[buf], L::kQ);
+      tma_load_3d(qs, &q_map, &q_full[buf], 0, bh * sp + q0, 0);
+      tma_load_3d(qs + L::kKv, &q_map, &q_full[buf], 0,
+                  bh * sp + q0 + kTileRows, 0);
+      for (int pass = 0; pass < 2; ++pass)
+        for (int kt = 0; kt < ntiles; ++kt, ++r) {
+          uint64_t* full =
+              ring.producer_acquire(r, pass ? L::kStage : L::kKv);
+          unsigned char* st = stage(r);
+          tma_load_3d(st, &k_map, full, 0, bh * sp + kt * kTileRows, 0);
+          if (pass)
+            tma_load_3d(st + L::kKv, &v_map, full, kt * kTileRows, bh * HK,
+                        0);
+        }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows of each item
+  reg_alloc<kConsumerRegs>();
+  const Consumer c = consumer();
+  const int nqb = (seq + qb - 1) / qb;
+  const float neg_inf = __int_as_float(0xff800000);
+  const float r127sq = rcp_refined(16129.0f);
+  int r = 0, it = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+    const int bh = item / n_qi, q0 = item % n_qi * kBlockRows;
+    const int buf = it & 1;
+    // the scales of `_one_head`: aq of the item's query block, ak, av
+    const float* am = amax + static_cast<size_t>(bh) * (nqb + 2);
+    const float aq = am[q0 / qb], ak = am[nqb], av = am[nqb + 1];
+    const float fac2 = __fmul_rn(
+        __fmul_rn(div_rn(__fmul_rn(aq, ak), 16129.0f, r127sq), scale),
+        kLog2e);
+    const float cv = div_rn(av, 16129.0f, r127sq);
+    mbar_wait(&q_full[buf], (it >> 1) & 1);
+    const uint64_t da = desc_rows<HK>(smem + buf * L::kQ + c.wg * L::kKv);
+    float m[2] = {neg_inf, neg_inf}, l[2] = {0.0f, 0.0f};
+    int s[32];
+
+    // ---- sweep 1: each row's max and sum, keys past seq masked; tile kt
+    // + 1's scores are issued before tile kt's are reduced (two tiles a
+    // round, into s and s1 in turn)
+    int s1[32];
+    auto reduce = [&](int kt, const int (&sc)[32]) {
+      float f[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) f[i] = __fmul_rn(i2f(sc[i]), fac2);
+      if ((kt + 1) * kTileRows > seq) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (kt * kTileRows + 8 * (i >> 2) + 2 * c.t + (i & 1) >= seq)
+            f[i] = neg_inf;
+      }
+      online(f, m, l);
+    };
+    ring.consumer_wait(r);
+    issue_qk<HK>(s, da, stage(r));
+    wg_commit();
+    for (int kt = 0; kt < ntiles; kt += 2, r += 2) {
+      if (kt + 1 < ntiles) {
+        ring.consumer_wait(r + 1);
+        issue_qk<HK>(s1, da, stage(r + 1));
+        wg_commit();
+        wg_wait<1>();
+      } else {
+        wg_wait<0>();
+      }
+      fence_regs(s);
+      ring.release(r);
+      reduce(kt, s);
+      if (kt + 1 >= ntiles) {
+        ++r;                            // one tile this round
+        break;
+      }
+      if (kt + 2 < ntiles) {
+        ring.consumer_wait(r + 2);
+        issue_qk<HK>(s, da, stage(r + 2));
+        wg_commit();
+        wg_wait<1>();
+      } else {
+        wg_wait<0>();
+      }
+      fence_regs(s1);
+      ring.release(r + 1);
+      reduce(kt + 1, s1);
+    }
+    float rl[2], inv_ap[2], osc[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float sum = quad_sum(l[rr]);
+      rl[rr] = div_rn(1.0f, sum, rcp_refined(sum));
+      const float ap = __fadd_rn(rl[rr], 1e-20f);     // max p + 1e-20
+      inv_ap[rr] = div_rn(127.0f, ap, rcp_refined(ap));
+      osc[rr] = __fmul_rn(ap, cv);
+    }
+
+    // ---- sweep 2: p8, o += p8 . v8 (int32); tile kt's p8 is formed
+    // while tile kt - 1's product runs (K9's order)
+    int o[HK / 2];
+#pragma unroll
+    for (int i = 0; i < HK / 2; ++i) o[i] = 0;
+    fence_regs(o);                      // zeroed before any product issues
+    uint32_t a[2][4];
+    auto issue_pv = [&](int t) {
+      const uint64_t dv = desc_k64(stage(t) + L::kKv);
+      fence_regs(o);
+      fence_regs(a);
+      wg_fence();
+      wgmma_pv<HK>(o, a[0], dv);
+      wgmma_pv<HK>(o, a[1], dv + 2);
+      fence_regs(o);
+      fence_regs(a);
+    };
+    ring.consumer_wait(r);
+    issue_qk<HK>(s, da, stage(r));
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+    p8_codes(s, fac2, m, rl, inv_ap);
+    p8_frags(a, s);
+    for (int kt = 1; kt < ntiles; ++kt) {
+      ring.consumer_wait(r + kt);
+      issue_qk<HK>(s, da, stage(r + kt));
+      wg_commit();
+      issue_pv(r + kt - 1);
+      wg_commit();
+      wg_wait<1>();                     // tile kt's scores; kt - 1's p . v
+      fence_regs(s);
+      p8_codes(s, fac2, m, rl, inv_ap);
+      wg_wait<0>();
+      fence_regs(o);
+      fence_regs(a);
+      ring.release(r + kt - 1);
+      p8_frags(a, s);
+    }
+    issue_pv(r + ntiles - 1);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
+    ring.release(r + ntiles - 1);
+    r += ntiles;
+    mbar_arrive(&q_empty[buf]);
+
+    // ---- o = int32 sums * (ap * av / 127^2), bf16, by TMA (rows past
+    // seq clipped)
+    const int row0 = q0 + 64 * c.wg;
+    if (row0 >= seq) continue;
+    float of[HK / 2];
+#pragma unroll
+    for (int i = 0; i < HK / 2; ++i)
+      of[i] = __fmul_rn(static_cast<float>(o[i]), osc[(i >> 1) & 1]);
+    store_tile_4d<HK>(of, smem + L::kO + c.wg * 64 * 128, &o_map, row0,
+                      bh % heads, bh / heads, c);
+  }
+  if ((threadIdx.x & 127) == 0) tma_store_wait();
+}
+
+// an int8 tensor of `rows` rows of `cols` bytes, row-major, cut in boxes
+// of box_cols x box_rows in the swizzle `sw`, zeros past the extents
+inline bool map_i8(CUtensorMap* m, const void* base, uint64_t cols,
+                   uint64_t rows, uint32_t box_cols, uint32_t box_rows,
+                   CUtensorMapSwizzle sw) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 ||
+      cols % 16 != 0)
+    return false;
+  const cuuint64_t dims[3] = {cols, rows, 1};
+  const cuuint64_t strides[2] = {cols, cols * rows};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HK>
+int launch(const void* q8, const void* k8, const void* v8t,
+           const void* amax, void* out, int batch, int seq, int heads,
+           int qb, float scale, cudaStream_t s) {
+  using L = Smem<HK>;
+  const uint64_t sp = i8_pad(seq);
+  const uint64_t rows = static_cast<uint64_t>(batch) * heads * sp;
+  const CUtensorMapSwizzle sw =
+      HK == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap q_map, k_map, v_map, o_map;
+  if (!map_i8(&q_map, q8, HK, rows, HK, kTileRows, sw) ||
+      !map_i8(&k_map, k8, HK, rows, HK, kTileRows, sw) ||
+      !map_i8(&v_map, v8t, sp, static_cast<uint64_t>(batch) * heads * HK,
+              kTileRows, HK, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !map_bf16_4d(&o_map, out, HK, seq, heads, batch,
+                   static_cast<uint64_t>(heads) * HK, HK,
+                   static_cast<uint64_t>(seq) * heads * HK, kTileRows))
+    return cudaErrorInvalidValue;
+  static const cudaError_t attr =
+      registers_suffice(attention_i8dyn_sm90<HK>)
+          ? cudaFuncSetAttribute(attention_i8dyn_sm90<HK>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(L::kBytes))
+          : cudaErrorInvalidDeviceFunction;
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long items = static_cast<long long>(sp / kBlockRows) * heads *
+                          batch;
+  const int grid = static_cast<int>(items < sm_count() ? items : sm_count());
+  attention_i8dyn_sm90<HK><<<grid, kThreads, L::kBytes, s>>>(
+      q_map, k_map, v_map, o_map, static_cast<const float*>(amax), seq,
+      heads, batch, qb, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace i8dyn
 
 // rows r0 .. r0 + n - 1 (zero past seq) of one head's HD columns at `src`
 // (rows `ld` apart) as int8 codes clip(round(x * inv), +-127): row-major
@@ -500,6 +1077,18 @@ __global__ void __launch_bounds__(kI8Warps * 32)
   }
 }
 
+// the pre-pass: the amax table, and where q8 is not null the codes
+int launch_prepass(const void* qkv, void* amax, void* q8, void* k8,
+                   void* v8t, int batch, int seq, int heads, int hd, int qb,
+                   cudaStream_t s) {
+  const int nqb = (seq + qb - 1) / qb;
+  attention_i8_prepass<<<dim3(heads, batch, nqb + 2), kPreThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<float*>(amax),
+      static_cast<int8_t*>(q8), static_cast<int8_t*>(k8),
+      static_cast<int8_t*>(v8t), seq, heads, hd, qb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_attention_i8_wide(const void* qkv, void* amax, void* out,
                              int batch, int seq, int heads, int hd, int qb,
                              float scale, cudaStream_t s) {
@@ -510,10 +1099,8 @@ int launch_attention_i8_wide(const void* qkv, void* amax, void* out,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (static_cast<long long>(heads) * (hd / kI8WideSlice) > 65535)
     return cudaErrorInvalidValue;
-  attention_i8_amax_kernel<<<dim3(heads, batch), 256, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<float*>(amax), seq,
-      heads, hd, qb);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = static_cast<cudaError_t>(launch_prepass(
+      qkv, amax, nullptr, nullptr, nullptr, batch, seq, heads, hd, qb, s));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq + kI8QTile - 1) / kI8QTile,
                   heads * (hd / kI8WideSlice), batch);
@@ -528,10 +1115,8 @@ template <int HD>
 int launch_attention_i8(const void* qkv, void* amax, void* out, int batch,
                         int seq, int heads, int qb, float scale,
                         cudaStream_t s) {
-  attention_i8_amax_kernel<<<dim3(heads, batch), 256, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<float*>(amax), seq,
-      heads, HD, qb);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = static_cast<cudaError_t>(launch_prepass(
+      qkv, amax, nullptr, nullptr, nullptr, batch, seq, heads, HD, qb, s));
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int HV = HD > 128 ? 128 : HD;
   if (static_cast<long long>(heads) * (HD / HV) > 65535)
@@ -544,29 +1129,74 @@ int launch_attention_i8(const void* qkv, void* amax, void* out, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
+// whether 9b's wgmma pass takes (batch, seq, heads) with query blocks of
+// qb rows (= seq, or a multiple of its 128-row items) at head_dim 64 or
+// 128: its TMA row coordinates (batch * heads * S_pad rows) are ints
+inline bool i8dyn_sm90_ok(int batch, int seq, int heads, int head_dim,
+                          int qb) {
+  return attention_seq_ok(batch, seq) && qb > 0 &&
+         (qb >= seq || qb % kI8Rows == 0) &&
+         (head_dim == 64 || head_dim == 128) && heads > 0 &&
+         static_cast<long long>(batch) * heads * i8_pad(seq) <=
+             2147483647ll;
+}
+
 }  // namespace tpudf
 
-// 9b: qkv (B, S, 3 * heads * head_dim) bf16 -> out (B, S, heads *
-// head_dim) bf16; amax: (B, heads, ceil(S / qb) + 2) f32 scratch; qb =
-// min(256, S), so that the 64-row query tiles never straddle a block;
-// head_dim 64, 128 or 256 (16 and 32 arrive zero-padded to 64) or a wide
-// one (384 .. 1280, the multiples of 128), S <= kMaxSeq
+// 9b's pre-pass: qkv (B, S, 3 * heads * head_dim) bf16 -> amax (B, heads,
+// ceil(S / qb) + 2) f32, and where q8 is not null (head_dim 64 or 128)
+// the codes: q8 and k8 (B, heads, S_pad, head_dim) int8, v8t (B, heads,
+// head_dim, S_pad) int8, S_pad = S rounded up to 128, zeros past S
+TPUDF_API int tpudf_attention_i8_prepass(const void* qkv, void* amax,
+                                         void* q8, void* k8, void* v8t,
+                                         int batch, int seq, int heads,
+                                         int head_dim, int qb, void* stream) {
+  using namespace tpudf;
+  if (batch <= 0 || seq <= 0) return 0;
+  if (heads <= 0 || head_dim <= 0 || head_dim % 8 != 0 || batch > 65535 ||
+      (q8 != nullptr && !i8dyn_sm90_ok(batch, seq, heads, head_dim, qb)) ||
+      (q8 == nullptr &&
+       (!attention_seq_ok(batch, seq) || qb <= 0 ||
+        (qb < seq && qb % kI8QTile != 0))))
+    return cudaErrorInvalidValue;
+  return launch_prepass(qkv, amax, q8, k8, v8t, batch, seq, heads, head_dim,
+                        qb, static_cast<cudaStream_t>(stream));
+}
+
+// 9b's main pass at head_dim 64 and 128: the pre-pass's codes and amax
+// table -> out (B, S, heads * head_dim) bf16
+TPUDF_API int tpudf_attention_i8dyn_sm90(const void* q8, const void* k8,
+                                         const void* v8t, const void* amax,
+                                         void* out, int batch, int seq,
+                                         int heads, int head_dim, int qb,
+                                         float scale, void* stream) {
+  using namespace tpudf;
+  if (batch <= 0 || seq <= 0) return 0;
+  if (!i8dyn_sm90_ok(batch, seq, heads, head_dim, qb))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64)
+    return i8dyn::launch<64>(q8, k8, v8t, amax, out, batch, seq, heads, qb,
+                             scale, s);
+  return i8dyn::launch<128>(q8, k8, v8t, amax, out, batch, seq, heads, qb,
+                            scale, s);
+}
+
+// 9b at heads of 256 and the wide ones (384 .. 1280, the multiples of 128):
+// qkv (B, S, 3 * heads * head_dim) bf16 -> out (B, S, heads * head_dim)
+// bf16, the pre-pass (amax only) then the mma.sync kernel; amax: (B,
+// heads, ceil(S / qb) + 2) f32 scratch; qb = min(256, S), so that the
+// 64-row query tiles never straddle a block; S <= kMaxSeq
 TPUDF_API int tpudf_attention_i8dyn(const void* qkv, void* amax, void* out,
                                     int batch, int seq, int heads,
                                     int head_dim, int qb, float scale,
                                     void* stream) {
   using namespace tpudf;
   if (batch <= 0 || seq <= 0) return 0;
-  if (!attention_seq_ok(batch, seq) || qb <= 0 ||
+  if (!attention_seq_ok(batch, seq) || qb <= 0 || batch > 65535 ||
       (qb < seq && qb % kI8QTile != 0))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64)
-    return launch_attention_i8<64>(qkv, amax, out, batch, seq, heads, qb,
-                                   scale, s);
-  if (head_dim == 128)
-    return launch_attention_i8<128>(qkv, amax, out, batch, seq, heads, qb,
-                                    scale, s);
   if (head_dim == 256)
     return launch_attention_i8<256>(qkv, amax, out, batch, seq, heads, qb,
                                     scale, s);

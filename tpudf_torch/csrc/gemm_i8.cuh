@@ -1,8 +1,8 @@
 // Device pieces of the int8 x int8 -> int32 GEMM tile on mma.sync, shared
-// by K5's LN-prologue GEMM (int8_gemm.cu), K6's out-projection
-// (attention.cu), K7's four phases (layer_int8.cu) and the quantising probe
-// GEMM (probe_gemm.cu). The plain int8 GEMM is int8_gemm_sm90.cu (wgmma and
-// TMA), which shares the epilogue modes below (kEpiI32 only there).
+// by K6's out-projection (attention.cu), K7's four phases (layer_int8.cu,
+// its LN-prologue tiles `ln_gemm_tile`) and the quantising probe GEMM
+// (probe_gemm.cu). The plain int8 GEMM and K5 are int8_gemm_sm90.cu (wgmma
+// and TMA), which shares the epilogue modes below (kEpiI32 only there).
 //
 // A tile is 128 x 128 outputs for 256 threads: 8 warps, 2 (M, 64 rows) x
 // 4 (N, 32 columns), mma.sync m16n8k32 s8 with exact int32 accumulators;

@@ -12,7 +12,7 @@
 // (cudaLaunchCooperativeKernel, at most the co-resident blocks, sized by
 // the occupancy query) walks four phases with a grid-wide barrier between
 // them, each phase a grid-stride loop over its tiles:
-//   1. K5's tile: LN1 + quant in the prologue + QKV -> bf16 qkv workspace
+//   1. gemm_i8.cuh's LN-prologue tile: LN1 + quant + QKV -> bf16 qkv
 //   2. K6's tile: attention + quant + out-proj + bias + residual -> the
 //      f32 x1 workspace (the order of the TPU kernel's adds)
 //   3. LN2 over the f32 rows of x1 + quant in the prologue + fc1 + GELU +

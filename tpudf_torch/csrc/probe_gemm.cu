@@ -22,8 +22,9 @@
 // point. Per output element the f32 arithmetic is rounded op by op in the
 // TPU kernels' order (the probe's (acc * c) * s, but c * s first in 16's).
 //
-// Design: K5's (int8_gemm.cu). Each 128 x 128 output tile first loads its
-// 128 rows of bf16 x, quantises them into an int8 panel in shared memory
+// Design: gemm_i8.cuh's panel tile (K7's `ln_gemm_tile`). Each 128 x 128
+// output tile first loads its 128 rows of bf16 x, quantises them into an
+// int8 panel in shared memory
 // (K + 16 bytes a row: 120 KB with the weight stages at K = 768, one block
 // an SM), with the first weight stage already in flight, then streams the
 // weight (N, K) through two cp.async stages (mma_panel): the int8 x never

@@ -46,8 +46,11 @@ SIGNATURES = {
     "tpudf_bf16_gemm": "pppppiiiip",
     "tpudf_srm_moments": "pppiiip",
     "tpudf_ln_qkv_i8": "ppppppppiiifp",
+    "tpudf_ln_qkv_splits": "ii",
     "tpudf_attn_out_i8": "pppppppiiiiifp",
     "tpudf_attention_i8dyn": "pppiiiiifp",
+    "tpudf_attention_i8_prepass": "pppppiiiiip",
+    "tpudf_attention_i8dyn_sm90": "pppppiiiiifp",
     "tpudf_layer_i8": "p" * 22 + "iiiiiffp",
     "tpudf_attention_plain_f32": "pppp" + "i" * 11 + "fp",
     "tpudf_attention_plain_sm90": "pppp" + "i" * 11 + "fp",

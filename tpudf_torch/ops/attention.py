@@ -72,12 +72,18 @@ rows (the Pallas grid's block, the q axis zero-padded), k and v with their
 amax over all S rows, clipped to ±127; int8 QKᵀ with int32 sums scaled by
 (aq·ak)/127² · scale; an exact f32 softmax; p quantised per row with ap =
 max p + 1e-20, not clipped; int8 p·v scaled by ap·av/127²; bf16 out. Its
-CUDA kernel is `csrc/attention_i8.cu` (an amax pass, then the two-pass
-tile with int8 mma.sync; at the wide heads the q and k codes sit in
-dynamic shared memory and o runs in 128-column slices); HEAD_DIMS, S up
-to MAX_SEQ (its int32 sums of p8 · v8 reach 127² S, under 2^31 up to S =
-133,144).
-`attention_qkv_int8_reference` is its twin, written from `_one_head`.
+CUDA kernels are `csrc/attention_i8.cu`: a pre-pass (`i8dyn_prepass`)
+fills the amax table and, at heads of 64 and 128 (I8_SM90_HEAD_DIMS; 32
+and fewer zero-padded to 64), writes every code once (q8, k8 and v8
+transposed with its keys in `vt_pos` order, zeros past S); the main pass
+(`i8dyn_main`) runs both products on int8 wgmma with the codes arriving by
+TMA. Heads of 256 and 384-1280 keep the two-pass tile on int8 mma.sync,
+which quantises its own tiles from qkv (at the wide heads the q and k
+codes sit in dynamic shared memory and o runs in 128-column slices);
+HEAD_DIMS, S up to MAX_SEQ (its int32 sums of p8 · v8 reach 127² S, under
+2^31 up to S = 133,144). `attention_qkv_int8_reference` is its twin,
+written from `_one_head`; `attention_i8_codes_reference` is the pre-pass's
+plain version.
 
 `attention_qkv_vjp` is the tower's attention: one autograd Function whose
 forward is K9 and whose backward is K10 (or their twins), saving only qkv
@@ -138,6 +144,8 @@ KERNEL_BWD_TWIN = "attention_qkv_bwd_twin_vjp"  # JAX's XLA-recompute route
 BWD_HEAD_DIMS = HEAD_DIMS   # K10
 BWD_FIT_BYTES = 12 * 1024 * 1024   # JAX's VMEM fit for the Pallas backward
 INT8_Q_BLOCK = 256          # JAX's q_block: 9b's aq is taken per block
+I8_SM90_HEAD_DIMS = (64, 128)   # 9b's wgmma pass (csrc/attention_i8.cu)
+I8_ROWS = 128               # its query rows an item: S_pad's multiple
 KERNEL_PLAIN = "attention"  # kernel 11, (B, H, S, D)
 KERNEL_BSHD = "attention_bshd"   # kernel 12, (B, S, H, D)
 PLAIN_HEAD_DIMS = (64, 72, 128)  # kernels 11 and 12 in bf16
@@ -342,19 +350,103 @@ def attention_qkv_int8_reference(qkv, heads, head_dim, scale=None, *,
     return o.transpose(1, 2).reshape(b, s, w).to(qkv.dtype)
 
 
+def vt_pos(x):
+    """Where key x of a 64-key tile lies in a row of 9b's transposed v
+    codes (csrc/attention_i8.cu `vt_pos`): keys 2t, 2t + 1, 8 + 2t, 9 + 2t
+    of each 16 at 4t .. 4t + 3, the bytes lane t's A fragment holds."""
+    y = x & 15
+    return (x & ~15) + 4 * ((y & 7) >> 1) + 2 * (y >> 3) + (y & 1)
+
+
+def i8_pad(s):
+    """9b's S_pad: S rounded up to whole 128-row items."""
+    return -(-s // I8_ROWS) * I8_ROWS
+
+
+def attention_i8_codes_reference(qkv, heads, head_dim,
+                                 q_block=INT8_Q_BLOCK):
+    """Plain version of 9b's pre-pass on any device: (B, S, 3 heads
+    head_dim) → (amax (B, heads, nqb + 2) f32: |q| + 1e-6 per query block,
+    then |k| and |v| over S; q8, k8 (B, heads, S_pad, head_dim) int8; v8t
+    (B, heads, head_dim, S_pad) int8 with key x at `vt_pos(x)`), zeros past
+    S, the codes clip(round(t · (127 / a)), ±127) of `_one_head`."""
+    b, s, w3 = qkv.shape
+    w = w3 // 3
+    qb = min(q_block, s)
+    sp = i8_pad(s)
+    t = qkv.float().reshape(b, s, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
+    q, k, v = t[0], t[1], t[2]                     # (B, H, S, d)
+    nqb = -(-s // qb)
+    qblk = torch.nn.functional.pad(q, (0, 0, 0, nqb * qb - s)).reshape(
+        b, heads, nqb, qb, head_dim)
+    aq = torch.amax(qblk.abs(), dim=(-2, -1)) + 1e-6        # (B, H, nqb)
+    ak = torch.amax(k.abs(), dim=(-2, -1)) + 1e-6
+    av = torch.amax(v.abs(), dim=(-2, -1)) + 1e-6
+    amax = torch.cat([aq, ak[..., None], av[..., None]], -1)
+
+    def codes(t_, a):
+        # 127 / a by the IEEE division (the kernel's and JAX's; 127.0 / a
+        # would be torch's reciprocal times 127, one rounding more)
+        c = torch.clamp(torch.round(t_ * torch.div(a.new_tensor(127.0), a)),
+                        -127, 127)
+        return torch.nn.functional.pad(c, (0, 0, 0, sp - s)).to(torch.int8)
+
+    q8 = codes(q, torch.repeat_interleave(aq, qb, -1)[..., :s, None])
+    k8 = codes(k, ak[..., None, None])
+    v8 = codes(v, av[..., None, None])
+    pos = torch.tensor([vt_pos(x) for x in range(sp)], device=qkv.device)
+    v8t = torch.empty_like(v8.transpose(-1, -2))
+    v8t[..., pos] = v8.transpose(-1, -2)
+    return amax.contiguous(), q8.contiguous(), k8.contiguous(), v8t
+
+
+def i8dyn_prepass(qkv, heads, hk, qb):
+    """9b's pre-pass launch at a head width of I8_SM90_HEAD_DIMS: qkv (B,
+    S, 3 heads hk) bf16 → (amax, q8, k8, v8t) as
+    `attention_i8_codes_reference` gives them (torch.empty scratch, 3 B
+    heads hk S_pad bytes of codes)."""
+    b, s, _ = qkv.shape
+    sp = i8_pad(s)
+    dev = qkv.device
+    amax = torch.empty((b, heads, -(-s // qb) + 2), dtype=torch.float32,
+                       device=dev)
+    q8 = torch.empty((b, heads, sp, hk), dtype=torch.int8, device=dev)
+    k8 = torch.empty_like(q8)
+    v8t = torch.empty((b, heads, hk, sp), dtype=torch.int8, device=dev)
+    _build.call("tpudf_attention_i8_prepass", qkv, amax, q8, k8, v8t, b, s,
+                heads, hk, qb)
+    return amax, q8, k8, v8t
+
+
+def i8dyn_main(codes, b, s, heads, hk, qb, scale):
+    """9b's main pass launch (int8 wgmma) on the pre-pass's (amax, q8, k8,
+    v8t) → (B, S, heads hk) bf16."""
+    amax, q8, k8, v8t = codes
+    out = torch.empty((b, s, heads * hk), dtype=torch.bfloat16,
+                      device=q8.device)
+    _build.call("tpudf_attention_i8dyn_sm90", q8, k8, v8t, amax, out, b, s,
+                heads, hk, qb, float(scale))
+    return out
+
+
 def _attention_qkv_int8_cuda(qkv, heads, head_dim, scale):
     check_attention_shape("9b", qkv, heads, head_dim)
     b, s, _ = qkv.shape
     hk = kernel_head_dim(head_dim)
     if hk != head_dim:          # zero columns: amax and the codes unchanged
         qkv = pad_heads(qkv, heads, head_dim, hk)
+    qkv = qkv.contiguous()
     qb = min(INT8_Q_BLOCK, s)
-    amax = torch.empty((b, heads, -(-s // qb) + 2), dtype=torch.float32,
-                       device=qkv.device)
-    out = torch.empty((b, s, heads * hk), dtype=torch.bfloat16,
-                      device=qkv.device)
-    _build.call("tpudf_attention_i8dyn", qkv.contiguous(), amax, out, b, s,
-                heads, hk, qb, float(scale))
+    if hk in I8_SM90_HEAD_DIMS:
+        out = i8dyn_main(i8dyn_prepass(qkv, heads, hk, qb), b, s, heads, hk,
+                         qb, scale)
+    else:
+        amax = torch.empty((b, heads, -(-s // qb) + 2), dtype=torch.float32,
+                           device=qkv.device)
+        out = torch.empty((b, s, heads * hk), dtype=torch.bfloat16,
+                          device=qkv.device)
+        _build.call("tpudf_attention_i8dyn", qkv, amax, out, b, s, heads, hk,
+                    qb, float(scale))
     LAUNCHES.hit(KERNEL_INT8)
     return out if hk == head_dim else unpad_heads(out, heads, head_dim, hk)
 

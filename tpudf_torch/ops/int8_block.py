@@ -23,9 +23,14 @@ columns 80-127 are 0. Its twin is `ln_qkv_reference` then
 `attn_out_reference`, the JAX package's reference forms.
 
 K5 (`ln_qkv_int8`, replacing `_ln_qkv_kernel`): x → LN → quant → int8 QKV
-→ dequant + bias, ONE launch (`csrc/int8_gemm.cu`): each block quantises
-its rows' LN into shared memory in the GEMM's prologue, so the int8 LN
-output never reaches device memory. Twin: `ln_qkv_reference`.
+→ dequant + bias, ONE launch: the int8 GEMM's persistent wgmma kernel
+(`csrc/int8_gemm_sm90.cu`) with its A operand from an LN panel. A block
+normalises and quantises a row tile's 128 rows into shared memory once,
+in the layout wgmma reads, then walks a run of that row tile's 128-wide
+column tiles with only the weight streaming through its TMA ring; each
+row tile's columns are split in `k5_splits` runs so that the B = 8 cores'
+few row tiles fill the card (`k5_units`: the walk). The int8 LN output
+never reaches device memory. Twin: `ln_qkv_reference`.
 
 K6 (`attn_out_int8`, replacing `_attn_out_kernel`): qkv + residual x →
 attention → int8 quant of the f32 output → int8 out-proj → dequant + bias
@@ -48,8 +53,9 @@ The routing predicates are JAX's own decisions from shapes, copied:
 JAX's 13 MB VMEM fit).
 
 K7 (`siglip_layer_int8`, replacing `_layer_kernel`): the whole layer in
-ONE cooperative launch (`csrc/layer_int8.cu`): K5's, K6's and K2's tiles
-in four grid-synchronised phases; the attention sublayer's residual stays
+ONE cooperative launch (`csrc/layer_int8.cu`): the LN-prologue GEMM tile
+of `gemm_i8.cuh`, K6's and K2's tiles in four grid-synchronised phases;
+the attention sublayer's residual stays
 f32 into LN2 and the final add. JAX has no reference form of it (off a TPU
 it returns None); the twin `siglip_layer_int8_reference` is written from
 `_layer_kernel`'s math.
@@ -364,11 +370,50 @@ def attn_sublayer_int8(x, ln_params, qkv_wq, qkv_b, out_wq, out_b,
 
 # ------------------------------------------------------------------ K5
 
-def ln_qkv_int8(x, ln_params, wq, bias, act_scale, eps=1e-6):
+K5_TILE = 128           # csrc/int8_gemm_sm90.cu: kQM rows, kLnBN columns
+K5_LN_COST = 3          # kLnCost: a panel's LN in column tiles' worth
+H100_SMS = 132          # the persistent grid's blocks at most
+
+
+def k5_splits(m, n, sms=H100_SMS):
+    """The runs K5 cuts each row tile's n / 128 column tiles in
+    (`ln_splits`): the s that minimises the waves of units (row tiles × s
+    over `sms`) times a unit's work, its column tiles and K5_LN_COST for
+    its panel; the smallest such s."""
+    rows, tiles = -(-m // K5_TILE), n // K5_TILE
+    best, best_cost = 1, None
+    for s in range(1, tiles + 1):
+        cost = -(-rows * s // sms) * (-(-tiles // s) + K5_LN_COST)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def k5_units(m, n, sms=H100_SMS):
+    """K5's persistent walk: per block, its units in order as (row tile,
+    first column tile, end column tile); block b takes units b, b + grid,
+    ... of row tile u // s and run u % s (s = `k5_splits`), and builds its
+    panel at each."""
+    s, tiles = k5_splits(m, n, sms), n // K5_TILE
+    units = -(-m // K5_TILE) * s
+    grid = min(units, sms)
+    return [[(u // s, (u % s) * tiles // s, (u % s + 1) * tiles // s)
+             for u in range(b, units, grid)] for b in range(grid)]
+
+
+def k5_stages(w):
+    """K5's weight stages at width w (`ln_stages`): what 227 KB holds
+    beside the panel (ceil(w / 128) slices of 16 KB), the barriers and the
+    alignment, at most 8."""
+    room = 232448 - -(-w // 128) * 16384 - 1024 - 8 * 2
+    return min(8, room // (128 * 128 + 16))
+
+
+def ln_qkv_int8(x, ln_params, wq, bias, act_scale, eps=1e-6, *, out=None):
     """(..., W) → (..., N): fused LN + static quant + int8 QKV projection.
     wq: {q: (W, N) int8, scale: (N,), optional qT}. CPU tensors take the
-    plain twin; CUDA tensors launch K5 (bf16, W % 64 == 0, W <= 1024,
-    N % 128 == 0) or raise."""
+    plain twin; CUDA tensors launch K5 (bf16, W % 64 == 0, W <= 1280,
+    N % 128 == 0) or raise. out: a (rows, N) bf16 buffer to write."""
     if not x.is_cuda:
         return ln_qkv_reference(x, ln_params, wq, bias, act_scale, eps)
     lead, w = x.shape[:-1], x.shape[-1]
@@ -381,7 +426,11 @@ def ln_qkv_int8(x, ln_params, wq, bias, act_scale, eps=1e-6):
                          f"{tuple(wt.shape)}")
     x2d = x.reshape(-1, w).contiguous()
     m = x2d.shape[0]
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    elif out.shape != (m, n) or out.dtype != torch.bfloat16:
+        raise ValueError(f"K5 writes a ({m}, {n}) bf16 out, got {out.dtype} "
+                         f"{tuple(out.shape)}")
     _build.call("tpudf_ln_qkv_i8", x2d, _f32(ln_params["scale"]),
                 _f32(ln_params["bias"]), wt, _f32(wq["scale"]), _f32(bias),
                 f32_scalar(act_scale, x.device), out, m, n,
