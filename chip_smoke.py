@@ -14,7 +14,9 @@ back to the CPU or to a twin):
      its three epilogue modes (bf16_gemm_sm90.cu), the int8 GEMM in its
      four modes at both tile widths and its LN-panel instance, K5
      (int8_gemm_sm90.cu), and 9b's main pass at heads of 64 and 128
-     (attention_i8.cu) must show wgmma (HGMMA; IGMMA for int8) and TMA
+     (attention_i8.cu), K6's cluster tile at tile widths 64, 128 and 256
+     (attention.cu) and K7 (layer_int8.cu) must show wgmma (HGMMA; IGMMA
+     for int8; both in K6 and K7) and TMA
      loads (UTMALDG) in their SASS where the toolkit's cuobjdump is
      present, no spills, and no wgmma serialised by ptxas (C7515); the
      wrappers'
@@ -152,6 +154,21 @@ back to the CPU or to a twin):
      launch alone at K5_TIMED beside its bound, K8 + the int8 GEMM and the
      PyTorch parts, and 9b's pre-pass and main pass at K9B_TIMED beside
      their bound, K9 and SDPA, device times into the kernels line;
+  2l. K6 and K7 on wgmma + TMA (`k6_k7_checks`): K6's cluster tile at
+     K6_SHAPES (the B = 8 detect cores' (8, 256, 2304) and (8, 576, 3072),
+     (256, 32, 2304), heads of 16 / 32 / 128 / 256 at S 576 / 584), one
+     launch each, its cluster size and shared memory equal to the
+     wrapper's, by phase 2b's rule against its twin, bit-equal to K1's
+     attention launch + the int8 GEMM (GEMM_RESIDUAL) and over repeated
+     launches, each shape's check shown to fail on planted faults (one
+     CTA's heads never received into the panels, the panel unswizzled, a
+     128-column weight tile skipped, bias or residual dropped, the scale
+     x0.75, the keys past a ragged S unmasked); K7 at (8, 256, 768) and
+     (256, 32, 768) by its card rule, bit-equal over repeated launches,
+     shown to fail with x1 rounded to bf16, LN2 over x, GELU dropped and a
+     phase-3 row tile started early; each launch alone by device time: K6
+     beside its split form, bound and SDPA + `_int_mm`, K7 beside the FPP
+     layer and its bound;
   3. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      (a) the detect core (build("cuda", seed=0), base-256, W8A8 + ToMe),
@@ -235,7 +252,9 @@ back to the CPU or to a twin):
      largest kernels and the device's idle share; the trainer's peak
      memory; the large backbones' detect cores (large-384 at B=8 and 128,
      so400m-512 at B=8 and 64) with a profile each, so400m-512's PPP
-     tower with and without TPUDF_INT8_ATTN=1, large-384's engines; the
+     tower with and without TPUDF_INT8_ATTN=1, the towers without ToMe at
+     B = 8 by events and device time (large-384 under PPP: 24 K6 launches;
+     base-256 under PPP and LLL: 12 K6 / K7), large-384's engines; the
      large-384 MTL step at 256 px, (a) and (b), with a profile of (a),
      and so400m-512's engines A and B; the (t) steps, each with a profile
      (`training_rest_timings`).
@@ -585,12 +604,16 @@ class Records:
 # in bf16 (attention_plain_sm90.cu) on the 64-, 80- and 128-wide tiles,
 # the bf16 GEMM of K13, K14 and 15 (bf16_gemm_sm90.cu) in its three
 # epilogue modes, the int8 GEMM (int8_gemm_sm90.cu) in its four modes at
-# tile widths 256 and 128 and K5 (its LN-panel instance), and 9b's main
-# pass at head_dim 64 and 128 (attention_i8.cu)
-SM90_KERNELS = 34
+# tile widths 256 and 128 and K5 (its LN-panel instance), 9b's main pass
+# at head_dim 64 and 128 (attention_i8.cu), K6's cluster tile on the 64-,
+# 128- and 256-wide tiles (attention.cu) and K7 (layer_int8.cu)
+SM90_KERNELS = 38
 SM90_NAME = re.compile(r"((?:attention_(?:fwd|bwd_dq|bwd_dkv|plain|i8dyn)"
-                       r"(?:_wide)?|bf16_gemm|i8_gemm)_sm90)ILi(\d+)E"
-                       r"(?:Li(\d+)E)?(?:Lb(\d)E)?")
+                       r"(?:_wide)?|bf16_gemm|i8_gemm|attn_out|layer_i8)"
+                       r"_sm90)(?:ILi(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?")
+# the kernels whose SASS holds int8 wgmma (IGMMA); K6 and K7 both kinds
+SM90_IGMMA = ("i8_gemm_sm90", "attention_i8dyn_sm90", "attn_out_sm90",
+              "layer_i8_sm90")
 
 
 def sm90_build_checks(card):
@@ -630,22 +653,26 @@ def sm90_build_checks(card):
                 fn = line.split("Function : ")[1].strip()
                 fn = fn if "sm90" in fn else None
                 if fn:
-                    counts[fn] = [0, 0]
+                    counts[fn] = [0, 0, 0]
             elif fn is not None:
-                counts[fn][0] += "HGMMA" in line or "IGMMA" in line
-                counts[fn][1] += "UTMALDG" in line
+                counts[fn][0] += "HGMMA" in line
+                counts[fn][1] += "IGMMA" in line
+                counts[fn][2] += "UTMALDG" in line
         if len(counts) != SM90_KERNELS:
             raise AssertionError(f"sm90 kernels in the SASS: {list(counts)}")
-        for fn, (hgmma, utmaldg) in sorted(counts.items()):
+        for fn, (hgmma, igmma, utmaldg) in sorted(counts.items()):
             m = SM90_NAME.search(fn)
             args = ", ".join(a for a in m.group(2, 3) if a) + (
                 ", LN panel" if m.group(4) == "1" else "")
-            mma = ("IGMMA" if m.group(1) in ("i8_gemm_sm90",
-                                             "attention_i8dyn_sm90")
-                   else "HGMMA")
-            print(f"  sm90 SASS {m.group(1)}<{args}>: {mma} {hgmma}, "
-                  f"UTMALDG {utmaldg}", flush=True)
-            if not hgmma or not utmaldg:
+            kinds = {"HGMMA": hgmma, "IGMMA": igmma}
+            if m.group(1) not in SM90_IGMMA:
+                kinds.pop("IGMMA")
+            elif m.group(1) not in SM90_IGMMA[2:]:
+                kinds.pop("HGMMA")
+            print(f"  sm90 SASS {m.group(1)}<{args}>: "
+                  + ", ".join(f"{k} {v}" for k, v in kinds.items())
+                  + f", UTMALDG {utmaldg}", flush=True)
+            if not all(kinds.values()) or not utmaldg:
                 raise AssertionError(f"{fn}: no wgmma or TMA in its SASS")
     from tpudf_torch.ops import attention
     lib = _build.load()
@@ -1449,6 +1476,21 @@ def large_paths(dev, card):
     return state
 
 
+def tower_timing(fn, label, card):
+    """Phase 4: a tower forward (no grad) by CUDA events and by device
+    time (the profiler's kernel sum, free of the host's launch gaps)."""
+    import torch
+
+    def fwd():
+        with torch.no_grad():
+            return fn()
+
+    ms = cuda_ms(fwd, iters=5, warmup=2)
+    dev_ms = device_ms(fwd, iters=3)
+    print(f"{label}: {ms:.3f} ms, device {dev_ms:.3f} ms [{card}]",
+          flush=True)
+
+
 def large_timings(state, card):
     """Phase 4 at the large backbones: the detect core of large-384 at B=8
     and 128 and of so400m-512 at B=8 and 64 (kernels, and the twins at
@@ -1502,6 +1544,19 @@ def large_timings(state, card):
         os.environ.pop("TPUDF_INT8_ATTN", None)
     print(f"tower so400m-512 PPP without ToMe B=8: K9 route {k9_ms:.3f} ms, "
           f"TPUDF_INT8_ATTN=1 (9b) {i8_ms:.3f} ms [{card}]", flush=True)
+
+    # large-384's PPP tower without ToMe at B = 8: 24 K6 launches
+    model, params = state["cores"]["large-384"]
+    size = model.cfg.image_size
+    norm = torch.rand((8, size, size, 3), generator=g, device="cuda").to(
+        torch.bfloat16) * 2 - 1
+    os.environ["TPUDF_INT8_KERNELS"] = "PPP"
+    try:
+        tower_timing(lambda: siglip_forward(params["backbone"], norm,
+                                            model.cfg),
+                     "tower large-384 PPP without ToMe B=8", card)
+    finally:
+        os.environ.pop("TPUDF_INT8_KERNELS", None)
 
     engines, requests = state["engines"]
     for e, eng in engines.items():
@@ -4335,6 +4390,336 @@ def k5_9b_checks(rec, dev, card):
         torch.cuda.empty_cache()
 
 
+# K6 and K7 on wgmma + TMA (phase 2l, `k6_k7_checks`). K6 at the detect
+# cores' B = 8 shapes without a bias, at B = 256 and at phase 2h's head
+# widths (S 576 / 584): (B, S, heads, head_dim), W = Wa = heads head_dim;
+# K7 at (B, S) of base-256's layer (W 768, MLP 3072). K6_TIMED / K7_TIMED:
+# the launches timed alone
+K6_SHAPES = [(8, 256, 12, 64), (8, 576, 16, 64), (256, 32, 12, 64),
+             (8, 576, 48, 16), (8, 584, 24, 32), (8, 576, 6, 128),
+             (8, 584, 3, 256)]
+K6_TIMED = [(8, 256, 12, 64), (8, 576, 16, 64)]
+K7_SHAPES = [(8, 256), (256, 32)]
+
+
+def k6_split(qkv, x, wq, bias, a, heads, hd, scale=None):
+    """K6's yardstick, two launches: K1's attention launch (its int8 codes
+    of the f32 o), then the int8 GEMM in GEMM_RESIDUAL mode."""
+    from tpudf_torch.ops import int8_block
+    from tpudf_torch.ops.quant import transposed
+    b, s, w = x.shape
+    o8 = int8_block.attention_i8(qkv, heads, hd, a, scale)
+    return k6_proj(o8, x, wq, bias, a)
+
+
+def k6_proj(o8, x, wq, bias, a):
+    """The int8 GEMM's GEMM_RESIDUAL epilogue on codes o8 (B S, Wa)."""
+    from tpudf_torch.ops import int8_block
+    from tpudf_torch.ops.quant import transposed
+    b, s, w = x.shape
+    return int8_block.i8_gemm_cuda(
+        o8.contiguous(), transposed(wq), wq["scale"], bias, a,
+        int8_block.GEMM_RESIDUAL,
+        residual=x.reshape(b * s, w).contiguous()).reshape(b, s, w)
+
+
+def unswizzled(o8, s):
+    """K6's codes as wgmma would read a panel written without the 128-byte
+    swizzle: in each 128-column slice, row r's 16-byte chunk c taken from
+    chunk c ^ (r % 8) (r the row in its 128-row tile)."""
+    import torch
+    m, wa = o8.shape
+    rows = torch.arange(m, device=o8.device) % s % 8
+    idx = torch.arange(8, device=o8.device)[None, :] ^ rows[:, None]
+    v = o8.reshape(m, wa // 128, 8, 16)
+    idx = idx[:, None, :, None].expand(m, wa // 128, 8, 16)
+    return torch.gather(v, 2, idx).reshape(m, wa)
+
+
+def k7_twin(x, bp, heads, hd, fault=None, q8=None):
+    """`siglip_layer_int8_reference`'s math, with LN1's codes q8 where
+    given (K8's, which K5 and K7's first phase equal bit for bit), and
+    with a planted fault: "x1 in bf16" (the mid-layer residual rounded
+    between the phases), "LN2 over x" (in place of x1), "GELU dropped",
+    "early start" (the first 128-row tile's LN2 read from the x1 workspace
+    before its rows are written: zeros)."""
+    import torch
+    from tpudf_torch.ops import attention
+    from tpudf_torch.ops.layernorm import ln_rows_f32
+    from tpudf_torch.ops.quant import f32_scalar, int8_mm, quant_rows
+    from tpudf_torch.utils.nn import gelu_tanh
+    b, s, w = x.shape
+    at, ml, sc = bp["attn"], bp["mlp"], bp["act_scales"]
+    aq, ao, a1, a2 = (f32_scalar(sc[k], x.device)
+                      for k in ("qkv", "out", "fc1", "fc2"))
+
+    def deq(acc, a, wq):
+        return acc.float() * ((a / 127.0) * wq["scale"].float())
+
+    x32 = x.float().reshape(b * s, w)
+    if q8 is None:
+        q8 = quant_rows(ln_rows_f32(x32, bp["ln1"]["scale"],
+                                    bp["ln1"]["bias"], 1e-6), aq)
+    qkv = (deq(int8_mm(q8, at["qkv_w"]["q"]), aq, at["qkv_w"])
+           + at["qkv_b"].float()).to(torch.bfloat16).reshape(b, s, 3 * w)
+    o = attention.attention_qkv_reference(qkv, heads, hd, hd ** -0.5,
+                                          out_dtype=torch.float32)
+    o8 = quant_rows(o.reshape(b * s, w), ao)
+    x1 = (x32 + deq(int8_mm(o8, at["out_w"]["q"]), ao, at["out_w"])
+          + at["out_b"].float())
+    if fault == "x1 in bf16":
+        x1 = x1.to(torch.bfloat16).float()
+    ln_in = x32 if fault == "LN2 over x" else x1
+    if fault == "early start":
+        ln_in = ln_in.clone()
+        ln_in[:128] = 0.0
+    q1 = quant_rows(ln_rows_f32(ln_in, bp["ln2"]["scale"], bp["ln2"]["bias"],
+                                1e-6), a1)
+    f1 = deq(int8_mm(q1, ml["fc1_w"]["q"]), a1, ml["fc1_w"]) + ml["fc1_b"]
+    q2 = quant_rows(f1 if fault == "GELU dropped" else gelu_tanh(f1), a2)
+    out = deq(int8_mm(q2, ml["fc2_w"]["q"]), a2, ml["fc2_w"]) + ml["fc2_b"]
+    return (x1 + out).to(x.dtype).reshape(b, s, w)
+
+
+def k7_rule(got, ref):
+    """(elements outside atol 5e-2 + rtol 2e-2, share not bit-equal): K7's
+    card rule holds where both are within bounds (0, K7_SHARE)."""
+    err = (got.float() - ref.float()).abs()
+    return (int((err > 5e-2 + 2e-2 * ref.float().abs()).sum()),
+            float((got != ref).float().mean()))
+
+
+def k6_k7_checks(rec, dev, card):
+    """Phase 2l. K6 at K6_SHAPES, one launch each (its cluster size and
+    shared memory equal to `int8_block.k6_cluster` / `k6_smem`): against
+    its twin by phase 2b's rule (atol 5e-2 + rtol 2e-2, and the error
+    within ATTN_REL of what the sublayer adds to x), bit-equal to its split
+    form (K1's attention launch + the int8 GEMM in GEMM_RESIDUAL mode) and
+    to itself over repeated launches; each shape's check shown to fail on
+    planted faults: one CTA's heads never received into the panels (their
+    codes zero), the panel written without the swizzle, one 128-column
+    weight tile skipped (its outputs zero), the bias dropped, the residual
+    dropped, the scale x0.75, and at a ragged S the keys past S unmasked.
+    K7 at K7_SHAPES by its card rule (K1's elements and at most K7_SHARE of
+    the outputs not bit-equal) against the twin on K8's LN1 codes (those of
+    its first phase; the plain twin holds the element tolerance, its share
+    printed), bit-equal over repeated launches, shown to fail with the
+    mid-layer residual x1 in bf16, LN2 over x, GELU dropped and an
+    emulated early start of a phase-3 row tile.
+    Then each launch alone by device time: K6 at K6_TIMED beside its split
+    form, its bound and SDPA + the out-projection's `_int_mm`; K7 at (8,
+    256, 768) beside the FPP layer (K1's four launches and K2's three) and
+    its bound; into K6's and K7's rows."""
+    import torch
+    import torch.nn.functional as F
+    from tpudf_torch.convert import add_kernel_layout
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.ops import _build, int8_block, layernorm, mlp, quant
+    from tpudf_torch.ops.quant import quantize_weight
+    print("phase 2l: K6 (cluster tile on wgmma + TMA) and K7 (four phases on "
+          "the sm90 tiles)", flush=True)
+    lib = _build.load()
+    g = torch.Generator(device=dev).manual_seed(71)
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def wq_of(k, n):
+        return add_kernel_layout(quantize_weight(randn(k, n, std=k ** -0.5)))
+
+    timed = {}
+    for b, s, heads, hd in K6_SHAPES:
+        wa = w = heads * hd
+        tile, live = int8_block.k6_tile(hd)
+        waves = {n: lib.tpudf_attn_out_waves(tile, wa, n)
+                 for n in range(1, 9)}
+        c = int8_block.k6_cluster(b, s, heads, tile, live, w, waves)
+        c_lib = lib.tpudf_attn_out_cluster(b, s, heads, tile, live, w)
+        smem = lib.tpudf_attn_out_smem(tile, wa)
+        if c != c_lib or smem != int8_block.k6_smem(tile, wa):
+            raise AssertionError(f"K6 {(b, s, heads, hd)}: cluster {c_lib} / "
+                                 f"smem {smem} on the card, {c} / "
+                                 f"{int8_block.k6_smem(tile, wa)} in Python")
+        qkv = sharp_qkv(randn, b, s, heads, hd, hd)
+        x = randn(b, s, w).to(bf)
+        wq, bias = wq_of(wa, w), randn(w, std=0.1)
+        a = torch.tensor(2.0, device=dev)
+        args = (qkv, x, wq, bias, a, heads, hd)
+        LAUNCHES.reset()
+        got = int8_block.attn_out_int8(*args)
+        torch.cuda.synchronize()
+        check_launches(f"K6 {(b, s, 3 * wa)}", LAUNCHES.snapshot(),
+                       {int8_block.KERNEL_ATTN_OUT: 1})
+        again = int8_block.attn_out_int8(*args)
+        split = k6_split(*args)
+        ref = int8_block.attn_out_reference(*args)
+        torch.cuda.synchronize()
+        label = (f"K6 {(b, s, 3 * wa)} heads of {hd} (cluster {c} of "
+                 f"{waves[c]} at a time)")
+        if not torch.equal(got, split) or not torch.equal(got, again):
+            raise AssertionError(f"{label}: not bit-equal to its split form "
+                                 f"({int((got != split).sum())} outputs) or "
+                                 f"to itself over launches")
+        check_close(label, got, ref, atol=5e-2, rtol=2e-2)
+        o8 = int8_block.attention_i8(qkv, heads, hd, a)
+        lost = o8.clone().reshape(b * s, heads, hd)
+        lost[:, 1 % c::c] = 0
+        skipped = split.clone()
+        skipped[..., 128:256] = 0
+        faults = {
+            "a CTA's heads not received": k6_proj(lost.reshape(b * s, wa), x,
+                                                  wq, bias, a),
+            "panel unswizzled": k6_proj(unswizzled(o8, s), x, wq, bias, a),
+            "a weight tile skipped": skipped,
+            "bias dropped": k6_proj(o8, x, wq, torch.zeros_like(bias), a),
+            "residual dropped": k6_proj(o8, torch.zeros_like(x), wq, bias,
+                                        a),
+            "scale x0.75": k6_split(*args, scale=0.75 * hd ** -0.5)}
+        if s % 64:
+            faults["keys past S unmasked"] = keys_unmasked(
+                lambda q: k6_split(q, torch.cat(
+                    [x, x[:, -1:].expand(b, -s % 64, -1)], 1), wq, bias, a,
+                    heads, hd), qkv)
+        held_check(f"{label} vs twin, of the attention part", rel_part(x),
+                   ATTN_REL, got, ref, faults, card)
+        print(f"  {label}: bit-equal to K1's attention + the int8 GEMM and "
+              f"over launches; max|Δ| vs twin {max_abs(got, ref):.3e} "
+              f"[{card}]", flush=True)
+        if (b, s, heads, hd) in K6_TIMED:
+            timed[(b, s, heads, hd)] = (args, o8)
+        del qkv, x, got, again, split, ref, o8, lost, skipped, faults
+
+    # ---- K7
+    w, heads, hd, inter = 768, 12, 64, 3072
+    bp = {"ln1": {"scale": 1.0 + randn(w, std=0.1), "bias": randn(w, std=0.1)},
+          "ln2": {"scale": 1.0 + randn(w, std=0.1), "bias": randn(w, std=0.1)},
+          "attn": {"qkv_w": wq_of(w, 3 * w), "qkv_b": randn(3 * w, std=0.1),
+                   "out_w": wq_of(w, w), "out_b": randn(w, std=0.1)},
+          "mlp": {"fc1_w": wq_of(w, inter), "fc1_b": randn(inter, std=0.1),
+                  "fc2_w": wq_of(inter, w), "fc2_b": randn(w, std=0.1)},
+          "act_scales": {k: torch.tensor(v, device=dev) for k, v in
+                         (("qkv", 4.0), ("out", 2.0), ("fc1", 4.0),
+                          ("fc2", 3.0))}}
+    for b, s in K7_SHAPES:
+        waves = {n: lib.tpudf_attn_out_waves(64, w, n) for n in range(1, 9)}
+        c, blocks, _, _ = int8_block.k7_launch(b, s, heads, w, inter, waves)
+        if lib.tpudf_layer_cluster(b, s, heads, w) != c:
+            raise AssertionError(f"K7 {(b, s, w)}: cluster "
+                                 f"{lib.tpudf_layer_cluster(b, s, heads, w)}"
+                                 f" on the card, {c} in Python")
+        x = randn(b, s, w).to(bf)
+        LAUNCHES.reset()
+        got = int8_block.siglip_layer_int8(x, bp, heads, hd)
+        torch.cuda.synchronize()
+        check_launches(f"K7 {(b, s, w)}", LAUNCHES.snapshot(),
+                       {int8_block.KERNEL_LAYER: 1})
+        again = int8_block.siglip_layer_int8(x, bp, heads, hd)
+        twin = int8_block.siglip_layer_int8_reference(x, bp, heads, hd)
+        if not torch.equal(k7_twin(x, bp, heads, hd), twin):
+            raise AssertionError("K7's fault twin is not the twin")
+        # the twin on K8's LN1 codes (K5's, K7's phase 1): one LN1 code at
+        # a tie of the f32 statistics moves ~1e-1 of the layer's outputs
+        # off the twin's bits, in this kernel and in its mma.sync
+        # predecessor alike (PERF.md, PR 15)
+        q8 = layernorm.layer_norm_quant(x.reshape(-1, w), bp["ln1"]["scale"],
+                                        bp["ln1"]["bias"],
+                                        bp["act_scales"]["qkv"])
+        ref = k7_twin(x, bp, heads, hd, q8=q8)
+        torch.cuda.synchronize()
+        out_tol, share = k7_rule(got, ref)
+        twin_tol, twin_share = k7_rule(got, twin)
+        ln1_flips = float((q8 != quant.quant_rows(
+            layernorm.ln_rows_f32(x.float().reshape(-1, w),
+                                  bp["ln1"]["scale"], bp["ln1"]["bias"],
+                                  1e-6), bp["act_scales"]["qkv"])).any(
+                                      -1).float().mean())
+        bad = {f: k7_rule(k7_twin(x, bp, heads, hd, f, q8), ref)
+               for f in ("x1 in bf16", "LN2 over x", "GELU dropped",
+                         "early start")}
+        print(f"  K7 {(b, s, w)} (clusters of {c}, {blocks} blocks) vs the "
+              f"twin on K8's LN1 codes: outside the "
+              f"element tolerance {out_tol}, not bit-equal {share:.3e} "
+              f"(limit {K7_SHARE:g}), max|Δ| {max_abs(got, ref):.3e} (vs "
+              f"the twin: {twin_tol} outside, {twin_share:.3e} not "
+              f"bit-equal; rows with an LN1 code at a tie {ln1_flips:.3e}); "
+              f"planted faults "
+              + ", ".join(f"{k} {n} / {sh:.3e}" for k, (n, sh) in bad.items())
+              + f" [{card}]", flush=True)
+        if twin_tol:
+            raise AssertionError(f"K7 {(b, s, w)}: {twin_tol} outputs outside "
+                                 f"the twin's element tolerance")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K7 {(b, s, w)}: not bit-equal over "
+                                 f"launches")
+        if out_tol or share > K7_SHARE:
+            raise AssertionError(f"K7 {(b, s, w)}: {out_tol} outputs outside "
+                                 f"the tolerance, {share:.3e} not bit-equal")
+        missed = [k for k, (n, sh) in bad.items()
+                  if n == 0 and sh <= K7_SHARE]
+        if missed:
+            raise AssertionError(f"K7's checks miss {missed}")
+        del got, again, ref, twin, q8
+
+    # ---- each launch alone, device time
+    for (b, s, nh, dh), (args, o8) in timed.items():
+        qkv, x, wq, bias, a = args[:5]
+        wa = w_ = nh * dh
+        q, k, v = (qkv[..., i * wa:(i + 1) * wa].reshape(b, s, nh, dh)
+                   .transpose(1, 2) for i in range(3))
+        k6 = device_ms(lambda: int8_block.attn_out_int8(*args))
+        att = device_ms(lambda: int8_block.attention_i8(qkv, nh, dh, a))
+        proj = device_ms(lambda: k6_proj(o8, x, wq, bias, a))
+        sdpa = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        mm = device_ms(lambda: torch._int_mm(o8, wq["qT"].t()))
+        b_ms, b_by = bound({"bf16": 4 * b * nh * s * s * dh,
+                            "int8": 2 * b * s * wa * w_},
+                           nbytes(qkv, x, wq["q"], wq["scale"], bias, a)
+                           + nbytes(x))
+        rec.rows.get("K6", {}).setdefault("phase_2l", []).append(
+            {"shape": (b, s, 3 * wa, w_), "device_ms": k6,
+             "split_device_ms": att + proj, "bound_ms": b_ms,
+             "bound_by": b_by, "library_part_ms": {"SDPA": sdpa,
+                                                   "out-proj _int_mm": mm}})
+        print(f"  K6 {(b, s, 3 * wa)} alone, device: {k6:.4f} ms; split form "
+              f"{att + proj:.4f} (K1's attention {att:.4f} + the int8 GEMM "
+              f"{proj:.4f}; K6 {k6 / (att + proj):.2f}x); bound {b_ms:.4f} "
+              f"({b_by}); SDPA {sdpa:.4f} + out-proj _int_mm {mm:.4f} "
+              f"[{card}]", flush=True)
+    b, s = 8, 256
+    x = randn(b, s, w).to(bf)
+    sc = bp["act_scales"]
+    at = bp["attn"]
+
+    def fpp():
+        x1 = int8_block.attn_sublayer_int8(
+            x, bp["ln1"], at["qkv_w"], at["qkv_b"], at["out_w"], at["out_b"],
+            sc["qkv"], sc["out"], heads, hd)
+        return mlp.mlp_block_fused_int8(x1, bp["ln2"], bp["mlp"],
+                                        {"fc1": sc["fc1"], "fc2": sc["fc2"]})
+
+    k7 = device_ms(lambda: int8_block.siglip_layer_int8(x, bp, heads, hd))
+    fpp_ms = device_ms(fpp)
+    m = b * s
+    b_ms, b_by = bound({"int8": 2 * m * w * (4 * w + 2 * inter),
+                        "bf16": 4 * b * heads * s * s * hd},
+                       nbytes(x, *[t for d in (bp["ln1"], bp["ln2"])
+                                   for t in d.values()],
+                              *[t for wq in (at["qkv_w"], at["out_w"],
+                                             bp["mlp"]["fc1_w"],
+                                             bp["mlp"]["fc2_w"])
+                                for t in (wq["q"], wq["scale"])],
+                              at["qkv_b"], at["out_b"], bp["mlp"]["fc1_b"],
+                              bp["mlp"]["fc2_b"], *sc.values()) + nbytes(x))
+    rec.rows.get("K7", {}).setdefault("phase_2l", []).append(
+        {"shape": (b, s, w), "device_ms": k7, "fpp_device_ms": fpp_ms,
+         "bound_ms": b_ms, "bound_by": b_by})
+    print(f"  K7 {(b, s, w)} alone, device: {k7:.4f} ms; the FPP layer (K1's "
+          f"four launches + K2's three) {fpp_ms:.4f} (K7 {k7 / fpp_ms:.2f}x); "
+          f"bound {b_ms:.4f} ({b_by}) [{card}]", flush=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4900,6 +5285,7 @@ def main() -> int:
     rec.note_ln(ln_timings(dev, card))
     k1_attention_checks(rec, dev, card)
     k5_9b_checks(rec, dev, card)
+    k6_k7_checks(rec, dev, card)
 
     # ---- 3a. the detect core
     print("phase 3: paths", flush=True)
@@ -4962,7 +5348,7 @@ def main() -> int:
                 mlp.KERNEL: 11, mlp.KERNEL_SUMSQ: 3, srm.KERNEL: 1,
                 layernorm.KERNEL: 2}}
     rg = torch.Generator(device=dev).manual_seed(5)
-    route_launches = {}
+    route_launches, tower_launches = {}, {}
 
     try:
         for route in ROUTES:
@@ -4996,7 +5382,8 @@ def main() -> int:
                       flush=True)
             route_launches[route] = launched
         # the tower without ToMe at B=8: all 12 layers through K7, or K5
-        # and K6
+        # and K6 (their launches in the kernels line: the ToMe cores run
+        # one layer or none through them)
         norm = (px[:8] - 0.5) / 0.5
         for route, expect in (
                 ("LLL", {int8_block.KERNEL_LAYER: 12, layernorm.KERNEL: 2}),
@@ -5011,6 +5398,7 @@ def main() -> int:
                 launched = LAUNCHES.snapshot()
                 check_launches(f"tower {route} without ToMe", launched,
                                expect)
+                tower_launches[route] = launched
                 twin = siglip_forward(params["backbone"], norm, model.cfg,
                                       kernels=TWINS)
             print(f"tower {route} without ToMe B=8: launches {launched}; "
@@ -5177,6 +5565,15 @@ def main() -> int:
                       f"{b * 1e3 / fwd_ms:.1f} img/s; twins "
                       f"{fwd_plain:.3f} ms = {b * 1e3 / fwd_plain:.1f} img/s "
                       f"[{card}]", flush=True)
+        # the towers without ToMe at B = 8: 12 K6 launches (PPP), 12 K7
+        # (LLL)
+        norm = torch.rand((8, 256, 256, 3), generator=pg, device=dev).to(
+            torch.bfloat16) * 2 - 1
+        for route in ("PPP", "LLL"):
+            os.environ["TPUDF_INT8_KERNELS"] = route
+            tower_timing(lambda: siglip_forward(params["backbone"], norm,
+                                                model.cfg),
+                         f"tower base-256 {route} without ToMe B=8", card)
     finally:
         os.environ.pop("TPUDF_INT8_KERNELS", None)
     del model, params
@@ -5252,8 +5649,11 @@ def main() -> int:
     # step of (a)
     # 9b: so400m-512's tower under PPP without ToMe, TPUDF_INT8_ATTN=1
     # 11, 12: (w3)'s multi-query _mha at large-384's width
+    # K6, K7: base-256's tower without ToMe under PPP / LLL (phase 4 times
+    # it)
     route_of = {"K5": "PPP", "K6": "PPP", "K7": "LLL", "K8": "XXX"}
     launches = {k: (core_launches if k in ("K1", "K2", "K3", "K4")
+                    else tower_launches[route_of[k]] if k in ("K6", "K7")
                     else route_launches[route_of[k]] if k in route_of
                     else mtl_launches["a"] if k == "K10"
                     else large["launches"][("so400m-512", "PPP", True)]

@@ -12,8 +12,10 @@ the gradient through kernel 11), K1, K6, K9, 9b and K10 at heads of 16,
 the detect cores' first layers (so400m's on the 80-wide tile), the int8
 GEMM of int8_gemm_sm90.cu in each mode at the edges of its tiles, K5 on
 that GEMM with its LN panel (65536 rows, a ragged M, W = 832 and 1280,
-with planted faults) and 9b's pre-pass and int8 wgmma pass (heads of 64
-and 128, S = 576 / 1024 / 1297, v8t's key order), the
+with planted faults), 9b's pre-pass and int8 wgmma pass (heads of 64
+and 128, S = 576 / 1024 / 1297, v8t's key order), K6's cluster tile
+(bit-equal to K1's attention + the int8 GEMM, planted faults) and K7 on
+the sm90 tiles (planted faults), the
 probes' kernels 15, 16 and 17 (the
 tolerances of tests/test_torch_port_probes.py; 17 by 9b's card rule), both
 serving engines and one MTL train step against the same parameters through
@@ -1187,3 +1189,114 @@ def test_9b_wgmma_pass_matches_twin_on_card(case):
     assert torch.equal(attention.attention_qkv_int8(qkv, heads, hd), got)
     assert share(got) <= 1e-2
     assert share(natural) > 1e-2
+
+
+# K6's cluster tile and K7's four phases on wgmma + TMA (chip_smoke.py
+# phase 2l; its fault emulations): K6 at (B, S, heads, head_dim), W = Wa =
+# heads head_dim; K7 at (B, S) of base-256's layer
+_K6_SM90 = [(8, 256, 12, 64), (8, 576, 16, 64), (256, 32, 12, 64),
+            (8, 576, 48, 16), (8, 584, 24, 32), (8, 576, 6, 128),
+            (8, 584, 3, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _K6_SM90,
+                         ids=[f"{b}x{s}-{h}x{d}" for b, s, h, d in _K6_SM90])
+def test_k6_matches_split_form_on_card(case):
+    """K6 bit-equal to K1's attention launch + the int8 GEMM in
+    GEMM_RESIDUAL mode and to itself over repeated launches, within atol
+    5e-2 + rtol 2e-2 of its twin and ATTN_REL of the attention part, on q,
+    k, v of std 1.5; its cluster size the wrapper's; one CTA's heads
+    missing from the panels, the panel unswizzled, a weight tile skipped,
+    the bias or the residual dropped, the scale x0.75 and (at a ragged S)
+    the keys past S unmasked break the rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+    from tpudf_torch.convert import add_kernel_layout
+    from tpudf_torch.ops import _build
+    b, s, heads, hd = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(s + hd)
+    r = lambda *sh, std=1.0: torch.randn(sh, generator=g, device=dev) * std
+    w = heads * hd
+    tile, live = int8_block.k6_tile(hd)
+    lib = _build.load()
+    waves = {n: lib.tpudf_attn_out_waves(tile, w, n) for n in range(1, 9)}
+    c = int8_block.k6_cluster(b, s, heads, tile, live, w, waves)
+    assert lib.tpudf_attn_out_cluster(b, s, heads, tile, live, w) == c
+    qkv = cs.sharp_qkv(r, b, s, heads, hd, hd)
+    x = r(b, s, w).to(torch.bfloat16)
+    wq = add_kernel_layout(quant.quantize_weight(r(w, w, std=w ** -0.5)))
+    bias, a = r(w, std=0.1), torch.tensor(2.0, device=dev)
+    args = (qkv, x, wq, bias, a, heads, hd)
+    got = int8_block.attn_out_int8(*args)
+    ref = int8_block.attn_out_reference(*args)
+    o8 = int8_block.attention_i8(qkv, heads, hd, a)
+    lost = o8.clone().reshape(b * s, heads, hd)
+    lost[:, 1 % c::c] = 0
+    skipped = cs.k6_split(*args)
+    skipped[..., 128:256] = 0
+    faults = [cs.k6_proj(lost.reshape(b * s, w), x, wq, bias, a),
+              cs.k6_proj(cs.unswizzled(o8, s), x, wq, bias, a), skipped,
+              cs.k6_proj(o8, x, wq, torch.zeros_like(bias), a),
+              cs.k6_proj(o8, torch.zeros_like(x), wq, bias, a),
+              cs.k6_split(*args, scale=0.75 * hd ** -0.5)]
+    if s % 64:
+        faults.append(cs.keys_unmasked(
+            lambda q: cs.k6_split(q, torch.cat(
+                [x, x[:, -1:].expand(b, -s % 64, -1)], 1), wq, bias, a,
+                heads, hd), qkv))
+    torch.cuda.synchronize()
+    rel = cs.rel_part(x)
+    assert torch.equal(got, cs.k6_split(*args))
+    assert torch.equal(got, int8_block.attn_out_int8(*args))
+    torch.testing.assert_close(got.float(), ref.float(), atol=5e-2,
+                               rtol=2e-2)
+    assert rel(got, ref) <= cs.ATTN_REL
+    assert all(rel(f, ref) > cs.ATTN_REL for f in faults)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 256), (256, 32)])
+def test_k7_matches_twin_on_card(shape):
+    """K7 by its card rule (atol 5e-2 + rtol 2e-2, at most K7_SHARE of the
+    outputs not bit-equal) against the twin on K8's LN1 codes (its first
+    phase's), within the plain twin's element tolerance, and bit-equal over
+    repeated launches; that twin with x1 rounded to bf16 between the
+    phases, LN2 over x, GELU dropped or a phase-3 row tile started before
+    its x1 rows were written breaks it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+    from tpudf_torch.convert import add_kernel_layout
+    b, s = shape
+    w, heads, hd, inter = 768, 12, 64, 3072
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(b + s)
+    r = lambda *sh, std=1.0: torch.randn(sh, generator=g, device=dev) * std
+    wq = lambda k, n: add_kernel_layout(quant.quantize_weight(
+        r(k, n, std=k ** -0.5)))
+    bp = {"ln1": {"scale": 1.0 + r(w, std=0.1), "bias": r(w, std=0.1)},
+          "ln2": {"scale": 1.0 + r(w, std=0.1), "bias": r(w, std=0.1)},
+          "attn": {"qkv_w": wq(w, 3 * w), "qkv_b": r(3 * w, std=0.1),
+                   "out_w": wq(w, w), "out_b": r(w, std=0.1)},
+          "mlp": {"fc1_w": wq(w, inter), "fc1_b": r(inter, std=0.1),
+                  "fc2_w": wq(inter, w), "fc2_b": r(w, std=0.1)},
+          "act_scales": {k: torch.tensor(v, device=dev) for k, v in
+                         (("qkv", 4.0), ("out", 2.0), ("fc1", 4.0),
+                          ("fc2", 3.0))}}
+    x = r(b, s, w).to(torch.bfloat16)
+    got = int8_block.siglip_layer_int8(x, bp, heads, hd)
+    twin = int8_block.siglip_layer_int8_reference(x, bp, heads, hd)
+    assert torch.equal(cs.k7_twin(x, bp, heads, hd), twin)
+    q8 = layernorm.layer_norm_quant(x.reshape(-1, w), bp["ln1"]["scale"],
+                                    bp["ln1"]["bias"], bp["act_scales"]["qkv"])
+    ref = cs.k7_twin(x, bp, heads, hd, q8=q8)
+    out_tol, share = cs.k7_rule(got, ref)
+    assert out_tol == 0 and share <= cs.K7_SHARE
+    assert cs.k7_rule(got, twin)[0] == 0
+    assert torch.equal(int8_block.siglip_layer_int8(x, bp, heads, hd), got)
+    for fault in ("x1 in bf16", "LN2 over x", "GELU dropped", "early start"):
+        n, sh = cs.k7_rule(cs.k7_twin(x, bp, heads, hd, fault, q8), ref)
+        assert n > 0 or sh > cs.K7_SHARE, fault

@@ -417,7 +417,10 @@ def test_c_entry_points_and_k5_constants_match_the_sources():
         hits = [f for f, t in src.items()
                 if re.search(rf"TPUDF_API int {name}\(", t)]
         assert len(hits) == 1, (name, hits)
-    gemm = src["int8_gemm_sm90.cu"]
+    # K5's split search (`ln_runs`, with kLnCost) lives in i8_sm90.cuh,
+    # which K7's LN phases share
+    gemm = (src["int8_gemm_sm90.cu"]
+            + (_build.CSRC / "i8_sm90.cuh").read_text())
     assert re.search(r"constexpr int kLnCost = (\d+);", gemm).group(1) == \
         str(int8_block.K5_LN_COST)
     assert re.search(r"constexpr int kLnBN = (\d+);", gemm).group(1) == \

@@ -1,8 +1,9 @@
-// Device pieces of the int8 x int8 -> int32 GEMM tile on mma.sync, shared
-// by K6's out-projection (attention.cu), K7's four phases (layer_int8.cu,
-// its LN-prologue tiles `ln_gemm_tile`) and the quantising probe GEMM
-// (probe_gemm.cu). The plain int8 GEMM and K5 are int8_gemm_sm90.cu (wgmma
-// and TMA), which shares the epilogue modes below (kEpiI32 only there).
+// Device pieces of the int8 x int8 -> int32 GEMM tile on mma.sync: the
+// quantising probe GEMM's (probe_gemm.cu), whose panel tile streams the
+// weight through cp.async stages; 9b's and probe 17's int8 products
+// (attention_i8.cu) take its mma.sync wrapper. The W8A8 block's products,
+// K5, K6 and K7 run on int8 wgmma and TMA (int8_gemm_sm90.cu,
+// i8_sm90.cuh), which share the epilogue modes below.
 //
 // A tile is 128 x 128 outputs for 256 threads: 8 warps, 2 (M, 64 rows) x
 // 4 (N, 32 columns), mma.sync m16n8k32 s8 with exact int32 accumulators;
@@ -16,12 +17,13 @@
 //   kEpiResidual     out = bf16(residual + f), and, when sumsq is not
 //                    null, sumsq[m] += out^2 (f32 atomics across column
 //                    tiles; the order of the adds varies from run to run)
-//   kEpiI32          out = acc (int32; the caller dequantises; the sm90
-//                    GEMM only)
+//   kEpiI32          out = acc (int32; the caller dequantises)
 //   kEpiResF32Out    out = f32((residual + acc * cs) + bias[n]), residual
 //                    bf16: K7's attention sublayer, whose residual stays
 //                    f32 into LN2 (the order of _layer_kernel's adds)
 //   kEpiF32Residual  out = bf16(residual + f), residual f32 (K7's fc2)
+// This file's tile has the first (`gemm_epilogue_bf16`); the others are
+// int8_gemm_sm90.cu's and i8_sm90.cuh's.
 #pragma once
 
 #include "common.cuh"
@@ -168,19 +170,15 @@ __device__ __forceinline__ void mma_panel(int (&acc)[4][4][4],
   }
 }
 
-// the epilogue: thread holds rows (g, g+8) x cols (2t, 2t+1) of each
-// 16 x 8 tile; rows at or past m_end are not stored
-template <int MODE>
-__device__ __forceinline__ void gemm_epilogue(const int (&acc)[4][4][4],
-                                              const GemmArgs& p, int m0,
-                                              int m_end, int n0,
-                                              const TileThread& q) {
+// kEpiBf16's epilogue: thread holds rows (g, g+8) x cols (2t, 2t+1) of
+// each 16 x 8 tile; rows at or past m_end are not stored
+__device__ __forceinline__ void gemm_epilogue_bf16(const int (&acc)[4][4][4],
+                                                   const GemmArgs& p, int m0,
+                                                   int m_end, int n0,
+                                                   const TileThread& q) {
   const float a_div = p.act[0] / 127.0f;
-  float inv_out = 0.0f;
-  if constexpr (MODE == kEpiGeluI8) inv_out = 127.0f / p.act_out[0];
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
-    float ss[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
       const int col = n0 + q.wn * 32 + ni * 8 + q.t * 2;
@@ -192,154 +190,22 @@ __device__ __forceinline__ void gemm_epilogue(const int (&acc)[4][4][4],
         const int row = m0 + q.wm * 64 + mi * 16 + q.g + h * 8;
         if (row >= m_end) continue;
         const size_t o = static_cast<size_t>(row) * p.N + col;
-        const int i0 = acc[mi][ni][2 * h], i1 = acc[mi][ni][2 * h + 1];
-        const float p0 = __fmul_rn(static_cast<float>(i0), cs0);
-        const float p1 = __fmul_rn(static_cast<float>(i1), cs1);
-        const float f0 = __fadd_rn(p0, b0), f1 = __fadd_rn(p1, b1);
-        if constexpr (MODE == kEpiBf16) {
-          *reinterpret_cast<__nv_bfloat162*>(
-              static_cast<__nv_bfloat16*>(p.out) + o) =
-              __floats2bfloat162_rn(f0, f1);
-        } else if constexpr (MODE == kEpiGeluI8) {
-          char2 c;
-          c.x = quant_i8(gelu_tanh(f0), inv_out);
-          c.y = quant_i8(gelu_tanh(f1), inv_out);
-          *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out) + o) = c;
-        } else if constexpr (MODE == kEpiResidual) {
-          const __nv_bfloat162 res = *reinterpret_cast<const __nv_bfloat162*>(
-              static_cast<const __nv_bfloat16*>(p.residual) + o);
-          const __nv_bfloat162 y = __floats2bfloat162_rn(
-              __fadd_rn(__low2float(res), f0),
-              __fadd_rn(__high2float(res), f1));
-          *reinterpret_cast<__nv_bfloat162*>(
-              static_cast<__nv_bfloat16*>(p.out) + o) = y;
-          const float y0 = __low2float(y), y1 = __high2float(y);
-          ss[h] += y0 * y0 + y1 * y1;
-        } else if constexpr (MODE == kEpiResF32Out) {
-          const __nv_bfloat162 res = *reinterpret_cast<const __nv_bfloat162*>(
-              static_cast<const __nv_bfloat16*>(p.residual) + o);
-          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
-              make_float2(__fadd_rn(__fadd_rn(__low2float(res), p0), b0),
-                          __fadd_rn(__fadd_rn(__high2float(res), p1), b1));
-        } else {  // kEpiF32Residual
-          const float2 res = *reinterpret_cast<const float2*>(
-              static_cast<const float*>(p.residual) + o);
-          *reinterpret_cast<__nv_bfloat162*>(
-              static_cast<__nv_bfloat16*>(p.out) + o) =
-              __floats2bfloat162_rn(__fadd_rn(res.x, f0),
-                                    __fadd_rn(res.y, f1));
-        }
-      }
-    }
-    if constexpr (MODE == kEpiResidual) {
-      if (p.sumsq != nullptr) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v = ss[h];
-          v += __shfl_xor_sync(0xffffffffu, v, 1);
-          v += __shfl_xor_sync(0xffffffffu, v, 2);
-          const int row = m0 + q.wm * 64 + mi * 16 + q.g + h * 8;
-          if (q.t == 0 && row < m_end) atomicAdd(p.sumsq + row, v);
-        }
+        const float f0 = __fadd_rn(
+            __fmul_rn(static_cast<float>(acc[mi][ni][2 * h]), cs0), b0);
+        const float f1 = __fadd_rn(
+            __fmul_rn(static_cast<float>(acc[mi][ni][2 * h + 1]), cs1), b1);
+        *reinterpret_cast<__nv_bfloat162*>(
+            static_cast<__nv_bfloat16*>(p.out) + o) =
+            __floats2bfloat162_rn(f0, f1);
       }
     }
   }
 }
 
-// One 128 x 128 output tile of A (M, K) . B^T, both int8 in device memory,
-// through a double-buffered cp.async ring (4 stages of kStageBytes at smem)
-template <int MODE>
-__device__ __forceinline__ void gemm_tile(const GemmArgs& p, int m0, int n0,
-                                          int8_t* smem) {
-  const TileThread q = tile_thread();
-  int8_t* as = smem;
-  int8_t* bs = smem + 2 * kStageBytes;
-  int acc[4][4][4];
-  zero_acc(acc);
-  const int kt_count = p.K / kBK;
-  load_stage(as, p.a, p.M, p.K, m0, 0, q.tid);
-  load_stage(bs, p.bt, p.N, p.K, n0, 0, q.tid);
-  cp_async_commit();
-  for (int kt = 0; kt < kt_count; ++kt) {
-    if (kt + 1 < kt_count) {
-      const int s = (kt + 1) & 1, k0 = (kt + 1) * kBK;
-      load_stage(as + s * kStageBytes, p.a, p.M, p.K, m0, k0, q.tid);
-      load_stage(bs + s * kStageBytes, p.bt, p.N, p.K, n0, k0, q.tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    mma_kslice(acc, as + (kt & 1) * kStageBytes, kLds,
-               bs + (kt & 1) * kStageBytes, q);
-    __syncthreads();
-  }
-  gemm_epilogue<MODE>(acc, p, m0, p.M, n0, q);
-}
-
-// LN + static int8 quant of the tile's 128 rows of x (bf16 or f32, width
-// K <= kLnMaxWidth) into a shared int8 panel of rows `ldp` bytes apart:
-// each warp takes 16 rows, one row at a time held in registers
-// (load_row_ln); rows past M are zero
-template <typename T>
-__device__ __forceinline__ void ln_quant_panel(int8_t* panel, int ldp,
-                                               const T* x, int M, int K,
-                                               int m0, const float* g,
-                                               const float* b, float inv,
-                                               float eps,
-                                               const TileThread& q) {
-  const int nchunks = K / 8;
-  for (int r = q.warp; r < kBM; r += kGemmThreads / 32) {
-    int8_t* dst = panel + r * ldp;
-    const int row = m0 + r;
-    if (row >= M) {
-      for (int c = q.lane; c < nchunks; c += 32)
-        *reinterpret_cast<uint2*>(dst + c * 8) = make_uint2(0, 0);
-      continue;
-    }
-    RowLN rl;
-    load_row_ln(x + static_cast<size_t>(row) * K, K, eps, q.lane, rl);
-#pragma unroll
-    for (int c = 0; c < kLnChunks; ++c) {
-      const int chunk = q.lane + c * 32;
-      if (chunk < nchunks) {
-        __align__(8) int8_t v[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = chunk * 8 + j;
-          v[j] = quant_i8(ln_apply(rl.v[c * 8 + j], rl, g[col], b[col]), inv);
-        }
-        *reinterpret_cast<uint2*>(dst + chunk * 8) =
-            *reinterpret_cast<uint2*>(v);
-      }
-    }
-  }
-}
-
-// shared bytes of one LN-prologue tile: the int8 panel and two B stages
-__host__ __device__ __forceinline__ size_t ln_gemm_smem(int K) {
+// shared bytes of a panel tile at depth K: the int8 panel (rows K + 16
+// bytes apart) and two B stages
+__host__ __device__ __forceinline__ size_t panel_gemm_smem(int K) {
   return static_cast<size_t>(kBM) * (K + 16) + 2 * kStageBytes;
-}
-
-// One 128 x 128 output tile of quant(LN(x)) . B^T: the LN statistics, the
-// affine and the int8 quant of the tile's rows run in the prologue into
-// shared memory (the first B stage already in flight), so the int8 LN
-// output never reaches device memory. p.act is x's activation scale.
-template <typename T, int MODE>
-__device__ __forceinline__ void ln_gemm_tile(const GemmArgs& p, const T* x,
-                                             const float* g, const float* b,
-                                             float eps, int m0, int n0,
-                                             unsigned char* smem) {
-  const TileThread q = tile_thread();
-  const int ldp = p.K + 16;
-  int8_t* panel = reinterpret_cast<int8_t*>(smem);
-  int8_t* bs = panel + static_cast<size_t>(kBM) * ldp;
-  first_b_stage(bs, p, n0, q);
-  ln_quant_panel(panel, ldp, x, p.M, p.K, m0, g, b, 127.0f / p.act[0], eps,
-                 q);
-  int acc[4][4][4];
-  zero_acc(acc);
-  mma_panel(acc, panel, ldp, bs, p, n0, q);
-  gemm_epilogue<MODE>(acc, p, m0, p.M, n0, q);
 }
 
 }  // namespace tpudf

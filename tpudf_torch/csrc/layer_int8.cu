@@ -1,4 +1,4 @@
-// K7: one static-W8A8 SigLIP layer in ONE launch.
+// K7: one static-W8A8 SigLIP layer in ONE launch, on wgmma and TMA.
 //
 // Replaces tpudf/ops/int8_block.py `_layer_kernel` (wrapper
 // `siglip_layer_int8`), which ran one image's whole layer per program with
@@ -8,44 +8,48 @@
 //   out = bf16(x1 + (quant(gelu(dequant(quant(LN2(x1)) . W1) + b1)) . W2
 //                    dequantised + b2))
 // No SM holds a whole layer's activations of even one image (the (256,
-// 3072) hidden alone is 768 KB), so here one persistent cooperative grid
-// (cudaLaunchCooperativeKernel, at most the co-resident blocks, sized by
-// the occupancy query) walks four phases with a grid-wide barrier between
-// them, each phase a grid-stride loop over its tiles:
-//   1. gemm_i8.cuh's LN-prologue tile: LN1 + quant + QKV -> bf16 qkv
-//   2. K6's tile: attention + quant + out-proj + bias + residual -> the
-//      f32 x1 workspace (the order of the TPU kernel's adds)
-//   3. LN2 over the f32 rows of x1 + quant in the prologue + fc1 + GELU +
-//      quant -> int8 hidden workspace
-//   4. fc2 + dequant + bias + the f32 residual x1 -> bf16 out
+// 3072) hidden alone is 768 KB), so here one persistent grid of clusters
+// (cudaLaunchKernelEx, cooperative and clustered, at most the co-resident
+// clusters, sized by the occupancy query) walks four phases with a
+// grid-wide barrier between them, each phase on the sm90 device function
+// that does its work elsewhere:
+//   1. K5's LN panel (i8_sm90.cuh `ln_panel`) on the int8 wgmma product:
+//      LN1 + quant + QKV -> the bf16 qkv workspace (units of a row tile and
+//      a run of its column tiles, `ln_runs`; the epilogue K5's
+//      `store_direct`)
+//   2. K6's cluster tile (attn_out_sm90.cuh): attention + quant into the
+//      clusters' o panels + out-proj + bias + the bf16 residual x -> the
+//      f32 x1 workspace (kEpiResF32Out: the order of the TPU kernel's
+//      adds); its softmax K9's exact sequence (expf and the division), as
+//      the TPU kernel's and the twin's, not K1's ex2 (which moved 5.6e-2
+//      of the layer's outputs off the twin's bits, past K7's card rule)
+//   3. the LN panel built from the f32 rows of x1 (LN2 + quant) + fc1 +
+//      GELU + quant (kEpiGeluI8) -> the int8 hidden workspace
+//   4. fc2, both operands by TMA (the hidden's and the weight's boxes in
+//      one 32 KB stage of a second ring over all of the shared memory,
+//      which phases 1-3 have left) + dequant + bias + the f32 residual x1
+//      (kEpiF32Residual) -> bf16 out
+// Every phase runs on the same block (two consumer warpgroups and a
+// producer warpgroup); phases 1-3 share one mbarrier ring of 16 KB stages
+// whose item count runs on across them, so its barriers' phases stay in
+// step.
+// Data that a phase writes with plain stores and the next reads by TMA
+// (qkv, the hidden) is fenced to the async proxy before the grid barrier.
 // The workspaces are device tensors the wrapper allocates; at the detect
-// core's (8, 256, 768) they take 22 MB, within the 50 MB L2. The tiles are
-// the device functions of gemm_i8.cuh and attn_tile.cuh, the same code as
-// K5, K6 and the GEMM of K1/K2. Bound: the tensor-core operations of the
-// four products and the attention.
+// core's (8, 256, 768) they take 22 MB, within the 50 MB L2. Bound: the
+// tensor-core operations of the four products and the attention.
 #include <cooperative_groups.h>
 
 #include <algorithm>
 
-#include "attn_tile.cuh"
+#include "attn_out_sm90.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace tpudf {
+namespace {
 
-struct LayerArgs {
-  const __nv_bfloat16* x;     // (M, W)
-  const float* ln1_g;
-  const float* ln1_b;
-  const float* ln2_g;
-  const float* ln2_b;
-  GemmArgs qkv;               // LN1(x) . Wqkv -> qkv workspace (M, 3W) bf16
-  AttnOutArgs attn;           // -> x1 workspace (M, W) f32
-  GemmArgs fc1;               // LN2(x1) . W1 -> hidden (M, inter) int8
-  GemmArgs fc2;               // hidden . W2 + x1 -> out (M, W) bf16
-  int batch;
-  float eps;
-};
+using namespace sm90;
 
 // K7's limits: head_dim 64, S <= 256 and W <= 1024 (the whole-layer
 // kernel is not widened; the block routes FPP beyond them, as JAX's does)
@@ -53,66 +57,317 @@ constexpr int kLayerHd = 64;
 constexpr int kLayerSeq = 256;
 constexpr int kLayerWidth = 1024;
 
-__global__ void __launch_bounds__(kGemmThreads, 1)
-    layer_int8_kernel(LayerArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  cg::grid_group grid = cg::this_grid();
-  const int row_tiles = (p.qkv.M + kBM - 1) / kBM;
+struct LayerArgs {
+  const __nv_bfloat16* x;     // (M, W)
+  const float* ln1_g;
+  const float* ln1_b;
+  const float* ln2_g;
+  const float* ln2_b;
+  const float* acts;          // a_qkv, a_out, a_fc1, a_fc2
+  const float* s_qkv;         // the weights' column scales and biases
+  const float* b_qkv;
+  const float* s1;
+  const float* b1;
+  const float* s2;
+  const float* b2;
+  __nv_bfloat16* qkv;         // (M, 3W) workspace
+  float* x1;                  // (M, W) workspace
+  int8_t* hid;                // (M, inter) workspace
+  __nv_bfloat16* out;         // (M, W)
+  AoArgs attn;                // phase 2 (residual x, out x1)
+  int batch, seq, width, inter;
+  int runs1, runs3;           // ln_runs of phases 1 and 3
+  float eps;
+};
 
-  int nt = p.qkv.N / kBN;
-  for (int i = blockIdx.x; i < row_tiles * nt; i += gridDim.x)
-    ln_gemm_tile<__nv_bfloat16, kEpiBf16>(p.qkv, p.x, p.ln1_g, p.ln1_b,
-                                          p.eps, (i / nt) * kBM,
-                                          (i % nt) * kBN, smem);
-  grid.sync();
+// the tensor maps: the QKV, out-projection, fc1 and fc2 weights (N, K)
+// int8, the qkv workspace (B, S, 3W) bf16, the hidden (M, inter) int8
+struct LayerMaps {
+  CUtensorMap wqkv, wout, w1, w2, qkv, hid;
+};
 
-  const int qt = (p.attn.seq + kOutQTile - 1) / kOutQTile;
-  for (int i = blockIdx.x; i < p.batch * qt; i += gridDim.x)
-    attn_out_tile<kLayerHd, kEpiResF32Out>(p.attn, i / qt,
-                                           (i % qt) * kOutQTile, smem);
-  grid.sync();
+// K7's shared memory: the panel (LN1, o, LN2: ceil(W / 128) slices of 16
+// KB) at 0, the Q buffer (128 x 64 bf16) at `q`, `stages` ring stages of 16
+// KB at `ring`, then the barriers; fc2's ring (phase 4: `stages4` stages
+// of 32 KB, an A box and a weight box) over all of it from 0
+struct LayerLayout {
+  int q, ring, stages, stages4, bars;
+  size_t bytes;
+};
 
-  nt = p.fc1.N / kBN;
-  const float* x1 = static_cast<const float*>(p.attn.proj.out);
-  for (int i = blockIdx.x; i < row_tiles * nt; i += gridDim.x)
-    ln_gemm_tile<float, kEpiGeluI8>(p.fc1, x1, p.ln2_g, p.ln2_b, p.eps,
-                                    (i / nt) * kBM, (i % nt) * kBN, smem);
-  grid.sync();
-
-  nt = p.fc2.N / kBN;
-  for (int i = blockIdx.x; i < row_tiles * nt; i += gridDim.x)
-    gemm_tile<kEpiF32Residual>(p.fc2, (i / nt) * kBM, (i % nt) * kBN,
-                               reinterpret_cast<int8_t*>(smem));
+__host__ __device__ inline LayerLayout layer_layout(int w) {
+  LayerLayout L{};
+  L.q = ln_panel_bytes(w);
+  L.ring = L.q + tile_bytes<kLayerHd>(kBlockRows);
+  const int room = static_cast<int>(kMaxBlockSmem) - 1024 - 512 - L.ring;
+  L.stages = room / kQSlice < 8 ? room / kQSlice : 8;
+  L.bars = L.ring + L.stages * kQSlice;
+  L.stages4 = L.bars / (2 * kQSlice) < 8 ? L.bars / (2 * kQSlice) : 8;
+  L.bytes = static_cast<size_t>(L.bars) +
+            8 * (2 + 2 * L.stages + 2 * L.stages4) + 1024;
+  return L;
 }
 
-int launch_layer(LayerArgs& p, size_t smem, int max_tiles, void* stream) {
-  auto* kernel = layer_int8_kernel;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, kGemmThreads, smem);
+// the units of an LN phase: (row tile, run of its column tiles); block
+// blk's units are blk, blk + gridDim.x, ...
+struct LnUnit {
+  int m0, t0, t1;
+};
+
+__device__ __forceinline__ LnUnit ln_unit(int u, int runs, int tiles) {
+  const int j = u % runs;
+  return {u / runs * kQM, j * tiles / runs, (j + 1) * tiles / runs};
+}
+
+// the producer's weight boxes of an LN phase: nk K slices of each of the
+// unit's column tiles
+__device__ __forceinline__ void load_ln_phase(const RingN& ring, int& r,
+                                              unsigned char* base,
+                                              const CUtensorMap* w_map,
+                                              int M, int N, int K, int runs) {
+  const int units = (M + kQM - 1) / kQM * runs, tiles = N / kQBoxRows;
+  const int nk = (K + kQK - 1) / kQK;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const LnUnit w = ln_unit(u, runs, tiles);
+    for (int tn = w.t0; tn < w.t1; ++tn)
+      for (int kt = 0; kt < nk; ++kt, ++r) {
+        uint64_t* full = ring.producer_acquire(r, kQSlice);
+        tma_load_3d(base + ring.stage(r) * kQSlice, w_map, full, kt * kQK,
+                    tn * kQBoxRows, 0);
+      }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    layer_i8_sm90(const __grid_constant__ LayerMaps maps, const LayerArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  cg::grid_group grid = cg::this_grid();
+  const LayerLayout L = layer_layout(p.width);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
+  const RingN ring{bars + 2, bars + 2 + L.stages, L.stages};
+  uint64_t* bars4 = bars + 2 + 2 * L.stages;
+  const RingN ring4{bars4, bars4 + L.stages4, L.stages4};
+  unsigned char* rbase = smem + L.ring;
+  const AoSmem m{smem, smem + L.q, bars, bars + 1, ring, rbase, kQSlice,
+                 ring, rbase};
+  if (threadIdx.x == 0) {
+    mbar_init(m.q_full, 1);
+    mbar_init(m.q_empty, kWarpgroups * 128);
+    for (int i = 0; i < L.stages; ++i) {
+      mbar_init(&ring.full[i], 1);
+      mbar_init(&ring.empty[i], kWarpgroups * 128);
+    }
+    for (int i = 0; i < L.stages4; ++i) {
+      mbar_init(&ring4.full[i], 1);
+      mbar_init(&ring4.empty[i], kWarpgroups * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  cluster_sync();
+  const int M = p.batch * p.seq, W = p.width;
+  const int row_tiles = (M + kQM - 1) / kQM;
+  const int n_qt = (p.seq + kBlockRows - 1) / kBlockRows;
+  const int units2 = p.batch * n_qt;
+  const int rank = cluster_rank(), csize = cluster_size();
+  AoCounts n{0, 0, 0};               // one ring: n.ra counts its items
+
+  if (threadIdx.x >= kWarpgroups * 128) {
+    // ---- the producer warpgroup: its first thread issues every load, the
+    // others keep the barriers' counts
+    reg_dealloc<kAoProducerRegs>();
+    const bool loader = threadIdx.x == kWarpgroups * 128;
+    if (loader)
+      load_ln_phase(ring, n.ra, rbase, &maps.wqkv, M, 3 * W, W, p.runs1);
+    grid.sync();
+    for (int u = cluster_index(); u < units2; u += cluster_count()) {
+      if (loader)
+        ao_load<kLayerHd, true>(p.attn, m, n, &maps.qkv, &maps.wout,
+                                u / n_qt, (u % n_qt) * kBlockRows, rank,
+                                csize);
+      else
+        ao_idle();
+      cluster_sync();                 // the panels' reads done
+    }
+    grid.sync();
+    if (loader)
+      load_ln_phase(ring, n.ra, rbase, &maps.w1, M, p.inter, W, p.runs3);
+    grid.sync();
+    if (loader) {
+      const int nt = W / kQBoxRows, nk = p.inter / kQK;
+      int r4 = 0;
+      for (int u = blockIdx.x; u < row_tiles * nt; u += gridDim.x)
+        for (int kt = 0; kt < nk; ++kt, ++r4) {
+          uint64_t* full = ring4.producer_acquire(r4, 2 * kQSlice);
+          unsigned char* st = smem + ring4.stage(r4) * 2 * kQSlice;
+          tma_load_3d(st, &maps.hid, full, kt * kQK, u / nt * kQM, 0);
+          tma_load_3d(st + kQSlice, &maps.w2, full, kt * kQK,
+                      u % nt * kQBoxRows, 0);
+        }
+    }
+    return;
+  }
+
+  // ---- the consumers: 64 rows of each tile
+  reg_alloc<kAoConsumerRegs>();
+  const Consumer c = consumer();
+  auto stage = [&](int i) {
+    return static_cast<const unsigned char*>(rbase + ring.stage(i) * kQSlice);
+  };
+  // 1. LN1 + quant + QKV -> qkv (bf16)
+  {
+    const int tiles = 3 * W / kQBoxRows, nk = (W + kQK - 1) / kQK;
+    const float inv = inv_of(p.acts + 0);
+    for (int u = blockIdx.x; u < row_tiles * p.runs1; u += gridDim.x) {
+      const LnUnit w = ln_unit(u, p.runs1, tiles);
+      const int row0 = w.m0 + 64 * c.wg;
+      ln_panel(smem, p.x, p.ln1_g, p.ln1_b, p.eps, inv, M, W, row0, c.wg);
+      for (int tn = w.t0; tn < w.t1; ++tn) {
+        int acc[64];
+        zero_acc(acc);
+        ring_product(acc, ring, n.ra, nk, smem, stage, 0, c);
+        if (row0 >= M) continue;
+        EpiArgs e{p.s_qkv, p.b_qkv, nullptr, nullptr, nullptr,
+                  act_div(p.acts + 0), 0.0f, M, 3 * W};
+        store_direct<128>(acc, p.qkv, e, tn * kQBoxRows, row0, c);
+      }
+    }
+  }
+  fence_proxy_async_all();              // qkv is read by TMA in phase 2
+  grid.sync();
+
+  // 2. attention + out-projection + x -> x1 (f32)
+  for (int u = cluster_index(); u < units2; u += cluster_count()) {
+    const int b = u / n_qt, q0 = (u % n_qt) * kBlockRows;
+    ao_compute<kLayerHd, kEpiResF32Out, true, false>(
+        p.attn, m, n, q0, static_cast<long long>(b) * p.seq + q0, rank,
+        csize, c);
+    cluster_sync();                     // the panels' reads done
+  }
+  grid.sync();
+
+  // 3. LN2 over x1 + quant + fc1 + GELU + quant -> hidden (int8)
+  {
+    const int tiles = p.inter / kQBoxRows, nk = (W + kQK - 1) / kQK;
+    const float inv = inv_of(p.acts + 2);
+    for (int u = blockIdx.x; u < row_tiles * p.runs3; u += gridDim.x) {
+      const LnUnit w = ln_unit(u, p.runs3, tiles);
+      const int row0 = w.m0 + 64 * c.wg;
+      ln_panel(smem, static_cast<const float*>(p.x1), p.ln2_g, p.ln2_b,
+               p.eps, inv, M, W, row0, c.wg);
+      for (int tn = w.t0; tn < w.t1; ++tn) {
+        int acc[64];
+        zero_acc(acc);
+        ring_product(acc, ring, n.ra, nk, smem, stage, 0, c);
+        if (row0 < M)
+          epi_rows<kEpiGeluI8>(acc, p.hid, nullptr, p.s1, p.b1,
+                                act_div(p.acts + 2), inv_of(p.acts + 3),
+                                p.inter, tn * kQBoxRows, row0,
+                                min(64, M - row0), c);
+      }
+    }
+  }
+  fence_proxy_async_all();              // the hidden is read by TMA next
+  grid.sync();
+
+  // 4. fc2 + dequant + bias + x1 -> out (bf16), on its own ring over all
+  // of the shared memory
+  {
+    const int nt = W / kQBoxRows, nk = p.inter / kQK;
+    int r4 = 0;
+    auto stage4 = [&](int i) {
+      return static_cast<const unsigned char*>(smem + ring4.stage(i) * 2 *
+                                               kQSlice);
+    };
+    for (int u = blockIdx.x; u < row_tiles * nt; u += gridDim.x) {
+      const int row0 = u / nt * kQM + 64 * c.wg;
+      int acc[64];
+      zero_acc(acc);
+      ring_product(acc, ring4, r4, nk, nullptr, stage4, kQSlice, c);
+      if (row0 < M)
+        epi_rows<kEpiF32Residual>(acc, p.out, p.x1, p.s2, p.b2,
+                                   act_div(p.acts + 3), 0.0f, W,
+                                   u % nt * kQBoxRows, row0,
+                                   min(64, M - row0), c);
+    }
+  }
+}
+
+// The clusters of 1 .. 8 CTAs of K7's kernel the card holds at a time
+// (the occupancy query: a cooperative grid larger than that would never
+// finish its first grid barrier), kept for the last width asked
+cudaError_t layer_waves(size_t bytes, int (&waves)[kAoMaxCluster]) {
+  static size_t cached = 0;
+  static int counts[kAoMaxCluster];
+  if (bytes != cached) {
+    static const cudaError_t attr =
+        registers_suffice(layer_i8_sm90)
+            ? cudaFuncSetAttribute(layer_i8_sm90,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(kMaxBlockSmem))
+            : cudaErrorInvalidDeviceFunction;
+    if (attr != cudaSuccess) return attr;
+    for (int c = 1; c <= kAoMaxCluster; ++c) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(c * 16);
+      cfg.blockDim = dim3(kThreads);
+      cfg.dynamicSmemBytes = bytes;
+      cudaLaunchAttribute at[1];
+      at[0].id = cudaLaunchAttributeClusterDimension;
+      at[0].val.clusterDim.x = c;
+      at[0].val.clusterDim.y = 1;
+      at[0].val.clusterDim.z = 1;
+      cfg.attrs = at;
+      cfg.numAttrs = 1;
+      const cudaError_t err =
+          cudaOccupancyMaxActiveClusters(&counts[c - 1], layer_i8_sm90, &cfg);
+      if (err != cudaSuccess) return err;
+    }
+    cached = bytes;
+  }
+  for (int i = 0; i < kAoMaxCluster; ++i) waves[i] = counts[i];
+  return cudaSuccess;
+}
+
+// K7's launch: the cluster size of its attention phase by K6's rule
+// (`ao_cluster`, over the clusters the card holds), as many clusters as
+// the card holds at a time, one cooperative and clustered launch
+int launch_layer(const LayerMaps& maps, LayerArgs& p, int heads,
+                 cudaStream_t stream) {
+  const LayerLayout L = layer_layout(p.width);
+  int waves[kAoMaxCluster];
+  cudaError_t err = layer_waves(L.bytes, waves);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!coop) return cudaErrorNotSupported;
-  // a cooperative grid larger than the co-resident blocks would deadlock
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int blocks = std::min(per_sm * sms, max_tiles);
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    dim3(blocks), dim3(kGemmThreads), args,
-                                    smem, static_cast<cudaStream_t>(stream));
+  const int units2 = p.batch * ((p.seq + kBlockRows - 1) / kBlockRows);
+  const int csize = ao_cluster(units2, heads, p.width / kQBoxRows, p.seq,
+                               kLayerHd, p.width, waves);
+  const int clusters = waves[csize - 1];
+  if (clusters < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int blocks = clusters * csize;
+  const int M = p.batch * p.seq;
+  p.runs1 = ln_runs(M, 3 * p.width, blocks);
+  p.runs3 = ln_runs(M, p.inter, blocks);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = L.bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = csize;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeCooperative;
+  at[1].val.cooperative = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, layer_i8_sm90, maps, p);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
 }  // namespace tpudf
 
 // x (B*S, W) bf16 -> out (B*S, W) bf16; weights transposed (N, K) int8,
@@ -128,41 +383,55 @@ TPUDF_API int tpudf_layer_i8(
     void* hid_ws, void* out, int batch, int seq, int heads, int width,
     int inter, float eps, float scale, void* stream) {
   using namespace tpudf;
+  using namespace tpudf::sm90;
   if (batch <= 0 || seq <= 0) return 0;
-  if (heads * kLayerHd != width || width % kBN != 0 ||
-      width > kLayerWidth || inter % kBN != 0 || seq > kLayerSeq)
+  if (heads * kLayerHd != width || width % kQBoxRows != 0 ||
+      width > kLayerWidth || inter % kQBoxRows != 0 || inter <= 0 ||
+      seq > kLayerSeq)
     return cudaErrorInvalidValue;
   const int m = batch * seq;
   const float* a = static_cast<const float*>(acts);
-  auto gemm = [&](const void* wt, const void* cs, const void* bias,
-                  const float* act, const void* res, void* o, int n, int k,
-                  const float* act_out, const void* a8) {
-    return GemmArgs{static_cast<const int8_t*>(a8),
-                    static_cast<const int8_t*>(wt),
-                    static_cast<const float*>(cs),
-                    static_cast<const float*>(bias),
-                    act, res, o, nullptr, act_out, m, n, k};
-  };
+  LayerMaps maps;
+  const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  if (!map_2d(&maps.wqkv, wqkv, u8, 1, width, 3 * width, kQK, kQBoxRows) ||
+      !map_2d(&maps.wout, wout, u8, 1, width, width, kQK, kQBoxRows) ||
+      !map_2d(&maps.w1, w1, u8, 1, width, inter, kQK, kQBoxRows) ||
+      !map_2d(&maps.w2, w2, u8, 1, inter, width, kQK, kQBoxRows) ||
+      !map_2d(&maps.hid, hid_ws, u8, 1, inter, m, kQK, kQM) ||
+      !map_bf16_3d(&maps.qkv, qkv_ws, 3 * width, seq, batch, kTileRows) ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x1_ws) % 16 != 0)
+    return cudaErrorInvalidValue;
   LayerArgs p{static_cast<const __nv_bfloat16*>(x),
               static_cast<const float*>(ln1_g),
               static_cast<const float*>(ln1_b),
               static_cast<const float*>(ln2_g),
               static_cast<const float*>(ln2_b),
-              gemm(wqkv, sqkv, bqkv, a + 0, nullptr, qkv_ws, 3 * width,
-                   width, nullptr, nullptr),
-              AttnOutArgs{static_cast<const __nv_bfloat16*>(qkv_ws),
-                          gemm(wout, sout, bout, a + 1, x, x1_ws, width,
-                               width, nullptr, nullptr),
-                          seq, heads, scale},
-              gemm(w1, s1, b1, a + 2, nullptr, hid_ws, inter, width, a + 3,
-                   nullptr),
-              gemm(w2, s2, b2, a + 3, x1_ws, out, width, inter, nullptr,
-                   hid_ws),
-              batch, eps};
-  const size_t smem =
-      std::max(ln_gemm_smem(width), attn_out_smem<kLayerHd>(width));
-  const int row_tiles = (m + kBM - 1) / kBM;
-  const int max_tiles = std::max(row_tiles * (inter / kBN),
-                                 row_tiles * (3 * width / kBN));
-  return launch_layer(p, smem, max_tiles, stream);
+              a,
+              static_cast<const float*>(sqkv),
+              static_cast<const float*>(bqkv),
+              static_cast<const float*>(s1),
+              static_cast<const float*>(b1),
+              static_cast<const float*>(s2),
+              static_cast<const float*>(b2),
+              static_cast<__nv_bfloat16*>(qkv_ws),
+              static_cast<float*>(x1_ws),
+              static_cast<int8_t*>(hid_ws),
+              static_cast<__nv_bfloat16*>(out),
+              AoArgs{a + 1, static_cast<const float*>(sout),
+                     static_cast<const float*>(bout), x, x1_ws, seq, heads,
+                     kLayerHd, width, scale},
+              batch, seq, width, inter, 1, 1, eps};
+  return launch_layer(maps, p, heads, static_cast<cudaStream_t>(stream));
+}
+
+// K7's cluster size at (B, S) with `heads` heads of 64 and width W on this
+// card (-1 on an error)
+TPUDF_API int tpudf_layer_cluster(int batch, int seq, int heads, int width) {
+  using namespace tpudf;
+  using namespace tpudf::sm90;
+  int waves[kAoMaxCluster];
+  if (layer_waves(layer_layout(width).bytes, waves) != cudaSuccess) return -1;
+  return ao_cluster(batch * ((seq + kBlockRows - 1) / kBlockRows), heads,
+                    width / kQBoxRows, seq, kLayerHd, width, waves);
 }

@@ -22,7 +22,7 @@
 // point. Per output element the f32 arithmetic is rounded op by op in the
 // TPU kernels' order (the probe's (acc * c) * s, but c * s first in 16's).
 //
-// Design: gemm_i8.cuh's panel tile (K7's `ln_gemm_tile`). Each 128 x 128
+// Design: gemm_i8.cuh's panel tile (`mma_panel`). Each 128 x 128
 // output tile first loads its 128 rows of bf16 x, quantises them into an
 // int8 panel in shared memory
 // (K + 16 bytes a row: 120 KB with the weight stages at K = 768, one block
@@ -75,8 +75,8 @@ __device__ __forceinline__ void quant_panel(int8_t* panel, int ldp,
 }
 
 // the epilogues of kProbeStaticQ, kProbeFull and kProbeBf16Epi, in
-// gemm_epilogue's fragment layout: rows (g, g+8) x cols (2t, 2t+1) of
-// each 16 x 8 tile; c = act / 127 as gemm_epilogue computes it
+// gemm_epilogue_bf16's fragment layout: rows (g, g+8) x cols (2t, 2t+1) of
+// each 16 x 8 tile; c = act / 127 as gemm_epilogue_bf16 computes it
 template <int MODE>
 __device__ __forceinline__ void probe_epilogue(const int (&acc)[4][4][4],
                                                const GemmArgs& p, int m0,
@@ -138,14 +138,14 @@ __global__ void __launch_bounds__(kGemmThreads)
   zero_acc(acc);
   mma_panel(acc, panel, ldp, bs, p, n0, q);
   if constexpr (MODE == kProbeNoGelu)
-    gemm_epilogue<kEpiBf16>(acc, p, m0, p.M, n0, q);
+    gemm_epilogue_bf16(acc, p, m0, p.M, n0, q);
   else
     probe_epilogue<MODE>(acc, p, m0, n0, q);
 }
 
 template <int MODE>
 int launch_probe_gemm(const GemmArgs& p, const void* x, cudaStream_t s) {
-  const size_t smem = ln_gemm_smem(p.K);
+  const size_t smem = panel_gemm_smem(p.K);
   cudaError_t err = cudaFuncSetAttribute(
       probe_q_gemm_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

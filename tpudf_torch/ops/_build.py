@@ -47,7 +47,11 @@ SIGNATURES = {
     "tpudf_srm_moments": "pppiiip",
     "tpudf_ln_qkv_i8": "ppppppppiiifp",
     "tpudf_ln_qkv_splits": "ii",
-    "tpudf_attn_out_i8": "pppppppiiiiifp",
+    "tpudf_attn_out_i8": "pppppppiiiiiifp",
+    "tpudf_attn_out_cluster": "iiiiii",
+    "tpudf_attn_out_smem": "ii",
+    "tpudf_attn_out_waves": "iii",
+    "tpudf_layer_cluster": "iiii",
     "tpudf_attention_i8dyn": "pppiiiiifp",
     "tpudf_attention_i8_prepass": "pppppiiiiip",
     "tpudf_attention_i8dyn_sm90": "pppppiiiiifp",

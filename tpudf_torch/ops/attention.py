@@ -131,8 +131,8 @@ KERNEL_INT8 = "attention_qkv_int8"
 # == 0 or 128 % head_dim == 0) admits at W <= 1280
 WIDE_HEAD_DIMS = tuple(range(384, 1281, 128))   # their own kernels
 HEAD_DIMS = (1, 2, 4, 8, 16, 32, 64, 128, 256) + WIDE_HEAD_DIMS
-# K1, K9, 9b and K10 run these on zero-padded 64-wide heads (K6 takes 16
-# and 32 natively and pads the narrower ones to 16)
+# K1, K6, K9, 9b and K10 run these on zero-padded 64-wide heads (K6's
+# panel holds 16 and 32 as they are and pads the narrower ones to 16)
 PADDED_HEAD_DIMS = (1, 2, 4, 8, 16, 32)
 PAD_HEAD_DIM = 64
 # K1, K6, K9 and 9b: the longest sequence (csrc/common.cuh kMaxSeq; 9b's

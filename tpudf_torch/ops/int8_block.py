@@ -34,10 +34,16 @@ never reaches device memory. Twin: `ln_qkv_reference`.
 
 K6 (`attn_out_int8`, replacing `_attn_out_kernel`): qkv + residual x →
 attention → int8 quant of the f32 output → int8 out-proj → dequant + bias
-+ residual, ONE launch (`csrc/attention.cu`), but at the wide heads (384
-to 1280), whose o tile does not fit a block beside the attention: there
-two launches, K1's attention kernel then the int8 GEMM with the residual
-epilogue, counted as KERNEL_ATTN_OUT_SPLIT. With a logit bias, or where
++ residual, ONE launch on wgmma and TMA (`csrc/attention.cu`, the cluster
+tile of `csrc/attn_out_sm90.cuh`): a cluster of up to 8 CTAs takes one
+128-row tile of one image, each CTA a share of the heads (K1's attention
+block, codes into every CTA's shared-memory o panel through distributed
+shared memory) and then a share of the out-projection's 128-column tiles
+against its whole panel (`k6_plan`); its output equals K1's attention
+launch followed by the int8 GEMM in GEMM_RESIDUAL mode bit for bit. At
+the wide heads (384 to 1280), whose o panel does not fit a block beside
+the attention: two launches, K1's attention kernel then that GEMM,
+counted as KERNEL_ATTN_OUT_SPLIT. With a logit bias, or where
 JAX's VMEM estimate does not fit (`attn_out_int8_fits`: so400m-512's S =
 1024, Wa = 2048), the JAX function takes its reference route, and so does
 this one: K9 (with the bias), or without a bias and under
@@ -53,12 +59,14 @@ The routing predicates are JAX's own decisions from shapes, copied:
 JAX's 13 MB VMEM fit).
 
 K7 (`siglip_layer_int8`, replacing `_layer_kernel`): the whole layer in
-ONE cooperative launch (`csrc/layer_int8.cu`): the LN-prologue GEMM tile
-of `gemm_i8.cuh`, K6's and K2's tiles in four grid-synchronised phases;
-the attention sublayer's residual stays
-f32 into LN2 and the final add. JAX has no reference form of it (off a TPU
-it returns None); the twin `siglip_layer_int8_reference` is written from
-`_layer_kernel`'s math.
+ONE cooperative launch of clusters (`csrc/layer_int8.cu`) whose four
+grid-synchronised phases run on the sm90 device functions: K5's LN panel
+and the int8 wgmma product (LN1 + QKV), K6's cluster tile with an f32
+out (the attention sublayer's residual stays f32 into LN2 and the final
+add), the LN panel built from those f32 rows (LN2 + fc1 + GELU + quant),
+and fc2 with both operands by TMA and the f32 residual. JAX has no
+reference form of it (off a TPU it returns None); the twin
+`siglip_layer_int8_reference` is written from `_layer_kernel`'s math.
 """
 
 from __future__ import annotations
@@ -70,7 +78,8 @@ import torch
 from tpudf_torch.core.backend import LAUNCHES
 from tpudf_torch.ops import _build
 from tpudf_torch.ops.attention import (HEAD_DIMS, MAX_ROWS, MAX_SEQ,
-                                       SM90_TILE_ROWS, WIDE_HEAD_DIMS,
+                                       SM90_BLOCK_SMEM, SM90_TILE_ROWS,
+                                       WIDE_HEAD_DIMS,
                                        attention_qkv_reference,
                                        check_attention_shape,
                                        kernel_head_dim, pad_heads,
@@ -87,20 +96,86 @@ KERNEL_ATTN_OUT_SPLIT = "attn_out_int8_split"   # K6 as two launches
 KERNEL_LAYER = "siglip_layer_int8"
 LAYER_MAX_SEQ = 256         # K7's own limits (the whole-layer kernel is
 LAYER_MAX_WIDTH = 1024      # not widened: beyond them the block routes FPP)
-# K6's widest Wa at each head_dim its tile runs (csrc/attention.cu: the
-# (128 x Wa) int8 tile beside Q and the K/V ring within a block's shared
-# memory); None: the wide heads, run as two launches at any Wa
+# K6's widest Wa at each head_dim its tile runs (csrc/attn_out_sm90.cuh:
+# the (128 x Wa) int8 panel beside the Q buffer and a stage of K and V
+# tiles within a block's shared memory, `k6_smem`); None: the wide heads,
+# run as two launches at any Wa
 K6_MAX_WA = {16: 1536, 32: 1536, 64: 1024, 128: 768, 256: 768,
              **dict.fromkeys(WIDE_HEAD_DIMS)}
-K6_MIN_HEAD_DIM = 16        # mma.sync's k16: narrower heads are padded
+K6_MIN_HEAD_DIM = 16        # the panel's narrowest head: narrower ones are
+                            # padded to it
+K6_MAX_CLUSTER = 8          # csrc/attn_out_sm90.cuh kAoMaxCluster
 I8_ATTN_NARROW = 80         # K1's tile for a head of 65-80 live of 128
 
 
 def k6_head_dim(head_dim):
-    """The head_dim K6 runs `head_dim` at: at least K6_MIN_HEAD_DIM
-    (narrower heads zero-padded: zero columns add nothing to q·k, p·v or
-    the out-projection)."""
+    """The head_dim K6's panel holds `head_dim` at: at least
+    K6_MIN_HEAD_DIM (narrower heads zero-padded: zero columns add nothing
+    to q·k, p·v or the out-projection)."""
     return max(head_dim, K6_MIN_HEAD_DIM)
+
+
+def k6_tile(head_dim):
+    """(tile width, live columns a head) K6's cluster tile runs a head of
+    `head_dim` at: the attention on K1's tile (heads of 32 and fewer
+    zero-padded to 64), the panel `k6_head_dim` columns a head."""
+    live = k6_head_dim(head_dim)
+    return kernel_head_dim(live), live
+
+
+def k6_smem(tile, wa):
+    """K6's dynamic shared memory a block (`ao_layout`): the panel of
+    ceil(Wa / 128) slices of 16 KB, the Q buffer (128 x tile bf16), as many
+    stages of a K and a V tile (64 x tile bf16 each) as fit up to 6 / 4 / 2
+    (tile 64 / 128 / 256), the barriers and the alignment; None where not
+    one stage fits."""
+    ahead = -(-wa // 128) * 16384 + 128 * tile * 2
+    stride = 2 * 64 * tile * 2
+    stages = min((SM90_BLOCK_SMEM - 1024 - 256 - ahead) // stride,
+                 {64: 6, 128: 4, 256: 2}[tile])
+    if stages < 1:
+        return None
+    w_stages = min((128 * tile * 2 + stages * stride) // 16384, 8)
+    return ahead + stages * stride + 8 * (2 + 2 * stages + 2 * w_stages) + 1024
+
+
+# the clusters of 1 .. 8 CTAs of K6's kernel an H100 SXM holds at a time
+# (cudaOccupancyMaxActiveClusters at every K6 shape: one CTA an SM, and
+# fewer than 132 / C where the GPCs' SMs do not divide by C; chip_smoke.py
+# phase 2l, NVIDIA H100 80GB HBM3)
+H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+
+
+def k6_cluster(b, s, heads, tile, live, width, waves=None):
+    """K6's cluster size (`ao_cluster`): the C in 1 .. 8 (at most `heads`)
+    that minimises the waves of clusters (waves[C] at a time, the card's
+    occupancy; H100_CLUSTERS by default) over the B·ceil(S / 128) row tiles
+    times a CTA's work: ceil(heads / C) heads of 6 · S₆₄ · tile and
+    ceil(W / 128 / C) column tiles of 64 · Wa; the smallest such C (at
+    B = 8: 6 at base-256, 8 at large-384)."""
+    waves = waves or H100_CLUSTERS
+    units = b * -(-s // 128)
+    keys = -(-s // 64) * 64
+    best, best_cost = 1, None
+    for c in range(1, min(K6_MAX_CLUSTER, heads) + 1):
+        cost = -(-units // max(waves[c], 1)) * (
+            -(-heads // c) * 6 * keys * tile
+            + -(-(width // 128) // c) * 64 * heads * live)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = c, cost
+    return best
+
+
+def k6_plan(b, s, heads, tile, live, width, waves=None):
+    """K6's launch: per CTA (image, first row of its 128-row tile, rank in
+    its cluster, its heads, its 128-column tiles of the out-projection):
+    cluster u takes row tile u (image u // ceil(S / 128)), rank k heads k,
+    k + C, ... and column tiles k, k + C, ..."""
+    c = k6_cluster(b, s, heads, tile, live, width, waves)
+    n_qt = -(-s // 128)
+    return [(u // n_qt, (u % n_qt) * 128, k, list(range(k, heads, c)),
+             list(range(k, width // 128, c)))
+            for u in range(b * n_qt) for k in range(c)]
 
 
 def i8_attn_tile(head_dim, live=None):
@@ -498,7 +573,9 @@ def attn_out_int8(qkv, x, wq, bias, act_scale, heads, head_dim, scale=None,
     narrower than 16 padded to 16, S <= MAX_SEQ, W % 128 == 0, Wa within
     K6_MAX_WA: its shared memory; the wide heads as two launches) or
     raise; with a logit bias or where
-    `attn_out_int8_fits` is false, K9 or 9b and the out-projection GEMM."""
+    `attn_out_int8_fits` is false, K9 or 9b and the out-projection GEMM.
+    Heads of 16 and 32 run the attention zero-padded to 64 (K1's tile),
+    narrower ones are padded to 16 first (`k6_tile`)."""
     scale = scale if scale is not None else head_dim ** -0.5
     if not qkv.is_cuda:
         return attn_out_reference(qkv, x, wq, bias, act_scale, heads,
@@ -511,23 +588,40 @@ def attn_out_int8(qkv, x, wq, bias, act_scale, heads, head_dim, scale=None,
         return _attn_out_route_cuda(qkv, x, wq, bias, a, heads, head_dim,
                                     scale, logit_bias)
     check_attn_out_int8(qkv, x, wq, heads, head_dim)
-    hk = k6_head_dim(head_dim)
-    if K6_MAX_WA[hk] is None:
+    if K6_MAX_WA[k6_head_dim(head_dim)] is None:
         return _attn_out_split_cuda(qkv.contiguous(), x, wq, bias, a, heads,
                                     head_dim, scale)
+    tile, live = k6_tile(head_dim)
     wt = transposed(wq)
-    if hk != head_dim:          # zero q, k, v columns and weight rows
-        qkv = pad_heads(qkv, heads, head_dim, hk)
-        wt = pad_heads(wt, heads, head_dim, hk).contiguous()
+    if live != head_dim:        # zero weight columns: nothing added
+        wt = pad_heads(wt, heads, head_dim, live).contiguous()
+    if tile != head_dim:        # zero q, k, v columns: nothing added
+        qkv = pad_heads(qkv, heads, head_dim, tile)
     out = torch.empty((b * s, w), dtype=torch.bfloat16, device=x.device)
     _build.call("tpudf_attn_out_i8", qkv.contiguous(),
                 x.reshape(b * s, w).contiguous(), wt, _f32(wq["scale"]),
-                _f32(bias), a, out, b, s, heads, hk, w, float(scale))
+                _f32(bias), a, out, b, s, heads, tile, live, w, float(scale))
     LAUNCHES.hit(KERNEL_ATTN_OUT)
     return out.reshape(b, s, w)
 
 
 # ------------------------------------------------------------------ K7
+
+def k7_launch(b, s, heads, w, inter, waves=None):
+    """K7's launch (csrc/layer_int8.cu `launch_layer`): (C, blocks, runs1,
+    runs3): its attention phase's cluster size by K6's rule
+    (`k6_cluster` at head_dim 64, Wa = W), as many clusters of C as the
+    card holds (waves[C]; H100_CLUSTERS by default) for the cooperative
+    grid, and the runs its LN phases cut a row tile's column tiles in over
+    those blocks (`k5_splits`: phase 1 into 3W columns, phase 3 into the
+    MLP's)."""
+    waves = waves or H100_CLUSTERS
+    c = k6_cluster(b, s, heads, 64, 64, w, waves)
+    blocks = waves[c] * c
+    return c, blocks, k5_splits(b * s, 3 * w, blocks), k5_splits(b * s,
+                                                                 inter,
+                                                                 blocks)
+
 
 def layer_int8_eligible(x, bp, heads, head_dim, logit_bias=None):
     """JAX's structural conditions for the whole-layer kernel (not its
