@@ -169,6 +169,17 @@ back to the CPU or to a twin):
      phase-3 row tile started early; each launch alone by device time: K6
      beside its split form, bound and SDPA + `_int_mm`, K7 beside the FPP
      layer and its bound;
+  2m. ROADMAP Queue C 1-3 and K3 (`queue_c_checks`, `k3_checks`): K6
+     past its panel on its split route (QC_K6), K7 where JAX's decision
+     runs it (QC_K7: one launch on the 64- and 128-wide tiles, or its split
+     form), the row pass at QC_LN (K4, K8 and the f32 pass), K5 past its
+     panel (K8 + the int8 GEMM, bit-equal), K1 and K2 at W 1408, each with
+     planted faults that must fail by at least twice the tolerance; K8
+     re-timed alone; the queue's blocks (base-256's at S = 64 under LLL,
+     one at W 1408 under LLL and PPP: the split forms' launches); K3 on its
+     strips at K3_BATCHES (bit-identical over launches, planted faults:
+     halo rows zeroed, a strip's partial missing, a clamped border), each
+     timed beside its bound and the library's parts;
   3. the paths, each driven with the launch counts set to 0 just before it
      and read just after:
      (a) the detect core (build("cuda", seed=0), base-256, W8A8 + ToMe),
@@ -178,10 +189,11 @@ back to the CPU or to a twin):
          parameters through the twins: pooled cosine >= 0.99,
          |Δp_blend| <= 1e-2;
      and the same forwards under TPUDF_INT8_KERNELS=PPP, XXX and LLL
-     (K5/K6, K8 and the int8 products, K7 where there is no ToMe bias):
+     (K5/K6, K8 and the int8 products; under LLL FPP, since JAX's K7
+     fits no layer of base-256: 14.0 MB at S = 256, a ToMe bias after):
      exact launches per forward and route, the same checks against the
      twins; and the tower without ToMe at B=8 under LLL and PPP, so that
-     all 12 layers run K7, or K5 and K6, against the twins (pooled cosine
+     all 12 layers run FPP, or K5 and K6, against the twins (pooled cosine
      >= 0.99);
      (b) engine A, build_engine("cuda") (bf16 tower, no ToMe, linear
          fusion): a full analysis of 8 uint8 images and a fast request of
@@ -284,6 +296,9 @@ REPLACES = {
     "K6": "tpudf/ops/int8_block.py:390",
     "K7": "tpudf/ops/int8_block.py:272",
     "K8": "tpudf/ops/layernorm.py:72",
+    "K5-split": "tpudf/ops/int8_block.py:44",
+    "K6-split": "tpudf/ops/int8_block.py:390",
+    "K7-split": "tpudf/ops/int8_block.py:272",
     "K9": "tpudf/ops/attention.py:167",
     "K10": "tpudf/ops/attention.py:308",
     "K13": "tpudf/ops/linear.py:20",
@@ -309,6 +324,13 @@ SOURCES = {
     "K6": "tpudf_torch/csrc/attention.cu",
     "K7": "tpudf_torch/csrc/layer_int8.cu",
     "K8": "tpudf_torch/csrc/layernorm.cu",
+    # the split forms: launches of those files composed in
+    # tpudf_torch/ops/int8_block.py (K5: layernorm.cu + int8_gemm_sm90.cu;
+    # K6: attention_sm90.cu + int8_gemm_sm90.cu; K7: those, the f32 row pass
+    # and the GEMM's f32 residual epilogues)
+    "K5-split": "tpudf_torch/ops/int8_block.py",
+    "K6-split": "tpudf_torch/ops/int8_block.py",
+    "K7-split": "tpudf_torch/ops/int8_block.py",
     "K9": "tpudf_torch/csrc/attention_sm90.cu",
     "K10": "tpudf_torch/csrc/attention_sm90.cu",
     "K13": "tpudf_torch/csrc/bf16_gemm_sm90.cu",
@@ -603,11 +625,14 @@ class Records:
 # two passes at 64, 128 and 256 and at the wide heads, kernels 11 and 12
 # in bf16 (attention_plain_sm90.cu) on the 64-, 80- and 128-wide tiles,
 # the bf16 GEMM of K13, K14 and 15 (bf16_gemm_sm90.cu) in its three
-# epilogue modes, the int8 GEMM (int8_gemm_sm90.cu) in its four modes at
-# tile widths 256 and 128 and K5 (its LN-panel instance), 9b's main pass
-# at head_dim 64 and 128 (attention_i8.cu), K6's cluster tile on the 64-,
-# 128- and 256-wide tiles (attention.cu) and K7 (layer_int8.cu)
-SM90_KERNELS = 38
+# epilogue modes, the int8 GEMM (int8_gemm_sm90.cu) in its four slot modes
+# at tile widths 256 and 128, its two f32-residual modes at 128 and K5 (its
+# LN-panel instance), 9b's main pass at head_dim 64 and 128
+# (attention_i8.cu), K6's cluster tile on the 64-, 128- and 256-wide tiles
+# (attention.cu), K7 on the 64- and 128-wide tiles (layer_int8.cu), and
+# K1's forward with K9's softmax (K7's split form) at 64, 128, 256 and the
+# wide heads
+SM90_KERNELS = 45
 SM90_NAME = re.compile(r"((?:attention_(?:fwd|bwd_dq|bwd_dkv|plain|i8dyn)"
                        r"(?:_wide)?|bf16_gemm|i8_gemm|attn_out|layer_i8)"
                        r"_sm90)(?:ILi(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?")
@@ -1254,7 +1279,7 @@ def w8a8_launches(route, layers, merges, *, tome, k6_fits,
     """Launches per forward of the static-W8A8 tower at the large
     backbones, by JAX's routing: the detect core with ToMe (K3 and the
     `merges` Σout² forms of K2 included) or the tower alone without it.
-    K7 takes S <= 256, so LLL runs FPP; under ToMe every layer but the
+    JAX's K7 fits none of them, so LLL runs FPP; under ToMe every layer but the
     first carries the logit bias, which sends P's `attn_out_int8` to its
     reference route (K9 + the out-projection GEMM), as does a geometry
     where K6's estimate does not fit (so400m-512); without a bias that
@@ -4604,9 +4629,9 @@ def k6_k7_checks(rec, dev, card):
     for b, s in K7_SHAPES:
         waves = {n: lib.tpudf_attn_out_waves(64, w, n) for n in range(1, 9)}
         c, blocks, _, _ = int8_block.k7_launch(b, s, heads, w, inter, waves)
-        if lib.tpudf_layer_cluster(b, s, heads, w) != c:
+        if lib.tpudf_layer_cluster(b, s, heads, w, 64, 64) != c:
             raise AssertionError(f"K7 {(b, s, w)}: cluster "
-                                 f"{lib.tpudf_layer_cluster(b, s, heads, w)}"
+                                 f"{lib.tpudf_layer_cluster(b, s, heads, w, 64, 64)}"
                                  f" on the card, {c} in Python")
         x = randn(b, s, w).to(bf)
         LAUNCHES.reset()
@@ -4718,6 +4743,518 @@ def k6_k7_checks(rec, dev, card):
           f"four launches + K2's three) {fpp_ms:.4f} (K7 {k7 / fpp_ms:.2f}x); "
           f"bound {b_ms:.4f} ({b_by}) [{card}]", flush=True)
     torch.cuda.empty_cache()
+
+
+# ROADMAP Queue C 1-3 (phase 2m, `queue_c_checks`). K6 where JAX's fit
+# holds past its panel (K6_MAX_WA): (B, S, heads, head_dim, W); K7 at the
+# geometries JAX's whole-layer kernel takes that the one-launch kernel did
+# not before (heads of 8 to 256, S 576), then those its split form runs
+# (a wide head, Wa past K6's panel, W past the LN panel): (B, S, W, heads,
+# head_dim, MLP); the row pass past 1280: (rows, W); K5 past its panel:
+# (M, W); K8 re-timed alone: (rows, W); the queue's path: base-256's
+# layer at S = 64 (a 128 px image) under LLL, one block at W 1408 (22
+# heads of 64, MLP 128, 2 images of 64 tokens) under LLL and PPP
+QC_K6 = [(2, 256, 18, 64, 1152), (2, 256, 8, 128, 1024),
+         (2, 256, 4, 256, 1024), (2, 576, 8, 128, 1024)]
+QC_K7 = [(2, 64, 256, 2, 128, 512), (2, 64, 128, 8, 16, 256),
+         (2, 64, 128, 4, 32, 256), (2, 576, 128, 2, 64, 256),
+         (2, 64, 128, 16, 8, 256), (2, 64, 512, 2, 256, 512),
+         (2, 64, 384, 1, 384, 512), (2, 64, 1152, 18, 64, 256),
+         (2, 64, 1408, 22, 64, 128)]
+QC_LN = [(8192, 1408), (8192, 1536), (4096, 4096)]
+QC_K5 = [(2048, 1408), (2048, 1536)]
+K8_TIMED = [(2048, 768), (8192, 1152)]
+QC_BLOCK = (2, 64, 1408, 22, 64, 128)
+QC_BASE = (8, 64, 768, 12, 64, 3072)      # base-256's layer at 128 px
+# K3 alone (phase 2m, `k3_checks`): the batches of its paths (B = 8
+# forwards; the detect cores at B = 64, 128, 256) of 256 x 256 images
+K3_BATCHES = (8, 64, 128, 256)
+
+
+def fails_by(got, fault, atol, rtol):
+    """How many times its tolerance a planted fault's output is off."""
+    err = (got.float() - fault.float()).abs()
+    return float((err / (atol + rtol * fault.float().abs())).max())
+
+
+def k7_tree(randn, wq_of, w, inter, dev):
+    """A seeded static-W8A8 layer (`siglip_layer_int8`'s tree) of width w
+    and MLP inter."""
+    import torch
+    return {"ln1": {"scale": 1.0 + randn(w, std=0.1),
+                    "bias": randn(w, std=0.1)},
+            "ln2": {"scale": 1.0 + randn(w, std=0.1),
+                    "bias": randn(w, std=0.1)},
+            "attn": {"qkv_w": wq_of(w, 3 * w), "qkv_b": randn(3 * w, std=0.1),
+                     "out_w": wq_of(w, w), "out_b": randn(w, std=0.1)},
+            "mlp": {"fc1_w": wq_of(w, inter), "fc1_b": randn(inter, std=0.1),
+                    "fc2_w": wq_of(inter, w), "fc2_b": randn(w, std=0.1)},
+            "act_scales": {k: torch.tensor(v, device=dev)
+                           for k, v in (("qkv", 4.0), ("out", 2.0),
+                                        ("fc1", 4.0), ("fc2", 3.0))}}
+
+
+def ln_half_stats(x, g, b):
+    """The LN with its statistics over the first half of each row: the
+    wide row's second half dropped from the sums."""
+    import torch
+    x32 = x.float()
+    h = x32[..., :x32.shape[-1] // 2]
+    mu = h.mean(-1, keepdim=True)
+    var = torch.clamp((h * h).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    return (x32 - mu) * torch.rsqrt(var + 1e-6) * g.float() + b.float()
+
+
+def queue_c_checks(rec, dev, card):
+    """Phase 2m, ROADMAP Queue C 1-3. (1a) K6 at QC_K6, where JAX runs its
+    kernel past K6_MAX_WA: the split route (KERNEL_ATTN_OUT_SPLIT, one
+    launch count), bit-equal to K1's attention launch + the int8 GEMM, by
+    phase 2b's rule against the twin; planted faults: the route skipped
+    (the residual alone), the scale x0.75. (1b) K7 at QC_K7, each by the
+    form `k7_form` names (one launch or the split form, one count each):
+    phase 2l's rule against the twin on K8's LN1 codes, the plain twin's
+    element tolerance, bit-equal over launches; planted faults x1 in bf16,
+    LN2 over x, GELU dropped. (1c) K4, K8 and the f32 row pass at QC_LN
+    (K4 one bf16 step; codes at most K8_SHARE apart, by one; fault: the
+    row's second half dropped from the statistics), K5 past its panel at
+    QC_K5 (K8 + the int8 GEMM, bit-equal, phase 2b's rule), K1 and K2 at W
+    1408. Every planted fault must fail by at least twice its tolerance.
+    Then K8 alone at K8_TIMED and the row pass at QC_LN (device times into
+    K8's and K4's rows), and the queue's path (QC_BLOCK under LLL and PPP,
+    counts set to 0 just before each): the launches of the split forms'
+    rows, each timed beside its twin. Returns those launches."""
+    import os as _os
+    import torch
+    import torch.nn.functional as F
+    from tpudf_torch.convert import add_kernel_layout
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.models.siglip import SigLIPConfig, _block_apply
+    from tpudf_torch.ops import _build, int8_block, layernorm, mlp, quant
+    from tpudf_torch.ops.quant import quantize_weight, transposed
+    from tpudf_torch.ops.routes import TWINS
+    print("phase 2m: Queue C (K6 past its panel, K7 on JAX's decision, rows "
+          "past 1280)", flush=True)
+    lib = _build.load()
+    g = torch.Generator(device=dev).manual_seed(83)
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def wq_of(k, n):
+        return add_kernel_layout(quantize_weight(randn(k, n, std=k ** -0.5)))
+
+    def twice(label, factors):
+        print(f"  {label}: planted faults fail by "
+              + ", ".join(f"{k} {v:.3g}x" for k, v in factors.items())
+              + f" their tolerance [{card}]", flush=True)
+        missed = [k for k, v in factors.items() if v < 2.0]
+        if missed:
+            raise AssertionError(f"{label}: faults under 2x: {missed}")
+
+    # ---- 1a: K6 past its panel
+    for b, s, heads, hd, w in QC_K6:
+        wa = heads * hd
+        if int8_block.k6_route(s, heads, hd, w) != "split":
+            raise AssertionError(f"K6 {(b, s, wa, w)}: not the split route")
+        qkv = sharp_qkv(randn, b, s, heads, hd, hd)
+        x = randn(b, s, w).to(bf)
+        wq, bias = wq_of(wa, w), randn(w, std=0.1)
+        a = torch.tensor(2.0, device=dev)
+        args = (qkv, x, wq, bias, a, heads, hd)
+        LAUNCHES.reset()
+        got = int8_block.attn_out_int8(*args)
+        torch.cuda.synchronize()
+        check_launches(f"K6 past its panel {(b, s, 3 * wa)}",
+                       LAUNCHES.snapshot(),
+                       {int8_block.KERNEL_ATTN_OUT_SPLIT: 1})
+        split = k6_split(*args)
+        ref = int8_block.attn_out_reference(*args)
+        torch.cuda.synchronize()
+        label = f"K6 {(b, s, 3 * wa)} heads of {hd}, W {w} (split route)"
+        if not torch.equal(got, split):
+            raise AssertionError(f"{label}: not bit-equal to the split form")
+        check_close(label, got, ref, atol=5e-2, rtol=2e-2)
+        measure = rel_part(x)
+        sound = measure(got, ref)
+        if sound > ATTN_REL:
+            raise AssertionError(f"{label}: {sound:.3e} > {ATTN_REL}")
+        print(f"  {label}: bit-equal to K1's attention + the int8 GEMM; "
+              f"{sound:.3e} of the attention part (limit {ATTN_REL:g}) "
+              f"[{card}]", flush=True)
+        twice(label, {
+            "route skipped": measure(x, ref) / ATTN_REL,
+            "scale x0.75": measure(k6_split(*args, scale=0.75 * hd ** -0.5),
+                                   ref) / ATTN_REL})
+        del qkv, x, got, split, ref
+
+    # ---- 1b: K7 on JAX's decision
+    for b, s, w, heads, hd, inter in QC_K7:
+        bp = k7_tree(randn, wq_of, w, inter, dev)
+        x = randn(b, s, w).to(bf)
+        if not int8_block.layer_int8_eligible(x, bp, heads, hd):
+            raise AssertionError(f"K7 {(b, s, w)}: JAX's K7 takes it")
+        form = int8_block.k7_form(s, w, heads, hd)
+        name = (int8_block.KERNEL_LAYER if form == "one"
+                else int8_block.KERNEL_LAYER_SPLIT)
+        LAUNCHES.reset()
+        got = int8_block.siglip_layer_int8(x, bp, heads, hd)
+        torch.cuda.synchronize()
+        label = f"K7 {(b, s, w)} {heads} heads of {hd} MLP {inter} ({form})"
+        check_launches(label, LAUNCHES.snapshot(), {name: 1})
+        again = int8_block.siglip_layer_int8(x, bp, heads, hd)
+        twin = int8_block.siglip_layer_int8_reference(x, bp, heads, hd)
+        q8 = layernorm.layer_norm_quant(x.reshape(-1, w), bp["ln1"]["scale"],
+                                        bp["ln1"]["bias"],
+                                        bp["act_scales"]["qkv"])
+        ref = k7_twin(x, bp, heads, hd, q8=q8)
+        torch.cuda.synchronize()
+        out_tol, share = k7_rule(got, ref)
+        twin_tol, twin_share = k7_rule(got, twin)
+        c = "-"
+        if form == "one":
+            tile, live = int8_block.k6_tile(hd)
+            c = lib.tpudf_layer_cluster(b, s, heads, w, tile, live)
+            smem = lib.tpudf_layer_smem(w, heads * live, tile)
+            if smem != int8_block.k7_smem(w, heads * live, tile):
+                raise AssertionError(f"{label}: shared memory {smem} on the "
+                                     f"card, {int8_block.k7_smem(w, heads * live, tile)}"
+                                     f" in Python")
+        print(f"  {label}: vs the twin on K8's LN1 codes outside {out_tol}, "
+              f"not bit-equal {share:.3e} (limit {K7_SHARE:g}), max|Δ| "
+              f"{max_abs(got, ref):.3e}; vs the twin {twin_tol} outside, "
+              f"{twin_share:.3e}; cluster {c} [{card}]", flush=True)
+        if twin_tol or out_tol or share > K7_SHARE:
+            raise AssertionError(f"{label}: outside phase 2l's rule")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: not bit-equal over launches")
+        factors = {}
+        for f in ("x1 in bf16", "LN2 over x", "GELU dropped"):
+            bad = k7_twin(x, bp, heads, hd, f, q8)
+            factors[f] = max(k7_rule(bad, ref)[1] / K7_SHARE,
+                             fails_by(bad, ref, 5e-2, 2e-2))
+        twice(label, factors)
+        del bp, x, got, again, twin, ref, q8
+
+    # ---- 1c: rows past 1280
+    widths = (lib.tpudf_ln_max_width(2), lib.tpudf_ln_max_width(4))
+    if widths != (layernorm.MAX_WIDTH, layernorm.MAX_WIDTH_F32):
+        raise AssertionError(f"the row pass's widest rows {widths} on the "
+                             f"card, {layernorm.MAX_WIDTH} / "
+                             f"{layernorm.MAX_WIDTH_F32} in Python")
+    for rows, w in QC_LN:
+        x = (randn(rows, w) * 3.0 + 0.5).to(bf)
+        gm, bt = 1.0 + randn(w, std=0.1), randn(w, std=0.1)
+        a = torch.tensor(3.0, device=dev)
+        got = layernorm.layer_norm_fused(x, gm, bt)
+        ref = layernorm.layer_norm_reference(x, gm, bt)
+        codes = layernorm.layer_norm_quant(x, gm, bt, a)
+        want = layernorm.layer_norm_quant_reference(x, gm, bt, a)
+        x32 = randn(rows, w) * 3.0 + 0.5
+        c32 = layernorm.ln_quant_f32_cuda(x32, {"scale": gm, "bias": bt}, a,
+                                          1e-6)
+        w32 = layernorm.layer_norm_quant_reference(x32, gm, bt, a)
+        torch.cuda.synchronize()
+        label = f"row pass {(rows, w)}"
+        check_close(f"K4 {label}", got, ref, atol=1e-6, rtol=2 ** -7)
+        half = ln_half_stats(x, gm, bt)
+        shares = {}
+        for key, (cg, cw) in {"bf16": (codes, want),
+                              "f32": (c32, w32)}.items():
+            d = (cg.int() - cw.int()).abs()
+            shares[key] = float((d > 0).float().mean())
+            if int(d.max()) > 1 or shares[key] > K8_SHARE:
+                raise AssertionError(f"K8 {label} ({key}): codes "
+                                     f"{shares[key]:.3e} apart, max "
+                                     f"{int(d.max())}")
+        half_codes = quant.quant_rows(half, a)
+        print(f"  {label}: K4 max|Δ| {max_abs(got, ref):.3e}; K8 codes apart "
+              f"{shares['bf16']:.3e}, the f32 pass's {shares['f32']:.3e} "
+              f"(limit {K8_SHARE:g}) [{card}]", flush=True)
+        twice(label, {
+            "K4 second half dropped": fails_by(got, half.to(bf), 1e-6,
+                                               2 ** -7),
+            "K8 second half dropped": float(
+                (half_codes != want).float().mean()) / K8_SHARE})
+        ms = device_ms(lambda: layernorm.layer_norm_fused(x, gm, bt))
+        lib_ms = device_ms(lambda: F.layer_norm(x, (w,), gm.to(bf),
+                                                bt.to(bf), 1e-6))
+        b_ms, _ = bound({"f32": K4_OPS_PER_ELEMENT * x.numel()},
+                        2 * nbytes(x) + nbytes(gm, bt))
+        rec.rows["K4"].setdefault("device", []).append(
+            {"shape": (rows, w), "params": "f32", "device_ms": ms,
+             "bound_ms": b_ms, "bound_by": "bytes", "library_ms": lib_ms})
+        print(f"  K4 {label} alone, device: {ms:.4f} ms; bound {b_ms:.4f}; "
+              f"F.layer_norm {lib_ms:.4f} [{card}]", flush=True)
+        del x, got, ref, codes, want, x32, c32, w32, half, half_codes
+
+    for m, w in QC_K5:
+        n = 3 * w
+        x = randn(m, w).to(bf)
+        ln = {"scale": 1.0 + randn(w, std=0.1), "bias": randn(w, std=0.1)}
+        wq, bias = wq_of(w, n), randn(n, std=0.1)
+        a = torch.tensor(4.0, device=dev)
+        LAUNCHES.reset()
+        got = int8_block.ln_qkv_int8(x, ln, wq, bias, a)
+        torch.cuda.synchronize()
+        check_launches(f"K5 {(m, w, n)}", LAUNCHES.snapshot(),
+                       {int8_block.KERNEL_LN_QKV_SPLIT: 1})
+        codes = layernorm.layer_norm_quant(x, ln["scale"], ln["bias"], a)
+        pair = int8_block.i8_gemm_cuda(codes, transposed(wq), wq["scale"],
+                                       bias, a, int8_block.GEMM_BF16)
+        ref = int8_block.ln_qkv_reference(x, ln, wq, bias, a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, pair):
+            raise AssertionError(f"K5 {(m, w, n)}: not bit-equal to K8 + "
+                                 f"the int8 GEMM")
+        check_close(f"K5 {(m, w, n)}", got, ref, atol=5e-2, rtol=2e-2)
+        print(f"  K5 past its panel {(m, w, n)}: K8 + the int8 GEMM, "
+              f"bit-equal; max|Δ| vs twin {max_abs(got, ref):.3e} "
+              f"[{card}]", flush=True)
+        if (m, w) == QC_K5[0]:
+            rec.add("K5-split", "ln_qkv_int8_split", (m, w, n),
+                    max_abs(got, ref),
+                    lambda: int8_block.ln_qkv_int8(x, ln, wq, bias, a),
+                    lambda: int8_block.ln_qkv_reference(x, ln, wq, bias, a),
+                    ({"int8": 2 * m * w * n},
+                     nbytes(x, ln["scale"], ln["bias"], wq["q"], wq["scale"],
+                            bias, a) + nbytes(got)),
+                    library={"part F.layer_norm": lambda: F.layer_norm(
+                        x, (w,), ln["scale"].to(bf), ln["bias"].to(bf), 1e-6),
+                             "part _int_mm": lambda: torch._int_mm(
+                                 codes, wq["qT"].t())},
+                    device_time=True)
+        del x, got, codes, pair, ref
+
+    # K1 and K2 at W 1408 (the row pass opens both)
+    w, heads, hd, inter = 1408, 22, 64, 5632
+    lay = w8a8_layer(randn, dev, w, heads, hd, inter)
+    x = randn(2, 64, w).to(bf)
+    args = (x, lay["ln1"], lay["qkv_wq"], lay["qkv_b"], lay["out_wq"],
+            lay["out_b"], lay["a_qkv"], lay["a_out"], heads, hd)
+    got = int8_block.attn_sublayer_int8(*args)
+    ref = int8_block.attn_sublayer_reference(*args)
+    got2 = mlp.mlp_block_fused_int8(x, lay["ln1"], lay["mlp"], lay["sc"])
+    ref2 = mlp.mlp_block_int8_reference(x, lay["ln1"], lay["mlp"], lay["sc"])
+    torch.cuda.synchronize()
+    check_close("K1 (2, 64, 1408)", got, ref, atol=5e-2, rtol=2e-2)
+    check_close("K2 (2, 64, 1408)", got2, ref2, atol=5e-2, rtol=2e-2)
+    print(f"  K1 / K2 at W 1408: max|Δ| {max_abs(got, ref):.3e} / "
+          f"{max_abs(got2, ref2):.3e} [{card}]", flush=True)
+    del lay, x, got, ref, got2, ref2
+
+    # ---- K8 alone, re-timed (its row kernel is K4's)
+    for rows, w in K8_TIMED:
+        x = randn(rows, w).to(bf)
+        gm, bt = 1.0 + randn(w, std=0.1), randn(w, std=0.1)
+        a = torch.tensor(3.0, device=dev)
+        ms = device_ms(lambda: layernorm.layer_norm_quant(x, gm, bt, a))
+        lib_ms = device_ms(lambda: F.layer_norm(x, (w,), gm.to(bf),
+                                                bt.to(bf), 1e-6))
+        b_ms, b_by = bound({"f32": K8_OPS_PER_ELEMENT * x.numel()},
+                           nbytes(x, gm, bt, a) + x.numel())
+        rec.rows["K8"].setdefault("device", []).append(
+            {"shape": (rows, w), "device_ms": ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_part_ms": {"F.layer_norm": lib_ms}})
+        print(f"  K8 {(rows, w)} alone, device: {ms:.4f} ms; bound "
+              f"{b_ms:.4f} ({b_by}); part F.layer_norm {lib_ms:.4f} "
+              f"[{card}]", flush=True)
+
+    # ---- the queue's path: a base-256 block at S = 64 under LLL (the
+    # one-launch K7), one block at W 1408 under LLL, then PPP (the split
+    # forms)
+    launches, old = {}, _os.environ.get("TPUDF_INT8_KERNELS")
+    b, s, w, heads, hd, inter = QC_BASE
+    bp = k7_tree(randn, wq_of, w, inter, dev)
+    cfg = SigLIPConfig(w, 1, heads, inter, 128, 16, with_head=False)
+    x = randn(b, s, w).to(bf)
+    try:
+        _os.environ["TPUDF_INT8_KERNELS"] = "LLL"
+        LAUNCHES.reset()
+        out = _block_apply(x, bp, cfg)
+        torch.cuda.synchronize()
+        got = LAUNCHES.snapshot()
+        check_launches("the queue's base-256 block LLL", got,
+                       {int8_block.KERNEL_LAYER: 1})
+        launches.update(got)
+        twin = _block_apply(x, bp, cfg, kernels=TWINS)
+        print(f"  the queue's block {(b, s, w)} LLL: launches {got}; "
+              f"max|Δ| vs twins {max_abs(out, twin):.3e} [{card}]",
+              flush=True)
+    finally:
+        if old is None:
+            _os.environ.pop("TPUDF_INT8_KERNELS", None)
+        else:
+            _os.environ["TPUDF_INT8_KERNELS"] = old
+    b, s, w, heads, hd, inter = QC_BLOCK
+    bp = k7_tree(randn, wq_of, w, inter, dev)
+    cfg = SigLIPConfig(w, 1, heads, inter, 128, 16, with_head=False)
+    x = randn(b, s, w).to(bf)
+    try:
+        for route, expect in (
+                ("LLL", {int8_block.KERNEL_LAYER_SPLIT: 1}),
+                ("PPP", {int8_block.KERNEL_LN_QKV_SPLIT: 1,
+                         int8_block.KERNEL_ATTN_OUT_SPLIT: 1,
+                         mlp.KERNEL: 1})):
+            _os.environ["TPUDF_INT8_KERNELS"] = route
+            LAUNCHES.reset()
+            out = _block_apply(x, bp, cfg)
+            torch.cuda.synchronize()
+            got = LAUNCHES.snapshot()
+            check_launches(f"the queue's block {route}", got, expect)
+            launches.update(got)
+            twin = _block_apply(x, bp, cfg, kernels=TWINS)
+            check_close(f"the queue's block {route}", out, twin, atol=5e-2,
+                        rtol=2e-2)
+            print(f"  the queue's block {(b, s, w)} {route}: launches {got}; "
+                  f"max|Δ| vs twins {max_abs(out, twin):.3e} [{card}]",
+                  flush=True)
+            if route == "LLL":
+                rec.add("K7-split", "siglip_layer_int8_split", (b, s, w),
+                        max_abs(out, twin),
+                        lambda: int8_block.siglip_layer_int8(x, bp, heads,
+                                                             hd),
+                        lambda: int8_block.siglip_layer_int8_reference(
+                            x, bp, heads, hd),
+                        ({"int8": 2 * b * s * w * (4 * w + 2 * inter),
+                          "bf16": 4 * b * heads * s * s * hd},
+                         nbytes(x, *[t for wq in (bp["attn"]["qkv_w"],
+                                                  bp["attn"]["out_w"],
+                                                  bp["mlp"]["fc1_w"],
+                                                  bp["mlp"]["fc2_w"])
+                                     for t in (wq["q"], wq["scale"])])
+                         + nbytes(x)),
+                        device_time=True)
+    finally:
+        if old is None:
+            _os.environ.pop("TPUDF_INT8_KERNELS", None)
+        else:
+            _os.environ["TPUDF_INT8_KERNELS"] = old
+    # K6's split route alone at the block's attention
+    qkv = sharp_qkv(randn, b, s, heads, hd, hd)
+    wq, bias = bp["attn"]["out_w"], bp["attn"]["out_b"]
+    a = bp["act_scales"]["out"]
+    rec.add("K6-split", "attn_out_int8_split", (b, s, 3 * w, w),
+            max_abs(int8_block.attn_out_int8(qkv, x, wq, bias, a, heads, hd),
+                    int8_block.attn_out_reference(qkv, x, wq, bias, a, heads,
+                                                  hd)),
+            lambda: int8_block.attn_out_int8(qkv, x, wq, bias, a, heads, hd),
+            lambda: int8_block.attn_out_reference(qkv, x, wq, bias, a, heads,
+                                                  hd),
+            ({"bf16": 4 * b * heads * s * s * hd, "int8": 2 * b * s * w * w},
+             nbytes(qkv, x, wq["q"], wq["scale"], bias, a) + nbytes(x)),
+            device_time=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def k3_fault(gray, fault):
+    """K3's twin (f64 sums) with a planted fault of the strip kernel: "halo
+    rows zeroed" (each strip's residuals with zeros past its own rows),
+    "a strip's partial missing" (the second strip's pixels left out of the
+    sums, not of the count), "clamped border" (the image's edge pixels
+    repeated in place of the zero border)."""
+    import torch
+    import torch.nn.functional as F
+    from tpudf_torch.ops import srm
+    b, h, w = gray.shape
+    rows = srm.srm_plan(b, h, w)[0]
+    ks = [torch.from_numpy(srm._norm(k)).to(gray.device)
+          for k in (srm._K2, srm._K3)]
+
+    def taps(p, k):
+        acc = torch.zeros_like(p[:, 1:-1, 1:-1])
+        for di in range(3):
+            for dj in range(3):
+                if float(k[di, dj]) != 0.0:
+                    acc = acc + p[:, di:di + p.shape[1] - 2,
+                                  dj:dj + p.shape[2] - 2] * k[di, dj]
+        return acc
+
+    keep = torch.ones((h,), dtype=torch.bool, device=gray.device)
+    res = []
+    for k in ks:
+        if fault == "clamped border":
+            r = taps(F.pad(gray[:, None], (1, 1, 1, 1),
+                           mode="replicate")[:, 0], k)
+        elif fault == "halo rows zeroed":
+            r = torch.cat([taps(F.pad(gray[:, r0:r0 + rows], (1, 1, 1, 1)),
+                                k) for r0 in range(0, h, rows)], 1)
+        else:
+            r = taps(F.pad(gray, (1, 1, 1, 1)), k)
+        res.append(r)
+    if fault == "a strip's partial missing":
+        keep[rows:2 * rows] = False
+    out = []
+    for r in res:
+        v = r[:, keep].double().reshape(b, -1)
+        out += [v.sum(1), (v ** 2).sum(1), (v ** 3).sum(1), (v ** 4).sum(1)]
+    return (torch.stack(out, -1) / (h * w)).float()
+
+
+def k3_checks(rec, dev, card):
+    """Phase 2m, K3 on its strips at K3_BATCHES (256 x 256 images): within
+    atol 1e-6 / rtol 1e-4 of the twin, bit-identical over three launches,
+    and each planted fault (halo rows zeroed, a strip's partial missing, a
+    clamped border) at least twice that tolerance away; then its device
+    time beside its bound and the library's parts (F.conv2d of both
+    stencils, the four moments) into K3's row."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from tpudf_torch.ops import srm
+    from tpudf_torch.ops import _build
+    print("phase 2m: K3 (strips of rows over the card)", flush=True)
+    lib = _build.load()
+    for shape in [(b, 256, 256) for b in K3_BATCHES] + [(3, 37, 61),
+                                                        (1, 5, 5000)]:
+        card_plan = tuple(lib.tpudf_srm_plan(*shape, i) for i in range(4))
+        if card_plan != srm.srm_plan(*shape):
+            raise AssertionError(f"K3 {shape}: plan {card_plan} on the card, "
+                                 f"{srm.srm_plan(*shape)} in Python")
+    g = torch.Generator(device=dev).manual_seed(89)
+    stencils = torch.from_numpy(np.stack(
+        [srm._norm(srm._K2), srm._norm(srm._K3)]))[:, None].to(dev)
+    powers = torch.arange(1, 5, device=dev, dtype=torch.float32)
+    for b in K3_BATCHES:
+        gray = torch.rand((b, 256, 256), generator=g, device=dev)
+        got = [srm.srm_raw_moments(gray) for _ in range(3)]
+        ref = srm.srm_raw_moments_reference(gray)
+        torch.cuda.synchronize()
+        label = f"K3 {(b, 256, 256)} {srm.srm_plan(b, 256, 256)}"
+        check_close(label, got[0], ref, atol=1e-6, rtol=1e-4)
+        if not all(torch.equal(got[0], o) for o in got[1:]):
+            raise AssertionError(f"{label}: not bit-identical over launches")
+        factors = {f: fails_by(got[0], k3_fault(gray, f), 1e-6, 1e-4)
+                   for f in ("halo rows zeroed", "a strip's partial missing",
+                             "clamped border")}
+        sound = fails_by(got[0], k3_fault(gray, None), 1e-6, 1e-4)
+        print(f"  {label}: bit-identical over 3 launches; max|Δ| vs twin "
+              f"{max_abs(got[0], ref):.3e}, vs its f64 form {sound:.3g}x the "
+              f"tolerance [{card}]", flush=True)
+        if sound > 1.0:
+            raise AssertionError(f"{label}: off its f64 form")
+        print(f"  {label}: planted faults fail by "
+              + ", ".join(f"{k} {v:.3g}x" for k, v in factors.items())
+              + f" [{card}]", flush=True)
+        if min(factors.values()) < 2.0:
+            raise AssertionError(f"{label}: a planted fault under 2x")
+        ms = device_ms(lambda: srm.srm_raw_moments(gray))
+        conv = device_ms(lambda: F.conv2d(gray[:, None], stencils,
+                                          padding=1))
+        res = F.conv2d(gray[:, None], stencils, padding=1)
+        mom = device_ms(lambda: torch.mean(res[..., None] ** powers,
+                                           dim=(2, 3)))
+        b_ms, b_by = bound({"f32": K3_OPS_PER_PIXEL * gray.numel()},
+                           nbytes(gray) + nbytes(got[0]))
+        rec.rows["K3"].setdefault("device", []).append(
+            {"shape": (b, 256, 256), "device_ms": ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_part_ms": {
+                 "F.conv2d (both stencils)": conv, "moments": mom}})
+        print(f"  K3 {(b, 256, 256)} alone, device: {ms:.4f} ms; bound "
+              f"{b_ms:.4f} ({b_by}, {ms / b_ms:.1f}x); parts F.conv2d "
+              f"{conv:.4f} + moments {mom:.4f} [{card}]", flush=True)
+        del gray, got, ref, res
 
 
 def main() -> int:
@@ -5286,6 +5823,8 @@ def main() -> int:
     k1_attention_checks(rec, dev, card)
     k5_9b_checks(rec, dev, card)
     k6_k7_checks(rec, dev, card)
+    queue_launches = queue_c_checks(rec, dev, card)
+    k3_checks(rec, dev, card)
 
     # ---- 3a. the detect core
     print("phase 3: paths", flush=True)
@@ -5336,17 +5875,17 @@ def main() -> int:
 
     # ---- 3a'. the detect core under the W8A8 block's other routes: the
     # 12 layers run K5 (+ K6 at layer 0, where there is no ToMe bias; K9 +
-    # the out-proj GEMM where there is), K8 + the int8 products + K9, or K7
-    # at layer 0 and FPP where the bias is; 4 of the 12 feed a merge
+    # the out-proj GEMM where there is), K8 + the int8 products + K9, or
+    # FPP under LLL (JAX's K7 fits no layer: 14.0 MB at S = 256, and the
+    # bias sends the others to FPP); 4 of the 12 feed a merge
     route_expect = {
         "PPP": {int8_block.KERNEL_LN_QKV: 12, int8_block.KERNEL_ATTN_OUT: 1,
                 attention.KERNEL: 11, quant.KERNEL_GEMM: 11, mlp.KERNEL: 12,
                 mlp.KERNEL_SUMSQ: 4, srm.KERNEL: 1, layernorm.KERNEL: 2},
         "XXX": {layernorm.KERNEL_QUANT: 24, quant.KERNEL_GEMM: 48,
                 attention.KERNEL: 12, srm.KERNEL: 1, layernorm.KERNEL: 2},
-        "LLL": {int8_block.KERNEL_LAYER: 1, int8_block.KERNEL: 11,
-                mlp.KERNEL: 11, mlp.KERNEL_SUMSQ: 3, srm.KERNEL: 1,
-                layernorm.KERNEL: 2}}
+        "LLL": {int8_block.KERNEL: 12, mlp.KERNEL: 12, mlp.KERNEL_SUMSQ: 4,
+                srm.KERNEL: 1, layernorm.KERNEL: 2}}
     rg = torch.Generator(device=dev).manual_seed(5)
     route_launches, tower_launches = {}, {}
 
@@ -5381,12 +5920,14 @@ def main() -> int:
                       f"{float(out['p_blend'].float().mean()):.4f} [{card}]",
                       flush=True)
             route_launches[route] = launched
-        # the tower without ToMe at B=8: all 12 layers through K7, or K5
-        # and K6 (their launches in the kernels line: the ToMe cores run
-        # one layer or none through them)
+        # the tower without ToMe at B=8: all 12 layers through K5 and K6
+        # (their launches in the kernels line: the ToMe cores run one layer
+        # or none through them), or under LLL through FPP (JAX's K7 does
+        # not fit S = 256)
         norm = (px[:8] - 0.5) / 0.5
         for route, expect in (
-                ("LLL", {int8_block.KERNEL_LAYER: 12, layernorm.KERNEL: 2}),
+                ("LLL", {int8_block.KERNEL: 12, mlp.KERNEL: 12,
+                         layernorm.KERNEL: 2}),
                 ("PPP", {int8_block.KERNEL_LN_QKV: 12,
                          int8_block.KERNEL_ATTN_OUT: 12, mlp.KERNEL: 12,
                          layernorm.KERNEL: 2})):
@@ -5565,8 +6106,8 @@ def main() -> int:
                       f"{b * 1e3 / fwd_ms:.1f} img/s; twins "
                       f"{fwd_plain:.3f} ms = {b * 1e3 / fwd_plain:.1f} img/s "
                       f"[{card}]", flush=True)
-        # the towers without ToMe at B = 8: 12 K6 launches (PPP), 12 K7
-        # (LLL)
+        # the towers without ToMe at B = 8: 12 K6 launches (PPP), the FPP
+        # layer (LLL, where JAX's K7 does not fit)
         norm = torch.rand((8, 256, 256, 3), generator=pg, device=dev).to(
             torch.bfloat16) * 2 - 1
         for route in ("PPP", "LLL"):
@@ -5649,11 +6190,13 @@ def main() -> int:
     # step of (a)
     # 9b: so400m-512's tower under PPP without ToMe, TPUDF_INT8_ATTN=1
     # 11, 12: (w3)'s multi-query _mha at large-384's width
-    # K6, K7: base-256's tower without ToMe under PPP / LLL (phase 4 times
-    # it)
-    route_of = {"K5": "PPP", "K6": "PPP", "K7": "LLL", "K8": "XXX"}
+    # K6: base-256's tower without ToMe under PPP (phase 4 times it); K7:
+    # the queue's base-256 block at S = 64 under LLL (phase 2m; JAX's K7
+    # fits no layer of the detect cores)
+    route_of = {"K5": "PPP", "K6": "PPP", "K8": "XXX"}
     launches = {k: (core_launches if k in ("K1", "K2", "K3", "K4")
-                    else tower_launches[route_of[k]] if k in ("K6", "K7")
+                    else queue_launches if k == "K7"
+                    else tower_launches[route_of[k]] if k == "K6"
                     else route_launches[route_of[k]] if k in route_of
                     else mtl_launches["a"] if k == "K10"
                     else large["launches"][("so400m-512", "PPP", True)]
@@ -5662,6 +6205,11 @@ def main() -> int:
                     if k in ("K11", "K12") else engine_a)[n]
                 for k, n in names.items()}
     launches.update(probe_launches)      # 15-17: each probe's main() run
+    # the split forms: the queue's block (phase 2m) under LLL and PPP
+    launches.update({k: queue_launches.get(n, 0) for k, n in (
+        ("K5-split", int8_block.KERNEL_LN_QKV_SPLIT),
+        ("K6-split", int8_block.KERNEL_ATTN_OUT_SPLIT),
+        ("K7-split", int8_block.KERNEL_LAYER_SPLIT))})
     print(rec.line(launches))
     print(card)
     print(json.dumps({"ok": True, "device": {

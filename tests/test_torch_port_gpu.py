@@ -15,7 +15,11 @@ that GEMM with its LN panel (65536 rows, a ragged M, W = 832 and 1280,
 with planted faults), 9b's pre-pass and int8 wgmma pass (heads of 64
 and 128, S = 576 / 1024 / 1297, v8t's key order), K6's cluster tile
 (bit-equal to K1's attention + the int8 GEMM, planted faults) and K7 on
-the sm90 tiles (planted faults), the
+the sm90 tiles (planted faults), K6 past its panel on its split route, K7
+where JAX's decision runs it (one launch at heads of 16 to 128, its split
+form at 384 and W 1408), rows past 1280 in the row pass and K5 past its
+panel, K3 on its strips (each with planted faults that fail by at least
+twice the tolerance), the
 probes' kernels 15, 16 and 17 (the
 tolerances of tests/test_torch_port_probes.py; 17 by 9b's card rule), both
 serving engines and one MTL train step against the same parameters through
@@ -514,7 +518,8 @@ def test_int8_routes_match_twins_on_card(route, monkeypatch):
     """A 2-layer base-256-width W8A8 tower under one TPUDF_INT8_KERNELS
     route (B=2, without and with the deployed ToMe) against the same route
     through the twins: pooled cosine >= 0.99, and each route's own kernels
-    launched."""
+    launched. LLL runs at 128 px (S = 64): JAX's whole-layer kernel, whose
+    decision the route follows, does not fit base-256's S = 256."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import dataclasses
@@ -527,11 +532,12 @@ def test_int8_routes_match_twins_on_card(route, monkeypatch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     monkeypatch.setenv("TPUDF_INT8_KERNELS", route)
-    cfg = dataclasses.replace(CONFIGS["base-256"], layers=2)
+    size = 128 if route == "LLL" else 256
+    cfg = dataclasses.replace(CONFIGS["base-256"], layers=2, image_size=size)
     p = tree_map(lambda t: t.cuda(),
                  init_siglip(torch.Generator().manual_seed(0), cfg))
     g = torch.Generator(device="cuda").manual_seed(1)
-    px = torch.rand((2, 256, 256, 3), generator=g, device="cuda") * 2 - 1
+    px = torch.rand((2, size, size, 3), generator=g, device="cuda") * 2 - 1
     q = add_kernel_layout(quant.quantize_siglip_static(
         p, quant.calibrate_siglip_act_scales(p, cfg, px), cfg))
     want = {"PPP": "ln_qkv_int8", "XXX": "layer_norm_quant",
@@ -1300,3 +1306,166 @@ def test_k7_matches_twin_on_card(shape):
     for fault in ("x1 in bf16", "LN2 over x", "GELU dropped", "early start"):
         n, sh = cs.k7_rule(cs.k7_twin(x, bp, heads, hd, fault, q8), ref)
         assert n > 0 or sh > cs.K7_SHARE, fault
+
+
+def _qc_rand(seed):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return dev, lambda *sh, std=1.0: torch.randn(sh, generator=g,
+                                                 device=dev) * std
+
+
+def _qc_wq(r):
+    from tpudf_torch.convert import add_kernel_layout
+    return lambda k, n: add_kernel_layout(quant.quantize_weight(
+        r(k, n, std=k ** -0.5)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, 256, 18, 64, 1152),
+                                  (2, 576, 8, 128, 1024)],
+                         ids=["18x64-W1152", "S576-8x128-W1024"])
+def test_k6_past_its_panel_runs_split_on_card(case):
+    """Where JAX runs its K6 past K6_MAX_WA, the split route runs (its own
+    launch count), bit-equal to K1's attention launch + the int8 GEMM and
+    within phase 2b's rule of the twin; the route skipped (the residual
+    alone) and the scale x0.75 fail by at least twice ATTN_REL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+    from tpudf_torch.core.backend import LAUNCHES
+    b, s, heads, hd, w = case
+    dev, r = _qc_rand(s + w)
+    wa = heads * hd
+    qkv = cs.sharp_qkv(r, b, s, heads, hd, hd)
+    x = r(b, s, w).to(torch.bfloat16)
+    wq, bias = _qc_wq(r)(wa, w), r(w, std=0.1)
+    a = torch.tensor(2.0, device=dev)
+    args = (qkv, x, wq, bias, a, heads, hd)
+    LAUNCHES.reset()
+    got = int8_block.attn_out_int8(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {int8_block.KERNEL_ATTN_OUT_SPLIT: 1}
+    ref = int8_block.attn_out_reference(*args)
+    assert torch.equal(got, cs.k6_split(*args))
+    torch.testing.assert_close(got.float(), ref.float(), atol=5e-2,
+                               rtol=2e-2)
+    rel = cs.rel_part(x)
+    assert rel(got, ref) <= cs.ATTN_REL
+    assert rel(x, ref) >= 2 * cs.ATTN_REL
+    assert rel(cs.k6_split(*args, scale=0.75 * hd ** -0.5), ref) >= (
+        2 * cs.ATTN_REL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, 64, 256, 2, 128, 512),
+                                  (2, 64, 128, 8, 16, 256),
+                                  (2, 576, 128, 2, 64, 256),
+                                  (2, 64, 384, 1, 384, 512),
+                                  (2, 64, 1408, 22, 64, 128)],
+                         ids=["2x128", "8x16", "S576", "1x384-split",
+                              "W1408-split"])
+def test_k7_on_jax_decision_matches_twin_on_card(case):
+    """K7 where JAX's whole-layer kernel runs, by the form `k7_form` names
+    (the one-launch kernel on K6's tiles, or its split form), by phase
+    2l's rule against the twin on K8's LN1 codes, within the plain twin's
+    element tolerance, bit-equal over launches; its twin with x1 rounded
+    to bf16 (the split form's planted fault), LN2 over x or GELU dropped
+    fails by at least twice the rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+    from tpudf_torch.core.backend import LAUNCHES
+    b, s, w, heads, hd, inter = case
+    dev, r = _qc_rand(w + s + hd)
+    bp = cs.k7_tree(r, _qc_wq(r), w, inter, dev)
+    x = r(b, s, w).to(torch.bfloat16)
+    assert int8_block.layer_int8_eligible(x, bp, heads, hd)
+    name = (int8_block.KERNEL_LAYER
+            if int8_block.k7_form(s, w, heads, hd) == "one"
+            else int8_block.KERNEL_LAYER_SPLIT)
+    LAUNCHES.reset()
+    got = int8_block.siglip_layer_int8(x, bp, heads, hd)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {name: 1}
+    twin = int8_block.siglip_layer_int8_reference(x, bp, heads, hd)
+    q8 = layernorm.layer_norm_quant(x.reshape(-1, w), bp["ln1"]["scale"],
+                                    bp["ln1"]["bias"], bp["act_scales"]["qkv"])
+    ref = cs.k7_twin(x, bp, heads, hd, q8=q8)
+    out_tol, share = cs.k7_rule(got, ref)
+    assert out_tol == 0 and share <= cs.K7_SHARE
+    assert cs.k7_rule(got, twin)[0] == 0
+    assert torch.equal(int8_block.siglip_layer_int8(x, bp, heads, hd), got)
+    for fault in ("x1 in bf16", "LN2 over x", "GELU dropped"):
+        bad = cs.k7_twin(x, bp, heads, hd, fault, q8)
+        assert max(cs.k7_rule(bad, ref)[1] / cs.K7_SHARE,
+                   cs.fails_by(bad, ref, 5e-2, 2e-2)) >= 2.0, fault
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [1408, 1536, 4096])
+def test_rows_past_1280_match_twins_on_card(w):
+    """K4 within one bf16 step of its twin, K8's codes and the f32 row
+    pass's at most K8_SHARE apart (by one), at widths past the register
+    row; the row's second half dropped from the statistics fails by at
+    least twice; K5 past its panel is K8 + the int8 GEMM bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.ops.quant import transposed
+    dev, r = _qc_rand(w)
+    x = (r(512, w) * 3.0 + 0.5).to(torch.bfloat16)
+    gm, bt = 1.0 + r(w, std=0.1), r(w, std=0.1)
+    a = torch.tensor(3.0, device=dev)
+    got = layernorm.layer_norm_fused(x, gm, bt)
+    ref = layernorm.layer_norm_reference(x, gm, bt)
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-6,
+                               rtol=2 ** -7)
+    half = cs.ln_half_stats(x, gm, bt)
+    assert cs.fails_by(got, half.to(torch.bfloat16), 1e-6, 2 ** -7) >= 2
+    want = layernorm.layer_norm_quant_reference(x, gm, bt, a)
+    x32 = r(512, w) * 3.0 + 0.5
+    for codes, ref_codes in (
+            (layernorm.layer_norm_quant(x, gm, bt, a), want),
+            (layernorm.ln_quant_f32_cuda(x32, {"scale": gm, "bias": bt}, a,
+                                         1e-6),
+             layernorm.layer_norm_quant_reference(x32, gm, bt, a))):
+        d = (codes.int() - ref_codes.int()).abs()
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= (
+            cs.K8_SHARE)
+    assert float((quant.quant_rows(half, a) != want).float().mean()) >= (
+        2 * cs.K8_SHARE)
+    if w < 4096:
+        ln = {"scale": gm, "bias": bt}
+        wq, bias = _qc_wq(r)(w, 3 * w), r(3 * w, std=0.1)
+        LAUNCHES.reset()
+        qkv = int8_block.ln_qkv_int8(x, ln, wq, bias, a)
+        torch.cuda.synchronize()
+        assert LAUNCHES.snapshot() == {int8_block.KERNEL_LN_QKV_SPLIT: 1}
+        pair = int8_block.i8_gemm_cuda(
+            layernorm.layer_norm_quant(x, gm, bt, a), transposed(wq),
+            wq["scale"], bias, a, int8_block.GEMM_BF16)
+        assert torch.equal(qkv, pair)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [8, 64])
+def test_k3_strips_match_twin_on_card(b):
+    """K3 on its strips within atol 1e-6 / rtol 1e-4 of the twin and
+    bit-identical over three launches; the halo rows zeroed, a strip's
+    partial missing or a clamped border fail by at least twice that."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(b)
+    gray = torch.rand((b, 256, 256), generator=g, device=dev)
+    got = [srm.srm_raw_moments(gray) for _ in range(3)]
+    ref = srm.srm_raw_moments_reference(gray)
+    torch.testing.assert_close(got[0], ref, atol=1e-6, rtol=1e-4)
+    assert all(torch.equal(got[0], o) for o in got[1:])
+    for fault in ("halo rows zeroed", "a strip's partial missing",
+                  "clamped border"):
+        assert cs.fails_by(got[0], cs.k3_fault(gray, fault), 1e-6,
+                           1e-4) >= 2, fault

@@ -442,9 +442,9 @@ def test_routing_predicates_match_jax(name, monkeypatch):
         v, p, heads, d, interpret=True), sds(8, s, w), jbp) is not None
     eligible = int8_block.layer_int8_eligible(meta(8, s, w), bp, heads, d)
     # JAX's K7 fits none of the three at full width (base-256 needs 14.0
-    # MB); the port runs K7 at base-256 all the same (ROADMAP Queue C)
+    # MB), and the port's decision is JAX's
     assert not k7
-    assert eligible == (name == "base-256")
+    assert eligible == k7
 
 
 def test_int8_attn_changes_only_the_biasless_reference_route(monkeypatch):

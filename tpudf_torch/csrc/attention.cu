@@ -39,7 +39,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const AoSmem m{smem, smem + L.q, bars, bars + 1,
                  RingN{abars, abars + L.a_stages, L.a_stages}, smem + L.a,
                  L.a_stride,
-                 RingN{wbars, wbars + L.w_stages, L.w_stages}, smem + L.q};
+                 RingN{wbars, wbars + L.w_stages, L.w_stages}, smem + L.q,
+                 kQSlice};
   if (threadIdx.x == 0) {
     mbar_init(m.q_full, 1);
     mbar_init(m.q_empty, kWarpgroups * 128);

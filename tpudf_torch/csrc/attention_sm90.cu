@@ -132,8 +132,9 @@ __host__ __device__ constexpr int bwd_slice() {
 
 // what a forward kernel writes: K9's bf16 o, or K1's int8 codes of the
 // f32 o, clip(round(o * 127 / act), +-127) (the quant of the int8
-// out-projection's input)
-constexpr int kOutBf16 = 0, kOutI8 = 1;
+// out-projection's input), or those codes from K9's exact softmax (expf
+// and the division: K7's attention, whose split form runs here)
+constexpr int kOutBf16 = 0, kOutI8 = 1, kOutI8Exact = 2;
 
 // shared memory: fwd_q_bufs Q buffers (128 rows each), then kStages
 // stages of a K tile, a V tile and the bias tile (64 f32, padded to 1
@@ -282,8 +283,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr bool kEx2 = OUT == kOutI8;
   const float mul = kEx2 ? __fmul_rn(scale, kLog2e) : scale;
   const float bias_mul = kEx2 ? kLog2e : 1.0f;
-  float inv = 0.0f;                     // 127 / act (K1)
-  if constexpr (OUT == kOutI8) {
+  float inv = 0.0f;                     // 127 / act (K1, K7)
+  if constexpr (OUT != kOutBf16) {
     const float a = __ldg(act);
     inv = div_rn(127.0f, a, rcp_refined(a));
   }
@@ -451,7 +452,7 @@ int launch_fwd(const void* qkv, const void* key_bias, void* out,
   attention_fwd_sm90<W, OUT>
       <<<grid, kThreads, FwdSmem<W>::kBytes, stream>>>(
           qkv_map, qkv16_map, bias_map, out_map,
-          OUT == kOutI8 ? static_cast<int8_t*>(out) : nullptr,
+          OUT != kOutBf16 ? static_cast<int8_t*>(out) : nullptr,
           static_cast<const float*>(act), key_bias != nullptr, batch, seq,
           heads, hs, scale);
   return static_cast<int>(cudaGetLastError());
@@ -568,8 +569,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr bool kEx2 = OUT == kOutI8;  // K1: kernels 11 and 12's softmax
   const float mul = kEx2 ? __fmul_rn(scale, kLog2e) : scale;
   const float bias_mul = kEx2 ? kLog2e : 1.0f;
-  float inv = 0.0f;                     // 127 / act (K1)
-  if constexpr (OUT == kOutI8) {
+  float inv = 0.0f;                     // 127 / act (K1, K7)
+  if constexpr (OUT != kOutBf16) {
     const float a = __ldg(act);
     inv = div_rn(127.0f, a, rcp_refined(a));
   }
@@ -668,7 +669,7 @@ int launch_fwd_wide(const void* qkv, const void* key_bias, void* out,
   attention_fwd_wide_sm90<OUT><<<grid, kThreads, WideFwdSmem::kBytes,
                                  stream>>>(
       qkv_map, bias_map, out_map,
-      OUT == kOutI8 ? static_cast<int8_t*>(out) : nullptr,
+      OUT != kOutBf16 ? static_cast<int8_t*>(out) : nullptr,
       static_cast<const float*>(act), key_bias != nullptr, batch, seq, heads,
       hd, scale);
   return static_cast<int>(cudaGetLastError());
@@ -1449,17 +1450,36 @@ TPUDF_API int tpudf_attention_qkv_sm90(const void* qkv, const void* key_bias,
 // width, the tile a head runs on: 64, 128 or 256 (head_stride the same;
 // 16 and 32 arrive zero-padded to 64), 80 (head_stride 128: the first 80
 // columns of each head read, codes 0 in its columns 80 .. 127), or a wide
-// head_dim (384 .. 1280, head_stride the same); S <= kMaxSeq
+// head_dim (384 .. 1280, head_stride the same); S <= kMaxSeq. exact: K9's
+// softmax sequence in place of K1's (K7's split form; not at width 80)
 TPUDF_API int tpudf_attention_i8_sm90(const void* qkv, const void* key_bias,
                                       const void* act, void* o8, int batch,
                                       int seq, int heads, int head_stride,
-                                      int width, float scale, void* stream) {
+                                      int width, float scale, int exact,
+                                      void* stream) {
   using namespace tpudf;
   if (batch <= 0 || seq <= 0) return 0;
   if (!attention_seq_ok(batch, seq) || act == nullptr ||
-      (width == 80 ? head_stride != 128 : head_stride != width))
+      (width == 80 ? head_stride != 128 || exact : head_stride != width))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (exact) {
+    switch (width) {
+      case 64:
+        return launch_fwd<64, kOutI8Exact>(qkv, key_bias, o8, act, batch,
+                                           seq, heads, 64, scale, s);
+      case 128:
+        return launch_fwd<128, kOutI8Exact>(qkv, key_bias, o8, act, batch,
+                                            seq, heads, 128, scale, s);
+      case 256:
+        return launch_fwd<256, kOutI8Exact>(qkv, key_bias, o8, act, batch,
+                                            seq, heads, 256, scale, s);
+    }
+    if (wide_head(width))
+      return launch_fwd_wide<kOutI8Exact>(qkv, key_bias, o8, act, batch, seq,
+                                          heads, width, scale, s);
+    return cudaErrorInvalidValue;
+  }
   switch (width) {
     case 64:
       return launch_fwd<64, kOutI8>(qkv, key_bias, o8, act, batch, seq,

@@ -130,9 +130,11 @@ struct AoArgs {
 
 // where a block keeps the tile: the panel, the Q buffer and its barriers,
 // the attention ring (K then V tiles, `a_stride` bytes a stage) and the
-// weight ring (16 KB a stage). K6's weight ring reuses the Q buffer and
-// the attention ring (the producer first waits for their last reads);
-// K7's two rings are one ring of 16 KB stages (kOneRing: `wring` unused).
+// weight ring (a 16 KB box at the start of each `w_stride` bytes). K6's
+// weight ring reuses the Q buffer and the attention ring (the producer
+// first waits for their last reads), its stages 16 KB apart; K7's two
+// rings are one ring whose stages hold a K and a V tile or a weight box
+// (kOneRing: `wring` unused).
 struct AoSmem {
   unsigned char* panel;
   unsigned char* q;
@@ -143,6 +145,7 @@ struct AoSmem {
   int a_stride;
   RingN wring;
   unsigned char* w_base;
+  int w_stride;
 };
 
 // a block's running counts across its units: Q buffers used, items of the
@@ -212,8 +215,8 @@ __device__ __forceinline__ void ao_load(const AoArgs& p, const AoSmem& m,
   for (int tn = rank; tn < p.n_out / kQBoxRows; tn += csize)
     for (int kt = 0; kt < nk; ++kt, ++rw) {
       uint64_t* full = wr.producer_acquire(rw, kQSlice);
-      tma_load_3d(m.w_base + wr.stage(rw) * kQSlice, w_map, full, kt * kQK,
-                  tn * kQBoxRows, 0);
+      tma_load_3d(m.w_base + wr.stage(rw) * m.w_stride, w_map, full,
+                  kt * kQK, tn * kQBoxRows, 0);
     }
   cluster_wait();
 }
@@ -402,7 +405,8 @@ __device__ __forceinline__ void ao_compute(const AoArgs& p, const AoSmem& m,
   const int nvalid = min(64, seq - row0);
   const float a_div = act_div(p.act);
   auto wstage = [&](int i) {
-    return static_cast<const unsigned char*>(m.w_base + wr.stage(i) * kQSlice);
+    return static_cast<const unsigned char*>(m.w_base +
+                                             wr.stage(i) * m.w_stride);
   };
   for (int tn = rank; tn < p.n_out / kQBoxRows; tn += csize) {
     int acc[64];

@@ -38,24 +38,28 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SIGNATURES = {
     "tpudf_layer_norm_bf16": "ppppiiifp",
     "tpudf_ln_quant_i8": "pppppiiifp",
+    "tpudf_ln_quant_f32": "pppppiifp",
+    "tpudf_ln_max_width": "i",
     "tpudf_i8_gemm": "pppppppppiiiip",
     "tpudf_i8_gemm_tile_n": "ii",
-    "tpudf_attention_i8_sm90": "ppppiiiiifp",
+    "tpudf_attention_i8_sm90": "ppppiiiiifip",
     "tpudf_attention_qkv_sm90": "pppiiiifp",
     "tpudf_attention_qkv_bwd_sm90": "ppppiiiifp",
     "tpudf_bf16_gemm": "pppppiiiip",
-    "tpudf_srm_moments": "pppiiip",
+    "tpudf_srm_moments": "pppppiiip",
+    "tpudf_srm_plan": "iiii",
     "tpudf_ln_qkv_i8": "ppppppppiiifp",
     "tpudf_ln_qkv_splits": "ii",
     "tpudf_attn_out_i8": "pppppppiiiiiifp",
     "tpudf_attn_out_cluster": "iiiiii",
     "tpudf_attn_out_smem": "ii",
     "tpudf_attn_out_waves": "iii",
-    "tpudf_layer_cluster": "iiii",
+    "tpudf_layer_cluster": "iiiiii",
+    "tpudf_layer_smem": "iii",
     "tpudf_attention_i8dyn": "pppiiiiifp",
     "tpudf_attention_i8_prepass": "pppppiiiiip",
     "tpudf_attention_i8dyn_sm90": "pppppiiiiifp",
-    "tpudf_layer_i8": "p" * 22 + "iiiiiffp",
+    "tpudf_layer_i8": "p" * 22 + "iiiiiiiffp",
     "tpudf_attention_plain_f32": "pppp" + "i" * 11 + "fp",
     "tpudf_attention_plain_sm90": "pppp" + "i" * 11 + "fp",
     "tpudf_attention_i8_static": "ppiiiifffffp",

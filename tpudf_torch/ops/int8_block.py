@@ -30,7 +30,10 @@ in the layout wgmma reads, then walks a run of that row tile's 128-wide
 column tiles with only the weight streaming through its TMA ring; each
 row tile's columns are split in `k5_splits` runs so that the B = 8 cores'
 few row tiles fill the card (`k5_units`: the walk). The int8 LN output
-never reaches device memory. Twin: `ln_qkv_reference`.
+never reaches device memory. Past K5_MAX_WIDTH (1280: a 128-row panel of
+W bytes leaves too few weight stages beside it, and the panel's rows sit
+five chunks a lane) it runs as K8 + the int8 GEMM, its bit-equal form,
+counted as KERNEL_LN_QKV_SPLIT. Twin: `ln_qkv_reference`.
 
 K6 (`attn_out_int8`, replacing `_attn_out_kernel`): qkv + residual x →
 attention → int8 quant of the f32 output → int8 out-proj → dequant + bias
@@ -41,9 +44,10 @@ block, codes into every CTA's shared-memory o panel through distributed
 shared memory) and then a share of the out-projection's 128-column tiles
 against its whole panel (`k6_plan`); its output equals K1's attention
 launch followed by the int8 GEMM in GEMM_RESIDUAL mode bit for bit. At
-the wide heads (384 to 1280), whose o panel does not fit a block beside
-the attention: two launches, K1's attention kernel then that GEMM,
-counted as KERNEL_ATTN_OUT_SPLIT. With a logit bias, or where
+the wide heads (384 to 1280), and wherever the (128 x Wa) o panel does
+not fit a block beside the attention (Wa past K6_MAX_WA): those two
+launches, K1's attention kernel then that GEMM, counted as
+KERNEL_ATTN_OUT_SPLIT (`k6_route`). With a logit bias, or where
 JAX's VMEM estimate does not fit (`attn_out_int8_fits`: so400m-512's S =
 1024, Wa = 2048), the JAX function takes its reference route, and so does
 this one: K9 (with the bias), or without a bias and under
@@ -55,8 +59,9 @@ quantises the f32 one, the TPU kernel's).
 The routing predicates are JAX's own decisions from shapes, copied:
 `attn_sublayer_int8_fits` (K1, else K5 + `attn_out_int8`),
 `attn_out_int8_fits` (K6, else the reference route) and
-`layer_int8_eligible` (K7, else FPP; with K7's own limits in place of
-JAX's 13 MB VMEM fit).
+`layer_int8_eligible` (K7, else FPP; JAX's structural conditions and its
+13 MB VMEM fit). Which form of a kernel runs where JAX's decision admits
+it is the port's own choice (`k6_route`, `k7_form`).
 
 K7 (`siglip_layer_int8`, replacing `_layer_kernel`): the whole layer in
 ONE cooperative launch of clusters (`csrc/layer_int8.cu`) whose four
@@ -64,8 +69,16 @@ grid-synchronised phases run on the sm90 device functions: K5's LN panel
 and the int8 wgmma product (LN1 + QKV), K6's cluster tile with an f32
 out (the attention sublayer's residual stays f32 into LN2 and the final
 add), the LN panel built from those f32 rows (LN2 + fc1 + GELU + quant),
-and fc2 with both operands by TMA and the f32 residual. JAX has no
-reference form of it (off a TPU it returns None); the twin
+and fc2 with both operands by TMA and the f32 residual. It takes heads of
+1 to 128 on K6's tiles and panel (padded as `k6_tile` pads them), any S,
+and W up to K5_MAX_WIDTH, where the o panel fits (`k7_form`); elsewhere
+in JAX's domain (heads of 256 and wider, Wa past K6_MAX_WA or past two
+ring stages beside it, W past the panel)
+K7's split form runs the same arithmetic in six or seven launches (K5 or
+K8 + the GEMM; the attention with K9's exact softmax into int8 codes; the
+out-projection into the f32 x1; the LN pass over f32 rows; fc1 + GELU;
+fc2 on the f32 x1), counted as KERNEL_LAYER_SPLIT. JAX has no reference
+form of it (off a TPU it returns None); the twin
 `siglip_layer_int8_reference` is written from `_layer_kernel`'s math.
 """
 
@@ -84,7 +97,8 @@ from tpudf_torch.ops.attention import (HEAD_DIMS, MAX_ROWS, MAX_SEQ,
                                        check_attention_shape,
                                        kernel_head_dim, pad_heads,
                                        unpad_heads)
-from tpudf_torch.ops.layernorm import MAX_WIDTH, ln_quant_cuda, ln_rows_f32
+from tpudf_torch.ops.layernorm import (MAX_WIDTH, REG_WIDTH, ln_quant_cuda,
+                                       ln_quant_f32_cuda, ln_rows_f32)
 from tpudf_torch.ops.quant import (KERNEL_GEMM, f32_scalar, int8_mm,
                                    quant_rows, transposed)
 from tpudf_torch.utils.nn import gelu_tanh
@@ -93,13 +107,15 @@ KERNEL = "attn_sublayer_int8"
 KERNEL_LN_QKV = "ln_qkv_int8"
 KERNEL_ATTN_OUT = "attn_out_int8"
 KERNEL_ATTN_OUT_SPLIT = "attn_out_int8_split"   # K6 as two launches
+KERNEL_LN_QKV_SPLIT = "ln_qkv_int8_split"       # K5 as K8 + the GEMM
 KERNEL_LAYER = "siglip_layer_int8"
-LAYER_MAX_SEQ = 256         # K7's own limits (the whole-layer kernel is
-LAYER_MAX_WIDTH = 1024      # not widened: beyond them the block routes FPP)
+KERNEL_LAYER_SPLIT = "siglip_layer_int8_split"  # K7 in separate launches
+K5_MAX_WIDTH = REG_WIDTH    # K5's and K7's LN panel: a row five chunks a
+                            # lane (csrc/common.cuh kLnMaxWidth)
 # K6's widest Wa at each head_dim its tile runs (csrc/attn_out_sm90.cuh:
 # the (128 x Wa) int8 panel beside the Q buffer and a stage of K and V
-# tiles within a block's shared memory, `k6_smem`); None: the wide heads,
-# run as two launches at any Wa
+# tiles within a block's shared memory, `k6_smem`); None: the wide heads.
+# Past it K6 runs as two launches (`k6_route`), K7 as its split form
 K6_MAX_WA = {16: 1536, 32: 1536, 64: 1024, 128: 768, 256: 768,
              **dict.fromkeys(WIDE_HEAD_DIMS)}
 K6_MIN_HEAD_DIM = 16        # the panel's narrowest head: narrower ones are
@@ -299,6 +315,7 @@ def _f32(t):
 
 
 GEMM_BF16, GEMM_GELU_I8, GEMM_RESIDUAL, GEMM_I32 = 0, 1, 2, 3
+GEMM_RES_F32_OUT, GEMM_F32_RESIDUAL = 4, 5     # K7's split form
 
 
 def check_i8_gemm(k, wt):
@@ -318,12 +335,14 @@ def i8_gemm_cuda(a8, wt, col_scale, bias, act, mode, *, residual=None,
     GEMM_GELU_I8: int8 quant with act_out of gelu_tanh of that;
     GEMM_RESIDUAL: bf16(residual + that), and Σ out² per row into sumsq
     (f32 atomics across column tiles) when sumsq is given; GEMM_I32: acc
-    (col_scale, bias and act unused)."""
+    (col_scale, bias and act unused); GEMM_RES_F32_OUT: f32((residual +
+    acc·cs) + bias) of a bf16 residual; GEMM_F32_RESIDUAL: bf16(residual +
+    that) of an f32 residual."""
     m, k = a8.shape
     n = wt.shape[0]
     check_i8_gemm(k, wt)
-    dt = {GEMM_GELU_I8: torch.int8, GEMM_I32: torch.int32}.get(
-        mode, torch.bfloat16)
+    dt = {GEMM_GELU_I8: torch.int8, GEMM_I32: torch.int32,
+          GEMM_RES_F32_OUT: torch.float32}.get(mode, torch.bfloat16)
     out = torch.empty((m, n), dtype=dt, device=a8.device)
     _build.call("tpudf_i8_gemm", a8, wt, _f32(col_scale), _f32(bias),
                 _f32(act), residual, out, sumsq,
@@ -343,10 +362,11 @@ def attention_i8_reference(qkv, heads, head_dim, act_out, scale=None, *,
 
 
 def _attention_i8_cuda(qkv, heads, head_dim, scale, act_out, logit_bias,
-                       live, out=None):
+                       live, out=None, exact=False):
     """One launch of K1's attention kernel (`tpudf_attention_i8_sm90`):
     qkv (B, S, 3 heads head_dim) bf16 → (B·S, heads head_dim) int8 codes,
-    into `out` where given."""
+    into `out` where given; exact: K9's softmax sequence (expf and the
+    division; K7's) in place of K1's."""
     b, s, _ = qkv.shape
     width, hs = i8_attn_tile(head_dim, live)
     if hs != head_dim:          # zero columns: nothing added to q·k or p·v
@@ -361,7 +381,7 @@ def _attention_i8_cuda(qkv, heads, head_dim, scale, act_out, logit_bias,
                                        (0, -s % SM90_TILE_ROWS)).contiguous()
     _build.call("tpudf_attention_i8_sm90", qkv.contiguous(), bias,
                 f32_scalar(act_out, qkv.device), o8, b, s, heads, hs, width,
-                float(scale))
+                float(scale), int(exact))
     return o8 if hs == head_dim else unpad_heads(o8, heads, head_dim,
                                                  hs).contiguous()
 
@@ -484,34 +504,48 @@ def k5_stages(w):
     return min(8, room // (128 * 128 + 16))
 
 
-def ln_qkv_int8(x, ln_params, wq, bias, act_scale, eps=1e-6, *, out=None):
-    """(..., W) → (..., N): fused LN + static quant + int8 QKV projection.
-    wq: {q: (W, N) int8, scale: (N,), optional qT}. CPU tensors take the
-    plain twin; CUDA tensors launch K5 (bf16, W % 64 == 0, W <= 1280,
-    N % 128 == 0) or raise. out: a (rows, N) bf16 buffer to write."""
-    if not x.is_cuda:
-        return ln_qkv_reference(x, ln_params, wq, bias, act_scale, eps)
-    lead, w = x.shape[:-1], x.shape[-1]
+def _ln_qkv_cuda(x2d, ln_params, wq, bias, act_scale, eps, out=None):
+    """K5 on (M, W) bf16 rows, uncounted: ONE launch where W <=
+    K5_MAX_WIDTH, else K8's row pass then the int8 GEMM (GEMM_BF16), the
+    same codes and the same epilogue; returns (out, whether split)."""
+    m, w = x2d.shape
     wt = transposed(wq)
     n = wt.shape[0]
-    if (x.dtype != torch.bfloat16 or w % 64 or w > MAX_WIDTH or n % 128
+    if (x2d.dtype != torch.bfloat16 or w % 64 or w > MAX_WIDTH or n % 128
             or wt.shape[1] != w):
         raise ValueError(f"K5 takes bf16 x of width 64k <= {MAX_WIDTH} and "
-                         f"N % 128 == 0, got {x.dtype} W={w} weight "
+                         f"N % 128 == 0, got {x2d.dtype} W={w} weight "
                          f"{tuple(wt.shape)}")
-    x2d = x.reshape(-1, w).contiguous()
-    m = x2d.shape[0]
     if out is None:
-        out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=x2d.device)
     elif out.shape != (m, n) or out.dtype != torch.bfloat16:
         raise ValueError(f"K5 writes a ({m}, {n}) bf16 out, got {out.dtype} "
                          f"{tuple(out.shape)}")
+    if w > K5_MAX_WIDTH:
+        h8 = ln_quant_cuda(x2d, ln_params, act_scale, eps)
+        _build.call("tpudf_i8_gemm", h8, wt, _f32(wq["scale"]), _f32(bias),
+                    f32_scalar(act_scale, x2d.device), None, out, None, None,
+                    m, n, w, GEMM_BF16)
+        return out, True
     _build.call("tpudf_ln_qkv_i8", x2d, _f32(ln_params["scale"]),
                 _f32(ln_params["bias"]), wt, _f32(wq["scale"]), _f32(bias),
-                f32_scalar(act_scale, x.device), out, m, n,
-                w, float(eps))
-    LAUNCHES.hit(KERNEL_LN_QKV)
-    return out.reshape(*lead, n)
+                f32_scalar(act_scale, x2d.device), out, m, n, w, float(eps))
+    return out, False
+
+
+def ln_qkv_int8(x, ln_params, wq, bias, act_scale, eps=1e-6, *, out=None):
+    """(..., W) → (..., N): fused LN + static quant + int8 QKV projection.
+    wq: {q: (W, N) int8, scale: (N,), optional qT}. CPU tensors take the
+    plain twin; CUDA tensors launch K5 (bf16, W % 64 == 0, N % 128 == 0;
+    past K5_MAX_WIDTH as K8 + the int8 GEMM, KERNEL_LN_QKV_SPLIT) or
+    raise. out: a (rows, N) bf16 buffer to write."""
+    if not x.is_cuda:
+        return ln_qkv_reference(x, ln_params, wq, bias, act_scale, eps)
+    lead, w = x.shape[:-1], x.shape[-1]
+    got, split = _ln_qkv_cuda(x.reshape(-1, w).contiguous(), ln_params, wq,
+                              bias, act_scale, eps, out)
+    LAUNCHES.hit(KERNEL_LN_QKV_SPLIT if split else KERNEL_LN_QKV)
+    return got.reshape(*lead, -1)
 
 
 # ------------------------------------------------------------------ K6
@@ -531,31 +565,40 @@ def _attn_out_route_cuda(qkv, x, wq, bias, a, heads, head_dim, scale,
     return out.reshape(b, s, w)
 
 
+def k6_route(s, heads, head_dim, w, logit_bias=False):
+    """Which form of `attn_out_int8` runs on the card, from the shapes:
+    "reference" where JAX takes its reference route (a logit bias, or
+    `attn_out_int8_fits` false), else "K6" where the o panel fits K6's
+    block (heads · k6_head_dim within K6_MAX_WA), else "split" (K1's
+    attention launch + the int8 GEMM, the same function bit for bit)."""
+    wa = heads * head_dim
+    if logit_bias or not attn_out_int8_fits(s, wa, w, head_dim):
+        return "reference"
+    hk = k6_head_dim(head_dim)
+    limit = K6_MAX_WA.get(hk)
+    return "K6" if limit is not None and heads * hk <= limit else "split"
+
+
 def check_attn_out_int8(qkv, x, wq, heads, head_dim):
-    """Raise unless K6 takes this call: qkv under `check_attention_shape`,
-    bf16 x (B, S, W % 128 == 0), a (Wa, W) out-projection, and Wa within
-    K6_MAX_WA (its block's shared memory; the wide heads run split, at any
-    Wa)."""
+    """Raise unless `attn_out_int8` takes this call on the card: qkv under
+    `check_attention_shape`, bf16 x (B, S, W % 128 == 0) and a (Wa, W)
+    out-projection (any Wa: past K6's panel the split form runs)."""
     b, s, _ = qkv.shape
     w = x.shape[-1]
     wa = heads * head_dim
     check_attention_shape("K6", qkv, heads, head_dim)
-    hk = k6_head_dim(head_dim)
-    limit = K6_MAX_WA[hk]
-    if (x.dtype != torch.bfloat16 or (limit is not None and heads * hk > limit)
-            or w % 128 or tuple(wq["q"].shape) != (wa, w)
-            or x.shape != (b, s, w)):
-        raise ValueError(f"K6 takes x (B, S, W % 128 == 0) bf16 and Wa <= "
-                         f"{K6_MAX_WA}[head_dim] (heads narrower than "
-                         f"{K6_MIN_HEAD_DIM} padded to it), got "
-                         f"{x.dtype} {tuple(x.shape)}, Wa {wa}, head_dim "
-                         f"{head_dim}")
+    if (x.dtype != torch.bfloat16 or w % 128
+            or tuple(wq["q"].shape) != (wa, w) or x.shape != (b, s, w)):
+        raise ValueError(f"K6 takes x (B, S, W % 128 == 0) bf16 and a (Wa, "
+                         f"W) out-projection, got {x.dtype} "
+                         f"{tuple(x.shape)}, weight "
+                         f"{tuple(wq['q'].shape)}, head_dim {head_dim}")
 
 
 def _attn_out_split_cuda(qkv, x, wq, bias, a, heads, head_dim, scale):
-    """K6 at the wide heads, two launches: K1's attention kernel writes the
-    int8 codes of o, then the int8 out-projection GEMM with the residual
-    epilogue."""
+    """K6 as two launches (the wide heads, and Wa past K6's panel): K1's
+    attention kernel writes the int8 codes of o, then the int8
+    out-projection GEMM with the residual epilogue."""
     b, s, w = x.shape
     o8 = _attention_i8_cuda(qkv, heads, head_dim, scale, a, None, None)
     out = i8_gemm_cuda(o8, transposed(wq), wq["scale"], bias, a,
@@ -571,24 +614,24 @@ def attn_out_int8(qkv, x, wq, bias, act_scale, heads, head_dim, scale=None,
     quant, int8 out-projection, dequant + bias + residual. CPU tensors take
     the plain twin; CUDA tensors launch K6 (bf16, head_dim in HEAD_DIMS,
     narrower than 16 padded to 16, S <= MAX_SEQ, W % 128 == 0, Wa within
-    K6_MAX_WA: its shared memory; the wide heads as two launches) or
-    raise; with a logit bias or where
-    `attn_out_int8_fits` is false, K9 or 9b and the out-projection GEMM.
-    Heads of 16 and 32 run the attention zero-padded to 64 (K1's tile),
-    narrower ones are padded to 16 first (`k6_tile`)."""
+    K6_MAX_WA: its shared memory), or past that and at the wide heads its
+    two launches, or raise; with a logit bias or where
+    `attn_out_int8_fits` is false, K9 or 9b and the out-projection GEMM
+    (`k6_route`). Heads of 16 and 32 run the attention zero-padded to 64
+    (K1's tile), narrower ones are padded to 16 first (`k6_tile`)."""
     scale = scale if scale is not None else head_dim ** -0.5
     if not qkv.is_cuda:
         return attn_out_reference(qkv, x, wq, bias, act_scale, heads,
                                   head_dim, scale, logit_bias=logit_bias)
     a = f32_scalar(act_scale, qkv.device)
-    b, s, w3 = qkv.shape
+    b, s, _ = qkv.shape
     w = x.shape[-1]
-    if logit_bias is not None or not attn_out_int8_fits(s, w3 // 3, w,
-                                                         head_dim):
+    route = k6_route(s, heads, head_dim, w, logit_bias is not None)
+    if route == "reference":
         return _attn_out_route_cuda(qkv, x, wq, bias, a, heads, head_dim,
                                     scale, logit_bias)
     check_attn_out_int8(qkv, x, wq, heads, head_dim)
-    if K6_MAX_WA[k6_head_dim(head_dim)] is None:
+    if route == "split":
         return _attn_out_split_cuda(qkv.contiguous(), x, wq, bias, a, heads,
                                     head_dim, scale)
     tile, live = k6_tile(head_dim)
@@ -607,36 +650,86 @@ def attn_out_int8(qkv, x, wq, bias, act_scale, heads, head_dim, scale=None,
 
 # ------------------------------------------------------------------ K7
 
-def k7_launch(b, s, heads, w, inter, waves=None):
+def k7_smem(w, wa, tile):
+    """K7's dynamic shared memory a block (csrc/layer_int8.cu
+    `layer_layout`): the panel (ceil(max(W, Wa) / 128) slices of 16 KB),
+    the Q buffer (128 x tile bf16), as many ring stages (a 16 KB weight box
+    or a K and a V tile, whichever is larger) as fit up to 8, the barriers
+    of those and of fc2's ring (32 KB stages over the rest, up to 8) and
+    the alignment; None where the ring holds fewer than two stages (its
+    LN phases retire a stage while they wait for the next) or the tile is
+    not 64 or 128 (heads of 256: a 64 KB Q buffer and 64 KB stages)."""
+    ring = -(-max(w, wa) // 128) * 16384 + 128 * tile * 2
+    stage = max(16384, 2 * 64 * tile * 2)
+    room = SM90_BLOCK_SMEM - 1024 - 512 - ring
+    stages = min(room // stage, 8) if room >= 0 else 0
+    if stages < 2 or tile not in (64, 128):
+        return None
+    bars = ring + stages * stage
+    return bars + 8 * (2 + 2 * stages + 2 * min(bars // 32768, 8)) + 1024
+
+
+def k7_form(s, w, heads, head_dim):
+    """Which form of K7 runs a layer that JAX's K7 takes: "one" (the
+    one-launch kernel: a head of at most 128 on K6's tile, its o panel
+    within K6_MAX_WA, two ring stages beside it (`k7_smem`), W <=
+    K5_MAX_WIDTH) or "split" (its arithmetic in separate launches: heads
+    of 256 and the wide heads, Wa past K6's panel, W past the LN panel)."""
+    hk = k6_head_dim(head_dim)
+    limit = K6_MAX_WA.get(hk)
+    tile, live = k6_tile(head_dim)
+    if (limit is None or heads * hk > limit or w > K5_MAX_WIDTH
+            or k7_smem(w, heads * live, tile) is None):
+        return "split"
+    return "one"
+
+
+def k7_launch(b, s, heads, w, inter, waves=None, head_dim=64):
     """K7's launch (csrc/layer_int8.cu `launch_layer`): (C, blocks, runs1,
-    runs3): its attention phase's cluster size by K6's rule
-    (`k6_cluster` at head_dim 64, Wa = W), as many clusters of C as the
-    card holds (waves[C]; H100_CLUSTERS by default) for the cooperative
-    grid, and the runs its LN phases cut a row tile's column tiles in over
-    those blocks (`k5_splits`: phase 1 into 3W columns, phase 3 into the
+    runs3): its attention phase's cluster size by K6's rule (`k6_cluster`
+    on K6's tile of the head), as many clusters of C as the card holds
+    (waves[C]; H100_CLUSTERS by default) for the cooperative grid, and the
+    runs its LN phases cut a row tile's column tiles in over those blocks
+    (`k5_splits`: phase 1 into 3 heads tile columns, phase 3 into the
     MLP's)."""
     waves = waves or H100_CLUSTERS
-    c = k6_cluster(b, s, heads, 64, 64, w, waves)
+    tile, live = k6_tile(head_dim)
+    c = k6_cluster(b, s, heads, tile, live, w, waves)
     blocks = waves[c] * c
-    return c, blocks, k5_splits(b * s, 3 * w, blocks), k5_splits(b * s,
-                                                                 inter,
-                                                                 blocks)
+    return c, blocks, k5_splits(b * s, 3 * heads * tile, blocks), k5_splits(
+        b * s, inter, blocks)
 
 
-def layer_int8_eligible(x, bp, heads, head_dim, logit_bias=None):
-    """JAX's structural conditions for the whole-layer kernel (not its
-    13 MB VMEM fit): no logit bias, head slots not padded, head_dim 64,
-    W, the MLP width and S aligned; and K7's own limits, S <= 256 and W <=
-    1024 (so large-384 and so400m-512 route FPP, as JAX's fit sends them).
-    Otherwise the block routes FPP."""
+def _layer_structure_ok(x, bp, heads, head_dim):
+    """JAX's structural conditions for its whole-layer kernel
+    (tpudf/ops/int8_block.py:337-345): lane-aligned heads, W, S and the MLP
+    aligned, head slots not padded."""
     _, s, w = x.shape
     attn = bp["attn"]
     inter = bp["mlp"]["fc1_w"]["q"].shape[-1]
-    return (logit_bias is None and head_dim == 64 and s <= LAYER_MAX_SEQ
-            and w <= LAYER_MAX_WIDTH and heads * head_dim == w
+    return (_lane_ok(head_dim) and w % 128 == 0 and s % 8 == 0
+            and inter % 128 == 0 and heads * head_dim == w
             and tuple(attn["qkv_w"]["q"].shape) == (w, 3 * w)
-            and tuple(attn["out_w"]["q"].shape) == (w, w)
-            and w % 128 == 0 and inter % 128 == 0 and s % 8 == 0)
+            and tuple(attn["out_w"]["q"].shape) == (w, w))
+
+
+def layer_int8_fits(s, w, inter):
+    """JAX's VMEM estimate for its whole-layer kernel
+    (tpudf/ops/int8_block.py:346-348, formula copied): the int8 weights
+    and the activations of one image within 13 MB (base-256 at S = 256
+    needs 14.0 MB)."""
+    weights = 4 * w * w + 2 * w * inter
+    acts = s * 3 * w * 2 + s * s * 4 + s * inter * 4 + 3 * s * w * 4
+    return weights + acts <= 13 * MiB
+
+
+def layer_int8_eligible(x, bp, heads, head_dim, logit_bias=None):
+    """JAX's decision for its whole-layer kernel, and its dispatcher's (no
+    logit bias): `_layer_structure_ok` and `layer_int8_fits`. Where it
+    holds the LLL block runs K7, otherwise FPP, as on a TPU."""
+    _, s, w = x.shape
+    return (logit_bias is None and _layer_structure_ok(x, bp, heads, head_dim)
+            and layer_int8_fits(s, w, bp["mlp"]["fc1_w"]["q"].shape[-1]))
 
 
 def _scales(bp, device):
@@ -678,44 +771,97 @@ def siglip_layer_int8_reference(x, bp, heads, head_dim, eps=1e-6,
     return (x32 + out).to(x.dtype).reshape(b, s, w)
 
 
+def _check_layer(x, bp, heads, head_dim):
+    """Raise unless K7 (one launch or split) takes this layer: bf16 x
+    within the attention's S and row limits and JAX's structural
+    conditions (not its VMEM fit: the kernels run past it; the dispatcher
+    routes by `layer_int8_eligible`)."""
+    b, s, w = x.shape
+    if (x.dtype != torch.bfloat16 or head_dim not in HEAD_DIMS
+            or s > MAX_SEQ or b * s > MAX_ROWS or w > MAX_WIDTH
+            or not _layer_structure_ok(x, bp, heads, head_dim)):
+        raise ValueError(f"K7 takes bf16 x with lane-aligned unpadded "
+                         f"heads, W, S and the MLP aligned, got {x.dtype} "
+                         f"{tuple(x.shape)} heads {heads} head_dim "
+                         f"{head_dim} MLP "
+                         f"{bp['mlp']['fc1_w']['q'].shape[-1]}")
+
+
 def _layer_cuda(x, bp, heads, head_dim, eps, scale):
+    """The one-launch K7: the QKV weight's heads zero-padded to K6's tile
+    (zero rows, scales and biases: exact zero q, k, v columns) and the
+    out-projection's to its panel width (zero columns add nothing)."""
     b, s, w = x.shape
     attn, mlp = bp["attn"], bp["mlp"]
     inter = mlp["fc1_w"]["q"].shape[-1]
-    if (x.dtype != torch.bfloat16
-            or not layer_int8_eligible(x, bp, heads, head_dim)):
-        raise ValueError(f"K7 takes bf16 x with head_dim 64, unpadded "
-                         f"heads, W % 128 == 0, W <= {LAYER_MAX_WIDTH}, "
-                         f"S % 8 == 0 and S <= {LAYER_MAX_SEQ}, got {x.dtype} "
-                         f"{tuple(x.shape)} heads {heads} head_dim "
-                         f"{head_dim} MLP {inter}")
+    tile, live = k6_tile(head_dim)
+    wqkv, sqkv, bqkv = (transposed(attn["qkv_w"]), _f32(attn["qkv_w"]["scale"]),
+                        _f32(attn["qkv_b"]))
+    wout = transposed(attn["out_w"])
+    if tile != head_dim:
+        wqkv = pad_heads(wqkv.t(), heads, head_dim, tile).t().contiguous()
+        sqkv, bqkv = (pad_heads(v, heads, head_dim, tile).contiguous()
+                      for v in (sqkv, bqkv))
+    if live != head_dim:
+        wout = pad_heads(wout, heads, head_dim, live).contiguous()
     m, dev = b * s, x.device
-    qkv_ws = torch.empty((m, 3 * w), dtype=torch.bfloat16, device=dev)
+    qkv_ws = torch.empty((m, 3 * heads * tile), dtype=torch.bfloat16,
+                         device=dev)
     x1_ws = torch.empty((m, w), dtype=torch.float32, device=dev)
     hid_ws = torch.empty((m, inter), dtype=torch.int8, device=dev)
     out = torch.empty((m, w), dtype=torch.bfloat16, device=dev)
     acts = torch.stack(_scales(bp, dev))
     _build.call(
         "tpudf_layer_i8", x.reshape(m, w).contiguous(),
-        _f32(bp["ln1"]["scale"]), _f32(bp["ln1"]["bias"]),
-        transposed(attn["qkv_w"]), _f32(attn["qkv_w"]["scale"]),
-        _f32(attn["qkv_b"]), transposed(attn["out_w"]),
-        _f32(attn["out_w"]["scale"]), _f32(attn["out_b"]),
+        _f32(bp["ln1"]["scale"]), _f32(bp["ln1"]["bias"]), wqkv, sqkv, bqkv,
+        wout, _f32(attn["out_w"]["scale"]), _f32(attn["out_b"]),
         _f32(bp["ln2"]["scale"]), _f32(bp["ln2"]["bias"]),
         transposed(mlp["fc1_w"]), _f32(mlp["fc1_w"]["scale"]),
         _f32(mlp["fc1_b"]), transposed(mlp["fc2_w"]),
         _f32(mlp["fc2_w"]["scale"]), _f32(mlp["fc2_b"]), acts, qkv_ws,
-        x1_ws, hid_ws, out, b, s, heads, w, inter, float(eps), float(scale))
+        x1_ws, hid_ws, out, b, s, heads, w, inter, tile, live, float(eps),
+        float(scale))
     LAUNCHES.hit(KERNEL_LAYER)
+    return out.reshape(b, s, w)
+
+
+def _layer_split_cuda(x, bp, heads, head_dim, eps, scale):
+    """K7's split form, `siglip_layer_int8_reference`'s arithmetic in
+    separate launches: LN1 + QKV by K5 (K8 + the GEMM past its panel), qkv
+    rounded to bf16; the attention with K9's exact softmax into the int8
+    codes of the f32 o; the out-projection into the f32 x1 = (x + acc·cs)
+    + b (GEMM_RES_F32_OUT); LN2 over those f32 rows into codes; fc1 + GELU
+    into codes; fc2 with the f32 x1 as its residual, cast to bf16 once."""
+    b, s, w = x.shape
+    attn, mlp = bp["attn"], bp["mlp"]
+    aq, ao, a1, a2 = _scales(bp, x.device)
+    x2d = x.reshape(b * s, w).contiguous()
+    qkv, _ = _ln_qkv_cuda(x2d, bp["ln1"], attn["qkv_w"], attn["qkv_b"], aq,
+                          eps)
+    o8 = _attention_i8_cuda(qkv.reshape(b, s, 3 * w), heads, head_dim, scale,
+                            ao, None, None, exact=True)
+    x1 = i8_gemm_cuda(o8, transposed(attn["out_w"]), attn["out_w"]["scale"],
+                      attn["out_b"], ao, GEMM_RES_F32_OUT, residual=x2d)
+    h8 = ln_quant_f32_cuda(x1, bp["ln2"], a1, eps)
+    hid = i8_gemm_cuda(h8, transposed(mlp["fc1_w"]), mlp["fc1_w"]["scale"],
+                       mlp["fc1_b"], a1, GEMM_GELU_I8, act_out=a2)
+    out = i8_gemm_cuda(hid, transposed(mlp["fc2_w"]), mlp["fc2_w"]["scale"],
+                       mlp["fc2_b"], a2, GEMM_F32_RESIDUAL, residual=x1)
+    LAUNCHES.hit(KERNEL_LAYER_SPLIT)
     return out.reshape(b, s, w)
 
 
 def siglip_layer_int8(x, bp, heads, head_dim, eps=1e-6, scale=None):
     """(B, S, W) → (B, S, W): one static-W8A8 layer. bp: the layer's
     quantize_siglip_static slice with act_scales. CPU tensors take the
-    plain twin; CUDA tensors launch K7 or raise (see
-    `layer_int8_eligible`; the dispatcher routes ineligible layers FPP)."""
+    plain twin; CUDA tensors run K7 (one launch or its split form,
+    `k7_form`) within JAX's structural conditions, or raise. The LLL
+    dispatcher calls it only where JAX's whole decision holds
+    (`layer_int8_eligible`) and routes the other layers FPP."""
     scale = scale if scale is not None else head_dim ** -0.5
     if not x.is_cuda:
         return siglip_layer_int8_reference(x, bp, heads, head_dim, eps, scale)
-    return _layer_cuda(x, bp, heads, head_dim, eps, scale)
+    _check_layer(x, bp, heads, head_dim)
+    if k7_form(x.shape[1], x.shape[2], heads, head_dim) == "one":
+        return _layer_cuda(x, bp, heads, head_dim, eps, scale)
+    return _layer_split_cuda(x, bp, heads, head_dim, eps, scale)

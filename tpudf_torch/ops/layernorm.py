@@ -3,10 +3,13 @@
 K4 replaces tpudf/ops/layernorm.py `_ln_kernel` (via `_ln_pallas` /
 `layer_norm_fused`). The CUDA kernel is `csrc/layernorm.cu`: one warp a
 row at a time, the row held in registers (any multiple of 8 up to
-MAX_WIDTH = 1280: so400m's 1152 is 4.5 chunks of 8 a lane), one bf16 read
+REG_WIDTH = 1280: so400m's 1152 is 4.5 chunks of 8 a lane), one bf16 read
 and one bf16 write; each warp walks rows and loads the next one while it
-reduces this one; the scale and bias are read in the dtype they are
-stored in (bf16 or f32), so no call casts them. It is bound by
+reduces this one. Wider rows (up to MAX_WIDTH, what a warp's share of a
+block's shared memory holds) are staged in shared memory as they are
+read, with the statistics summed in the same order. The scale and bias
+are read in the dtype they are stored in (bf16 or f32), so no call casts
+them. It is bound by
 device-memory bytes (4 bytes moved per element, a handful of flops). The
 backward recomputes the twin and applies its VJP (`twin_vjp`), as the JAX
 VJP does.
@@ -16,6 +19,8 @@ the same LN emitting static int8 codes, round(y·127/a) half to even,
 clipped to ±127 (one bf16 read, one int8 write). Its CUDA kernel is the LN
 + quant row pass of `csrc/layernorm.cu` that also opens K1 and K2; bound by
 device-memory bytes. The twin is the JAX function's off-TPU branch.
+`ln_quant_f32_cuda` runs that pass over f32 rows (any width up to
+MAX_WIDTH_F32; the LN2 of K7's split form).
 """
 
 from __future__ import annotations
@@ -29,7 +34,20 @@ from tpudf_torch.ops.twin_vjp import with_twin_vjp
 
 KERNEL = "layer_norm_fused"
 KERNEL_QUANT = "layer_norm_quant"
-MAX_WIDTH = 1280        # csrc/common.cuh kLnMaxWidth
+REG_WIDTH = 1280        # csrc/common.cuh kLnMaxWidth: a row in registers
+LN_WIDE_WARPS = 4       # csrc/layernorm.cu kLnWideWarps
+_SMEM = 232448          # a block's shared memory (csrc/common.cuh)
+
+
+def max_width(elem):
+    """The widest row of `elem`-byte values the row pass takes: one row a
+    warp in kLnWideWarps warps' share of a block's shared memory
+    (csrc/layernorm.cu `tpudf_ln_max_width`)."""
+    return _SMEM // (LN_WIDE_WARPS * elem) // 8 * 8
+
+
+MAX_WIDTH = max_width(2)        # bf16 rows: 29,056
+MAX_WIDTH_F32 = max_width(4)    # f32 rows: 14,528
 
 
 def ln_rows_f32(x2d, g, b, eps):
@@ -57,11 +75,12 @@ def _pair(scale, bias):
     return g, b, gb
 
 
-def _check_rows(x2d, name):
+def _check_rows(x2d, name, dtype=torch.bfloat16):
     w = x2d.shape[-1]
-    if x2d.dtype != torch.bfloat16 or w % 8 or w > MAX_WIDTH:
-        raise ValueError(f"{name} takes bf16 rows of width 8k <= "
-                         f"{MAX_WIDTH}, got {x2d.dtype} width {w}")
+    limit = MAX_WIDTH if dtype == torch.bfloat16 else MAX_WIDTH_F32
+    if x2d.dtype != dtype or w % 8 or not 0 < w <= limit:
+        raise ValueError(f"{name} takes {dtype} rows of width 8k <= "
+                         f"{limit}, got {x2d.dtype} width {w}")
 
 
 def layer_norm_reference(x, scale, bias, eps=1e-6):
@@ -117,6 +136,18 @@ def ln_quant_cuda(x2d, ln_params, a, eps):
     g, b, is_bf16 = _pair(ln_params["scale"], ln_params["bias"])
     _build.call("tpudf_ln_quant_i8", x2d, g, b, f32_scalar(a, x2d.device),
                 out, m, w, is_bf16, float(eps))
+    return out
+
+
+def ln_quant_f32_cuda(x2d, ln_params, a, eps):
+    """LN + static int8 quant of f32 rows → int8 rows, one launch of the
+    row pass on f32 (uncounted: the LN2 of K7's split form)."""
+    _check_rows(x2d, "the f32 LN + quant row pass", torch.float32)
+    m, w = x2d.shape
+    out = torch.empty((m, w), dtype=torch.int8, device=x2d.device)
+    _build.call("tpudf_ln_quant_f32", x2d, ln_params["scale"].float()
+                .contiguous(), ln_params["bias"].float().contiguous(),
+                f32_scalar(a, x2d.device), out, m, w, float(eps))
     return out
 
 

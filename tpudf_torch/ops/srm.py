@@ -6,11 +6,15 @@ residuals (K1 and K2 normalise to the same 3x3 stencil): r2 from the
 Laplacian /8, both 'same' size with zero padding.
 
 Replaces tpudf/ops/srm.py `_srm_moments_kernel` (wrapper
-`srm_raw_moments`). The CUDA kernel (`csrc/srm.cu`) runs one block per
-image: each thread forms both residuals at its pixels from the 3x3
-neighbourhood (exact zero border), accumulates the four powers in f64, and
-the block reduces them, so there are no cross-block sums. It is bound by
-device-memory bytes (one f32 read per pixel).
+`srm_raw_moments`). The CUDA kernel (`csrc/srm.cu`) cuts each image in
+tiles of a strip of rows by up to 1024 columns (`srm_plan`), one block a
+tile, so that small batches fill the card: a block copies its tile and a
+one-pixel halo (zeros outside the image) into shared memory, forms both
+residuals there tap by tap, accumulates the four powers in f64 and reduces
+them to the tile's partial (by warp shuffles, then in warp order); the last
+tile of an image to finish adds the partials in tile order, so the result
+does not depend on which block finishes last. It is bound by device-memory
+bytes (one f32 read per pixel).
 """
 
 from __future__ import annotations
@@ -68,6 +72,48 @@ def srm_raw_moments_reference(gray):
     return torch.stack(moms, dim=-1)
 
 
+SRM_THREADS = 256          # csrc/srm.cu kSrmThreads
+SRM_MAX_COLS = 1024        # kSrmMaxCols
+SRM_MIN_ROWS = 4           # kSrmMinRows
+SRM_TILE_BYTES = 46 * 1024  # kSrmTileBytes
+SRM_TARGET_BLOCKS = 264    # kSrmTargetBlocks
+
+
+def srm_plan(b, h, w):
+    """K3's tiles (csrc/srm.cu `srm_plan`): (rows of a strip, columns of a
+    tile, strips, column tiles) at (B, H, W): enough tiles for
+    SRM_TARGET_BLOCKS, strips of at least SRM_MIN_ROWS rows (H where
+    fewer), the tile and its one-pixel halo within SRM_TILE_BYTES of f32."""
+    cols = min(w, SRM_MAX_COLS)
+    ctiles = -(-w // cols)
+    want = -(-SRM_TARGET_BLOCKS // (b * ctiles))
+    rows = max(-(-h // want), SRM_MIN_ROWS)
+    rows = min(rows, SRM_TILE_BYTES // (4 * (cols + 2)) - 2, h)
+    return rows, cols, -(-h // rows), ctiles
+
+
+_counts = {}
+
+
+def _zeroed_counts(b, device):
+    """The kernel's per-image completion counts: zero before a launch and
+    left zero by it (its last block per image resets its count), so one
+    buffer serves every launch on a stream (one buffer a device and
+    stream: launches on two streams may overlap)."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    c = _counts.get(key)
+    if c is None or c.numel() < b:
+        c = torch.zeros(max(b, 256), dtype=torch.int32, device=device)
+        _counts[key] = c
+    return c
+
+
+# the taps csrc/srm.cu multiplies (kK2Taps, kK3Taps): K2's nine, the
+# Laplacian's edge-adjacent four and centre
+K2_TAPS = tuple(range(9))
+K3_TAPS = (1, 3, 4, 5, 7)
+
+
 def _srm_cuda(gray):
     b, h, w = gray.shape
     if gray.dtype != torch.float32:
@@ -75,8 +121,12 @@ def _srm_cuda(gray):
     gray = gray.contiguous()
     coeffs = torch.from_numpy(np.concatenate(
         [_norm(_K2).ravel(), _norm(_K3).ravel()])).to(gray.device)
+    _, _, strips, ctiles = srm_plan(b, h, w)
+    partial = torch.empty((b, strips * ctiles, 8), dtype=torch.float64,
+                          device=gray.device)
     out = torch.empty((b, 8), dtype=torch.float32, device=gray.device)
-    _build.call("tpudf_srm_moments", gray, coeffs, out, b, h, w)
+    _build.call("tpudf_srm_moments", gray, coeffs, partial,
+                _zeroed_counts(b, gray.device), out, b, h, w)
     LAUNCHES.hit(KERNEL)
     return out
 
