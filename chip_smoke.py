@@ -12,11 +12,12 @@ back to the CPU or to a twin):
      on the 80-wide tile, and the wide heads' kernels), kernels 11 and 12
      in bf16 (attention_plain_sm90.cu), the bf16 GEMM of K13, K14 and 15 in
      its three epilogue modes (bf16_gemm_sm90.cu), the int8 GEMM in its
-     four modes at both tile widths and its LN-panel instance, K5
-     (int8_gemm_sm90.cu), and 9b's main pass at heads of 64 and 128
-     (attention_i8.cu), K6's cluster tile at tile widths 64, 128 and 256
-     (attention.cu) and K7 (layer_int8.cu) must show wgmma (HGMMA; IGMMA
-     for int8; both in K6 and K7) and TMA
+     seven slot modes at both tile widths, its two f32-residual modes, its
+     LN-panel instance, K5, and its quant-panel instances, the probes'
+     quantising GEMMs (int8_gemm_sm90.cu), and 9b's main pass at heads of
+     64 and 128 (attention_i8.cu), K6's cluster tile at tile widths 64,
+     128 and 256 (attention.cu) and K7 (layer_int8.cu) must show wgmma
+     (HGMMA; IGMMA for int8; both in K6 and K7) and TMA
      loads (UTMALDG) in their SASS where the toolkit's cuobjdump is
      present, no spills, and no wgmma serialised by ptxas (C7515); the
      wrappers'
@@ -87,9 +88,14 @@ back to the CPU or to a twin):
      each at its JAX probe's full shape against its twin on the same
      seeded inputs, with one launch a call (17: no amax pass) and the
      tolerances of tests/test_torch_port_probes.py (PROBE_TOL), each check
-     shown to fail on a planted fault; k_pure also bit-equal to
-     torch._int_mm; then each probe's main() (its timing lines), whose
-     launches are the kernels line's count;
+     shown to fail on planted faults (the quantising GEMMs' also: a panel
+     slice left zero, the panel not rebuilt, a run of columns unstored,
+     bias / GELU / scale dropped in half a tile); k_pure also bit-equal to
+     torch._int_mm; the quantising GEMMs' split form bit-equal to their
+     one launch, their own route at K = 1600 (split) against the twin,
+     each form and its parts timed by device time; then each probe's
+     main() (its timing lines), whose launches are the kernels line's
+     count;
   2f. K1, K6, K9 and 9b past S = 1024 (`long_seq_checks`): at S = 1296
      and a ragged S (1304 for K1 and K6, 1297 for K9 and 9b), at
      base-256's width with heads of 64 and of 128 (72 live: K1 on the
@@ -340,10 +346,10 @@ SOURCES = {
     "K11": "tpudf_torch/csrc/attention_plain_sm90.cu",
     "K12": "tpudf_torch/csrc/attention_plain_sm90.cu",
     "15-bf16": "tpudf_torch/csrc/bf16_gemm_sm90.cu",
-    "15-int8": "tpudf_torch/csrc/probe_gemm.cu",
-    "16-full": "tpudf_torch/csrc/probe_gemm.cu",
-    "16-nogelu": "tpudf_torch/csrc/probe_gemm.cu",
-    "16-bf16_epi": "tpudf_torch/csrc/probe_gemm.cu",
+    "15-int8": "tpudf_torch/csrc/int8_gemm_sm90.cu",
+    "16-full": "tpudf_torch/csrc/int8_gemm_sm90.cu",
+    "16-nogelu": "tpudf_torch/csrc/int8_gemm_sm90.cu",
+    "16-bf16_epi": "tpudf_torch/csrc/int8_gemm_sm90.cu",
     "16-noquant": "tpudf_torch/csrc/int8_gemm_sm90.cu",
     "16-pure": "tpudf_torch/csrc/int8_gemm_sm90.cu",
     "17": "tpudf_torch/csrc/attention_i8.cu",
@@ -625,17 +631,22 @@ class Records:
 # two passes at 64, 128 and 256 and at the wide heads, kernels 11 and 12
 # in bf16 (attention_plain_sm90.cu) on the 64-, 80- and 128-wide tiles,
 # the bf16 GEMM of K13, K14 and 15 (bf16_gemm_sm90.cu) in its three
-# epilogue modes, the int8 GEMM (int8_gemm_sm90.cu) in its four slot modes
-# at tile widths 256 and 128, its two f32-residual modes at 128 and K5 (its
-# LN-panel instance), 9b's main pass at head_dim 64 and 128
+# epilogue modes, the int8 GEMM (int8_gemm_sm90.cu) in its seven slot modes
+# (the W8A8 block's four, the probes' three) at tile widths 256 and 128,
+# its two f32-residual modes at 128, K5 (its LN-panel instance) and the
+# probes' quant-panel instances in their four modes at 256, 9b's main pass
+# at head_dim 64 and 128
 # (attention_i8.cu), K6's cluster tile on the 64-, 128- and 256-wide tiles
 # (attention.cu), K7 on the 64- and 128-wide tiles (layer_int8.cu), and
 # K1's forward with K9's softmax (K7's split form) at 64, 128, 256 and the
 # wide heads
-SM90_KERNELS = 45
+SM90_KERNELS = 55
 SM90_NAME = re.compile(r"((?:attention_(?:fwd|bwd_dq|bwd_dkv|plain|i8dyn)"
                        r"(?:_wide)?|bf16_gemm|i8_gemm|attn_out|layer_i8)"
-                       r"_sm90)(?:ILi(\d+)E)?(?:Li(\d+)E)?(?:Lb(\d)E)?")
+                       r"_sm90)(?:ILi(\d+)E)?(?:Li(\d+)E)?(?:Li(\d)E)?")
+# the int8 GEMM's A operand (its third template argument): 1 K5's LN
+# panel, 2 the probes' quant panel (0: by TMA)
+SM90_A = {"1": ", LN panel", "2": ", quant panel"}
 # the kernels whose SASS holds int8 wgmma (IGMMA); K6 and K7 both kinds
 SM90_IGMMA = ("i8_gemm_sm90", "attention_i8dyn_sm90", "attn_out_sm90",
               "layer_i8_sm90")
@@ -687,8 +698,8 @@ def sm90_build_checks(card):
             raise AssertionError(f"sm90 kernels in the SASS: {list(counts)}")
         for fn, (hgmma, igmma, utmaldg) in sorted(counts.items()):
             m = SM90_NAME.search(fn)
-            args = ", ".join(a for a in m.group(2, 3) if a) + (
-                ", LN panel" if m.group(4) == "1" else "")
+            args = ", ".join(a for a in m.group(2, 3) if a) + SM90_A.get(
+                m.group(4), "")
             kinds = {"HGMMA": hgmma, "IGMMA": igmma}
             if m.group(1) not in SM90_IGMMA:
                 kinds.pop("IGMMA")
@@ -2675,18 +2686,109 @@ def probe_agrees(key, got, ref):
     return ok, share, max_abs(got, ref)
 
 
+def probe_stale_panel(ref, m, n, sms):
+    """The quantising GEMM's output had no block rebuilt its panel after
+    its first unit: each later unit's columns computed from the rows of
+    the block's first unit (`common.quant_units`)."""
+    from tpudf_torch.probes import common
+    out = ref.clone()
+    t, w = 128, common.QUANT_TILE
+    for block in common.quant_units(m, n, sms):
+        r0 = block[0][0]
+        for rt, run in block[1:]:
+            rows = min(t, m - rt * t, m - r0 * t)
+            c0, c1 = min(run) * w, min(n, (max(run) + 1) * w)
+            out[rt * t:rt * t + rows, c0:c1] = \
+                ref[r0 * t:r0 * t + rows, c0:c1]
+    return out
+
+
+def probe_unstored_run(got, m, n, sms):
+    """The quantising GEMM's output with one unit's run of columns (block
+    0's last unit) left as a buffer pre-filled with 7 had it."""
+    from tpudf_torch.probes import common
+    rt, run = common.quant_units(m, n, sms)[0][-1]
+    w = common.QUANT_TILE
+    out = got.clone()
+    out[rt * 128:(rt + 1) * 128, min(run) * w:(max(run) + 1) * w] = 7.0
+    return out
+
+
+def probe_route_timings(rec, key, mode, x, wt, s, b, act, card):
+    """The quantising GEMM in `mode` on x (M, K) and wt (N, K) by device
+    time: the one launch where K takes it, the split form (the codes' row
+    pass, then the int8 GEMM in the same mode) and its two launches alone,
+    beside the bound; the split form bit-equal to the one launch where
+    both apply. Into `key`'s row as "routes"."""
+    import torch
+    from tpudf_torch.ops import _build
+    from tpudf_torch.probes import common
+    m, k = x.shape
+    n = wt.shape[0]
+    codes = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    mode_n = common.QUANT_MODES[mode]
+    bias = None if b is None else b.float()
+
+    def rows():
+        _build.call("tpudf_quant_rows_i8", x, act, codes, m, k)
+
+    def gemm():
+        _build.call("tpudf_i8_gemm", codes, wt, s, bias, act, None, out, None,
+                    None, m, n, k, mode_n)
+
+    def split():
+        return common.quant_gemm_split(mode, x, wt, s, b, act)
+
+    case = {"shape": (m, k, n), "split_device_ms": device_ms(split),
+            "rows_device_ms": device_ms(rows),
+            "gemm_device_ms": device_ms(gemm)}
+    case["bound_ms"], case["bound_by"] = bound(
+        {"int8": 2 * m * k * n}, nbytes(x, wt, s, b) + m * n * 2)
+    line = ""
+    if common.quant_route(k) == "one":
+        one = common.quant_gemm_cuda(mode, x, wt, s, b, act)
+        same = bool(torch.equal(one, split()))
+        case["one_device_ms"] = device_ms(lambda: common.quant_gemm_cuda(
+            mode, x, wt, s, b, act))
+        line = (f"one launch {case['one_device_ms']:.4f} ms, split form "
+                f"bit-equal {same}; ")
+        if not same:
+            raise AssertionError(f"{key} {mode} {(m, k, n)}: the split form "
+                                 f"differs from the one launch")
+        del one
+    print(f"  {key} {(m, k, n)} device: {line}split form "
+          f"{case['split_device_ms']:.4f} ms (row pass "
+          f"{case['rows_device_ms']:.4f} + GEMM on the codes "
+          f"{case['gemm_device_ms']:.4f}); bound {case['bound_ms']:.4f} ms "
+          f"({case['bound_by']}) [{card}]", flush=True)
+    rec.rows[key].setdefault("routes", []).append(case)
+    del codes, out
+    torch.cuda.empty_cache()
+
+
 def probe_checks(rec, dev, card):
     """Phase 2e: kernels 15, 16 and 17 (`tpudf_torch/probes`) at their JAX
     probes' full shapes against their twins on the probes' seeded inputs:
     one launch a call (17: no amax pass), the tolerances of PROBE_TOL,
-    each check shown to fail on a planted fault (15: the twin's last
+    each check shown to fail on planted faults (15: the twin's last
     32-deep K slice dropped, x quantised at amax 3.9; 16: GELU dropped,
     the bias dropped, the 4/127 factor in k_bf16_epi's chain, act 3.9,
-    torch._int_mm on x with its last 64 columns zeroed; 17: aq = 3.1),
-    k_pure bit-equal to torch._int_mm; kernel, twin and library timed. Then
-    each probe's main(), counts set to 0 just before it: its launches of
-    the probe's kernels must equal the calls it made, and are returned as
-    the kernels line's counts."""
+    torch._int_mm on x with its last 64 columns zeroed; 17: aq = 3.1; the
+    quantising GEMMs on their quant panel also: a 128-deep panel slice
+    left zero, the panel not rebuilt after a block's first unit (where
+    blocks walk several row tiles), one run of columns unstored, the bias
+    or GELU (15: the scale) dropped in half a 256-wide tile), k_pure
+    bit-equal to torch._int_mm; kernel, twin and library timed. The
+    quantising GEMMs' split form (`common.quant_gemm_split`: the codes'
+    row pass, then the int8 GEMM) bit-equal to the
+    one launch at the probes' shapes, and the wrappers' own route at K =
+    1600 (split, its own counter) held to the twin with the codes' last 64
+    columns zeroed as a fault; each one launch, the split form and its two
+    parts timed by device time (`probe_route_timings`). Then each probe's
+    main(), counts set to 0 just before it: its launches of the probe's
+    kernels must equal the calls it made, and are returned as the kernels
+    line's counts."""
     import torch
     from tpudf_torch.core.backend import LAUNCHES
     from tpudf_torch.probes import common
@@ -2695,8 +2797,10 @@ def probe_checks(rec, dev, card):
     from tpudf_torch.probes import micro_pallas_int8 as p15
     print("phase 2e: kernels 15-17 (the probes) vs twins", flush=True)
     act = common.act_scale(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def held(key, label, counter, call, twin, faults, work, **timing):
+        """faults: {name: fn(got, ref) -> a faulty output}."""
         LAUNCHES.reset()
         got = call()
         torch.cuda.synchronize()
@@ -2705,7 +2809,7 @@ def probe_checks(rec, dev, card):
         ok, share, err = probe_agrees(key, got, ref)
         caught = {}
         for name, fault in faults.items():
-            caught[name] = not probe_agrees(key, got, fault())[0]
+            caught[name] = not probe_agrees(key, got, fault(got, ref))[0]
             torch.cuda.empty_cache()
         print(f"  {key} {label}: max|Δ| {err:.3e}, share > 1 bf16 step "
               f"{share:.3e}, within tolerance {ok}; planted faults: "
@@ -2718,10 +2822,31 @@ def probe_checks(rec, dev, card):
         if not all(caught.values()):
             raise AssertionError(f"{key} {label}: the check misses "
                                  f"{[k for k, c in caught.items() if not c]}")
-        rec.add(key, label, tuple(got.shape), err, call, twin, work,
-                **timing)
+        if work is not None:
+            rec.add(key, label, tuple(got.shape), err, call, twin, work,
+                    **timing)
         del got, ref
         torch.cuda.empty_cache()
+
+    def panel_faults(twin_on, x, m, n):
+        """The quant panel's planted faults: twin_on(x) is the twin on
+        another x."""
+        hole = x.clone()
+        hole[:, 128:256] = 0
+        faults = {"panel slice 128-255 left zero": lambda *_: twin_on(hole),
+                  "one run unstored": lambda got, _: probe_unstored_run(
+                      got, m, n, sms)}
+        if any(len(blk) > 1 for blk in common.quant_units(m, n, sms)):
+            faults["panel not rebuilt"] = lambda _, ref: probe_stale_panel(
+                ref, m, n, sms)
+        return faults
+
+    def half_tile(ref, other):
+        """ref with columns 128-255 (half the first 256-wide tile) from
+        other."""
+        out = ref.clone()
+        out[:, 128:256] = other[:, 128:256]
+        return out
 
     # ---- 15 at (16384, 768, 3072)
     t = p15.inputs(dev)
@@ -2731,7 +2856,7 @@ def probe_checks(rec, dev, card):
     held("15-bf16", "bf16_matmul", p15.KERNEL_BF16,
          lambda: p15.bf16_matmul(x, w_bf),
          lambda: p15.bf16_matmul_reference(x, w_bf),
-         {"last K slice dropped": lambda: p15.bf16_matmul_reference(
+         {"last K slice dropped": lambda *_: p15.bf16_matmul_reference(
              x[:, :-32], w_bf[:-32])},
          ({"bf16": 2 * m * k * n}, nbytes(x, w_bf) + out_bytes),
          library={"torch.matmul bf16": lambda: torch.matmul(x, w_bf)},
@@ -2741,12 +2866,20 @@ def probe_checks(rec, dev, card):
         return ((common.int_dot(common.quant_codes(x, 127.0 / amax), wt)
                  .float() * common.C_ACT) * s).to(torch.bfloat16)
 
+    faults = {"amax 3.9": lambda *_: q_at(3.9),
+              "scale dropped in half a tile": lambda _, ref: half_tile(
+                  ref, p15.int8_matmul_staticq_reference(
+                      x, wt, torch.ones_like(s)))}
+    faults.update(panel_faults(
+        lambda xx: p15.int8_matmul_staticq_reference(xx, wt, s), x, m, n))
     held("15-int8", "int8_matmul_staticq", p15.KERNEL_INT8,
          lambda: p15.int8_matmul_staticq(x, wt, s, act=act),
-         lambda: p15.int8_matmul_staticq_reference(x, wt, s),
-         {"amax 3.9": lambda: q_at(3.9)},
+         lambda: p15.int8_matmul_staticq_reference(x, wt, s), faults,
          ({"int8": 2 * m * k * n}, nbytes(x, wt, s) + out_bytes),
-         library=p15.library_parts(x, wt, s), iters=20, twin_iters=5)
+         library=p15.library_parts(x, wt, s), iters=20, twin_iters=5,
+         device_time=True)
+    probe_route_timings(rec, "15-int8", "staticq", x, wt, s, None, act,
+                        card)
     del t, x, w_bf, wt, s
     torch.cuda.empty_cache()
 
@@ -2758,22 +2891,35 @@ def probe_checks(rec, dev, card):
     bf = torch.bfloat16
 
     def twin_of(v, x=None, **kw):
-        return lambda: p16.fc1_matmul_reference(
+        return lambda *_: p16.fc1_matmul_reference(
             v, p16.x_of(v, t) if x is None else x, wt, s, b, **kw)
 
     xi_cut = xi.clone()
     xi_cut[:, -64:] = 0
+    no_bias = torch.zeros_like(b)
     faults = {
-        "full": {"GELU dropped": twin_of("nogelu")},
-        "nogelu": {"bias dropped": lambda: p16.fc1_matmul_reference(
-            "nogelu", t["x_bf"], wt, s, torch.zeros_like(b))},
-        "bf16_epi": {"4/127 factor added": lambda: p16.epilogue(
+        "full": {"GELU dropped": twin_of("nogelu"),
+                 "GELU dropped in half a tile": lambda _, ref: half_tile(
+                     ref, twin_of("nogelu")())},
+        "nogelu": {"bias dropped": lambda *_: p16.fc1_matmul_reference(
+            "nogelu", t["x_bf"], wt, s, no_bias),
+            "bias dropped in half a tile": lambda _, ref: half_tile(
+                ref, p16.fc1_matmul_reference("nogelu", t["x_bf"], wt, s,
+                                              no_bias))},
+        "bf16_epi": {"4/127 factor added": lambda *_: p16.epilogue(
             "bf16_epi", common.int_dot(common.quant_codes(
-                t["x_bf"], common.INV_ACT), wt), (s * common.C_ACT), b)},
-        "noquant": {"act 3.9": lambda: (common.int_dot(xi, wt).float() * (
+                t["x_bf"], common.INV_ACT), wt), (s * common.C_ACT), b),
+            "bias dropped in half a tile": lambda _, ref: half_tile(
+                ref, p16.fc1_matmul_reference("bf16_epi", t["x_bf"], wt, s,
+                                              no_bias))},
+        "noquant": {"act 3.9": lambda *_: (common.int_dot(xi, wt).float() * (
             common.f32(3.9 / 127.0) * s) + b).to(bf)},
-        "pure": {"x's last 64 columns zeroed": lambda: torch._int_mm(
+        "pure": {"x's last 64 columns zeroed": lambda *_: torch._int_mm(
             xi_cut, wt.t())}}
+    for v in p16.QUANTISED:
+        faults[v].update(panel_faults(
+            lambda xx, v=v: p16.fc1_matmul_reference(v, xx, wt, s, b),
+            t["x_bf"], m, n))
     for v in p16.VARIANTS:
         x = p16.x_of(v, t)
         ins = (x, wt) if v == "pure" else (x, wt, s, b)
@@ -2781,7 +2927,10 @@ def probe_checks(rec, dev, card):
         held(f"16-{v}", f"fc1_matmul {v}", p16.KERNELS[v],
              lambda: p16.fc1_matmul(v, x, wt, s, b, act=act), twin_of(v),
              faults[v], ({"int8": p16.OPS}, nbytes(*ins) + out_bytes),
-             library=p16.library(v, t), iters=10, twin_iters=3)
+             library=p16.library(v, t), iters=10, twin_iters=3,
+             device_time=v in p16.QUANTISED or v == "noquant")
+        if v in p16.QUANTISED:
+            probe_route_timings(rec, f"16-{v}", v, x, wt, s, b, act, card)
         if v == "pure":
             got = p16.fc1_matmul(v, x, wt, s, b)
             same = bool(torch.equal(got, torch._int_mm(x, wt.t())))
@@ -2794,6 +2943,33 @@ def probe_checks(rec, dev, card):
     del t, wt, s, b, xi, xi_cut, faults
     torch.cuda.empty_cache()
 
+    # ---- the split route where the panel does not fit: K = 1600
+    g = torch.Generator(device=dev).manual_seed(16)
+    m, k, n = 16384, common.MAX_K, 3072
+    x = torch.randn((m, k), generator=g, device=dev).to(bf)
+    wt = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    s = torch.rand((n,), generator=g, device=dev) * 0.01 + 0.01
+    b = torch.rand((n,), generator=g, device=dev)
+    cut = x.clone()
+    cut[:, -64:] = 0
+    held("15-int8", f"int8_matmul_staticq K={k} (split)",
+         p15.KERNEL_INT8_SPLIT,
+         lambda: p15.int8_matmul_staticq(x, wt, s, act=act),
+         lambda: p15.int8_matmul_staticq_reference(x, wt, s),
+         {"codes' last 64 columns zeroed": lambda *_:
+          p15.int8_matmul_staticq_reference(cut, wt, s)}, None)
+    for v in p16.QUANTISED:
+        held(f"16-{v}", f"fc1_matmul {v} K={k} (split)",
+             p16.KERNELS_SPLIT[v],
+             lambda: p16.fc1_matmul(v, x, wt, s, b, act=act),
+             lambda: p16.fc1_matmul_reference(v, x, wt, s, b),
+             {"codes' last 64 columns zeroed": lambda *_:
+              p16.fc1_matmul_reference(v, cut, wt, s, b)}, None)
+    probe_route_timings(rec, "16-nogelu", "nogelu", x, wt, s, b, act, card)
+    del x, wt, s, b, cut
+    torch.cuda.empty_cache()
+
     # ---- 17 at so400m-pad (8, 1024, 6144), 16 heads of 128
     name, b, s, w, d = p17.GEOMETRIES[0]
     heads, scale = w // d, d ** -0.5
@@ -2803,7 +2979,7 @@ def probe_checks(rec, dev, card):
          lambda: p17.attention_qkv_int8_static(qkv, heads, d, scale),
          lambda: p17.attention_qkv_int8_static_reference(qkv, heads, d,
                                                          scale),
-         {"aq 3.1": lambda: p17.attention_qkv_int8_static_reference(
+         {"aq 3.1": lambda *_: p17.attention_qkv_int8_static_reference(
              qkv, heads, d, scale, aq=3.1)},
          ({"int8": 4 * b * heads * s * s * d}, nbytes(qkv) + b * s * w * 2),
          nearest={"SDPA bf16 (nearest)": p17.sdpa_bf16(qkv, heads, d,

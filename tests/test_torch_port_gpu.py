@@ -766,6 +766,57 @@ def test_probe_kernels_match_twins_on_card(kernel):
     assert bool(((a - r).abs() <= lim).all())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["staticq"] + list(p16.QUANTISED))
+def test_probe_quant_routes_match_on_card(variant):
+    """The quantising GEMMs' two forms (`common.quant_gemm_cuda`): at K =
+    768 (M 1024, N 640: a half 256-wide tile) the split form (the codes'
+    row pass, then the int8 GEMM) bit-equal to the one launch; at K = 1600
+    the wrapper's own route is the split form, counted on its own counter,
+    within PROBE_TOL of the twin, and not with the codes' last 64 columns
+    zeroed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.probes import common
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    n = 640
+    s = torch.rand((n,), generator=g, device=dev) * 0.01 + 0.01
+    b = None if variant == "staticq" else torch.rand((n,), generator=g,
+                                                     device=dev)
+    for k in (768, 1600):
+        x = torch.randn((1024, k), generator=g, device=dev).to(torch.bfloat16)
+        wt = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        split = common.quant_gemm_split(variant, x, wt, s, b, None)
+        if k == 768:
+            one = common.quant_gemm_cuda(variant, x, wt, s, b, None)
+            assert torch.equal(one, split)
+            continue
+        LAUNCHES.reset()
+        if variant == "staticq":
+            got = p15.int8_matmul_staticq(x, wt, s)
+            twin = lambda xx: p15.int8_matmul_staticq_reference(xx, wt, s)
+            counter = p15.KERNEL_INT8_SPLIT
+        else:
+            got = p16.fc1_matmul(variant, x, wt, s, b)
+            twin = lambda xx: p16.fc1_matmul_reference(variant, xx, wt, s, b)
+            counter = p16.KERNELS_SPLIT[variant]
+        torch.cuda.synchronize()
+        assert LAUNCHES.snapshot() == {counter: 1}
+        assert torch.equal(got, split)
+        steps, atol = {"full": (1, 1e-6), "bf16_epi": (2, 0.0)}.get(
+            variant, (1, 0.0))
+        cut = x.clone()
+        cut[:, -64:] = 0
+        for ref, want in ((twin(x), True), (twin(cut), False)):
+            a, r = got.float(), ref.float()
+            m_ab = torch.maximum(a.abs(), r.abs()).clamp_min(1e-30)
+            lim = steps * torch.exp2(torch.floor(torch.log2(m_ab)) - 7) + atol
+            assert bool(((a - r).abs() <= lim).all()) == want
+
+
 # the bf16 GEMM of K13, K14 and kernel 15 (csrc/bf16_gemm_sm90.cu): a
 # ragged M with K % 64 == 32 and N % 256 == 128, a half tile after two
 # whole ones, and the QKV product of the float engine's full analysis

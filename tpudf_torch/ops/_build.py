@@ -64,6 +64,7 @@ SIGNATURES = {
     "tpudf_attention_plain_sm90": "pppp" + "i" * 11 + "fp",
     "tpudf_attention_i8_static": "ppiiiifffffp",
     "tpudf_i8_gemm_quant": "ppppppiiiip",
+    "tpudf_quant_rows_i8": "pppiip",
     "tpudf_sm90_encode_ns": "pi",
     "tpudf_sm90_smem": "iii",
     "tpudf_plain_sm90_smem": "i",

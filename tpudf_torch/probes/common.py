@@ -1,6 +1,18 @@
 """Pieces the GEMM probes (kernels 15 and 16) share: their domain, the
 int8 codes and exact integer products of the twins, the launch of the
-quantising int8 GEMM (`csrc/probe_gemm.cu`), and CUDA-event timing.
+quantising int8 GEMM, and CUDA-event timing.
+
+The quantising GEMM (bf16 x quantised at ACT inside it) runs on the int8
+wgmma kernel of `csrc/int8_gemm_sm90.cu` in one of two forms, chosen by K
+before any launch (`quant_route`):
+  one    K <= PANEL_MAX_K (768): ONE launch of `tpudf_i8_gemm_quant`, x's
+         codes built once a row tile in shared memory (a panel beside the
+         epilogue's slots and three 32 KB weight stages); they never reach
+         device memory
+  split  PANEL_MAX_K < K <= MAX_K (1600, the domain the probes have always
+         taken): `tpudf_quant_rows_i8` writes the codes (M, K), then
+         `tpudf_i8_gemm` runs the same epilogue mode on them; bit-equal to
+         the one launch where both apply
 
 Constants that the JAX probes write as Python floats (4.0 / 127.0, 127.0 /
 4.0) are doubles there, rounded once to f32 where they meet an f32 array
@@ -11,12 +23,16 @@ from __future__ import annotations
 
 import torch
 
-from tpudf_torch.ops import _build
+from tpudf_torch.ops import _build, int8_block
 
 ROWS = 512          # the JAX probes' row block: grid (M // 512,)
 ACT = 4.0           # the GEMM probes' static activation scale of x
-QUANT_MODES = {"staticq": 0, "full": 1, "nogelu": 2, "bf16_epi": 3}
-PANEL_MAX_K = 1600  # the quantised x panel and two weight stages fit 227 KB
+# the epilogue modes of csrc/gemm_i8.cuh: kEpiProbeStatic, kEpiProbeGelu,
+# kEpiBf16, kEpiProbeBf16
+QUANT_MODES = {"staticq": 6, "full": 7, "nogelu": 0, "bf16_epi": 8}
+MAX_K = 1600        # the quantising GEMMs' K (either form)
+PANEL_MAX_K = 768   # one launch: csrc/int8_gemm_sm90.cu kQuantPanelMaxK
+QUANT_TILE = 256    # the one launch's tile width (kQuantBN)
 _DOT_SLICE = 1024   # |sum of 1024 products of codes| <= 2^24: exact in f32
 
 
@@ -73,17 +89,67 @@ def act_scale(device):
     return torch.full((), ACT, dtype=torch.float32, device=device)
 
 
+def quant_route(k):
+    """The form of the quantising GEMM at depth k: "one" (one launch, x's
+    codes in shared memory) or "split" (the codes' row pass, then the int8
+    GEMM)."""
+    return "one" if k <= PANEL_MAX_K else "split"
+
+
+def quant_units(m, n, sms=int8_block.H100_SMS):
+    """The one launch's persistent walk: per block, its units in order as
+    (row tile, its column tiles of QUANT_TILE in the order it runs them).
+    A unit is a row tile and a run of its column tiles (K5's split,
+    `int8_block.k5_splits`, over QUANT_TILE-wide tiles); block b takes
+    units b, b + grid, ..., builds a unit's panel at its start, and runs
+    unit u's run from its tile u % (run length)."""
+    tiles = -(-n // QUANT_TILE)
+    s = int8_block.k5_splits(m, tiles * int8_block.K5_TILE, sms)
+    units = -(-m // int8_block.K5_TILE) * s
+    grid = min(units, sms)
+    walk = []
+    for blk in range(grid):
+        mine = []
+        for u in range(blk, units, grid):
+            t0, t1 = (u % s) * tiles // s, (u % s + 1) * tiles // s
+            mine.append((u // s, [t0 + (i + u) % (t1 - t0)
+                                  for i in range(t1 - t0)]))
+        walk.append(mine)
+    return walk
+
+
+def _quant_args(wt, s, b, act, device):
+    return (wt.contiguous(), s.float().contiguous(),
+            None if b is None else b.float().contiguous(),
+            act if act is not None else act_scale(device))
+
+
 def quant_gemm_cuda(mode, x, wt, s, b, act):
-    """bf16 out (M, N) = epilogue(quant(x) · wtᵀ) in one launch of
-    `tpudf_i8_gemm_quant` (uncounted: each probe counts its own)."""
+    """bf16 out (M, N) = epilogue(quant(x) · wtᵀ) in the form
+    `quant_route(K)` picks (uncounted: each probe counts its own)."""
     m, k = x.shape
     n = wt.shape[0]
+    if quant_route(k) == "split":
+        return quant_gemm_split(mode, x, wt, s, b, act)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    _build.call("tpudf_i8_gemm_quant", x.contiguous(), wt.contiguous(),
-                s.float().contiguous(),
-                None if b is None else b.float().contiguous(),
-                act if act is not None else act_scale(x.device), out, m, n,
-                k, QUANT_MODES[mode])
+    _build.call("tpudf_i8_gemm_quant", x.contiguous(),
+                *_quant_args(wt, s, b, act, x.device), out, m, n, k,
+                QUANT_MODES[mode])
+    return out
+
+
+def quant_gemm_split(mode, x, wt, s, b, act):
+    """The split form at any K of the domain: the codes' row pass
+    (`tpudf_quant_rows_i8`), then the int8 GEMM in the same epilogue mode
+    (uncounted)."""
+    m, k = x.shape
+    n = wt.shape[0]
+    args = _quant_args(wt, s, b, act, x.device)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    codes = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    _build.call("tpudf_quant_rows_i8", x.contiguous(), args[-1], codes, m, k)
+    _build.call("tpudf_i8_gemm", codes, *args, None, out, None, None, m, n, k,
+                QUANT_MODES[mode])
     return out
 
 

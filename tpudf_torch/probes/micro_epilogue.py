@@ -5,23 +5,27 @@ its epilogue peeled one step at a time, on one Hopper card.
 
 Replaces its five Pallas kernels (:28-67), launched through `make` (:74)
 at (M, K, N) = (65536, 768, 3072) with scale s and bias b of shape (N,);
-c = f32(4/127), acc = int32(codes · w):
+c = f32(4/127), acc = int32(codes · w). All five run on the int8 wgmma
+kernel of `csrc/int8_gemm_sm90.cu`:
   full      bf16 x quantised at amax 4 inside the GEMM, out =
-            bf16(gelu_tanh(acc · (c · s) + b))          (`probe_gemm.cu`)
-  nogelu    the same without GELU: gemm_i8.cuh's kEpiBf16 epilogue
-                                                        (`probe_gemm.cu`)
+            bf16(gelu_tanh(acc · (c · s) + b))          (kEpiProbeGelu)
+  nogelu    the same without GELU                       (kEpiBf16)
   bf16_epi  the dequant chain in bf16, out = bf16(bf16(bf16(acc) ·
             bf16(s)) + bf16(b)), with no 4/127 factor, as the TPU kernel
-            writes it                                   (`probe_gemm.cu`)
+            writes it                                   (kEpiProbeBf16)
   noquant   int8 x read from memory, out = bf16(acc · (c · s) + b):
-            `tpudf_i8_gemm`'s kEpiBf16 at act 4.0 (`int8_gemm_sm90.cu`)
+            `tpudf_i8_gemm`'s kEpiBf16 at act 4.0
   pure      int8 x, out = acc (int32): `tpudf_i8_gemm`'s kEpiI32
-                                                  (`int8_gemm_sm90.cu`)
-The int8 tile reads the weight transposed, wt (N, K): the probe's (K, N)
-w is transposed once, outside the timed loop. At this shape pure is bound
-by the bytes of its int32 output, the others by tensor-core operations.
-`fc1_matmul` takes the twin for a CPU tensor and launches the variant's
-kernel for a CUDA tensor (or raises); the domain is checked first.
+The first three quantise x into a shared-memory panel once a row tile
+(`tpudf_i8_gemm_quant`, one launch) up to K = 768, and past it, to K =
+1600, take the split form (the codes' row pass, then `tpudf_i8_gemm` in
+the same mode; its own launch counter): `common.quant_route`. The int8
+kernel reads the weight transposed, wt (N, K): the probe's (K, N) w is
+transposed once, outside the timed loop. At this shape pure is bound by
+the bytes of its int32 output, the others by tensor-core operations (the
+bf16 output's bytes close behind). `fc1_matmul` takes the twin for a CPU
+tensor and launches the variant's kernel for a CUDA tensor (or raises);
+the domain is checked first.
 
 `main()` prints what the JAX probe prints (ms per matmul and TOP/s of each
 variant), timed by CUDA events over back-to-back launches (the JAX probe's
@@ -40,9 +44,10 @@ from tpudf_torch.core.backend import LAUNCHES, require_cuda
 from tpudf_torch.ops import _build
 from tpudf_torch.ops.int8_block import GEMM_BF16
 from tpudf_torch.ops.quant import GEMM_I32
-from tpudf_torch.probes.common import (ACT, C_ACT, INV_ACT, PANEL_MAX_K,
+from tpudf_torch.probes.common import (ACT, C_ACT, INV_ACT, MAX_K,
                                        act_scale, check_gemm, cuda_ms,
-                                       int_dot, quant_codes, quant_gemm_cuda)
+                                       int_dot, quant_codes, quant_gemm_cuda,
+                                       quant_route)
 from tpudf_torch.utils.nn import gelu_tanh
 
 M, K, N = 65536, 768, 3072
@@ -50,6 +55,7 @@ OPS = 2 * M * K * N                       # per single matmul
 VARIANTS = ("full", "nogelu", "bf16_epi", "noquant", "pure")
 KERNELS = {v: f"probe16_{v}" for v in VARIANTS}
 QUANTISED = ("full", "nogelu", "bf16_epi")   # bf16 x, quantised in-kernel
+KERNELS_SPLIT = {v: f"probe16_{v}_split" for v in QUANTISED}   # K > 768
 
 
 def epilogue(variant, acc, s, b):
@@ -78,7 +84,7 @@ def check_fc1(variant, x, wt):
     quantised = variant in QUANTISED
     check_gemm(f"kernel 16 {variant}", x, wt,
                torch.bfloat16 if quantised else torch.int8, 64,
-               max_k=PANEL_MAX_K if quantised else None)
+               max_k=MAX_K if quantised else None)
 
 
 def fc1_matmul(variant, x, wt, s, b, *, act=None):
@@ -87,8 +93,11 @@ def fc1_matmul(variant, x, wt, s, b, *, act=None):
     check_fc1(variant, x, wt)
     if not x.is_cuda:
         return fc1_matmul_reference(variant, x, wt, s, b)
+    counter = KERNELS[variant]
     if variant in QUANTISED:
         out = quant_gemm_cuda(variant, x, wt, s, b, act)
+        if quant_route(x.shape[1]) == "split":
+            counter = KERNELS_SPLIT[variant]
     else:
         m, k = x.shape
         n = wt.shape[0]
@@ -104,7 +113,7 @@ def fc1_matmul(variant, x, wt, s, b, *, act=None):
                         s.float().contiguous(), b.float().contiguous(),
                         act if act is not None else act_scale(x.device),
                         None, out, None, None, m, n, k, GEMM_BF16)
-    LAUNCHES.hit(KERNELS[variant])
+    LAUNCHES.hit(counter)
     return out
 
 

@@ -10,11 +10,12 @@ Replaces its `bf16_kernel` (:21) and `int8_kernel` (:27), launched by
          (`csrc/bf16_gemm_sm90.cu`, MODE 0) with a null bias (f32 acc + 0
          is acc), w read in its (K, N) layout;
   int8   q = clip(round(f32(x) · 127/4), ±127) on bf16 x, inside the GEMM
-         (`csrc/probe_gemm.cu`: the int8 tile of `gemm_i8.cuh` with x
-         quantised into shared memory), acc = int32(q · w), out =
-         bf16((acc · f32(4/127)) · s[n]) in that order. The int8 tile reads
-         the weight transposed, (N, K): the probe's (K, N) w is transposed
-         once, outside the timed loop.
+         (`csrc/int8_gemm_sm90.cu`'s int8 wgmma kernel with x quantised
+         into a shared-memory panel once a row tile, kEpiProbeStatic; past
+         K = 768 the split form, `common.quant_route`), acc = int32(q ·
+         w), out = bf16((acc · f32(4/127)) · s[n]) in that order. The int8
+         kernel reads the weight transposed, (N, K): the probe's (K, N) w
+         is transposed once, outside the timed loop.
 Both are bound by tensor-core operations at the probe's shape. Each
 wrapper takes the twin for a CPU tensor and launches its kernel for a CUDA
 tensor (or raises); the domain is checked first, on either device.
@@ -32,13 +33,15 @@ import torch
 
 from tpudf_torch.core.backend import LAUNCHES, require_cuda
 from tpudf_torch.ops import _build
-from tpudf_torch.probes.common import (C_ACT, INV_ACT, PANEL_MAX_K,
-                                       act_scale, check_gemm, cuda_ms,
-                                       int_dot, quant_codes, quant_gemm_cuda)
+from tpudf_torch.probes.common import (C_ACT, INV_ACT, MAX_K, act_scale,
+                                       check_gemm, cuda_ms, int_dot,
+                                       quant_codes, quant_gemm_cuda,
+                                       quant_route)
 
 M, K, N = 16384, 768, 3072
 KERNEL_BF16 = "probe15_bf16"
 KERNEL_INT8 = "probe15_int8"
+KERNEL_INT8_SPLIT = "probe15_int8_split"    # the split form, K > 768
 
 
 def bf16_matmul_reference(x, w):
@@ -73,11 +76,12 @@ def int8_matmul_staticq(x, wt, s, *, act=None):
     at the static scale 4.0 inside the kernel. act: the 0-d f32 scale on
     the card (made per call when None)."""
     check_gemm("kernel 15 int8", x, wt, torch.bfloat16, 64,
-               max_k=PANEL_MAX_K)
+               max_k=MAX_K)
     if not x.is_cuda:
         return int8_matmul_staticq_reference(x, wt, s)
     out = quant_gemm_cuda("staticq", x, wt, s, None, act)
-    LAUNCHES.hit(KERNEL_INT8)
+    LAUNCHES.hit(KERNEL_INT8 if quant_route(x.shape[1]) == "one"
+                 else KERNEL_INT8_SPLIT)
     return out
 
 
