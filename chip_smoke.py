@@ -86,11 +86,16 @@ back to the CPU or to a twin):
      VJP, no K10 launch;
   2e. the probes' kernels 15, 16 and 17 (`probe_checks`, tpudf_torch/probes),
      each at its JAX probe's full shape against its twin on the same
-     seeded inputs, with one launch a call (17: no amax pass) and the
+     seeded inputs, with one launch a call (17: its pre-pass and its main
+     pass; also at S = 1000 and on scores all negative, its pre-pass's
+     codes bit-equal to the twin's) and the
      tolerances of tests/test_torch_port_probes.py (PROBE_TOL), each check
      shown to fail on planted faults (the quantising GEMMs' also: a panel
      slice left zero, the panel not rebuilt, a run of columns unstored,
-     bias / GELU / scale dropped in half a tile); k_pure also bit-equal to
+     bias / GELU / scale dropped in half a tile; 17's also: the keys past S
+     in the max or in l, a 64-key tile skipped, o without ap); 17's two
+     launches timed alone beside 9b's main pass on the same codes
+     (`k17_timings`); k_pure also bit-equal to
      torch._int_mm; the quantising GEMMs' split form bit-equal to their
      one launch, their own route at K = 1600 (split) against the twin,
      each form and its parts timed by device time; then each probe's
@@ -635,15 +640,16 @@ class Records:
 # (the W8A8 block's four, the probes' three) at tile widths 256 and 128,
 # its two f32-residual modes at 128, K5 (its LN-panel instance) and the
 # probes' quant-panel instances in their four modes at 256, 9b's main pass
-# at head_dim 64 and 128
+# at head_dim 64 and 128 and kernel 17's (its static instance) at 128
 # (attention_i8.cu), K6's cluster tile on the 64-, 128- and 256-wide tiles
 # (attention.cu), K7 on the 64- and 128-wide tiles (layer_int8.cu), and
 # K1's forward with K9's softmax (K7's split form) at 64, 128, 256 and the
 # wide heads
-SM90_KERNELS = 55
+SM90_KERNELS = 56
 SM90_NAME = re.compile(r"((?:attention_(?:fwd|bwd_dq|bwd_dkv|plain|i8dyn)"
                        r"(?:_wide)?|bf16_gemm|i8_gemm|attn_out|layer_i8)"
-                       r"_sm90)(?:ILi(\d+)E)?(?:Li(\d+)E)?(?:Li(\d)E)?")
+                       r"_sm90)(?:ILi(\d+)E)?(?:Li(\d+)E)?(?:Li(\d)E)?"
+                       r"(?:Lb(\d)E)?")
 # the int8 GEMM's A operand (its third template argument): 1 K5's LN
 # panel, 2 the probes' quant panel (0: by TMA)
 SM90_A = {"1": ", LN panel", "2": ", quant panel"}
@@ -699,7 +705,7 @@ def sm90_build_checks(card):
         for fn, (hgmma, igmma, utmaldg) in sorted(counts.items()):
             m = SM90_NAME.search(fn)
             args = ", ".join(a for a in m.group(2, 3) if a) + SM90_A.get(
-                m.group(4), "")
+                m.group(4), "") + (", static" if m.group(5) == "1" else "")
             kinds = {"HGMMA": hgmma, "IGMMA": igmma}
             if m.group(1) not in SM90_IGMMA:
                 kinds.pop("IGMMA")
@@ -2767,19 +2773,118 @@ def probe_route_timings(rec, key, mode, x, wt, s, b, act, card):
     torch.cuda.empty_cache()
 
 
+# kernel 17's planted faults (`k17_fault`); the first two bite only where
+# every real score of a row is negative
+K17_FAULTS = ("max over the keys past S", "keys past S in l",
+              "tile 1 skipped in sweep 2", "o without ap")
+
+
+def k17_negative(g, b, s, heads, d):
+    """qkv (b, s, 3 heads d) bf16 whose k rows are one shared vector plus
+    noise of std 0.3 and q = -k: every real score of a row is negative
+    (about -|k|^2), so zero scores past S would be every row's max."""
+    import torch
+    x = torch.randn((b, s, 3, heads, d), generator=g, device=g.device)
+    k = torch.randn((1, 1, heads, d), generator=g, device=g.device) + \
+        0.3 * x[:, :, 1]
+    x[:, :, 1], x[:, :, 0] = k, -k
+    return x.reshape(b, s, 3 * heads * d).to(torch.bfloat16)
+
+
+def k17_fault(qkv, heads, scale, fault):
+    """Kernel 17's output had its main pass the planted `fault`, computed
+    in the kernel's order on the twin's codes (f32 sums of q8 . k8 exact:
+    at most 127^2 128 < 2^24; p8 . v8 in f64): K17_FAULTS[0] the first
+    sweep's integer max over the zero scores of the keys past S on the last
+    64-key tile, [1] those keys' e added to l, [2] keys 64-127 left out of
+    l and p8 . v8, [3] o = int32(p8 . v8) cv without ap."""
+    import torch
+    from tpudf_torch.probes import common
+    from tpudf_torch.probes import micro_attn_static as p17
+    b, s, _ = qkv.shape
+    d = p17.HEAD_DIM
+    c = p17.static_scales(scale)
+    keys = -(-s // 64) * 64
+    t = qkv.reshape(b, s, 3, heads, d).permute(2, 0, 3, 1, 4)
+    q8 = common.quant_codes(t[0], c["inv_q"])
+    k8, v8 = (torch.nn.functional.pad(common.quant_codes(t[i], c[n]),
+                                      (0, 0, 0, keys - s))
+              for i, n in ((1, "inv_k"), (2, "inv_v")))
+    acc = torch.matmul(q8, k8.transpose(-1, -2))
+    live = torch.arange(keys, device=qkv.device) < s
+    if fault == K17_FAULTS[0]:
+        live = torch.ones_like(live)
+    fac2 = common.f32(c["fac"] * common.f32(1.4426950408889634))  # kLog2e
+    m = torch.where(live, acc, -torch.inf).amax(-1, keepdim=True) * fac2
+    e = torch.exp2(acc * fac2 - m)
+    if fault != K17_FAULTS[1]:
+        e[..., s:] = 0.0
+    if fault == K17_FAULTS[2]:
+        e[..., 64:128] = 0.0
+    p8 = torch.round(e * 127.0)
+    pv = torch.matmul(p8.double(), v8.double()).float()
+    ap = 1.0 / e.sum(-1, keepdim=True) + 1e-20
+    o = pv * (c["cv"] if fault == K17_FAULTS[3] else ap * c["cv"])
+    return o.transpose(1, 2).reshape(b, s, heads * d).to(torch.bfloat16)
+
+
+def k17_timings(rec, qkv, heads, scale, card):
+    """Kernel 17's two launches alone by device time at qkv's shape,
+    beside its bound, 9b's main pass on the same codes (q8 from the plain
+    codes, an amax table of 3.0: 9b's two-exp sweeps on the static codes),
+    the whole call and SDPA in bf16; into the "17" row as "device"."""
+    import torch
+    from tpudf_torch.ops import attention
+    from tpudf_torch.probes import micro_attn_static as p17
+    b, s, w3 = qkv.shape
+    d = p17.HEAD_DIM
+    codes = p17.static_prepass(qkv, heads)
+    q8 = p17.static_codes_reference(qkv, heads)[0]
+    qb = min(attention.INT8_Q_BLOCK, s)
+    amax = torch.full((b, heads, -(-s // qb) + 2), 3.0, device=qkv.device)
+    row = {"shape": (b, s, w3),
+           "prepass_ms": device_ms(lambda: p17.static_prepass(qkv, heads)),
+           "main_ms": device_ms(lambda: p17.static_main(qkv, codes, heads,
+                                                        scale)),
+           "call_ms": device_ms(lambda: p17.attention_qkv_int8_static(
+               qkv, heads, d, scale)),
+           "9b_main_same_codes_ms": device_ms(lambda: attention.i8dyn_main(
+               (amax, q8, *codes), b, s, heads, d, qb, scale)),
+           "sdpa_bf16_ms": device_ms(p17.sdpa_bf16(qkv, heads, d, scale)),
+           "scratch_bytes": sum(nbytes(x) for x in codes)}
+    row["bound_ms"], row["bound_by"] = bound(
+        {"int8": 4 * b * heads * s * s * d}, nbytes(qkv) + b * s * w3 // 3 * 2)
+    total = row["prepass_ms"] + row["main_ms"]
+    print(f"  17 {(b, s, w3)} device: pre-pass {row['prepass_ms']:.4f} ms + "
+          f"main pass {row['main_ms']:.4f} ms = {total:.4f} ms (the call "
+          f"{row['call_ms']:.4f}); bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}, {row['bound_ms'] / total:.3f} of it); 9b's "
+          f"main pass on the same codes {row['9b_main_same_codes_ms']:.4f} "
+          f"ms; SDPA bf16 {row['sdpa_bf16_ms']:.4f} ms; scratch "
+          f"{row['scratch_bytes'] / 1e6:.1f} MB [{card}]", flush=True)
+    rec.rows["17"]["device"] = row
+    del codes, q8, amax
+    torch.cuda.empty_cache()
+
+
 def probe_checks(rec, dev, card):
     """Phase 2e: kernels 15, 16 and 17 (`tpudf_torch/probes`) at their JAX
     probes' full shapes against their twins on the probes' seeded inputs:
-    one launch a call (17: no amax pass), the tolerances of PROBE_TOL,
-    each check shown to fail on planted faults (15: the twin's last
-    32-deep K slice dropped, x quantised at amax 3.9; 16: GELU dropped,
-    the bias dropped, the 4/127 factor in k_bf16_epi's chain, act 3.9,
-    torch._int_mm on x with its last 64 columns zeroed; 17: aq = 3.1; the
+    one launch a call (17: its pre-pass and its main pass, also at S =
+    1000 on the probe's inputs and on negative scores, `k17_negative`, its
+    pre-pass's codes bit-equal to the twin's), the tolerances of
+    PROBE_TOL, each check shown to fail on planted faults (15: the twin's
+    last 32-deep K slice dropped, x quantised at amax 3.9; 16: GELU
+    dropped, the bias dropped, the 4/127 factor in k_bf16_epi's chain, act
+    3.9, torch._int_mm on x with its last 64 columns zeroed; 17: aq = 3.1,
+    a 64-key tile skipped in the second sweep, o without ap, and on the
+    negative scores the keys past S in the max or in l (`k17_fault`); the
     quantising GEMMs on their quant panel also: a 128-deep panel slice
     left zero, the panel not rebuilt after a block's first unit (where
     blocks walk several row tiles), one run of columns unstored, the bias
     or GELU (15: the scale) dropped in half a 256-wide tile), k_pure
-    bit-equal to torch._int_mm; kernel, twin and library timed. The
+    bit-equal to torch._int_mm; kernel, twin and library timed (17's two
+    launches also alone, `k17_timings`). The
     quantising GEMMs' split form (`common.quant_gemm_split`: the codes'
     row pass, then the int8 GEMM) bit-equal to the
     one launch at the probes' shapes, and the wrappers' own route at K =
@@ -2788,7 +2893,7 @@ def probe_checks(rec, dev, card):
     parts timed by device time (`probe_route_timings`). Then each probe's
     main(), counts set to 0 just before it: its launches of the probe's
     kernels must equal the calls it made, and are returned as the kernels
-    line's counts."""
+    line's counts (17's pre-pass's as its row's "prepass_launches")."""
     import torch
     from tpudf_torch.core.backend import LAUNCHES
     from tpudf_torch.probes import common
@@ -2800,11 +2905,13 @@ def probe_checks(rec, dev, card):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def held(key, label, counter, call, twin, faults, work, **timing):
-        """faults: {name: fn(got, ref) -> a faulty output}."""
+        """faults: {name: fn(got, ref) -> a faulty output}; counter: the
+        counter of the call's one launch, or {counter: launches}."""
         LAUNCHES.reset()
         got = call()
         torch.cuda.synchronize()
-        check_launches(label, LAUNCHES.snapshot(), {counter: 1})
+        check_launches(label, LAUNCHES.snapshot(),
+                       counter if isinstance(counter, dict) else {counter: 1})
         ref = twin()
         ok, share, err = probe_agrees(key, got, ref)
         caught = {}
@@ -2970,28 +3077,48 @@ def probe_checks(rec, dev, card):
     del x, wt, s, b, cut
     torch.cuda.empty_cache()
 
-    # ---- 17 at so400m-pad (8, 1024, 6144), 16 heads of 128
+    # ---- 17 at so400m-pad (8, 1024, 6144), 16 heads of 128, then at S =
+    # 1000 (ragged: keys past S on the last tile) on the probe's inputs and
+    # on negative scores (every real score of a row below 0)
     name, b, s, w, d = p17.GEOMETRIES[0]
     heads, scale = w // d, d ** -0.5
     g = torch.Generator(device=dev).manual_seed(0)
     qkv = torch.randn((b, s, 3 * w), generator=g, device=dev).to(bf)
-    held("17", "attention_qkv_int8_static", p17.KERNEL,
-         lambda: p17.attention_qkv_int8_static(qkv, heads, d, scale),
-         lambda: p17.attention_qkv_int8_static_reference(qkv, heads, d,
-                                                         scale),
-         {"aq 3.1": lambda *_: p17.attention_qkv_int8_static_reference(
-             qkv, heads, d, scale, aq=3.1)},
-         ({"int8": 4 * b * heads * s * s * d}, nbytes(qkv) + b * s * w * 2),
-         nearest={"SDPA bf16 (nearest)": p17.sdpa_bf16(qkv, heads, d,
-                                                       scale)},
-         iters=20, twin_iters=3)
-    del qkv
+    both = {p17.KERNEL_PREPASS: 1, p17.KERNEL: 1}
+    cases = [("", qkv), (" S=1000", qkv[:, :1000].contiguous()),
+             (" S=1000 negative", k17_negative(g, b, 1000, heads, d))]
+    for tag, x in cases:
+        faults = {f: (lambda *_, x=x, f=f: k17_fault(x, heads, scale, f))
+                  for f in (K17_FAULTS if "negative" in tag
+                            else K17_FAULTS[2:])}
+        faults["aq 3.1"] = lambda *_, x=x: \
+            p17.attention_qkv_int8_static_reference(x, heads, d, scale,
+                                                    aq=3.1)
+        codes = p17.static_prepass(x, heads)
+        same = [bool(torch.equal(u, v)) for u, v in zip(
+            codes, p17.static_codes_reference(x, heads)[1:])]
+        print(f"  17{tag}: pre-pass codes bit-equal to the twin's {same} "
+              f"[{card}]", flush=True)
+        if not all(same):
+            raise AssertionError(f"17{tag}: the pre-pass's codes")
+        held("17", f"attention_qkv_int8_static{tag}", both,
+             lambda x=x: p17.attention_qkv_int8_static(x, heads, d, scale),
+             lambda x=x: p17.attention_qkv_int8_static_reference(
+                 x, heads, d, scale), faults,
+             None if tag else ({"int8": 4 * b * heads * s * s * d},
+                               nbytes(x) + b * s * w * 2),
+             nearest={"SDPA bf16 (nearest)": p17.sdpa_bf16(x, heads, d,
+                                                           scale)},
+             iters=20, twin_iters=3)
+        del codes
+    k17_timings(rec, qkv, heads, scale, card)
+    del qkv, cases
     torch.cuda.empty_cache()
 
     # ---- each probe's main(): its lines, and the launches of its run
     launches = {}
     keys = {p15.KERNEL_BF16: "15-bf16", p15.KERNEL_INT8: "15-int8",
-            p17.KERNEL: "17",
+            p17.KERNEL: "17", p17.KERNEL_PREPASS: "17-prepass",
             **{c: f"16-{v}" for v, c in p16.KERNELS.items()}}
     for probe in (p17, p15, p16):
         LAUNCHES.reset()
@@ -3002,6 +3129,7 @@ def probe_checks(rec, dev, card):
                        {c: seen.get(c, 0) for c in made}, made)
         launches.update({keys[c]: n for c, n in made.items()})
         torch.cuda.empty_cache()
+    rec.rows["17"]["prepass_launches"] = launches.pop("17-prepass")
     return launches
 
 

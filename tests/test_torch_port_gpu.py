@@ -707,7 +707,8 @@ _PROBES = ["15-bf16", "15-int8"] + [f"16-{v}" for v in p16.VARIANTS] + ["17"]
 @pytest.mark.parametrize("kernel", _PROBES)
 def test_probe_kernels_match_twins_on_card(kernel):
     """Kernels 15-17 at (M, K, N) = (1024, 128, 256) and (2, 300, 768) with
-    heads of 128, one launch each: within one bf16 step of the twin (15's
+    heads of 128, one launch each (17: its pre-pass and its main pass):
+    within one bf16 step of the twin (15's
     bf16 product + 1e-6, k_full + 1e-6, k_bf16_epi two steps), k_pure
     bit-equal to the twin and to torch._int_mm, 17 with at most 1e-2 of
     its outputs a bf16 step apart and all within atol 1e-2 + rtol 2^-7."""
@@ -732,7 +733,7 @@ def test_probe_kernels_match_twins_on_card(kernel):
             torch.bfloat16)
         got = p17.attention_qkv_int8_static(qkv, 2, 128)
         ref = p17.attention_qkv_int8_static_reference(qkv, 2, 128)
-        counter = p17.KERNEL
+        counter = (p17.KERNEL_PREPASS, p17.KERNEL)
     elif kernel == "15-bf16":
         w = (torch.randn((k, n), generator=g, device=dev) * 0.03).to(
             torch.bfloat16)
@@ -751,7 +752,8 @@ def test_probe_kernels_match_twins_on_card(kernel):
         steps, atol = {"full": (1, 1e-6), "bf16_epi": (2, 0.0)}.get(
             v, (1, 0.0))
     torch.cuda.synchronize()
-    assert LAUNCHES.snapshot() == {counter: 1}
+    assert LAUNCHES.snapshot() == {c: 1 for c in (
+        counter if isinstance(counter, tuple) else (counter,))}
     if kernel == "16-pure":
         assert torch.equal(got, ref)
         assert torch.equal(got, torch._int_mm(x_i8, wt.t()))
@@ -764,6 +766,47 @@ def test_probe_kernels_match_twins_on_card(kernel):
     m_ab = torch.maximum(a.abs(), r.abs()).clamp_min(1e-30)
     lim = steps * torch.exp2(torch.floor(torch.log2(m_ab)) - 7) + atol
     assert bool(((a - r).abs() <= lim).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["S=1000", "S=1000 negative", "S=64"])
+def test_k17_wgmma_pass_on_card(case):
+    """Kernel 17's two launches (csrc/attention_i8.cu, chip_smoke.py phase
+    2e) at (2, S, 6 heads of 128), S = 1000 (keys past S on the last tile;
+    also with every real score negative) and 64: the pre-pass's codes
+    bit-equal to the twin's, the output by 9b's card rule, and that rule
+    failing on the planted faults (`chip_smoke.k17_fault`: the keys past S
+    in the max (negative scores only) or in l, a 64-key tile skipped, o
+    without ap; and aq 3.1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke as cs
+    from tpudf_torch.core.backend import LAUNCHES
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(18)
+    heads, d = 6, 128
+    scale = d ** -0.5
+    s = int(case.split()[0][2:])
+    qkv = (cs.k17_negative(g, 2, s, heads, d) if "negative" in case else
+           torch.randn((2, s, 3 * heads * d), generator=g, device=dev).to(
+               torch.bfloat16))
+    codes = p17.static_prepass(qkv, heads)
+    for got, want in zip(codes, p17.static_codes_reference(qkv, heads)[1:]):
+        assert torch.equal(got, want)
+    LAUNCHES.reset()
+    got = p17.attention_qkv_int8_static(qkv, heads, d, scale)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {p17.KERNEL_PREPASS: 1, p17.KERNEL: 1}
+    ref = p17.attention_qkv_int8_static_reference(qkv, heads, d, scale)
+    assert cs.probe_agrees("17", got, ref)[0]
+    faults = list(cs.K17_FAULTS[:2] if "negative" in case else ())
+    faults += list(cs.K17_FAULTS[2 if s > 64 else 3:])
+    for f in faults:
+        assert not cs.probe_agrees("17", got, cs.k17_fault(
+            qkv, heads, scale, f))[0], f
+    assert not cs.probe_agrees("17", got,
+                               p17.attention_qkv_int8_static_reference(
+                                   qkv, heads, d, scale, aq=3.1))[0]
 
 
 @pytest.mark.gpu

@@ -58,16 +58,44 @@
 // of scores and codes), each computing the full 256-deep scores, its V
 // codes 10 KB of the 44 KB of static shared memory.
 //
-// Kernel 17: the same main pass with static scales, replacing
+// Kernel 17: the same attention with static scales, replacing
 // scripts/micro_attn_static.py's `kernel` (`static_variant` -> `build` ->
 // `fn`, `_one_head` at lines 40-59), a probe of whether fixed per-tensor
-// scales aq = ak = av (3.0 there) beat the amax pass. One launch, no amax
-// table: the five constants 127 / aq, 127 / ak, 127 / av,
-// (aq * ak) / 127^2 * scale and av / 127^2 come in as arguments, computed
-// by the caller in double and rounded once to f32, as JAX rounds the probe's
-// Python-float constants. The probe runs only at head_dim 128 (its
-// pl.multiple_of(h * d, 128) slice), so only that width is built. Bound at
-// its (8, 1024, 6144): the bytes of qkv and the output.
+// scales aq = ak = av (3.0 there) beat the amax pass. The five constants
+// 127 / aq, 127 / ak, 127 / av, fac = (aq * ak) / 127^2 * scale and cv =
+// av / 127^2 come in as arguments, computed by the caller in double and
+// rounded once to f32, as JAX rounds the probe's Python-float constants.
+// The probe runs only at head_dim 128 (its pl.multiple_of(h * d, 128)
+// slice), so only that width is built. Two launches on 9b's machinery:
+//   the pre-pass in its static mode (`attention_i8_prepass<true>`): the
+//     codes of k and v only, no amax table, each block 128 rows of one of
+//     them (v's transpose through shared memory in a swizzle that spreads
+//     a key's bytes over the banks), so each is read once;
+//   the main pass `attention_i8dyn_sm90<128, true>`: 9b's items,
+//     warpgroups, ring and products, q in bf16 by TMA straight from qkv,
+//     each consumer warpgroup quantising its 64 rows into a q8 tile in
+//     shared memory once an item (no q8 in device memory), and the
+//     softmax reordered by what static scales allow. JAX's p8 = round(p
+//     127 / ap) with ap = max p + 1e-20 = 1 / l in f32 (the row's largest
+//     e is 1, and 1e-20 lies far below 1 / l's ulp), so p8 = round(127 e)
+//     but within a few f32 ulps of a tie; and as fac > 0, JAX's row max of
+//     f32(s) fac is f32(M) fac exactly for M the row's integer max of s
+//     (both the convert and the rounded product are monotone). So the
+//     first sweep keeps only M (one integer max a score: no convert, no
+//     ex2, no sum), and the second forms e = 2^((s - M) fac log2 e) once a
+//     score, adds it to l and writes p8 = rint(127 e), with tile kt + 1's
+//     scores in flight while tile kt's codes are formed (two score
+//     buffers; 9b waits for each tile's scores); o = int32(p8 . v8) ((1 /
+//     l + 1e-20) cv). Keys past S are masked in both sweeps: in the first
+//     their zero scores could exceed a row whose real scores are all
+//     negative, in the second they would add to l (v8t's zero codes
+//     cancel them only in o).
+// Its codes (k8 (B, H, S_pad, 128), v8t (B, H, 128, S_pad): 2 B H S_pad
+// 128 bytes of scratch) are read by tensor maps that keep one head a depth
+// index, so no TMA coordinate exceeds S_pad or B H. Bound at its (8, 1024,
+// 6144): the bytes of qkv and the output.
+#include <climits>
+
 #include "attn_tile.cuh"
 #include "sm90.cuh"
 
@@ -76,13 +104,6 @@ namespace tpudf {
 constexpr int kI8QTile = 64;            // query rows per block: 4 warps
 constexpr int kI8Warps = 4;
 constexpr int kVtLd = kKeyTile + 16;    // bytes of a transposed V row
-
-// the main pass's f32 constants: 127 / aq, 127 / ak, 127 / av, the score
-// factor (aq * ak) / 127^2 * scale and av / 127^2 (kernel 17 passes them;
-// 9b derives them from the amax table)
-struct I8AttnScales {
-  float inv_q, inv_k, inv_v, fac, cv;
-};
 
 // bytes of a q8 / k8 row in shared memory (16 bytes of padding keep the
 // lds32 of 8 rows x 4 lanes on distinct banks)
@@ -161,22 +182,30 @@ __device__ __forceinline__ void code_rows(int8_t* dst,
   }
 }
 
-// the seq rows of one head's v at `src` as codes into v8t (hd rows of sp
-// bytes: the keys), kVtKeys keys at a time through `vt` (hd rows of
-// kVtKeys bytes), key x at (x & ~63) + vt_pos(x & 63); zeros past seq; all
-// threads
+// keys k_begin .. k_end - 1 (multiples of kVtKeys) of one head's v at
+// `src` as codes into v8t (hd rows of sp bytes: the keys), kVtKeys keys at
+// a time through `vt` (hd rows of kVtKeys bytes), key x at (x & ~63) +
+// vt_pos(x & 63); zeros past seq; all threads. kSwizzle (kernel 17): row
+// d of `vt` holds its 16-byte chunk j at j ^ ((d / 8) % 8), so the 16
+// threads that write one key's byte of dims c .. c + 7, c = 0, 8, ..., 120,
+// meet in pairs on a bank where without it all 16 meet on one (9b keeps
+// the unswizzled rows)
 constexpr int kVtKeys = 128;            // sp is a multiple of it
 
+template <bool kSwizzle>
 __device__ __forceinline__ void code_vt(int8_t* v8t, const __nv_bfloat16* src,
-                                        size_t ld, int seq, int sp,
-                                        int chunks, float inv, int8_t* vt) {
-  for (int k0 = 0; k0 < sp; k0 += kVtKeys) {
+                                        size_t ld, int seq, int k_begin,
+                                        int k_end, int sp, int chunks,
+                                        float inv, int8_t* vt) {
+  auto swz = [](int d) { return kSwizzle ? ((d >> 3) & 7) << 4 : 0; };
+  for (int k0 = k_begin; k0 < k_end; k0 += kVtKeys) {
 #pragma unroll 4
     for (int i = threadIdx.x; i < kVtKeys * chunks; i += blockDim.x) {
       const int r = i / chunks, c = (i % chunks) * 8;
       float f[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       if (k0 + r < seq) load8(src + static_cast<size_t>(k0 + r) * ld + c, f);
-      const int pos = (r & ~(kKeyTile - 1)) + vt_pos(r & (kKeyTile - 1));
+      const int pos =
+          ((r & ~(kKeyTile - 1)) + vt_pos(r & (kKeyTile - 1))) ^ swz(c);
 #pragma unroll
       for (int j = 0; j < 8; ++j) vt[(c + j) * kVtKeys + pos] =
           quant_i8(f[j], inv);
@@ -186,47 +215,62 @@ __device__ __forceinline__ void code_vt(int8_t* v8t, const __nv_bfloat16* src,
          i += blockDim.x) {
       const int d = i / (kVtKeys / 16), q = (i % (kVtKeys / 16)) * 16;
       *reinterpret_cast<uint4*>(v8t + static_cast<size_t>(d) * sp + k0 + q) =
-          *reinterpret_cast<const uint4*>(vt + d * kVtKeys + q);
+          *reinterpret_cast<const uint4*>(vt + d * kVtKeys + (q ^ swz(d)));
     }
     __syncthreads();
   }
 }
 
-// One block per (segment, head, image), segment z: |k| (z = 0) or |v|
-// (1) over the sequence or |q| over query block z - 2, + 1e-6, into the
-// amax table (the rows of `_one_head`'s scales), and where q8 is not null
-// that segment's codes right after its amax (its rows still in L2): k8
-// and q8 as (B, H, sp, hd), v8t as (B, H, hd, sp) in vt_pos order, zeros
-// past seq.
+// One block per (segment, head, image). 9b (kStatic false), segment z:
+// |k| (z = 0) or |v| (1) over the sequence or |q| over query block z - 2,
+// + 1e-6, into the amax table (the rows of `_one_head`'s scales), and
+// where q8 is not null that segment's codes right after its amax (its rows
+// still in L2). Kernel 17 (kStatic): no amax, no q (its main pass
+// quantises q itself); segment z codes rows kVtKeys (z / 2) .. + kVtKeys -
+// 1 of k (z % 2 = 0) or v (1) at inv.y or .z, so every block moves the
+// same bytes. Codes: k8 and q8 as (B, H, sp, hd), v8t as (B, H, hd, sp)
+// in vt_pos order, zeros past seq.
+template <bool kStatic>
 __global__ void __launch_bounds__(kPreThreads)
     attention_i8_prepass(const __nv_bfloat16* __restrict__ qkv,
                          float* __restrict__ amax, int8_t* __restrict__ q8,
                          int8_t* __restrict__ k8, int8_t* __restrict__ v8t,
-                         int seq, int heads, int hd, int qb) {
-  __shared__ float red[kPreThreads / 32];
+                         int seq, int heads, int hd, int qb, float3 inv) {
   __shared__ __align__(16) int8_t vt[128 * kVtKeys];
   const int h = blockIdx.x, b = blockIdx.y;
   const int wa = heads * hd, chunks = hd / 8, sp = i8_pad(seq);
-  const int nqb = (seq + qb - 1) / qb;
   const size_t row3 = static_cast<size_t>(3) * wa;
   const size_t bh = static_cast<size_t>(b) * heads + h;
   const __nv_bfloat16* base =
       qkv + static_cast<size_t>(b) * seq * row3 + h * hd;
-  float* am = amax + bh * (nqb + 2);
-  const int seg = blockIdx.z;
-  const int col = seg == 0 ? wa : (seg == 1 ? 2 * wa : 0);
-  const int r0 = seg < 2 ? 0 : (seg - 2) * qb;
-  const int r1 = seg < 2 ? seq : min(seq, r0 + qb);
-  const float a =
-      __fadd_rn(block_amax(base + col, row3, r0, r1, chunks, red), 1e-6f);
-  if (threadIdx.x == 0) am[seg < 2 ? nqb + seg : seg - 2] = a;
-  if (q8 == nullptr) return;
-  const float inv = __fdiv_rn(127.0f, a);
-  if (seg == 1)
-    code_vt(v8t + bh * hd * sp, base + col, row3, seq, sp, chunks, inv, vt);
-  else
-    code_rows((seg == 0 ? k8 : q8) + bh * sp * hd, base + col, row3, r0, r1,
-              r1 == seq ? sp : r1, chunks, inv);
+  if constexpr (kStatic) {
+    const int r0 = blockIdx.z / 2 * kVtKeys;
+    if (blockIdx.z % 2)
+      code_vt<true>(v8t + bh * hd * sp, base + 2 * wa, row3, seq, r0,
+                    r0 + kVtKeys, sp, chunks, inv.z, vt);
+    else
+      code_rows(k8 + bh * sp * hd, base + wa, row3, r0,
+                min(seq, r0 + kVtKeys), r0 + kVtKeys, chunks, inv.y);
+  } else {
+    __shared__ float red[kPreThreads / 32];
+    const int nqb = (seq + qb - 1) / qb;
+    float* am = amax + bh * (nqb + 2);
+    const int seg = blockIdx.z;
+    const int col = seg == 0 ? wa : (seg == 1 ? 2 * wa : 0);
+    const int r0 = seg < 2 ? 0 : (seg - 2) * qb;
+    const int r1 = seg < 2 ? seq : min(seq, r0 + qb);
+    const float a =
+        __fadd_rn(block_amax(base + col, row3, r0, r1, chunks, red), 1e-6f);
+    if (threadIdx.x == 0) am[seg < 2 ? nqb + seg : seg - 2] = a;
+    if (q8 == nullptr) return;
+    const float inv_a = __fdiv_rn(127.0f, a);
+    if (seg == 1)
+      code_vt<false>(v8t + bh * hd * sp, base + col, row3, seq, 0, sp, sp,
+                     chunks, inv_a, vt);
+    else
+      code_rows((seg == 0 ? k8 : q8) + bh * sp * hd, base + col, row3, r0, r1,
+                r1 == seq ? sp : r1, chunks, inv_a);
+  }
 }
 
 // ---------------------------------------------- main pass (heads 64, 128)
@@ -236,21 +280,26 @@ using namespace sm90;
 
 constexpr int kStages = 6;
 
-// the main pass's shared memory at head width HK: two q8 buffers of 128
-// rows, o's staging (HK / 64 sub-tiles of 128 rows x 128 bytes), the ring
-// (a stage: a 64-key tile of k8, then one of v8t: HK rows of 64 keys),
-// the barriers (the ring's, and a full and an empty one a q8 buffer)
-template <int HK>
+// the main pass's shared memory at head width HK: two q buffers of 128
+// rows (9b: q8; kernel 17: q in bf16 as TMA brings it, four boxes of 64
+// rows x 64 columns, and then one q8 tile that each warpgroup fills with
+// its 64 rows' codes), o's staging (HK / 64 sub-tiles of 128 rows x 128
+// bytes), the ring (a stage: a 64-key tile of k8, then one of v8t: HK
+// rows of 64 keys), the barriers (the ring's, and a full and an empty one
+// a q buffer)
+template <int HK, bool kStatic = false>
 struct Smem {
-  static constexpr int kQ = kBlockRows * HK;
+  static constexpr int kQ = kBlockRows * HK * (kStatic ? 2 : 1);
   static constexpr int kKv = kTileRows * HK;
-  static constexpr int kO = 2 * kQ;
+  static constexpr int kQ8 = 2 * kQ;                  // kernel 17's q8
+  static constexpr int kO = 2 * kQ + (kStatic ? kBlockRows * HK : 0);
   static constexpr int kRing = kO + HK / 64 * kBlockSub;
   static constexpr int kStage = 2 * kKv;
   static constexpr int kBars = kRing + kStages * kStage;
   static constexpr size_t kBytes = kBars + 8 * (2 * kStages + 4) + 1024;
 };
 static_assert(Smem<128>::kBytes <= kMaxBlockSmem, "9b main pass");
+static_assert(Smem<128, true>::kBytes <= kMaxBlockSmem, "kernel 17");
 
 // the descriptor of a K-major int8 operand of 64-byte rows in the 64-byte
 // swizzle (layout type 2: 8-row atoms 512 bytes apart), its rows starting
@@ -425,6 +474,73 @@ __device__ __forceinline__ void p8_codes(int (&s)[32], float fac2,
   }
 }
 
+// kernel 17's second sweep on the scores s of the tile of keys k0 .. k0
+// + 63: e = 2^((s - M) fac2) once a score, with M the row's integer max
+// (0 for keys past seq), added to the thread's row sums l, and into p the
+// code p8 = rint(127 e) as the low byte of one FFMA with 1.5 * 2^23 (e <=
+// 1: the code in [0, 127]). (s - M) fac2 is rounded once, from the float
+// 2^23 + (s - M) (exact: 0 >= s - M >= -2 127^2 128 > -2^22, so its bits
+// are 2 s + kb with kb = 0x4B000000 - 2 M, one IMAD) by one FFMA with
+// -2^23 fac2 (exact). p is not s: while s's registers are written, the
+// next tile's product into the other score buffer is in flight, and ptxas
+// would serialise every wgmma (C7515)
+__device__ __forceinline__ void p8_codes_static(const int (&s)[32],
+                                                int (&p)[32], float fac2,
+                                                const int (&kb)[2],
+                                                float (&l)[2], int k0,
+                                                int seq, int t) {
+  const bool edge = k0 + kTileRows > seq;
+  const float c23 = -8388608.0f * fac2;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    float e = ex2(__fmaf_rn(__int_as_float(2 * s[i] + kb[r]), fac2, c23));
+    if (edge && k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= seq) e = 0.0f;
+    l[r] = __fadd_rn(l[r], e);
+    p[i] = __float_as_int(__fmaf_rn(e, 127.0f, kMagic));
+  }
+}
+
+// kernel 17: a warpgroup's 64 rows of q, two boxes of 64 columns of bf16
+// as TMA brought them (128-byte swizzle: a row's 16-byte chunk g at g ^
+// (row % 8); rows past S zero), quantised at inv into its 64 rows of the
+// q8 tile (128-byte rows in the same swizzle, which wgmma's K-major
+// descriptor reads). Thread t: 8-column group t % 8 of rows t / 8 + 16 j;
+// a warp reads 4 rows of 128 bytes and writes 8 bytes a thread.
+__device__ __forceinline__ void quant_q(unsigned char* q8,
+                                        const unsigned char* boxes,
+                                        float inv) {
+  const int t = threadIdx.x & 127, g = t & 7;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = t / 8 + 16 * j, col = 64 * h + 8 * g;
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          boxes + h * kTileRows * 128 + row * 128 + ((g ^ (row & 7)) << 4));
+      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&v);
+      float f[8];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 y = __bfloat1622float2(x[k]);
+        f[2 * k] = y.x;
+        f[2 * k + 1] = y.y;
+      }
+      *reinterpret_cast<uint2*>(q8 + row * 128 +
+                                (((col >> 4) ^ (row & 7)) << 4) +
+                                (col & 15)) = make_uint2(
+          pack_s8x4(quant_i8(f[0], inv), quant_i8(f[1], inv),
+                    quant_i8(f[2], inv), quant_i8(f[3], inv)),
+          pack_s8x4(quant_i8(f[4], inv), quant_i8(f[5], inv),
+                    quant_i8(f[6], inv), quant_i8(f[7], inv)));
+    }
+}
+
+__device__ __forceinline__ int quad_max_i(int v) {
+  v = max(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return max(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
 // the codes of a tile as the register A fragments of its two k32 steps
 // (keys 0-31, 32-63): lane t's bytes 4t .. 4t + 3 of a row are its codes
 // of keys 2t, 2t + 1, 8 + 2t, 9 + 2t of each 16
@@ -440,20 +556,27 @@ __device__ __forceinline__ void p8_frags(uint32_t (&a)[2][4],
   }
 }
 
-template <int HK>
+// 9b (kStatic false): the scales from the amax table (query blocks of qb
+// rows), `scale` the softmax scale, inv_q and cv unused; q8, k8 and v8t
+// read by maps that stack the heads' rows. Kernel 17 (kStatic): amax and
+// qb unused, `scale` the static score factor fac, cv = av / 127^2, q_map
+// the bf16 q of qkv (quantised at inv_q = 127 / aq in the block), k8 and
+// v8t maps with one head a depth index.
+template <int HK, bool kStatic>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_i8dyn_sm90(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map,
                          const __grid_constant__ CUtensorMap o_map,
                          const float* __restrict__ amax, int seq, int heads,
-                         int batch, int qb, float scale) {
-  using L = Smem<HK>;
+                         int batch, int qb, float scale, float inv_q,
+                         float cv_static) {
+  using L = Smem<HK, kStatic>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
   const Ring<kStages> ring{bars, bars + kStages};
-  uint64_t* q_full = bars + 2 * kStages;       // one a q8 buffer
+  uint64_t* q_full = bars + 2 * kStages;       // one a q buffer
   uint64_t* q_empty = q_full + 2;
   auto stage = [&](int r) {
     return smem + L::kRing + ring.stage(r) * L::kStage;
@@ -475,30 +598,41 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   if (threadIdx.x >= kWarpgroups * 128) {
-    // ---- producer: one lane issues every load; item i's q8 into buffer
-    // i % 2 once item i - 2 has released it, then the k8 tiles of the
-    // first sweep and the k8 and v8t tiles of the second
+    // ---- producer: one lane issues every load; item i's q8 (kernel 17:
+    // its q in bf16) into buffer i % 2 once item i - 2 has released it,
+    // then the k8 tiles of the first sweep and the k8 and v8t tiles of the
+    // second
     reg_dealloc<kProducerRegs>();
     if (threadIdx.x != kWarpgroups * 128) return;
     int r = 0, it = 0;
     for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
       const int bh = item / n_qi, q0 = item % n_qi * kBlockRows;
+      // the head's first row and its depth index in the maps
+      const int y0 = kStatic ? 0 : bh * sp, z = kStatic ? bh : 0;
+      const int v0 = kStatic ? 0 : bh * HK;
       const int buf = it & 1;
       unsigned char* qs = smem + buf * L::kQ;
       if (it >= 2) mbar_wait(&q_empty[buf], ((it >> 1) - 1) & 1);
       mbar_expect_tx(&q_full[buf], L::kQ);
-      tma_load_3d(qs, &q_map, &q_full[buf], 0, bh * sp + q0, 0);
-      tma_load_3d(qs + L::kKv, &q_map, &q_full[buf], 0,
-                  bh * sp + q0 + kTileRows, 0);
+      if constexpr (kStatic) {
+        // box j: rows q0 + 64 (j / 2), columns 64 (j % 2) of head bh
+        for (int j = 0; j < 4; ++j)
+          tma_load_4d(qs + j * kTileRows * 128, &q_map, &q_full[buf],
+                      64 * (j & 1), q0 + kTileRows * (j >> 1), bh % heads,
+                      bh / heads);
+      } else {
+        tma_load_3d(qs, &q_map, &q_full[buf], 0, y0 + q0, z);
+        tma_load_3d(qs + L::kKv, &q_map, &q_full[buf], 0,
+                    y0 + q0 + kTileRows, z);
+      }
       for (int pass = 0; pass < 2; ++pass)
         for (int kt = 0; kt < ntiles; ++kt, ++r) {
           uint64_t* full =
               ring.producer_acquire(r, pass ? L::kStage : L::kKv);
           unsigned char* st = stage(r);
-          tma_load_3d(st, &k_map, full, 0, bh * sp + kt * kTileRows, 0);
+          tma_load_3d(st, &k_map, full, 0, y0 + kt * kTileRows, z);
           if (pass)
-            tma_load_3d(st + L::kKv, &v_map, full, kt * kTileRows, bh * HK,
-                        0);
+            tma_load_3d(st + L::kKv, &v_map, full, kt * kTileRows, v0, z);
         }
     }
     return;
@@ -514,33 +648,61 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
     const int bh = item / n_qi, q0 = item % n_qi * kBlockRows;
     const int buf = it & 1;
-    // the scales of `_one_head`: aq of the item's query block, ak, av
-    const float* am = amax + static_cast<size_t>(bh) * (nqb + 2);
-    const float aq = am[q0 / qb], ak = am[nqb], av = am[nqb + 1];
-    const float fac2 = __fmul_rn(
-        __fmul_rn(div_rn(__fmul_rn(aq, ak), 16129.0f, r127sq), scale),
-        kLog2e);
-    const float cv = div_rn(av, 16129.0f, r127sq);
+    float fac2, cv;
+    if constexpr (kStatic) {
+      fac2 = __fmul_rn(scale, kLog2e);
+      cv = cv_static;
+    } else {
+      // the scales of `_one_head`: aq of the item's query block, ak, av
+      const float* am = amax + static_cast<size_t>(bh) * (nqb + 2);
+      const float aq = am[q0 / qb], ak = am[nqb], av = am[nqb + 1];
+      fac2 = __fmul_rn(
+          __fmul_rn(div_rn(__fmul_rn(aq, ak), 16129.0f, r127sq), scale),
+          kLog2e);
+      cv = div_rn(av, 16129.0f, r127sq);
+    }
     mbar_wait(&q_full[buf], (it >> 1) & 1);
-    const uint64_t da = desc_rows<HK>(smem + buf * L::kQ + c.wg * L::kKv);
+    unsigned char* q8 =
+        smem + (kStatic ? L::kQ8 : buf * L::kQ) + c.wg * L::kKv;
+    if constexpr (kStatic) {
+      // this warpgroup's 64 rows of q as codes, then the bf16 buffer is
+      // free for item it + 2
+      quant_q(q8, smem + buf * L::kQ + c.wg * 2 * L::kKv, inv_q);
+      mbar_arrive(&q_empty[buf]);
+      fence_proxy_async();
+      warpgroup_sync(c.wg);
+    }
+    const uint64_t da = desc_rows<HK>(q8);
     float m[2] = {neg_inf, neg_inf}, l[2] = {0.0f, 0.0f};
+    int mi[2] = {INT_MIN, INT_MIN};     // kernel 17: the integer row max
+    int kb[2];
     int s[32];
 
-    // ---- sweep 1: each row's max and sum, keys past seq masked; tile kt
-    // + 1's scores are issued before tile kt's are reduced (two tiles a
-    // round, into s and s1 in turn)
+    // ---- sweep 1: each row's max and sum (kernel 17: its integer max),
+    // keys past seq masked; tile kt + 1's scores are issued before tile
+    // kt's are reduced (two tiles a round, into s and s1 in turn)
     int s1[32];
     auto reduce = [&](int kt, const int (&sc)[32]) {
-      float f[32];
+      const bool edge = (kt + 1) * kTileRows > seq;
+      if constexpr (kStatic) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) f[i] = __fmul_rn(i2f(sc[i]), fac2);
-      if ((kt + 1) * kTileRows > seq) {
+        for (int i = 0; i < 32; ++i) {
+          const int key = kt * kTileRows + 8 * (i >> 2) + 2 * c.t + (i & 1);
+          if (!edge || key < seq)
+            mi[(i >> 1) & 1] = max(mi[(i >> 1) & 1], sc[i]);
+        }
+      } else {
+        float f[32];
 #pragma unroll
-        for (int i = 0; i < 32; ++i)
-          if (kt * kTileRows + 8 * (i >> 2) + 2 * c.t + (i & 1) >= seq)
-            f[i] = neg_inf;
+        for (int i = 0; i < 32; ++i) f[i] = __fmul_rn(i2f(sc[i]), fac2);
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            if (kt * kTileRows + 8 * (i >> 2) + 2 * c.t + (i & 1) >= seq)
+              f[i] = neg_inf;
+        }
+        online(f, m, l);
       }
-      online(f, m, l);
     };
     ring.consumer_wait(r);
     issue_qk<HK>(s, da, stage(r));
@@ -576,59 +738,127 @@ __global__ void __launch_bounds__(kThreads, 1)
     float rl[2], inv_ap[2], osc[2];
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
-      const float sum = quad_sum(l[rr]);
-      rl[rr] = div_rn(1.0f, sum, rcp_refined(sum));
-      const float ap = __fadd_rn(rl[rr], 1e-20f);     // max p + 1e-20
-      inv_ap[rr] = div_rn(127.0f, ap, rcp_refined(ap));
-      osc[rr] = __fmul_rn(ap, cv);
+      if constexpr (kStatic) {
+        kb[rr] = 0x4B000000 - 2 * quad_max_i(mi[rr]);
+      } else {
+        const float sum = quad_sum(l[rr]);
+        rl[rr] = div_rn(1.0f, sum, rcp_refined(sum));
+        const float ap = __fadd_rn(rl[rr], 1e-20f);     // max p + 1e-20
+        inv_ap[rr] = div_rn(127.0f, ap, rcp_refined(ap));
+        osc[rr] = __fmul_rn(ap, cv);
+      }
     }
 
     // ---- sweep 2: p8, o += p8 . v8 (int32); tile kt's p8 is formed
-    // while tile kt - 1's product runs (K9's order)
+    // while tile kt - 1's product runs (9b: K9's order)
     int o[HK / 2];
 #pragma unroll
     for (int i = 0; i < HK / 2; ++i) o[i] = 0;
     fence_regs(o);                      // zeroed before any product issues
     uint32_t a[2][4];
-    auto issue_pv = [&](int t) {
+    auto issue_pv = [&](int t, uint32_t (&af)[2][4]) {
       const uint64_t dv = desc_k64(stage(t) + L::kKv);
       fence_regs(o);
-      fence_regs(a);
+      fence_regs(af);
       wg_fence();
-      wgmma_pv<HK>(o, a[0], dv);
-      wgmma_pv<HK>(o, a[1], dv + 2);
+      wgmma_pv<HK>(o, af[0], dv);
+      wgmma_pv<HK>(o, af[1], dv + 2);
       fence_regs(o);
-      fence_regs(a);
+      fence_regs(af);
     };
-    ring.consumer_wait(r);
-    issue_qk<HK>(s, da, stage(r));
-    wg_commit();
-    wg_wait<0>();
-    fence_regs(s);
-    p8_codes(s, fac2, m, rl, inv_ap);
-    p8_frags(a, s);
-    for (int kt = 1; kt < ntiles; ++kt) {
-      ring.consumer_wait(r + kt);
-      issue_qk<HK>(s, da, stage(r + kt));
+    if constexpr (!kStatic) {
+      ring.consumer_wait(r);
+      issue_qk<HK>(s, da, stage(r));
       wg_commit();
-      issue_pv(r + kt - 1);
-      wg_commit();
-      wg_wait<1>();                     // tile kt's scores; kt - 1's p . v
+      wg_wait<0>();
       fence_regs(s);
       p8_codes(s, fac2, m, rl, inv_ap);
-      wg_wait<0>();
-      fence_regs(o);
-      fence_regs(a);
-      ring.release(r + kt - 1);
       p8_frags(a, s);
+      for (int kt = 1; kt < ntiles; ++kt) {
+        ring.consumer_wait(r + kt);
+        issue_qk<HK>(s, da, stage(r + kt));
+        wg_commit();
+        issue_pv(r + kt - 1, a);
+        wg_commit();
+        wg_wait<1>();                   // tile kt's scores; kt - 1's p . v
+        fence_regs(s);
+        p8_codes(s, fac2, m, rl, inv_ap);
+        wg_wait<0>();
+        fence_regs(o);
+        fence_regs(a);
+        ring.release(r + kt - 1);
+        p8_frags(a, s);
+      }
+      issue_pv(r + ntiles - 1, a);
+    } else {
+      // kernel 17: tile kt + 1's scores are issued before tile kt's codes
+      // are formed, beside tile kt - 1's p . v (two score buffers, s and
+      // s1, and two sets of A fragments, a and a1)
+      uint32_t a1[2][4];
+      int p[32];
+      // tile kt (>= 1): its scores in `cur` (issued), kt - 1's codes in
+      // `pa`; its codes into `ca`, the next tile's scores into `next`
+      auto step = [&](int kt, int (&cur)[32], int (&next)[32],
+                      uint32_t (&pa)[2][4], uint32_t (&ca)[2][4]) {
+        issue_pv(r + kt - 1, pa);
+        wg_commit();
+        wg_wait<1>();                   // tile kt's scores
+        fence_regs(cur);
+        const bool more = kt + 1 < ntiles;
+        if (more) {
+          ring.consumer_wait(r + kt + 1);
+          issue_qk<HK>(next, da, stage(r + kt + 1));
+          wg_commit();
+        }
+        p8_codes_static(cur, p, fac2, kb, l, kt * kTileRows, seq, c.t);
+        p8_frags(ca, p);
+        if (more)
+          wg_wait<1>();                 // tile kt - 1's p . v
+        else
+          wg_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        ring.release(r + kt - 1);
+      };
+      ring.consumer_wait(r);
+      issue_qk<HK>(s, da, stage(r));
+      wg_commit();
+      if (ntiles > 1) {
+        ring.consumer_wait(r + 1);
+        issue_qk<HK>(s1, da, stage(r + 1));
+        wg_commit();
+        wg_wait<1>();
+      } else {
+        wg_wait<0>();
+      }
+      fence_regs(s);
+      p8_codes_static(s, p, fac2, kb, l, 0, seq, c.t);
+      p8_frags(a, p);
+      for (int kt = 1; kt < ntiles; kt += 2) {
+        step(kt, s1, s, a, a1);
+        if (kt + 1 < ntiles) step(kt + 1, s, s1, a1, a);
+      }
+      if ((ntiles - 1) & 1)
+        issue_pv(r + ntiles - 1, a1);
+      else
+        issue_pv(r + ntiles - 1, a);
     }
-    issue_pv(r + ntiles - 1);
     wg_commit();
     wg_wait<0>();
     fence_regs(o);
     ring.release(r + ntiles - 1);
     r += ntiles;
-    mbar_arrive(&q_empty[buf]);
+    if constexpr (!kStatic) {
+      mbar_arrive(&q_empty[buf]);
+    } else {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const float sum = quad_sum(l[rr]);
+        const float ap = __fadd_rn(div_rn(1.0f, sum, rcp_refined(sum)),
+                                   1e-20f);             // max p + 1e-20
+        osc[rr] = __fmul_rn(ap, cv);
+      }
+    }
 
     // ---- o = int32 sums * (ap * av / 127^2), bf16, by TMA (rows past
     // seq clipped)
@@ -644,16 +874,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   if ((threadIdx.x & 127) == 0) tma_store_wait();
 }
 
-// an int8 tensor of `rows` rows of `cols` bytes, row-major, cut in boxes
-// of box_cols x box_rows in the swizzle `sw`, zeros past the extents
+// an int8 tensor of `depth` blocks of `rows` rows of `cols` bytes,
+// row-major, cut in boxes of box_cols x box_rows (x 1) in the swizzle `sw`,
+// zeros past the extents
 inline bool map_i8(CUtensorMap* m, const void* base, uint64_t cols,
-                   uint64_t rows, uint32_t box_cols, uint32_t box_rows,
-                   CUtensorMapSwizzle sw) {
+                   uint64_t rows, uint64_t depth, uint32_t box_cols,
+                   uint32_t box_rows, CUtensorMapSwizzle sw) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0 ||
       cols % 16 != 0)
     return false;
-  const cuuint64_t dims[3] = {cols, rows, 1};
+  const cuuint64_t dims[3] = {cols, rows, depth};
   const cuuint64_t strides[2] = {cols, cols * rows};
   const cuuint32_t box[3] = {box_cols, box_rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
@@ -663,27 +894,36 @@ inline bool map_i8(CUtensorMap* m, const void* base, uint64_t cols,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HK>
-int launch(const void* q8, const void* k8, const void* v8t,
+// 9b: the heads' rows stacked in one block of B H S_pad rows (its TMA row
+// coordinates bound B H S_pad by an int, `i8dyn_sm90_ok`); kernel 17: one
+// head a depth index (coordinates within S_pad and B H)
+template <int HK, bool kStatic>
+int launch(const void* q, const void* k8, const void* v8t,
            const void* amax, void* out, int batch, int seq, int heads,
-           int qb, float scale, cudaStream_t s) {
-  using L = Smem<HK>;
+           int qb, float scale, float inv_q, float cv, cudaStream_t s) {
+  using L = Smem<HK, kStatic>;
   const uint64_t sp = i8_pad(seq);
-  const uint64_t rows = static_cast<uint64_t>(batch) * heads * sp;
+  const uint64_t bh = static_cast<uint64_t>(batch) * heads;
+  const uint64_t rows = kStatic ? sp : bh * sp, depth = kStatic ? bh : 1;
   const CUtensorMapSwizzle sw =
       HK == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   CUtensorMap q_map, k_map, v_map, o_map;
-  if (!map_i8(&q_map, q8, HK, rows, HK, kTileRows, sw) ||
-      !map_i8(&k_map, k8, HK, rows, HK, kTileRows, sw) ||
-      !map_i8(&v_map, v8t, sp, static_cast<uint64_t>(batch) * heads * HK,
-              kTileRows, HK, CU_TENSOR_MAP_SWIZZLE_64B) ||
+  const bool qm =
+      kStatic ? map_bf16_4d(&q_map, q, HK, seq, heads, batch,
+                            static_cast<uint64_t>(3) * heads * HK, HK,
+                            static_cast<uint64_t>(seq) * 3 * heads * HK,
+                            kTileRows)
+              : map_i8(&q_map, q, HK, rows, depth, HK, kTileRows, sw);
+  if (!qm || !map_i8(&k_map, k8, HK, rows, depth, HK, kTileRows, sw) ||
+      !map_i8(&v_map, v8t, sp, kStatic ? HK : bh * HK, depth, kTileRows, HK,
+              CU_TENSOR_MAP_SWIZZLE_64B) ||
       !map_bf16_4d(&o_map, out, HK, seq, heads, batch,
                    static_cast<uint64_t>(heads) * HK, HK,
                    static_cast<uint64_t>(seq) * heads * HK, kTileRows))
     return cudaErrorInvalidValue;
   static const cudaError_t attr =
-      registers_suffice(attention_i8dyn_sm90<HK>)
-          ? cudaFuncSetAttribute(attention_i8dyn_sm90<HK>,
+      registers_suffice(attention_i8dyn_sm90<HK, kStatic>)
+          ? cudaFuncSetAttribute(attention_i8dyn_sm90<HK, kStatic>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(L::kBytes))
           : cudaErrorInvalidDeviceFunction;
@@ -691,9 +931,9 @@ int launch(const void* q8, const void* k8, const void* v8t,
   const long long items = static_cast<long long>(sp / kBlockRows) * heads *
                           batch;
   const int grid = static_cast<int>(items < sm_count() ? items : sm_count());
-  attention_i8dyn_sm90<HK><<<grid, kThreads, L::kBytes, s>>>(
+  attention_i8dyn_sm90<HK, kStatic><<<grid, kThreads, L::kBytes, s>>>(
       q_map, k_map, v_map, o_map, static_cast<const float*>(amax), seq,
-      heads, batch, qb, scale);
+      heads, batch, qb, scale, inv_q, cv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -761,14 +1001,14 @@ __device__ __forceinline__ void scores_i8(float (&s)[kKeyTile / 8][4],
   }
 }
 
-// kStatic: the scales are `st` (kernel 17; amax and qb unused); else
-// from the amax table (9b). Grid y: head x slice of HV columns of o.
-template <int HD, bool kStatic, int HV = HD>
+// 9b at heads of 256, the scales from the amax table. Grid y: head x
+// slice of HV columns of o.
+template <int HD, int HV = HD>
 __global__ void __launch_bounds__(kI8Warps * 32)
     attention_i8_kernel(const __nv_bfloat16* __restrict__ qkv,
                         const float* __restrict__ amax,
                         __nv_bfloat16* __restrict__ out, int seq, int heads,
-                        int qb, float scale, I8AttnScales st) {
+                        int qb, float scale) {
   __shared__ __align__(16) int8_t q8s[kI8QTile * i8_ld<HD>()];
   __shared__ __align__(16) int8_t k8s[kKeyTile * i8_ld<HD>()];
   __shared__ __align__(16) int8_t v8t[HV * kVtLd];
@@ -776,23 +1016,18 @@ __global__ void __launch_bounds__(kI8Warps * 32)
   const int b = blockIdx.z, h = blockIdx.y / (HD / HV);
   const int c0 = (blockIdx.y % (HD / HV)) * HV;   // this block's o columns
   const int q0 = blockIdx.x * kI8QTile;
-  if constexpr (!kStatic) {
-    const int nqb = (seq + qb - 1) / qb;
-    const float* am =
-        amax + (static_cast<size_t>(b) * heads + h) * (nqb + 2);
-    const float aq = am[q0 / qb], ak = am[nqb], av = am[nqb + 1];
-    st.fac = __fmul_rn(__fdiv_rn(__fmul_rn(aq, ak), 16129.0f), scale);
-    st.inv_q = __fdiv_rn(127.0f, aq);
-    st.inv_k = __fdiv_rn(127.0f, ak);
-    st.inv_v = __fdiv_rn(127.0f, av);
-    st.cv = __fdiv_rn(av, 16129.0f);
-  }
-  const float fac = st.fac, inv_k = st.inv_k, inv_v = st.inv_v;
+  const int nqb = (seq + qb - 1) / qb;
+  const float* am = amax + (static_cast<size_t>(b) * heads + h) * (nqb + 2);
+  const float aq = am[q0 / qb], ak = am[nqb], av = am[nqb + 1];
+  const float fac = __fmul_rn(__fdiv_rn(__fmul_rn(aq, ak), 16129.0f), scale);
+  const float inv_k = __fdiv_rn(127.0f, ak), inv_v = __fdiv_rn(127.0f, av);
+  const float cv = __fdiv_rn(av, 16129.0f);
   const size_t row3 = static_cast<size_t>(3) * wa;
   const __nv_bfloat16* base =
       qkv + static_cast<size_t>(b) * seq * row3 + h * HD;
 
-  quant_rows_i8<HD, false>(q8s, base, row3, q0, kI8QTile, seq, st.inv_q);
+  quant_rows_i8<HD, false>(q8s, base, row3, q0, kI8QTile, seq,
+                           __fdiv_rn(127.0f, aq));
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -828,7 +1063,7 @@ __global__ void __launch_bounds__(kI8Warps * 32)
   for (int r = 0; r < 2; ++r) {
     const float ap = __fadd_rn(__fdiv_rn(1.0f, sum[r]), 1e-20f);
     inv_ap[r] = __fdiv_rn(127.0f, ap);
-    o_scale[r] = __fmul_rn(ap, st.cv);
+    o_scale[r] = __fmul_rn(ap, cv);
   }
 
   // ---- pass 2: p8 = round(p * 127 / ap), o += p8 . v8 (int32)
@@ -1082,10 +1317,11 @@ int launch_prepass(const void* qkv, void* amax, void* q8, void* k8,
                    void* v8t, int batch, int seq, int heads, int hd, int qb,
                    cudaStream_t s) {
   const int nqb = (seq + qb - 1) / qb;
-  attention_i8_prepass<<<dim3(heads, batch, nqb + 2), kPreThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<float*>(amax),
-      static_cast<int8_t*>(q8), static_cast<int8_t*>(k8),
-      static_cast<int8_t*>(v8t), seq, heads, hd, qb);
+  attention_i8_prepass<false>
+      <<<dim3(heads, batch, nqb + 2), kPreThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(qkv), static_cast<float*>(amax),
+          static_cast<int8_t*>(q8), static_cast<int8_t*>(k8),
+          static_cast<int8_t*>(v8t), seq, heads, hd, qb, float3{});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1122,10 +1358,10 @@ int launch_attention_i8(const void* qkv, void* amax, void* out, int batch,
   if (static_cast<long long>(heads) * (HD / HV) > 65535)
     return cudaErrorInvalidValue;
   const dim3 grid((seq + kI8QTile - 1) / kI8QTile, heads * (HD / HV), batch);
-  attention_i8_kernel<HD, false, HV><<<grid, kI8Warps * 32, 0, s>>>(
+  attention_i8_kernel<HD, HV><<<grid, kI8Warps * 32, 0, s>>>(
       static_cast<const __nv_bfloat16*>(qkv),
       static_cast<const float*>(amax), static_cast<__nv_bfloat16*>(out), seq,
-      heads, qb, scale, I8AttnScales{});
+      heads, qb, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1138,6 +1374,17 @@ inline bool i8dyn_sm90_ok(int batch, int seq, int heads, int head_dim,
          (qb >= seq || qb % kI8Rows == 0) &&
          (head_dim == 64 || head_dim == 128) && heads > 0 &&
          static_cast<long long>(batch) * heads * i8_pad(seq) <=
+             2147483647ll;
+}
+
+// whether kernel 17 takes (batch, seq, heads) at head_dim 128: S <=
+// kMaxSeq and B S rows as ints, the pre-pass's grid (batch in y), and its
+// main pass's items (S_pad / 128 a head) as ints. Its tensor maps keep
+// one head a depth index, so no row coordinate passes S_pad or B H.
+inline bool i8st_sm90_ok(int batch, int seq, int heads, int head_dim) {
+  return attention_seq_ok(batch, seq) && batch <= 65535 && heads > 0 &&
+         head_dim == 128 &&
+         static_cast<long long>(batch) * heads * (i8_pad(seq) / kI8Rows) <=
              2147483647ll;
 }
 
@@ -1176,10 +1423,10 @@ TPUDF_API int tpudf_attention_i8dyn_sm90(const void* q8, const void* k8,
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
-    return i8dyn::launch<64>(q8, k8, v8t, amax, out, batch, seq, heads, qb,
-                             scale, s);
-  return i8dyn::launch<128>(q8, k8, v8t, amax, out, batch, seq, heads, qb,
-                            scale, s);
+    return i8dyn::launch<64, false>(q8, k8, v8t, amax, out, batch, seq, heads,
+                                    qb, scale, 0.0f, 0.0f, s);
+  return i8dyn::launch<128, false>(q8, k8, v8t, amax, out, batch, seq, heads,
+                                   qb, scale, 0.0f, 0.0f, s);
 }
 
 // 9b at heads of 256 and the wide ones (384 .. 1280, the multiples of 128):
@@ -1206,25 +1453,44 @@ TPUDF_API int tpudf_attention_i8dyn(const void* qkv, void* amax, void* out,
   return cudaErrorInvalidValue;
 }
 
-// 17: qkv (B, S, 3 * heads * 128) bf16 -> out (B, S, heads * 128) bf16
-// with static scales: inv_q = 127 / aq, inv_k, inv_v likewise, fac = (aq *
-// ak) / 127^2 * scale, cv = av / 127^2, each rounded once to f32 by the
-// caller; S <= kMaxSeq. The probe pads queries to its 256-row blocks; no
-// row depends on another's block here, so nothing is padded.
-TPUDF_API int tpudf_attention_i8_static(const void* qkv, void* out, int batch,
-                                        int seq, int heads, int head_dim,
-                                        float inv_q, float inv_k,
-                                        float inv_v, float fac, float cv,
-                                        void* stream) {
+// 17's pre-pass: qkv (B, S, 3 * heads * 128) bf16 -> the codes of k and v
+// at the static inv_k = 127 / ak and inv_v = 127 / av (each rounded once
+// to f32 by the caller): k8 (B, heads, S_pad, 128) int8, v8t (B, heads,
+// 128, S_pad) int8 in vt_pos order, S_pad = S rounded up to 128, zeros
+// past S
+TPUDF_API int tpudf_attention_i8_static_prepass(const void* qkv, void* k8,
+                                                void* v8t, int batch,
+                                                int seq, int heads,
+                                                int head_dim, float inv_k,
+                                                float inv_v, void* stream) {
   using namespace tpudf;
   if (batch <= 0 || seq <= 0) return 0;
-  if (!attention_seq_ok(batch, seq) || head_dim != 128)
+  if (!i8st_sm90_ok(batch, seq, heads, head_dim))
     return cudaErrorInvalidValue;
-  const dim3 grid((seq + kI8QTile - 1) / kI8QTile, heads, batch);
-  attention_i8_kernel<128, true>
-      <<<grid, kI8Warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(qkv), nullptr,
-          static_cast<__nv_bfloat16*>(out), seq, heads, 0, 0.0f,
-          I8AttnScales{inv_q, inv_k, inv_v, fac, cv});
+  attention_i8_prepass<true>
+      <<<dim3(heads, batch, 2 * i8_pad(seq) / kVtKeys), kPreThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(qkv), nullptr, nullptr,
+          static_cast<int8_t*>(k8), static_cast<int8_t*>(v8t), seq, heads,
+          head_dim, seq, make_float3(0.0f, inv_k, inv_v));
   return static_cast<int>(cudaGetLastError());
+}
+
+// 17's main pass: qkv (its q, quantised at inv_q = 127 / aq in the block)
+// and the pre-pass's codes -> out (B, S, heads * 128) bf16, with fac = (aq
+// * ak) / 127^2 * scale and cv = av / 127^2 (each rounded once to f32 by
+// the caller). The probe pads queries to its 256-row blocks; no row
+// depends on another's block here, so nothing is padded.
+TPUDF_API int tpudf_attention_i8_static(const void* qkv, const void* k8,
+                                        const void* v8t, void* out,
+                                        int batch, int seq, int heads,
+                                        int head_dim, float inv_q, float fac,
+                                        float cv, void* stream) {
+  using namespace tpudf;
+  if (batch <= 0 || seq <= 0) return 0;
+  if (!i8st_sm90_ok(batch, seq, heads, head_dim))
+    return cudaErrorInvalidValue;
+  return i8dyn::launch<128, true>(qkv, k8, v8t, nullptr, out, batch, seq,
+                                  heads, seq, fac, inv_q, cv,
+                                  static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,10 @@
-// The key tile and the online row statistics of 9b's and probe 17's
-// attention on mma.sync (attention_i8.cu): a warp's 16 query rows against
-// tiles of kKeyTile keys, the scores of a tile held as mma.sync m16n8
-// accumulators s[j][e] (rows g (e = 0, 1) and g + 8 (e = 2, 3), keys 8j +
-// 2t + (e & 1)). (K1's attention, K6, K7, K9 and K10 run on wgmma and TMA:
-// attention_sm90.cu, attn_out_sm90.cuh.)
+// The key tile and the online row statistics of 9b's attention on
+// mma.sync at heads of 256 and 384-1280 (attention_i8.cu): a warp's 16
+// query rows against tiles of kKeyTile keys, the scores of a tile held as
+// mma.sync m16n8 accumulators s[j][e] (rows g (e = 0, 1) and g + 8 (e = 2,
+// 3), keys 8j + 2t + (e & 1)). (K1's attention, K6, K7, K9, K10, 9b at
+// heads of 64 and 128 and kernel 17 run on wgmma and TMA:
+// attention_sm90.cu, attn_out_sm90.cuh, attention_i8.cu.)
 #pragma once
 
 #include "gemm_i8.cuh"

@@ -62,7 +62,8 @@ SIGNATURES = {
     "tpudf_layer_i8": "p" * 22 + "iiiiiiiffp",
     "tpudf_attention_plain_f32": "pppp" + "i" * 11 + "fp",
     "tpudf_attention_plain_sm90": "pppp" + "i" * 11 + "fp",
-    "tpudf_attention_i8_static": "ppiiiifffffp",
+    "tpudf_attention_i8_static_prepass": "pppiiiiffp",
+    "tpudf_attention_i8_static": "ppppiiiifffp",
     "tpudf_i8_gemm_quant": "ppppppiiiip",
     "tpudf_quant_rows_i8": "pppiip",
     "tpudf_sm90_encode_ns": "pi",

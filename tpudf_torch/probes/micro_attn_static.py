@@ -17,12 +17,33 @@ runs only where d % 128 == 0 (its `pl.multiple_of(h·d, 128)` slice), at
 so400m-pad's (8, 1024, 6144), 16 heads of 128: the port takes d = 128 and
 raises at any other d.
 
-On Hopper this is 9b's main pass (`csrc/attention_i8.cu`, int8 mma.sync
-for both products) with the scales as arguments: one launch, no amax
-pass. The constants 127/aq, 127/ak, 127/av, (aq·ak)/127²·scale and
-av/127² are Python doubles in the probe, rounded once to f32 where they
-meet an f32 array; `static_scales` rounds them the same way on the host,
-and the kernel and the twin both take them so.
+On Hopper it is two launches on 9b's machinery (`csrc/attention_i8.cu`):
+  pre-pass   `tpudf_attention_i8_static_prepass`, counted as
+             KERNEL_PREPASS: k8 (B, H, S_pad, 128) and v8t (B, H, 128,
+             S_pad) with v's keys in 9b's `vt_pos` order, zeros past S,
+             S_pad = S rounded up to 128 (2·B·H·S_pad·128 bytes of
+             torch.empty scratch); each block codes 128 rows of k or v, so
+             each is read once (`static_codes_reference` is its plain
+             version, bit-equal)
+  main pass  `tpudf_attention_i8_static`, counted as KERNEL: 9b's
+             persistent int8 wgmma + TMA pass (items of 128 query rows, a
+             producer and two consumer warpgroups) on qkv's q in bf16,
+             which each consumer quantises into shared memory once an
+             item, and the pre-pass's codes, with its softmax reordered. JAX's ap = max p + 1e-20 equals 1/l in f32 (the
+             largest e is 1), so p8 = round(127·e) but within a few f32
+             ulps of a tie; and as fac > 0, JAX's f32 row max is
+             f32(max of the int32 scores)·fac exactly. So the first sweep
+             keeps only each row's integer max (keys past S masked), the
+             second forms e = 2^(s·fac·log2 e − m) once a score, adds it
+             to l (keys past S masked: e = 0) and writes p8 = rint(127·e);
+             o = int32(p8 · v8) · ((1/l + 1e-20)·cv).
+The constants 127/aq, 127/ak, 127/av, (aq·ak)/127²·scale and av/127² are
+Python doubles in the probe, rounded once to f32 where they meet an f32
+array; `static_scales` rounds them the same way on the host, and the
+kernels and the twin all take them so. The domain is the parent's: d =
+128, S <= MAX_SEQ, B <= 65535 (`static_fits`); its tensor maps keep one
+head a depth index, so every qkv that fits on the card meets their int
+coordinates.
 
 `main()` times the three modes of the JAX probe at its two geometries,
 K9 in bf16 (`ops.attention.attention_qkv`), 9b dynamic int8
@@ -38,12 +59,15 @@ import torch
 
 from tpudf_torch.core.backend import LAUNCHES, require_cuda
 from tpudf_torch.ops import _build
-from tpudf_torch.ops.attention import (attention_qkv, attention_qkv_int8,
-                                       check_attention_shape)
+from tpudf_torch.ops.attention import (I8_ROWS, MAX_ROWS, attention_qkv,
+                                       attention_qkv_int8,
+                                       check_attention_shape, i8_pad, vt_pos)
 from tpudf_torch.probes.common import cuda_ms, f32, quant_codes
 
-KERNEL = "probe17_attention_static"
+KERNEL = "probe17_attention_static"                 # the main pass
+KERNEL_PREPASS = "probe17_attention_static_prepass"
 HEAD_DIM = 128
+MAX_BATCH = 65535   # the pre-pass's grid y
 GEOMETRIES = (("so400m-pad", 8, 1024, 2048, 128),
               ("large-384", 16, 576, 1024, 64))   # name, B, S, W, d
 
@@ -64,6 +88,14 @@ def check_static(qkv, heads, head_dim):
         raise ValueError(f"kernel 17 takes head_dim {HEAD_DIM} (the JAX "
                          f"probe's 128-lane head slices), got {head_dim}")
     check_attention_shape("kernel 17", qkv, heads, head_dim)
+
+
+def static_fits(b, s, heads):
+    """csrc/attention_i8.cu `i8st_sm90_ok` at head_dim 128: B·S rows and
+    the main pass's items (S_pad / 128 a head) as ints, B within the
+    pre-pass's grid."""
+    return (b <= MAX_BATCH and b * s <= MAX_ROWS
+            and b * heads * (i8_pad(s) // I8_ROWS) <= MAX_ROWS)
 
 
 def attention_qkv_int8_static_reference(qkv, heads, head_dim, scale=None,
@@ -93,25 +125,76 @@ def attention_qkv_int8_static_reference(qkv, heads, head_dim, scale=None,
     return o.transpose(1, 2).reshape(b, s, w).to(qkv.dtype)
 
 
+def static_codes_reference(qkv, heads, aq=3.0, ak=3.0, av=3.0):
+    """Plain version of kernel 17's codes on any device: (B, S, 3 heads
+    128) → (q8, k8 (B, heads, S_pad, 128) int8; v8t (B, heads, 128, S_pad)
+    int8 with key x at `vt_pos(x)`), zeros past S. The pre-pass writes k8
+    and v8t; q8 is what the main pass builds in shared memory."""
+    c = static_scales(1.0, aq, ak, av)
+    b, s, _ = qkv.shape
+    sp = i8_pad(s)
+    t = qkv.reshape(b, s, 3, heads, HEAD_DIM).permute(2, 0, 3, 1, 4)
+
+    def codes(x, inv):
+        return torch.nn.functional.pad(quant_codes(x, inv),
+                                       (0, 0, 0, sp - s)).to(torch.int8)
+
+    q8, k8, v8 = (codes(t[i], c[k]) for i, k in enumerate(
+        ("inv_q", "inv_k", "inv_v")))
+    pos = torch.tensor([vt_pos(x) for x in range(sp)], device=qkv.device)
+    v8t = torch.empty_like(v8.transpose(-1, -2))
+    v8t[..., pos] = v8.transpose(-1, -2)
+    return q8.contiguous(), k8.contiguous(), v8t
+
+
+def static_prepass(qkv, heads, aq=3.0, ak=3.0, av=3.0):
+    """Kernel 17's pre-pass launch: qkv (B, S, 3 heads 128) bf16, contiguous
+    → (k8, v8t) as `static_codes_reference` gives them."""
+    c = static_scales(1.0, aq, ak, av)
+    b, s, _ = qkv.shape
+    sp = i8_pad(s)
+    k8 = torch.empty((b, heads, sp, HEAD_DIM), dtype=torch.int8,
+                     device=qkv.device)
+    v8t = torch.empty((b, heads, HEAD_DIM, sp), dtype=torch.int8,
+                      device=qkv.device)
+    _build.call("tpudf_attention_i8_static_prepass", qkv, k8, v8t, b, s,
+                heads, HEAD_DIM, c["inv_k"], c["inv_v"])
+    LAUNCHES.hit(KERNEL_PREPASS)
+    return k8, v8t
+
+
+def static_main(qkv, codes, heads, scale, aq=3.0, ak=3.0, av=3.0):
+    """Kernel 17's main pass launch on qkv (its q) and the pre-pass's (k8,
+    v8t) → (B, S, heads 128) bf16."""
+    k8, v8t = codes
+    b, s, _ = qkv.shape
+    c = static_scales(scale, aq, ak, av)
+    out = torch.empty((b, s, heads * HEAD_DIM), dtype=torch.bfloat16,
+                      device=qkv.device)
+    _build.call("tpudf_attention_i8_static", qkv, k8, v8t, out, b, s, heads,
+                HEAD_DIM, c["inv_q"], c["fac"], c["cv"])
+    LAUNCHES.hit(KERNEL)
+    return out
+
+
 def attention_qkv_int8_static(qkv, heads, head_dim, scale=None, aq=3.0,
                               ak=3.0, av=3.0):
     """(B, S, 3W) bf16 → (B, S, W) bf16 with static-scale int8 QKᵀ and
-    p·v. CPU tensors take the twin; CUDA tensors launch kernel 17 (one
-    launch) or raise."""
+    p·v. CPU tensors take the twin; CUDA tensors launch kernel 17's
+    pre-pass and main pass or raise."""
     check_static(qkv, heads, head_dim)
     scale = scale if scale is not None else head_dim ** -0.5
     if not qkv.is_cuda:
         return attention_qkv_int8_static_reference(qkv, heads, head_dim,
                                                    scale, aq, ak, av)
-    c = static_scales(scale, aq, ak, av)
     b, s, _ = qkv.shape
-    out = torch.empty((b, s, heads * head_dim), dtype=torch.bfloat16,
-                      device=qkv.device)
-    _build.call("tpudf_attention_i8_static", qkv.contiguous(), out, b, s,
-                heads, head_dim, c["inv_q"], c["inv_k"], c["inv_v"],
-                c["fac"], c["cv"])
-    LAUNCHES.hit(KERNEL)
-    return out
+    if not static_fits(b, s, heads):
+        raise ValueError(f"kernel 17 takes B <= {MAX_BATCH} and B·heads·"
+                         f"S_pad/128 <= {MAX_ROWS}, got B {b}, S {s}, heads "
+                         f"{heads}")
+    qkv = qkv.contiguous()
+    return static_main(qkv, static_prepass(qkv, heads, aq, ak, av), heads,
+                       scale, aq, ak, av)
 
 
 def sdpa_bf16(qkv, heads, head_dim, scale):
@@ -126,7 +209,7 @@ def sdpa_bf16(qkv, heads, head_dim, scale):
 def main(iters=20, warmup=3):
     """Time K9, 9b and kernel 17 (and SDPA) at the probe's geometries;
     returns {"ms": {(geometry, mode): ms}, "launches": {counter: launches
-    of kernel 17 made}}."""
+    of kernel 17's two kernels made}}."""
     require_cuda()
     dev = torch.device("cuda", torch.cuda.current_device())
     print(f"micro_attn_static on {torch.cuda.get_device_name(dev)}",
@@ -149,7 +232,8 @@ def main(iters=20, warmup=3):
             dt = ms[(name, mode)] = cuda_ms(fn, iters, warmup)
             print(f"{name:11s} {mode:12s} {dt:7.3f} ms "
                   f"({b / dt * 1e3:8.1f} img/s-equiv)", flush=True)
-    return {"ms": ms, "launches": {KERNEL: static_calls}}
+    return {"ms": ms, "launches": {KERNEL_PREPASS: static_calls,
+                                   KERNEL: static_calls}}
 
 
 if __name__ == "__main__":

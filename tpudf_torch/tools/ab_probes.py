@@ -1,19 +1,24 @@
-"""A/B timing of the quantising probe GEMMs on one card, in the tree whose
-root is the first argument: run it once per tree and per turn, in one chip
-call (parent, change, change, parent), the other tree unpacked under the
+"""A/B timing of the probes' kernels on one card, in the tree whose root is
+the first argument: run it once per tree and per turn, in one chip call
+(parent, change, change, parent), the other tree unpacked under the
 git-ignored build/ (git archive).
 
     python3 tpudf_torch/tools/ab_probes.py build/parent old
     python3 tpudf_torch/tools/ab_probes.py . new
 
-Prints one line "AB {json}": the device ms (profiler: the kernels' summed
-durations) of kernel 15's `int8_matmul_staticq` and kernel 16's
-`fc1_matmul` full / nogelu / bf16_epi at (M, K, N) = (16384 | 65536, 768,
-3072) on kernel 16's seeded inputs (M = 16384: their first rows), k_noquant's
-(int8 x read from memory) as the control, and where the tree has the split
-form (`common.quant_gemm_split`) that form's device ms and its GEMM on the
-codes alone, with the card's name and power limit. Needs a card; builds
-the tree's kernels into its own build/.
+Prints one line "AB {json}" with the card's name and power limit: the
+device ms (profiler: the kernels' summed durations) of
+  15-16  kernel 15's `int8_matmul_staticq` and kernel 16's `fc1_matmul`
+         full / nogelu / bf16_epi at (M, K, N) = (16384 | 65536, 768,
+         3072) on kernel 16's seeded inputs (M = 16384: their first rows),
+         k_noquant's (int8 x read from memory) as the control, and where
+         the tree has the split form (`common.quant_gemm_split`) that
+         form's device ms and its GEMM on the codes alone;
+  17     kernel 17's `attention_qkv_int8_static` at the probe's (8, 1024,
+         6144), 16 heads of 128, on its seeded inputs: each launch's
+         device ms by kernel name and their sum (the signature is the
+         same in every tree that has the probe).
+Needs a card; builds the tree's kernels into its own build/.
 """
 import json
 import os
@@ -52,6 +57,21 @@ def forms(key, mode, x, wt, s, b):
         common.QUANT_MODES[mode]))
 
 
+def k17():
+    """Kernel 17's launches at the probe's shape: {kernel: device ms}."""
+    from tpudf_torch.probes import micro_attn_static as p17
+    _, b, s, w, d = p17.GEOMETRIES[0]
+    heads, scale = w // d, d ** -0.5
+    g = torch.Generator(device=dev).manual_seed(0)
+    qkv = torch.randn((b, s, 3 * w), generator=g, device=dev).to(
+        torch.bfloat16)
+    call = lambda: p17.attention_qkv_int8_static(qkv, heads, d, scale)
+    per = cs.kernel_events(call, 10)[0]
+    out["17 launches"] = {k.split("(")[0][-60:]: v for k, v in per.items()}
+    out["17"] = cs.device_ms(call)
+
+
+k17()
 t = p16.inputs(dev)
 wt, s, b = t["wt"], t["s"], t["b"]
 for m in (16384, 65536):
