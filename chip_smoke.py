@@ -252,6 +252,23 @@ back to the CPU or to a twin):
          multi-query `_mha` at full width through kernels 11 and 12;
          so400m-512's engines A and B (its MLP padded to 4352); so400m's
          dynamic-int8 tower and an un-prepadded static tree;
+     (r) the image report (`report_paths`,
+         tpudf_torch.serve.report.predict_images) on base-256's and
+         large-384's engines A and B, full at B = 8 and fast at B = 32, on
+         seeded images (the golden corpus' recipe and noise), with cuDNN's
+         TF32 at PyTorch's default: exact launches (a report launches
+         what the engine's request does; the fusion tail none),
+         `dispatch_images` under torch's sync check set to raise (no
+         sync in the core, the tail or the face step), the
+         reports against the same engine's through the twins (strings,
+         ints and bools equal but for a step at a threshold, the core's
+         floats by (b)'s limits, the battery's by the goldens' atol 2e-4
+         + rtol 2e-3), the battery's cues against the port's battery on
+         the CPU for the same pixels; large-384's engine B once with the
+         three artifacts attached and once with a face box that escalates
+         (the engine's launches twice); planted faults that must fail
+         these checks: the tail fed the un-resized pixels, the full tail
+         reading the fast path's core columns (TF32 left on: reported);
      (t2)-(t4) (`training_rest`): large-384 MTL at 384 px (K10 at S = 576)
          float and int8 prefix and the MTL CLI at --image_size 384;
          so400m-512 MTL (K14 at the padded hidden of 4352, K10's route the
@@ -280,7 +297,10 @@ back to the CPU or to a twin):
      base-256 under PPP and LLL: 12 K6 / K7), large-384's engines; the
      large-384 MTL step at 256 px, (a) and (b), with a profile of (a),
      and so400m-512's engines A and B; the (t) steps, each with a profile
-     (`training_rest_timings`).
+     (`training_rest_timings`); each report request of (r) by the host
+     clock, split into the engine's core and the fusion tail (CUDA
+     events) and the rest, with a profile (idle share) of two of them
+     (`report_timings`).
 Prints a JSON line of the kernels (with each one's bound: the larger of
 its operations over the card's peak for their type and its bytes, each
 input read once and each output written once, over 3.35 TB/s), the card
@@ -5428,6 +5448,8 @@ def queue_c_checks(rec, dev, card):
                                                   bp["mlp"]["fc2_w"])
                                      for t in (wq["q"], wq["scale"])])
                          + nbytes(x)),
+                        library=split_parts(b, s, heads, hd, inter, bp,
+                                            mlp=True),
                         device_time=True)
     finally:
         if old is None:
@@ -5447,9 +5469,40 @@ def queue_c_checks(rec, dev, card):
                                                   hd),
             ({"bf16": 4 * b * heads * s * s * hd, "int8": 2 * b * s * w * w},
              nbytes(qkv, x, wq["q"], wq["scale"], bias, a) + nbytes(x)),
+            library=split_parts(b, s, heads, hd, inter, bp, mlp=False),
             device_time=True)
     torch.cuda.empty_cache()
     return launches
+
+
+def split_parts(b, s, heads, hd, inter, bp, mlp):
+    """The PyTorch parts of a W8A8 layer at (b, s, heads x hd), as the K6 /
+    K7 rows above them carry: SDPA in bf16 and `torch._int_mm` of the
+    out-projection (K6), with the QKV, fc1 and fc2 products (K7), on
+    seeded operands of the layer's shapes."""
+    import torch
+    import torch.nn.functional as F
+    dev = bp["attn"]["out_w"]["q"].device
+    g = torch.Generator(device=dev).manual_seed(5)
+    w, m = heads * hd, b * s
+    q, k, v = (torch.randn((b, heads, s, hd), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    codes = lambda n, c: torch.randint(-127, 128, (n, c), generator=g,
+                                       device=dev, dtype=torch.int8)
+    a8, h8 = codes(m, w), codes(m, inter)
+    wt = lambda name: bp[name[0]][name[1]]["qT"].t()
+    parts = {"part attention SDPA":
+             lambda: F.scaled_dot_product_attention(q, k, v),
+             "part out-proj _int_mm":
+             lambda: torch._int_mm(a8, wt(("attn", "out_w")))}
+    if mlp:
+        parts = {"part QKV _int_mm":
+                 lambda: torch._int_mm(a8, wt(("attn", "qkv_w"))), **parts,
+                 "part fc1 _int_mm":
+                 lambda: torch._int_mm(a8, wt(("mlp", "fc1_w"))),
+                 "part fc2 _int_mm":
+                 lambda: torch._int_mm(h8, wt(("mlp", "fc2_w")))}
+    return parts
 
 
 def k3_fault(gray, fault):
@@ -5559,6 +5612,620 @@ def k3_checks(rec, dev, card):
               f"{b_ms:.4f} ({b_by}, {ms / b_ms:.1f}x); parts F.conv2d "
               f"{conv:.4f} + moments {mom:.4f} [{card}]", flush=True)
         del gray, got, ref, res
+
+
+# The image report (phase 3r, `report_paths`; phase 4, `report_timings`):
+# requests of REPORT_BATCH images through tpudf_torch.serve.report at
+# base-256 and large-384, engines A and B. Kernels vs twins on the same
+# pixels: strings, ints and bools equal (a label, code or risk_idx that
+# differs must be shown to be a step at a threshold: `report_tie`), floats
+# the core reaches by PERF.md §6's engine rule (REPORT_CORE / REPORT_LOGIT,
+# engine B's twice), the battery's floats by the goldens' rule; the
+# battery on the card against the port's battery on the CPU for the same
+# pixels by the goldens' rule, a cue outside it shown to be a step at ties
+# of its binning (`battery_steps`: CUDA divides by a scalar through its
+# reciprocal, so hue / 5 or a grey level may land on the other side of a
+# bin edge than on the CPU).
+REPORT_BATCH = {"full": 8, "fast": 32}
+REPORT_CORE, REPORT_LOGIT = 1e-2, 5e-2
+REPORT_GOLDEN = (2e-4, 2e-3)
+REPORT_BATTERY_ONLY = ("forensic_score", "jpeg_q_mismatch_score",
+                       "saturation_peak_score", "cfa_fake_score",
+                       "prnu_strength_raw", "rendering_pipeline_score",
+                       "jpeg", "face_retouch_score")
+# the floats the label cascade and the verdict compare with a threshold
+REPORT_DECIDING = ("final_prob", "visual_head", "freq_head", "head_delta",
+                   "patch_mean", "max_patch", "patch_spread", "p_fake_coral",
+                   "generator_likelihood", "bayes_final_prob",
+                   "bayesian_fusion_posterior", "bayesian_fusion_certainty",
+                   "dirichlet_uncertainty", "dirichlet_conflict", "entropy",
+                   "face_p_fake", "xgb_fusion_prob")
+REPORT_THRESHOLDS = (0.15, 0.18, 0.20, 0.25, 0.30, 0.35, 0.40, 0.45, 0.50,
+                     0.55, 0.60, 0.65, 0.70, 0.75, 0.80, 0.85, 0.90, 1.0)
+
+
+def report_images(n, size, seed):
+    """n uint8 (size, size, 3) images: the golden corpus' structured
+    recipe (gradients, a square-wave texture, noise, a pasted flat patch
+    on every third) on the even ones, uniform noise on the odd ones."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    out = []
+    for i in range(n):
+        if i % 2:
+            out.append(rng.integers(0, 256, (size, size, 3), np.uint8))
+            continue
+        k = i // 2 % 3
+        base = 0.45 + 0.3 * np.sin((2 + k) * yy + (3 - k) * xx)[..., None] \
+            * np.ones((1, 1, 3))
+        tex = 0.08 * np.sign(np.sin(xx * np.pi * (8 + 8 * k))
+                             * np.cos(yy * np.pi * 16))[..., None]
+        img = base + tex + 0.05 * rng.standard_normal((size, size, 3))
+        if k == 2:
+            a, b = 5 * size // 16, 11 * size // 16
+            img[a:b, a:b] = img[a:b, a:b].mean((0, 1))
+        out.append((np.clip(img, 0, 1) * 255).astype(np.uint8))
+    return np.stack(out)
+
+
+def report_limit(key, w8a8):
+    """Absolute limit of a float key, kernels vs twins; None: the goldens'
+    rule (the battery's floats, which the core does not reach)."""
+    leaf = key.split(".")[-1].split("[")[0]
+    if leaf.startswith("forensic_") or leaf in REPORT_BATTERY_ONLY:
+        return None
+    vis = 2.0 if w8a8 else 1.0
+    return (REPORT_LOGIT if leaf in ("z_sig", "z_freq") else REPORT_CORE) \
+        * vis
+
+
+def report_tie(got, want, w8a8):
+    """A label, code or risk_idx difference shown to be a step at a
+    threshold: a float the cascade reads lies on both sides of one of its
+    thresholds in the two reports, within its limit; risk_idx: the twin's
+    two largest risk_probs within the limit of each other."""
+    lim = REPORT_CORE * (2.0 if w8a8 else 1.0)
+    for k in REPORT_DECIDING:
+        a, b = got.get(k), want.get(k)
+        if a is None or b is None or abs(a - b) > lim:
+            continue
+        if any((a - t) * (b - t) <= 0 for t in REPORT_THRESHOLDS):
+            return k
+    for v in ("prob_fake", "certainty"):
+        a, b = got["verdict"][v], want["verdict"][v]
+        if abs(a - b) <= lim and any((a - t) * (b - t) <= 0
+                                     for t in REPORT_THRESHOLDS):
+            return f"verdict.{v}"
+    return None
+
+
+# the booster's 19 features (serve/report.py's order) as the report
+# carries them; None: the disabled edge-continuity feature (0)
+GBDT_FEATURES = ("z_sig", "z_freq", "|z|", "visual_head", "freq_head",
+                 "blend", "forensic_diffusion_v2",
+                 "forensic_spectral_flatness", None,
+                 "forensic_color_correlation", "forensic_jpeg_residual",
+                 "embedding_anomaly", "max_patch", "patch_mean",
+                 "patch_spread", "forensic_cfa_fake", "forensic_texture_noise",
+                 "forensic_perlin", "head_delta")
+# what the booster's probability decides in a report (p_blend = it)
+GBDT_DECIDES = ("xgb_fusion_prob", "final_prob", "final_label",
+                "prediction_code", "band", "band_text", "band_color",
+                "risk_level", "label_trace", "tamper_votes", "real_gate",
+                "three_way", "rbr")
+
+
+def gbdt_features(r):
+    """The booster's (19,) f32 features of a report."""
+    import numpy as np
+    f = []
+    for k in GBDT_FEATURES:
+        if k is None:
+            f.append(0.0)
+        elif k == "|z|":
+            f.append(abs(np.float32(r["z_sig"]) - np.float32(r["z_freq"])))
+        elif k == "blend":
+            f.append(np.clip(np.float32(0.4) * np.float32(
+                r["forensic_diffusion_v2"]) + np.float32(0.6) * np.float32(
+                    r["forensic_cfa_fake"]), 0.0, 1.0))
+        else:
+            f.append(r[k])
+    return np.asarray(f, np.float32)
+
+
+def gbdt_step(g, w, gbdt, w8a8):
+    """True when a booster probability that differs between two reports
+    is a step of the tree walk at a threshold: the ensemble on the host
+    gives each report's probability from that report's features, and every
+    feature agrees within its limit (a feature crossing a node's
+    threshold switches a leaf)."""
+    import numpy as np
+    import torch
+    fg, fw = gbdt_features(g), gbdt_features(w)
+    p = gbdt.to("cpu").predict_proba(torch.from_numpy(np.stack([fg, fw])))
+    if np.abs(p.numpy() - [g["xgb_fusion_prob"], w["xgb_fusion_prob"]]
+              ).max() > 1e-5:
+        return False
+    def limit(i, k):
+        if k is None:
+            return 0.0
+        if k == "|z|":                  # |z_sig - z_freq|: both limits
+            return 2 * report_limit("z_sig", w8a8)
+        lim = None if k == "blend" else report_limit(k, w8a8)
+        return (REPORT_GOLDEN[0] + REPORT_GOLDEN[1] * abs(fw[i])
+                if lim is None else lim)
+    return all(abs(a - b) <= limit(i, k) for i, (k, a, b) in
+               enumerate(zip(GBDT_FEATURES, fg, fw)))
+
+
+def report_vs(label, got, want, w8a8, gbdt=None):
+    """Kernels' reports against the twins' on the same pixels. A float out
+    of its limit fails; a string, int or bool that differs fails unless
+    `report_tie` shows the image's difference to be a step at a threshold;
+    with a booster attached, a probability that moves by a step of its
+    tree walk (`gbdt_step`) takes what it decides out of the comparison
+    for that image. Returns (max |Δ| of the core's floats, of the
+    battery's, the ties)."""
+    import math
+    import re
+    worst = {"core": 0.0, "battery": 0.0}
+    num = r"-?\d+\.\d+"
+
+    def walk(path, g, w, out):
+        """Appends (path, is_float, message) for each disagreement."""
+        if isinstance(w, dict):
+            if set(g) != set(w):
+                out.append((path, False, f"keys {set(g) ^ set(w)}"))
+                return
+            for k in w:
+                walk(f"{path}.{k}", g[k], w[k], out)
+        elif isinstance(w, list) and isinstance(g, list) \
+                and len(g) == len(w):
+            for i, (a, b) in enumerate(zip(g, w)):
+                walk(f"{path}[{i}]", a, b, out)
+        elif isinstance(w, float) and isinstance(g, float):
+            if math.isnan(w) or math.isnan(g):
+                if not (math.isnan(w) and math.isnan(g)):
+                    out.append((path, True, f"{g!r} != {w!r}"))
+                return
+            lim = report_limit(path, w8a8)
+            kind = "battery" if lim is None else "core"
+            if lim is None:
+                lim = REPORT_GOLDEN[0] + REPORT_GOLDEN[1] * abs(w)
+            worst[kind] = max(worst[kind], abs(g - w))
+            if abs(g - w) > lim:
+                out.append((path, True, f"{g!r} != {w!r}"))
+        elif path.endswith("verdict.reason"):
+            lim = report_limit("verdict", w8a8) + 5e-4
+            if re.sub(num, "#", g) != re.sub(num, "#", w) or any(
+                    abs(float(a) - float(b)) > lim for a, b in
+                    zip(re.findall(num, g), re.findall(num, w))):
+                out.append((path, False, f"{g!r} != {w!r}"))
+        elif g != w:
+            out.append((path, False, f"{g!r} != {w!r}"))
+
+    errors, ties = [], []
+    if len(got) != len(want):
+        errors.append(f"{len(got)} reports != {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        out = []
+        walk(f"img{i}", g, w, out)
+        if out and gbdt is not None and any(
+                p.endswith(".xgb_fusion_prob") for p, _, _ in out) \
+                and gbdt_step(g, w, gbdt, w8a8):
+            ties.append(f"img{i} at a node of the booster: xgb "
+                        f"{g['xgb_fusion_prob']:.4f} / "
+                        f"{w['xgb_fusion_prob']:.4f}")
+            out = [e for e in out if e[0].split(".")[1].split("[")[0]
+                   not in GBDT_DECIDES]
+        tie = report_tie(g, w, w8a8) if out else None
+        if out and tie and not any(is_float for _, is_float, _ in out):
+            ties.append(f"img{i} at {tie}: "
+                        + "; ".join(f"{p} {m}" for p, _, m in out))
+        else:
+            errors += [f"{p}: {m}" for p, _, m in out]
+    if errors:
+        raise AssertionError(f"{label}: kernels vs twins disagree: "
+                             + "; ".join(errors[:12]))
+    return worst["core"], worst["battery"], ties
+
+
+def report_plain(reports):
+    """The reports as JSON would carry them (numpy scalars to floats)."""
+    return json.loads(json.dumps(reports, default=float))
+
+
+def battery_steps(bad, cues, ref, img, img_ref):
+    """Show each cue of `bad` (outside the goldens' rule between the
+    card's battery `cues` on its input `img` and the CPU's `ref` on
+    `img_ref`) to be a step at ties: for a binned cue (forensics.TIE_STEPS)
+    the float it bins agrees between the two runs but for rounding (99.9 %
+    of them within 1e-4 relative; the hue of a near-grey pixel divides its
+    input's rounding by a small chroma), and its binning on the CPU gives
+    each run's value from that run's floats; a
+    composite (TIE_LINEAR) moves by its weights times the binned cues'
+    steps. Returns {cue: |Δ|}; raises if a cue is neither."""
+    import numpy as np
+    import torch
+    from tpudf_torch.ops.forensics import TIE_LINEAR, TIE_STEPS, _gray
+    atol, rtol = REPORT_GOLDEN
+    close = lambda a, b: np.all(np.abs(a - b) <= atol + rtol * np.abs(b))
+    shown = {}
+    for k in bad:
+        d = np.abs(cues[k] - ref[k])
+        if k in TIE_STEPS:
+            pre, post = TIE_STEPS[k]
+            with torch.no_grad():
+                a = pre(img, _gray(img)).cpu().double()
+                b = pre(img_ref, _gray(img_ref)).double()
+            gap = (a - b).abs()
+            if k == "color_harmony":        # hue / 5 wraps at 36
+                gap = torch.minimum(gap, 36.0 - gap)
+            rel = (gap / torch.maximum(a.abs(), b.abs()).clamp_min(1.0))
+            rel = rel.reshape(-1)
+            if float(torch.kthvalue(rel, max(1, int(0.999 * rel.numel())))
+                     .values) > 1e-4:
+                raise AssertionError(f"{k}: the binned floats differ by "
+                                     f"more than rounding")
+            if not (close(post(a.float()).numpy(), cues[k])
+                    and close(post(b.float()).numpy(), ref[k])):
+                raise AssertionError(f"{k}: its binning does not give "
+                                     f"both runs' values")
+        elif k in TIE_LINEAR:
+            moved = sum(w * (cues[s] - ref[s])
+                        for s, w in TIE_LINEAR[k].items())
+            if not close(cues[k] - moved, ref[k]):
+                raise AssertionError(f"{k}: not its binned cues' steps")
+        else:
+            raise AssertionError(f"{k}: |Δ| {d.max():.3e}, not a binned "
+                                 f"cue")
+        shown[k] = float(d.max())
+    return shown
+
+
+def battery_vs_cpu(label, reports, px):
+    """The battery's cues of the card's reports against the port's battery
+    on the CPU for the same pixels (resized to 256 px on the CPU where the
+    tail resizes), by the goldens' rule; a cue outside it must be shown to
+    be a step at ties (`battery_steps`). Returns (the largest |Δ| within
+    the rule, the steps shown)."""
+    import numpy as np
+    import torch
+    from tpudf_torch.data.pipeline import resize
+    from tpudf_torch.ops.forensics import BATTERY_KEYS, forensic_battery
+
+    def prepared(dev):
+        x = torch.from_numpy(px).to(dev).float() / 255.0
+        if px.shape[1] != 256:
+            x = resize(x, (x.shape[0], 256, 256, 3), "bilinear")
+        return x
+
+    img, img_ref = prepared("cuda"), prepared("cpu")
+    ref = {k: v.numpy() for k, v in forensic_battery(img_ref).items()}
+    cues = {k: np.asarray([r[f"forensic_{k}"] for r in reports],
+                          np.float32) for k in BATTERY_KEYS}
+    worst, bad = 0.0, []
+    for k in BATTERY_KEYS:
+        d = np.abs(cues[k] - ref[k])
+        if (d > REPORT_GOLDEN[0] + REPORT_GOLDEN[1] * np.abs(ref[k])).any():
+            bad.append(k)
+        else:
+            worst = max(worst, float(d.max()))
+    try:
+        steps = battery_steps(bad, cues, ref, img, img_ref)
+    except AssertionError as err:
+        raise AssertionError(f"{label}: the card's battery vs the CPU's: "
+                             f"{err}") from None
+    return worst, steps
+
+
+def report_request(label, eng, tw, px, fast, w8a8, expect, twin_images,
+                   escalations=0):
+    """One report request with the launch counts set to 0 just before it:
+    exact launches (the engine's request's, once more per escalation
+    request), every report whole and finite where it must be; then the
+    first `twin_images` images through the twins: `report_vs`. Returns
+    (reports, launches, core |Δ|, battery |Δ|, ties)."""
+    import torch
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.serve.report import predict_images
+    LAUNCHES.reset()
+    reps = predict_images(eng, px, fast=fast)
+    launches = LAUNCHES.snapshot()
+    want = {k: v * (1 + escalations) for k, v in expect.items()}
+    check_launches(f"{label} B={px.shape[0]}", launches, want)
+    reps = report_plain(reps)
+    for i, r in enumerate(reps):
+        if len(r) < (80 if not fast else 75):
+            raise AssertionError(f"{label}: report {i} has {len(r)} keys")
+        for k, v in r.items():
+            if isinstance(v, float) and not (v == v) and k != "xgb_fusion_prob":
+                raise AssertionError(f"{label}: report {i} {k} is NaN")
+        if not 0.0 <= r["final_prob"] <= 1.0:
+            raise AssertionError(f"{label}: final_prob {r['final_prob']}")
+    n = twin_images or px.shape[0]
+    got = reps[:n] if n == px.shape[0] else report_plain(
+        predict_images(eng, px[:n], fast=fast))
+    LAUNCHES.reset()
+    ref = report_plain(predict_images(tw, px[:n], fast=fast))
+    torch.cuda.synchronize()
+    if LAUNCHES.snapshot():
+        raise AssertionError(f"{label}: twins launched "
+                             f"{LAUNCHES.snapshot()}")
+    core, batt, ties = report_vs(label, got, ref, w8a8, eng.gbdt)
+    return reps, launches, core, batt, ties
+
+
+def report_paths(dev, card, backbones):
+    """`_report_paths` with cuDNN's TF32 at PyTorch's default (on): the
+    tail must keep its convolutions in f32 itself (forensics.f32_math);
+    the script's own setting (off) comes back after."""
+    import torch
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return _report_paths(dev, card, backbones)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _report_paths(dev, card, backbones):
+    """Phase 3r: the image report at full width. backbones: {name:
+    (engines {"A", "B"}, expected launches per (engine, mode), twin
+    images)}. For each backbone, engine and mode, a report request of
+    REPORT_BATCH images (`report_request`: exact launches, kernels vs
+    twins) and, once per backbone, the battery on the card against the
+    CPU's (`battery_vs_cpu`); at large-384, engine B's full request once
+    with the three artifacts attached (mean_real, a TreeEnsemble fitted by
+    train/gbdt.py on seeded 19-d features, an isotonic BayesCalibration)
+    and once with a face box on every image that escalates (one more
+    engine request); then planted faults that the same checks must catch:
+    the tail fed the un-resized 384 px pixels, the full path's tail
+    reading the columns of the fast path's core; TF32 left on in the tail
+    is reported. Returns what phase 4 times."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from tpudf_torch.fuse.bayesian import FEATURES, fit_bayes_calibration
+    from tpudf_torch.ops import forensics
+    from tpudf_torch.ops.routes import TWINS
+    from tpudf_torch.serve import face, report
+    from tpudf_torch.serve.engine import (_PACK_KEY, FAST_SCALARS,
+                                          FULL_SCALARS)
+    from tpudf_torch.train.gbdt import to_tree_ensemble, train_gbdt
+
+    print("phase 3r: the image report (battery, fusion tail, label cascade, "
+          "verdict) at base-256 and large-384", flush=True)
+    state = {"requests": {}, "launches": {}}
+    for name, (engines, expect, twin_images) in backbones.items():
+        size = engines["A"].cfg.image_size
+        reqs = {m: report_images(b, size, seed=20 + b)
+                for m, b in REPORT_BATCH.items()}
+        state["requests"][name] = (engines, reqs)
+        for e, eng in engines.items():
+            tw = dataclasses.replace(eng, kernels=TWINS)
+            for mode, px in reqs.items():
+                label = f"report {name} engine {e} {mode}"
+                reps, launched, core, batt, ties = report_request(
+                    label, eng, tw, px, mode == "fast", e == "B",
+                    expect[(e, mode)], twin_images)
+                state["launches"][(name, e, mode)] = launched
+                labels = collections.Counter(r["final_label"] for r in reps)
+                print(f"{label} B={px.shape[0]}: launches {launched} (the "
+                      f"engine request's); vs twins on "
+                      f"{twin_images or px.shape[0]} images: strings equal, "
+                      f"max|Δ| core {core:.3e}, battery {batt:.3e}; ties "
+                      f"{ties or 'none'}; labels {dict(labels)} [{card}]",
+                      flush=True)
+                if e == "A" and mode == "full":
+                    d, steps = battery_vs_cpu(label, reps, px)
+                    print(f"  battery on the card vs the CPU ({px.shape[0]} "
+                          f"images): max|Δ| {d:.3e} (goldens' rule); steps "
+                          f"at ties shown: " + (", ".join(
+                              f"{k} |Δ| {v:.3e}" for k, v in steps.items())
+                              or "none") + f" [{card}]", flush=True)
+                torch.cuda.empty_cache()
+
+    # ---- a report's device work launches without a sync: torch's sync
+    # check set to raise around dispatch_images (the engine's core, the
+    # tail, the face step), each engine and mode after its warm requests
+    for name, (engines, reqs) in state["requests"].items():
+        for e, eng in engines.items():
+            for mode, px in reqs.items():
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    report.dispatch_images(eng, px, mode == "fast")
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+    print(f"  dispatch_images launched with no sync (torch's sync check "
+          f"raising) at both backbones, engines A and B, full and fast",
+          flush=True)
+
+    name = "large-384"
+    engines, reqs = state["requests"][name]
+    eng_b, px = engines["B"], reqs["full"]
+    expect, twin_images = backbones[name][1], backbones[name][2]
+    tw_b = dataclasses.replace(eng_b, kernels=TWINS)
+
+    # ---- the three artifacts attached
+    rng = np.random.default_rng(31)
+    x19 = rng.random((400, 19))
+    y19 = (rng.random(400) < 0.2 + 0.6 * x19[:, 3]).astype(np.float64)
+    held = {k: rng.random(300) for k in FEATURES}
+    y7 = (rng.random(300) < 0.3 + 0.4 * held["forensic"]).astype(float)
+    arts = dict(mean_real=rng.standard_normal(eng_b.cfg.width).astype(
+                    np.float32),
+                gbdt=to_tree_ensemble(train_gbdt(x19, y19, n_trees=20,
+                                                 depth=3), 1.2, -0.1),
+                bayes_calibration=fit_bayes_calibration(held, y7))
+    for k, v in arts.items():
+        setattr(eng_b, k, v)
+        setattr(tw_b, k, v)
+    label = f"report {name} engine B full, artifacts attached"
+    reps, launched, core, batt, ties = report_request(
+        label, eng_b, tw_b, px, False, True, expect[("B", "full")],
+        twin_images)
+    if any(r["xgb_fusion_prob"] is None for r in reps) or not any(
+            r["embedding_cos_dev"] > 0 for r in reps):
+        raise AssertionError(f"{label}: the artifacts did not reach the "
+                             f"report")
+    print(f"{label} B={px.shape[0]}: launches {launched}; vs twins: max|Δ| "
+          f"core {core:.3e}, battery {batt:.3e}; ties {ties or 'none'}; "
+          f"xgb_fusion_prob mean "
+          f"{np.mean([r['xgb_fusion_prob'] for r in reps]):.4f} [{card}]",
+          flush=True)
+    for k in arts:
+        setattr(eng_b, k, None)
+        setattr(tw_b, k, None)
+
+    # ---- a forced face box that escalates (the crop 1.5 x the box side,
+    # 75 % of the frame's side: >= 8 % of the frame and >= 96 px)
+    orig = face.detect_faces
+    box = (size // 4, size // 4, size // 2, size // 2)
+    face.detect_faces = lambda img, min_size=48: [box]
+    try:
+        label = f"report {name} engine B full, a face on every image"
+        reps, launched, core, batt, ties = report_request(
+            label, eng_b, tw_b, px, False, True, expect[("B", "full")],
+            twin_images, escalations=1)
+    finally:
+        face.detect_faces = orig
+    if any(r["face_p_fake"] is None or r["face_retouch_score"] is None
+           for r in reps):
+        raise AssertionError(f"{label}: the face escalation did not run")
+    print(f"{label} B={px.shape[0]}: launches {launched} (the engine "
+          f"request's twice: the escalation is one more request); vs twins: "
+          f"max|Δ| core {core:.3e}, battery {batt:.3e}; ties "
+          f"{ties or 'none'}; face_p_fake mean "
+          f"{np.mean([r['face_p_fake'] for r in reps]):.4f} [{card}]",
+          flush=True)
+
+    # ---- planted faults: each must fail the checks above
+    def fault_unresized():
+        orig_resize = report.resize
+        report.resize = lambda x, shape, method, antialias=True: x
+        try:
+            reps = report_plain(report.predict_images(eng_b, px[:2]))
+        finally:
+            report.resize = orig_resize
+        battery_vs_cpu("fault", reps, px[:2])
+
+    def fault_fast_columns():
+        orig_dispatch = eng_b.dispatch_batch
+
+        def dispatch(pixels, fast=False):
+            core = dict(orig_dispatch(pixels, fast))
+            packed = core[_PACK_KEY]
+            cols = [packed[:, FAST_SCALARS.index(k)] if k in FAST_SCALARS
+                    else packed[:, i] for i, k in enumerate(FULL_SCALARS)]
+            core[_PACK_KEY] = torch.cat(
+                [torch.stack(cols, 1), packed[:, len(FULL_SCALARS):]], 1)
+            return core
+        eng_b.dispatch_batch = dispatch
+        try:
+            got = report_plain(report.predict_images(eng_b, px[:2]))
+        finally:
+            del eng_b.dispatch_batch
+        report_vs("fault", got, report_plain(
+            report.predict_images(tw_b, px[:2])), True)
+
+    def fault_tf32():
+        prev = torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32
+        orig_f32 = forensics.f32_math, report.f32_math
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        forensics.f32_math = report.f32_math = contextlib.nullcontext
+        try:
+            reps = report_plain(report.predict_images(eng_b, px[:2]))
+        finally:
+            forensics.f32_math, report.f32_math = orig_f32
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+        battery_vs_cpu("fault", reps, px[:2])
+
+    for fault, required in ((fault_unresized, True),
+                            (fault_fast_columns, True), (fault_tf32, False)):
+        try:
+            fault()
+        except AssertionError as err:
+            print(f"  planted fault {fault.__name__[6:]}: caught ({str(err)[:160]})",
+                  flush=True)
+            continue
+        if required:
+            raise AssertionError(f"report: the checks miss the planted fault "
+                                 f"{fault.__name__[6:]}")
+        print(f"  planted fault {fault.__name__[6:]}: within the checks "
+              f"(reported, not required)", flush=True)
+    return state
+
+
+def report_timings(state, card):
+    """Phase 4: each report request of phase 3r by the host clock (the
+    request ends in its one device→host copy), and its parts each alone:
+    the engine's core (CUDA events around `dispatch_batch`), the fusion
+    tail (CUDA events around the tail on that core), the face step (host
+    clock: cv2's Haar detection and its launches) and the finish (host
+    clock: the copy, the cascade and the verdict, the card idle). In the
+    request the tail's launches overlap the core's device work, so the
+    parts need not sum to it. A profile of base-256 engine A's and
+    large-384 engine B's full request gives the device's idle share."""
+    import torch
+    from tpudf_torch.serve import report
+    from tpudf_torch.serve.engine import to_device
+
+    for name, (engines, reqs) in state["requests"].items():
+        for e, eng in engines.items():
+            for mode, px in reqs.items():
+                fast = mode == "fast"
+                b = px.shape[0]
+                run = lambda: report.predict_images(eng, px, fast=fast)
+                run()
+                torch.cuda.synchronize()
+                iters = 3
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    run()
+                total = (time.perf_counter() - t0) / iters * 1e3
+                dpx = to_device(px, eng.device)
+                core_ms = cuda_ms(lambda: eng.dispatch_batch(dpx, fast),
+                                  iters=iters, warmup=1)
+                core = eng.dispatch_batch(dpx, fast)
+                tail, _ = report._fusion_tail_for(eng, fast)
+                tail_ms = cuda_ms(lambda: tail(core, dpx), iters=iters,
+                                  warmup=1)
+                # the host's parts, each alone with the card idle: the face
+                # step (cv2's Haar detection, then its device launches) and
+                # the finish (the one copy, the cascade and the verdict)
+                face_ms = 0.0
+                if not fast:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    report._dispatch_face(eng, px)
+                    face_ms = (time.perf_counter() - t0) * 1e3
+                done = report.dispatch_images(eng, px, fast)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                report.predict_images(eng, px, fast=fast, _dispatched=done)
+                finish_ms = (time.perf_counter() - t0) * 1e3
+                print(f"report {name} engine {e} {mode} B={b}: request "
+                      f"{total:.3f} ms = {b * 1e3 / total:.1f} img/s (host "
+                      f"clock); alone: engine core {core_ms:.3f} ms, fusion "
+                      f"tail {tail_ms:.3f} ms (CUDA events), face step "
+                      f"{face_ms:.3f} ms, copy + cascade + verdict "
+                      f"{finish_ms:.3f} ms (host clock) [{card}]",
+                      flush=True)
+                if (name, e, mode) in (("base-256", "A", "full"),
+                                       ("large-384", "B", "full")):
+                    profile(run, f"report {name} engine {e} {mode} B={b}",
+                            card, iters=2, top=10)
+                del core
+                torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -6267,7 +6934,7 @@ def main() -> int:
     float_launches = {linear.KERNEL: 24, attention.KERNEL: 12,
                       mlp.KERNEL_BF16: 12, layernorm.KERNEL: 2,
                       srm.KERNEL: 1}
-    engine_expect = {
+    base_expect = {
         ("A", "full"): float_launches,
         ("A", "fast"): float_launches,
         # two tower forwards: the 21 main views (r=96, floor 32) and the
@@ -6286,7 +6953,7 @@ def main() -> int:
     for (e, mode), px in requests.items():
         engine_launches[(e, mode)] = engine_request(
             f"engine {e} {mode}", engines[e], twins[e], px, mode == "fast",
-            e == "B", engine_expect[(e, mode)], w)
+            e == "B", base_expect[(e, mode)], w)
 
     # ---- 3d. the MTL trainer: (a) float prefix, (b) int8 prefix
     bg = torch.Generator(device=dev).manual_seed(4)
@@ -6373,6 +7040,14 @@ def main() -> int:
     # ---- 3e-3g. the large backbones: detect cores, routes, engines
     large = large_paths(dev, card)
 
+    # ---- 3r. the image report on both backbones' engines
+    large_engines = large["engines"][0]
+    reports = report_paths(dev, card, {
+        "base-256": (engines, engine_expect(eng_a.cfg.layers, 256), None),
+        "large-384": (large_engines,
+                      engine_expect(large_engines["A"].cfg.layers,
+                                    LARGE["large-384"][5]), 2)})
+
     # ---- 3w. weights in, large-384 MTL at 256 px, the multi-query _mha,
     # so400m's engines and int8 trees (the checkpoint lives in tmp until
     # phase 4 has timed the trainer built from it)
@@ -6436,6 +7111,7 @@ def main() -> int:
     px = requests[("A", "full")]
     profile(lambda: eng_a.fetch_batch(eng_a.dispatch_batch(px)),
             "engine A full analysis B=8", card, top=16)
+    report_timings(reports, card)
 
     print(f"peak device memory of this script so far "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")

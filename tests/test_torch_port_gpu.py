@@ -22,8 +22,9 @@ panel, K3 on its strips (each with planted faults that fail by at least
 twice the tolerance), the
 probes' kernels 15, 16 and 17 (the
 tolerances of tests/test_torch_port_probes.py; 17 by 9b's card rule), both
-serving engines and one MTL train step against the same parameters through
-the twins (the main path's shapes are checked by chip_smoke.py). Marked
+serving engines, their image reports (kernels vs twins, the battery on
+the card vs the CPU) and one MTL train step against the same parameters
+through the twins (the main path's shapes are checked by chip_smoke.py). Marked
 `gpu`; each test skips inside its body when no card is visible, so every
 worker collects the same tests. This file imports no JAX, so it also runs
 where JAX is not installed:
@@ -448,6 +449,72 @@ def test_engine_matches_twins_on_card(int8):
             cos = torch.nn.functional.cosine_similarity(
                 feats[k].float(), feats_twin[k].float(), dim=-1)
             assert float(cos.min()) >= 0.99, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+def test_report_matches_twins_on_card(int8):
+    """The image report (tpudf_torch.serve.report.predict_images) of the
+    engine above on the card against the same engine through the twins,
+    full and fast, then full with the three artifacts attached: exact
+    launches (a report launches what the engine's request does: none in
+    the tail), the reports by `chip_smoke.report_vs` (strings, ints and
+    bools equal but for a step at a threshold, the core's floats by the
+    engine rule, the battery's by the goldens'), and the battery on the
+    card against the port's on the CPU (`chip_smoke.battery_vs_cpu`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    import chip_smoke as cs
+    from tpudf_torch.calib.coral import CoralCutpoints
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.core.precision import tree_map
+    from tpudf_torch.entry import init_params
+    from tpudf_torch.fuse.bayesian import FEATURES, fit_bayes_calibration
+    from tpudf_torch.models.siglip import CONFIGS
+    from tpudf_torch.ops.routes import TWINS
+    from tpudf_torch.ops.tome import (DEPLOYED_PATCH_TOME_R, DEPLOYED_TOME_R,
+                                      deployed_floor, deployed_patch_floor)
+    from tpudf_torch.serve.engine import DetectEngine
+    from tpudf_torch.serve.report import predict_images
+    from tpudf_torch.train.gbdt import to_tree_ensemble, train_gbdt
+    cfg = dataclasses.replace(CONFIGS["base-256"], layers=2)
+    p = tree_map(lambda t: t.cuda(),
+                 init_params(torch.Generator().manual_seed(0), cfg))
+    eng = DetectEngine(cfg, p["backbone"], p["head"], p["freq"], p["fusion"],
+                       CoralCutpoints.default())
+    if int8:
+        eng = dataclasses.replace(
+            eng, tome_r=DEPLOYED_TOME_R, tome_floor=deployed_floor(256),
+            patch_tome_r=DEPLOYED_PATCH_TOME_R,
+            patch_tome_floor=deployed_patch_floor(256)).quantize()
+    twin = dataclasses.replace(eng, kernels=TWINS)
+    expect = cs.engine_expect(2, 256)
+    px = cs.report_images(4, 256, seed=0)
+    e = "B" if int8 else "A"
+    for fast in (False, True):
+        LAUNCHES.reset()
+        got = cs.report_plain(predict_images(eng, px, fast=fast))
+        assert LAUNCHES.snapshot() == expect[(e, "fast" if fast else "full")]
+        want = cs.report_plain(predict_images(twin, px, fast=fast))
+        cs.report_vs(f"report fast={fast}", got, want, int8)
+        if not fast:
+            cs.battery_vs_cpu("report", got, px)
+    rng = np.random.default_rng(1)
+    x = rng.random((300, 19))
+    y = (rng.random(300) < 0.2 + 0.6 * x[:, 3]).astype(np.float64)
+    held = {k: rng.random(200) for k in FEATURES}
+    arts = dict(mean_real=rng.standard_normal(cfg.width).astype(np.float32),
+                gbdt=to_tree_ensemble(train_gbdt(x, y, n_trees=8), 1.2, 0.0),
+                bayes_calibration=fit_bayes_calibration(
+                    held, (held["forensic"] > 0.5).astype(float)))
+    eng_a, twin_a = (dataclasses.replace(m, **arts) for m in (eng, twin))
+    got = cs.report_plain(predict_images(eng_a, px))
+    cs.report_vs("report with artifacts", got,
+                 cs.report_plain(predict_images(twin_a, px)), int8,
+                 arts["gbdt"])
+    assert all(r["xgb_fusion_prob"] is not None for r in got)
 
 
 @pytest.mark.gpu

@@ -1,0 +1,182 @@
+"""The port's image report against the 13-report golden corpus, on the CPU.
+
+The 12 image entries of tests/goldens/report_golden.json (read only) come
+from `tpudf_torch.serve.report.predict_images` on the test-64 engines built
+the golden test's way: `jax.random.key(11)` through JAX's init (one tree,
+as the golden test's two `make()` calls give), then `params_from_numpy`;
+`int8_tome` is JAX's quantized tree, scales included: JAX's calibration on
+`_images(4)` run as `DetectEngine.quantize` runs it (op by op: a jitted
+calibration moves some scales by a bf16 step), its quantisation jitted
+(bit-equal to the eager one here). `float.video` waits for the video slice.
+
+Rules (every key of every entry, no key missing or new):
+  * strings, ints, bools and None equal: labels, bands, codes, risk_idx,
+    tamper votes, the label trace, three_way, rbr, the verdict's label,
+    band and risk level. A label that differed would be shown to have its
+    deciding value within the tolerance below of its threshold;
+  * `forensic_*` and the other battery-only floats (forensic_score,
+    jpeg_q_mismatch_score, saturation_peak_score, cfa_fake_score,
+    prnu_strength_raw, rendering_pipeline_score, jpeg): the goldens' RTOL
+    2e-3 / ATOL 2e-4, for both engines;
+  * floats the tower reaches: the engine rule of PERF.md §6 (probabilities
+    and other [0, 1] values 1e-2, the logits z_sig / z_freq 5e-2) for the
+    float engine, and the W8A8 engine's 2e-2 (z_sig / z_freq 5e-2) for
+    int8_tome. The goldens' own 2e-3 does not hold for them on the float
+    engine: its tower computes in bf16 (DEFAULT_POLICY), and torch and XLA
+    round the bf16 blocks at other points, so pooled features differ by up
+    to 2 bf16 steps and visual_head by up to 1.5e-3 (z_sig 6.2e-3) against
+    the goldens (measured, this file's engines);
+  * the verdict's reason: its words equal, each number in it (printed to 3
+    decimals) within its float's rule plus half a printed step.
+"""
+
+import json
+import math
+import re
+
+import jax
+import numpy as np
+import pytest
+
+from tests.test_report_golden import GOLDEN_PATH, _images, _jsonable
+from tests.test_torch_port_float import one_torch_thread  # noqa: F401
+from tpudf_torch.convert import params_from_numpy
+from tpudf_torch.models.siglip import CONFIGS
+from tpudf_torch.serve.engine import DetectEngine
+from tpudf_torch.serve.report import predict_images
+
+RTOL, ATOL = 2e-3, 2e-4
+BATTERY_ONLY = ("forensic_score", "jpeg_q_mismatch_score",
+                "saturation_peak_score", "cfa_fake_score",
+                "prnu_strength_raw", "rendering_pipeline_score", "jpeg")
+LOGITS = ("z_sig", "z_freq")
+CORE_ATOL = {"float": 1e-2, "int8_tome": 2e-2}
+
+
+def _jax_trees():
+    """The golden test's engines' parameters, as numpy: (float tree,
+    int8_tome tree, cuts, ToMe schedule)."""
+    import jax.numpy as jnp
+
+    from tpudf.calib.coral import CoralCutpoints
+    from tpudf.core.precision import DEFAULT_POLICY
+    from tpudf.data.pipeline import normalize_siglip
+    from tpudf.models.freq_mlp import init_freq_mlp
+    from tpudf.models.fusion import init_fusion_linear
+    from tpudf.models.heads import init_binary_head
+    from tpudf.models.siglip import CONFIGS as J_CONFIGS
+    from tpudf.models.siglip import init_siglip
+    from tpudf.ops.quant import (calibrate_siglip_act_scales,
+                                 quantize_siglip_static)
+    from tpudf.ops.tome import DEPLOYED_TOME_R, deployed_floor
+
+    cfg = J_CONFIGS["test-64"]
+    ks = jax.random.split(jax.random.key(11), 4)
+    tree = {"backbone": init_siglip(ks[0], cfg),
+            "head": init_binary_head(ks[1], cfg.width),
+            "freq": init_freq_mlp(ks[2]), "fusion": init_fusion_linear(ks[3])}
+    # DetectEngine.quantize(_images(4)): the calibration op by op, as the
+    # golden test ran it
+    calib = np.asarray(_images(4), np.float32) / 255.0
+    scales = calibrate_siglip_act_scales(
+        tree["backbone"], cfg, normalize_siglip(jnp.asarray(calib)),
+        DEFAULT_POLICY)
+    q = jax.jit(lambda bb, sc: quantize_siglip_static(bb, sc, cfg))(
+        tree["backbone"], scales)
+    sched = dict(tome_r=DEPLOYED_TOME_R,
+                 tome_floor=deployed_floor(cfg.grid * cfg.grid))
+    to_np = lambda t: jax.tree.map(np.asarray, t)
+    return (to_np(tree), to_np({**tree, "backbone": q}),
+            CoralCutpoints.default(), sched)
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    """name → the port's report for every image entry of the goldens."""
+    float_tree, int8_tree, cuts, sched = _jax_trees()
+    engines = {
+        "float": DetectEngine(cfg=CONFIGS["test-64"], **params_from_numpy(
+            {**float_tree, "cuts": cuts}, "cpu")),
+        "int8_tome": DetectEngine(cfg=CONFIGS["test-64"], **params_from_numpy(
+            {**int8_tree, "cuts": cuts}, "cpu"), **sched)}
+    out = {}
+    imgs = _images()
+    for name, eng in engines.items():
+        for fast in (True, False):
+            for i, r in enumerate(predict_images(eng, imgs, fast=fast)):
+                out[f"{name}.{'fast' if fast else 'full'}.img{i}"] = r
+    return _jsonable(out)
+
+
+with open(GOLDEN_PATH) as f:
+    GOLDENS = json.load(f)
+IMAGE_ENTRIES = sorted(k for k in GOLDENS if k != "float.video")
+
+
+def _atol(engine, key):
+    """The absolute tolerance of a float key (see the module docstring);
+    None: the goldens' own rule."""
+    leaf = key.split(".")[-1].split("[")[0]
+    if leaf.startswith("forensic_") or leaf in BATTERY_ONLY:
+        return None
+    return 5e-2 if leaf in LOGITS else CORE_ATOL[engine]
+
+
+def _number_close(g, w, atol):
+    if math.isnan(w):
+        return math.isnan(g)
+    lim = ATOL + RTOL * abs(w) if atol is None else atol
+    return abs(g - w) <= lim
+
+
+def _reason_close(g, w, engine):
+    """Words equal; numbers within the core rule plus half a printed
+    step."""
+    num = r"-?\d+\.\d+"
+    if re.sub(num, "#", g) != re.sub(num, "#", w):
+        return False
+    return all(abs(float(a) - float(b)) <= CORE_ATOL[engine] + 5e-4
+               for a, b in zip(re.findall(num, g), re.findall(num, w)))
+
+
+def _compare(engine, path, got, want, errors):
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            errors.append(f"{path}: keys {sorted(set(got) ^ set(want))}")
+            return
+        for k in want:
+            _compare(engine, f"{path}.{k}", got[k], want[k], errors)
+    elif isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            errors.append(f"{path}: {got!r} != {want!r}")
+            return
+        for i, (g, w) in enumerate(zip(got, want)):
+            _compare(engine, f"{path}[{i}]", g, w, errors)
+    elif isinstance(want, float) and isinstance(got, (int, float)) \
+            and not isinstance(got, bool):
+        if not _number_close(float(got), want, _atol(engine, path)):
+            errors.append(f"{path}: {got!r} != {want!r}")
+    elif path.endswith("verdict.reason"):
+        if not _reason_close(got, want, engine):
+            errors.append(f"{path}: {got!r} != {want!r}")
+    elif got != want or type(got) is not type(want):
+        errors.append(f"{path}: {got!r} != {want!r}")
+
+
+@pytest.mark.parametrize("name", IMAGE_ENTRIES)
+def test_report_matches_golden(corpus, name):
+    errors = []
+    _compare(name.split(".")[0], name, corpus[name], GOLDENS[name], errors)
+    assert not errors, "\n".join(errors[:40])
+
+
+def test_goldens_battery_floats_hold_goldens_rule(corpus):
+    """The battery-only floats are held at the goldens' own rule in every
+    entry (the corpus covers both engines' tails on the same pixels)."""
+    n = 0
+    for name in IMAGE_ENTRIES:
+        for k, w in GOLDENS[name].items():
+            if k.startswith("forensic_") or k in BATTERY_ONLY:
+                assert _number_close(corpus[name][k], w, None), (name, k)
+                n += 1
+    assert n == len(IMAGE_ENTRIES) * 43

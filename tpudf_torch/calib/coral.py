@@ -6,6 +6,7 @@ blend with the raw sigmoid; plus the head-less MoE fallback blend."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -33,9 +34,16 @@ class CoralCutpoints:
         return cls.from_prob_cuts(0.32, 0.47, 0.61, 0.75)
 
 
+@functools.lru_cache(maxsize=16)
+def _cuts_on(cuts: tuple, device):
+    """The cutpoints on `device`, copied there once (a copy from the host
+    per call would wait for the card's queue)."""
+    return torch.tensor(np.asarray(cuts, np.float32), device=device)
+
+
 def coral_probs(z_scaled, cuts: CoralCutpoints):
     """(…,) scaled fused logits → (…, 5) ordinal distribution."""
-    c = torch.tensor(np.asarray(cuts.cuts, np.float32), device=z_scaled.device)
+    c = _cuts_on(tuple(float(v) for v in cuts.cuts), z_scaled.device)
     g = torch.sigmoid(z_scaled[..., None] - c)                 # (…, 4)
     p = torch.cat([1.0 - g[..., :1], g[..., :-1] - g[..., 1:], g[..., -1:]],
                   dim=-1)

@@ -110,10 +110,17 @@ def preprocess_for_siglip(x, image_size: int, method="bicubic"):
     return normalize_siglip(x)
 
 
+@functools.lru_cache(maxsize=16)
+def _const_on(values: tuple, dtype, device):
+    """A small constant vector on `device`, copied there once (a copy from
+    the host per call would wait for the card's queue)."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def rgb_to_gray(x):
     """(B, H, W, 3) [0,1] → (B, H, W) luma (ITU-R 601)."""
-    w = torch.tensor(GRAY, dtype=x.dtype, device=x.device)
-    return torch.einsum("bhwc,c->bhw", x, w)
+    return torch.einsum("bhwc,c->bhw", x,
+                        _const_on(tuple(GRAY), x.dtype, x.device))
 
 
 # ----------------------------------------------------- multicrop inventory
@@ -142,7 +149,7 @@ def make_multicrops(x):
         crop(s - m, 0, m, m),
         crop(s - m, s - m, m, m),
     ]
-    weights = torch.tensor([0.20] + [0.10] * 8, device=x.device)
+    weights = _const_on((0.20,) + (0.10,) * 8, torch.float32, x.device)
     return torch.stack(views, dim=1), weights
 
 

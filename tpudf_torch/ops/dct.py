@@ -39,8 +39,14 @@ def _dct_matrix_np(n: int = 8):
 
 
 def _dct_matrix(like, n: int = 8):
-    return torch.from_numpy(_dct_matrix_np(n)).to(device=like.device,
-                                                  dtype=like.dtype)
+    return _dct_matrix_on(n, like.device, like.dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def _dct_matrix_on(n, device, dtype):
+    """The matrix on `device`, copied there once (a copy from the host per
+    call would wait for the card's queue)."""
+    return torch.from_numpy(_dct_matrix_np(n)).to(device=device, dtype=dtype)
 
 
 def _blocks(x, n=8):

@@ -82,6 +82,16 @@ def _device_constants(h: int, w: int, device: torch.device):
                  for a in (*_static_masks(h, w), bounds))
 
 
+def fft2_mag(x, *, shifted=False):
+    """|fft2(x)| (optionally fftshifted) for (B, H, W) real input, by
+    torch.fft.fft2 on x's device (the JAX package's path off the TPU; its
+    matmul DFT is a TPU detail). Shared by the forensic battery."""
+    f = torch.fft.fft2(x.float())
+    if shifted:
+        f = torch.fft.fftshift(f, dim=(-2, -1))
+    return torch.abs(f)
+
+
 def fft_features(gray):
     """gray: (B, H, W) float32 in [0,1] → (B, 15)."""
     b, h, w = gray.shape
@@ -108,11 +118,12 @@ def fft_features(gray):
     slope = mu @ slope_w
 
     # phase entropy: 50 bins over [-pi, pi], the top edge in the last bin;
-    # bin k = #{boundaries <= phase}, the JAX graph's cumulative counts
+    # bin k = #{boundaries <= phase}, the JAX graph's cumulative counts.
+    # Sums of ones (exact): torch.bincount on CUDA reads its largest index
+    # on the host, which waits for the card's queue
     idx = torch.bucketize(phase, bounds, right=True)
-    offs = torch.arange(b, device=gray.device)[:, None] * 50
-    hist = torch.bincount((idx + offs).reshape(-1), minlength=50 * b)
-    hist = hist.reshape(b, 50).float()
+    hist = torch.zeros((b, 50), device=gray.device).scatter_add_(
+        1, idx, torch.ones_like(idx, dtype=torch.float32))
     prob = hist / (torch.sum(hist, dim=1, keepdim=True) + _EPS)
     entropy = -torch.sum(prob * torch.log(prob + _EPS), dim=1)
 

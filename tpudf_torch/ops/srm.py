@@ -19,6 +19,8 @@ bytes (one f32 read per pixel).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -114,13 +116,20 @@ K2_TAPS = tuple(range(9))
 K3_TAPS = (1, 3, 4, 5, 7)
 
 
+@functools.lru_cache(maxsize=8)
+def _coeffs_on(device):
+    """Both stencils' coefficients on `device`, copied there once (a copy
+    from the host per launch would wait for the card's queue)."""
+    return torch.from_numpy(np.concatenate(
+        [_norm(_K2).ravel(), _norm(_K3).ravel()])).to(device)
+
+
 def _srm_cuda(gray):
     b, h, w = gray.shape
     if gray.dtype != torch.float32:
         raise ValueError(f"K3 takes f32 gray, got {gray.dtype}")
     gray = gray.contiguous()
-    coeffs = torch.from_numpy(np.concatenate(
-        [_norm(_K2).ravel(), _norm(_K3).ravel()])).to(gray.device)
+    coeffs = _coeffs_on(gray.device)
     _, _, strips, ctiles = srm_plan(b, h, w)
     partial = torch.empty((b, strips * ctiles, 8), dtype=torch.float64,
                           device=gray.device)

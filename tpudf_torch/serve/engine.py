@@ -108,7 +108,14 @@ class DetectEngine:
     head or None (head-less MoE fallback). tome_r / tome_floor: ToMe merges
     between tower blocks (0 → off; floor 0 → S/4); patch_tome_r /
     patch_tome_floor: a deeper schedule for the 32 patch-grid views of the
-    full analysis only (0 → follow the main schedule)."""
+    full analysis only (0 → follow the main schedule).
+
+    The report's optional artifacts (serve/report.py reads them; each None
+    by default): mean_real, the (D,) mean embedding of real images for the
+    cosine term of the embedding anomaly; gbdt, a models.fusion
+    TreeEnsemble whose probability overrides the core fusion; and
+    bayes_calibration, a fuse.bayesian.BayesCalibration for
+    bayesian_fuse_v2."""
     cfg: SigLIPConfig
     backbone: Any
     head: Any
@@ -121,6 +128,9 @@ class DetectEngine:
     patch_tome_r: int = 0
     patch_tome_floor: int = 0
     kernels: KernelSet = KERNELS
+    mean_real: Any = None
+    gbdt: Any = None
+    bayes_calibration: Any = None
 
     def __post_init__(self):
         self.tower = tower_params(self.backbone, self.policy.compute_dtype)
@@ -154,7 +164,7 @@ class DetectEngine:
     def dispatch_batch(self, pixels_uint8, fast: bool = False) -> dict:
         """Enqueue the detect path on the card without waiting: returns
         the packed on-card output. fetch_batch() finalizes it."""
-        px = torch.as_tensor(np.asarray(pixels_uint8)).to(self.device)
+        px = to_device(pixels_uint8, self.device)
         kw = dict(cfg=self.cfg, policy=self.policy, cuts=self.cuts,
                   kernels=self.kernels, tome_r=self.tome_r,
                   tome_floor=self.tome_floor)
@@ -202,6 +212,18 @@ class DetectEngine:
         """Fast mode (video frames): the full view + its rot dual only."""
         return self.fetch_batch(self.dispatch_batch(pixels_uint8, fast=True),
                                 fast=True)
+
+
+def to_device(pixels, device: torch.device):
+    """Pixels (a numpy array or a tensor) on `device`. A host array goes to
+    the card from pinned memory without waiting for the card's queue."""
+    x = pixels if torch.is_tensor(pixels) else torch.as_tensor(
+        np.ascontiguousarray(pixels))
+    if x.device == device:
+        return x
+    if device.type == "cuda" and x.device.type == "cpu":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
 
 
 def pad_to_bucket(pixels_uint8: np.ndarray, max_batch: int | None = None
