@@ -269,6 +269,28 @@ back to the CPU or to a twin):
          (the engine's launches twice); planted faults that must fail
          these checks: the tail fed the un-resized pixels, the full tail
          reading the fast path's core columns (TF32 left on: reported);
+     (v) the video report (`video_paths`,
+         tpudf_torch.serve.report.predict_video) on the same engines, 12
+         frames at the engine's size (the golden recipe rolled 2 px a
+         frame; at base-256 also a scene cut): exact launches (the fast
+         batch, the battery's tower forward without ToMe, the chosen
+         frame's full request), id_drift and the face trio present where
+         the clip allows, the report against the twins' (the battery's
+         signals bit-equal, the tower's floats by (b)'s limits, labels and
+         the chosen frame equal but for a step: `video_tie`, the frames'
+         fast reports), embed_batch against the twins (unit rows), the
+         battery against the port's on the CPU (goldens' rule, a
+         thresholded cue shown to be a step: `video_steps`) and bit-equal
+         to itself with TF32 off, the face nets' outputs, the landmarks
+         in px and the face trio against the port's on the CPU (a crop
+         corner a pixel apart shown to be a step: `face_vs_cpu`),
+         base-256 B with TPUDF_FACE_ID_EMBED=0 (the face trio through
+         embed_batch), the battery under torch's sync check set to raise;
+         planted faults that must fail: the backward flow's sign flipped,
+         large-384's frames fed to the battery un-resized, the embeddings
+         un-normalised, TF32 on in the battery and the face nets, TF32 on
+         in the face nets alone; the sampler (data/video.sample_video) on an mp4v file
+         cv2 writes, its route printed, its frames through predict_video;
      (t2)-(t4) (`training_rest`): large-384 MTL at 384 px (K10 at S = 576)
          float and int8 prefix and the MTL CLI at --image_size 384;
          so400m-512 MTL (K14 at the padded hidden of 4352, K10's route the
@@ -300,8 +322,12 @@ back to the CPU or to a twin):
      (`training_rest_timings`); each report request of (r) by the host
      clock, split into the engine's core and the fusion tail (CUDA
      events) and the rest, with a profile (idle share) of two of them
-     (`report_timings`).
-Prints a JSON line of the kernels (with each one's bound: the larger of
+     (`report_timings`); each video request of (v) by the host clock,
+     split into the fast batch, the battery, the face trio and the chosen
+     frame's full request (CUDA events), with a profile of one of them
+     (`video_timings`).
+Prints a wall clock line at the end of each phase ("clock: ..."), a
+JSON line of the kernels (with each one's bound: the larger of
 its operations over the card's peak for their type and its bytes, each
 input read once and each output written once, over 3.35 TB/s), the card
 line, and last {"ok": true, "device": {...}}.
@@ -310,6 +336,7 @@ line, and last {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
+import hashlib
 import json
 import os
 import re
@@ -5784,7 +5811,10 @@ def report_vs(label, got, want, w8a8, gbdt=None):
                 and len(g) == len(w):
             for i, (a, b) in enumerate(zip(g, w)):
                 walk(f"{path}[{i}]", a, b, out)
-        elif isinstance(w, float) and isinstance(g, float):
+        elif isinstance(w, float) and isinstance(g, float) \
+                and not path.endswith(".prediction_code"):
+            # (prediction_code is a float code of the label: a code, held
+            # equal but for a step at a threshold, as the labels are)
             if math.isnan(w) or math.isnan(g):
                 if not (math.isnan(w) and math.isnan(g)):
                     out.append((path, True, f"{g!r} != {w!r}"))
@@ -6228,6 +6258,784 @@ def report_timings(state, card):
                 torch.cuda.empty_cache()
 
 
+# The video report (phase 3v, `video_paths`; phase 4, `video_timings`):
+# tpudf_torch.serve.report.predict_video on clips of VIDEO_T frames at the
+# engine's image size, base-256 and large-384, engines A and B, once with
+# the kernels and once through the twins. The battery's signals are
+# bit-equal between the two (the same code on the same device) but for
+# the tower's id_drift (and the face pair when the face trio embeds with
+# the tower); the tower's floats by PERF.md §6's engine rule (engine B
+# twice); a label, code, bool or the chosen frame that differs must be
+# shown to be a step at a threshold (`video_tie`). The battery on the card
+# against the port's on the CPU by the goldens' rule, a thresholded cue
+# outside it shown to be a step (`video_steps`: its float fields agree
+# but for rounding, and its threshold applied on the CPU gives each run's
+# value from that run's fields). The face nets and the face trio on the
+# card against the port's on the CPU (`face_vs_cpu`).
+VIDEO_T = 12
+VIDEO_CUT = 6
+VIDEO_FLAG = (0.50, 0.55, 0.60)         # aggregate_sora's hit thresholds
+
+
+def video_clip(t, size, seed, cut=None):
+    """t uint8 frames: the golden corpus' structured recipe, frame i rolled
+    2 i px along x (tests/test_report_golden.py's clip); with `cut`, the
+    frames from `cut` on show another image (a scene cut)."""
+    import numpy as np
+    first = report_images(1, size, seed)[0]
+    second = report_images(5, size, seed + 1)[4]
+    return np.stack([np.roll(first if cut is None or i < cut else second,
+                             2 * i, axis=1) for i in range(t)])
+
+
+def tower_expect(layers, e):
+    """Launches of one tower forward without ToMe (embed_frames) of
+    engine A (bf16) or B (W8A8)."""
+    from tpudf_torch.ops import attention, int8_block, layernorm, linear, mlp
+    if e == "A":
+        return {linear.KERNEL: 2 * layers, attention.KERNEL: layers,
+                mlp.KERNEL_BF16: layers, layernorm.KERNEL: 2}
+    return {int8_block.KERNEL: layers, mlp.KERNEL: layers,
+            layernorm.KERNEL: 2}
+
+
+def video_expect(expect, layers, e, towers, escalations):
+    """Launches of one video request: the frames' fast batch, `towers`
+    tower forwards without ToMe (the battery's embeddings, and the face
+    trio's when it embeds with the tower), the chosen frame's full
+    request (twice when its face escalates)."""
+    n = collections.Counter(expect[(e, "fast")])
+    for _ in range(towers):
+        n.update(tower_expect(layers, e))
+    for _ in range(1 + escalations):
+        n.update(expect[(e, "full")])
+    return dict(n)
+
+
+def face_branch(clip, dev):
+    """(the face trio's branch, frames with a face): the landmark net when
+    it finds a face on 3 frames or more, else Haar."""
+    from tpudf_torch.serve import face
+    lms, _ = face._clip_landmarks(list(clip), face.get_landmark_params(dev))
+    if lms is not None:
+        return "landmark net", sum(l is not None for l in lms)
+    return "Haar", sum(bool(face.detect_faces(f)) for f in clip)
+
+
+def video_tie(got, want, w8a8):
+    """A video label, bool, count or chosen frame that differs shown to be
+    a step at a threshold: a float the decision reads lies on both sides
+    of one of its thresholds in the two reports, within its limit (sora's
+    SORA_* tiers and its flag's 0.60 / 0.75, consistency's 0.60 / 0.70 /
+    0.75, the strictness pair and the 0.75 escalation on the video and
+    frame probabilities, the hit thresholds on a signal), or the two
+    chosen frames' probabilities within the limit of each other. (A frame
+    label is shown a step by its frame's report: `video_vs`.)"""
+    from tpudf_torch.serve import report as rp
+    lim = REPORT_CORE * (2.0 if w8a8 else 1.0)
+    agg = want["aggregation"]
+    pair = (agg["th_fake"], agg["th_real"], 0.75)
+    sora = (rp.SORA_TAMPERED_THRESH, rp.SORA_TAMPERED_THRESH + 0.15,
+            rp.SORA_FAKE_THRESH, 0.60, 0.75)
+    cands = [("sora_likelihood", got["sora_likelihood"],
+              want["sora_likelihood"], sora),
+             ("temporal_consistency_score",
+              got["temporal_consistency_score"],
+              want["temporal_consistency_score"], (0.60, 0.70, 0.75)),
+             ("aggregation.video_prob", got["aggregation"]["video_prob"],
+              agg["video_prob"], pair)]
+    cands += [(f"frame_probs[{i}]", a, b, pair)
+              for i, (a, b) in enumerate(zip(got["frame_probs"],
+                                             want["frame_probs"]))]
+    gs, ws = got["temporal_signals"], want["temporal_signals"]
+    cands += [(k, gs[k], ws[k], VIDEO_FLAG) for k in ws if k in gs]
+    for name, a, b, ts in cands:
+        if abs(a - b) <= lim and any((a - t) * (b - t) <= 0 for t in ts):
+            return name
+    i, j = got["chosen_frame"], want["chosen_frame"]
+    if i != j and all(abs(r["frame_probs"][i] - r["frame_probs"][j]) <= lim
+                      for r in (got, want)):
+        return "chosen_frame"
+    return None
+
+
+def video_vs(label, got, want, w8a8, tower_face=False, frames=None):
+    """A video report with the kernels against the twins' on the same
+    frames (see above). Frame labels that differ are shown to be steps by
+    the frames' fast reports (`frames()`: the kernels' and the twins'
+    predict_images(fast=True), compared by `report_vs`); the label
+    counts, the video label and the chosen frame follow them. Returns (max |Δ| of the tower's floats, the ties, the
+    chosen frame report's (core |Δ|, battery |Δ|, ties))."""
+    lim = REPORT_CORE * (2.0 if w8a8 else 1.0)
+    errors, soft, worst = [], [], 0.0
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: keys {set(got) ^ set(want)}")
+
+    def tower(path, a, b):
+        nonlocal worst
+        worst = max(worst, abs(a - b))
+        if abs(a - b) > lim:
+            errors.append(f"{path}: {a!r} != {b!r}")
+
+    gs, ws = got["temporal_signals"], want["temporal_signals"]
+    if set(gs) != set(ws):
+        errors.append(f"temporal_signals: keys {set(gs) ^ set(ws)}")
+    by_tower = {"id_drift"} | ({"face_embedding_drift", "face_track_drift"}
+                               if tower_face else set())
+    for k in set(gs) & set(ws):
+        if k in by_tower:
+            tower(f"temporal_signals.{k}", gs[k], ws[k])
+        elif gs[k] != ws[k]:
+            errors.append(f"temporal_signals.{k}: {gs[k]!r} != {ws[k]!r} "
+                          f"(not bit-equal)")
+    for k in ("video_prob", "sora_likelihood"):
+        tower(k, got[k], want[k])
+    if got["temporal_consistency_score"] != want["temporal_consistency_score"]:
+        errors.append("temporal_consistency_score not bit-equal")
+    for i, (a, b) in enumerate(zip(got["frame_probs"], want["frame_probs"])):
+        tower(f"frame_probs[{i}]", a, b)
+    for k, b in want["aggregation"].items():
+        a = got["aggregation"][k]
+        if isinstance(b, float):
+            tower(f"aggregation.{k}", a, b)
+        elif a != b:
+            soft.append(f"aggregation.{k}: {a!r} != {b!r}")
+    for k in ("video_label", "chosen_frame", "sora_flag", "frame_labels"):
+        if got[k] != want[k]:
+            soft.append(f"{k}: {got[k]!r} != {want[k]!r}")
+    if errors:
+        raise AssertionError(f"{label}: kernels vs twins disagree: "
+                             + "; ".join(errors[:12]))
+    ties = []
+    if got["frame_labels"] != want["frame_labels"]:
+        _, _, frame_ties = report_vs(f"{label} frames", *frames(), w8a8)
+        ties.append(f"frame labels at {frame_ties}")
+        # the vote over the frame labels, and the frame it picks, follow
+        soft = [m for m in soft if not m.startswith(
+            ("frame_labels", "aggregation.label_counts", "video_label",
+             "chosen_frame"))]
+    if soft:
+        tie = video_tie(got, want, w8a8)
+        if tie is None:
+            raise AssertionError(f"{label}: kernels vs twins disagree: "
+                                 + "; ".join(soft))
+        ties.append(f"at {tie}: " + "; ".join(soft))
+    chosen = None
+    if got["chosen_frame"] == want["chosen_frame"]:
+        chosen = report_vs(f"{label} chosen frame",
+                           [got["chosen_frame_report"]],
+                           [want["chosen_frame_report"]], w8a8)
+    return worst, ties, chosen
+
+
+def video_tie_steps():
+    """The battery's thresholded cues, each split at its threshold as (the
+    float field of (T, 256, 256) grayscale, the cue from that field): the
+    flow family past ops.flow.flow_fields, edge_flicker past its Sobel
+    magnitude (fuse.temporal.edge_flicker's lines after it)."""
+    import torch
+    from tpudf_torch.ops.flow import flow_fields, flow_signals_from
+    from tpudf_torch.ops.forensics import _std, sobel_mag
+
+    def edge_flicker_from(mag, thresh=0.35):
+        dens = torch.mean((mag > thresh * 255.0).float(), dim=(1, 2))
+        cv = _std(dens, 0) / (torch.mean(dens) + 1e-6)
+        return torch.clamp((cv - 0.15) / 0.50, 0.0, 1.0)
+
+    return {"edge_flicker": (lambda gray: sobel_mag(gray * 255.0),
+                             edge_flicker_from),
+            **{k: (flow_fields, lambda f, k=k: flow_signals_from(*f)[k])
+               for k in ("affine_inconsistency", "flow_dir_incoherence",
+                         "flow_fb_inconsistency", "flow_reprojection",
+                         "klt_instability", "parallax_err")}}
+
+
+def video_steps(bad, card, cpu, gray, gray_ref):
+    """Show each battery cue of `bad` (outside the goldens' rule between
+    the card's value `card[k]` and the CPU's `cpu[k]`) to be a step at its
+    threshold (`video_tie_steps`): the cue's float fields from the
+    card's 256 px grey frames `gray` and the CPU's `gray_ref` agree but for
+    rounding (99.9 % of elements within 1e-2 + 1e-4 |x|: flow fields in
+    px), and the cue's threshold applied on the CPU to each run's fields
+    gives that run's value. Returns {cue: |Δ|}; raises if a cue is
+    neither."""
+    import torch
+    from tpudf_torch.ops.forensics import f32_math
+    atol, rtol = REPORT_GOLDEN
+    tie_steps = video_tie_steps()
+    shown = {}
+    fields = {}
+    for k in bad:
+        if k not in tie_steps:
+            raise AssertionError(f"{k}: |Δ| {abs(card[k] - cpu[k]):.3e}, "
+                                 f"not a thresholded cue")
+        pre, post = tie_steps[k]
+        if pre not in fields:
+            with torch.no_grad(), f32_math():
+                a = pre(gray)
+                b = pre(gray_ref)
+            tup = lambda f: f if isinstance(f, tuple) else (f,)
+            fields[pre] = (tuple(f.cpu().double() for f in tup(a)),
+                           tuple(f.double() for f in tup(b)))
+        a, b = fields[pre]
+        for fa, fb in zip(a, b):
+            ok = (fa - fb).abs() <= 1e-2 + 1e-4 * fb.abs()
+            if float(ok.float().mean()) < 0.999:
+                raise AssertionError(f"{k}: its fields differ by more than "
+                                     f"rounding")
+        unpack = lambda f: f if len(f) > 1 else f[0]
+        with torch.no_grad():
+            va = float(post(unpack(tuple(f.float() for f in a))))
+            vb = float(post(unpack(tuple(f.float() for f in b))))
+        for v, want in ((va, card[k]), (vb, cpu[k])):
+            if not (v == want or (v != v and want != want)
+                    or abs(v - want) <= atol + rtol * abs(want)):
+                raise AssertionError(f"{k}: its threshold does not give "
+                                     f"both runs' values")
+        shown[k] = abs(card[k] - cpu[k])
+    return shown
+
+
+_CPU_BATTERY = {}          # clip's sha1 → (the CPU's battery, its grey)
+
+
+def video_battery_vs_cpu(label, rep, clip, dev):
+    """The battery's signals of a video report on the card: bit-equal to
+    the battery run on the card with TF32 off for cuDNN and cuBLAS
+    globally (it keeps f32 itself, forensics.f32_math, whatever its
+    caller set), and against the port's battery on the CPU for the same
+    frames (resized to 256 px where the battery resizes) by the goldens'
+    rule, a cue outside it shown to be a step (`video_steps`); NaN where
+    the CPU gives NaN (a signal the report drops). Returns (the largest
+    |Δ| within the rule, the steps shown)."""
+    import torch
+    from tpudf_torch.data.pipeline import resize
+    from tpudf_torch.ops.forensics import _gray
+    from tpudf_torch.serve.report import temporal_battery
+
+    def prepared(dev):
+        x = torch.from_numpy(clip).to(dev).float() / 255.0
+        if clip.shape[1] != 256:
+            x = resize(x, (x.shape[0], 256, 256, 3), "bilinear")
+        return x
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        x = prepared(dev)
+        off = {k: float(v) for k, v in temporal_battery(x).items()}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    key = hashlib.sha1(clip.tobytes()).hexdigest()
+    if key not in _CPU_BATTERY:           # the faults reuse the clips
+        x_ref = prepared("cpu")
+        _CPU_BATTERY[key] = ({k: float(v) for k, v in temporal_battery(
+            x_ref).items()}, _gray(x_ref))
+    ref, gray_ref = _CPU_BATTERY[key]
+    card = {k: rep["temporal_signals"].get(k, float("nan")) for k in ref}
+    atol, rtol = REPORT_GOLDEN
+    worst, bad = 0.0, []
+    for k, r in ref.items():
+        c = card[k]
+        if r != r or c != c:
+            if not (r != r and c != c):
+                bad.append(k)
+        elif abs(c - r) > atol + rtol * abs(r):
+            bad.append(k)
+        else:
+            worst = max(worst, abs(c - r))
+    try:
+        steps = video_steps(bad, card, ref, _gray(x), gray_ref)
+    except AssertionError as err:
+        raise AssertionError(f"{label}: the card's battery vs the CPU's: "
+                             f"{err}") from None
+    moved = [k for k in ref if card[k] != off[k]
+             and not (card[k] != card[k] and off[k] != off[k])]
+    if moved:
+        raise AssertionError(f"{label}: the battery is not bit-equal to "
+                             f"itself with TF32 off: " + ", ".join(
+                                 f"{k} {card[k]!r} != {off[k]!r}"
+                                 for k in moved[:6]))
+    return worst, steps
+
+
+# the face nets on the card against the CPU: |Δ| / (1 + |x|) of every
+# output (presence, box, landmarks, identity embeddings), both f32
+FACE_NET_TOL = 1e-5
+FACE_SIGNALS = ("face_topology_drift", "face_embedding_drift",
+                "face_track_drift")
+
+
+def face_vs_cpu(label, rep, clip, dev):
+    """The face trio of a video report on the card against the port's on
+    the CPU for the same frames. The landmark net's outputs (the coarse 64
+    px pass and the refinement pass, as detect_landmarks_batch runs them)
+    and the identity net's embeddings of the CPU's crops by FACE_NET_TOL;
+    a presence on the other side of 0 within it, or a refinement crop
+    corner (face.refine_corners of the two runs' boxes) a pixel apart, is
+    a step, and that frame's refinement is not compared. The landmarks in
+    px by 1e-2 px on the frames without a step. The three signals: the
+    report's equal to the card's face_temporal_signals bit for bit, and
+    the card's against the CPU's by the goldens' rule; after a step, the
+    CPU's trio from the card's landmarks instead. Returns (the nets' worst
+    |Δ| / (1 + |x|), the landmarks' worst |Δ| px, the steps)."""
+    import numpy as np
+    from tpudf_torch.models import face_landmark
+    from tpudf_torch.serve import face
+
+    frames = list(clip)
+    h, w = clip.shape[1:3]
+    orig = face_landmark.landmark_forward
+    runs = {}
+    for d in (dev, "cpu"):
+        outs = []
+
+        def spy(params, x):
+            out = orig(params, x)
+            outs.append({k: v.cpu().double().numpy() for k, v in out.items()})
+            return out
+        lm = face.get_landmark_params(d)
+        face_landmark.landmark_forward = spy
+        try:
+            found = face.detect_landmarks_batch(clip, lm)
+        finally:
+            face_landmark.landmark_forward = orig
+        sig = face.face_temporal_signals(frames, None, lm, device=d)
+        runs[d] = (outs, found, sig)
+    (card_out, card_lms, card_sig), (cpu_out, cpu_lms, cpu_sig) = (
+        runs[dev], runs["cpu"])
+    errors, steps, worst = [], [], 0.0
+
+    def net(name, a, b, rows=None):
+        nonlocal worst
+        d = np.abs(a - b) / (1.0 + np.abs(b))
+        if rows is not None:
+            d = d[rows]
+        m = float(d.max()) if d.size else 0.0
+        worst = max(worst, m)
+        if m > FACE_NET_TOL:
+            errors.append(f"{name} |Δ|/(1+|x|) {m:.3e}")
+
+    coarse_c, coarse_r = card_out[0], cpu_out[0]
+    for k in coarse_r:
+        net(f"landmark net {k}", coarse_c[k], coarse_r[k])
+    pres_c, pres_r = coarse_c["presence"], coarse_r["presence"]
+    face_c, face_r = pres_c > 0, pres_r > 0
+    for i in np.flatnonzero(face_c != face_r):
+        steps.append(f"frame {i} presence {pres_c[i]:.3e} / {pres_r[i]:.3e}")
+    corners = {i: (face.refine_corners(coarse_c["box"][i], w, h),
+                   face.refine_corners(coarse_r["box"][i], w, h))
+               for i in np.flatnonzero(face_c & face_r)}
+    for i, (a, b) in corners.items():
+        if a != b:
+            if max(abs(p - q) for p, q in zip(a, b)) > 1:
+                errors.append(f"frame {i} refinement crop {a} != {b}")
+            steps.append(f"frame {i} refinement crop {a} / {b}")
+    same = [i for i, (a, b) in corners.items() if a == b]
+    if len(cpu_out) > 1 and same and all(face_c == face_r):
+        # the refinement pass's rows are the frames with a face, in order
+        rows = np.searchsorted(np.flatnonzero(face_r), same)
+        for k in cpu_out[1]:
+            net(f"refinement {k}", card_out[1][k], cpu_out[1][k], rows)
+    px = 0.0
+    lc, lr = card_lms[0], cpu_lms[0]
+    for i in same:
+        if lc[i] is not None and lr[i] is not None:
+            px = max(px, float(np.abs(lc[i] - lr[i]).max()))
+    if px > 1e-2:
+        errors.append(f"landmarks |Δ| {px:.3e} px")
+    if any(l is not None for l in lr):
+        crops = np.stack([face.face_crop_from_landmarks(f, l, out_size=112)
+                          for f, l in zip(frames, lr) if l is not None])
+        emb = {d: face.identity_embed_crops(face.get_face_embed_params(d),
+                                            crops) for d in (dev, "cpu")}
+        net("identity net", emb[dev], emb["cpu"])
+    if errors:
+        raise AssertionError(f"{label}: the face nets on the card vs the "
+                             f"CPU: " + "; ".join(errors[:8]))
+    for k in FACE_SIGNALS:
+        got = rep["temporal_signals"].get(k)
+        if got != card_sig[k]:
+            raise AssertionError(f"{label}: the report's {k} {got!r} != the "
+                                 f"card's face trio {card_sig[k]!r}")
+    ref = cpu_sig
+    if steps:
+        orig_detect = face.detect_landmarks_batch
+        face.detect_landmarks_batch = lambda f, p: card_lms
+        try:
+            ref = face.face_temporal_signals(
+                frames, None, face.get_landmark_params("cpu"), device="cpu")
+        finally:
+            face.detect_landmarks_batch = orig_detect
+    atol, rtol = REPORT_GOLDEN
+    for k in FACE_SIGNALS:
+        a, b = card_sig[k], ref[k]
+        if (a is None) != (b is None) or (
+                a is not None and abs(a - b) > atol + rtol * abs(b)):
+            raise AssertionError(f"{label}: the card's {k} {a!r} vs the "
+                                 f"CPU's {b!r}" + (" (from the card's "
+                                                   "landmarks)" if steps
+                                                   else ""))
+    return worst, px, steps
+
+
+def embeds_vs(label, eng, tw, frames):
+    """embed_batch of (N, h, w, 3) uint8 frames (padded to a power-of-2
+    bucket) with the kernels against the twins: rows of unit norm
+    (|‖e‖ - 1| <= 1e-5), cosine >= 0.99 (the pooled rule). Returns the
+    smallest cosine."""
+    import numpy as np
+    got, ref = eng.embed_batch(frames), tw.embed_batch(frames)
+    if got.shape != (len(frames), eng.cfg.width):
+        raise AssertionError(f"{label}: embed_batch shape {got.shape}")
+    norm = np.abs(np.linalg.norm(got, axis=1) - 1.0).max()
+    cos = float((got * ref).sum(1).min())
+    if not np.isfinite(got).all() or norm > 1e-5 or cos < 0.99:
+        raise AssertionError(f"{label}: embed_batch |‖e‖ - 1| {norm:.3e}, "
+                             f"cosine {cos:.6f}")
+    return cos
+
+
+def video_request(label, eng, tw, clip, w8a8, expect, layers, e, dev,
+                  tower_face=False):
+    """One video request with the launch counts set to 0 just before it:
+    exact launches (`video_expect`), id_drift present, the face trio
+    computed where the clip has a face on 3 frames or more; then the
+    twins' request and `video_vs`. Returns (report, launches, |Δ| tower,
+    ties, chosen frame's comparison, face branch)."""
+    import torch
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.serve.report import predict_video
+    branch, n_faces = face_branch(clip, dev)
+    LAUNCHES.reset()
+    rep = report_plain(predict_video(eng, clip))
+    launches = LAUNCHES.snapshot()
+    escalations = int(rep["chosen_frame_report"]["face_p_fake"] is not None)
+    towers = 1 + int(tower_face and n_faces >= 3)
+    check_launches(f"{label} T={len(clip)}", launches,
+                   video_expect(expect, layers, e, towers, escalations))
+    sig = rep["temporal_signals"]
+    trio = [sig.get(k) for k in ("face_topology_drift",
+                                 "face_embedding_drift", "face_track_drift")]
+    if "id_drift" not in sig or (n_faces >= 3) != all(
+            v is not None for v in trio):
+        raise AssertionError(f"{label}: id_drift / face trio missing "
+                             f"({branch} found {n_faces} faces: {trio})")
+    if not 0.0 <= rep["video_prob"] <= 1.0 or len(rep["frame_probs"]) != len(
+            clip) or len(rep["chosen_frame_report"]) < 80:
+        raise AssertionError(f"{label}: report out of shape")
+    LAUNCHES.reset()
+    ref = report_plain(predict_video(tw, clip))
+    torch.cuda.synchronize()
+    if LAUNCHES.snapshot():
+        raise AssertionError(f"{label}: twins launched "
+                             f"{LAUNCHES.snapshot()}")
+    from tpudf_torch.serve.report import predict_images
+    d, ties, chosen = video_vs(
+        label, rep, ref, w8a8, tower_face, lambda: tuple(
+            report_plain(predict_images(m, clip, fast=True))
+            for m in (eng, tw)))
+    return rep, launches, d, ties, chosen, (branch, n_faces)
+
+
+def sampler_file(path, n, size, cut, seed):
+    """An mp4v clip of n size x size frames written by cv2: the golden
+    recipe rolled 2 px a frame, another image from frame `cut` on."""
+    import cv2
+    frames = video_clip(n, size, seed, cut)
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25.0,
+                        (size, size))
+    if not w.isOpened():
+        raise AssertionError("cv2 cannot open an mp4v writer")
+    for f in frames:
+        w.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+    w.release()
+
+
+def video_paths(dev, card, backbones):
+    """`_video_paths` with cuDNN's TF32 at PyTorch's default (on): the
+    battery must keep its convolutions in f32 itself."""
+    import torch
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return _video_paths(dev, card, backbones)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _video_paths(dev, card, backbones):
+    """Phase 3v: the video report at full width on phase 3r's engines.
+    For each backbone and engine a request of VIDEO_T frames
+    (`video_request`) and `embeds_vs` on three of them; the battery on the
+    card against the CPU's once per clip; base-256 also on a clip with a
+    scene cut at VIDEO_CUT, and engine B once with TPUDF_FACE_ID_EMBED=0
+    (the face trio embeds through embed_batch); the battery launched
+    under torch's sync check set to raise; planted faults that the checks
+    must catch; the sampler (data/video.sample_video) on an mp4v file that
+    cv2 writes, its frames through predict_video. Returns what phase 4
+    times."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from tpudf_torch.data import video, video_native
+    from tpudf_torch.ops import flow, forensics
+    from tpudf_torch.ops.routes import TWINS
+    from tpudf_torch.serve import engine as engine_mod
+    from tpudf_torch.serve import face, report
+    from tpudf_torch.serve.engine import to_device
+
+    print(f"phase 3v: the video report (predict_video: fast batch, temporal "
+          f"battery, face trio, chosen frame) at base-256 and large-384, "
+          f"{VIDEO_T} frames", flush=True)
+    state = {"requests": {}}
+    for name, (engines, expect, _) in backbones.items():
+        size = engines["A"].cfg.image_size
+        layers = engines["A"].cfg.layers
+        clips = {"moving": video_clip(VIDEO_T, size, seed=40)}
+        if name == "base-256":
+            clips["cut"] = video_clip(VIDEO_T, size, seed=40, cut=VIDEO_CUT)
+        state["requests"][name] = (engines, clips["moving"])
+        for e, eng in engines.items():
+            tw = dataclasses.replace(eng, kernels=TWINS)
+            for cname, clip in clips.items():
+                if cname == "cut" and e == "B":
+                    continue
+                label = f"video {name} engine {e} {cname}"
+                rep, launched, d, ties, chosen, (branch, n) = video_request(
+                    label, eng, tw, clip, e == "B", expect, layers, e, dev)
+                cos = embeds_vs(label, eng, tw, clip[:3])
+                sig = rep["temporal_signals"]
+                print(f"{label} T={len(clip)}: launches {launched}; vs "
+                      f"twins: battery bit-equal, max|Δ| tower {d:.3e}, "
+                      f"chosen frame "
+                      + (f"core {chosen[0]:.3e} battery {chosen[1]:.3e}"
+                         if chosen else "differs (a tie)")
+                      + f"; ties {ties or 'none'}; {rep['video_label']} "
+                      f"p {rep['video_prob']:.4f} sora "
+                      f"{rep['sora_likelihood']:.4f} id_drift "
+                      f"{sig['id_drift']:.4f}; face: {branch} on {n} of "
+                      f"{len(clip)} frames; embed_batch of 3 (bucket 4) "
+                      f"cosine {cos:.6f} [{card}]", flush=True)
+                if e == "A":
+                    w, steps = video_battery_vs_cpu(label, rep, clip, dev)
+                    print(f"  battery on the card vs the CPU: max|Δ| "
+                          f"{w:.3e} (goldens' rule); steps at thresholds "
+                          f"shown: " + (", ".join(
+                              f"{k} |Δ| {v:.3e}" for k, v in steps.items())
+                              or "none") + f" [{card}]", flush=True)
+                    w, px, steps = face_vs_cpu(label, rep, clip, dev)
+                    print(f"  face nets on the card vs the CPU: max|Δ|/(1+"
+                          f"|x|) {w:.3e} (limit {FACE_NET_TOL}), landmarks "
+                          f"max|Δ| {px:.3e} px; trio " + ", ".join(
+                              f"{k} {rep['temporal_signals'].get(k)}"
+                              for k in FACE_SIGNALS)
+                          + f"; steps: {steps or 'none'} [{card}]",
+                          flush=True)
+                torch.cuda.empty_cache()
+
+    # ---- the face trio through embed_batch (the identity net off)
+    engines, expect, _ = backbones["base-256"]
+    eng_b = engines["B"]
+    tw_b = dataclasses.replace(eng_b, kernels=TWINS)
+    clip = state["requests"]["base-256"][1]
+    os.environ["TPUDF_FACE_ID_EMBED"] = "0"
+    try:
+        label = "video base-256 engine B, the face trio on embed_batch"
+        rep, launched, d, ties, chosen, (branch, n) = video_request(
+            label, eng_b, tw_b, clip, True, expect, eng_b.cfg.layers, "B",
+            dev, tower_face=True)
+    finally:
+        os.environ.pop("TPUDF_FACE_ID_EMBED")
+    print(f"{label}: launches {launched} ({'one more tower forward' if n >= 3 else 'no face: no embed_batch'}); "
+          f"max|Δ| tower {d:.3e}; face_embedding_drift "
+          f"{rep['temporal_signals'].get('face_embedding_drift')} ({branch} "
+          f"on {n} frames) [{card}]", flush=True)
+
+    # ---- the battery launches without a sync: torch's sync check set to
+    # raise around the fast batch and the battery, each engine, warm
+    for name, (engines, clip) in state["requests"].items():
+        for e, eng in engines.items():
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                report.dispatch_images(eng, clip, True)
+                fn, _ = report._video_temporal_for(eng, clip, True)
+                fn(to_device(clip, eng.device))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+    print("  the fast batch and the battery launched with no sync (torch's "
+          "sync check raising) at both backbones, engines A and B",
+          flush=True)
+
+    # ---- planted faults: each must fail the checks above
+    eng_a = backbones["base-256"][0]["A"]
+    clip_a = state["requests"]["base-256"][1]
+    large_engines, large_clip = state["requests"]["large-384"]
+
+    def fault_fb_sign():
+        orig = flow.dense_flow
+
+        def flipped(a, b, **kw):
+            u, v = orig(a, b, **kw)
+            n = u.shape[0] // 2
+            return (torch.cat([u[:n], -u[n:]]), torch.cat([v[:n], -v[n:]]))
+        flow.dense_flow = flipped
+        try:
+            rep = report_plain(report.predict_video(eng_a, clip_a))
+        finally:
+            flow.dense_flow = orig
+        video_battery_vs_cpu("fault", rep, clip_a, dev)
+
+    def fault_unresized():
+        orig = report.resize
+        report.resize = lambda x, shape, method, antialias=True: x
+        try:
+            rep = report_plain(report.predict_video(large_engines["A"],
+                                                    large_clip))
+        finally:
+            report.resize = orig
+        video_battery_vs_cpu("fault", rep, large_clip, dev)
+
+    def fault_unnormalised():
+        eng = large_engines["B"]
+        orig = engine_mod._unit_rows
+        engine_mod._unit_rows = lambda f: f
+        try:
+            embeds_vs("fault", eng, dataclasses.replace(eng, kernels=TWINS),
+                      large_clip[:3])
+        finally:
+            engine_mod._unit_rows = orig
+
+    @contextlib.contextmanager
+    def tf32_on(*modules):
+        """TF32 on for cuDNN and cuBLAS, and each module's f32_math a
+        no-op."""
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        orig = [m.f32_math for m in modules]
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        for m in modules:
+            m.f32_math = contextlib.nullcontext
+        try:
+            yield
+        finally:
+            for m, f in zip(modules, orig):
+                m.f32_math = f
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+
+    def fault_tf32():
+        with tf32_on(forensics, report, face):
+            rep = report_plain(report.predict_video(eng_a, clip_a))
+        video_battery_vs_cpu("fault", rep, clip_a, dev)
+
+    def fault_tf32_face():
+        with tf32_on(face):
+            rep = report_plain(report.predict_video(eng_a, clip_a))
+            face_vs_cpu("fault", rep, clip_a, dev)
+
+    for fault in (fault_fb_sign, fault_unresized, fault_unnormalised,
+                  fault_tf32, fault_tf32_face):
+        try:
+            fault()
+        except AssertionError as err:
+            print(f"  planted fault {fault.__name__[6:]}: caught "
+                  f"({str(err)[:160]})", flush=True)
+            continue
+        raise AssertionError(f"video: the checks miss the planted fault "
+                             f"{fault.__name__[6:]}")
+
+    # ---- the sampler: an mp4v file written by cv2, sampled, reported
+    native = video_native.available()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "clip.mp4")
+        sampler_file(path, 90, 288, 45, seed=50)
+        frames, idxs = video.sample_video(path)
+        cv_frames, cv_idxs = video.sample_video(path, prefer_native=False)
+    if cv_frames is None or len(cv_idxs) < 3:
+        raise AssertionError(f"sampler: cv2 read {cv_idxs}")
+    if frames is None or (not native and (
+            idxs != cv_idxs or not np.array_equal(frames, cv_frames))):
+        raise AssertionError(f"sampler: {idxs} != cv2's {cv_idxs}")
+    label = "video base-256 engine A, sampled from the file"
+    rep = report_plain(report.predict_video(eng_a, frames))
+    if len(rep["frame_probs"]) != len(idxs) or "id_drift" not in rep[
+            "temporal_signals"]:
+        raise AssertionError(f"{label}: report out of shape")
+    print(f"  sampler: route {'native (cpp/libtpudf_video.so)' if native else 'cv2 (the native library does not load here)'}; "
+          f"{len(idxs)} frames {idxs} of a 90-frame mp4v file with a cut "
+          f"at 45; {label}: {rep['video_label']} p {rep['video_prob']:.4f} "
+          f"[{card}]", flush=True)
+    return state
+
+
+def video_timings(state, card):
+    """Phase 4: each video request of phase 3v by the host clock (warm),
+    and its parts each alone: the frames' fast batch (dispatch_images),
+    the battery (its embeddings included), the face trio (host and
+    device) and the chosen frame's full request, each by CUDA events
+    around calls that end in their own device→host copy where they have
+    one (2 calls each after one warm-up: their spread is a few %; the
+    request 3 by the host clock). A profile of base-256 engine A's request
+    gives the device's idle share."""
+    import torch
+    from tpudf_torch.serve import face, report
+    from tpudf_torch.serve.engine import to_device
+
+    for name, (engines, clip) in state["requests"].items():
+        for e, eng in engines.items():
+            run = lambda: report.predict_video(eng, clip)
+            rep = run()
+            torch.cuda.synchronize()
+            iters = 3
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                run()
+            total = (time.perf_counter() - t0) / iters * 1e3
+            iters = 2
+            fast_ms = cuda_ms(lambda: report.dispatch_images(eng, clip, True),
+                              iters=iters, warmup=1)
+            fn, _ = report._video_temporal_for(eng, clip, True)
+            dclip = to_device(clip, eng.device)
+            battery_ms = cuda_ms(lambda: fn(dclip), iters=iters, warmup=1)
+            lm = face.get_landmark_params(eng.device)
+            face_ms = cuda_ms(lambda: face.face_temporal_signals(
+                list(clip), eng.embed_batch, lm_params=lm,
+                device=eng.device), iters=iters, warmup=1)
+            c = rep["chosen_frame"]
+            chosen_ms = cuda_ms(lambda: report.predict_images(
+                eng, clip[c:c + 1], fast=False), iters=iters, warmup=1)
+            print(f"video {name} engine {e} T={len(clip)}: request "
+                  f"{total:.3f} ms (host clock); alone (CUDA events): fast "
+                  f"batch {fast_ms:.3f} ms, battery {battery_ms:.3f}, face "
+                  f"trio {face_ms:.3f}, chosen frame's full request "
+                  f"{chosen_ms:.3f} [{card}]", flush=True)
+            if (name, e) == ("base-256", "A"):
+                profile(run, f"video {name} engine {e} T={len(clip)}", card,
+                        iters=2, top=10)
+            torch.cuda.empty_cache()
+
+
+_START = [time.perf_counter()] * 2     # the script's start, the last mark
+
+
+def clock(label):
+    """Print the wall time of the section that ends here, and the time
+    since the script started."""
+    now = time.perf_counter()
+    print(f"clock: {label} {now - _START[1]:.1f} s (at {now - _START[0]:.1f} "
+          f"s)", flush=True)
+    _START[1] = now
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6268,6 +7076,8 @@ def main() -> int:
         if "Compiling" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
     sm90_build_checks(card)
+
+    clock("build")
 
     # ---- 2. kernels vs twins
     rec = Records(card)
@@ -6598,6 +7408,8 @@ def main() -> int:
     del qkv, gout, got, ref, qv, kv_, vv, go, grads, x, o, cot
     torch.cuda.empty_cache()
 
+    clock("phase 2: K1-K4, K9-K14")
+
     # ---- K5-K8, the W8A8 block's other routes, at the detect core's shapes
     ln2 = {"scale": 1.0 + randn(w, std=0.1), "bias": randn(w, std=0.1)}
     bp8 = {"ln1": ln1, "ln2": ln2,
@@ -6797,6 +7609,8 @@ def main() -> int:
     queue_launches = queue_c_checks(rec, dev, card)
     k3_checks(rec, dev, card)
 
+    clock("phase 2: routes, probes, GEMMs, redesigns")
+
     # ---- 3a. the detect core
     print("phase 3: paths", flush=True)
     t0 = time.perf_counter()
@@ -6843,6 +7657,8 @@ def main() -> int:
               f"p_blend mean {float(pb.float().mean()):.4f}", flush=True)
         if float(cos.min()) < 0.99 or dpb > 1e-2:
             raise AssertionError(f"B={b}: kernels vs twins disagree")
+
+    clock("phase 3a")
 
     # ---- 3a'. the detect core under the W8A8 block's other routes: the
     # 12 layers run K5 (+ K6 at layer 0, where there is no ToMe bias; K9 +
@@ -6920,6 +7736,8 @@ def main() -> int:
         os.environ.pop("TPUDF_INT8_KERNELS", None)
     del kern, twin, out
 
+    clock("phase 3a'")
+
     # ---- 3b/3c. the engines
     import dataclasses
     t0 = time.perf_counter()
@@ -6954,6 +7772,8 @@ def main() -> int:
         engine_launches[(e, mode)] = engine_request(
             f"engine {e} {mode}", engines[e], twins[e], px, mode == "fast",
             e == "B", base_expect[(e, mode)], w)
+
+    clock("phase 3b/3c")
 
     # ---- 3d. the MTL trainer: (a) float prefix, (b) int8 prefix
     bg = torch.Generator(device=dev).manual_seed(4)
@@ -7037,16 +7857,28 @@ def main() -> int:
             fault_checks(twin)
         del twin
 
+    clock("phase 3d")
+
     # ---- 3e-3g. the large backbones: detect cores, routes, engines
     large = large_paths(dev, card)
 
+    clock("phase 3e-3g")
+
     # ---- 3r. the image report on both backbones' engines
     large_engines = large["engines"][0]
-    reports = report_paths(dev, card, {
+    report_backbones = {
         "base-256": (engines, engine_expect(eng_a.cfg.layers, 256), None),
         "large-384": (large_engines,
                       engine_expect(large_engines["A"].cfg.layers,
-                                    LARGE["large-384"][5]), 2)})
+                                    LARGE["large-384"][5]), 2)}
+    reports = report_paths(dev, card, report_backbones)
+
+    clock("phase 3r")
+
+    # ---- 3v. the video report on the same engines
+    videos = video_paths(dev, card, report_backbones)
+
+    clock("phase 3v")
 
     # ---- 3w. weights in, large-384 MTL at 256 px, the multi-query _mha,
     # so400m's engines and int8 trees (the checkpoint lives in tmp until
@@ -7054,9 +7886,13 @@ def main() -> int:
     tmp = tempfile.TemporaryDirectory()
     weights = weights_paths(dev, card, mtl_batches, tmp.name)
 
+    clock("phase 3w")
+
     # ---- 3t. training at the large backbones: large-384 MTL at 384 px,
     # so400m-512 MTL, the binary trainer and its CLI
     rest = training_rest(dev, card, tmp.name)
+
+    clock("phase 3t")
 
     # ---- 4. timings of the paths
     print("phase 4: path timings", flush=True)
@@ -7111,7 +7947,11 @@ def main() -> int:
     px = requests[("A", "full")]
     profile(lambda: eng_a.fetch_batch(eng_a.dispatch_batch(px)),
             "engine A full analysis B=8", card, top=16)
+    clock("phase 4: detect core, routes, engines")
     report_timings(reports, card)
+    clock("phase 4: image report")
+    video_timings(videos, card)
+    clock("phase 4: video report")
 
     print(f"peak device memory of this script so far "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
@@ -7148,12 +7988,17 @@ def main() -> int:
         del boxes
         torch.cuda.empty_cache()
 
+    clock("phase 4: train steps")
     print("phase 4: K9, K10, kernels 11 and 12 at the paths' shapes beside "
           "SDPA", flush=True)
     attention_factors(rec, card)
+    clock("phase 4: attention factors")
     large_timings(large, card)
+    clock("phase 4: large backbones")
     weights_timings(weights, card, mtl_batches)
+    clock("phase 4: weights in")
     training_rest_timings(rest, card)
+    clock("phase 4: large trainers")
     tmp.cleanup()
 
     names = {"K1": int8_block.KERNEL, "K2": mlp.KERNEL, "K3": srm.KERNEL,

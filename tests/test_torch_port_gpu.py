@@ -23,7 +23,8 @@ twice the tolerance), the
 probes' kernels 15, 16 and 17 (the
 tolerances of tests/test_torch_port_probes.py; 17 by 9b's card rule), both
 serving engines, their image reports (kernels vs twins, the battery on
-the card vs the CPU) and one MTL train step against the same parameters
+the card vs the CPU), their video reports (the same, by chip_smoke.py
+phase 3v's rules) and one MTL train step against the same parameters
 through the twins (the main path's shapes are checked by chip_smoke.py). Marked
 `gpu`; each test skips inside its body when no card is visible, so every
 worker collects the same tests. This file imports no JAX, so it also runs
@@ -515,6 +516,55 @@ def test_report_matches_twins_on_card(int8):
                  cs.report_plain(predict_images(twin_a, px)), int8,
                  arts["gbdt"])
     assert all(r["xgb_fusion_prob"] is not None for r in got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+def test_video_report_matches_twins_on_card(int8):
+    """The video report (tpudf_torch.serve.report.predict_video) of a
+    2-layer base-256 engine on a 12-frame clip on the card against the
+    same engine through the twins, by chip_smoke.py phase 3v's rules:
+    exact launches (`video_expect`: the fast batch, the battery's tower
+    forward without ToMe, the chosen frame's full request), the battery's
+    signals bit-equal, the tower's floats by the engine rule, a label or
+    the chosen frame that differs shown to be a step (`video_vs`);
+    embed_batch against the twins (`embeds_vs`); the battery against the
+    port's on the CPU and bit-equal to itself with TF32 off
+    (`video_battery_vs_cpu`); the face nets' outputs, the landmarks in px
+    and the face trio against the port's on the CPU, a crop corner a
+    pixel apart shown to be a step (`face_vs_cpu`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    import chip_smoke as cs
+    from tpudf_torch.calib.coral import CoralCutpoints
+    from tpudf_torch.core.precision import tree_map
+    from tpudf_torch.entry import init_params
+    from tpudf_torch.models.siglip import CONFIGS
+    from tpudf_torch.ops.routes import TWINS
+    from tpudf_torch.ops.tome import (DEPLOYED_PATCH_TOME_R, DEPLOYED_TOME_R,
+                                      deployed_floor, deployed_patch_floor)
+    from tpudf_torch.serve.engine import DetectEngine
+    cfg = dataclasses.replace(CONFIGS["base-256"], layers=2)
+    p = tree_map(lambda t: t.cuda(),
+                 init_params(torch.Generator().manual_seed(0), cfg))
+    eng = DetectEngine(cfg, p["backbone"], p["head"], p["freq"], p["fusion"],
+                       CoralCutpoints.default())
+    if int8:
+        eng = dataclasses.replace(
+            eng, tome_r=DEPLOYED_TOME_R, tome_floor=deployed_floor(256),
+            patch_tome_r=DEPLOYED_PATCH_TOME_R,
+            patch_tome_floor=deployed_patch_floor(256)).quantize()
+    twin = dataclasses.replace(eng, kernels=TWINS)
+    e = "B" if int8 else "A"
+    clip = cs.video_clip(cs.VIDEO_T, 256, seed=40)
+    dev = torch.device("cuda")
+    rep, *_ = cs.video_request("video", eng, twin, clip, int8,
+                               cs.engine_expect(2, 256), 2, e, dev)
+    cs.embeds_vs("video", eng, twin, clip[:3])
+    cs.video_battery_vs_cpu("video", rep, clip, dev)
+    cs.face_vs_cpu("video", rep, clip, dev)
 
 
 @pytest.mark.gpu

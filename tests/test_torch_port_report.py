@@ -7,7 +7,8 @@ as the golden test's two `make()` calls give), then `params_from_numpy`;
 `int8_tome` is JAX's quantized tree, scales included: JAX's calibration on
 `_images(4)` run as `DetectEngine.quantize` runs it (op by op: a jitted
 calibration moves some scales by a bf16 step), its quantisation jitted
-(bit-equal to the eager one here). `float.video` waits for the video slice.
+(bit-equal to the eager one here). `float.video` is held in
+tests/test_torch_port_video.py.
 
 Rules (every key of every entry, no key missing or new):
   * strings, ints, bools and None equal: labels, bands, codes, risk_idx,

@@ -217,6 +217,21 @@ def prnu_acorr(gray):
     return torch.clamp((ac_peak - 0.95) * 20.0, 0.0, 1.0)
 
 
+def prnu_temporal_incoherence(frames_gray):
+    """Cross-frame PRNU correlation → incoherence score
+    (appv3.py:1810-1846). frames_gray: (T, H, W) [0,1] → 0-d tensor."""
+    prnus = extract_prnu(frames_gray)
+    t = prnus.shape[0]
+    a = prnus[:-1].reshape(t - 1, -1)
+    b = prnus[1:].reshape(t - 1, -1)
+    am = a - a.mean(1, keepdim=True)
+    bm = b - b.mean(1, keepdim=True)
+    corr = torch.sum(am * bm, 1) / (
+        torch.linalg.vector_norm(am, dim=1)
+        * torch.linalg.vector_norm(bm, dim=1) + _EPS)
+    return torch.clamp((0.35 - torch.mean(corr)) / 0.35, 0.0, 1.0)
+
+
 # ------------------------------------------------------------------- CFA
 
 def extract_cfa_strength(img):

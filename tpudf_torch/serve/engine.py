@@ -21,6 +21,9 @@ and K14 in bf16 (cast once, at build); `quantize()` switches to the static
 W8A8 blocks (K1, K2). `kernels=TWINS` runs the same composition through
 the plain twins (a reference run on the card).
 
+`embed_frames` / `embed_batch` give the tower's L2-normalized pooled
+features without ToMe (the video path's identity drift and face crops).
+
 A call returns its per-image outputs with ONE device→host copy: every
 output is packed on the card into one (B, K) f32 array (`_pack`; risk_idx
 comes back as f32) and split on the host (`_unpack`).
@@ -213,6 +216,31 @@ class DetectEngine:
         return self.fetch_batch(self.dispatch_batch(pixels_uint8, fast=True),
                                 fast=True)
 
+    @torch.no_grad()
+    def embed_frames(self, x01):
+        """L2-normalized pooled tower features (N, W) f32 of (N, h, w, 3)
+        [0,1] frames on the engine's device, resized to the tower's input
+        inside: one tower forward without ToMe (JAX's siglip_forward with
+        no schedule, on engine B too), nothing fetched."""
+        s = self.cfg.image_size
+        if x01.shape[1] != s or x01.shape[2] != s:
+            x01 = resize(x01, (x01.shape[0], s, s, 3), "bilinear")
+        feats = _pooled(self.tower, x01, self.cfg, self.policy,
+                        self.kernels).float()
+        return _unit_rows(feats)
+
+    def embed_batch(self, pixels_uint8, pad: bool = True) -> np.ndarray:
+        """`embed_frames` of (B, h, w, 3) uint8 frames as numpy (B, W): the
+        batch padded to a power-of-2 bucket (pad_to_bucket), one tower
+        forward, one copy back. Used by the video path's face signals
+        (appv3.py:3650-3755)."""
+        px = np.asarray(pixels_uint8)
+        b = px.shape[0]
+        if pad:
+            px = pad_to_bucket(px)
+        x = to_device(px, self.device).float() / 255.0
+        return self.embed_frames(x).cpu().numpy()[:b]
+
 
 def to_device(pixels, device: torch.device):
     """Pixels (a numpy array or a tensor) on `device`. A host array goes to
@@ -224,6 +252,12 @@ def to_device(pixels, device: torch.device):
     if device.type == "cuda" and x.device.type == "cpu":
         return x.pin_memory().to(device, non_blocking=True)
     return x.to(device)
+
+
+def _unit_rows(feats):
+    """Rows divided by their L2 norm + 1e-6."""
+    return feats / (torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
+                    + 1e-6)
 
 
 def pad_to_bucket(pixels_uint8: np.ndarray, max_batch: int | None = None
@@ -362,8 +396,7 @@ def _detect_batch(tower, head, freq, fusion, pixels, *, cfg, policy, cuts,
 
     # embedding-anomaly view: the full image's pooled features, normalized
     embed_feat = feats_main.reshape(b, nm, -1)[:, 20].float()
-    embed_feat = embed_feat / (
-        torch.linalg.vector_norm(embed_feat, dim=-1, keepdim=True) + 1e-6)
+    embed_feat = _unit_rows(embed_feat)
     embed_l2 = torch.linalg.vector_norm(embed_feat, dim=-1)
 
     # frequency expert only on the views whose logits are used

@@ -17,7 +17,11 @@ fb_* battery keys, then TAIL_SCALARS), then the face escalation.
 numpy. The tail runs inside `forensics.f32_math()`: its convolutions and
 products stay f32 on the card (cuDNN's TF32 default off).
 
-`predict_video` waits for the video slice.
+`predict_video` (the video report) launches the fast batch of the clip's
+frames, then the temporal / SORA battery (`_video_temporal_for`: the
+tower's frame embeddings and every temporal signal packed into ONE (K,)
+tensor), before its first fetch; then the host's face trio, the SORA vote,
+the escalation cascade and the chosen frame's full report.
 """
 
 from __future__ import annotations
@@ -25,15 +29,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpudf_torch.core.config import _env_float as _envf
 from tpudf_torch.data.pipeline import resize
 from tpudf_torch.fuse.bayesian import bayesian_fuse_v2, dirichlet_fuse
 from tpudf_torch.fuse.decision import (DEFAULT_DECISION, DecisionConfig,
                                        classify_rbr, classify_three_way,
                                        full_label_cascade)
 from tpudf_torch.fuse.hierarchical import final_probability
-from tpudf_torch.fuse.temporal import render_scores_graph
+from tpudf_torch.fuse.temporal import (aggregate_sora,
+                                       compute_temporal_signals,
+                                       host_flow_signals,
+                                       render_scores_graph)
+from tpudf_torch.fuse.video_agg import (aggregate_video_probs,
+                                        temporal_frame_weights)
 from tpudf_torch.fuse.verdict import decide_verdict
-from tpudf_torch.ops.forensics import (BATTERY_KEYS, f32_math,
+from tpudf_torch.ops.flow import exposure_blur_regularity
+from tpudf_torch.ops.forensics import (BATTERY_KEYS, _gray, f32_math,
                                        forensic_battery,
                                        image_generator_likelihood)
 from tpudf_torch.serve.engine import (_LAYOUT_KEY, _PACK_KEY, FAST_SCALARS,
@@ -541,3 +552,193 @@ def predict_images(engine: DetectEngine, pixels_uint8: np.ndarray,
         }
         reports.append(report)
     return reports
+
+
+# the battery's signals besides the flow family and id_drift
+_TEMPORAL_BASE = ("background_inconsistency", "color_drift", "edge_flicker",
+                  "jpeg_block_drift", "noise_incoherence", "prnu_drift",
+                  "prnu_flat_drift", "render_regularity", "spectral_drift",
+                  "texture_flicker")
+_FLOW = ("affine_inconsistency", "flow_dir_incoherence",
+         "flow_fb_inconsistency", "flow_reprojection", "klt_instability",
+         "parallax_err")
+
+
+@torch.no_grad()
+def temporal_battery(x256, embeds=None):
+    """compute_temporal_signals of (T, 256, 256, 3) [0,1] frames (with the
+    identity drift of `embeds` when given) and the render-regularity score
+    across them (the video counterpart of appv3.py:2525-2566), under
+    f32_math(): {name: 0-d tensor} on the frames' device."""
+    with f32_math():
+        sig = compute_temporal_signals(x256, embeds)
+        exposure, blur = exposure_blur_regularity(_gray(x256))
+        sig["render_regularity"] = torch.clamp(
+            0.55 * exposure + 0.45 * blur, 0.0, 1.0)
+    return sig
+
+
+def _video_temporal_for(engine: DetectEngine, frames_uint8,
+                        with_embeds: bool):
+    """The per-clip temporal / SORA battery: compute_temporal_signals on
+    the frames resized to 256 px (the dense-LK flow family included), the
+    identity drift of the tower's own frame embeddings
+    (`DetectEngine.embed_frames` at the tower's input size, no ToMe) and
+    the render-regularity score, packed into ONE (K,) f32 tensor on the
+    engine's device: one launch stream, one later copy (the eager form
+    paid a copy per signal). The battery runs under f32_math(); it
+    synchronises nothing. Cached per (t, s, with_embeds, backbone).
+    Returns (fn(frames uint8 on the device) -> (K,), sorted names)."""
+    t, s = int(frames_uint8.shape[0]), int(frames_uint8.shape[1])
+    cache = engine.__dict__.setdefault("_video_temporal_cache", {})
+    key = (t, s, bool(with_embeds), id(engine.backbone))
+    hit = cache.get(key)
+    if hit is not None:
+        return hit[0], hit[1]
+
+    names = _TEMPORAL_BASE + (_FLOW if t >= 3 else ()) \
+        + (("id_drift",) if with_embeds else ())
+    names = tuple(sorted(names))
+
+    @torch.no_grad()
+    def packed(frames):
+        x = frames.float() / 255.0
+        embeds = engine.embed_frames(x) if with_embeds else None
+        with f32_math():
+            x256 = (x if s == 256 else
+                    resize(x, (t, 256, 256, 3), "bilinear"))
+        sig = temporal_battery(x256, embeds)
+        if set(sig) != set(names):
+            raise ValueError(f"battery signals {sorted(sig)} != {names}")
+        return torch.stack([sig[k].float() for k in names])
+
+    # pin the keyed backbone so its id cannot be recycled under the cache
+    cache[key] = (packed, names, engine.backbone)
+    return packed, names
+
+
+# sora escalation thresholds, env-tunable with the reference's variable
+# names (appv3.py:163-185). At the defaults the "med" odds tier (sl >=
+# tampered + 0.15) is shadowed by the "high" branch (sl >= fake), exactly
+# as in the reference; it becomes live when SORA_FAKE_THRESH is raised
+# above SORA_TAMPERED_THRESH + 0.15
+SORA_TAMPERED_THRESH = _envf("SORA_TAMPERED_THRESH", 0.15, 0.01, 0.99)
+SORA_FAKE_THRESH = _envf("SORA_FAKE_THRESH", 0.20, 0.01, 0.99)
+SORA_ODDS = {"low": _envf("SORA_ODDS_LOW", 1.12, 1.0, 5.0),
+             "med": _envf("SORA_ODDS_MED", 1.25, 1.0, 5.0),
+             "high": _envf("SORA_ODDS_HIGH", 1.45, 1.0, 5.0)}
+
+
+def _odds(p, eps=1e-6):
+    p = float(np.clip(p, eps, 1 - eps))
+    return p / (1 - p)
+
+
+def _from_odds(o):
+    return float(o / (1 + o))
+
+
+def predict_video(engine: DetectEngine, frames_uint8: np.ndarray,
+                  decision: DecisionConfig = DEFAULT_DECISION,
+                  agg_mode="topk_mean", strictness="balanced",
+                  temporal_signals=True, flow_signals=False) -> dict:
+    """frames_uint8: (T, S, S, 3) sampled frames → video-level report.
+    Mirrors the video branch (appv3.py:6254-6630): fast per-frame scoring,
+    aggregation, temporal / SORA battery, odds-multiplier escalation, full
+    analysis on the chosen frame."""
+    from tpudf_torch.serve import face as face_mod
+    frames_uint8 = np.asarray(frames_uint8)
+    t = len(frames_uint8)
+    # launch every device step before the first fetch: the frames' fast
+    # batch, then the temporal / SORA battery
+    disp = dispatch_images(engine, frames_uint8, fast=True)
+    temporal_fut, temporal_names = None, ()
+    if temporal_signals and t >= 3:
+        fn, temporal_names = _video_temporal_for(engine, frames_uint8,
+                                                 with_embeds=True)
+        temporal_fut = fn(to_device(frames_uint8, engine.device))
+
+    frame_reports = predict_images(engine, frames_uint8, decision, fast=True,
+                                   _dispatched=disp)
+    probs = np.asarray([r["final_prob"] for r in frame_reports])
+    preds = [r["final_label"] for r in frame_reports]
+    diffs = np.abs(np.diff(frames_uint8.astype(np.float32), axis=0)).mean(
+        axis=(1, 2, 3))
+    weights = temporal_frame_weights(np.concatenate(
+        [[diffs.mean() if len(diffs) else 0.0], diffs]))
+    video_prob, video_label, chosen, metrics = aggregate_video_probs(
+        probs, preds, agg_mode=agg_mode, strictness=strictness,
+        weights=weights)
+
+    sora = {"sora_likelihood": 0.0, "temporal_consistency_score": 0.0,
+            "sora_flag": False}
+    signals = {}
+    if temporal_fut is not None:
+        # ONE copy of the packed battery; NaN marks a gated signal
+        # (parallax on a static clip), dropped here
+        packed = temporal_fut.cpu().numpy().astype(np.float64)
+        signals = {k: float(v) for k, v in zip(temporal_names, packed)
+                   if float(v) == float(v)}
+        if flow_signals:
+            # the optional host cv2 flow battery (overrides the device
+            # values where it gives a signal)
+            signals.update(host_flow_signals(list(frames_uint8)))
+
+        # face temporal drift family (appv3.py:3557-3755): one shared
+        # detection / alignment / embedding pass; the landmark net if its
+        # weights resolve, else Haar box geometry; the tower's embeddings
+        # (engine.embed_batch) where the identity net is off
+        face_sigs = face_mod.face_temporal_signals(
+            list(frames_uint8), engine.embed_batch,
+            lm_params=face_mod.get_landmark_params(engine.device),
+            device=engine.device)
+        signals.update({k: float(v) for k, v in face_sigs.items()
+                        if v is not None})
+        sora = aggregate_sora(signals)
+
+    # escalation cascade (appv3.py:6507-6534)
+    tc = sora["temporal_consistency_score"]
+    sl = sora["sora_likelihood"]
+    if tc > 0.75:
+        video_prob = _from_odds(_odds(video_prob) * 1.18)
+    elif tc > 0.60:
+        video_prob = _from_odds(_odds(video_prob) * 1.12)
+    if tc > 0.70 and video_label in ("REAL", "TAMPERED", "INCONCLUSIVE"):
+        video_label = "TAMPERED"
+    if sl >= SORA_TAMPERED_THRESH:
+        if sl >= SORA_FAKE_THRESH:
+            video_prob = _from_odds(_odds(video_prob) * SORA_ODDS["high"])
+        elif sl >= SORA_TAMPERED_THRESH + 0.15:
+            video_prob = _from_odds(_odds(video_prob) * SORA_ODDS["med"])
+        else:
+            video_prob = _from_odds(_odds(video_prob) * SORA_ODDS["low"])
+    if sl > SORA_FAKE_THRESH:
+        video_label = "FAKE"
+    elif sl >= SORA_TAMPERED_THRESH and video_label in (
+            "REAL", "INCONCLUSIVE", "UNCERTAIN"):
+        video_label = "TAMPERED"
+    elif sora["sora_flag"] and video_label in ("REAL", "INCONCLUSIVE",
+                                               "UNCERTAIN"):
+        video_label = "TAMPERED"
+
+    chosen_report = predict_images(engine, frames_uint8[chosen:chosen + 1],
+                                   decision, fast=False)[0]
+    # chosen-frame escalation (appv3.py:6495-6505)
+    if video_label == "REAL" and chosen_report["final_label"] in (
+            "TAMPERED", "FAKE"):
+        video_label = chosen_report["final_label"]
+        video_prob = max(video_prob, chosen_report["final_prob"])
+
+    return {
+        "video_label": video_label,
+        "video_prob": float(video_prob),
+        "chosen_frame": int(chosen),
+        "frame_probs": probs.tolist(),
+        "frame_labels": preds,
+        "aggregation": metrics,
+        "temporal_signals": signals,
+        "sora_likelihood": sl,
+        "temporal_consistency_score": tc,
+        "sora_flag": sora["sora_flag"],
+        "chosen_frame_report": chosen_report,
+    }
