@@ -291,6 +291,24 @@ back to the CPU or to a twin):
          un-normalised, TF32 on in the battery and the face nets, TF32 on
          in the face nets alone; the sampler (data/video.sample_video) on an mp4v file
          cv2 writes, its route printed, its frames through predict_video;
+     (i) (`cli_paths`): the inference CLI, tpudf_torch.cli.infer.main at
+         base-256 with --int8 --tome_r --patch_tome --device cuda, on a
+         seeded folder of 48 JPEG and PNG images (and the same list as a
+         CSV): --fast --labels_from_dirs --calibrate --few_shot linear,
+         full on 8 images, --few_shot kernel on the CSV, --video on an
+         mp4v clip; each request's launches phase 3r's (the counts set to
+         0 just before it), its pixels `_decode_image`'s, its JSONL
+         reports against a fresh request and the twins' by phase 3r's
+         rules, the probes trained on the card against the CPU's; the
+         JPEGs' decode route and the CLI's img/s and ms a clip printed;
+         planted faults that must fail: the decode forced to PIL where
+         the native decoder loads, the full tail reading the fast core;
+     (u) (`app_paths`): the app's predict_image and predict_clip over
+         that engine against fresh requests (launches phase 3r's), the
+         forensic maps, overlay, panel and collage on the card against
+         the port's CPU run (TF32 left on in the maps: a planted fault,
+         reported), the forensics CLI's scores.json against
+         forensic_battery;
      (t2)-(t4) (`training_rest`): large-384 MTL at 384 px (K10 at S = 576)
          float and int8 prefix and the MTL CLI at --image_size 384;
          so400m-512 MTL (K14 at the padded hidden of 4352, K10's route the
@@ -6023,8 +6041,6 @@ def _report_paths(dev, card, backbones):
     from tpudf_torch.ops import forensics
     from tpudf_torch.ops.routes import TWINS
     from tpudf_torch.serve import face, report
-    from tpudf_torch.serve.engine import (_PACK_KEY, FAST_SCALARS,
-                                          FULL_SCALARS)
     from tpudf_torch.train.gbdt import to_tree_ensemble, train_gbdt
 
     print("phase 3r: the image report (battery, fusion tail, label cascade, "
@@ -6146,21 +6162,11 @@ def _report_paths(dev, card, backbones):
         battery_vs_cpu("fault", reps, px[:2])
 
     def fault_fast_columns():
-        orig_dispatch = eng_b.dispatch_batch
-
-        def dispatch(pixels, fast=False):
-            core = dict(orig_dispatch(pixels, fast))
-            packed = core[_PACK_KEY]
-            cols = [packed[:, FAST_SCALARS.index(k)] if k in FAST_SCALARS
-                    else packed[:, i] for i, k in enumerate(FULL_SCALARS)]
-            core[_PACK_KEY] = torch.cat(
-                [torch.stack(cols, 1), packed[:, len(FULL_SCALARS):]], 1)
-            return core
-        eng_b.dispatch_batch = dispatch
+        undo = fault_fast_tail(eng_b)
         try:
             got = report_plain(report.predict_images(eng_b, px[:2]))
         finally:
-            del eng_b.dispatch_batch
+            undo()
         report_vs("fault", got, report_plain(
             report.predict_images(tw_b, px[:2])), True)
 
@@ -7024,6 +7030,649 @@ def video_timings(state, card):
             torch.cuda.empty_cache()
 
 
+# The front doors (phases 3i and 3u, `cli_paths` and `app_paths`): the
+# inference CLI (tpudf_torch.cli.infer.main) at base-256 with --int8
+# --tome_r --patch_tome on a seeded folder of CLI_IMAGES JPEG and PNG
+# images of CLI_SIZE px (and the same list as a CSV), and the app's
+# callbacks, the forensic maps and the forensics CLI on the CLI's engine.
+# Each CLI request is held to phase 3r's launches (the counts set to 0
+# just before it), its pixels to `_decode_image`'s, its JSONL reports to
+# the same engine's fresh request on those pixels and to the twins' by
+# phase 3r's rules (`report_vs`; a request is not bit-repeatable: ToMe's
+# merge and K2's Σout² add with f32 atomics); the few-shot probes trained
+# on the card to the same probes on the CPU: predictions within
+# FEW_SHOT_TOL (the CPU test's tolerance), the fitted parameters within
+# FEW_SHOT_PARAM (a fifth of the kernel probe's Adam lr: the RBF matrix of
+# 768-d unit features lies in [0.9987, 1], so the dual coefficients'
+# directions off its near-constant rows get gradients at float noise,
+# which Adam's normalised steps turn into moves of up to lr; they barely
+# move a prediction); the maps on the card to the port's CPU run with TF32
+# off by the battery's rule (a JPEG residual block a rounding step off
+# allowed on MAP_JPEG_BLOCKS of them, within 1e-3), its images within 1
+# (UINT8_SHARE of the values apart at most), but the panel's JPEG residual
+# tile: a block a step off moves the whole normalised tile, so that tile
+# is held to the port's coloring of the card's own map (`panel_vs`).
+CLI_MODEL = "base-256"
+CLI_IMAGES = 48
+CLI_SIZE = 288
+CLI_FULL = 8
+CLI_CLIP = (30, 256)            # the --video clip's frames and side
+FEW_SHOT_TOL = 1e-4
+FEW_SHOT_PARAM = 1e-2
+PANEL_JPEG_TILE = 4              # the panel's jpeg_residual tile
+MAP_JPEG_BLOCKS = 2e-3
+UINT8_SHARE = 5e-2
+
+
+def cli_inputs(root):
+    """The CLI's inputs under root: folder/{REAL,FAKE}/ of CLI_IMAGES seeded
+    images (`report_images` at CLI_SIZE px: even ones PNG, odd ones JPEG
+    at quality 90), all.csv (path, label: the folder's list), full.csv
+    (the first CLI_FULL of it, both classes) and clips/clip.mp4 (an mp4v
+    clip cv2 writes, `sampler_file`). Returns (folder, all.csv, full.csv,
+    clips dir, the JPEG paths)."""
+    import csv
+
+    from PIL import Image
+    folder = os.path.join(root, "folder")
+    imgs = report_images(CLI_IMAGES, CLI_SIZE, seed=50)
+    rows, jpegs = [], []
+    for i, img in enumerate(imgs):
+        cls = "FAKE" if i % 4 >= 2 else "REAL"
+        os.makedirs(os.path.join(folder, cls), exist_ok=True)
+        path = os.path.join(folder, cls, f"{i:03d}.{'jpg' if i % 2 else 'png'}")
+        Image.fromarray(img).save(path, **({"quality": 90} if i % 2 else {}))
+        rows.append((path, int(cls == "FAKE")))
+        if i % 2:
+            jpegs.append(path)
+    for name, part in (("all.csv", rows), ("full.csv", rows[:CLI_FULL])):
+        with open(os.path.join(root, name), "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["path", "label"])
+            w.writerows(part)
+    clips = os.path.join(root, "clips")
+    os.makedirs(clips)
+    sampler_file(os.path.join(clips, "clip.mp4"), *CLI_CLIP, None, seed=51)
+    return (folder, os.path.join(root, "all.csv"),
+            os.path.join(root, "full.csv"), clips, jpegs)
+
+
+def cli_run(argv, fault=None, engine=None):
+    """tpudf_torch.cli.infer.main(argv) with its calls recorded: the engine
+    it builds (or `engine`, given in its place), each predict_images /
+    predict_video / embed_batch call's pixels, result, launches (the counts
+    set to 0 just before it, read just after) and host ms, the few-shot
+    probes' inputs and outputs; `fault(engine)` plants a fault in the
+    engine and returns its undo. Returns the record."""
+    import numpy as np
+    import torch
+    from tpudf_torch.cli import infer
+    from tpudf_torch.core.backend import LAUNCHES
+
+    rec = {"engine": None, "images": [], "videos": [], "embeds": [],
+           "probes": [], "build_s": 0.0}
+    names = ("build_engine", "predict_images", "predict_video",
+             "train_linear_probe", "linear_probe_predict",
+             "train_kernel_probe", "kernel_probe_predict")
+    orig = {k: getattr(infer, k) for k in names}
+    undo = []
+
+    def build_engine(args, calib=None):
+        t0 = time.perf_counter()
+        eng = engine if engine is not None else orig["build_engine"](args,
+                                                                     calib)
+        torch.cuda.synchronize()
+        rec["build_s"] = time.perf_counter() - t0
+        rec["engine"] = eng
+        embed = eng.embed_batch
+
+        def embed_batch(px, pad=True):
+            LAUNCHES.reset()
+            out = embed(px, pad)
+            rec["embeds"].append((np.array(px), LAUNCHES.snapshot()))
+            return out
+        eng.embed_batch = embed_batch
+        undo.append(lambda: delattr(eng, "embed_batch"))
+        if fault is not None:
+            undo.append(fault(eng))
+        return eng
+
+    def timed(kind, fn):
+        def call(eng, px, **kw):
+            torch.cuda.synchronize()
+            LAUNCHES.reset()
+            t0 = time.perf_counter()
+            out = fn(eng, px, **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            # a copy as JSON carries it, before the CLI adds its keys
+            rec[kind].append((np.array(px), kw.get("fast", False),
+                              report_plain(out), LAUNCHES.snapshot(), ms))
+            return out
+        return call
+
+    def probe(name):
+        def call(*args):
+            out = orig[name](*args)
+            rec["probes"].append((name, args, out))
+            return out
+        return call
+
+    infer.build_engine = build_engine
+    infer.predict_images = timed("images", orig["predict_images"])
+    infer.predict_video = timed("videos", orig["predict_video"])
+    for k in names[3:]:
+        setattr(infer, k, probe(k))
+    t0 = time.perf_counter()
+    try:
+        infer.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        rec["main_s"] = time.perf_counter() - t0
+        for k, v in orig.items():
+            setattr(infer, k, v)
+        for u in reversed(undo):
+            u()
+    return rec
+
+
+def cli_jsonl(path):
+    """The CLI's JSONL reports, each without "path" and "inverted", and
+    their paths."""
+    reps, paths = [], []
+    with open(path) as f:
+        for line in f:
+            r = json.loads(line)
+            paths.append(r.pop("path"))
+            r.pop("inverted", None)
+            reps.append(r)
+    return reps, paths
+
+
+def cli_vs(label, rec, out, expect, twin_images=None):
+    """A CLI image run's checks (see above): each request's launches
+    `expect[mode]`, each embed_batch's one tower forward without ToMe; its
+    pixels `_decode_image`'s of its paths; the JSONL the requests' reports
+    in order; a fresh request of the same engine on those pixels and the
+    twins' (first `twin_images` of each request, all by default) by
+    `report_vs`. Returns (n images, worst |Δ| fresh (core, battery), worst
+    |Δ| twins (core, battery), ties)."""
+    import dataclasses
+
+    import numpy as np
+    from tpudf_torch.data.datasets import _decode_image
+    from tpudf_torch.ops.routes import TWINS
+    from tpudf_torch.serve.report import predict_images
+
+    eng = rec["engine"]
+    tw = dataclasses.replace(eng, kernels=TWINS)
+    size, layers = eng.cfg.image_size, eng.cfg.layers
+    reps, paths = cli_jsonl(out)
+    fresh_d, twin_d, ties, i = [0.0, 0.0], [0.0, 0.0], [], 0
+    for j, (px, fast, got, launched, _) in enumerate(rec["images"]):
+        n = len(px)
+        check_launches(f"{label} request {j} B={n}", launched,
+                       expect["fast" if fast else "full"])
+        want_px = np.stack([_decode_image(p, size) for p in paths[i:i + n]])
+        if not np.array_equal(px, want_px):
+            raise AssertionError(
+                f"{label} request {j}: its pixels are not _decode_image's of "
+                f"its paths ({(px != want_px).mean():.4f} of them differ)")
+        if got != reps[i:i + n]:
+            raise AssertionError(f"{label} request {j}: the JSONL is not "
+                                 f"the request's reports")
+        fresh = report_plain(predict_images(eng, want_px, fast=fast))
+        core, batt, t = report_vs(f"{label} request {j} vs a fresh one", got,
+                                  fresh, True, eng.gbdt)
+        fresh_d = [max(fresh_d[0], core), max(fresh_d[1], batt)]
+        ties += t
+        k = twin_images or n
+        ref = report_plain(predict_images(tw, want_px[:k], fast=fast))
+        core, batt, t = report_vs(f"{label} request {j} vs twins", got[:k],
+                                  ref, True, eng.gbdt)
+        twin_d = [max(twin_d[0], core), max(twin_d[1], batt)]
+        ties += t
+        i += n
+    if i != len(reps):
+        raise AssertionError(f"{label}: {len(reps)} JSONL lines, {i} "
+                             f"images requested")
+    for px, launched in rec["embeds"]:
+        check_launches(f"{label} embed_batch B={len(px)}", launched,
+                       tower_expect(layers, "B"))
+    return i, fresh_d, twin_d, ties
+
+
+def few_shot_vs(label, rec, dev):
+    """The probes cli.infer trained and applied on `dev` against the same
+    calls on the CPU (the same features, moved): predictions within
+    FEW_SHOT_TOL, the fitted parameters within FEW_SHOT_PARAM. Returns the
+    worst |Δ| of (the parameters, the predictions)."""
+    import torch
+    from tpudf_torch.serve import adapt
+
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else t
+    worst, trained = {"params": 0.0, "preds": 0.0}, {}
+    for name, args, out in rec["probes"]:
+        if name.startswith("train"):
+            ref = getattr(adapt, name)(*map(cpu, args))
+            trained[id(out)] = ref
+            kind, pairs = "params", [(out[k], ref[k]) for k in out
+                                     if torch.is_tensor(out[k]) and k != "X"]
+        else:
+            ref = getattr(adapt, name)(trained[id(args[0])], cpu(args[1]))
+            kind, pairs = "preds", [(out, ref)]
+        for a, b in pairs:
+            if a.device.type != dev.type:
+                raise AssertionError(f"{label}: {name} ran on {a.device}")
+            worst[kind] = max(worst[kind], float((a.cpu() - b).abs().max()))
+    if (len(rec["probes"]) != 2 or worst["preds"] > FEW_SHOT_TOL
+            or worst["params"] > FEW_SHOT_PARAM):
+        raise AssertionError(f"{label}: the card's probes vs the CPU's: "
+                             f"parameters {worst['params']:.3e} (limit "
+                             f"{FEW_SHOT_PARAM}), predictions "
+                             f"{worst['preds']:.3e} (limit {FEW_SHOT_TOL}); "
+                             f"{len(rec['probes'])} calls")
+    return worst["params"], worst["preds"]
+
+
+def fault_fast_tail(eng):
+    """Plant: the full path's tail reads the fast path's core columns (as
+    phase 3r's fault). Returns the undo."""
+    import torch
+    from tpudf_torch.serve.engine import (_PACK_KEY, FAST_SCALARS,
+                                          FULL_SCALARS)
+    orig_dispatch = eng.dispatch_batch
+
+    def dispatch(pixels, fast=False):
+        core = dict(orig_dispatch(pixels, fast))
+        packed = core[_PACK_KEY]
+        cols = [packed[:, FAST_SCALARS.index(k)] if k in FAST_SCALARS
+                else packed[:, i] for i, k in enumerate(FULL_SCALARS)]
+        core[_PACK_KEY] = torch.cat(
+            [torch.stack(cols, 1), packed[:, len(FULL_SCALARS):]], 1)
+        return core
+    eng.dispatch_batch = dispatch
+    return lambda: delattr(eng, "dispatch_batch")
+
+
+def cli_paths(dev, card, tmp):
+    """Phase 3i: the inference CLI at full width on the card (base-256,
+    --int8 --tome_r --patch_tome, --device cuda): `main` four times (fast
+    with --labels_from_dirs --calibrate --few_shot linear on the folder;
+    full on CLI_FULL images; --few_shot kernel on the CSV; --video on the
+    clip), each held by `cli_vs` (the video: its frames the sampler's, its
+    launches `video_expect`, its report against a fresh request and the
+    twins' by `video_vs`) and the probes by `few_shot_vs`; the decode route
+    of the JPEGs printed; planted faults that the checks must catch: the
+    CLI's decode forced to PIL (where the native library loads) and the
+    full path's tail reading the fast core's columns. Returns what phase
+    3u and phase 4 use."""
+    import collections as col
+    import dataclasses
+
+    import numpy as np
+    from tpudf_torch.data import datasets, decode
+    from tpudf_torch.data.video import sample_video
+    from tpudf_torch.models.siglip import CONFIGS
+    from tpudf_torch.ops.routes import TWINS
+    from tpudf_torch.serve.report import predict_images, predict_video
+
+    cfg = CONFIGS[CLI_MODEL]
+    size, layers = cfg.image_size, cfg.layers
+    print(f"phase 3i: the inference CLI (tpudf_torch.cli.infer.main) at "
+          f"{CLI_MODEL}, --int8 --tome_r --patch_tome --device {dev}",
+          flush=True)
+    folder, all_csv, full_csv, clips, jpegs = cli_inputs(tmp)
+    native = decode.available() and all(
+        decode.decode_resize(p, size) is not None for p in jpegs)
+    print(f"  decode route of the {len(jpegs)} JPEGs: "
+          f"{'native (cpp/libtpudf_decode.so)' if native else 'PIL (cpp/libtpudf_decode.so does not load)'}"
+          f"; the {CLI_IMAGES - len(jpegs)} PNGs: PIL", flush=True)
+    base = ["--model_size", CLI_MODEL, "--int8", "--tome_r", "--patch_tome",
+            "--device", str(dev)]
+    expect = {m: v for (e, m), v in engine_expect(
+        layers, cfg.num_patches).items() if e == "B"}
+    out = lambda name: os.path.join(tmp, f"{name}.jsonl")
+    state = {"runs": {}}
+
+    def report(label, rec, n, fresh, twin, ties, extra=""):
+        ms = sum(r[4] for r in rec["images"])
+        print(f"  {label}: {n} images, {len(rec['images'])} requests "
+              f"(launches {rec['images'][0][3]} each, phase 3r's), "
+              f"{len(rec['embeds'])} embed_batch; main {rec['main_s']:.3f} s "
+              f"(engine build {rec['build_s']:.3f} s), requests {ms:.3f} ms: "
+              f"{n / (rec['main_s'] - rec['build_s']):.1f} img/s end to end "
+              f"past the build, {n * 1e3 / ms:.1f} img/s in requests; vs a "
+              f"fresh request max|Δ| core {fresh[0]:.3e}, battery "
+              f"{fresh[1]:.3e}; vs twins core {twin[0]:.3e}, battery "
+              f"{twin[1]:.3e}; ties {ties or 'none'}{extra} [{card}]",
+              flush=True)
+
+    # 1. fast, labels from the folder, calibration, the linear probe
+    rec = cli_run(["--input", folder, "--out", out("fast")] + base
+                  + ["--fast", "--labels_from_dirs", "--calibrate",
+                     "--few_shot", "linear"])
+    n, fresh, twin, ties = cli_vs("cli fast", rec, out("fast"), expect, 8)
+    probe = few_shot_vs("cli fast", rec, dev)
+    report("cli --fast --labels_from_dirs --calibrate --few_shot linear",
+           rec, n, fresh, twin, ties, f"; linear probe card vs CPU: "
+           f"parameters {probe[0]:.3e}, predictions {probe[1]:.3e}")
+    state["runs"]["fast"] = rec
+    eng = rec["engine"]
+
+    # 2. full on CLI_FULL images
+    rec = cli_run(["--input", full_csv, "--out", out("full")] + base
+                  + ["--batch_size", str(CLI_FULL)])
+    n, fresh, twin, ties = cli_vs("cli full", rec, out("full"), expect)
+    labels = col.Counter(r["final_label"] for r in cli_jsonl(out("full"))[0])
+    report(f"cli full on {CLI_FULL}", rec, n, fresh, twin, ties,
+           f"; labels {dict(labels)}")
+    state["runs"]["full"] = rec
+
+    # 3. the kernel probe on the CSV
+    rec = cli_run(["--input", all_csv, "--out", out("kernel")] + base
+                  + ["--fast", "--few_shot", "kernel"])
+    n, fresh, twin, ties = cli_vs("cli kernel", rec, out("kernel"), expect,
+                                  8)
+    probe = few_shot_vs("cli kernel", rec, dev)
+    report("cli --fast --few_shot kernel on the CSV", rec, n, fresh, twin,
+           ties, f"; kernel probe card vs CPU: parameters {probe[0]:.3e}, "
+           f"predictions {probe[1]:.3e}")
+
+    # 4. --video on the clip
+    rec = cli_run(["--input", clips, "--out", out("video")] + base
+                  + ["--video"])
+    (frames, _, got, launched, ms), = rec["videos"]
+    reps, paths = cli_jsonl(out("video"))
+    want_frames, _ = sample_video(paths[0], size=size)
+    if not np.array_equal(frames, want_frames):
+        raise AssertionError("cli video: its frames are not sample_video's")
+    if reps != [got]:
+        raise AssertionError("cli video: the JSONL is not the request's")
+    v_eng = rec["engine"]
+    escalations = int(got["chosen_frame_report"]["face_p_fake"] is not None)
+    check_launches("cli video", launched, video_expect(
+        {("B", k): v for k, v in expect.items()}, layers, "B", 1,
+        escalations))
+    tw_v = dataclasses.replace(v_eng, kernels=TWINS)
+    frames_fn = lambda: tuple(report_plain(predict_images(
+        m, frames, fast=True)) for m in (v_eng, tw_v))
+    fresh = report_plain(predict_video(v_eng, frames))
+    d_f, ties_f, _ = video_vs("cli video vs a fresh request", got, fresh,
+                              True, False, frames_fn)
+    d_t, ties_t, _ = video_vs("cli video vs twins", got, report_plain(
+        predict_video(tw_v, frames)), True, False, frames_fn)
+    print(f"  cli --video: {len(frames)} frames sampled (cv2 route), "
+          f"launches {launched}; main {rec['main_s']:.3f} s (engine build "
+          f"{rec['build_s']:.3f} s), the clip's request {ms:.3f} ms; vs a "
+          f"fresh request max|Δ| tower {d_f:.3e}, vs twins {d_t:.3e}; ties "
+          f"{(ties_f + ties_t) or 'none'}; video_label "
+          f"{got['video_label']} [{card}]", flush=True)
+    state["video"] = (paths[0], frames)
+
+    # planted faults, each on engine 1's build (no rebuild)
+    def fault_pil_decode():
+        orig = datasets.decode_resize
+        datasets.decode_resize = lambda path, size: None
+        try:
+            rec = cli_run(["--input", full_csv, "--out", out("fault")]
+                          + base + ["--batch_size", str(CLI_FULL)],
+                          engine=eng)
+        finally:
+            datasets.decode_resize = orig
+        cli_vs("fault", rec, out("fault"), expect, 2)
+
+    def fault_fast_columns():
+        rec = cli_run(["--input", full_csv, "--out", out("fault")] + base
+                      + ["--batch_size", str(CLI_FULL)], engine=eng,
+                      fault=fault_fast_tail)
+        cli_vs("fault", rec, out("fault"), expect, 2)
+
+    for fault, applies in ((fault_pil_decode, native),
+                           (fault_fast_columns, True)):
+        name = fault.__name__[6:]
+        if not applies:
+            print(f"  planted fault {name}: not applicable (the native "
+                  f"decoder does not load: both routes are PIL's)",
+                  flush=True)
+            continue
+        try:
+            fault()
+        except AssertionError as err:
+            print(f"  planted fault {name}: caught ({str(err)[:160]})",
+                  flush=True)
+            continue
+        raise AssertionError(f"cli: the checks miss the planted fault "
+                             f"{name}")
+    state["engine"] = eng
+    return state
+
+
+def uint8_vs(label, got, want):
+    """uint8 images within 1 on every value, at most UINT8_SHARE apart.
+    Returns the share apart."""
+    import numpy as np
+    d = np.abs(got.astype(int) - want.astype(int))
+    if got.shape != want.shape or d.max() > 1 or (d > 0).mean() > UINT8_SHARE:
+        raise AssertionError(f"{label}: uint8 max|Δ| {d.max()}, share apart "
+                             f"{(d > 0).mean():.4f}")
+    return float((d > 0).mean())
+
+
+def panel_tiles(panel):
+    """The nine 256 px tiles of `serve.app.forensic_panel_image`'s canvas,
+    in order."""
+    pad, title_h, cell = 4, 18, 256
+    for i in range(9):
+        r, c = divmod(i, 3)
+        y = pad + r * (cell + title_h + pad) + title_h
+        x = pad + c * (cell + pad)
+        yield panel[y:y + cell, x:x + cell]
+
+
+def panel_vs(label, got, want, img, dev):
+    """A panel on `dev` against the CPU's: `uint8_vs` tile by tile and on
+    the rest of the canvas, but the JPEG residual tile, which must equal
+    the port's coloring on `dev` of its own JPEG residual map of `img`
+    (that map held by `maps_vs`). Returns the largest share apart."""
+    import numpy as np
+    import torch
+    from tpudf_torch.data.pipeline import resize
+    from tpudf_torch.ops import forensic_maps
+    from tpudf_torch.ops.forensics import f32_math
+    g, w = got.copy(), want.copy()
+    with f32_math():
+        x = torch.from_numpy(img[None].copy()).to(dev).float() / 255.0
+        if x.shape[1] != 256:
+            x = resize(x, (1, 256, 256, 3), "bilinear")
+        m = forensic_maps._norm01(forensic_maps.jpeg_residual_map(x))[0]
+        tile = forensic_maps.jet_colors(np.clip(
+            resize(m, (256, 256), "bilinear").cpu().numpy(), 0, 1))
+    share = 0.0
+    for i, (a, b) in enumerate(zip(panel_tiles(g), panel_tiles(w))):
+        if i == PANEL_JPEG_TILE:
+            if not np.array_equal(a, tile):
+                raise AssertionError(f"{label}: the JPEG residual tile is "
+                                     f"not the coloring of its map")
+            a[...] = b
+        else:
+            share = max(share, uint8_vs(f"{label} tile {i}", a, b))
+    return max(share, uint8_vs(label, g, w))
+
+
+def maps_vs(label, got, want):
+    """Maps on the card against the CPU's by the battery's rule (the JPEG
+    residual map's on all but MAP_JPEG_BLOCKS of its blocks, those within
+    1e-3). Returns the worst |Δ| within the rule."""
+    atol, rtol = REPORT_GOLDEN
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].cpu()
+        d = (g - w).abs()
+        off = d > atol + rtol * w.abs()
+        if k == "jpeg_residual":
+            if off.float().mean() > MAP_JPEG_BLOCKS or d.max() > 1e-3:
+                raise AssertionError(f"{label} {k}: {off.float().mean():.4f}"
+                                     f" of blocks off, max|Δ| {d.max():.3e}")
+        elif off.any():
+            raise AssertionError(f"{label} {k}: max|Δ| {d.max():.3e}")
+        worst = max(worst, float(d[~off].max()) if (~off).any() else 0.0)
+    return worst
+
+
+def app_paths(dev, card, tmp, cli):
+    """Phase 3u: the app (`serve.app.build_predict_fns` over phase 3i's
+    base-256 W8A8 engine, as `serve.app.main` builds it through
+    `cli.infer.build_engine`) and the forensics CLI on the card:
+    predict_image on a PIL image (its request's launches phase 3r's, its
+    report against a fresh predict_images of the same pixels by
+    `report_vs`, its 9 payloads), predict_clip on phase 3i's clip (its
+    report against a fresh predict_video, 10 payloads); the map battery at
+    256 and 384 px, the overlay, the panel and the collage on the card
+    against the port's CPU run of the same functions (`maps_vs`,
+    `uint8_vs`), TF32 left on in the maps (a planted fault, reported);
+    `cli.forensics` on a JPEG: its PNGs, and scores.json equal to
+    forensic_battery on the card on the same pixels. Returns what phase 4
+    times."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from tpudf_torch.cli import forensics as forensics_cli
+    from tpudf_torch.ops.routes import TWINS
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.ops import forensic_maps
+    from tpudf_torch.ops.forensics import _gray, forensic_battery
+    from tpudf_torch.serve import app
+    from tpudf_torch.serve.report import predict_images, predict_video
+
+    print(f"phase 3u: the app's callbacks, the forensic maps and the "
+          f"forensics CLI on the card ({CLI_MODEL} W8A8 engine)", flush=True)
+    eng = cli["engine"]
+    size = eng.cfg.image_size
+    predict_image, predict_clip = app.build_predict_fns(eng)
+    expect = engine_expect(eng.cfg.layers, eng.cfg.num_patches)[("B",
+                                                                  "full")]
+    src = report_images(5, 384, seed=52)[4]
+    pil = Image.fromarray(src)
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    payload = predict_image(pil)
+    torch.cuda.synchronize()
+    image_ms = (time.perf_counter() - t0) * 1e3
+    check_launches("app predict_image", LAUNCHES.snapshot(), expect)
+    px = np.array(pil.convert("RGB").resize((size, size), Image.BICUBIC))
+    got = json.loads(payload[7])
+    core, batt, ties = report_vs("app predict_image vs a fresh request",
+                                 [got], report_plain(predict_images(
+                                     eng, px[None])), True)
+    with open(payload[8]) as f:
+        saved = json.load(f)
+    if len(payload) != 9 or got != saved:
+        raise AssertionError("app predict_image: payloads out of shape")
+    os.unlink(payload[8])
+    print(f"  predict_image ({src.shape[0]} px PIL → {size}): {image_ms:.3f} ms "
+          f"(host clock, maps, panel and collage included), launches "
+          f"{expect} (phase 3r's); report vs a fresh request max|Δ| core "
+          f"{core:.3e}, battery {batt:.3e}; ties {ties or 'none'} [{card}]",
+          flush=True)
+
+    clip_path, frames = cli["video"]
+    t0 = time.perf_counter()
+    payload = predict_clip(clip_path)
+    torch.cuda.synchronize()
+    clip_ms = (time.perf_counter() - t0) * 1e3
+    got = json.loads(payload[8])
+    tw = dataclasses.replace(eng, kernels=TWINS)
+    d, ties, _ = video_vs("app predict_clip vs a fresh request", got,
+                          report_plain(predict_video(eng, frames)), True,
+                          False, lambda: tuple(report_plain(predict_images(
+                              m, frames, fast=True)) for m in (eng, tw)))
+    if len(payload) != 10 or len(payload[6]) != len(frames):
+        raise AssertionError("app predict_clip: payloads out of shape")
+    os.unlink(payload[9])
+    print(f"  predict_clip ({len(frames)} frames): {clip_ms:.3f} ms (host "
+          f"clock, sampling included); report vs a fresh request max|Δ| "
+          f"tower {d:.3e}; ties {ties or 'none'} [{card}]", flush=True)
+
+    # the maps, overlay, panel and collage: the card vs the CPU
+    def front(device, img):
+        x = torch.from_numpy(img[None].copy()).to(device).float() / 255.0
+        maps = forensic_maps.forensic_map_battery(x)
+        return (maps, forensic_maps.heatmap_overlay(img, maps["combined"][0]),
+                app.forensic_panel_image(img, device),
+                app.jitter_collage(img, device=device))
+
+    worst, shares = 0.0, []
+    for size in (256, 384):
+        img = report_images(3, size, seed=53 + size)[2]
+        card_out, cpu_out = front(dev, img), front("cpu", img)
+        worst = max(worst, maps_vs(f"maps {size}", card_out[0], cpu_out[0]))
+        shares += [uint8_vs(f"overlay {size}", card_out[1], cpu_out[1]),
+                   panel_vs(f"panel {size}", card_out[2], cpu_out[2], img,
+                            dev),
+                   uint8_vs(f"collage {size}", card_out[3], cpu_out[3])]
+    print(f"  maps on the card vs the CPU (TF32 off) at 256 and 384 px: "
+          f"max|Δ| {worst:.3e} (the battery's rule); overlay, panel (its "
+          f"JPEG tile the coloring of the card's map), collage within 1, "
+          f"share apart ≤ {max(shares):.5f} [{card}]",
+          flush=True)
+
+    def fault_tf32_maps():
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        orig = forensic_maps.f32_math
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        forensic_maps.f32_math = contextlib.nullcontext
+        try:
+            img = report_images(3, 384, seed=437)[2]
+            x = torch.from_numpy(img[None].copy()).float() / 255.0
+            maps_vs("fault", forensic_maps.forensic_map_battery(x.to(dev)),
+                    forensic_maps.forensic_map_battery(x))
+        finally:
+            forensic_maps.f32_math = orig
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+    try:
+        fault_tf32_maps()
+        print("  planted fault tf32_maps: within the checks (reported, not "
+              "required)", flush=True)
+    except AssertionError as err:
+        print(f"  planted fault tf32_maps: caught ({str(err)[:160]})",
+              flush=True)
+
+    # the forensics CLI on a JPEG
+    jpeg = os.path.join(tmp, "forensics.jpg")
+    Image.fromarray(report_images(3, 320, seed=54)[2]).save(jpeg, quality=90)
+    out_dir = os.path.join(tmp, "ultra")
+    t0 = time.perf_counter()
+    forensics_cli.main([jpeg, "--out_dir", out_dir, "--device", str(dev)])
+    torch.cuda.synchronize()
+    cli_ms = (time.perf_counter() - t0) * 1e3
+    with open(os.path.join(out_dir, "scores.json")) as f:
+        scores = json.load(f)
+    from tpudf_torch.data.media import load_image_any
+    img256 = np.asarray(Image.fromarray(load_image_any(jpeg)).resize(
+        (256, 256)), np.uint8)
+    x = torch.from_numpy(img256[None].copy()).to(dev).float() / 255.0
+    want = {k: float(v[0]) for k, v in forensic_battery(x).items()}
+    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    if scores != want or pngs != sorted(f"{k}.png" for k in
+                                        forensic_maps.forensic_map_battery(
+                                            x, _gray(x))):
+        raise AssertionError("cli.forensics: scores.json is not "
+                             "forensic_battery's, or its PNGs are not the "
+                             "maps'")
+    print(f"  cli.forensics on a 320 px JPEG: {len(pngs)} PNGs, "
+          f"scores.json equal to forensic_battery's on the card "
+          f"({len(scores)} scores); {cli_ms:.3f} ms (host clock) "
+          f"[{card}]", flush=True)
+    return {"image_ms": image_ms, "clip_ms": clip_ms, "pil": pil,
+            "clip": clip_path}
+
+
 _START = [time.perf_counter()] * 2     # the script's start, the last mark
 
 
@@ -7879,6 +8528,25 @@ def main() -> int:
     videos = video_paths(dev, card, report_backbones)
 
     clock("phase 3v")
+
+    # ---- 3i / 3u. the front doors: the inference CLI at base-256 (W8A8 +
+    # ToMe + patch ToMe), then the app's callbacks, the forensic maps and
+    # the forensics CLI on its engine (cuDNN's TF32 at PyTorch's default:
+    # the tail and the maps keep their f32 math themselves)
+    front_tmp = tempfile.TemporaryDirectory()
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        cli = cli_paths(dev, card, front_tmp.name)
+        clock("phase 3i")
+        app_paths(dev, card, front_tmp.name, cli)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    del cli
+    front_tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    clock("phase 3u")
 
     # ---- 3w. weights in, large-384 MTL at 256 px, the multi-query _mha,
     # so400m's engines and int8 trees (the checkpoint lives in tmp until

@@ -1,12 +1,14 @@
 """CORAL ordinal risk calibration (tpudf/calib/coral.py): four logit
 cutpoints give a 5-band distribution over [REAL, LEAN_REAL, BORDERLINE,
 LEAN_FAKE, FAKE], a smoothed "gaussian" fake probability, and the 0.70/0.30
-blend with the raw sigmoid; plus the head-less MoE fallback blend."""
+blend with the raw sigmoid; plus the head-less MoE fallback blend, the
+artifacts' loader (`CoralCutpoints.from_json`) and the temperature fit."""
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 
 import numpy as np
 import torch
@@ -28,6 +30,23 @@ class CoralCutpoints:
     @classmethod
     def from_prob_cuts(cls, q25, q50, q75, qmax, temperature=1.0):
         return cls(tuple(_logit(np.array([q25, q50, q75, qmax]))), temperature)
+
+    @classmethod
+    def from_json(cls, cut_path, temp_path=None):
+        """The shipped artifacts: coral_cutpoints.json ({"q25", "q50",
+        "q75", "max"} or a list of four probabilities) and, optionally,
+        coral_temp.json ({"temperature": t})."""
+        with open(cut_path) as f:
+            raw = json.load(f)
+        if isinstance(raw, dict):
+            cuts = [raw["q25"], raw["q50"], raw["q75"], raw["max"]]
+        else:
+            cuts = list(raw)
+        t = 1.0
+        if temp_path is not None:
+            with open(temp_path) as f:
+                t = float(json.load(f).get("temperature", 1.0))
+        return cls.from_prob_cuts(*cuts, temperature=t)
 
     @classmethod
     def default(cls):
@@ -88,3 +107,21 @@ def moe_fallback_blend(p_sig, p_freq, p_gauss):
     beta = torch.clamp(p_freq * (1.0 - p_sig), 0.05, 0.95)
     p_moe = (alpha * p_sig + beta * p_freq) / (alpha + beta + 1e-6)
     return torch.clamp(0.4 * p_or + 0.35 * p_moe + 0.25 * p_gauss, 0.0, 1.0)
+
+
+def fit_temperature(logits, labels, grid=None):
+    """1-D temperature search minimizing NLL over a grid (numpy; the
+    reference's temperature scaling, inference_deepfakeface_complete.py
+    :450-478)."""
+    logits = np.asarray(logits, np.float64)
+    labels = np.asarray(labels, np.float64)
+    if grid is None:
+        grid = np.linspace(0.25, 5.0, 96)
+    best_t, best_nll = 1.0, np.inf
+    for t in grid:
+        p = 1.0 / (1.0 + np.exp(-logits / t))
+        p = np.clip(p, 1e-7, 1 - 1e-7)
+        nll = -np.mean(labels * np.log(p) + (1 - labels) * np.log(1 - p))
+        if nll < best_nll:
+            best_t, best_nll = float(t), float(nll)
+    return best_t

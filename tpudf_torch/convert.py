@@ -78,3 +78,41 @@ def params_to_numpy(tree):
             t = t.float()
         return t.numpy()
     return tree
+
+
+def engine_from_numpy(src, device, policy=None):
+    """The port's DetectEngine holding what another DetectEngine holds (the
+    JAX package's: its arrays read with np.asarray): the config by field
+    values, the parameter trees (params_from_numpy), the CORAL cutpoints
+    with their temperature, the ToMe schedules, and the report's artifacts
+    (mean_real; a TreeEnsemble by its tables; a BayesCalibration by its
+    JSON form), on `device`. policy: the port's DEFAULT_POLICY unless
+    given."""
+    import dataclasses
+
+    from tpudf_torch.core.precision import DEFAULT_POLICY
+    from tpudf_torch.fuse.bayesian import BayesCalibration
+    from tpudf_torch.models.fusion import TreeEnsemble
+    from tpudf_torch.models.siglip import SigLIPConfig
+    from tpudf_torch.serve.engine import DetectEngine
+
+    cfg = SigLIPConfig(**{f.name: getattr(src.cfg, f.name)
+                          for f in dataclasses.fields(SigLIPConfig)})
+    p = params_from_numpy({**{k: getattr(src, k) for k in (
+        "backbone", "head", "freq", "fusion")}, "cuts": src.cuts}, device)
+    gbdt = src.gbdt
+    if gbdt is not None:
+        gbdt = TreeEnsemble(*(np.asarray(getattr(gbdt, k)) for k in (
+            "feats", "thresh", "left", "right", "leaf")),
+            base_score=gbdt.base_score, platt_a=gbdt.platt_a,
+            platt_b=gbdt.platt_b).to(device)
+    calib = src.bayes_calibration
+    if calib is not None:
+        calib = BayesCalibration.from_json(calib.to_json()).to(device)
+    mean_real = (None if src.mean_real is None
+                 else np.asarray(src.mean_real, np.float32))
+    return DetectEngine(
+        cfg=cfg, policy=policy or DEFAULT_POLICY, **p,
+        tome_r=src.tome_r, tome_floor=src.tome_floor,
+        patch_tome_r=src.patch_tome_r, patch_tome_floor=src.patch_tome_floor,
+        mean_real=mean_real, gbdt=gbdt, bayes_calibration=calib)

@@ -2,13 +2,13 @@
 the CIFAKE-style TRAIN/VAL/TEST x REAL|FAKE layout
 (cifake_binary_classifier.py:112-209, simple_classifier.py:65-114).
 
-Decode runs on the host with PIL in a thread pool; batches are uint8 NHWC
-numpy arrays for the device's preprocessing (data/pipeline.py). A file that
-fails to decode becomes a noise image, the reference's graceful
-degradation (hidf :243-247, simple_classifier.py:108-114). The JAX
-package's native C++ JPEG decoder (`tpudf/data/decode.py`) is not part of
-the port; PIL is the JAX package's own fallback. The video dataset and the
-Hugging Face SID_Set loader are not ported.
+Decode runs on the host in a thread pool, in the JAX package's order: the
+native C++ JPEG decoder (`data/decode.py`, cpp/libtpudf_decode.so, `.jpg` /
+`.jpeg` only) where it loads, else PIL; batches are uint8 NHWC numpy arrays
+for the device's preprocessing (data/pipeline.py). A file that fails to
+decode becomes a noise image, the reference's graceful degradation (hidf
+:243-247, simple_classifier.py:108-114). The video dataset and the Hugging
+Face SID_Set loader are not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +19,10 @@ from typing import Iterator
 
 import numpy as np
 
+from tpudf_torch.data.decode import decode_resize
+
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
 
 
 def list_images(root: str) -> list[str]:
@@ -33,8 +36,13 @@ def list_images(root: str) -> list[str]:
 
 
 def _decode_image(path: str, size: int) -> np.ndarray:
-    """uint8 (size, size, 3): PIL decode, EXIF orientation, RGB, bicubic
-    resize; a noise image (seeded by the path's hash) if that fails."""
+    """uint8 (size, size, 3): the native decoder's decode and resize of a
+    JPEG where the library loads; else PIL decode, EXIF orientation, RGB,
+    bicubic resize; a noise image (seeded by the path's hash) if that
+    fails."""
+    arr = decode_resize(path, size)
+    if arr is not None:
+        return arr
     try:
         from PIL import Image, ImageOps
         with Image.open(path) as im:

@@ -24,6 +24,15 @@ def apply_fusion_linear(params, p_sig, p_freq):
     return (mm(x, params["w"]) + params["b"])[..., 0]
 
 
+def fusion_linear_from_safetensors(path, device="cpu"):
+    """The deployed artifact siglip/fusion_head.safetensors (fc.weight
+    (1, 2), fc.bias) as {"w": (2, 1), "b": (1,)} on `device`."""
+    from safetensors.numpy import load_file
+    sd = load_file(path)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return {"w": t(sd["fc.weight"].T), "b": t(sd["fc.bias"])}
+
+
 # -------------------------------------------------------------- GBDT eval
 
 class TreeEnsemble:
