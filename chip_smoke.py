@@ -6773,6 +6773,32 @@ def video_paths(dev, card, backbones):
         torch.backends.cudnn.allow_tf32 = prev
 
 
+class tf32_on:
+    """A planted fault: TF32 on for cuDNN and cuBLAS, and each module's
+    f32_math a no-op, until the block ends."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+
+    def __enter__(self):
+        import contextlib
+        import torch
+        self.prev = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+        self.orig = [m.f32_math for m in self.modules]
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        for m in self.modules:
+            m.f32_math = contextlib.nullcontext
+
+    def __exit__(self, *exc):
+        import torch
+        for m, f in zip(self.modules, self.orig):
+            m.f32_math = f
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = self.prev
+
+
 def _video_paths(dev, card, backbones):
     """Phase 3v: the video report at full width on phase 3r's engines.
     For each backbone and engine a request of VIDEO_T frames
@@ -6784,7 +6810,6 @@ def _video_paths(dev, card, backbones):
     must catch; the sampler (data/video.sample_video) on an mp4v file that
     cv2 writes, its frames through predict_video. Returns what phase 4
     times."""
-    import contextlib
     import dataclasses
 
     import numpy as np
@@ -6918,25 +6943,6 @@ def _video_paths(dev, card, backbones):
                       large_clip[:3])
         finally:
             engine_mod._unit_rows = orig
-
-    @contextlib.contextmanager
-    def tf32_on(*modules):
-        """TF32 on for cuDNN and cuBLAS, and each module's f32_math a
-        no-op."""
-        prev = (torch.backends.cudnn.allow_tf32,
-                torch.backends.cuda.matmul.allow_tf32)
-        orig = [m.f32_math for m in modules]
-        torch.backends.cudnn.allow_tf32 = True
-        torch.backends.cuda.matmul.allow_tf32 = True
-        for m in modules:
-            m.f32_math = contextlib.nullcontext
-        try:
-            yield
-        finally:
-            for m, f in zip(modules, orig):
-                m.f32_math = f
-            (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32) = prev
 
     def fault_tf32():
         with tf32_on(forensics, report, face):
@@ -7674,6 +7680,394 @@ def app_paths(dev, card, tmp, cli):
 
 
 _START = [time.perf_counter()] * 2     # the script's start, the last mark
+
+
+# The trainers (phase 3x, `trainer_paths`; phase 4, `trainer_timings`): the
+# experts CLI, the video trainer's CLI (float and W8A8) and the face nets'
+# pretraining, at base-256 on random weights from seed 0.
+EXPERTS_PER_CLASS, EXPERTS_BATCH = 64, 64
+VIDEO_CLIPS, VIDEO_VAL, VIDEO_T, VIDEO_B = 16, 4, 8, 8
+FACE_STEPS = 10
+TRAINER_MODEL = "base-256"      # a test config rehearses phase 3x on the CPU
+# the corpus pass's 24-d standardised features against the twins' pass,
+# max |Δ| (7.153e-7 read on an H100; the same pass on a gray plane rounded
+# to bf16, the planted fault, must land above it). z_sig keeps phase 3r's
+# engine rule, 5e-2.
+FEATURE_TOL = 4e-6
+# the face nets after FACE_STEPS Adam steps on the card against the same
+# steps on the CPU: each step's loss and the nets' outputs on a probe batch
+# by |Δ| / (1 + |x|), f32 both sides with TF32 off; a limit for each net
+# between its sound reading and the same run with TF32 on (the planted
+# fault, which must land above it). Read on an H100: the landmark net
+# 9.5e-5 to 9.8e-5 sound (Adam's sign-sized steps on near-zero gradients
+# carry f32 noise), 1.8e-2 with TF32; the identity net 1.0e-6 sound, 1.2e-2
+# with TF32.
+FACE_TRAIN_TOL = {"landmark": 3e-4, "identity": 5e-6}
+
+
+def experts_folder(root, n, size, seed):
+    """train/{REAL,FAKE} of n PNGs each: data/synth_detect's seeded real
+    images and fakes with a generator artifact."""
+    from PIL import Image
+    from tpudf_torch.data.synth_detect import make_detect_batch
+    imgs, labels = make_detect_batch(n, size, seed)
+    for i, (img, y) in enumerate(zip(imgs, labels)):
+        d = os.path.join(root, "train", "FAKE" if y else "REAL")
+        os.makedirs(d, exist_ok=True)
+        Image.fromarray(img).save(os.path.join(d, f"{i}.png"))
+
+
+def video_folder(root, n_train, n_val, frames, size, seed):
+    """train / val x REAL / FAKE of mp4v clips (`sampler_file`; the FAKE
+    ones with a scene cut half way)."""
+    for s, (split, n) in enumerate((("train", n_train), ("val", n_val))):
+        for c, cls in enumerate(("REAL", "FAKE")):
+            d = os.path.join(root, split, cls)
+            os.makedirs(d, exist_ok=True)
+            for i in range(n):
+                sampler_file(os.path.join(d, f"{i}.mp4"), frames, size,
+                             frames // 2 if c else None,
+                             seed + 1000 * s + 100 * c + i)
+
+
+def experts_path(dev, card, tmp):
+    """(x1) `python -m tpudf_torch.cli.train_experts --v5` in process on
+    a train/{REAL,FAKE} folder of 2 x 64 synthetic 256 px PNGs, the launch
+    counts set to 0 just before it: per corpus batch of 64 one K3 and one
+    bf16 tower forward, nothing else on the kernels; the corpus pass's
+    features and z_sig against the same pass through the twins (phase 3r's
+    engine rule: 5e-2, the z_freq / z_sig limit; the features by
+    FEATURE_TOL, which the pass on a bf16-rounded gray plane must break);
+    every artifact loads
+    (the inference CLI's `build_engine --artifacts` at base-256, the v5
+    expert's own loader) and a request of the engine built on them
+    returns finite outputs, fused logits included."""
+    import numpy as np
+    import torch
+    from tpudf_torch.cli import infer, train_experts
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.models.freq_mlp import (apply_freq_mlp_v5,
+                                             freq_mlp_v5_from_safetensors)
+    from tpudf_torch.ops import srm
+    from tpudf_torch.ops.fft_features import extract_freq_vector
+    from tpudf_torch.ops.routes import TWINS
+    data, save = os.path.join(tmp, "experts_data"), os.path.join(tmp,
+                                                                 "experts")
+    size = trainer_cfg().image_size
+    experts_folder(data, EXPERTS_PER_CLASS, size, 41)
+    calls = []
+    orig = train_experts.corpus_pass
+
+    def spy(*a, **k):
+        out = orig(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    argv = ["--data_dir", data, "--save_dir", save, "--model_size",
+            TRAINER_MODEL, "--v5", "--freq_epochs", "10", "--fusion_steps",
+            "100", "--batch_size", str(EXPERTS_BATCH), "--device", str(dev)]
+    train_experts.corpus_pass = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        LAUNCHES.reset()
+        summary = train_experts.main(argv)
+        torch.cuda.synchronize()
+        launches = LAUNCHES.snapshot()
+        wall = time.perf_counter() - t0
+    finally:
+        train_experts.corpus_pass = orig
+    (args, kw, (feats, z_sig)), = calls
+    n_img = 2 * EXPERTS_PER_CLASS
+    batches = -(-n_img // EXPERTS_BATCH)
+    per_batch = dict(tower_expect(trainer_cfg().layers, "A"),
+                     **{srm.KERNEL: 1})
+    check_launches("x1 experts CLI", launches,
+                   {k: v * batches for k, v in per_batch.items()})
+    feats_t, z_sig_t = orig(*args, **dict(kw, kernels=TWINS))
+    d_f = float(np.abs(feats - feats_t).max())
+    d_z = float(np.abs(z_sig - z_sig_t).max())
+    print(f"x1 experts CLI ({TRAINER_MODEL}, {n_img} images, {batches} corpus "
+          f"batches of {EXPERTS_BATCH}, --v5, 10 freq epochs, 100 fusion "
+          f"steps): {wall:.2f} s; launches {launches} = {per_batch} a "
+          f"corpus batch; vs twins max|Δ| features {d_f:.3e}, z_sig "
+          f"{d_z:.3e}; summary {json.dumps(summary)} [{card}]", flush=True)
+    if (feats.shape != (n_img, 24) or not np.isfinite(feats).all()
+            or not np.isfinite(z_sig).all() or d_f > FEATURE_TOL
+            or d_z > 5e-2):
+        raise AssertionError(f"x1: corpus pass off its twins (features "
+                             f"{d_f:.3e}, z_sig {d_z:.3e})")
+    with torch.inference_mode():
+        feats_bf16 = np.concatenate([
+            extract_freq_vector(g.bfloat16().float(), TWINS).cpu().numpy()
+            for _, g in train_experts._batches(
+                args[0], size, EXPERTS_BATCH, dev)])
+    d_bf16 = float(np.abs(feats - feats_bf16).max())
+    print(f"  planted fault gray in bf16: features max|Δ| {d_bf16:.3e} "
+          f"(limit {FEATURE_TOL:.0e})", flush=True)
+    if d_bf16 <= FEATURE_TOL:
+        raise AssertionError("x1: the features' limit misses the planted "
+                             "fault gray in bf16")
+    eng = infer.build_engine(infer.parse_args(
+        ["--input", data, "--artifacts", save, "--model_size",
+         TRAINER_MODEL, "--device", str(dev)]))
+    with open(os.path.join(save, "coral_temp.json")) as f:
+        temp = json.load(f)["temperature"]
+    if eng.fusion is None or eng.cuts.temperature != temp:
+        raise AssertionError("x1: the engine did not take the artifacts")
+    px = report_images(8, size, 42)
+    out = eng.fetch_batch(eng.dispatch_batch(px, True), True)
+    bad = [k for k, v in out.items() if not np.isfinite(v).all()]
+    v5 = apply_freq_mlp_v5(freq_mlp_v5_from_safetensors(
+        os.path.join(save, "freq_mlp_v5.safetensors"), dev),
+        torch.from_numpy(feats).to(dev))
+    if bad or not torch.isfinite(v5).all():
+        raise AssertionError(f"x1: not finite: {bad or 'the v5 expert'}")
+    fw = eng.fusion["w"].flatten().tolist()
+    print(f"x1 artifacts → DetectEngine (fusion w {fw}, CORAL T "
+          f"{temp:.4f}): fast request B=8 z_scaled "
+          f"{np.round(out['z_scaled'], 4).tolist()}; v5 expert on the "
+          f"corpus finite [{card}]", flush=True)
+    del eng
+    return {"corpus": (orig, args, kw, n_img)}
+
+
+def video_train_path(dev, card, tmp, data, int8):
+    """(x2) `python -m tpudf_torch.cli.train_video` in process at the JAX
+    defaults (base-256, --num_frames 8 --batch_size 8: 64 frames a step)
+    for 2 epochs on `data` (16 clips a class; 4 a class in val), the
+    launch counts set to 0 just before each train step and read after it:
+    one tower forward and the head's LN (K4) a step, float or W8A8, and
+    no K10; the first step's frame features against the twins' (pooled
+    cosine >= 0.99), every loss finite, the ledger's 2 rows and a `best`
+    checkpoint that restores and scores finite logits."""
+    import numpy as np
+    import torch
+    from tpudf_torch.cli import train_video
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.models.heads import apply_video_head
+    from tpudf_torch.ops import attention, layernorm
+    from tpudf_torch.ops.routes import TWINS
+    from tpudf_torch.train import video as tv
+    from tpudf_torch.train.checkpoint import restore_checkpoint
+    label = f"x2 video CLI {'W8A8' if int8 else 'bf16'}"
+    save = os.path.join(tmp, "video_int8" if int8 else "video")
+    rec = {"launches": [], "loss": []}
+    orig = tv.make_video_train_step
+
+    def make(cfg, opt, policy, pos_w, *a, **k):
+        init_fn, step = orig(cfg, opt, policy, pos_w, *a, **k)
+
+        def counted(state, backbone, batch, generator=None):
+            rec.setdefault("first", (backbone, batch, cfg, policy))
+            torch.cuda.synchronize()
+            LAUNCHES.reset()
+            state, m = step(state, backbone, batch, generator)
+            torch.cuda.synchronize()
+            rec["launches"].append(LAUNCHES.snapshot())
+            rec["loss"].append(float(m["loss"]))
+            rec["step"], rec["state"] = step, state
+            return state, m
+        return init_fn, counted
+
+    argv = ["--data_dir", data, "--save_dir", save, "--model_size",
+            TRAINER_MODEL, "--num_frames", str(VIDEO_T), "--batch_size",
+            str(VIDEO_B), "--epochs", "2", "--device", str(dev)]
+    tv.make_video_train_step = make
+    try:
+        t0 = time.perf_counter()
+        train_video.main(argv + (["--int8_backbone"] if int8 else []))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tv.make_video_train_step = orig
+    steps = 2 * (2 * VIDEO_CLIPS // VIDEO_B)
+    # one tower forward and the video head's LN over the bf16 features
+    expect = tower_expect(trainer_cfg().layers, "B" if int8 else "A")
+    expect[layernorm.KERNEL] += 1
+    if len(rec["launches"]) != steps:
+        raise AssertionError(f"{label}: {len(rec['launches'])} steps")
+    for i, got in enumerate(rec["launches"]):
+        if attention.KERNEL_BWD in got:
+            raise AssertionError(f"{label} step {i}: K10 launched in the "
+                                 f"frozen step: {got}")
+        check_launches(f"{label} step {i}", got, expect)
+    backbone, batch, cfg, policy = rec["first"]
+    with torch.no_grad():
+        kern = tv.video_frame_features(backbone, batch["frames"], cfg, policy)
+        twin = tv.video_frame_features(backbone, batch["frames"], cfg, policy,
+                                       kernels=TWINS)
+    w = cfg.width
+    msg = pooled_vs(f"{label} first step's frame features",
+                    kern.reshape(-1, w), twin.reshape(-1, w))
+    rows = open(os.path.join(save, "training_log.csv")).read().splitlines()
+    best = restore_checkpoint(os.path.join(save, "best"), dev)
+    z = apply_video_head(best["head"], kern.float())
+    if (not np.isfinite(rec["loss"]).all() or len(rows) != 3
+            or not torch.isfinite(z).all() or best["step"] < 1):
+        raise AssertionError(f"{label}: losses {rec['loss']}, ledger "
+                             f"{rows}, best logits {z}")
+    print(f"{label} ({TRAINER_MODEL}, {2 * VIDEO_CLIPS} clips x {VIDEO_T} frames, "
+          f"B={VIDEO_B}: {VIDEO_B * VIDEO_T} frames a step, 2 epochs): "
+          f"{wall:.2f} s; launches per step {rec['launches'][0]} (no K10); "
+          f"first step's features: {msg}; losses "
+          f"{['%.4f' % v for v in rec['loss']]}; best (epoch "
+          f"{best['epoch']}, step {best['step']}) logits "
+          f"{np.round(z.cpu().numpy(), 4).tolist()}; ledger {rows[-1][:120]}"
+          f" [{card}]", flush=True)
+    return rec
+
+
+def trainer_cfg():
+    from tpudf_torch.models.siglip import CONFIGS
+    return CONFIGS[TRAINER_MODEL]
+
+
+def face_train_vs_cpu(dev, card):
+    """(x3) FACE_STEPS steps of train_landmark_net (batch 16) and of
+    train_face_embed (k_ids 8 of a 16-identity, 2-view pool) on the card
+    and on the CPU, each from its seeded init, TF32 off (the trainers'
+    f32_math): each step's loss and the trained nets' outputs on a probe
+    batch by FACE_TRAIN_TOL; the card's run with TF32 on (the planted
+    fault) must break it. Returns the card's trained trees."""
+    import numpy as np
+    import torch
+    from tpudf_torch.models import face_embed, face_landmark
+    from tpudf_torch.ops import forensics
+    from tpudf_torch.train import steps
+    probe = face_embed.render_crop_pool(np.random.default_rng(43), 4, 1)[:, 0]
+    nets = {
+        "landmark": (face_landmark.train_landmark_net,
+                     dict(batch=16, size=64), face_landmark.landmark_forward),
+        "identity": (face_embed.train_face_embed,
+                     dict(k_ids=8, n_ids=16, pool_views=2),
+                     face_embed.face_embed_forward)}
+    orig = steps.fit_step
+    losses = []
+
+    def spy(*a, **k):
+        st, loss = orig(*a, **k)
+        losses.append(float(loss))
+        return st, loss
+
+    def run(train, kw, fwd, d):
+        losses.clear()
+        params = train(steps=FACE_STEPS, seed=0, device=d, **kw)
+        out = fwd(params, torch.from_numpy(probe).to(d))
+        out = out if isinstance(out, dict) else {"embedding": out}
+        return list(losses), params, {k: v.cpu().double().numpy()
+                                      for k, v in out.items()}
+
+    def apart(got, want):
+        (lg, _, og), (lw, _, ow) = got, want
+        if len(lg) != FACE_STEPS or not np.isfinite(lg).all():
+            return float("inf"), float("inf")
+        return (max(abs(a - b) / (1 + abs(b)) for a, b in zip(lg, lw)),
+                max(float((np.abs(og[k] - ow[k]) / (1 + np.abs(ow[k])))
+                          .max()) for k in ow))
+
+    trained = {}
+    steps.fit_step = spy
+    try:
+        for name, (train, kw, fwd) in nets.items():
+            card_run, cpu_run = (run(train, kw, fwd, d) for d in (dev, "cpu"))
+            with tf32_on(forensics):
+                fault_run = run(train, kw, fwd, dev)
+            (d_loss, d_out), (f_loss, f_out) = (apart(card_run, cpu_run),
+                                                apart(fault_run, cpu_run))
+            tol = FACE_TRAIN_TOL[name]
+            print(f"x3 face {name} net: {FACE_STEPS} steps on the card vs "
+                  f"the CPU: losses {['%.5f' % v for v in card_run[0]]}; "
+                  f"|Δ|/(1+|x|) loss {d_loss:.3e}, outputs on 4 probe crops "
+                  f"{d_out:.3e} (limit {tol:.0e}); planted fault TF32 on: "
+                  f"loss {f_loss:.3e}, outputs {f_out:.3e} [{card}]",
+                  flush=True)
+            if max(d_loss, d_out) > tol:
+                raise AssertionError(f"x3 face {name} net off its CPU run "
+                                     f"(loss {d_loss:.3e}, outputs "
+                                     f"{d_out:.3e})")
+            if max(f_loss, f_out) <= tol:
+                raise AssertionError(f"x3 face {name} net: the limit misses "
+                                     f"the planted fault TF32 on")
+            trained[name] = card_run[1]
+    finally:
+        steps.fit_step = orig
+    return trained
+
+
+def trainer_paths(dev, card, tmp):
+    """Phase 3x: the trainers on the card, at base-256 on random weights
+    from seed 0: (x1) the experts CLI, (x2) the video CLI float and W8A8,
+    (x3) the face nets against their CPU runs. Returns what phase 4
+    times."""
+    print("phase 3x: the trainers (experts CLI, video CLI, face nets)",
+          flush=True)
+    state = experts_path(dev, card, tmp)
+    data = os.path.join(tmp, "video_data")
+    video_folder(data, VIDEO_CLIPS, VIDEO_VAL, 2 * VIDEO_T,
+                 trainer_cfg().image_size, 44)
+    for int8 in (False, True):
+        state[("video", int8)] = video_train_path(dev, card, tmp, data, int8)
+    state["face"] = face_train_vs_cpu(dev, card)
+    state["dev"] = dev
+    return state
+
+
+def trainer_timings(state, card):
+    """Phase 4 of phase 3x's paths: the video trainer's step float and
+    W8A8 (B = 8 clips x 8 frames) in ms by CUDA events after warm-up, with
+    a profile (its idle share); the experts' corpus pass in img/s (PNG
+    decode and gray plane on the host included); a face-net step of each
+    net at its CLI's batch (host batch synthesis included)."""
+    import numpy as np
+    import torch
+    from tpudf_torch.models import face_embed, face_landmark
+    dev = state.pop("dev")
+    for int8 in (False, True):
+        rec = state.pop(("video", int8))
+        backbone, batch = rec["first"][:2]
+        box = {"state": rec["state"]}
+        gen = torch.Generator(device=dev).manual_seed(7)
+
+        def vstep():
+            box["state"], _ = rec["step"](box["state"], backbone, batch, gen)
+
+        label = (f"video train step {TRAINER_MODEL} "
+                 f"{'W8A8' if int8 else 'bf16'}")
+        ms = cuda_ms(vstep, iters=10, warmup=3)
+        n = VIDEO_B * VIDEO_T
+        print(f"{label} B={VIDEO_B}x{VIDEO_T}: {ms:.3f} ms = "
+              f"{n * 1e3 / ms:.1f} frames/s [{card}]", flush=True)
+        profile(vstep, f"{label} B={VIDEO_B}x{VIDEO_T}", card, top=6)
+        del rec, box
+    orig, args, kw, n_img = state.pop("corpus")
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(*args, **kw)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+    print(f"experts corpus pass {TRAINER_MODEL} ({n_img} PNGs, batches of "
+          f"{EXPERTS_BATCH}): {s:.3f} s = {n_img / s:.1f} img/s [{card}]",
+          flush=True)
+    trained = state.pop("face")
+    pool = face_embed.render_crop_pool(np.random.default_rng(45), 64, 2)
+    for name, run in (
+            ("landmark (batch 64, 64 px)", lambda p: face_landmark
+             .train_landmark_net(p, steps=5, batch=64, device=dev)),
+            ("identity (k_ids 32, 2 views)", lambda p: face_embed
+             .train_face_embed(p, steps=5, k_ids=32, pool=pool,
+                               device=dev))):
+        p = trained["landmark" if name.startswith("landmark") else
+                    "identity"]
+        run(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(p)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 5
+        print(f"face {name} train step: {ms:.3f} ms (host batch synthesis "
+              f"included) [{card}]", flush=True)
 
 
 def clock(label):
@@ -8562,6 +8956,12 @@ def main() -> int:
 
     clock("phase 3t")
 
+    # ---- 3x. the trainers: the experts CLI, the video CLI (bf16 and W8A8)
+    # and the face nets' pretraining against their CPU runs
+    trainers = trainer_paths(dev, card, tmp.name)
+
+    clock("phase 3x")
+
     # ---- 4. timings of the paths
     print("phase 4: path timings", flush=True)
     for b, iters in ((8, 20), (256, 5)):
@@ -8667,6 +9067,8 @@ def main() -> int:
     clock("phase 4: weights in")
     training_rest_timings(rest, card)
     clock("phase 4: large trainers")
+    trainer_timings(trainers, card)
+    clock("phase 4: trainers")
     tmp.cleanup()
 
     names = {"K1": int8_block.KERNEL, "K2": mlp.KERNEL, "K3": srm.KERNEL,

@@ -149,8 +149,8 @@ def test_checkpoints_cross_load(tmp_path):
 
 
 def test_checkpoint_resolution(monkeypatch, tmp_path):
-    """$env → user cache → packaged asset → pretraining (raises in the
-    port) / None; memoized per (env, device); the identity net off with
+    """$env → user cache → packaged asset → pretraining (saved to the user
+    cache) / None; memoized per (env, device); the identity net off with
     $TPUDF_FACE_ID_EMBED=0."""
     monkeypatch.setattr(t_face, "_LM_MEMO", {})
     monkeypatch.setattr(t_face, "_EMBED_MEMO", {})
@@ -165,8 +165,11 @@ def test_checkpoint_resolution(monkeypatch, tmp_path):
     monkeypatch.setattr(t_face, "_PACKAGED_ASSET", str(tmp_path / "x.npz"))
     assert t_face.get_landmark_params("cpu") is None
     monkeypatch.setenv("TPUDF_FACE_TRAIN", "1")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        t_face.get_landmark_params("cpu")
+    monkeypatch.setenv("TPUDF_FACE_TRAIN_STEPS", "1")
+    trained = t_face.get_landmark_params("cpu")
+    assert trained["convs"][0]["k"].shape == a["convs"][0]["k"].shape
+    assert os.path.exists(tmp_path / "no.npz")
+    assert t_face.get_landmark_params("cpu") is trained       # memoized
     assert t_face.get_face_embed_params("cpu") is not None
     monkeypatch.setenv("TPUDF_FACE_ID_EMBED", "0")
     assert t_face.get_face_embed_params("cpu") is None

@@ -2,7 +2,8 @@
 cutpoints give a 5-band distribution over [REAL, LEAN_REAL, BORDERLINE,
 LEAN_FAKE, FAKE], a smoothed "gaussian" fake probability, and the 0.70/0.30
 blend with the raw sigmoid; plus the head-less MoE fallback blend, the
-artifacts' loader (`CoralCutpoints.from_json`) and the temperature fit."""
+artifacts' loader (`CoralCutpoints.from_json`), and the fits that make
+them: the quantile cutpoints and the temperature (host numpy)."""
 
 from __future__ import annotations
 
@@ -107,6 +108,13 @@ def moe_fallback_blend(p_sig, p_freq, p_gauss):
     beta = torch.clamp(p_freq * (1.0 - p_sig), 0.05, 0.95)
     p_moe = (alpha * p_sig + beta * p_freq) / (alpha + beta + 1e-6)
     return torch.clamp(0.4 * p_or + 0.35 * p_moe + 0.25 * p_gauss, 0.0, 1.0)
+
+
+def fit_coral_cutpoints(fused_logits, quantiles=(0.15, 0.35, 0.55, 0.75)):
+    """Quantile scan over calibration-set fused logits (coral.py:300-322):
+    the sorted logit at int(q · n) for each q, in the logits' own space."""
+    z = np.sort(np.asarray(fused_logits))
+    return [float(z[int(q * len(z))]) for q in quantiles]
 
 
 def fit_temperature(logits, labels, grid=None):

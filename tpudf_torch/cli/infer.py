@@ -141,6 +141,23 @@ def _same_tree(a, b) -> bool:
     return True
 
 
+def restore_head(path, template):
+    """The v5 head of a `tpudf_torch.cli.train_binary` checkpoint (its EMA
+    when it kept one, else its params), on the CPU; SystemExit when the
+    file holds no train state or its head is not shaped as `template`."""
+    try:
+        restored = restore_train_state(path)
+    except ValueError as e:
+        raise SystemExit(f"cannot restore head from {path}: {e}")
+    got = restored["ema"] if restored["ema"] is not None \
+        else restored["params"]
+    if not _same_tree(template, got):
+        raise SystemExit(f"cannot restore head from {path}: not a v5 head "
+                         "of this model size")
+    print(f"[head] restored {path}")
+    return got
+
+
 def build_engine(args, calib_uint8=None):
     """The serving engine the flags describe, on `args.device` (the card
     by default): the tower (random from --seed, or --backbone_ckpt), the
@@ -161,17 +178,7 @@ def build_engine(args, calib_uint8=None):
     head = init_binary_head(torch.Generator().manual_seed(seed + 1),
                             cfg.width)
     if getattr(args, "head_ckpt", None):
-        try:
-            restored = restore_train_state(args.head_ckpt)
-        except ValueError as e:
-            raise SystemExit(f"cannot restore head from {args.head_ckpt}: {e}")
-        got = restored["ema"] if restored["ema"] is not None \
-            else restored["params"]
-        if not _same_tree(head, got):
-            raise SystemExit(f"cannot restore head from {args.head_ckpt}: "
-                             "not a v5 head of this model size")
-        head = got
-        print(f"[head] restored {args.head_ckpt}")
+        head = restore_head(args.head_ckpt, head)
     if getattr(args, "invert_logits", False):
         # negate the head's output layer: sigmoid(-z) = 1 - sigmoid(z), so
         # the whole expert stack (fusion, cascade, verdict, report) sees the

@@ -14,6 +14,12 @@ same way and unchanged: the SegFormer decoder's convolution weights stay in
 JAX's HWIO layout (a depthwise weight (3, 3, 1, e)), and
 `models/segformer.py` hands F.conv2d an OIHW view of them ((e, 1, 3, 3)),
 so nothing is transposed here and a tree round-trips exactly.
+
+The trainers' small trees have named helpers that check the tree's keys
+before they convert it (f32 tensors on `device`, JAX's layout):
+`video_head_from_numpy` (init_video_head's), `adaptive_fusion_from_numpy`
+(init_adaptive_fusion's) and `freq_mlp_v5_from_numpy` (init_freq_mlp_v5's,
+its scalar temperature a 0-d tensor).
 """
 
 from __future__ import annotations
@@ -78,6 +84,35 @@ def params_to_numpy(tree):
             t = t.float()
         return t.numpy()
     return tree
+
+
+def _keyed_f32(tree, device, keys, what):
+    if not isinstance(tree, dict) or set(tree) != set(keys):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+        raise ValueError(f"not a {what} tree: keys {got}, expected "
+                         f"{sorted(keys)}")
+    return tree_map(lambda a: torch.from_numpy(
+        np.array(a, np.float32)).to(device), tree)
+
+
+def video_head_from_numpy(tree, device):
+    """JAX's init_video_head tree {ln, fc1, fc2, fc3} as tensors."""
+    return _keyed_f32(tree, device, ("ln", "fc1", "fc2", "fc3"),
+                      "video head")
+
+
+def adaptive_fusion_from_numpy(tree, device):
+    """JAX's init_adaptive_fusion tree {fc1, fc2, temp} as tensors."""
+    return _keyed_f32(tree, device, ("fc1", "fc2", "temp"),
+                      "adaptive fusion head")
+
+
+def freq_mlp_v5_from_numpy(tree, device):
+    """JAX's init_freq_mlp_v5 tree {norm_mean, norm_std, contrast, gates,
+    blocks, head, temp} as tensors."""
+    return _keyed_f32(tree, device, ("norm_mean", "norm_std", "contrast",
+                                     "gates", "blocks", "head", "temp"),
+                      "v5 frequency MLP")
 
 
 def engine_from_numpy(src, device, policy=None):

@@ -96,3 +96,78 @@ class FolderImageDataset:
                     lambda p: _decode_image(p, self.image_size), paths))
                 yield {"pixels": np.stack(imgs), "labels": labels,
                        "paths": paths}
+
+
+def extract_frames(path: str, num_frames: int, size: int) -> np.ndarray:
+    """Uniform frame sampling from a video → uint8 (T, size, size, 3) RGB
+    (hidf_video_classifier.py:106-149): T linspace indices over the frame
+    count, each read by a cv2 seek and resized with INTER_AREA; a read
+    that fails ends the clip, and black frames pad it to T."""
+    try:
+        import cv2
+        cap = cv2.VideoCapture(path)
+        total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        frames = []
+        if total > 0:
+            wanted = np.linspace(0, max(total - 1, 0), num_frames).astype(int)
+            for fi in wanted:
+                cap.set(cv2.CAP_PROP_POS_FRAMES, int(fi))
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                frame = cv2.resize(frame, (size, size),
+                                   interpolation=cv2.INTER_AREA)
+                frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+        cap.release()
+    except Exception:
+        frames = []
+    while len(frames) < num_frames:          # black-pad short/failed reads
+        frames.append(np.zeros((size, size, 3), np.uint8))
+    return np.stack(frames[:num_frames]).astype(np.uint8)
+
+
+class FolderVideoDataset:
+    """HiDF layout: a split dir (TRAIN / train / the root) holding REAL and
+    FAKE folders of clips, walked recursively
+    (hidf_video_classifier.py:172-247). label 1 = FAKE."""
+
+    def __init__(self, root: str, split: str = "train", num_frames: int = 8,
+                 image_size: int = 224, class_dirs=("REAL", "FAKE")):
+        split_dir = None
+        for cand in (split.upper(), split.lower(), ""):
+            p = os.path.join(root, cand) if cand else root
+            if all(os.path.isdir(os.path.join(p, c)) for c in class_dirs):
+                split_dir = p
+                break
+        if split_dir is None:
+            raise FileNotFoundError(f"no {class_dirs} dirs under {root}")
+        self.samples = []
+        for label, cdir in enumerate(class_dirs):
+            d = os.path.join(split_dir, cdir)
+            for dirpath, _, files in os.walk(d):
+                for f in sorted(files):
+                    if f.lower().endswith(VIDEO_EXTS):
+                        self.samples.append((os.path.join(dirpath, f), label))
+        self.num_frames = num_frames
+        self.image_size = image_size
+
+    def __len__(self):
+        return len(self.samples)
+
+    def batches(self, batch_size: int, *, shuffle=False, seed=0,
+                workers: int = 4) -> Iterator[dict[str, np.ndarray]]:
+        """{"frames": uint8 (B, T, S, S, 3), "labels": f32 (B,), "paths"}."""
+        idx = np.arange(len(self.samples))
+        if shuffle:
+            np.random.default_rng(seed).shuffle(idx)
+        with cf.ThreadPoolExecutor(workers) as ex:
+            for s in range(0, len(idx), batch_size):
+                chunk = idx[s:s + batch_size]
+                paths = [self.samples[i][0] for i in chunk]
+                labels = np.asarray([self.samples[i][1] for i in chunk],
+                                    np.float32)
+                vids = list(ex.map(
+                    lambda p: extract_frames(p, self.num_frames,
+                                             self.image_size), paths))
+                yield {"frames": np.stack(vids), "labels": labels,
+                       "paths": paths}

@@ -17,9 +17,11 @@ that one takes a tree already in the tpudf layout (a numpy copy of a JAX
 pytree) and only turns its leaves into tensors; this one reads checkpoints
 by their parameter names and builds the layout.
 
-`safetensors` and `transformers` are imported only inside the branches
-that read such files or hub ids; importing this module needs neither (the
-card's machine has neither: there a torch `.pt` state dict is read).
+`.safetensors` files are read by the port's own reader
+(`utils/safetensors_io.py`, numpy alone; BF16 tensors widen to f32), so
+the card's machine, which has no `safetensors` package, reads them too.
+`transformers` is imported only inside the branch that reads an HF hub
+id; importing this module does not need it.
 
 CLI: convert an HF model directory / `.safetensors` file / torch `.pt` or
 `.bin` / open_clip checkpoint into the port's checkpoint (`params`, written
@@ -247,9 +249,9 @@ def _load_state_dict(src: str) -> dict:
     """{name: f32 array} from a safetensors file, a torch .pt/.bin, an HF
     model directory, or an HF hub id (which needs the network)."""
     import os
+    from tpudf_torch.utils.safetensors_io import load_file
     if os.path.isfile(src) and src.endswith(".safetensors"):
-        from safetensors.numpy import load_file
-        return dict(load_file(src))
+        return load_file(src)
     if os.path.isfile(src):                 # torch checkpoint
         obj = torch.load(src, map_location="cpu", weights_only=True)
         sd = obj.get("state_dict", obj.get("model", obj)) \
@@ -258,7 +260,6 @@ def _load_state_dict(src: str) -> dict:
     if os.path.isdir(src):
         st = [f for f in os.listdir(src) if f.endswith(".safetensors")]
         if st:
-            from safetensors.numpy import load_file
             sd = {}
             for f in sorted(st):
                 sd.update(load_file(os.path.join(src, f)))

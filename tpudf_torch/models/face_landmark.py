@@ -15,9 +15,9 @@ each pads explicitly (`conv_same`) and convolves with padding 0.
 Coordinates are normalized to [0, 1] over the input square. Landmark order
 follows insightface: left eye, right eye, nose, left mouth, right mouth.
 
-Pretraining (`train_landmark_net`) needs the procedural face generator
-(tpudf/data/synth_faces.py), which the port does not have yet (ROADMAP
-Queue A item 5): the port serves the packaged weights.
+`train_landmark_net` pretrains the net on the procedural face generator
+(data/synth_faces.py, the same numpy draws as the JAX package's) with Adam,
+in f32 with TF32 off (`ops.forensics.f32_math`), on the caller's device.
 """
 
 from __future__ import annotations
@@ -83,6 +83,11 @@ def landmark_forward(params, images01):
 
     Landmarks decode by soft-argmax over per-landmark heatmaps: the
     softmax-weighted expectation of the spatial bin centres."""
+    return landmark_outputs(params, images01)
+
+
+def landmark_outputs(params, images01):
+    """`landmark_forward` with autograd (the training forward)."""
     x = images01.float().permute(0, 3, 1, 2) - 0.5
     for c, (_, stride) in zip(params["convs"], STEM):
         x = F.relu(conv_same(x, c["k"], c["b"], stride))
@@ -105,13 +110,50 @@ def landmark_forward(params, images01):
     return {"presence": pres, "box": box, "landmarks": lms}
 
 
-def train_landmark_net(*args, **kwargs):
-    """Pretraining on procedural faces needs data/synth_faces.py."""
-    raise NotImplementedError(
-        "landmark pretraining needs the procedural face generator "
-        "(data/synth_faces.py), not yet in tpudf_torch (ROADMAP Queue A "
-        "item 5); serve the packaged tpudf_torch/assets/face_landmarks.npz "
-        "or point TPUDF_FACE_CKPT at saved weights")
+def landmark_loss(out, pres, lms, boxes):
+    """The presence BCE + 10 x the landmark loss in BOX-RELATIVE units
+    (geometry errors weigh the same on small and large faces) + 2 x the
+    box loss, the last two over face samples only."""
+    from tpudf_torch.train.losses import bce_with_logits
+    l_pres = bce_with_logits(out["presence"], pres)
+    m = pres[:, None, None]
+    wh = torch.clamp(boxes[:, None, 2:], min=0.05)
+    l_lm = torch.sum(m * ((out["landmarks"] - lms) / wh) ** 2) \
+        / (torch.sum(m) * 10.0 + 1e-6)
+    mb = pres[:, None]
+    l_box = torch.sum(mb * (out["box"] - boxes) ** 2) \
+        / (torch.sum(mb) * 4.0 + 1e-6)
+    return l_pres + 10.0 * l_lm + 2.0 * l_box
+
+
+def train_landmark_net(params=None, *, steps=1500, batch=64, size=64,
+                       lr=2e-3, seed=0, log_every=0, device="cuda"):
+    """Pretrain on procedural faces (data/synth_faces.make_batch on
+    np.random.default_rng(seed)) with Adam at `lr`; returns the trained
+    parameters on `device`. params: the initial tree (default drawn from
+    torch.Generator(seed)). Deterministic for a seed on a device."""
+    from tpudf_torch.data.synth_faces import make_batch
+    from tpudf_torch.ops.forensics import f32_math
+    from tpudf_torch.train.steps import (adam, fit_step, frozen_copy,
+                                         tensor_leaves, trainable)
+
+    if params is None:
+        params = init_landmark_net(torch.Generator().manual_seed(seed), size)
+    params = trainable(params, device)
+    opt = adam(lr)
+    state = opt.init([t.detach() for t in tensor_leaves(params)])
+    rng = np.random.default_rng(seed)
+    on = lambda a: torch.from_numpy(a).to(device)
+    with f32_math():
+        for i in range(steps):
+            imgs, pres, lms, boxes = (on(a) for a in make_batch(rng, batch,
+                                                                size))
+            state, loss = fit_step(params, opt, state, lambda p: landmark_loss(
+                landmark_outputs(p, imgs), pres, lms, boxes))
+            if log_every and (i + 1) % log_every == 0:
+                print(f"[face_landmark] step {i + 1}/{steps} "
+                      f"loss={float(loss):.4f}")
+    return frozen_copy(params)
 
 
 def save_landmark_net(params, path):

@@ -1,5 +1,8 @@
 """Expert fusion (tpudf/models/fusion.py): the deployed Linear(2→1) head
-over (p_sig, p_freq) and the GBDT fusion evaluator (`TreeEnsemble`, the
+over (p_sig, p_freq), the AdaptiveFusionHeadV5 ([z_freq, z_sig, |Δ|] →
+MLP(3→32→2) → softmax weights → weighted logit sum → temperature,
+appv3.py:1543-1562, train_fusion_head_only.py:303-317) and the GBDT fusion
+evaluator (`TreeEnsemble`, the
 XGBoost-style override over the 19-d meta-feature vector + Platt scale,
 appv3.py:1427-1477, 5507-5578)."""
 
@@ -10,7 +13,9 @@ import json
 import numpy as np
 import torch
 
+from tpudf_torch.models.heads import gelu_exact
 from tpudf_torch.utils.nn import mm
+from tpudf_torch.utils.safetensors_io import load_file
 
 
 def init_fusion_linear(generator: torch.Generator):
@@ -27,10 +32,30 @@ def apply_fusion_linear(params, p_sig, p_freq):
 def fusion_linear_from_safetensors(path, device="cpu"):
     """The deployed artifact siglip/fusion_head.safetensors (fc.weight
     (1, 2), fc.bias) as {"w": (2, 1), "b": (1,)} on `device`."""
-    from safetensors.numpy import load_file
     sd = load_file(path)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return {"w": t(sd["fc.weight"].T), "b": t(sd["fc.bias"])}
+
+
+# --------------------------------------------------------- adaptive fusion
+
+def init_adaptive_fusion(generator: torch.Generator, hidden=32):
+    g = generator
+    s = lambda i, o: torch.randn((i, o), generator=g) * i ** -0.5
+    return {"fc1": {"w": s(3, hidden), "b": torch.zeros(hidden)},
+            "fc2": {"w": s(hidden, 2), "b": torch.zeros(2)},
+            "temp": torch.tensor(1.0)}
+
+
+def apply_adaptive_fusion(params, z_freq, z_sig):
+    """(…,) expert logits → (…,) fused logit: exact GELU, a softmax over
+    the two expert weights, the weighted sum over the temperature."""
+    diff = torch.abs(z_freq - z_sig)
+    x = torch.stack([z_freq, z_sig, diff], dim=-1)
+    h = gelu_exact(mm(x, params["fc1"]["w"]) + params["fc1"]["b"])
+    w = torch.softmax(mm(h, params["fc2"]["w"]) + params["fc2"]["b"], dim=-1)
+    z = w[..., 0] * z_freq + w[..., 1] * z_sig
+    return z / (params["temp"] + 1e-6)
 
 
 # -------------------------------------------------------------- GBDT eval

@@ -3,7 +3,9 @@
     (Drop(.2)) → logit (appv3.py:1211-1254);
   * the CiFake FastBinaryClassifier heads: tiny / small / medium-large MLPs
     with L2 norm + LN and an optional single-token self-attention
-    (cifake_binary_classifier.py:574-753), and their L1 + L2 penalty.
+    (cifake_binary_classifier.py:574-753), and their L1 + L2 penalty;
+  * the HiDF video head: per-frame L2 norm → temporal mean → LN → ReLU MLP
+    (hidf_video_classifier.py:279-320).
 Dropout runs only when a torch.Generator is given (training), as JAX's
 runs only with an rng key; its numbers are not JAX's (another generator).
 The products run in f32 (`mm`), so the LNs see f32 and take the plain
@@ -150,3 +152,40 @@ def fast_head_regularization(params, l1=1e-5, l2=1e-4):
             loss = loss + l1 * torch.sum(torch.abs(leaf)) \
                 + l2 * torch.sum(leaf ** 2)
     return loss
+
+
+# ------------------------------------------------------------- video head
+
+def init_video_head(generator: torch.Generator, dim: int):
+    """HiDF BinaryVideoClassifier head (hidf_video_classifier.py:279-289):
+    LN(dim) → dim/2 → dim/4 → 1, Xavier-uniform."""
+    g = generator
+    return {
+        "ln": {"scale": torch.ones(dim), "bias": torch.zeros(dim)},
+        "fc1": _linear(g, dim, dim // 2),
+        "fc2": _linear(g, dim // 2, dim // 4),
+        "fc3": _linear(g, dim // 4, 1),
+    }
+
+
+def apply_video_head(params, frame_features, generator=None,
+                     dropout_rate=0.3, acts=None):
+    """frame_features: (B, T, dim) per-frame pooled features → (B,)
+    logits: L2 norm per frame (eps 0) → temporal mean → LN → ReLU MLP
+    (hidf_video_classifier.py:300-320); dropout (rate after the LN, 0.67
+    rate after fc1) only with a generator. acts: an optional dict that
+    receives the fc1 / fc2 / fc3 activations."""
+    rec = (lambda k, v: acts.__setitem__(k, v)) if acts is not None \
+        else (lambda k, v: None)
+    f = l2_normalize(frame_features, eps=0.0)
+    pooled = torch.mean(f, dim=1)
+    x = layer_norm(pooled, params["ln"], 1e-5)
+    x = _dropout(x, dropout_rate, generator)
+    x = torch.relu(mm(x, params["fc1"]["w"]) + params["fc1"]["b"])
+    rec("fc1", x)
+    x = _dropout(x, dropout_rate * 0.67, generator)
+    x = torch.relu(mm(x, params["fc2"]["w"]) + params["fc2"]["b"])
+    rec("fc2", x)
+    out = mm(x, params["fc3"]["w"]) + params["fc3"]["b"]
+    rec("fc3", out)
+    return out[..., 0]

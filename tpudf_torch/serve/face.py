@@ -36,9 +36,10 @@ from tpudf_torch.ops.forensics import (_gray, _var, f32_math, laplacian,
 
 _ASSETS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets")
-_DEFAULT_CACHE = os.path.expanduser("~/.cache/tpudf/face_landmarks.npz")
+# the user caches, expanded at each lookup (so a HOME set later counts)
+_DEFAULT_CACHE = "~/.cache/tpudf/face_landmarks.npz"
 _PACKAGED_ASSET = os.path.join(_ASSETS, "face_landmarks.npz")
-_EMBED_CACHE = os.path.expanduser("~/.cache/tpudf/face_embed.npz")
+_EMBED_CACHE = "~/.cache/tpudf/face_embed.npz"
 _EMBED_ASSET = os.path.join(_ASSETS, "face_embed.npz")
 
 # the loaded parameters per (checkpoint env value, device); None results
@@ -52,11 +53,14 @@ _EMBED_MEMO = {}
 ID_DRIFT_LO, ID_DRIFT_SPAN = 0.15, 0.25
 
 
-def _resolve(env, cache, asset, load, device, memo, allow_train, train):
+def _resolve(env, cache, asset, load, device, memo, allow_train, train,
+             save, default_steps):
     """The JAX package's resolution order: $env → the user cache (removed
-    when its format is stale) → the packaged asset → pretraining when
-    allowed (allow_train, or $TPUDF_FACE_TRAIN=1; the port raises there)
-    → None."""
+    when its format is stale) → the packaged asset → when allowed
+    (allow_train, or $TPUDF_FACE_TRAIN=1) pretraining on `device` for
+    $TPUDF_FACE_TRAIN_STEPS steps (default_steps by default), saved to the
+    user cache → None. Loaded and trained parameters are memoized per (env
+    value, device)."""
     key = (os.environ.get(env, ""), str(torch.device(device)))
     if key in memo:
         return memo[key]
@@ -65,51 +69,63 @@ def _resolve(env, cache, asset, load, device, memo, allow_train, train):
         if params is not None:
             memo[key] = params
         return params
+    cache = os.path.expanduser(cache)
     path = os.environ.get(env, "")
     if path and os.path.exists(path):
         return remember(load(path, device))
     if os.path.exists(cache):
         try:
             return remember(load(cache, device))
-        except ValueError:          # stale format
+        except ValueError:          # stale format: retrain below if allowed
             os.remove(cache)
     if os.path.exists(asset):
         try:
             return remember(load(asset, device))
         except ValueError:
-            pass
+            pass                    # stale packaged format: retrain below
     if allow_train is None:
         allow_train = os.environ.get("TPUDF_FACE_TRAIN", "") == "1"
     if not allow_train:
         return None
-    return train()
+    params = train(steps=int(os.environ.get("TPUDF_FACE_TRAIN_STEPS",
+                                            str(default_steps))),
+                   device=device)
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    save(params, cache)
+    return remember(params)
 
 
 def get_landmark_params(device, allow_train: bool | None = None):
     """The landmark net's parameters on `device`: $TPUDF_FACE_CKPT →
     ~/.cache/tpudf/face_landmarks.npz → the packaged asset
-    (tpudf_torch/assets/face_landmarks.npz) → None (callers fall back to
-    Haar box geometry). Where the JAX package would pretrain
-    (allow_train / $TPUDF_FACE_TRAIN=1), the port raises."""
+    (tpudf_torch/assets/face_landmarks.npz) → (allow_train, or
+    $TPUDF_FACE_TRAIN=1) synthetic pretraining
+    (models/face_landmark.train_landmark_net, 1500 steps by default) on
+    `device`, cached to disk → None (callers fall back to Haar box
+    geometry)."""
     from tpudf_torch.models.face_landmark import (load_landmark_net,
+                                                  save_landmark_net,
                                                   train_landmark_net)
     return _resolve("TPUDF_FACE_CKPT", _DEFAULT_CACHE, _PACKAGED_ASSET,
                     load_landmark_net, device, _LM_MEMO, allow_train,
-                    train_landmark_net)
+                    train_landmark_net, save_landmark_net, 1500)
 
 
 def get_face_embed_params(device, allow_train: bool | None = None):
     """The face identity net's parameters on `device`:
     $TPUDF_FACE_EMBED_CKPT → ~/.cache/tpudf/face_embed.npz → the packaged
-    asset → None (callers fall back to tower embeddings).
-    $TPUDF_FACE_ID_EMBED=0 disables the identity net."""
+    asset → (allow_train, or $TPUDF_FACE_TRAIN=1) synthetic contrastive
+    pretraining (models/face_embed.train_face_embed, 2000 steps by
+    default) on `device`, cached to disk → None (callers fall back to
+    tower embeddings). $TPUDF_FACE_ID_EMBED=0 disables the identity net."""
     if os.environ.get("TPUDF_FACE_ID_EMBED", "") == "0":
         return None
     from tpudf_torch.models.face_embed import (load_face_embed,
+                                               save_face_embed,
                                                train_face_embed)
     return _resolve("TPUDF_FACE_EMBED_CKPT", _EMBED_CACHE, _EMBED_ASSET,
                     load_face_embed, device, _EMBED_MEMO, allow_train,
-                    train_face_embed)
+                    train_face_embed, save_face_embed, 2000)
 
 
 def _params_device(params):

@@ -17,6 +17,11 @@ without autograd as JAX's stop_gradient; or trained with the head,
 `train_backbone`) → the v5 or fast head → BCE; mixup on the batch and the
 head's dropout draw from the step's torch.Generator; the EMA of the
 trainable leaves is updated in place after each step.
+
+The smaller trainers (the experts, the video head, the face nets) share
+`adam` (optax's adam / adamw at a constant rate), `trainable` (an f32
+copy of a tree that takes gradients), `fit_step` (one in-place step of a
+loss on a tree) and `frozen_copy`.
 """
 
 from __future__ import annotations
@@ -203,6 +208,41 @@ def tensor_leaves(tree):
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in tensor_leaves(v)]
     return [tree] if torch.is_tensor(tree) else []
+
+
+def adam(lr, weight_decay=0.0):
+    """optax.adamw(lr, weight_decay) (optax.adam at weight_decay 0): the
+    port's AdamW at a constant rate, with no gradient clip."""
+    return AdamW(lambda count: lr, weight_decay, math.inf)
+
+
+def trainable(params, device):
+    """A trainable f32 copy of a parameter tree on `device`."""
+    out = tree_map(lambda t: torch.as_tensor(t).detach().to(
+        device, torch.float32).clone(), params)
+    for leaf in tensor_leaves(out):
+        leaf.requires_grad_(True)
+    return out
+
+
+def fit_step(params, opt, opt_state, loss_fn):
+    """One optimizer step of loss_fn(params) on the tree's tensor leaves,
+    in place; returns (the new optimizer state, the loss)."""
+    leaves = tensor_leaves(params)
+    for leaf in leaves:
+        leaf.grad = None
+    loss = loss_fn(params)
+    loss.backward()
+    grads = [leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+             for leaf in leaves]
+    opt_state, _ = opt.update(grads, opt_state,
+                              [leaf.detach() for leaf in leaves])
+    return opt_state, loss.detach()
+
+
+def frozen_copy(params):
+    """A detached copy of a parameter tree."""
+    return tree_map(lambda t: t.detach().clone(), params)
 
 
 def init_train_state(params, optimizer, ema_decay=None):
