@@ -318,6 +318,22 @@ back to the CPU or to a twin):
          at B = 8 with and without remat, each against the twins with
          exact launches; the binary CLI for an epoch, then --evaluate_only
          --resume;
+     (x) (`trainer_paths`): the experts CLI, the video CLI (bf16 and
+         W8A8, with --analysis: its launches exact, learning_analysis.json
+         with JAX's keys, the figures where matplotlib is installed, the
+         activation statistics against the twins' features), the face
+         nets against their CPU runs;
+     (p) (`parallel_paths`): p1, a world of 1 on NCCL in this process:
+         sharded_detect_core on engine B bit-equal to predict_batch with
+         its launches, 3 ShardedTrainer steps (base-256 tower trained, B =
+         8) against the single-process replay; p2, 2 gloo ranks on this
+         card under torchrun: the tower split by heads (6 a rank) against
+         the single-process forward, 12 K9 and 48 K13 a rank and no K14;
+         p3, 4 gloo ranks, mesh (2, 2): 3 split trainer steps against the
+         replay (K10 a block a rank), engine B's request of 13 over the
+         data axis against the single-process request; each limit
+         between its sound reading and a planted fault of the CPU
+         rehearsal;
   4. K9 and K10 at the paths' shapes beside SDPA's forward and backward,
      kernels 11 and 12 at every PLAIN_SHAPES case beside SDPA
      (`attention_factors`: each factor, from phases 2, 2b, 2c and 2d of
@@ -343,7 +359,9 @@ back to the CPU or to a twin):
      (`report_timings`); each video request of (v) by the host clock,
      split into the fast batch, the battery, the face trio and the chosen
      frame's full request (CUDA events), with a profile of one of them
-     (`video_timings`).
+     (`video_timings`); the video CLI's --analysis by the host clock; the
+     world-1 DP full analysis against the engine's own request
+     (`parallel_timings`).
 Prints a wall clock line at the end of each phase ("clock: ..."), a
 JSON line of the kernels (with each one's bound: the larger of
 its operations over the card's peak for their type and its bytes, each
@@ -7703,6 +7721,25 @@ FEATURE_TOL = 4e-6
 # carry f32 noise), 1.8e-2 with TF32; the identity net 1.0e-6 sound, 1.2e-2
 # with TF32.
 FACE_TRAIN_TOL = {"landmark": 3e-4, "identity": 5e-6}
+# --analysis (x2): the keys JAX's battery writes for a 2-epoch history,
+# the figure suite's files, and the activation statistics against the
+# same head on the twins' features of the validation batch: (max over
+# diversity and feature-learning score of |Δ| / |x|, |Δsparsity|); the
+# planted fault of the CPU rehearsal, the statistics taken on the first
+# training batch, read 3.8e-1 / 3.6e-2
+ANALYSIS_KEYS = {"activation_diversity", "activation_sparsity",
+                 "confidence", "confidence_gap", "feature_learning_score",
+                 "generalization_gap", "generalization_ratio",
+                 "learning_score", "learning_type", "memorization_score",
+                 "overconfidence_ratio", "train_confidence",
+                 "val_confidence"}
+ANALYSIS_FIGURES = ("calibration_curve.png", "class_comparison.png",
+                    "combined_curves.png", "confusion_matrix.png",
+                    "confusion_matrix_normalized.png",
+                    "metrics_comparison.png", "precision_recall_curve.png",
+                    "probability_distribution.png", "roc_curve.png",
+                    "threshold_analysis.png")
+ANALYSIS_TOL = (2e-2, 2e-2)
 
 
 def experts_folder(root, n, size, seed):
@@ -7845,6 +7882,7 @@ def video_train_path(dev, card, tmp, data, int8):
     import torch
     from tpudf_torch.cli import train_video
     from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.eval import analysis as an
     from tpudf_torch.models.heads import apply_video_head
     from tpudf_torch.ops import attention, layernorm
     from tpudf_torch.ops.routes import TWINS
@@ -7852,7 +7890,7 @@ def video_train_path(dev, card, tmp, data, int8):
     from tpudf_torch.train.checkpoint import restore_checkpoint
     label = f"x2 video CLI {'W8A8' if int8 else 'bf16'}"
     save = os.path.join(tmp, "video_int8" if int8 else "video")
-    rec = {"launches": [], "loss": []}
+    rec = {"launches": [], "loss": [], "card": card}
     orig = tv.make_video_train_step
 
     def make(cfg, opt, policy, pos_w, *a, **k):
@@ -7872,8 +7910,29 @@ def video_train_path(dev, card, tmp, data, int8):
 
     argv = ["--data_dir", data, "--save_dir", save, "--model_size",
             TRAINER_MODEL, "--num_frames", str(VIDEO_T), "--batch_size",
-            str(VIDEO_B), "--epochs", "2", "--device", str(dev)]
+            str(VIDEO_B), "--epochs", "2", "--device", str(dev),
+            "--analysis"]
+    orig_analysis = train_video.publication_analysis
+    orig_acts = an.video_head_activations
+
+    def analysis(*a, **k):
+        # the counts set to 0 just before the analysis, read just after
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        out = orig_analysis(*a, **k)
+        torch.cuda.synchronize()
+        rec["analysis"] = (LAUNCHES.snapshot(), time.perf_counter() - t0,
+                           a[2], a[4], out)
+        return out
+
+    def acts(head, feats):
+        rec["acts_in"] = feats
+        return orig_acts(head, feats)
+
     tv.make_video_train_step = make
+    train_video.publication_analysis = analysis
+    an.video_head_activations = acts
     try:
         t0 = time.perf_counter()
         train_video.main(argv + (["--int8_backbone"] if int8 else []))
@@ -7881,6 +7940,8 @@ def video_train_path(dev, card, tmp, data, int8):
         wall = time.perf_counter() - t0
     finally:
         tv.make_video_train_step = orig
+        train_video.publication_analysis = orig_analysis
+        an.video_head_activations = orig_acts
     steps = 2 * (2 * VIDEO_CLIPS // VIDEO_B)
     # one tower forward and the video head's LN over the bf16 features
     expect = tower_expect(trainer_cfg().layers, "B" if int8 else "A")
@@ -7915,7 +7976,79 @@ def video_train_path(dev, card, tmp, data, int8):
           f"{best['epoch']}, step {best['step']}) logits "
           f"{np.round(z.cpu().numpy(), 4).tolist()}; ledger {rows[-1][:120]}"
           f" [{card}]", flush=True)
+    analysis_checks(label, rec, expect, save, data, cfg, policy)
     return rec
+
+
+def analysis_checks(label, rec, step_expect, save, data, cfg, policy):
+    """(x2) --analysis after the video CLI's training: its launches exact
+    (each eval batch of the sampled train / val confidences and the
+    activation batch: one tower forward and the head's K4 each, as a step
+    without its backward), learning_analysis.json's keys ANALYSIS_KEYS
+    (JAX's for a 2-epoch history; tests/test_torch_port_video_train.py
+    holds them to JAX on the CPU), the figures where matplotlib is
+    installed, and the activation statistics against those of the same
+    head on the twins' features of the same validation batch
+    (ANALYSIS_TOL)."""
+    import collections
+    import json
+    import torch
+    from tpudf_torch.data.datasets import FolderVideoDataset
+    from tpudf_torch.data.pipeline import normalize_siglip
+    from tpudf_torch.eval.analysis import (activation_statistics,
+                                           video_head_activations)
+    from tpudf_torch.eval.plots import figures_available
+    from tpudf_torch.ops.routes import TWINS
+    from tpudf_torch.train import video as tv
+    launches, secs, tower, head, (metrics, stats) = rec["analysis"]
+    n_fwd = (min(-(-2 * VIDEO_CLIPS // VIDEO_B), 10)
+             + min(-(-2 * VIDEO_VAL // VIDEO_B), 10) + 1)
+    expect = collections.Counter()
+    for _ in range(n_fwd):
+        expect.update(step_expect)
+    check_launches(f"{label} --analysis", launches, dict(expect))
+    with open(os.path.join(save, "learning_analysis.json")) as f:
+        keys = set(json.load(f))
+    if keys != ANALYSIS_KEYS:
+        raise AssertionError(f"{label}: learning_analysis.json keys "
+                             f"{sorted(keys ^ ANALYSIS_KEYS)} differ")
+    pngs = ["learning_vs_memorization.png"] + [
+        os.path.join("figures", f) for f in ANALYSIS_FIGURES]
+    if figures_available():
+        missing = [f for f in pngs if not os.path.getsize(
+            os.path.join(save, f))]
+        if missing:
+            raise AssertionError(f"{label}: empty figures {missing}")
+        figs = f"{len(pngs)} figures written"
+    else:
+        figs = "no figures (matplotlib is not installed here)"
+        print(f"{label} --analysis: matplotlib is not installed on this "
+              f"machine: the figures are not checked", flush=True)
+        if os.path.exists(os.path.join(save, "figures")):
+            raise AssertionError(f"{label}: figures without matplotlib")
+    val = FolderVideoDataset(data, "val", VIDEO_T, cfg.image_size)
+    batch = next(iter(val.batches(VIDEO_B)))
+    frames = normalize_siglip(torch.from_numpy(batch["frames"]).to(
+        rec["acts_in"].device).float() / 255.0)
+    with torch.no_grad():
+        twin = tv.video_frame_features(tower, frames, cfg, policy,
+                                       kernels=TWINS)
+    ref = activation_statistics(video_head_activations(head, twin))
+    apart = max(abs(stats[k] - ref[k]) / max(abs(ref[k]), 1e-3)
+                for k in ("activation_diversity", "feature_learning_score"))
+    d_sparse = abs(stats["activation_sparsity"]
+                   - ref["activation_sparsity"])
+    print(f"{label} --analysis ({TRAINER_MODEL}, {n_fwd} tower forwards): "
+          f"{secs:.2f} s; launches {launches}; {metrics['learning_type']} "
+          f"score {metrics['learning_score']:.2f}; {len(keys)} keys = "
+          f"JAX's; {figs}; activation statistics vs the twins' features: "
+          f"rel {apart:.3e} (limit {ANALYSIS_TOL[0]:.0e}), |Δsparsity| "
+          f"{d_sparse:.3e} (limit {ANALYSIS_TOL[1]:.0e}) [{rec['card']}]",
+          flush=True)
+    if apart > ANALYSIS_TOL[0] or d_sparse > ANALYSIS_TOL[1]:
+        raise AssertionError(f"{label}: activation statistics off the "
+                             f"twins' ({apart:.3e}, {d_sparse:.3e})")
+    rec["analysis_s"] = secs
 
 
 def trainer_cfg():
@@ -8034,6 +8167,10 @@ def trainer_timings(state, card):
 
         label = (f"video train step {TRAINER_MODEL} "
                  f"{'W8A8' if int8 else 'bf16'}")
+        print(f"video CLI {TRAINER_MODEL} {'W8A8' if int8 else 'bf16'} "
+              f"--analysis: {rec['analysis_s']:.3f} s wall (host clock: "
+              f"the sampled confidences, the activation batch, the metric "
+              f"battery, the JSON and any figures) [{card}]", flush=True)
         ms = cuda_ms(vstep, iters=10, warmup=3)
         n = VIDEO_B * VIDEO_T
         print(f"{label} B={VIDEO_B}x{VIDEO_T}: {ms:.3f} ms = "
@@ -8068,6 +8205,445 @@ def trainer_timings(state, card):
         ms = (time.perf_counter() - t0) * 1e3 / 5
         print(f"face {name} train step: {ms:.3f} ms (host batch synthesis "
               f"included) [{card}]", flush=True)
+
+
+# Phase 3p: data- and tensor-parallel scale-out over torch.distributed
+# (`parallel_paths`; phase 4 times p1 in `parallel_timings`). p1 is a world
+# of 1 on NCCL in this process; p2 (2 ranks) and p3 (4 ranks, mesh (2, 2))
+# are gloo worlds whose ranks all sit on cuda:0 (NCCL refuses two ranks on
+# one device), started by torchrun on this script (`--parallel-rank`),
+# each rank only loading the library phase 1 built. Their CUDA tensors
+# cross ranks through host memory (parallel/dist.py); their timings are
+# correctness-only: the ranks share one card.
+PAR_MODEL = "base-256"          # a test config rehearses phase 3p on the CPU
+PAR_LAYERS = None               # None: the config's depth (the gpu tests cut it)
+PAR_TRAIN_B, PAR_TRAIN_N, PAR_SEED = 8, 24, 7     # 3 steps of B = 8
+PAR_DETECT_B = (8, 13)          # p1's request; p3's over a data axis of 2
+# limits, each between the sound reading and a planted fault of the CPU
+# rehearsal (CHANGES.md):
+#  p1 runs the single process' arithmetic: |Δloss| a step and max |Δp| of
+#     every trained leaf against the replay (the fault: the step's
+#     generator not passed, no dropout or mixup);
+#  p2 / p3's tower: the pooled cosine to the single-process forward and
+#     max |Δ| / max |ref| (the fault: QKV split contiguously on the fused
+#     3W axis);
+#  p3's steps: |Δloss| / (1 + |loss|) a step and the cosine of the 3 steps'
+#     update to the replay's, per group (the faults: the data all-reduce
+#     skipped; the dropout drawn for the rank's rows alone);
+#  p3's request: max |Δ| of every output over its 13 real rows (the fault:
+#     the gathered rows in the wrong order).
+P1_TOL = 1e-6
+P2_COS, P2_REL = 0.999, 5e-2
+P3_LOSS, P3_COS = 2e-2, 0.9
+P3_DETECT = 1e-5
+
+
+def par_cfg():
+    import dataclasses
+    from tpudf_torch.models.siglip import CONFIGS
+    cfg = CONFIGS[PAR_MODEL]
+    return cfg if PAR_LAYERS is None else dataclasses.replace(
+        cfg, layers=PAR_LAYERS)
+
+
+def par_trainer(cfg, dev):
+    """(params, optimizer, step) of the binary trainer with the tower
+    trained (v5 head, dropout, mixup 0.2), from seeds: each run and its
+    replay build the same."""
+    import torch
+    from tpudf_torch.core.precision import tree_map
+    from tpudf_torch.models.heads import init_binary_head
+    from tpudf_torch.models.siglip import init_siglip
+    from tpudf_torch.train.steps import make_binary_train_step, make_optimizer
+    bb = init_siglip(torch.Generator().manual_seed(3), cfg)
+    head = init_binary_head(torch.Generator().manual_seed(4), cfg.width)
+    params = tree_map(lambda t: t.to(dev), {"backbone": bb, "head": head})
+    opt = make_optimizer(lr=1e-3, warmup_steps=1, total_steps=8,
+                         grad_clip=1.0)
+    step = make_binary_train_step(cfg, opt, train_backbone=True,
+                                  mixup_alpha=0.2)
+    return params, opt, step
+
+
+def par_data(cfg):
+    """The trainer's PAR_TRAIN_N SigLIP-normalised images and labels, the
+    TP forward's first PAR_TRAIN_B of them, the requests' uint8 images."""
+    import numpy as np
+    rng = np.random.default_rng(PAR_SEED)
+    s = cfg.image_size
+    pixels = (rng.random((PAR_TRAIN_N, s, s, 3), np.float32) * 2 - 1)
+    labels = (np.arange(PAR_TRAIN_N) % 2).astype(np.float32)
+    images = rng.integers(0, 256, (max(PAR_DETECT_B), s, s, 3), np.uint8)
+    return pixels, labels, images
+
+
+def par_steps(trainer_step, mesh, pixels, labels, dev):
+    """The 3 global batches of HostShardedSampler(seed 1) through a
+    ShardedTrainer's step (this rank's rows), each with its launches."""
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.parallel.hostdata import HostShardedSampler
+    from tpudf_torch.parallel.training import batch_generator
+    sampler = HostShardedSampler(PAR_TRAIN_N, PAR_TRAIN_B, seed=1, mesh=mesh)
+    losses, launches = [], []
+    for bi, idx in enumerate(sampler.local_batches(0)):
+        _sync(dev)
+        LAUNCHES.reset()
+        m = trainer_step({"pixels": pixels[idx], "labels": labels[idx]},
+                         batch_generator(PAR_SEED, bi, dev))
+        _sync(dev)
+        launches.append(LAUNCHES.snapshot())
+        losses.append(float(m["loss"]))
+    return losses, launches
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def par_replay(cfg, dev, pixels, labels):
+    """The single-process replay of the trainer's 3 global batches and
+    generators: (losses, launches a step, final params, initial params)."""
+    import torch
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.core.precision import tree_map
+    from tpudf_torch.parallel.hostdata import HostShardedSampler
+    from tpudf_torch.parallel.training import batch_generator
+    from tpudf_torch.train.steps import init_train_state
+    params, opt, step = par_trainer(cfg, dev)
+    init = tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+    state = init_train_state(params, opt)
+    order = HostShardedSampler(PAR_TRAIN_N, PAR_TRAIN_B,
+                               seed=1).epoch_order(0)
+    losses, launches = [], []
+    for bi in range(len(order) // PAR_TRAIN_B):
+        idx = order[bi * PAR_TRAIN_B:(bi + 1) * PAR_TRAIN_B]
+        batch = {"pixels": torch.from_numpy(pixels[idx]).to(dev),
+                 "labels": torch.from_numpy(labels[idx]).to(dev)}
+        _sync(dev)
+        LAUNCHES.reset()
+        state, m = step(state, None, batch,
+                        batch_generator(PAR_SEED, bi, dev))
+        _sync(dev)
+        launches.append(LAUNCHES.snapshot())
+        losses.append(float(m["loss"]))
+    final = tree_map(lambda t: t.detach().to("cpu", copy=True),
+                     state.params)
+    return losses, launches, final, init
+
+
+def par_train_expect(layers):
+    """Launches of a train step of the tensor-parallel tower on one rank:
+    K13 four times and K9 once a block, K10 once a block, K4 for the
+    post-LN and the head's LN; no K14."""
+    from tpudf_torch.ops import attention, layernorm, linear
+    return {linear.KERNEL: 4 * layers, attention.KERNEL: layers,
+            attention.KERNEL_BWD: layers, layernorm.KERNEL: 2}
+
+
+def par_update_cos(final, init, ref_final):
+    """Per group ("backbone", "head"): the cosine of the run's update
+    (final - init) to the replay's, and max |Δp| between the two runs."""
+    import torch
+    from tpudf_torch.train.steps import tensor_leaves
+    out = {}
+    for g in ("backbone", "head"):
+        def update(tree):
+            return torch.cat([(f.detach().cpu().double() - i.double())
+                              .flatten() for f, i in zip(
+                                  tensor_leaves(tree[g]),
+                                  tensor_leaves(init[g]), strict=True)])
+        a, b = update(final), update(ref_final)
+        out[g] = (float(torch.nn.functional.cosine_similarity(a, b, dim=0)),
+                  float((a - b).abs().max()))
+    return out
+
+
+def p2_rank(dev, cfg):
+    """p2's rank: the tower split by heads over a model axis of 2 at B =
+    PAR_TRAIN_B: the pooled features, the launches of one forward, the
+    forward's ms by the host clock (correctness-only)."""
+    import torch
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.core.mesh import make_mesh
+    from tpudf_torch.models.siglip import init_siglip
+    from tpudf_torch.parallel.inference import sharded_siglip_features
+    mesh = make_mesh(1, 2, device=dev)
+    bb = init_siglip(torch.Generator().manual_seed(PAR_SEED), cfg)
+    run = sharded_siglip_features(mesh, bb, cfg, tensor_parallel=True)
+    px = par_data(cfg)[0][:PAR_TRAIN_B]
+    _sync(dev)
+    LAUNCHES.reset()
+    pooled = run(batch=px)
+    _sync(dev)
+    launches = LAUNCHES.snapshot()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run(batch=px)
+    _sync(dev)
+    return {"pooled": pooled, "launches": launches,
+            "ms": (time.perf_counter() - t0) * 1e3 / 3}
+
+
+def p3_rank(dev, cfg):
+    """p3's rank, mesh (2, 2): 3 ShardedTrainer steps with the tower
+    trained and split by heads, then engine B's full analysis of
+    PAR_DETECT_B[1] images over the data axis."""
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.core.mesh import make_mesh
+    from tpudf_torch.core.precision import tree_map
+    from tpudf_torch.entry import build_engine
+    from tpudf_torch.parallel.inference import sharded_detect_core
+    from tpudf_torch.parallel.training import ShardedTrainer
+    mesh = make_mesh(2, 2, device=dev)
+    params, opt, step = par_trainer(cfg, dev)
+    trainer = ShardedTrainer(mesh, step, opt, params, cfg=cfg)
+    pixels, labels, images = par_data(cfg)
+    t0 = time.perf_counter()
+    losses, launches = par_steps(trainer.step, mesh, pixels, labels, dev)
+    train_s = time.perf_counter() - t0
+    final = tree_map(lambda t: t.detach().to("cpu", copy=True), {
+        "backbone": trainer.backbone_params(cfg),
+        "head": trainer.state.params["head"]})
+    del trainer, params
+    eng = build_engine(dev, seed=0, cfg_name=PAR_MODEL, int8=True,
+                       tome=True, patch_tome=True)
+    run = sharded_detect_core(mesh, eng)
+    px = images[:PAR_DETECT_B[1]]
+    _sync(dev)
+    LAUNCHES.reset()
+    got = run(px)
+    _sync(dev)
+    return {"losses": losses, "launches": launches, "final": final,
+            "train_s": train_s, "detect": got,
+            "detect_launches": LAUNCHES.snapshot(),
+            "mesh": (mesh.data_index, mesh.model_index)}
+
+
+def parallel_rank_main(argv) -> int:
+    """A rank of p2 or p3, under torchrun: gloo on the given device, the
+    kernel library that parallel_paths built loaded; its results to OUT/<phase>_rank<r>.pt."""
+    import argparse
+    import torch
+    global PAR_MODEL, PAR_LAYERS
+    p = argparse.ArgumentParser()
+    p.add_argument("--parallel-rank", required=True, choices=("p2", "p3"))
+    p.add_argument("--out", required=True)
+    p.add_argument("--model", required=True)
+    p.add_argument("--layers", type=int, default=0)
+    p.add_argument("--device", required=True)
+    args = p.parse_args(argv)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tpudf_torch.ops import _build
+    from tpudf_torch.parallel.dist import initialize_from_env, shutdown, world
+    PAR_MODEL, PAR_LAYERS = args.model, args.layers or None
+    dev = torch.device(args.device)
+    initialize_from_env(device=dev, backend="gloo")
+    if dev.type == "cuda":
+        _build.load()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    rank, _ = world()
+    fn = p2_rank if args.parallel_rank == "p2" else p3_rank
+    res = fn(dev, par_cfg())
+    torch.save(res, os.path.join(args.out, f"{args.parallel_rank}_rank"
+                                 f"{rank}.pt"))
+    shutdown()
+    return 0
+
+
+def par_spawn(phase, nproc, out, dev):
+    """torchrun of `nproc` ranks of this script's `--parallel-rank phase`
+    (their output to OUT/<phase>.log)."""
+    from tpudf_torch.parallel.dist import torchrun
+    log = open(os.path.join(out, f"{phase}.log"), "w")
+    args = [os.path.abspath(__file__), "--parallel-rank", phase, "--out", out,
+            "--model", PAR_MODEL, "--layers", str(PAR_LAYERS or 0),
+            "--device", str(dev)]
+    return torchrun(nproc, args, stdout=log, stderr=subprocess.STDOUT), log
+
+
+def par_wait(phase, proc, log, out, n, timeout=600):
+    """Wait for a world; a rank that failed fails the phase. Returns the
+    ranks' results."""
+    import torch
+    rc = proc.wait(timeout=timeout)
+    log.close()
+    if rc != 0:
+        tail = open(os.path.join(out, f"{phase}.log")).read()[-6000:]
+        raise AssertionError(f"{phase}: torchrun exited {rc}:\n{tail}")
+    return [torch.load(os.path.join(out, f"{phase}_rank{r}.pt"),
+                       weights_only=False) for r in range(n)]
+
+
+def parallel_paths(dev, card, tmp, eng_b=None):
+    """Phase 3p. (p1) a world of 1 on NCCL (gloo on the CPU) in this
+    process: engine B's full request of PAR_DETECT_B[0] through
+    sharded_detect_core, bit-equal to engine.predict_batch with its
+    launches; 3 ShardedTrainer steps against the replay (P1_TOL).
+    (p2) 2 gloo ranks: the tower split by heads against the
+    single-process forward, exact launches. (p3) 4 gloo ranks, mesh (2,
+    2): 3 trainer steps split by heads against the replay, exact launches
+    a step; engine B's request of PAR_DETECT_B[1] over the data axis
+    against the single-process request. Returns what phase 4 times."""
+    import numpy as np
+    import torch
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.core.mesh import make_mesh
+    from tpudf_torch.core.precision import DEFAULT_POLICY, tree_map
+    from tpudf_torch.entry import build_engine
+    from tpudf_torch.models.siglip import (init_siglip, siglip_forward,
+                                           tower_params)
+    from tpudf_torch.ops import attention, layernorm, linear, mlp
+    from tpudf_torch.parallel import dist as pdist
+    from tpudf_torch.parallel.inference import sharded_detect_core
+    from tpudf_torch.parallel.training import ShardedTrainer
+    print(f"phase 3p: data- and tensor-parallel paths ({PAR_MODEL}, "
+          f"{par_cfg().layers} layers)", flush=True)
+    cfg = par_cfg()
+    out = os.path.join(tmp, "parallel")
+    os.makedirs(out, exist_ok=True)
+    if dev.type == "cuda":
+        from tpudf_torch.ops import _build
+        _build.load()      # built before the ranks start: each only loads it
+    worlds = {ph: par_spawn(ph, n, out, dev) for ph, n in (("p2", 2),
+                                                           ("p3", 4))}
+    pixels, labels, images = par_data(cfg)
+    if eng_b is None:
+        eng_b = build_engine(dev, seed=0, cfg_name=PAR_MODEL, int8=True,
+                             tome=True, patch_tome=True)
+    n_tok = eng_b.cfg.num_patches
+    b_expect = engine_expect(eng_b.cfg.layers, n_tok)[("B", "full")]
+
+    # ---- p1: a world of 1 in this process
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    pdist.initialize(backend, device=dev, world_size=1, rank=0,
+                     init_method=f"tcp://localhost:{pdist.free_port()}")
+    mesh = make_mesh(1, 1, device=dev)
+    run = sharded_detect_core(mesh, eng_b)
+    px = images[:PAR_DETECT_B[0]]
+    _sync(dev)
+    LAUNCHES.reset()
+    got = run(px)
+    _sync(dev)
+    launches = LAUNCHES.snapshot()
+    check_launches("p1 sharded_detect_core", launches, b_expect)
+    want = eng_b.predict_batch(px)
+    if set(got) != set(want) or not all(np.array_equal(got[k], want[k])
+                                        for k in want):
+        bad = {k: float(np.abs(got[k] - want[k]).max()) for k in want
+               if not np.array_equal(got[k], want[k])}
+        raise AssertionError(f"p1: sharded_detect_core not bit-equal to "
+                             f"predict_batch: {bad}")
+    print(f"p1 world of 1 ({backend}): sharded_detect_core engine B "
+          f"{PAR_MODEL} B={len(px)} bit-equal to predict_batch ("
+          f"{len(want)} outputs), launches {launches} = the engine's "
+          f"[{card}]", flush=True)
+    ref_losses, ref_launches, ref_final, init = par_replay(cfg, dev, pixels,
+                                                           labels)
+    params, opt, step = par_trainer(cfg, dev)
+    trainer = ShardedTrainer(mesh, step, opt, params, cfg=cfg)
+    losses, p1_launches = par_steps(trainer.step, mesh, pixels, labels, dev)
+    final = {"backbone": trainer.state.params["backbone"],
+             "head": trainer.state.params["head"]}
+    cos = par_update_cos(final, init, ref_final)
+    d_loss = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    d_p = max(v[1] for v in cos.values())
+    print(f"p1 ShardedTrainer {PAR_MODEL} tower trained B={PAR_TRAIN_B}, "
+          f"{len(losses)} steps vs the replay: losses "
+          f"{['%.6f' % v for v in losses]}, max |Δloss| {d_loss:.3e}, max "
+          f"|Δp| {d_p:.3e} (limit {P1_TOL:.0e}); launches a step "
+          f"{p1_launches[0]} [{card}]", flush=True)
+    if d_loss > P1_TOL or d_p > P1_TOL:
+        raise AssertionError(f"p1 trainer off its replay: |Δloss| "
+                             f"{d_loss:.3e}, |Δp| {d_p:.3e}")
+    for i, (a, b) in enumerate(zip(p1_launches, ref_launches)):
+        check_launches(f"p1 train step {i}", a, b)
+    del trainer, params, final
+    state = {"run": run, "px": px, "eng": eng_b, "dev": dev}
+
+    # ---- p2: 2 gloo ranks, the tower split by heads
+    ranks = par_wait("p2", *worlds["p2"], out, 2)
+    bb = tree_map(lambda t: t.to(dev), init_siglip(
+        torch.Generator().manual_seed(PAR_SEED), cfg))
+    with torch.no_grad():
+        ref = siglip_forward(tower_params(bb, DEFAULT_POLICY.compute_dtype),
+                             torch.from_numpy(pixels[:PAR_TRAIN_B]).to(dev),
+                             cfg)["pooled"].float().cpu()
+    del bb
+    p2_expect = {linear.KERNEL: 4 * cfg.layers, attention.KERNEL: cfg.layers,
+                 layernorm.KERNEL: 2}
+    for r, res in enumerate(ranks):
+        got = torch.from_numpy(res["pooled"])
+        c = float(torch.nn.functional.cosine_similarity(got, ref).min())
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        print(f"p2 rank {r}/2 (gloo, {dev} shared): TP tower {PAR_MODEL} "
+              f"{cfg.layers} layers, {cfg.heads // 2} heads a rank, "
+              f"B={PAR_TRAIN_B}: pooled cosine min {c:.6f} (limit "
+              f"{P2_COS}), max|Δ|/max|ref| {rel:.3e} (limit {P2_REL:.0e}); "
+              f"launches {res['launches']}; forward {res['ms']:.1f} ms "
+              f"(correctness-only: two ranks share one card) [{card}]",
+              flush=True)
+        if c < P2_COS or rel > P2_REL:
+            raise AssertionError(f"p2 rank {r}: TP forward off the single "
+                                 f"process (cosine {c:.6f}, rel {rel:.3e})")
+        check_launches(f"p2 rank {r}", res["launches"], p2_expect)
+        if mlp.KERNEL_BF16 in res["launches"]:
+            raise AssertionError("p2: K14 launched in the split block")
+
+    # ---- p3: 4 gloo ranks, mesh (2, 2)
+    ranks = par_wait("p3", *worlds["p3"], out, 4)
+    step_expect = par_train_expect(cfg.layers)
+    want = eng_b.predict_batch(images[:PAR_DETECT_B[1]])
+    for r, res in enumerate(ranks):
+        d_loss = max(abs(a - b) / (1 + abs(b)) for a, b in zip(
+            res["losses"], ref_losses))
+        cos = par_update_cos(res["final"], init, ref_final)
+        worst = min(v[0] for v in cos.values())
+        d_det = max(float(np.abs(res["detect"][k] - want[k]).max())
+                    for k in want)
+        print(f"p3 rank {r}/4 mesh (2, 2) at {res['mesh']} (gloo, {dev} "
+              f"shared): {len(res['losses'])} TP steps, losses "
+              f"{['%.5f' % v for v in res['losses']]} vs replay "
+              f"{['%.5f' % v for v in ref_losses]}: |Δloss|/(1+|loss|) "
+              f"{d_loss:.3e} (limit {P3_LOSS:.0e}); update cosine / max "
+              f"|Δp| backbone {cos['backbone'][0]:.5f} / "
+              f"{cos['backbone'][1]:.3e}, head {cos['head'][0]:.5f} / "
+              f"{cos['head'][1]:.3e} (limit {P3_COS}); launches a step "
+              f"{res['launches'][0]}; {res['train_s']:.2f} s for the steps "
+              f"(correctness-only); engine B request of "
+              f"{PAR_DETECT_B[1]} over the data axis: max |Δ| {d_det:.3e} "
+              f"(limit {P3_DETECT:.0e}), launches {res['detect_launches']} "
+              f"[{card}]", flush=True)
+        if d_loss > P3_LOSS or worst < P3_COS:
+            raise AssertionError(f"p3 rank {r}: trainer off its replay "
+                                 f"(|Δloss| {d_loss:.3e}, cos {worst:.5f})")
+        if d_det > P3_DETECT or set(res["detect"]) != set(want):
+            raise AssertionError(f"p3 rank {r}: request off the single "
+                                 f"process ({d_det:.3e})")
+        for i, got in enumerate(res["launches"]):
+            check_launches(f"p3 rank {r} step {i}", got, step_expect)
+        check_launches(f"p3 rank {r} request", res["detect_launches"],
+                       b_expect)
+    return state
+
+
+def parallel_timings(state, card):
+    """Phase 4 of p1: the world-1 DP full analysis against the engine's
+    own request (the wrapper's cost), by CUDA events; then p1's process
+    group is shut down."""
+    from tpudf_torch.parallel import dist as pdist
+    eng, run, px = state["eng"], state["run"], state["px"]
+    try:
+        dp_ms, own_ms = paired_ms(lambda: run(px),
+                                  lambda: eng.predict_batch(px), iters=5)
+    finally:
+        pdist.shutdown()
+    print(f"DP full analysis (sharded_detect_core, world of 1, NCCL) engine "
+          f"B {PAR_MODEL} B={len(px)}: {dp_ms:.3f} ms against the engine's "
+          f"own request {own_ms:.3f} ms: the wrapper costs "
+          f"{dp_ms - own_ms:+.3f} ms [{card}]", flush=True)
 
 
 def clock(label):
@@ -8962,6 +9538,13 @@ def main() -> int:
 
     clock("phase 3x")
 
+    # ---- 3p. data- and tensor-parallel scale-out: p1 (a world of 1 on
+    # NCCL) in this process, p2 / p3 (gloo worlds of ranks on this card)
+    # started by torchrun
+    par = parallel_paths(dev, card, tmp.name, engines["B"])
+
+    clock("phase 3p")
+
     # ---- 4. timings of the paths
     print("phase 4: path timings", flush=True)
     for b, iters in ((8, 20), (256, 5)):
@@ -9069,6 +9652,8 @@ def main() -> int:
     clock("phase 4: large trainers")
     trainer_timings(trainers, card)
     clock("phase 4: trainers")
+    parallel_timings(par, card)
+    clock("phase 4: parallel")
     tmp.cleanup()
 
     names = {"K1": int8_block.KERNEL, "K2": mlp.KERNEL, "K3": srm.KERNEL,
@@ -9114,4 +9699,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--parallel-rank" in sys.argv:
+        sys.exit(parallel_rank_main(sys.argv[1:]))
     sys.exit(main())

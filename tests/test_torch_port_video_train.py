@@ -20,11 +20,19 @@ generator=None) and checked on its own. Tolerances:
        a step, the head's parameters within 1e-5
   the frozen tower: no gradient reaches a backbone leaf
   train_video.main  1 epoch float and --int8_backbone: the ledger row and
-       `best` written, `best` restores; --analysis exits before the
-       first step, naming ROADMAP Queue A item 6
+       `best` written, `best` restores; with --analysis (1 epoch, float)
+       it trains, then writes learning_analysis.json (JAX's battery's keys
+       and values on the same evidence, rtol 1e-12: host numpy), the
+       dashboard and the figure suite; its activation statistics within
+       rtol 2e-2 of JAX's on the same head and bf16 features (the head's
+       bf16 L2 norm, mean and LN round differently in torch and XLA: read
+       here, one ReLU output of 192 on the other side of 0, sparsity
+       0.375 against 0.370, the score 1.0e-2 apart); without matplotlib
+       it writes the JSON (JAX's keys), says so and draws nothing
 """
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -37,6 +45,7 @@ from tests.test_torch_port_float import numpy_params, one_torch_thread  # noqa: 
 from tests.test_torch_port_variants import persist_every_compile  # noqa: F401
 from tpudf.core.precision import F32_POLICY as J_F32
 from tpudf.data import datasets as J_data
+from tpudf.eval import analysis as J_an
 from tpudf.models import heads as J_heads
 from tpudf.models.siglip import CONFIGS as J_CONFIGS
 from tpudf.models.siglip import init_siglip as j_init_siglip
@@ -46,6 +55,7 @@ from tpudf_torch.cli import train_video as T_cli
 from tpudf_torch.convert import params_from_numpy, video_head_from_numpy
 from tpudf_torch.core.precision import F32_POLICY
 from tpudf_torch.data import datasets as T_data
+from tpudf_torch.eval import analysis as T_an
 from tpudf_torch.models import heads as T_heads
 from tpudf_torch.models.siglip import CONFIGS
 from tpudf_torch.train import steps as T_steps
@@ -254,10 +264,82 @@ def test_cli_main_float_and_int8(tmp_path):
 
 
 def test_cli_analysis_exits_before_training(tmp_path, monkeypatch):
-    def no_step(*a, **k):
-        raise AssertionError("a train step was built")
-    monkeypatch.setattr(T_video, "make_video_train_step", no_step)
-    with pytest.raises(SystemExit, match="Queue A item 6"):
-        T_cli.main(["--data_dir", str(tmp_path), "--analysis",
-                    "--device", "cpu"])
+    """--analysis no longer exits before training: main trains, then
+    writes learning_analysis.json (the keys and values of JAX's battery on
+    the same evidence), the dashboard and the figure suite, and its
+    activation statistics equal JAX's on the same head and features."""
+    seen = {}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            seen[name] = (a, k, out)
+            return out
+        monkeypatch.setattr(T_an, name, wrapped)
+
+    for name in ("video_head_activations", "activation_statistics",
+                 "learning_memorization_metrics"):
+        spy(name, getattr(T_an, name))
+    root = _clip_folder(str(tmp_path / "clips"), frames=4, size=32)
+    save = str(tmp_path / "run")
+    history = T_cli.main(["--data_dir", root, "--save_dir", save,
+                          "--model_size", "test-32", "--num_frames", "2",
+                          "--batch_size", "2", "--epochs", "1", "--analysis",
+                          "--device", "cpu"])
+    assert len(history) == 1 and os.path.exists(
+        os.path.join(save, "best"))
+    (head, feats), _, acts = seen["video_head_activations"]
+    assert feats.dtype == torch.bfloat16 and feats.shape == (2, 2, 64)
+    j_head = jax.tree.map(lambda t: t.detach().numpy(), head)
+    j_acts = J_an.video_head_activations(
+        j_head, jnp.asarray(feats.float().numpy(), jnp.bfloat16))
+    want = J_an.activation_statistics(j_acts)
+    got = seen["activation_statistics"][2]
+    for k in ("activation_diversity", "activation_sparsity",
+              "feature_learning_score"):
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-2, atol=1e-6)
+    (hist,), kw, metrics = seen["learning_memorization_metrics"]
+    j_metrics = J_an.learning_memorization_metrics(hist, **kw)
+    with open(os.path.join(save, "learning_analysis.json")) as f:
+        written = json.load(f)
+    assert set(written) == set(j_metrics)
+    for k, v in j_metrics.items():
+        if isinstance(v, str):
+            assert written[k] == v
+        else:
+            np.testing.assert_allclose(written[k], v, rtol=1e-12)
+    assert os.path.getsize(os.path.join(
+        save, "learning_vs_memorization.png")) > 0
+    assert sorted(os.listdir(os.path.join(save, "figures"))) == sorted(
+        os.path.basename(p) for p in ("calibration_curve.png",
+                                      "class_comparison.png",
+                                      "combined_curves.png",
+                                      "confusion_matrix.png",
+                                      "confusion_matrix_normalized.png",
+                                      "metrics_comparison.png",
+                                      "precision_recall_curve.png",
+                                      "probability_distribution.png",
+                                      "roc_curve.png",
+                                      "threshold_analysis.png"))
     assert T_cli.parse_args(["--data_dir", "x"]).device == "cuda"
+
+
+def test_cli_analysis_without_matplotlib(tmp_path, monkeypatch, capsys):
+    """Where matplotlib is not installed (the card's machine) --analysis
+    writes learning_analysis.json, says so and draws nothing."""
+    from tpudf_torch.eval import plots as T_plots
+    monkeypatch.setattr(T_plots, "figures_available", lambda: False)
+    root = _clip_folder(str(tmp_path / "clips"), frames=4, size=32)
+    save = str(tmp_path / "run")
+    T_cli.main(["--data_dir", root, "--save_dir", save, "--model_size",
+                "test-32", "--num_frames", "2", "--batch_size", "2",
+                "--epochs", "1", "--analysis", "--device", "cpu"])
+    assert "matplotlib is not installed" in capsys.readouterr().out
+    with open(os.path.join(save, "learning_analysis.json")) as f:
+        assert set(json.load(f)) == set(J_an.learning_memorization_metrics(
+            [{"train_loss": 1.0, "val_loss": 1.0}], np.ones(2), np.ones(2),
+            {"activation_diversity": 1.0, "activation_sparsity": 0.0,
+             "feature_learning_score": 1.0}))
+    assert not os.path.exists(os.path.join(save, "figures"))
+    assert not os.path.exists(os.path.join(save,
+                                           "learning_vs_memorization.png"))

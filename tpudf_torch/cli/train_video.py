@@ -13,9 +13,15 @@ Usage:
 --backbone_ckpt reads an HF SiglipVisionModel state dict (`.safetensors`,
 or a torch `.pt` of {name: tensor}); --int8_backbone calibrates the frozen
 tower's activation scales on the first training batch's frames (at most
-16) and runs it on the static W8A8 kernels. --analysis (the publication
-analysis suite) needs eval/analysis.py and eval/plots.py, which the port
-does not have yet (ROADMAP Queue A item 6): it exits before training.
+16) and runs it on the static W8A8 kernels. --analysis runs the
+publication analysis after training (hidf_video_classifier.py:3124-3284):
+sampled train / val confidences, the video head's activation statistics
+on one validation batch's tower forward (the tower trained with: W8A8
+under --int8_backbone, else bf16), the learning-vs-memorization battery
+and its 16-panel dashboard, `learning_analysis.json`, and the inference
+figure suite of the val split under save_dir/figures (eval/analysis.py,
+eval/plots.py); without matplotlib it writes the JSON, says so, and draws
+nothing.
 """
 
 from __future__ import annotations
@@ -47,8 +53,10 @@ def parse_args(argv=None):
                         "training batch's frames)")
     p.add_argument("--evaluate_only", action="store_true")
     p.add_argument("--analysis", action="store_true",
-                   help="post-training publication analysis (not in the "
-                        "port yet: exits before training)")
+                   help="post-training publication analysis: activation "
+                        "stats, learning-vs-memorization 16-panel dashboard "
+                        "+ inference figure suite "
+                        "(hidf_video_classifier.py:2034-3284)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device; the CPU only when asked for")
@@ -57,10 +65,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.analysis:
-        raise SystemExit("--analysis needs eval/analysis.py and "
-                         "eval/plots.py, which tpudf_torch does not have yet "
-                         "(ROADMAP Queue A item 6); run without --analysis")
     import torch
 
     from tpudf_torch.core.precision import DEFAULT_POLICY, tree_map
@@ -114,6 +118,7 @@ def main(argv=None):
             backbone = quantize_siglip_static(backbone, scales, cfg)
         print("[int8] frozen backbone statically quantized (W8A8)")
     tower = tower_params(backbone, DEFAULT_POLICY.compute_dtype)
+    n_backbone = jax_param_count(backbone)
     del backbone
     optimizer = make_optimizer(args.lr, total_steps=max(
         len(train_ds) // args.batch_size, 1) * args.epochs)
@@ -157,10 +162,104 @@ def main(argv=None):
         save_checkpoint(os.path.join(args.save_dir, "best"),
                         box["state"]._asdict() | {"epoch": epoch}, row)
 
-    return run_training(
+    history = run_training(
         LoopConfig(epochs=args.epochs, patience=args.patience,
                    monitor="f1", save_dir=args.save_dir),
         train_epoch, eval_epoch, save_best)
+
+    if args.analysis:
+        publication_analysis(args, cfg, tower, n_backbone, box["state"].head,
+                             train_ds, val_ds, eval_step, frames_of,
+                             history)
+    return history
+
+
+def jax_param_count(tree) -> int:
+    """The entries of a parameter tree as the JAX package counts its
+    leaves: the kernels' transposed int8 copies (`qT`, added by
+    `tower_params`) are not parameters."""
+    import torch
+    if isinstance(tree, dict):
+        return sum(jax_param_count(v) for k, v in tree.items() if k != "qT")
+    if isinstance(tree, (list, tuple)):
+        return sum(jax_param_count(v) for v in tree)
+    return tree.numel() if torch.is_tensor(tree) else 0
+
+
+def publication_analysis(args, cfg, tower, n_backbone, head, train_ds,
+                         val_ds, eval_step, frames_of, history):
+    """Post-training suite (hidf_video_classifier.py:3124-3284, JAX's
+    `_publication_analysis`): sampled train / val confidences (up to 10
+    batches of each split through the eval step), activation statistics
+    of the head on one validation batch's tower forward, the
+    learning-vs-memorization metric battery + 16-panel dashboard,
+    learning_analysis.json, and the inference figure suite on the val
+    split. Returns the metrics and the activation statistics."""
+    import json
+
+    import torch
+
+    from tpudf_torch.core.precision import DEFAULT_POLICY
+    from tpudf_torch.eval.analysis import (activation_statistics,
+                                           learning_memorization_metrics,
+                                           plot_memorization_dashboard,
+                                           video_head_activations)
+    from tpudf_torch.eval.plots import (figures_available,
+                                        render_inference_report)
+    from tpudf_torch.models.siglip import siglip_forward
+
+    def _probs(ds, cap_batches=10):
+        probs, labels = [], []
+        for i, batch in enumerate(ds.batches(args.batch_size)):
+            if i >= cap_batches:
+                break
+            z = eval_step(head, tower, frames_of(batch))
+            probs.append(torch.sigmoid(z.double()).cpu().numpy())
+            labels.append(np.asarray(batch["labels"], np.float64))
+        if not probs:
+            return np.zeros(0), np.zeros(0)
+        return np.concatenate(probs), np.concatenate(labels)
+
+    train_p, _ = _probs(train_ds)
+    val_p, val_y = _probs(val_ds)
+
+    act_stats = None
+    for batch in val_ds.batches(args.batch_size):
+        fr = frames_of(batch)
+        b, t = fr.shape[:2]
+        with torch.no_grad():
+            feats = siglip_forward(
+                tower, fr.reshape(b * t, *fr.shape[2:]), cfg,
+                DEFAULT_POLICY)["pooled"].reshape(b, t, -1)
+        act_stats = activation_statistics(
+            video_head_activations(head, feats))
+        break
+
+    metrics = learning_memorization_metrics(
+        history, train_probs=train_p if len(train_p) else None,
+        val_probs=val_p if len(val_p) else None,
+        activation_stats=act_stats)
+    n_head = jax_param_count(head) if head else 0
+    with open(os.path.join(args.save_dir,
+                           "learning_analysis.json"), "w") as f:
+        json.dump({k: v for k, v in metrics.items()
+                   if not isinstance(v, np.ndarray)}, f, indent=2,
+                  default=float)
+    path = "learning_analysis.json only"
+    if not figures_available():
+        print("[analysis] matplotlib is not installed: no dashboard and no "
+              "figures")
+    else:
+        path = plot_memorization_dashboard(
+            metrics, history, args.save_dir, train_probs=train_p,
+            val_probs=val_p, n_params={"backbone": n_backbone,
+                                       "head": n_head})
+        if len(val_p):
+            render_inference_report(val_y, val_p,
+                                    os.path.join(args.save_dir, "figures"))
+    print(f"[analysis] {metrics.get('learning_type')} "
+          f"(score {metrics.get('learning_score'):.1f}/10) → {path}")
+    return metrics, act_stats
 
 
 if __name__ == "__main__":

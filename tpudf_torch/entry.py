@@ -339,3 +339,80 @@ def build_binary_trainer(device="cuda", seed: int = 0,
         return apply(hp, feats)
 
     return BinaryTrainer(state, frozen, step, logits)
+
+
+def dryrun_multichip(n: int, device: str = "cuda") -> None:
+    """Multi-rank validation (`__graft_entry__.dryrun_multichip`): n ranks
+    under torchrun each run one binary train step with the tower trained
+    over a (n/2, 2) mesh when n >= 4 and even, else (n, 1): the data
+    axis' gradient all-reduce and the model axis' tensor-parallel
+    collectives, forward and backward. device="cuda": one card a rank
+    over NCCL, at base-256 cut to 2 layers at 64 px (the kernels' widths);
+    raises with fewer than n cards. device="cpu": gloo ranks at test-32.
+    Raises when a rank fails."""
+    from tpudf_torch.parallel.dist import torchrun
+
+    if device == "cuda" and torch.cuda.device_count() < n:
+        raise RuntimeError(f"dryrun_multichip({n}) on cuda needs {n} cards, "
+                           f"{torch.cuda.device_count()} visible")
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"device {device!r}: cuda or cpu")
+    rc = torchrun(n, ["-m", "tpudf_torch.entry", "--dryrun", "--device",
+                      device]).wait()
+    if rc != 0:
+        raise RuntimeError(f"dryrun_multichip({n}, {device!r}) failed "
+                           f"(rc={rc})")
+
+
+def _dryrun_rank(device: str) -> None:
+    """One rank of `dryrun_multichip` (started by torchrun)."""
+    import numpy as np
+
+    from tpudf_torch.core.mesh import make_mesh
+    from tpudf_torch.parallel.dist import (initialize_from_env, shutdown,
+                                           world)
+    from tpudf_torch.parallel.training import ShardedTrainer, batch_generator
+    from tpudf_torch.train.steps import make_binary_train_step, make_optimizer
+
+    if not initialize_from_env(device=device):
+        raise RuntimeError("the dryrun rank runs under torchrun")
+    rank, n = world()
+    model = 2 if n >= 4 and n % 2 == 0 else 1
+    mesh = make_mesh(n // model, model)
+    if device == "cuda":
+        cfg = dataclasses.replace(CONFIGS["base-256"], layers=2,
+                                  image_size=64)
+    else:
+        cfg = CONFIGS["test-32"]
+    backbone = init_siglip(torch.Generator().manual_seed(0), cfg)
+    head = init_binary_head(torch.Generator().manual_seed(1), cfg.width)
+    opt = make_optimizer(lr=1e-3, total_steps=10)
+    step = make_binary_train_step(cfg, opt, train_backbone=True)
+    trainer = ShardedTrainer(mesh, step, opt,
+                             {"backbone": backbone, "head": head}, cfg=cfg)
+    b = 2 * mesh.data
+    s = cfg.image_size
+    pixels = np.random.default_rng(0).random((b, s, s, 3), np.float32)
+    labels = (np.arange(b) % 2).astype(np.float32)
+    rows = slice(mesh.data_index * 2, mesh.data_index * 2 + 2)
+    m = trainer.step({"pixels": pixels[rows], "labels": labels[rows]},
+                     batch_generator(0, 0, mesh.device))
+    loss = float(m["loss"])
+    if not np.isfinite(loss):
+        raise RuntimeError(f"rank {rank}: loss {loss}")
+    if rank == 0:
+        print(f"[dryrun_multichip] n={n} mesh=({mesh.data}, {mesh.model}) "
+              f"{device} loss={loss:.6f} ok", flush=True)
+    shutdown()
+
+
+if __name__ == "__main__":
+    import argparse
+
+    _p = argparse.ArgumentParser(description="tpudf_torch entry points")
+    _p.add_argument("--dryrun", action="store_true",
+                    help="one rank of dryrun_multichip (under torchrun)")
+    _p.add_argument("--device", default="cuda")
+    _a = _p.parse_args()
+    if _a.dryrun:
+        _dryrun_rank(_a.device)

@@ -19,7 +19,7 @@ import torch
 
 from tpudf_torch.models.siglip import layer_norm
 from tpudf_torch.ops.routes import KERNELS, KernelSet
-from tpudf_torch.utils.nn import mm
+from tpudf_torch.utils.nn import mm, rand_rows
 
 _SQRT_HALF = math.sqrt(0.5)
 
@@ -44,7 +44,7 @@ def _dropout(x, rate, generator):
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rand_rows(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -66,20 +66,34 @@ def init_binary_head(generator: torch.Generator, dim: int):
     }
 
 
-def apply_binary_head(params, features, ln_eps=1e-5, generator=None):
+def _recorder(acts):
+    return (lambda k, v: acts.__setitem__(k, v)) if acts is not None \
+        else (lambda k, v: None)
+
+
+def apply_binary_head(params, features, ln_eps=1e-5, generator=None,
+                      acts=None):
     """features: (B, dim) pooled output → (B,) logits; dropout (.3 after
-    the LN, .2 after fc1) only with a generator."""
+    the LN, .2 after fc1) only with a generator. acts: an optional dict
+    that receives the se_fc1 / se_fc2 / fc1 / fc2 / fc3 activations, where
+    JAX's records them (eval/analysis.py reads them)."""
+    rec = _recorder(acts)
     f = l2_normalize(features)
     se = torch.relu(mm(f, params["se"]["fc1"]["w"]) + params["se"]["fc1"]["b"])
+    rec("se_fc1", se)
     se = torch.sigmoid(mm(se, params["se"]["fc2"]["w"])
                        + params["se"]["fc2"]["b"])
+    rec("se_fc2", se)
     x = f * se
     x = layer_norm(x, params["ln"], ln_eps)
     x = _dropout(x, 0.3, generator)
     x = gelu_exact(mm(x, params["fc1"]["w"]) + params["fc1"]["b"])
+    rec("fc1", x)
     x = _dropout(x, 0.2, generator)
     x = gelu_exact(mm(x, params["fc2"]["w"]) + params["fc2"]["b"])
+    rec("fc2", x)
     out = mm(x, params["fc3"]["w"]) + params["fc3"]["b"]
+    rec("fc3", out)
     return out[..., 0]
 
 
@@ -175,8 +189,7 @@ def apply_video_head(params, frame_features, generator=None,
     (hidf_video_classifier.py:300-320); dropout (rate after the LN, 0.67
     rate after fc1) only with a generator. acts: an optional dict that
     receives the fc1 / fc2 / fc3 activations."""
-    rec = (lambda k, v: acts.__setitem__(k, v)) if acts is not None \
-        else (lambda k, v: None)
+    rec = _recorder(acts)
     f = l2_normalize(frame_features, eps=0.0)
     pooled = torch.mean(f, dim=1)
     x = layer_norm(pooled, params["ln"], 1e-5)

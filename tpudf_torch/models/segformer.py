@@ -26,7 +26,7 @@ from tpudf_torch.core.precision import DEFAULT_POLICY, Policy, tree_map
 from tpudf_torch.data.pipeline import resize
 from tpudf_torch.models.siglip import SigLIPConfig, init_siglip, siglip_forward
 from tpudf_torch.ops.routes import KERNELS, KernelSet
-from tpudf_torch.utils.nn import mm
+from tpudf_torch.utils.nn import mm, rand_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,8 +125,8 @@ def mtl_forward(params, pixels, cfg: MTLConfig,
     pooled = out["pooled"]
     if cls_dropout_generator is not None and dropout_rate > 0:
         keep = 1.0 - dropout_rate
-        drop = torch.rand(pooled.shape, generator=cls_dropout_generator,
-                          device=pooled.device) < keep
+        drop = rand_rows(pooled.shape, cls_dropout_generator,
+                         pooled.device) < keep
         pooled = torch.where(drop, pooled / keep, torch.zeros_like(pooled))
     dt = pooled.dtype
     cls_logits = (mm(pooled, params["cls_head"]["w"].to(dt))

@@ -254,6 +254,27 @@ def embed(ep, pixels, cfg: SigLIPConfig):
     return x + pos.to(pixels.dtype)
 
 
+def probe_attention(x_q, x_kv, heads, d, in_w, in_b, logit_bias=None):
+    """The single-query path of `_mha` up to the out-projection: x_q (B,
+    1, W) attends over x_kv (B, S, W) through the fused input projection
+    in_w (W, 3·heads·d) of `heads` heads of d, columns [q | k | v] →
+    (B, 1, heads·d) in x_q's dtype. A tensor-parallel rank passes its own
+    heads' columns (parallel/sharding.py)."""
+    b, skv, w = x_kv.shape
+    wq = heads * d
+    q = (x_q[:, 0] @ in_w[:, :wq] + in_b[:wq]).reshape(b, heads, d)
+    kv = x_kv.reshape(b * skv, w) @ in_w[:, wq:] + in_b[wq:]
+    kv = kv.reshape(b, skv, 2, heads, d)
+    k, v = kv[:, :, 0], kv[:, :, 1]                     # (B, S, H, d)
+    logits = (torch.sum(k.float() * q.float()[:, None], dim=-1)
+              * (d ** -0.5))
+    if logit_bias is not None:
+        logits = logits + logit_bias[:, :, None].float()
+    probs = torch.softmax(logits, dim=1)                # over S
+    o = torch.sum(v.float() * probs[..., None], dim=1)
+    return o.reshape(b, 1, wq).to(x_q.dtype)
+
+
 def _mha(x_q, x_kv, heads, in_w, in_b, out_w, out_b, *, logit_bias=None,
          kernels: KernelSet = KERNELS):
     """Multi-head attention with the fused (W, 3W) input projection
@@ -266,17 +287,7 @@ def _mha(x_q, x_kv, heads, in_w, in_b, out_w, out_b, *, logit_bias=None,
     skv = x_kv.shape[1]
     d = w // heads
     if sq == 1:
-        q = (x_q[:, 0] @ in_w[:, :w] + in_b[:w]).reshape(b, heads, d)
-        kv = x_kv.reshape(b * skv, w) @ in_w[:, w:] + in_b[w:]
-        kv = kv.reshape(b, skv, 2, heads, d)
-        k, v = kv[:, :, 0], kv[:, :, 1]                     # (B, S, H, d)
-        logits = (torch.sum(k.float() * q.float()[:, None], dim=-1)
-                  * (d ** -0.5))
-        if logit_bias is not None:
-            logits = logits + logit_bias[:, :, None].float()
-        probs = torch.softmax(logits, dim=1)                # over S
-        o = torch.sum(v.float() * probs[..., None], dim=1)
-        o = o.reshape(b, 1, w).to(x_q.dtype)
+        o = probe_attention(x_q, x_kv, heads, d, in_w, in_b, logit_bias)
         return o @ out_w + out_b
 
     def heads_first(t, n):
@@ -566,7 +577,17 @@ def siglip_forward(params, pixels, cfg: SigLIPConfig,
     cfg.remat: each block that runs with autograd is recomputed in the
     backward (`torch.utils.checkpoint`, non-reentrant), as JAX wraps the
     block in `jax.checkpoint`: activation memory for one more forward of
-    each block (its kernels launch twice)."""
+    each block (its kernels launch twice).
+
+    A tree that `parallel.sharding.shard_siglip_params` split by heads
+    (its "tp" entry) runs the tensor-parallel tower on this rank's heads
+    (`tp_siglip_forward`)."""
+    if "tp" in params:
+        from tpudf_torch.parallel.sharding import tp_siglip_forward
+        if tome_r or output_hidden_states or stop_grad_below:
+            raise ValueError("the tensor-parallel tower runs without ToMe, "
+                             "hidden states or a frozen prefix")
+        return tp_siglip_forward(params, pixels, cfg, policy, kernels)
     cdt = policy.compute_dtype
     k = max(0, min(int(stop_grad_below), cfg.layers))
     if tome_r and (output_hidden_states or k):

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpudf_torch.utils.nn import GlobalRows
+
 
 def bce_with_logits(logits, targets, pos_weight=None):
     """Mean binary cross-entropy from logits (BCEWithLogitsLoss semantics,
@@ -151,7 +153,10 @@ def mixup_draws(generator: torch.Generator, n: int, alpha=0.2):
     """The draws of JAX's `mixup`: (lam ~ Beta(alpha, alpha) as a Python float,
     a permutation of n on the generator's device). torch samples a Beta
     only from its global generator, so lam comes from a numpy generator
-    seeded by one draw of `generator`."""
+    seeded by one draw of `generator`. A GlobalRows (utils/nn.py) draws
+    the global batch's permutation."""
+    if isinstance(generator, GlobalRows):
+        generator, n = generator.generator, generator.total
     dev = generator.device
     seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator,
                              device=dev))
@@ -159,8 +164,14 @@ def mixup_draws(generator: torch.Generator, n: int, alpha=0.2):
     return lam, torch.randperm(n, generator=generator, device=dev)
 
 
-def mixup_apply(x, y, lam, perm):
+def mixup_apply(x, y, lam, perm, rows=None):
     """Mixup (cifake_binary_classifier.py training loop): lam · x + (1 −
-    lam) · x[perm], and the same of the labels."""
+    lam) · x[perm], and the same of the labels. rows: a GlobalRows when x
+    and y are this rank's rows of a global batch and perm permutes that
+    batch: the partners come from the gathered batch."""
+    if isinstance(rows, GlobalRows):
+        sel = perm[rows.start:rows.start + x.shape[0]]
+        return (lam * x + (1 - lam) * rows.gather(x)[sel],
+                lam * y + (1 - lam) * rows.gather(y)[sel])
     return lam * x + (1 - lam) * x[perm], lam * y + (1 - lam) * y[perm]
 

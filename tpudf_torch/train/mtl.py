@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from tpudf_torch.convert import add_kernel_layout
+from tpudf_torch.core.mesh import data_size, data_sum
 from tpudf_torch.core.precision import tree_map
 from tpudf_torch.models.segformer import MTLConfig, freeze_mask, mtl_forward
 from tpudf_torch.ops.quant import (calibrate_siglip_act_scales,
@@ -47,11 +48,14 @@ def _masked_seg_loss(seg_logits, masks, has_mask, kind="combined"):
     """Mean seg loss over the samples that have a mask; each sample's loss
     is taken alone, vmapped over l[None] as in JAX (one batched launch per
     op, not one per sample). seg_logits, masks: (B, S, S); has_mask: (B,)
-    float 0/1."""
+    float 0/1. Inside a data-parallel step (core/mesh.py `data_step`)
+    the denominator counts the masks of the global batch."""
     fn = combined_segmentation_loss if kind == "combined" else bce_dice_loss
     per = torch.func.vmap(lambda l, m: fn(l[None], m[None]))(seg_logits,
                                                              masks)
-    denom = torch.clamp(torch.sum(has_mask), min=1.0)
+    # the global batch's count of masks; a data-parallel rank's share of
+    # it, so that the ranks' gradients, averaged, are the global batch's
+    denom = torch.clamp(data_sum(has_mask), min=1.0) / data_size()
     return torch.sum(per * has_mask) / denom
 
 

@@ -74,6 +74,8 @@ class AdamW:
     state, params)` adds the update to each parameter in place and returns
     the new state and the global gradient norm."""
 
+    grad_sync = None
+
     def __init__(self, schedule, weight_decay, grad_clip, b1=0.9, b2=0.999,
                  eps=1e-8):
         self.schedule, self.weight_decay = schedule, weight_decay
@@ -87,7 +89,7 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads, state, params):
         # g / |g| * clip above the clip, g itself below it
-        norm, clip = _global_clip(grads, self.grad_clip)
+        grads, norm, clip = _global_clip(self, grads)
         g = torch._foreach_mul(grads, clip)
         mu = torch._foreach_mul(state["mu"], self.b1)
         torch._foreach_add_(mu, g, alpha=1 - self.b1)
@@ -107,10 +109,23 @@ class AdamW:
         return {"count": count, "mu": mu, "nu": nu}, norm
 
 
-def _global_clip(grads, grad_clip):
-    """(the global gradient norm, the factor of clip_by_global_norm)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    return norm, torch.where(norm < grad_clip, 1.0, grad_clip / norm)
+def global_norm(grads):
+    """The L2 norm of a list of tensors taken together."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def _global_clip(opt, grads):
+    """(grads, the global gradient norm, the factor of
+    clip_by_global_norm). `opt.grad_sync`, which a ShardedTrainer
+    (parallel/training.py) installs on the optimizer its step was built
+    with for the length of that step, first averages the gradients over the data axis and gives the
+    norm over the whole tensor-parallel model."""
+    if opt.grad_sync is None:
+        norm = global_norm(grads)
+    else:
+        grads, norm = opt.grad_sync(grads)
+    return (grads, norm,
+            torch.where(norm < opt.grad_clip, 1.0, opt.grad_clip / norm))
 
 
 def _factored_dims(shape):
@@ -136,6 +151,8 @@ class Adafactor:
     the learning rate: optax adds the decay after the lr), subtracted from
     the parameter in place."""
 
+    grad_sync = None
+
     def __init__(self, schedule, weight_decay, grad_clip):
         self.schedule, self.weight_decay = schedule, weight_decay
         self.grad_clip = grad_clip
@@ -154,7 +171,7 @@ class Adafactor:
 
     @torch.no_grad()
     def update(self, grads, state, params):
-        norm, clip = _global_clip(grads, self.grad_clip)
+        grads, norm, clip = _global_clip(self, grads)
         count = state["count"]
         lr = self.schedule(count)
         beta = 1.0 - torch.tensor(count + 1, dtype=torch.float32) ** -0.8
@@ -319,7 +336,8 @@ def make_binary_train_step(cfg: SigLIPConfig, optimizer,
         pixels, labels = batch["pixels"], batch["labels"]
         if mixup_alpha > 0 and generator is not None:
             lam, perm = mixup_draws(generator, pixels.shape[0], mixup_alpha)
-            pixels, labels = mixup_apply(pixels, labels, lam, perm)
+            pixels, labels = mixup_apply(pixels, labels, lam, perm,
+                                         rows=generator)
         leaves = tensor_leaves(state.params)
         for leaf in leaves:
             leaf.grad = None

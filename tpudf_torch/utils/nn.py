@@ -1,6 +1,8 @@
 """Small numeric helpers shared across heads and blocks."""
 
+import dataclasses
 import math
+from typing import Callable
 
 import torch
 
@@ -21,3 +23,29 @@ def mm(x, w):
     off for matmuls, which is PyTorch's default."""
     dt = torch.promote_types(x.dtype, w.dtype)
     return torch.matmul(x.to(dt), w.to(dt))
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalRows:
+    """The draws of a global batch of which this process holds rows
+    [start, start + n): in place of a torch.Generator, the head's dropout
+    (`rand_rows`) and mixup (train/losses.py) draw the whole batch's
+    numbers from `generator`, which every rank of a data-parallel run
+    seeds alike, and keep this rank's rows, so the run draws what one
+    process draws for the global batch (JAX's jit sees that batch).
+    gather(t): the global batch's rows of a local (n, ...) tensor, in rank
+    order (an all-gather over the data axis)."""
+    generator: torch.Generator
+    total: int
+    start: int
+    gather: Callable
+
+
+def rand_rows(shape, generator, device):
+    """torch.rand(shape) from a torch.Generator, or this rank's rows of
+    the global batch's draw from a GlobalRows."""
+    if isinstance(generator, GlobalRows):
+        full = torch.rand((generator.total, *shape[1:]),
+                          generator=generator.generator, device=device)
+        return full[generator.start:generator.start + shape[0]]
+    return torch.rand(shape, generator=generator, device=device)
