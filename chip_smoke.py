@@ -19,7 +19,8 @@ back to the CPU or to a twin):
      128 and 256 (attention.cu) and K7 (layer_int8.cu) must show wgmma
      (HGMMA; IGMMA for int8; both in K6 and K7) and TMA
      loads (UTMALDG) in their SASS where the toolkit's cuobjdump is
-     present, no spills, and no wgmma serialised by ptxas (C7515); the
+     present (its dump runs in the background during phase 2 and is read
+     after it), no spills, and no wgmma serialised by ptxas (C7515); the
      wrappers'
      shared-memory functions equal to the kernels'; the host's cost of
      encoding a tensor map;
@@ -219,21 +220,33 @@ back to the CPU or to a twin):
          (full) patch_probs, max_patch, patch_mean, |Δ| <= 5e-2 on the
          logits z_sig and z_freq (engine B: visual_prob and z_sig at twice
          these, for int8 rounding ties);
-     (d) the MTL trainer, build_mtl_trainer("cuda") (base-256, decoder
-         embed_dim 256 on taps (2, 6, 10, -1), freeze_below=9, batch 16,
-         bf16 compute on f32 masters, lr 5e-5 after a warmup of 1 step,
-         so that 4 of the 5 updates move the weights): (a) the float
-         prefix and (b) the int8 prefix (--int8_frozen, calibrated on the
-         first batch's 16 images), 5 steps each on the same seeded batches
-         through the kernels and through the twins: finite losses, exact
-         launches per step, |Δloss| per step, the step-1 gradient cosine
+     (d) the MTL trainer, build_mtl_trainer(mtl_params("cuda"))
+         (base-256, decoder embed_dim 256 on taps (2, 6, 10, -1),
+         freeze_below=9, batch 16, bf16 compute on f32 masters, lr 5e-5
+         after a warmup of 1 step, so that 4 of the 5 updates move the
+         weights): (a) the float prefix and (b) the int8 prefix
+         (--int8_frozen, calibrated on the first batch's 16 images), 5
+         steps each on the same seeded batches through the kernels and
+         through the twins: finite losses, exact launches per step,
+         |Δloss| per step, the step-1 gradient cosine
          per group (top blocks, heads, decoder) >= 0.99, and per slice of
          the trainable parameters (a block layer's leaf, a third of a
          fused q|k|v leaf) the step-1 gradient's relative error and the
          mean |Δp| after 5 steps in units of lr, frozen parameters
          bit-identical after 5 steps, eval outputs finite with seg
          probabilities in [0, 1]; then (a) with K10's dQ, dK or dV zeroed
-         must fail those slice checks;
+         must fail those slice checks; every trainer of this script starts
+         from a copy of one initial tree a config (`fresh`);
+     (s) (`sid_paths`): the MTL CLI's default route without --data_dir
+         at base-256, 256 px, B = 16, freeze_below 9, one epoch, float as
+         `python -m tpudf_torch.cli.train_mtl` in a process of its own and
+         --int8_frozen by its main in this one, on 48 + 32 seeded SID_Set
+         records of every schema variant served by a stand-in `datasets`
+         (on PYTHONPATH for the process, in sys.modules here): the
+         stand-in's name and splits, each record read once, each record's
+         class, has_mask and mask sum as mapped, (d)'s launches a step, finite losses, the log and checkpoint, frozen
+         leaves bit-identical and every trainable slice moved; a stand-in
+         that raises ends the CLI with "provide --data_dir";
      (e, f) the detect core of large-384 and of so400m-512
          (build(cfg_name=...), every layer at full width) at B=8 under
          FPP, PPP, XXX and LLL with ToMe, and the tower without ToMe under
@@ -246,9 +259,10 @@ back to the CPU or to a twin):
      (w1)-(w5) (`weights_paths`): an HF state dict of large-384 built by
          name, converted by `python -m tpudf_torch.models.convert` and held
          leaf for leaf against its sources, served by build_engine(...,
-         backbone_ckpt=) A and B; the MTL trainer fine-tuning large-384 at
-         256 px from it (interpolated position table), float and int8
-         prefix against the twins, and the MTL CLI for one step; the
+         backbone_ckpt=) A and B (a full analysis of 8); the MTL trainer
+         fine-tuning large-384 at 256 px from it (interpolated position
+         table), float and int8 prefix, 3 steps against the twins, and the
+         MTL CLI's main for one step; the
          multi-query `_mha` at full width through kernels 11 and 12;
          so400m-512's engines A and B (its MLP padded to 4352); so400m's
          dynamic-int8 tower and an un-prepadded static tree;
@@ -309,14 +323,14 @@ back to the CPU or to a twin):
          the port's CPU run (TF32 left on in the maps: a planted fault,
          reported), the forensics CLI's scores.json against
          forensic_battery;
-     (t2)-(t4) (`training_rest`): large-384 MTL at 384 px (K10 at S = 576)
-         float and int8 prefix and the MTL CLI at --image_size 384;
-         so400m-512 MTL (K14 at the padded hidden of 4352, K10's route the
-         twin's VJP); the binary trainer (`build_binary_trainer`) at
-         large-384: the frozen bf16 tower (v5 head with EMA and mixup; the
-         fast head) and the W8A8 + ToMe tower at B = 64, the tower trained
-         at B = 8 with and without remat, each against the twins with
-         exact launches; the binary CLI for an epoch, then --evaluate_only
+     (t2)-(t4) (`training_rest`, LARGE_STEPS steps a run): large-384 MTL
+         at 384 px (K10 at S = 576) float and int8 prefix; so400m-512 MTL
+         (K14 at the padded hidden of 4352, K10's route the twin's VJP);
+         the binary trainer (`build_binary_trainer`) at large-384: the
+         frozen bf16 tower (v5 head with EMA and mixup; the fast head) and
+         the W8A8 + ToMe tower at B = 64, the tower trained at B = 8 with
+         and without remat (2 steps), each against the twins with exact
+         launches; the binary CLI for an epoch, then --evaluate_only
          --resume;
      (x) (`trainer_paths`): the experts CLI, the video CLI (bf16 and
          W8A8, with --analysis: its launches exact, learning_analysis.json
@@ -341,11 +355,12 @@ back to the CPU or to a twin):
      PyTorch call computes the same function or a part of it, that call
      (timed here only; the port never calls it; the SDPA backward by its
      kernels' device time from torch.profiler); the detect-core forwards
-     (also under each TPUDF_INT8_KERNELS route) and the engine requests,
-     kernels vs twins; the train steps of (a) and (b),
-     kernels vs twins; torch.profiler traces of the detect core at B=256,
-     of engine A's full analysis and of a train step of (a) and of (b): the
-     largest kernels and the device's idle share; the trainer's peak
+     and the engine requests, kernels vs twins, and the core under each
+     opt-in TPUDF_INT8_KERNELS route at B = 256 (kernels); the train steps
+     of (a) and (b), kernels vs twins; torch.profiler traces (the device's
+     activity) of the detect core at B=256, of engine A's full analysis
+     and of a train step of (a): the largest kernels and the device's
+     idle share; the trainer's peak
      memory; the large backbones' detect cores (large-384 at B=8 and 128,
      so400m-512 at B=8 and 64) with a profile each, so400m-512's PPP
      tower with and without TPUDF_INT8_ATTN=1, the towers without ToMe at
@@ -353,6 +368,7 @@ back to the CPU or to a twin):
      base-256 under PPP and LLL: 12 K6 / K7), large-384's engines; the
      large-384 MTL step at 256 px, (a) and (b), with a profile of (a),
      and so400m-512's engines A and B; the (t) steps, each with a profile
+     but t2 (b), the fast head and the remat step
      (`training_rest_timings`); each report request of (r) by the host
      clock, split into the engine's core and the fusion tail (CUDA
      events) and the rest, with a profile (idle share) of two of them
@@ -362,7 +378,8 @@ back to the CPU or to a twin):
      (`video_timings`); the video CLI's --analysis by the host clock; the
      world-1 DP full analysis against the engine's own request
      (`parallel_timings`).
-Prints a wall clock line at the end of each phase ("clock: ..."), a
+Prints a wall clock line at the end of each phase ("clock: ...") and one
+for parts of the longer phases ("lap: ..."), a
 JSON line of the kernels (with each one's bound: the larger of
 its operations over the card's peak for their type and its bytes, each
 input read once and each output written once, over 3.35 TB/s), the card
@@ -371,6 +388,7 @@ line, and last {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import hashlib
 import json
@@ -486,6 +504,10 @@ VIEWS = 53
 # kernel-vs-twin limits of its losses (int8 ties move (b)'s further: up to
 # 3.1e-3 over the 5 steps on an H100, against 1.4e-3 for (a))
 MTL_BATCH, MTL_STEPS, MTL_FREEZE, MTL_LR = 16, 5, 9, 5e-5
+# steps of the large backbones' trainers against their twins (phases 3w,
+# 3t): base-256's 5 (phase 3 (d)) hold the per-slice limits and their
+# planted faults; the large ones repeat those checks at their widths
+LARGE_STEPS = 3
 MTL_DLOSS = {"a": 1e-2, "b": 2e-2}
 # per slice of the trainable parameters (a block layer's leaf, or a third
 # of a fused q|k|v leaf): the step-1 gradient's relative error, and the
@@ -559,15 +581,16 @@ def kernel_events(fn, iters):
     """torch.profiler over `iters` calls of fn after one warm-up call:
     ({kernel name: device ms per call}, {name: launches per call}, busy
     device ms per call (the union of the kernel intervals), traced wall ms
-    per call)."""
+    per call). The trace holds the device's activity only: nothing reads
+    the host's ops, and tracing them slows the host, which inflates a
+    launch-bound run's idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -577,10 +600,11 @@ def kernel_events(fn, iters):
     count = collections.Counter()
     spans = []
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_name[e.name] += e.time_range.elapsed_us() / 1e3 / iters
-            count[e.name] += 1
-            spans.append((e.time_range.start, e.time_range.end))
+        if e.device_type != DeviceType.CUDA:
+            continue
+        per_name[e.name] += e.time_range.elapsed_us() / 1e3 / iters
+        count[e.name] += 1
+        spans.append((e.time_range.start, e.time_range.end))
     busy, end = 0.0, None
     for s, e in sorted(spans):               # union of kernel intervals
         if end is None or s > end:
@@ -741,15 +765,76 @@ SM90_IGMMA = ("i8_gemm_sm90", "attention_i8dyn_sm90", "attn_out_sm90",
               "layer_i8_sm90")
 
 
+def sm90_sass_dump():
+    """Start `cuobjdump -sass` of the built library in the background, its
+    output into a file beside the library (the dump takes tens of seconds;
+    phase 2 runs meanwhile): (process, file), or None where the toolkit
+    has no cuobjdump."""
+    import shutil
+    from tpudf_torch.ops import _build
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(home, "bin",
+                                                          "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        print(f"  sm90 SASS: cuobjdump absent ({cuobjdump}); HGMMA / "
+              f"UTMALDG not counted", flush=True)
+        return None
+    so = sorted(_build.BUILD_DIR.glob("libtpudf_kernels-*.so"),
+                key=os.path.getmtime)[-1]
+    out = so.with_suffix(".sass")
+    with open(out, "w") as f:
+        proc = subprocess.Popen([cuobjdump, "-sass", str(so)], stdout=f,
+                                stderr=subprocess.DEVNULL)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def sm90_sass_checks(dump):
+    """HGMMA / IGMMA and UTMALDG instructions in each sm90 kernel's SASS
+    (the dump `sm90_sass_dump` started)."""
+    if dump is None:
+        return
+    proc, out = dump
+    if proc.wait(timeout=300) != 0:
+        raise AssertionError(f"cuobjdump -sass exited {proc.returncode}")
+    counts, fn = {}, None
+    with open(out) as f:
+        for line in f:
+            if "Function : " in line:
+                fn = line.split("Function : ")[1].strip()
+                fn = fn if "sm90" in fn else None
+                if fn:
+                    counts[fn] = [0, 0, 0]
+            elif fn is not None:
+                counts[fn][0] += "HGMMA" in line
+                counts[fn][1] += "IGMMA" in line
+                counts[fn][2] += "UTMALDG" in line
+    out.unlink()
+    if len(counts) != SM90_KERNELS:
+        raise AssertionError(f"sm90 kernels in the SASS: {list(counts)}")
+    for fn, (hgmma, igmma, utmaldg) in sorted(counts.items()):
+        m = SM90_NAME.search(fn)
+        args = ", ".join(a for a in m.group(2, 3) if a) + SM90_A.get(
+            m.group(4), "") + (", static" if m.group(5) == "1" else "")
+        kinds = {"HGMMA": hgmma, "IGMMA": igmma}
+        if m.group(1) not in SM90_IGMMA:
+            kinds.pop("IGMMA")
+        elif m.group(1) not in SM90_IGMMA[2:]:
+            kinds.pop("HGMMA")
+        print(f"  sm90 SASS {m.group(1)}<{args}>: "
+              + ", ".join(f"{k} {v}" for k, v in kinds.items())
+              + f", UTMALDG {utmaldg}", flush=True)
+        if not all(kinds.values()) or not utmaldg:
+            raise AssertionError(f"{fn}: no wgmma or TMA in its SASS")
+
+
 def sm90_build_checks(card):
     """Phase 1 for the kernels on wgmma and TMA (attention_sm90.cu,
     attention_plain_sm90.cu, bf16_gemm_sm90.cu): no spills in ptxas's
-    report, HGMMA and UTMALDG instructions in each kernel's SASS (cuobjdump
-    of the built library, where the toolkit has it), the wrappers'
-    shared-memory functions equal to the kernels' (K10's dkv block,
-    kernels 11 and 12 in bf16 and f32), and the host's ns to encode one
-    tensor map."""
-    import shutil
+    report and no wgmma serialised, the wrappers' shared-memory functions
+    equal to the kernels' (K10's dkv block, kernels 11 and 12 in bf16 and
+    f32), and the host's ns to encode one tensor map. Their SASS is
+    checked by `sm90_sass_checks`."""
     import torch
     from tpudf_torch.ops import _build
     log = _build.build_log.read_text().splitlines()
@@ -760,45 +845,6 @@ def sm90_build_checks(card):
                 raise AssertionError(f"ptxas reports spills: {line} {rest}")
         if "C7515" in line:                     # wgmma serialised
             raise AssertionError(f"ptxas: {line.strip()}")
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cuobjdump = shutil.which("cuobjdump") or os.path.join(home, "bin",
-                                                          "cuobjdump")
-    so = sorted(_build.BUILD_DIR.glob("libtpudf_kernels-*.so"),
-                key=os.path.getmtime)[-1]
-    if not os.path.exists(cuobjdump):
-        print(f"  sm90 SASS: cuobjdump absent ({cuobjdump}); HGMMA / "
-              f"UTMALDG not counted", flush=True)
-    else:
-        sass = subprocess.run([cuobjdump, "-sass", str(so)],
-                              capture_output=True, text=True, check=True,
-                              timeout=300).stdout
-        counts, fn = {}, None
-        for line in sass.splitlines():
-            if "Function : " in line:
-                fn = line.split("Function : ")[1].strip()
-                fn = fn if "sm90" in fn else None
-                if fn:
-                    counts[fn] = [0, 0, 0]
-            elif fn is not None:
-                counts[fn][0] += "HGMMA" in line
-                counts[fn][1] += "IGMMA" in line
-                counts[fn][2] += "UTMALDG" in line
-        if len(counts) != SM90_KERNELS:
-            raise AssertionError(f"sm90 kernels in the SASS: {list(counts)}")
-        for fn, (hgmma, igmma, utmaldg) in sorted(counts.items()):
-            m = SM90_NAME.search(fn)
-            args = ", ".join(a for a in m.group(2, 3) if a) + SM90_A.get(
-                m.group(4), "") + (", static" if m.group(5) == "1" else "")
-            kinds = {"HGMMA": hgmma, "IGMMA": igmma}
-            if m.group(1) not in SM90_IGMMA:
-                kinds.pop("IGMMA")
-            elif m.group(1) not in SM90_IGMMA[2:]:
-                kinds.pop("HGMMA")
-            print(f"  sm90 SASS {m.group(1)}<{args}>: "
-                  + ", ".join(f"{k} {v}" for k, v in kinds.items())
-                  + f", UTMALDG {utmaldg}", flush=True)
-            if not all(kinds.values()) or not utmaldg:
-                raise AssertionError(f"{fn}: no wgmma or TMA in its SASS")
     from tpudf_torch.ops import attention
     lib = _build.load()
     for hd in (64, 128, 256, 384, 1280):
@@ -1650,6 +1696,7 @@ def large_timings(state, card):
         profile(lambda: model(px), f"detect core {name} B={batches[-1]}",
                 card, iters=2, top=14)
         del px
+        lap(f"timing detect core {name}")
 
     model, params = state["cores"]["so400m-512"]
     norm = torch.rand((8, 512, 512, 3), generator=g, device="cuda").to(
@@ -1980,18 +2027,19 @@ def weights_paths(dev, card, mtl_batches, tmp):
     exactly CONFIGS["large-384"], every restored leaf bit-equal to
     `from_hf_state_dict` of the same dict and to its named source; then
     `build_engine(cfg_name="large-384", backbone_ckpt=...)` A (bf16) and B
-    (W8A8 + ToMe + patch ToMe): a full analysis of 8 and a fast request of
-    32 each, exact launches, held against the twins on 2 images;
+    (W8A8 + ToMe + patch ToMe): a full analysis of 8 each, exact
+    launches, held against the twins on 2 images;
     (w2) the MTL trainer from that file at the CLI's defaults
     (large-384 at 256 px: a 16 x 16 grid on the 24 x 24 position table,
     freeze_below 21, taps (2, 6, 10, -1), embed_dim 256, B = 16), float
-    (a) and int8 (b) prefix, 5 steps each against the twins: |Δloss|,
+    (a) and int8 (b) prefix, LARGE_STEPS steps each against the twins
+    (every trainer from a copy of one tree read from the file): |Δloss|,
     the step-1 gradient cosine per group, frozen parameters bit-identical,
     exact launches (K10 at (16, 256, 3072) on the 3 trainable layers), and
     on (a) also phase 3 (d)'s per-slice limits;
     `interpolate_pos` at W = 1024 held to a float64 evaluation of the same
-    matrices (1e-5 relative); the CLI itself for one step where PIL
-    imports;
+    matrices (1e-5 relative); the CLI's main (in this process) for one
+    step where PIL imports;
     (w3) the multi-query `_mha` at full width (large-384's MAP-head
     projections on (8, 576, 1024) tokens, and so400m's width on (8, 1024,
     1152), heads of 72): one launch of kernel 11 each against the twins,
@@ -2011,7 +2059,7 @@ def weights_paths(dev, card, mtl_batches, tmp):
     from tpudf_torch.convert import add_kernel_layout
     from tpudf_torch.core.backend import LAUNCHES
     from tpudf_torch.core.precision import tree_map
-    from tpudf_torch.entry import build_engine, build_mtl_trainer
+    from tpudf_torch.entry import build_engine, build_mtl_trainer, mtl_params
     from tpudf_torch.models import siglip as S
     from tpudf_torch.models.convert import from_hf_state_dict
     from tpudf_torch.ops import (attention, int8_block, layernorm, linear,
@@ -2072,10 +2120,11 @@ def weights_paths(dev, card, mtl_batches, tmp):
     hf_leaves_held(restored, sd, cfg, "w1 restored checkpoint")
     del restored, flat_r, flat_d
     state["head"] = direct["head"]
+    # the full analysis of 8 (large-384's fast request runs in phase 3 (g)
+    # on the same config)
     rng = np.random.default_rng(12)
-    requests = {m_: rng.integers(0, 256, (b, cfg.image_size, cfg.image_size,
-                                          3), np.uint8)
-                for m_, b in (("full", 8), ("fast", 32))}
+    requests = {"full": rng.integers(0, 256, (8, cfg.image_size,
+                                              cfg.image_size, 3), np.uint8)}
     expect = engine_expect(cfg.layers, cfg.num_patches)
     for e, kw in (("A", {}), ("B", {"int8": True, "tome": True,
                                     "patch_tome": True})):
@@ -2098,6 +2147,7 @@ def weights_paths(dev, card, mtl_batches, tmp):
         del eng, tw
         torch.cuda.empty_cache()
     del direct
+    lap("w1")
 
     # ---- (w2) large-384 MTL at 256 px from the file
     pos = S.interpolate_pos(
@@ -2116,10 +2166,13 @@ def weights_paths(dev, card, mtl_batches, tmp):
         raise AssertionError(f"w2: interpolate_pos {rel:.3e}")
     del sd, pos
     freeze, layers = 21, cfg.layers
+    # the file read once: every trainer below starts from a copy of it
+    w2_tree = mtl_params(dev, seed=0, cfg_name=name, backbone_ckpt=pt)
+    batches = mtl_batches[:LARGE_STEPS]
 
     def make(cfg_key, ks=KERNELS):
         return build_mtl_trainer(
-            dev, seed=0, cfg_name=name, image_size=256, backbone_ckpt=pt,
+            fresh(w2_tree), cfg_name=name, image_size=256,
             freeze_below=freeze, seg_layers=(2, 6, 10, -1), embed_dim=256,
             int8_frozen=cfg_key == "b", lr=MTL_LR, warmup_steps=1,
             calib_pixels=mtl_batches[0]["pixels"], kernels=ks)
@@ -2136,10 +2189,10 @@ def weights_paths(dev, card, mtl_batches, tmp):
     for cfg_key in ("a", "b"):
         label = f"w2 {name} 256 px ({cfg_key})"
         kern = train_run(make, cfg_key, KERNELS, f"{label} kernels",
-                         mtl_batches, freeze, dev, card)
+                         batches, freeze, dev, card)
         for i, launches in enumerate(kern[3]):
             check_launches(f"{label} step {i}", launches, w2_expect[cfg_key])
-        twin = train_run(make, cfg_key, TWINS, f"{label} twins", mtl_batches,
+        twin = train_run(make, cfg_key, TWINS, f"{label} twins", batches,
                          freeze, dev, card)
         if any(twin[3]):
             raise AssertionError(f"twins launched {twin[3]}")
@@ -2159,6 +2212,7 @@ def weights_paths(dev, card, mtl_batches, tmp):
         state["launches"][("w2", cfg_key)] = kern[3][0]
         del kern, twin
         torch.cuda.empty_cache()
+        lap(f"w2 ({cfg_key})")
     state["mtl"] = make
     try:
         import PIL  # noqa: F401
@@ -2168,25 +2222,27 @@ def weights_paths(dev, card, mtl_batches, tmp):
     print(f"w2: PIL {'imports' if has_pil else 'does not import'} here",
           flush=True)
     if has_pil:
+        # the CLI's main in this process (phase 3 (s) launches the CLI as a
+        # process of its own): the production run's arguments
+        from tpudf_torch.cli import train_mtl
         data = os.path.join(tmp, "sid")
         sid_folder(data, 16, 300, 13)
         t0 = time.perf_counter()
-        run = subprocess.run(
-            [sys.executable, "-m", "tpudf_torch.cli.train_mtl",
-             "--model_size", name, "--backbone_ckpt", pt, "--data_dir", data,
-             "--save_dir", os.path.join(tmp, "mtl_run"), "--epochs", "1",
-             "--batch_size", "16", "--device", "cuda"], cwd=root,
-            capture_output=True, text=True, timeout=900)
-        if run.returncode != 0:
-            raise AssertionError(f"w2 CLI failed: {run.stderr[-4000:]}")
+        train_mtl.main(["--model_size", name, "--backbone_ckpt", pt,
+                        "--data_dir", data, "--save_dir",
+                        os.path.join(tmp, "mtl_run"), "--epochs", "1",
+                        "--batch_size", "16", "--device", "cuda"])
+        torch.cuda.synchronize()
         rows = open(os.path.join(tmp, "mtl_run",
                                  "training_log.csv")).read().splitlines()
         if len(rows) != 2:
             raise AssertionError(f"w2 CLI: training log {rows}")
-        print(f"w2: python -m tpudf_torch.cli.train_mtl --model_size {name} "
-              f"--backbone_ckpt ... (image_size 256, 16 images, one step, "
+        print(f"w2: tpudf_torch.cli.train_mtl.main(--model_size {name} "
+              f"--backbone_ckpt ...) (image_size 256, 16 images, one step, "
               f"eval, checkpoint) in {time.perf_counter() - t0:.2f} s; log "
               f"{rows[1][:160]} [{card}]", flush=True)
+        torch.cuda.empty_cache()
+        lap("w2 CLI")
 
     # ---- (w3) the multi-query _mha at full width
     g = torch.Generator(device=dev).manual_seed(14)
@@ -2234,6 +2290,7 @@ def weights_paths(dev, card, mtl_batches, tmp):
         state["launches"][("w3", c_.width)] = launched
         del x, got, ref, proj, o_bshd, o_ref
     torch.cuda.empty_cache()
+    lap("w3")
 
     # ---- (w4) so400m-512's engines
     rng = np.random.default_rng(15)
@@ -2263,6 +2320,7 @@ def weights_paths(dev, card, mtl_batches, tmp):
         engines[e] = eng
         del tw
     state["so400m engines"] = (engines, so_requests)
+    lap("w4")
 
     # ---- (w5) so400m-512's dynamic-int8 tower, an un-prepadded static tree
     p = tree_map(lambda t: t.to(dev),
@@ -2332,6 +2390,7 @@ def weights_timings(state, card, mtl_batches):
                     card, top=14)
         del boxes
         torch.cuda.empty_cache()
+        lap(f"timing w2 ({cfg_key})")
     engines, requests = state["so400m engines"]
     for e, eng in engines.items():
         for mode, px in requests.items():
@@ -3339,27 +3398,32 @@ def training_rest(dev, card, tmp):
     and read just after:
     (t2) large-384 MTL at its native 384 px (S = 576, no interpolation;
     freeze_below 21, taps (2, 6, 10, -1), embed_dim 256, B = 16), float (a)
-    and int8 (b) prefix, 5 steps each against the twins: exact launches
-    (K10 3 a step at (16, 576, 3072)), |Δloss|, the step-1 gradient cosine
-    per group, frozen parameters bit-identical, and on (a) phase 3 (d)'s
-    per-slice limits; the MTL CLI for one step at --image_size 384;
+    and int8 (b) prefix, LARGE_STEPS steps each against the twins: exact
+    launches (K10 3 a step at (16, 576, 3072)), |Δloss|, the step-1
+    gradient cosine per group, frozen parameters bit-identical, and on (a)
+    phase 3 (d)'s per-slice limits;
     (t3) so400m-512 MTL at 512 px (freeze_below 24: 3 of 27 layers
-    trainable, B = 8, float prefix), 3 steps against the twins: K14 at the
-    compute copy's hidden of 4352 in every layer, no K10 launch and the
-    twin's VJP 3 times a step (JAX's fit fails), |Δloss|, group cosine,
-    frozen bit-identical (slices printed);
+    trainable, B = 8, float prefix), LARGE_STEPS steps against the twins:
+    K14 at the compute copy's hidden of 4352 in every layer, no K10 launch
+    and the twin's VJP 3 times a step (JAX's fit fails), |Δloss|, group
+    cosine, frozen bit-identical (slices printed);
     (t4) the binary trainer at large-384, 384 px (`build_binary_trainer`):
     the frozen bf16 tower with the v5 head, EMA 0.999 and mixup 0.2 at B =
     64; the W8A8 tower with the deployed ToMe (calibrated on the first
-    batch's 16 images); the fast head; 5 steps each against the twins:
-    exact launches, |Δloss|, the step-1 head-gradient cosine, the EMA equal
-    to its formula; the tower trained with the head at B = 8, 2 steps with
+    batch's 16 images); the fast head; LARGE_STEPS steps each against the
+    twins (every trainer from a copy of one seed-0 tower): exact launches,
+    |Δloss|, the step-1 head-gradient cosine, the EMA equal to its
+    formula; the tower trained with the head at B = 8, 2 steps with
     and without remat against the twins: K10 24 times a step, K9 24 and
     48 with remat, the remat gradients within the twin limits of those
     without; the binary CLI for one epoch on a seeded REAL/FAKE folder,
     then --evaluate_only --resume. Returns the trainers phase 4 times."""
     import torch
-    from tpudf_torch.entry import build_binary_trainer, build_mtl_trainer
+    import tpudf_torch.entry as entry
+    from tpudf_torch.core.precision import tree_map
+    from tpudf_torch.entry import (build_binary_trainer, build_mtl_trainer,
+                                   mtl_params)
+    from tpudf_torch.models.siglip import CONFIGS, init_siglip
     from tpudf_torch.ops import (attention, int8_block, layernorm, linear,
                                  mlp)
     from tpudf_torch.ops.routes import KERNELS, TWINS
@@ -3372,12 +3436,13 @@ def training_rest(dev, card, tmp):
 
     # ---- (t2) large-384 MTL at 384 px
     name, layers, freeze = "large-384", 24, 21
-    b384 = mtl_batches_at(dev, 384, MTL_BATCH, MTL_STEPS, 31)
+    b384 = mtl_batches_at(dev, 384, MTL_BATCH, LARGE_STEPS, 31)
+    t2_tree = mtl_params(dev, seed=0, cfg_name=name)
 
     def make(cfg_key, ks=KERNELS):
         return build_mtl_trainer(
-            dev, seed=0, cfg_name=name, image_size=384, freeze_below=freeze,
-            seg_layers=(2, 6, 10, -1), embed_dim=256,
+            fresh(t2_tree), cfg_name=name, image_size=384,
+            freeze_below=freeze, seg_layers=(2, 6, 10, -1), embed_dim=256,
             int8_frozen=cfg_key == "b", lr=MTL_LR, warmup_steps=1,
             calib_pixels=b384[0]["pixels"], kernels=ks)
 
@@ -3411,34 +3476,17 @@ def training_rest(dev, card, tmp):
         state[("t2", cfg_key, "launches")] = kern[3][0]
         del kern, twin
         torch.cuda.empty_cache()
+        lap(f"t2 ({cfg_key})")
     state["t2"] = (make, b384)
-    data = os.path.join(tmp, "sid384")
-    sid_folder(data, 16, 384, 32)
-    t0 = time.perf_counter()
-    run = subprocess.run(
-        [sys.executable, "-m", "tpudf_torch.cli.train_mtl", "--model_size",
-         name, "--image_size", "384", "--data_dir", data, "--save_dir",
-         os.path.join(tmp, "mtl384"), "--epochs", "1", "--batch_size", "16",
-         "--device", "cuda"], cwd=root, capture_output=True, text=True,
-        timeout=900)
-    if run.returncode != 0:
-        raise AssertionError(f"t2 CLI failed: {run.stderr[-4000:]}")
-    rows = open(os.path.join(tmp, "mtl384",
-                             "training_log.csv")).read().splitlines()
-    if len(rows) != 2:
-        raise AssertionError(f"t2 CLI: training log {rows}")
-    print(f"t2: python -m tpudf_torch.cli.train_mtl --model_size {name} "
-          f"--image_size 384 (16 images, one step, eval, checkpoint) in "
-          f"{time.perf_counter() - t0:.2f} s; log {rows[1][:160]} [{card}]",
-          flush=True)
 
     # ---- (t3) so400m-512 MTL
-    so, so_layers, so_freeze, so_b, so_steps = "so400m-512", 27, 24, 8, 3
-    b512 = mtl_batches_at(dev, 512, so_b, so_steps, 33)
+    so, so_layers, so_freeze, so_b = "so400m-512", 27, 24, 8
+    b512 = mtl_batches_at(dev, 512, so_b, LARGE_STEPS, 33)
+    t3_tree = mtl_params(dev, seed=0, cfg_name=so)
 
     def make_so(cfg_key, ks=KERNELS):
         return build_mtl_trainer(
-            dev, seed=0, cfg_name=so, freeze_below=so_freeze,
+            fresh(t3_tree), cfg_name=so, freeze_below=so_freeze,
             seg_layers=(2, 6, 10, -1), embed_dim=256, lr=MTL_LR,
             warmup_steps=1, kernels=ks)
 
@@ -3464,6 +3512,7 @@ def training_rest(dev, card, tmp):
     state["t3"] = (make_so, b512)
     del kern, twin
     torch.cuda.empty_cache()
+    lap("t3")
 
     # ---- (t4) the binary trainer at large-384, 384 px
     bg = torch.Generator(device=dev).manual_seed(34)
@@ -3474,83 +3523,101 @@ def training_rest(dev, card, tmp):
                  "labels": (torch.rand((b,), generator=bg, device=dev)
                             < 0.5).float()} for _ in range(steps)]
 
-    b64 = bin_batches(64, MTL_STEPS)
-    n_merge = merges(576, layers, DEPLOYED_TOME_R, deployed_floor(576))
-    float_fwd = {linear.KERNEL: 2 * layers, attention.KERNEL: layers,
-                 mlp.KERNEL_BF16: layers, layernorm.KERNEL: 2}
-    variants = {
-        "frozen bf16, v5 head, EMA 0.999, mixup 0.2": (
-            dict(ema_decay=0.999, mixup_alpha=0.2), float_fwd, 1e-2),
-        "frozen W8A8 + deployed ToMe": (
-            dict(int8_backbone=True, tome_r=-1,
-                 calib_pixels=b64[0]["pixels"][:16]),
-            w8a8_launches("FPP", layers, n_merge, tome=False, k6_fits=True),
-            2e-2),
-        # the fast head's LN reads the bf16 pooled features: K4, as JAX's
-        # layer_norm sends bf16 rows of a 128 multiple to its Pallas LN
-        "frozen bf16, fast head": (
-            dict(head="fast"), dict(float_fwd, **{layernorm.KERNEL: 3}),
-            1e-2)}
-    for vname, (kw, expect, limit) in variants.items():
-        def make_b(ks, kw=kw):
-            return build_binary_trainer(dev, seed=0, cfg_name=name,
-                                        warmup_steps=1, kernels=ks, **kw)
-        label = f"t4 {name} 384 px {vname} B=64"
-        kern = binary_run(make_b, KERNELS, f"{label} kernels", b64, dev,
-                          card, kw.get("ema_decay"))
-        for i, launches in enumerate(kern[2]):
-            check_launches(f"{label} step {i}", launches, expect)
-        twin = binary_run(make_b, TWINS, f"{label} twins", b64, dev, card,
-                          kw.get("ema_decay"))
-        if any(twin[2]):
-            raise AssertionError(f"twins launched {twin[2]}")
-        print(f"binary {label}: launches per step {kern[2][0]}", flush=True)
-        binary_versus(label, kern, twin, limit, card)
-        state[("t4", vname)] = (kern[3], b64)
-        state[("t4", vname, "launches")] = kern[2][0]
-        del twin
-        torch.cuda.empty_cache()
-
-    b8 = bin_batches(8, 2)
-    runs = {}
-    for remat, ks in ((False, KERNELS), (True, KERNELS), (False, TWINS)):
-        def make_t(ks_, remat=remat):
-            return build_binary_trainer(dev, seed=0, cfg_name=name,
-                                        train_backbone=True, remat=remat,
-                                        warmup_steps=1, kernels=ks_)
-        label = (f"t4 {name} 384 px tower trained B=8"
-                 f"{' remat' if remat else ''} "
-                 f"{'twins' if ks is TWINS else 'kernels'}")
-        run_ = binary_run(make_t, ks, label, b8, dev, card)
-        runs[(remat, ks is TWINS)] = run_[:3]
-        if ks is KERNELS:
-            expect = dict(float_fwd, **{attention.KERNEL_BWD: layers})
-            if remat:
-                expect.update({linear.KERNEL: 4 * layers,
-                               attention.KERNEL: 2 * layers,
-                               mlp.KERNEL_BF16: 2 * layers})
-            for i, launches in enumerate(run_[2]):
+    # the first LARGE_STEPS of MTL_STEPS batches: the generator's draws as
+    # before, so the tower-trained batches below stay the same
+    b64 = bin_batches(64, MTL_STEPS)[:LARGE_STEPS]
+    # build_binary_trainer's seed-0 tower, built once: each trainer below
+    # starts from a copy (entry.init_siglip hands it out for this part)
+    tower0 = tree_map(lambda t: t.to(dev),
+                      init_siglip(torch.Generator().manual_seed(0),
+                                  CONFIGS[name]))
+    entry.init_siglip = lambda gen, cfg: fresh(tower0)
+    try:
+        n_merge = merges(576, layers, DEPLOYED_TOME_R, deployed_floor(576))
+        float_fwd = {linear.KERNEL: 2 * layers, attention.KERNEL: layers,
+                     mlp.KERNEL_BF16: layers, layernorm.KERNEL: 2}
+        variants = {
+            "frozen bf16, v5 head, EMA 0.999, mixup 0.2": (
+                dict(ema_decay=0.999, mixup_alpha=0.2), float_fwd, 1e-2),
+            "frozen W8A8 + deployed ToMe": (
+                dict(int8_backbone=True, tome_r=-1,
+                     calib_pixels=b64[0]["pixels"][:16]),
+                w8a8_launches("FPP", layers, n_merge, tome=False,
+                              k6_fits=True), 2e-2),
+            # the fast head's LN reads the bf16 pooled features: K4, as
+            # JAX's layer_norm sends bf16 rows of a 128 multiple to its
+            # Pallas LN
+            "frozen bf16, fast head": (
+                dict(head="fast"), dict(float_fwd, **{layernorm.KERNEL: 3}),
+                1e-2)}
+        for vname, (kw, expect, limit) in variants.items():
+            def make_b(ks, kw=kw):
+                return build_binary_trainer(dev, seed=0, cfg_name=name,
+                                            warmup_steps=1, kernels=ks, **kw)
+            label = f"t4 {name} 384 px {vname} B=64"
+            kern = binary_run(make_b, KERNELS, f"{label} kernels", b64, dev,
+                              card, kw.get("ema_decay"))
+            for i, launches in enumerate(kern[2]):
                 check_launches(f"{label} step {i}", launches, expect)
-            print(f"binary {label}: launches per step {run_[2][0]}",
+            twin = binary_run(make_b, TWINS, f"{label} twins", b64, dev,
+                              card, kw.get("ema_decay"))
+            if any(twin[2]):
+                raise AssertionError(f"twins launched {twin[2]}")
+            print(f"binary {label}: launches per step {kern[2][0]}",
                   flush=True)
-            state[("t4", "tower", remat)] = (run_[3], b8)
-        elif any(run_[2]):
-            raise AssertionError(f"twins launched {run_[2]}")
-        del run_
-        torch.cuda.empty_cache()
-    twin = runs[(False, True)]
-    for remat in (False, True):
-        label = f"t4 tower trained{' remat' if remat else ''}"
-        rel = binary_versus(label, runs[(remat, False)], twin, 1e-2, card)
+            binary_versus(label, kern, twin, limit, card)
+            state[("t4", vname)] = (kern[3], b64)
+            state[("t4", vname, "launches")] = kern[2][0]
+            del twin
+            torch.cuda.empty_cache()
+            lap(f"t4 {vname}")
+
+        b8 = bin_batches(8, 2)
+        runs = {}
+        for remat, ks in ((False, KERNELS), (True, KERNELS), (False, TWINS)):
+            def make_t(ks_, remat=remat):
+                return build_binary_trainer(dev, seed=0, cfg_name=name,
+                                            train_backbone=True, remat=remat,
+                                            warmup_steps=1, kernels=ks_)
+            label = (f"t4 {name} 384 px tower trained B=8"
+                     f"{' remat' if remat else ''} "
+                     f"{'twins' if ks is TWINS else 'kernels'}")
+            run_ = binary_run(make_t, ks, label, b8, dev, card)
+            runs[(remat, ks is TWINS)] = run_[:3]
+            if ks is KERNELS:
+                expect = dict(float_fwd, **{attention.KERNEL_BWD: layers})
+                if remat:
+                    expect.update({linear.KERNEL: 4 * layers,
+                                   attention.KERNEL: 2 * layers,
+                                   mlp.KERNEL_BF16: 2 * layers})
+                for i, launches in enumerate(run_[2]):
+                    check_launches(f"{label} step {i}", launches, expect)
+                print(f"binary {label}: launches per step {run_[2][0]}",
+                      flush=True)
+                state[("t4", "tower", remat)] = (run_[3], b8)
+            elif any(run_[2]):
+                raise AssertionError(f"twins launched {run_[2]}")
+            del run_
+            torch.cuda.empty_cache()
+        twin = runs[(False, True)]
+        for remat in (False, True):
+            label = f"t4 tower trained{' remat' if remat else ''}"
+            rel = binary_versus(label, runs[(remat, False)], twin, 1e-2,
+                                card)
+            if rel > MTL_GRAD_ERR:
+                raise AssertionError(f"{label}: leaf gradient error "
+                                     f"{rel:.3e}")
+        rel = binary_versus("t4 tower trained, remat vs without remat",
+                            runs[(True, False)], runs[(False, False)], 1e-2,
+                            card)
         if rel > MTL_GRAD_ERR:
-            raise AssertionError(f"{label}: leaf gradient error {rel:.3e}")
-    rel = binary_versus("t4 tower trained, remat vs without remat",
-                        runs[(True, False)], runs[(False, False)], 1e-2,
-                        card)
-    if rel > MTL_GRAD_ERR:
-        raise AssertionError(f"t4 remat: slice gradient error {rel:.3e}")
-    del runs, twin
-    torch.cuda.empty_cache()
+            raise AssertionError(f"t4 remat: slice gradient error {rel:.3e}")
+        del runs, twin
+        torch.cuda.empty_cache()
+        lap("t4 tower trained")
+    finally:
+        entry.init_siglip = init_siglip
+    del tower0
 
     data = os.path.join(tmp, "real_fake")
     real_fake_folder(data, 8, 384, 35)
@@ -3614,10 +3681,12 @@ def training_rest_timings(state, card):
                                  warmup=1), ""
         print(f"{label} train step B={b}: kernels {k_ms:.3f} ms = "
               f"{b * 1e3 / k_ms:.1f} img/s{twin} [{card}]", flush=True)
-        profile(lambda: mtl_step(box, batches[0]), f"{label} train step "
-                f"B={b}", card, top=16 if key == ("t2", "a") else 8)
+        if key != ("t2", "b"):
+            profile(lambda: mtl_step(box, batches[0]), f"{label} train "
+                    f"step B={b}", card, top=16 if key == ("t2", "a") else 8)
         del box, st, step
         torch.cuda.empty_cache()
+        lap(f"timing {label}")
     for key, ((tr, st), batches) in [(k, v) for k, v in state.items()
                                      if k[0] == "t4" and len(k) == 2
                                      or k[:2] == ("t4", "tower")]:
@@ -3634,10 +3703,14 @@ def training_rest_timings(state, card):
         ms = cuda_ms(bstep, iters=5, warmup=1)
         print(f"t4 binary step large-384 384 px {label} B={b}: kernels "
               f"{ms:.3f} ms = {b * 1e3 / ms:.1f} img/s [{card}]", flush=True)
-        profile(bstep, f"t4 binary step {label} B={b}", card, top=6)
+        # a profile of each but the repeats of another variant's tower
+        # (the fast head on the bf16 tower, the remat of the trained one)
+        if label not in ("frozen bf16, fast head", "tower trained remat"):
+            profile(bstep, f"t4 binary step {label} B={b}", card, top=6)
         del box, tr, st
         state[key] = None
         torch.cuda.empty_cache()
+        lap(f"timing t4 {label}")
 
 
 def trainable_slices(params, attr, freeze):
@@ -3697,9 +3770,17 @@ def frozen_values(params, freeze):
     return vals + list(rows(bb["blocks"]))
 
 
+def fresh(tree):
+    """A copy of a parameter tree on its device: each trainer built from
+    one initial tree (`entry.mtl_params`, an `init_siglip` tower) trains
+    its own copy in place."""
+    from tpudf_torch.core.precision import tree_map
+    return tree_map(lambda t: t.clone(), tree)
+
+
 def train_run(make, cfg_key, ks, label, batches, freeze, dev, card):
-    """5 steps on the seeded batches: (losses, step-1 gradients and
-    final parameters by slice, launches per step)."""
+    """Steps on the seeded batches, one a batch: (losses, step-1
+    gradients and final parameters by slice, launches per step)."""
     import numpy as np
     import torch
     from tpudf_torch.core.backend import LAUNCHES
@@ -7697,7 +7778,390 @@ def app_paths(dev, card, tmp, cli):
             "clip": clip_path}
 
 
+# Phase 3s (`sid_paths`): the MTL CLI's default route, SID_Set through the
+# Hugging Face `datasets` package, served by a stand-in module of seeded
+# in-memory records (no network, and the card's machine has no `datasets`)
+SID_MODEL = "base-256"          # a test config rehearses phase 3s on the CPU
+SID_TAPS = (2, 6, 10, -1)       # the CLI's default (a test config's: (0, -1))
+SID_RECORDS = {"train": 48, "validation": 32}
+SID_SOURCE = 512                # the records' side: BICUBIC / NEAREST to 256
+# every schema variant the mapping takes, cycled over the records: (image
+# encoding, mask encoding, label, the class it maps to)
+SID_VARIANTS = [
+    ("pil", "rgb255", 2, 2), ("bytes", "gray", 0, 0),
+    ("path", "float01", "tampered", 2), ("array", "bool", 1, 1),
+    ("pil", "undecodable", "real", 0), ("bytes", None, "fully_synthetic", 1),
+    ("path", "rgb255", "full_synthetic", 1), ("array", "gray", "Synthetic", 1),
+    ("pil", "zeros", 2, 2), ("bytes", "float01", "spliced", 2),
+    ("path", None, "REAL", 0), ("array", "bool", 2, 2)]
+
+
+class SidSplit:
+    """A split of the stand-in: its records by index, each read counted."""
+
+    def __init__(self, rows):
+        self.rows, self.reads = rows, []
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        self.reads.append(i)
+        return self.rows[i]
+
+
+def sid_records(n, seed, root):
+    """n seeded SID_Set records cycling through SID_VARIANTS, and what the
+    mapping must make of each: (records, [(cls, has_mask, mask sum at
+    SID_SOURCE / 2)]). A mask is a rectangle on even rows and columns, so
+    that its NEAREST halving keeps a quarter of its pixels exactly."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    s = SID_SOURCE
+    records, expect = [], []
+    for i in range(n):
+        img_kind, mask_kind, label, cls = SID_VARIANTS[i % len(SID_VARIANTS)]
+        px = rng.integers(0, 256, (s, s, 3), np.uint8)
+        if img_kind == "pil":
+            image = Image.fromarray(px)
+        elif img_kind == "bytes":
+            buf = io.BytesIO()
+            Image.fromarray(px).save(buf, "PNG")
+            image = {"bytes": buf.getvalue(), "path": None}
+        elif img_kind == "path":
+            image = {"bytes": None, "path": os.path.join(root, f"{i}.png")}
+            Image.fromarray(px).save(image["path"])
+        else:
+            image = px
+        y0, x0, h, w = (2 * int(v) for v in rng.integers(8, s // 4, 4))
+        m = np.zeros((s, s), np.uint8)
+        m[y0:y0 + h, x0:x0 + w] = 255
+        m[0, :] = 127                    # at the 0-255 threshold: 0
+        area = (h // 2) * (w // 2)
+        mask = {"rgb255": np.dstack([m, 255 - m, m]),
+                "gray": Image.fromarray(m),
+                "float01": (m > 127).astype(np.float32) * 0.75,
+                "bool": m > 127,
+                "zeros": np.zeros((s, s), np.uint8),
+                "undecodable": {"bytes": None, "path": None},
+                None: None}[mask_kind]
+        rec = {"image": image, "label": label}
+        if mask is not None:
+            rec["mask"] = mask
+        records.append(rec)
+        decodes = mask_kind not in (None, "undecodable")
+        expect.append((cls, decodes, area if decodes and mask_kind != "zeros"
+                       else 0))
+    return records, expect
+
+
+def sid_stand_in(calls, splits=None, fail=None):
+    """The stand-in `datasets` module: load_dataset records (name, split,
+    streaming) and serves the split, or raises `fail`."""
+    import types
+    mod = types.ModuleType("datasets")
+
+    def load_dataset(name, split=None, streaming=False):
+        calls.append((name, split, streaming))
+        if fail is not None:
+            raise fail
+        return splits[split]
+
+    mod.load_dataset = load_dataset
+    return mod
+
+
+# The stand-in `datasets` package that phase 3s puts on PYTHONPATH for the
+# CLI's own process: it serves the records pickled beside it and, at exit,
+# writes what the CLI asked of it, each training step's launches and loss
+# and the process's launches to log.json beside them.
+SID_SHIM = '''"""A stand-in `datasets`: load_dataset serves pickled records."""
+import atexit
+import json
+import os
+import pickle
+
+import tpudf_torch.entry as _entry
+from tpudf_torch.core.backend import LAUNCHES
+
+_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+with open(os.path.join(_DIR, "records.pkl"), "rb") as _f:
+    _SPLITS = pickle.load(_f)
+_LOG = {"calls": [], "reads": {}, "steps": []}
+
+
+class _Split:
+    def __init__(self, split):
+        self.split, self.rows = split, _SPLITS[split]
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        _LOG["reads"].setdefault(self.split, []).append(i)
+        return self.rows[i]
+
+
+def load_dataset(name, split=None, streaming=False):
+    _LOG["calls"].append([name, split, streaming])
+    return _Split(split)
+
+
+def _counted(make):
+    def wrapped(*a, **k):
+        init_fn, step = make(*a, **k)
+
+        def counted(*sa, **sk):
+            before = LAUNCHES.snapshot()
+            out = step(*sa, **sk)
+            after = LAUNCHES.snapshot()
+            _LOG["steps"].append([{n: v - before.get(n, 0)
+                                   for n, v in after.items()
+                                   if v != before.get(n, 0)},
+                                  float(out[1]["loss"])])
+            return out
+        return init_fn, counted
+    return wrapped
+
+
+# the CLI builds its trainer after it has read its data: its step counted
+_entry.make_mtl_train_step = _counted(_entry.make_mtl_train_step)
+
+
+@atexit.register
+def _dump():
+    _LOG["run"] = LAUNCHES.snapshot()
+    with open(os.path.join(_DIR, "log.json"), "w") as f:
+        json.dump(_LOG, f)
+'''
+
+
+def sid_cli_process(argv, data, tmp):
+    """`python -m tpudf_torch.cli.train_mtl argv` in a process of its own
+    with SID_SHIM as its `datasets`, serving data's records. Returns
+    (load_dataset calls, reads by split, [(launches, loss)] a step, the
+    process's launches)."""
+    import pickle
+    shim = os.path.join(tmp, "sid_shim")
+    os.makedirs(os.path.join(shim, "datasets"), exist_ok=True)
+    with open(os.path.join(shim, "records.pkl"), "wb") as f:
+        pickle.dump({k: v[0] for k, v in data.items()}, f)
+    with open(os.path.join(shim, "datasets", "__init__.py"), "w") as f:
+        f.write(SID_SHIM)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [shim] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    run = subprocess.run(
+        [sys.executable, "-m", "tpudf_torch.cli.train_mtl"] + argv,
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"s1 CLI failed: {run.stderr[-4000:]}")
+    with open(os.path.join(shim, "log.json")) as f:
+        log = json.load(f)
+    return ([tuple(c) for c in log["calls"]], log["reads"],
+            [(launched, loss) for launched, loss in log["steps"]], log["run"])
+
+
+def sid_paths(dev, card, tmp, step_expect):
+    """Phase 3s: the MTL CLI without --data_dir at SID_MODEL, 256 px, B =
+    16, freeze_below MTL_FREEZE, one epoch, on SID_RECORDS records of every
+    schema variant (`sid_records`) that a stand-in `datasets` serves: (a)
+    float as `python -m tpudf_torch.cli.train_mtl` in a process of its own
+    (`sid_cli_process`), (b) --int8_frozen by its `main` in this process.
+    Held: the stand-in saw saberzl/SID_Set's train and validation splits
+    and each record was read once; each step launches what phase 3 (d)'s
+    step launches (`step_expect`, (a) float / (b) int8); the losses finite,
+    the log and checkpoint written; the frozen leaves of the checkpoint
+    bit-identical to the seed-0 tree's and every trainable slice moved; in
+    (b), every record's arrays, as the CLI mapped them, carry the expected
+    class, has_mask and mask sum. A stand-in that raises ends the CLI with
+    "provide --data_dir"."""
+    import numpy as np
+    import torch
+    import tpudf_torch.entry as entry
+    from tpudf_torch.cli import train_mtl
+    from tpudf_torch.core.backend import LAUNCHES
+    from tpudf_torch.data import datasets
+    from tpudf_torch.ops import attention
+    from tpudf_torch.train.checkpoint import restore_checkpoint
+
+    print(f"phase 3s: the MTL CLI on SID_Set records through a stand-in "
+          f"`datasets` ({SID_MODEL})", flush=True)
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "sid_set")
+    os.makedirs(root, exist_ok=True)
+    data = {split: sid_records(n, 40 + j, root)
+            for j, (split, n) in enumerate(SID_RECORDS.items())}
+    # the CLI's seed-0 tree, built here on the host
+    tree = entry.mtl_params("cpu", seed=0, cfg_name=SID_MODEL,
+                            seg_layers=SID_TAPS)
+    init = {"frozen": frozen_values(tree, MTL_FREEZE),
+            "slices": trainable_slices(tree, "data", MTL_FREEZE)}
+    del tree
+    print(f"s0: {sum(SID_RECORDS.values())} seeded records of "
+          f"{len(SID_VARIANTS)} schema variants at {SID_SOURCE} px and the "
+          f"seed-0 tree in {time.perf_counter() - t0:.2f} s", flush=True)
+    size = entry.CONFIGS[SID_MODEL].image_size
+    argv = ["--model_size", SID_MODEL, "--image_size", str(size),
+            "--freeze_below", str(MTL_FREEZE), "--epochs", "1",
+            "--batch_size", str(MTL_BATCH), "--device", dev.type,
+            "--seg_layers", *map(str, SID_TAPS)]
+    n_steps = SID_RECORDS["train"] // MTL_BATCH
+    want_calls = [("saberzl/SID_Set", s, False) for s in SID_RECORDS]
+    want_reads = {k: list(range(n)) for k, n in SID_RECORDS.items()}
+
+    def held(label, key, calls, reads, steps, run, save):
+        """The checks both runs share; returns what they read."""
+        reads = {k: sorted(v) for k, v in reads.items()}
+        if calls != want_calls or reads != want_reads:
+            raise AssertionError(f"{label}: load_dataset calls {calls}, "
+                                 f"reads {reads}")
+        for i, (launched, _) in enumerate(steps):
+            check_launches(f"{label} step {i}", launched, step_expect[key])
+        losses = [v for _, v in steps]
+        rows = open(os.path.join(save, "training_log.csv")
+                    ).read().splitlines()
+        state = restore_checkpoint(os.path.join(save, "best"))
+        frozen_ok = all(torch.equal(a, b) for a, b in zip(
+            init["frozen"], frozen_values(state["params"], MTL_FREEZE)))
+        final = trainable_slices(state["params"], "data", MTL_FREEZE)
+        still = [n for n, v in init["slices"].items()
+                 if torch.equal(v, final[n])]
+        if (len(steps) != n_steps or not np.isfinite(losses).all()
+                or len(rows) != 2 or state["step"] != n_steps
+                or not frozen_ok or still
+                or run.get(attention.KERNEL_BWD, 0)
+                != n_steps * step_expect[key][attention.KERNEL_BWD]):
+            raise AssertionError(
+                f"{label}: steps {len(steps)}, losses {losses}, log {rows}, "
+                f"checkpoint step {state['step']}, frozen bit-identical "
+                f"{frozen_ok}, trainable slices that did not move "
+                f"{still[:4]}, the run's launches {run}")
+        return (f"load_dataset {calls}; {len(reads['train'])} + "
+                f"{len(reads['validation'])} records read once each; "
+                f"launches per step {steps[0][0]}; the run's {run}; losses "
+                f"{['%.6f' % v for v in losses]}; log {rows[1][:120]}; "
+                f"checkpoint step {state['step']}, {len(init['frozen'])} "
+                f"frozen leaves bit-identical, {len(final)} trainable "
+                f"slices moved")
+
+    # (a) the float route as a user launches it
+    save = os.path.join(tmp, "sid_run_a")
+    t0 = time.perf_counter()
+    out = sid_cli_process(argv + ["--save_dir", save], data, tmp)
+    secs = time.perf_counter() - t0
+    print(f"s1 (a): python -m tpudf_torch.cli.train_mtl without --data_dir "
+          f"({SID_MODEL}, {size} px, B={MTL_BATCH}, freeze_below "
+          f"{MTL_FREEZE}; a process of its own, its start included) in "
+          f"{secs:.2f} s: {held('s1 (a)', 'a', *out, save)} [{card}]",
+          flush=True)
+
+    # (b) --int8_frozen by main in this process, each mapped record held
+    saved = sys.modules.get("datasets")
+    orig = (entry.build_mtl_trainer, datasets.sid_example_to_arrays)
+    calls, mapped, steps = [], [], []
+    splits = {k: SidSplit(v[0]) for k, v in data.items()}
+
+    def mapping(ex, image_size):
+        out = orig[1](ex, image_size)
+        mapped.append(out)
+        return out
+
+    def trainer(*a, **k):
+        state, step, eval_step = orig[0](*a, **k)
+
+        def counted(*sa, **sk):
+            # the step's launches: the counts' growth over it (the run's
+            # counts stay whole)
+            before = LAUNCHES.snapshot()
+            out = step(*sa, **sk)
+            after = LAUNCHES.snapshot()
+            steps.append(({k: v - before.get(k, 0) for k, v in after.items()
+                           if v != before.get(k, 0)},
+                          float(out[1]["loss"])))
+            return out
+        return state, counted, eval_step
+
+    try:
+        sys.modules["datasets"] = sid_stand_in(calls, splits)
+        entry.build_mtl_trainer = trainer
+        datasets.sid_example_to_arrays = mapping
+        save = os.path.join(tmp, "sid_run_b")
+        t0 = time.perf_counter()
+        LAUNCHES.reset()
+        train_mtl.main(argv + ["--save_dir", save, "--int8_frozen"])
+        torch.cuda.synchronize()
+        run = LAUNCHES.snapshot()
+        secs = time.perf_counter() - t0
+        entry.build_mtl_trainer = orig[0]
+        datasets.sid_example_to_arrays = orig[1]
+        said = held("s2 (b)", "b", calls,
+                    {k: s.reads for k, s in splits.items()}, steps, run,
+                    save)
+        expect = data["train"][1] + data["validation"][1]
+        got = [(m["cls"], m["has_mask"], int(m["mask"].sum()))
+               for m in mapped]
+        shapes_ok = all(
+            m["pixels"].shape == (size, size, 3)
+            and m["pixels"].dtype == np.uint8
+            and m["mask"].shape == (size, size)
+            and m["binary"] == float(m["cls"] > 0) for m in mapped)
+        bad = [(i, g, e) for i, (g, e) in enumerate(zip(got, expect))
+               if g != e]
+        if bad or len(got) != len(expect) or not shapes_ok:
+            raise AssertionError(f"s2 (b): mapped records off their "
+                                 f"expectation {bad[:4]} (of {len(got)}; "
+                                 f"shapes {shapes_ok})")
+        classes = np.bincount([g[0] for g in got], minlength=3).tolist()
+        print(f"s2 (b): train_mtl.main without --data_dir ({SID_MODEL}, "
+              f"{size} px, B={MTL_BATCH}, freeze_below {MTL_FREEZE}, "
+              f"--int8_frozen; in this process) in {secs:.2f} s: {said}; "
+              f"mapped classes {classes}, has_mask "
+              f"{sum(g[1] for g in got)}, mask sums equal the expected "
+              f"{sum(g[2] for g in got)} pixels [{card}]", flush=True)
+        del mapped
+
+        # a stand-in that raises: the CLI exits, pointing at --data_dir
+        calls = []
+        sys.modules["datasets"] = sid_stand_in(
+            calls, fail=ConnectionError("no network"))
+        t0 = time.perf_counter()
+        try:
+            train_mtl.main(argv + ["--save_dir", os.path.join(tmp, "sid_x")])
+        except SystemExit as e:
+            msg = str(e)
+        else:
+            msg = None
+        if (msg != "SID_Set unavailable (no network); provide --data_dir"
+                or calls != [("saberzl/SID_Set", "train", False)]):
+            raise AssertionError(f"s3: the CLI without SID_Set: {msg!r}, "
+                                 f"calls {calls}")
+        print(f"s3: a stand-in that raises: SystemExit({msg!r}) after "
+              f"{time.perf_counter() - t0:.2f} s (the tree first, as in "
+              f"JAX) [{card}]", flush=True)
+    finally:
+        entry.build_mtl_trainer = orig[0]
+        datasets.sid_example_to_arrays = orig[1]
+        if saved is None:
+            sys.modules.pop("datasets", None)
+        else:
+            sys.modules["datasets"] = saved
+    torch.cuda.empty_cache()
+
+
 _START = [time.perf_counter()] * 2     # the script's start, the last mark
+_LAP = [time.perf_counter()]           # the last lap or clock line
+
+
+def lap(label):
+    """Print the wall time of a part of a phase (since the last lap or
+    clock line) without closing the phase."""
+    now = time.perf_counter()
+    print(f"lap: {label} {now - _LAP[0]:.1f} s", flush=True)
+    _LAP[0] = now
 
 
 # The trainers (phase 3x, `trainer_paths`; phase 4, `trainer_timings`): the
@@ -8653,6 +9117,7 @@ def clock(label):
     print(f"clock: {label} {now - _START[1]:.1f} s (at {now - _START[0]:.1f} "
           f"s)", flush=True)
     _START[1] = now
+    _LAP[0] = now
 
 
 def main() -> int:
@@ -8666,7 +9131,7 @@ def main() -> int:
     from tpudf_torch.convert import add_kernel_layout
     from tpudf_torch.core.backend import LAUNCHES, has_triton
     from tpudf_torch.entry import (build, build_engine, build_mtl_trainer,
-                                   detect_core)
+                                   detect_core, mtl_params)
     from tpudf_torch.models.siglip import siglip_forward
     from tpudf_torch.ops import (_build, attention, int8_block, layernorm,
                                  linear, mlp, quant, srm)
@@ -8694,6 +9159,7 @@ def main() -> int:
     for line in _build.build_log.read_text().splitlines():
         if "Compiling" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    sass = sm90_sass_dump()
     sm90_build_checks(card)
 
     clock("build")
@@ -9212,21 +9678,39 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     large_kernel_checks(rec, dev, card)
+    lap("large_kernel_checks")
     plain_attention_checks(rec, dev, card)
+    lap("plain_attention_checks")
     k10_long_checks(rec, dev, card)
+    lap("k10_long_checks")
     probe_launches = probe_checks(rec, dev, card)
+    lap("probe_checks")
     long_seq_checks(dev, card)
+    lap("long_seq_checks")
     gemm_checks(dev, card)
+    lap("gemm_checks")
     gemm_path_timings(dev, card)
+    lap("gemm_path_timings")
     headdim_checks(dev, card)
+    lap("headdim_checks")
     i8_gemm_checks(dev, card)
+    lap("i8_gemm_checks")
     rec.note_gemm(i8_gemm_path_timings(dev, card))
+    lap("i8_gemm_path_timings")
     rec.note_ln(ln_timings(dev, card))
+    lap("ln_timings")
     k1_attention_checks(rec, dev, card)
+    lap("k1_attention_checks")
     k5_9b_checks(rec, dev, card)
+    lap("k5_9b_checks")
     k6_k7_checks(rec, dev, card)
+    lap("k6_k7_checks")
     queue_launches = queue_c_checks(rec, dev, card)
+    lap("queue_c_checks")
     k3_checks(rec, dev, card)
+    lap("k3_checks")
+    sm90_sass_checks(sass)
+    lap("sm90 SASS (cuobjdump in the background since the build)")
 
     clock("phase 2: routes, probes, GEMMs, redesigns")
 
@@ -9420,8 +9904,10 @@ def main() -> int:
               linear.KERNEL: 6, attention.KERNEL: 3, mlp.KERNEL_BF16: 3,
               layernorm.KERNEL: 2, attention.KERNEL_BWD: 3}}
 
+    mtl_tree = mtl_params(dev, seed=0)      # the CLI's seed-0 init
+
     def trainer(cfg_key, kernels=KERNELS):
-        return build_mtl_trainer(dev, seed=0, freeze_below=MTL_FREEZE,
+        return build_mtl_trainer(fresh(mtl_tree), freeze_below=MTL_FREEZE,
                                  int8_frozen=cfg_key == "b", lr=MTL_LR,
                                  warmup_steps=1,
                                  calib_pixels=mtl_batches[0]["pixels"],
@@ -9477,6 +9963,14 @@ def main() -> int:
         del twin
 
     clock("phase 3d")
+
+    # ---- 3s. the MTL CLI's default route: SID_Set through a stand-in
+    # `datasets` module, float and --int8_frozen, each step launching 3d's
+    sid_tmp = tempfile.TemporaryDirectory()
+    sid_paths(dev, card, sid_tmp.name, mtl_expect)
+    sid_tmp.cleanup()
+
+    clock("phase 3s")
 
     # ---- 3e-3g. the large backbones: detect cores, routes, engines
     large = large_paths(dev, card)
@@ -9558,20 +10052,18 @@ def main() -> int:
               f"{b * 1e3 / fwd_ms:.1f} img/s; twins {fwd_plain:.3f} ms = "
               f"{b * 1e3 / fwd_plain:.1f} img/s [{card}]", flush=True)
     profile(lambda: model(px), "detect core B=256", card)
+    lap("timing detect core")
     try:
+        # the opt-in routes at B = 256, kernels only (the twins' core is
+        # the same under every route: timed above)
+        px = torch.rand((256, 256, 256, 3), generator=pg,
+                        device=dev).to(torch.bfloat16)
         for route in ROUTES:
             os.environ["TPUDF_INT8_KERNELS"] = route
-            for b, iters in ((8, 20), (256, 5)):
-                px = torch.rand((b, 256, 256, 3), generator=pg,
-                                device=dev).to(torch.bfloat16)
-                fwd_ms, fwd_plain = paired_ms(
-                    lambda: model(px),
-                    lambda: detect_core(params, px, model.cfg, model.cuts,
-                                        kernels=TWINS), iters=iters)
-                print(f"detect core {route} B={b}: kernels {fwd_ms:.3f} ms = "
-                      f"{b * 1e3 / fwd_ms:.1f} img/s; twins "
-                      f"{fwd_plain:.3f} ms = {b * 1e3 / fwd_plain:.1f} img/s "
-                      f"[{card}]", flush=True)
+            fwd_ms = cuda_ms(lambda: model(px), iters=5)
+            print(f"detect core {route} B=256: kernels {fwd_ms:.3f} ms = "
+                  f"{256e3 / fwd_ms:.1f} img/s [{card}]", flush=True)
+        lap("timing routes")
         # the towers without ToMe at B = 8: 12 K6 launches (PPP), the FPP
         # layer (LLL, where JAX's K7 does not fit)
         norm = torch.rand((8, 256, 256, 3), generator=pg, device=dev).to(
@@ -9584,6 +10076,7 @@ def main() -> int:
     finally:
         os.environ.pop("TPUDF_INT8_KERNELS", None)
     del model, params
+    lap("timing towers without ToMe")
 
     for (e, mode), px in requests.items():
         eng, tw, fast = engines[e], twins[e], mode == "fast"
@@ -9634,8 +10127,9 @@ def main() -> int:
         print(f"train step ({cfg_key}) B={MTL_BATCH}: kernels {k_ms:.3f} ms = "
               f"{MTL_BATCH * 1e3 / k_ms:.1f} img/s; twins {t_ms:.3f} ms = "
               f"{MTL_BATCH * 1e3 / t_ms:.1f} img/s [{card}]", flush=True)
-        profile(lambda: run(boxes["kernels"]),
-                f"train step ({cfg_key}) B={MTL_BATCH}", card, top=16)
+        if cfg_key == "a":
+            profile(lambda: run(boxes["kernels"]),
+                    f"train step ({cfg_key}) B={MTL_BATCH}", card, top=16)
         del boxes
         torch.cuda.empty_cache()
 

@@ -554,7 +554,37 @@ def test_port_cli_trains_one_epoch(sid_dataset, tmp_path, int8):
     assert load_metrics(str(save / "best"))["epoch"] == 0
 
 
-def test_port_cli_needs_a_data_dir():
+def test_port_cli_needs_a_data_dir(monkeypatch):
+    """Without --data_dir and without SID_Set (a stand-in `datasets` whose
+    load_dataset raises, so nothing reaches the network) the CLI exits."""
+    import sys
+    import types
+
     from tpudf_torch.cli.train_mtl import main
+
+    def load_dataset(*a, **k):
+        raise FileNotFoundError("saberzl/SID_Set is not cached")
+
+    monkeypatch.setitem(sys.modules, "datasets", types.SimpleNamespace(
+        load_dataset=load_dataset))
     with pytest.raises(SystemExit, match="provide --data_dir"):
-        main(["--device", "cpu"])
+        main(["--device", "cpu", "--model_size", "test-32",
+              "--image_size", "32"])
+
+
+def test_build_mtl_trainer_takes_the_tree_of_its_config():
+    """build_mtl_trainer trains the tree `mtl_params` builds from the same
+    config (its state's masters equal the tree) and refuses one of another
+    embed_dim or depth."""
+    from tpudf_torch.entry import build_mtl_trainer, mtl_params
+    kw = dict(cfg_name="test-32", embed_dim=16, seg_layers=(0, -1))
+    tree = mtl_params("cpu", seed=3, **kw)
+    state, _, _ = build_mtl_trainer(tree, freeze_below=1, **kw)
+    for (path, a), (_, b) in zip(_paths(state.params), _paths(tree)):
+        assert torch.equal(a, b), path
+    with pytest.raises(ValueError, match="the config"):
+        build_mtl_trainer(tree, cfg_name="test-32", embed_dim=32,
+                          seg_layers=(0, -1))
+    with pytest.raises(ValueError, match="the config"):
+        build_mtl_trainer(tree, cfg_name="base-256", embed_dim=16,
+                          seg_layers=(0, -1))

@@ -3,15 +3,24 @@ classification + tamper-mask segmentation with the frozen-backbone option,
 dynamic loss weights, dice/IoU/pixel-AUC eval and the mask-threshold sweep.
 
 Usage:
+  python -m tpudf_torch.cli.train_mtl --epochs 8 --subset_train 0.05
   python -m tpudf_torch.cli.train_mtl --data_dir DIR [--device cuda]
 
-DIR holds {train,val}/images/*.png, {train,val}/masks/<same name>.png
-(optional) and {train,val}/labels.csv with `name,label` (0 real / 1
-synthetic / 2 tampered). The Hugging Face SID_Set loader is not ported:
-without --data_dir the CLI exits. --backbone_ckpt reads an HF
-SiglipVisionModel state dict (`.safetensors`, or a torch `.pt`) into the
-tower; --image_size other than the config's interpolates the position
-table (the production run: --model_size large-384 at 256 px).
+Without --data_dir the CLI trains on SID_Set (saberzl/SID_Set, splits
+train and validation) through the Hugging Face `datasets` package
+(`data.datasets.load_sid_set`): it needs that package and the dataset in
+its local cache (or the network), and exits with "provide --data_dir"
+where either is missing. It takes max(n * subset_train, batch_size) of
+the n training records and max(n * min(2 * subset_train, 1),
+batch_size) of the validation ones (at most n), each mapped by
+`sid_example_to_arrays`. DIR holds {train,val}/images/*.png,
+{train,val}/masks/<same name>.png (optional) and {train,val}/labels.csv
+with `name,label` (0 real / 1 synthetic / 2 tampered). The MTL tree is
+built before the data is read, as in the JAX CLI. --backbone_ckpt reads an
+HF SiglipVisionModel state dict (`.safetensors`, or a torch `.pt`) into
+the tower; --image_size other than the config's interpolates the position
+table (the production run: --model_size large-384 at 256 px). The device
+is cuda unless --device says otherwise.
 """
 
 from __future__ import annotations
@@ -50,8 +59,7 @@ def parse_args(argv=None):
     p.add_argument("--patience", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data_dir", default=None,
-                   help="local folder dataset (the HF SID_Set loader is not "
-                        "ported)")
+                   help="optional local folder dataset instead of HF SID_Set")
     p.add_argument("--device", default="cuda",
                    help="torch device; the CPU only when asked for")
     return p.parse_args(argv)
@@ -96,9 +104,10 @@ def main(argv=None):
     args = parse_args(argv)
     import torch
 
+    from tpudf_torch.data.datasets import load_sid_set, sid_example_to_arrays
     from tpudf_torch.data.pipeline import normalize_siglip
     from tpudf_torch.data.prefetch import prefetch
-    from tpudf_torch.entry import build_mtl_trainer
+    from tpudf_torch.entry import build_mtl_trainer, mtl_params
     from tpudf_torch.eval.metrics import (PixelAUCBuffer, dice_iou,
                                           multiclass_metrics,
                                           sweep_mask_threshold)
@@ -106,16 +115,34 @@ def main(argv=None):
     from tpudf_torch.train.loops import LoopConfig, run_training
     from tpudf_torch.train.mtl import dynamic_loss_weights
 
-    if not args.data_dir:
-        raise SystemExit("SID_Set unavailable (the Hugging Face loader is not "
-                         "ported); provide --data_dir")
     device = torch.device(args.device)
+    params = mtl_params(device, seed=args.seed, cfg_name=args.model_size,
+                        embed_dim=args.embed_dim, seg_layers=args.seg_layers,
+                        backbone_ckpt=args.backbone_ckpt)
 
-    train_data = _load_local_sid(args.data_dir, "train", args.image_size)
-    val_data = _load_local_sid(args.data_dir, "val", args.image_size)
-    if args.subset_train < 1.0:
-        k = max(int(len(train_data) * args.subset_train), args.batch_size)
-        train_data = train_data[:k]
+    # dataset: local folder (images/ masks/ labels.csv) or HF SID_Set
+    if args.data_dir:
+        train_data = _load_local_sid(args.data_dir, "train", args.image_size)
+        val_data = _load_local_sid(args.data_dir, "val", args.image_size)
+        if args.subset_train < 1.0:
+            k = max(int(len(train_data) * args.subset_train),
+                    args.batch_size)
+            train_data = train_data[:k]
+    else:
+        try:
+            train_raw = load_sid_set("train")
+            val_raw = load_sid_set("validation")
+        except Exception as e:
+            raise SystemExit(f"SID_Set unavailable ({e}); provide --data_dir")
+
+        def materialize(raw, frac):
+            n = len(raw)
+            take = max(int(n * frac), args.batch_size)
+            return [sid_example_to_arrays(raw[i], args.image_size)
+                    for i in range(min(take, n))]
+
+        train_data = materialize(train_raw, args.subset_train)
+        val_data = materialize(val_raw, min(args.subset_train * 2, 1.0))
 
     def pixels_of(chunk):
         px = torch.from_numpy(np.stack([c["pixels"] for c in chunk]))
@@ -123,14 +150,14 @@ def main(argv=None):
 
     int8_frozen = args.int8_frozen and not args.no_freeze
     state, step, eval_step = build_mtl_trainer(
-        device, seed=args.seed, cfg_name=args.model_size,
+        params, cfg_name=args.model_size,
         freeze_below=None if args.no_freeze else args.freeze_below,
         int8_frozen=int8_frozen, embed_dim=args.embed_dim,
         seg_layers=args.seg_layers, lr=args.lr,
         total_steps=max(len(train_data) // args.batch_size, 1) * args.epochs,
         accum_steps=args.accum_steps, seg_loss=args.seg_loss,
         calib_pixels=pixels_of(train_data[:16]) if int8_frozen else None,
-        backbone_ckpt=args.backbone_ckpt, image_size=args.image_size)
+        image_size=args.image_size)
     state_box = {"state": state, "mask_thr": args.mask_thr}
 
     def batches(data, shuffle, seed):

@@ -7,8 +7,11 @@ native C++ JPEG decoder (`data/decode.py`, cpp/libtpudf_decode.so, `.jpg` /
 `.jpeg` only) where it loads, else PIL; batches are uint8 NHWC numpy arrays
 for the device's preprocessing (data/pipeline.py). A file that fails to
 decode becomes a noise image, the reference's graceful degradation (hidf
-:243-247, simple_classifier.py:108-114). The video dataset and the Hugging
-Face SID_Set loader are not ported.
+:243-247, simple_classifier.py:108-114). The video folder dataset reads
+clips through `extract_frames`. `load_sid_set` reads SID_Set through the
+Hugging Face `datasets` package (imported at the call, so this module
+needs none) and `sid_example_to_arrays` maps one of its records to numpy
+arrays with PIL.
 """
 
 from __future__ import annotations
@@ -171,3 +174,95 @@ class FolderVideoDataset:
                                              self.image_size), paths))
                 yield {"frames": np.stack(vids), "labels": labels,
                        "paths": paths}
+
+
+def load_sid_set(split="train", subset: str | None = None, streaming=False):
+    """SID_Set 3-class dataset via HF datasets (siglip2siddataset.py:863-956).
+    label mapping: 0=real, 1=full_synthetic, 2=tampered (binary: fake if >0).
+    Needs the `datasets` package and the dataset in its cache (or the
+    network); callers gate on availability."""
+    import datasets as hfd
+    name = "saberzl/SID_Set"
+    spec = f"{split}[{subset}]" if subset else split
+    return hfd.load_dataset(name, split=spec, streaming=streaming)
+
+
+SID_LABELS = ("real", "fully_synthetic", "tampered")
+
+
+def _sid_decode_image(obj):
+    """PIL image from an HF example field, tolerating the live dataset's
+    encodings: PIL (decoded features), {bytes|path} dicts (streaming /
+    undecoded Image features), raw arrays."""
+    from PIL import Image
+    if isinstance(obj, Image.Image):
+        return obj
+    if isinstance(obj, dict):
+        if obj.get("bytes"):
+            import io
+            return Image.open(io.BytesIO(obj["bytes"]))
+        if obj.get("path"):
+            return Image.open(obj["path"])
+        raise ValueError(f"undecodable image dict keys={sorted(obj)}")
+    return Image.fromarray(np.asarray(obj))
+
+
+def sid_label_to_index(lab) -> int:
+    """Reference label semantics (siglip2siddataset.py:871-882): ints pass
+    through; strings map real→0 / fully_synthetic→1 / anything else→2 (the
+    reference's final `else` treats every other string as tampered).
+    "full_synthetic" and "synthetic" (any case) map to 1, with one warning
+    per variant, so that schema drift does not relabel silently."""
+    if not isinstance(lab, str):
+        return int(lab)
+    s = lab.strip().lower()
+    if s == "real":
+        return 0
+    if s == "fully_synthetic":
+        return 1
+    if s in ("full_synthetic", "synthetic"):
+        if s not in _SID_VARIANTS_SEEN:
+            _SID_VARIANTS_SEEN.add(s)
+            print(f"[sid][warn] label spelling variant {lab!r} normalized "
+                  "to fully_synthetic (class 1); the reference's else-"
+                  "branch would have mapped it to tampered (2)")
+        return 1
+    return 2
+
+
+_SID_VARIANTS_SEEN: set = set()
+
+
+def sid_example_to_arrays(ex, image_size: int) -> dict:
+    """One SID_Set example → {pixels uint8 (S,S,3), cls int, binary float,
+    mask float32 (S,S), has_mask bool} with the reference's label mapping
+    and mask semantics (siglip2siddataset.py:867-911): the image to RGB,
+    bicubic-resized; a mask's channel 0, binarized at > 127 when its
+    values exceed 1 (PNG masks) else at > 0.5 (float / bool masks), then
+    nearest-resized; has_mask whenever a mask decodes, even an all-zero
+    one. An undecodable mask gives a zero mask and has_mask False (the
+    reference's ValueError fallback, :901-907)."""
+    from PIL import Image
+    img = _sid_decode_image(ex["image"])
+    img = img.convert("RGB").resize((image_size, image_size), Image.BICUBIC)
+    label = sid_label_to_index(ex["label"])
+    mask = ex.get("mask")
+    has_mask = False
+    if mask is not None:
+        try:
+            m = np.asarray(_sid_decode_image(mask))
+            if m.ndim == 3:
+                m = m[..., 0]
+            thr = 127 if m.max(initial=0) > 1 else 0.5
+            m = (m > thr).astype(np.uint8)
+            m = Image.fromarray(m).resize((image_size, image_size),
+                                          Image.NEAREST)
+            mask = np.asarray(m, np.float32)
+            has_mask = True
+        except Exception:
+            mask = None
+    if mask is None:
+        mask = np.zeros((image_size, image_size), np.float32)
+    return {"pixels": np.asarray(img, np.uint8), "cls": label,
+            "binary": float(label > 0), "mask": mask,
+            "has_mask": has_mask}

@@ -19,12 +19,13 @@ the backbone read from an HF SiglipVisionModel state dict
 (`backbone_ckpt`, through `models/convert.py`): by default the bf16 tower,
 no ToMe, linear fusion; base-256, large-384 or so400m-512 (its float MLP
 of 4304 padded to 4352 once, `siglip.tower_params`).
-`build_mtl_trainer(device, ...)` returns the multi-task trainer of
+`build_mtl_trainer(params, ...)` returns the multi-task trainer of
 `tpudf/cli/train_mtl.py` (SegFormer decoder over the tower's hidden
-states, frozen prefix, AdamW) with seeded random weights or a converted
-backbone, at the config's image size or another (`image_size`: the
-position table is interpolated, as the CLI's default large-384 at 256 px
-does). `build_binary_trainer(device, ...)` returns the binary classifier
+states, frozen prefix, AdamW) of a tree from `mtl_params(device, ...)`
+(seeded random weights or a converted backbone), at the config's image
+size or another (`image_size`: the position table is interpolated, as
+the CLI's default large-384 at 256 px does).
+`build_binary_trainer(device, ...)` returns the binary classifier
 trainer of `tpudf/cli/train_binary.py` (a frozen tower, bf16 or static
 W8A8 with optional ToMe, or the tower trained with the head; the v5 or
 fast head; EMA, mixup, AdamW or Adafactor), the one function that the
@@ -196,21 +197,48 @@ def build_engine(device, seed: int = 0, cfg_name: str = "base-256",
     return eng
 
 
-def build_mtl_trainer(device="cuda", seed: int = 0,
-                      cfg_name: str = "base-256", freeze_below: int = 9,
-                      int8_frozen: bool = False, embed_dim: int = 256,
-                      seg_layers=(2, 6, 10, -1), lr: float = 5e-5,
-                      warmup_steps: int = 100, total_steps: int = 10_000,
-                      accum_steps: int = 1, seg_loss: str = "combined",
+def mtl_params(device="cuda", seed: int = 0, cfg_name: str = "base-256",
+               embed_dim: int = 256, seg_layers=(2, 6, 10, -1),
+               backbone_ckpt: str | None = None):
+    """The MTL tree on `device` that `build_mtl_trainer` trains: seeded
+    random weights, or the tower of `backbone_ckpt` (an HF state dict
+    file, `load_backbone`) as `init_mtl(..., backbone)` takes it in the
+    JAX CLI, with the head and decoder from the seed. The CLI builds it
+    before it loads its data, as the JAX CLI does."""
+    cfg = MTLConfig(backbone=CONFIGS[cfg_name], seg_layers=tuple(seg_layers),
+                    embed_dim=embed_dim)
+    backbone = (load_backbone(backbone_ckpt, cfg.backbone) if backbone_ckpt
+                else None)
+    return tree_map(lambda t: t.to(device),
+                    init_mtl(torch.Generator().manual_seed(seed), cfg,
+                             backbone))
+
+
+def _check_mtl_tree(params, cfg: MTLConfig):
+    """Raise unless the tree has cfg's depth, width, taps and embed_dim."""
+    b = cfg.backbone
+    got = (tuple(params["backbone"]["blocks"]["attn"]["qkv_w"].shape[:2]),
+           [tuple(p["w"].shape) for p in params["decoder"]["projs"]])
+    want = ((b.layers, b.width),
+            [(b.width, cfg.embed_dim)] * len(cfg.seg_layers))
+    if got != want:
+        raise ValueError(f"the MTL tree has (layers, width) and decoder "
+                         f"projections {got}, the config {want}")
+
+
+def build_mtl_trainer(params, cfg_name: str = "base-256",
+                      freeze_below: int = 9, int8_frozen: bool = False,
+                      embed_dim: int = 256, seg_layers=(2, 6, 10, -1),
+                      lr: float = 5e-5, warmup_steps: int = 100,
+                      total_steps: int = 10_000, accum_steps: int = 1,
+                      seg_loss: str = "combined",
                       kernels: KernelSet = KERNELS, calib_pixels=None,
-                      backbone_ckpt: str | None = None,
-                      image_size: int | None = None):
-    """The MTL trainer on `device` with seeded random weights, the default
-    policy (bf16 compute, f32 master weights) and make_optimizer(lr,
-    warmup_steps=warmup_steps, total_steps=total_steps).
-    backbone_ckpt: the tower from this HF state dict file
-    (`load_backbone`), as `init_mtl(..., backbone)` takes it in the JAX
-    CLI; image_size: the training images' size (the config's by default;
+                      seed: int = 0, image_size: int | None = None):
+    """The MTL trainer of the tree `params` (from `mtl_params` with the
+    same cfg_name, embed_dim and seg_layers; it trains on the tree's
+    device), the default policy (bf16 compute, f32 master weights) and
+    make_optimizer(lr, warmup_steps=warmup_steps, total_steps=total_steps).
+    image_size: the training images' size (the config's by default;
     another one interpolates the position table in the forward).
     Returns (state, step, eval_step): step(state, batch,
     generator, cls_w, seg_w) → (state, metrics) updates the state in place;
@@ -219,23 +247,22 @@ def build_mtl_trainer(device="cuda", seed: int = 0,
     freeze_below: the embeddings and layers below it are frozen (None
     trains everything). int8_frozen: those layers run on the static-W8A8
     kernels, calibrated on `calib_pixels` (SigLIP-normalised, (N, S, S, 3);
-    default 16 seeded images of image_size), as the CLI calibrates on the
-    first 16 training images. kernels=TWINS runs the same trainer through
-    the plain twins."""
+    default 16 images of image_size drawn from `seed`), as the CLI
+    calibrates on the first 16 training images. kernels=TWINS runs the
+    same trainer through the plain twins."""
     cfg = MTLConfig(backbone=CONFIGS[cfg_name], seg_layers=tuple(seg_layers),
                     embed_dim=embed_dim)
-    gen = torch.Generator().manual_seed(seed)
-    backbone = (load_backbone(backbone_ckpt, cfg.backbone) if backbone_ckpt
-                else None)
-    params = tree_map(lambda t: t.to(device), init_mtl(gen, cfg, backbone))
+    _check_mtl_tree(params, cfg)
+    device = params["cls_head"]["w"].device
     frozen_q = None
     if int8_frozen:
         if freeze_below is None:
             raise ValueError("int8_frozen needs freeze_below")
         if calib_pixels is None:
             s = image_size or cfg.backbone.image_size
-            calib_pixels = (torch.rand((16, s, s, 3), generator=gen)
-                            - 0.5) / 0.5
+            calib_pixels = (torch.rand(
+                (16, s, s, 3), generator=torch.Generator().manual_seed(seed))
+                - 0.5) / 0.5
         frozen_q = quantize_frozen_prefix(params, cfg,
                                           calib_pixels.to(device),
                                           DEFAULT_POLICY, freeze_below)

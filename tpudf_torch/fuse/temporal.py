@@ -33,7 +33,8 @@ import torch
 
 from tpudf_torch.data.pipeline import resize
 from tpudf_torch.ops.fft_features import fft2_mag
-from tpudf_torch.ops.flow import (exposure_blur_regularity_batched,
+from tpudf_torch.ops.flow import (exposure_blur_regularity,
+                                  exposure_blur_regularity_batched,
                                   flow_signals)
 from tpudf_torch.ops.forensics import (_block_stats, _gray, _std, _var,
                                        gaussian_blur, laplacian,
@@ -273,16 +274,44 @@ def aggregate_sora(signals: dict):
             "core_hits": core_hits, "motion_hits": motion_hits}
 
 
+def _render_gray(pixels_uint8):
+    """(N, H, W, 3) uint8 → (N, H, W) grey in [0, 1], resized to 256 px
+    where the flow pyramid needs it (H or W not a multiple of 16, or
+    under 32)."""
+    gray = _gray(pixels_uint8.float() / 255.0)
+    n, h, wd = gray.shape
+    if h % 16 or wd % 16 or h < 32 or wd < 32:
+        gray = resize(gray, (n, 256, 256), "bilinear")
+    return gray
+
+
+def rendering_pipeline_score(frames_uint8) -> float:
+    """Over-regular camera-simulation score of a clip (appv3.py:2525-2566
+    re-derived): exposure continuity (64-bin grey histogram Bhattacharyya
+    between consecutive frames) blended 55/45 with motion-blur regularity
+    (exp(-var) of dense-LK flow magnitude at edge pixels,
+    ops/flow.exposure_blur_regularity). Higher = suspiciously 'too
+    perfect'. frames_uint8: (T, H, W, 3) uint8 frames, a tensor (scored
+    on its device) or a sequence of numpy arrays or tensors. 0.0 for fewer
+    than 2 frames."""
+    if frames_uint8 is None or len(frames_uint8) < 2:
+        return 0.0
+    frames = (frames_uint8 if torch.is_tensor(frames_uint8) else
+              torch.stack([f if torch.is_tensor(f)
+                           else torch.from_numpy(np.asarray(f))
+                           for f in frames_uint8]))
+    exposure, blur = exposure_blur_regularity(_render_gray(frames))
+    score = 0.55 * float(exposure) + 0.45 * float(blur)
+    return float(np.clip(score, 0.0, 1.0))
+
+
 def render_scores_graph(pixels_uint8):
     """Batched image-path rendering score: each image and its horizontal
     flip as a two-frame clip (appv3.py:5128-5195), exposure continuity
     blended 55/45 with motion-blur regularity, batched over the images as
     JAX's vmap is. (B, H, W, 3) uint8 → (B,) in [0, 1], on the pixels'
     device."""
-    gray = _gray(pixels_uint8.float() / 255.0)            # (B, H, W)
-    b, h, wd = gray.shape
-    if h % 16 or wd % 16 or h < 32 or wd < 32:
-        gray = resize(gray, (b, 256, 256), "bilinear")
+    gray = _render_gray(pixels_uint8)                     # (B, H, W)
     pair = torch.stack([gray, torch.flip(gray, dims=(2,))], dim=1)
     exposure, blur = exposure_blur_regularity_batched(pair)
     return torch.clamp(0.55 * exposure + 0.45 * blur, 0.0, 1.0)

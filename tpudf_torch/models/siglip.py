@@ -179,6 +179,16 @@ def layer_norm(x, p, eps, kernels: KernelSet = KERNELS):
     return (y * p["scale"] + p["bias"]).to(dt)
 
 
+def patchify(pixels, patch):
+    """(B, H, W, 3) NHWC → (B, N, patch*patch*3) flattened (kh, kw, c):
+    the rows `patch_embed`'s kernel multiplies."""
+    b, h, w, c = pixels.shape
+    gh, gw = h // patch, w // patch
+    x = pixels.reshape(b, gh, patch, gw, patch, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)            # (B, gh, gw, kh, kw, c)
+    return x.reshape(b, gh * gw, patch * patch * c)
+
+
 def patch_embed(pixels, kernel, bias, patch):
     """(B, H, W, 3) → (B, N, W) as one strided conv (JAX's is XLA).
     kernel: (patch*patch*3, W) in (kh, kw, c) order."""

@@ -79,3 +79,12 @@ def idct2_8x8(x):
     bl, chan = _blocks(x, 8)
     return _unblocks(torch.einsum("ik,...ij,jl->...kl", d, bl, d), chan)
 
+
+def blockwise_dct_energy(gray):
+    """Per-block AC energy map: (B, H, W) → (B, H/8, W/8) mean |AC coeff| —
+    building block for JPEG-residual forensics (appv3.py:2035-2063)."""
+    d = _dct_matrix(gray)
+    bl, _ = _blocks(gray, 8)
+    co = torch.einsum("ki,...ij,lj->...kl", d, bl, d)
+    ac = torch.abs(co).sum((-2, -1)) - torch.abs(co[..., 0, 0])
+    return ac / 63.0

@@ -30,14 +30,22 @@ from tpudf_torch.ops import _build
 
 KERNEL = "srm_raw_moments"
 
-# The reference's K1 (5x5) is K2 inside a zero ring, so only K2 and K3 are
-# distinct after normalisation.
+# appv3.py:1597-1615 kernel bank, each normalised by its |sum| at use site.
+# K1 (5x5) is K2 inside a zero ring, so only K2 and K3 are distinct after
+# normalisation.
+_K1 = np.array([[0, 0, 0, 0, 0],
+                [0, -1, 2, -1, 0],
+                [0, 2, -4, 2, 0],
+                [0, -1, 2, -1, 0],
+                [0, 0, 0, 0, 0]], np.float32)
 _K2 = np.array([[-1, 2, -1],
                 [2, -4, 2],
                 [-1, 2, -1]], np.float32)
 _K3 = np.array([[0, -1, 0],
                 [-1, 4, -1],
                 [0, -1, 0]], np.float32)
+
+SRM_KERNELS = [_K1, _K2, _K3]
 _EPS = 1e-6
 
 
@@ -59,6 +67,16 @@ def _stencil3(gray, k3):
             t = p[:, di:di + h, dj:dj + w] * c
             acc = t if acc is None else acc + t
     return acc
+
+
+def srm_residuals(gray):
+    """gray: (B, H, W) → list of 3 residual maps (B, H, W) ('same' size,
+    zero padding — conv semantics of the reference). K1 (a zero ring
+    around K2's pattern) and K2 normalise to the same stencil, so their
+    residual is computed once and listed twice."""
+    r2 = _stencil3(gray, _norm(_K2))
+    r3 = _stencil3(gray, _norm(_K3))
+    return [r2, r2, r3]
 
 
 def srm_raw_moments_reference(gray):

@@ -5,7 +5,9 @@ so the state (nested dicts and lists of tensors and numbers, e.g.
 `MTLTrainState._asdict() | {"epoch": e}`) is written with `torch.save`,
 tensors moved to the CPU, with the same JSON metrics sidecar. State from
 the JAX package crosses over as a numpy tree through `convert.py`, not
-through orbax files.
+through orbax files. Small heads are exported as flat safetensors files
+(`save_head_safetensors`, the port's own writer), and a foreign state dict
+is loaded into a template tree key by key (`load_state_filtered`).
 """
 
 from __future__ import annotations
@@ -64,6 +66,99 @@ def load_metrics(path: str) -> dict | None:
         with open(p) as f:
             return json.load(f)
     return None
+
+
+def save_head_safetensors(path: str, params):
+    """Flat safetensors export for small heads (fusion/freq), mirroring the
+    reference artifact format: keys joined by dots, list indices as keys,
+    every leaf a contiguous numpy array (safetensors writes the raw
+    buffer, so a transposed view would be scrambled)."""
+    from tpudf_torch.utils.safetensors_io import save_file
+    save_file({k: np.ascontiguousarray(_numpy(v))
+               for k, v in _flatten(params).items()}, path)
+
+
+def load_state_filtered(sd, template, log_fn=print):
+    """Strict→filtered state loading: each template leaf whose key is in
+    `sd` with the same shape takes sd's value, on the template leaf's
+    device and dtype; the others keep the template's; the rest is reported
+    (appv3.py:1257-1263 `_filter_state_for_model` +
+    inference_ai_human_images.py:841-857 non-strict fallback). Returns the
+    template's structure."""
+    flat_t = _flatten(template)
+    flat_s = _flatten(sd)
+    out = dict(flat_t)
+    missing, mismatched, used = [], [], 0
+    for k, v in flat_t.items():
+        if k not in flat_s:
+            missing.append(k)
+        elif _shape(flat_s[k]) != _shape(v):
+            mismatched.append((k, _shape(flat_s[k]), _shape(v)))
+        else:
+            out[k] = _like(flat_s[k], v)
+            used += 1
+    if missing:
+        log_fn(f"[ckpt] {len(missing)} keys missing (kept init): "
+               f"{missing[:5]}…")
+    if mismatched:
+        log_fn(f"[ckpt] {len(mismatched)} shape mismatches skipped: "
+               f"{mismatched[:3]}…")
+    log_fn(f"[ckpt] loaded {used}/{len(flat_t)} tensors")
+    return _unflatten(out, template)
+
+
+def detect_feature_dim(sd, candidates=(768, 1024, 1152)) -> int | None:
+    """The backbone feature dim of a head state dict: the first candidate
+    in the shape of its first 2-D leaf that has one
+    (inference_ai_human_images.py:804-827 checkpoint auto-detection)."""
+    for v in _flatten(sd).values():
+        shp = _shape(v)
+        if len(shp) == 2:
+            for c in candidates:
+                if c in shp:
+                    return c
+    return None
+
+
+def _numpy(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _shape(x):
+    return tuple(x.shape) if torch.is_tensor(x) else np.shape(x)
+
+
+def _like(x, ref):
+    """x as a leaf of ref's kind: a tensor on ref's device in ref's dtype
+    where ref is a tensor, else a numpy array of ref's dtype."""
+    if torch.is_tensor(ref):
+        t = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+        return t.detach().to(device=ref.device, dtype=ref.dtype)
+    return _numpy(x).astype(np.asarray(ref).dtype)
+
+
+def _flatten(tree, prefix=""):
+    flat = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            flat.update(_flatten(v, f"{prefix}.{k}" if prefix else str(k)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            flat.update(_flatten(v, f"{prefix}.{i}"))
+    else:
+        flat[prefix] = tree
+    return flat
+
+
+def _unflatten(flat: dict, template, prefix=""):
+    if isinstance(template, dict):
+        return {k: _unflatten(flat, v, f"{prefix}.{k}" if prefix else str(k))
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        out = [_unflatten(flat, v, f"{prefix}.{i}")
+               for i, v in enumerate(template)]
+        return type(template)(out)
+    return flat[prefix]
 
 
 def _to_jsonable(x):
